@@ -1,0 +1,149 @@
+// Fused VQ-VAE encoder stem: conv k4 s2 p1 (4 -> 64) + ReLU, then
+// conv k4 s2 p1 (64 -> 128) + ReLU, in one pass over device memory.
+//
+// Replaces: msla_tpu/ops/conv_stem.py:48 _stem_kernel (conv_stem_pallas, forward
+// without save_hidden).
+//
+// Bound on an H100: at batch 64, T = 44,000 the stem does 4.90e10 fp32 FLOP and
+// must move 45.1 MB in + 360.4 MB out, so it is bound by the fp32 FMA rate
+// (67 TFLOP/s outside the tensor cores), not by memory.
+//
+// Design: conv1's output h1 (B, 64, T/2) never reaches device memory. A block
+// holds the whole conv2 weight (128 KB) plus a tile of h1 in shared memory and is
+// persistent: one block per SM loads the weights once and walks over
+// (batch row, tile) pairs. Each thread keeps an 8 channel x 8 position register
+// tile of conv2 accumulators, so every shared-memory read feeds 8 FMAs.
+// Accumulation is fp32 FMA throughout; no tensor cores (fp32 exactness first).
+//
+// Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4). Weights arrive
+// pre-transposed by the wrapper: w1t (4*4, 64) indexed [c0*4+tap][c1],
+// w2t (64*4, 128) indexed [c1*4+tap][c2].
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int C0 = 4;
+constexpr int C1 = 64;
+constexpr int C2 = 128;
+constexpr int TILE = 128;             // conv2 output positions per tile
+constexpr int NH = 2 * TILE + 2;      // h1 rows a tile needs: 2*q0-1 .. 2*q0+2*TILE
+constexpr int NX = 4 * TILE + 6;      // samples a tile needs: 4*q0-3 .. 4*q0+4*TILE+2
+constexpr int THREADS = 256;
+constexpr int PT = 8;                 // positions per thread (stride 16)
+constexpr int CT = 8;                 // channels per thread (stride 16)
+
+constexpr size_t SMEM_FLOATS =
+    (size_t)C1 * 4 * C2 + (size_t)C1 * NH + (size_t)C0 * NX + C0 * 4 * C1 + C1 + C2;
+constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                 const float* __restrict__ b1, const float* __restrict__ w2t,
+                 const float* __restrict__ b2, float* __restrict__ out,
+                 int batch, int t_len) {
+  extern __shared__ float smem[];
+  float* w2s = smem;                    // [C1*4][C2]
+  float* h1s = w2s + C1 * 4 * C2;       // [C1][NH]
+  float* xs = h1s + C1 * NH;            // [C0][NX]
+  float* w1s = xs + C0 * NX;            // [C0*4][C1]
+  float* b1s = w1s + C0 * 4 * C1;       // [C1]
+  float* b2s = b1s + C1;                // [C2]
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C1 * 4 * C2; i += THREADS) w2s[i] = w2t[i];
+  for (int i = tid; i < C0 * 4 * C1; i += THREADS) w1s[i] = w1t[i];
+  for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < C2; i += THREADS) b2s[i] = b2[i];
+
+  const int w1_len = t_len / 2;       // conv1 output width
+  const int w2_len = t_len / 4;       // conv2 output width
+  const int tiles_per_row = (w2_len + TILE - 1) / TILE;
+  const long long total_tiles = (long long)batch * tiles_per_row;
+  const int tx = tid & 15;            // position lane
+  const int ty = tid >> 4;            // channel lane
+
+  for (long long tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
+    const int b = (int)(tile / tiles_per_row);
+    const int q0 = (int)(tile % tiles_per_row) * TILE;
+    __syncthreads();  // previous tile's readers of xs/h1s are done
+
+    // waveform window, zero outside [0, T) (conv1's own p=1 padding)
+    const float* xb = x + (size_t)b * C0 * t_len;
+    const int x0 = 4 * q0 - 3;
+    for (int i = tid; i < C0 * NX; i += THREADS) {
+      const int c = i / NX, u = i % NX, s = x0 + u;
+      xs[i] = (s >= 0 && s < t_len) ? xb[(size_t)c * t_len + s] : 0.0f;
+    }
+    __syncthreads();
+
+    // h1[j] = relu(conv1) for j = 2*q0-1+k; rows outside [0, T/2) are conv2's
+    // p=1 zero padding, which applies to relu(conv1), not to the waveform
+    const int j0 = 2 * q0 - 1;
+    for (int i = tid; i < C1 * NH; i += THREADS) {
+      const int c1 = i / NH, k = i % NH, j = j0 + k;
+      float acc = b1s[c1];
+#pragma unroll
+      for (int c0 = 0; c0 < C0; ++c0)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          acc = fmaf(w1s[(c0 * 4 + t) * C1 + c1], xs[c0 * NX + 2 * k + t], acc);
+      h1s[i] = (j >= 0 && j < w1_len) ? fmaxf(acc, 0.0f) : 0.0f;
+    }
+    __syncthreads();
+
+    // out2[q0+p] = relu(b2 + sum_{c1,t} w2[c2][c1][t] * h1[2(q0+p)-1+t]),
+    // and h1[2(q0+p)-1+t] sits at h1s[c1][2p+t]
+    float acc[CT][PT];
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+#pragma unroll
+      for (int i = 0; i < PT; ++i) acc[j][i] = 0.0f;
+
+    for (int c1 = 0; c1 < C1; ++c1) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float hv[PT], wv[CT];
+#pragma unroll
+        for (int i = 0; i < PT; ++i) hv[i] = h1s[c1 * NH + 2 * (tx + 16 * i) + t];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) wv[j] = w2s[(c1 * 4 + t) * C2 + ty + 16 * j];
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+#pragma unroll
+          for (int i = 0; i < PT; ++i) acc[j][i] = fmaf(wv[j], hv[i], acc[j][i]);
+      }
+    }
+
+    float* ob = out + (size_t)b * C2 * w2_len;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int c2 = ty + 16 * j;
+#pragma unroll
+      for (int i = 0; i < PT; ++i) {
+        const int q = q0 + tx + 16 * i;
+        if (q < w2_len) ob[(size_t)c2 * w2_len + q] = fmaxf(acc[j][i] + b2s[c2], 0.0f);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
+                             const float* w2t, const float* b2, float* out,
+                             int batch, int t_len, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+      cudaSuccess)
+    return (int)err;
+  const long long tiles = (long long)batch * ((t_len / 4 + TILE - 1) / TILE);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  if (grid == 0) return 0;
+  conv_stem_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      x, w1t, b1, w2t, b2, out, batch, t_len);
+  return (int)cudaGetLastError();
+}

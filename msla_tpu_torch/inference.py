@@ -1,0 +1,85 @@
+"""Full-song source separation (port of msla_tpu/inference.py::SourceSeparator).
+
+Frames the mixture into the training window, broadcasts it to the model's 4
+input channels, runs encode → VQ → decode in fixed-size batches (pad rows fill
+the last batch, as the JAX package's one-compile bucket does), and stitches
+the frames back, optionally with a triangular cross-fade.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from msla_tpu_torch.models.vqvae import VQVAETask
+
+
+class SourceSeparator:
+    """Mixture waveform → per-stem waveforms through the trained VQ-VAE."""
+
+    def __init__(self, task: VQVAETask, frame_samples: int, batch_size: int = 16):
+        if frame_samples % 4:
+            raise ValueError(f"frame_samples={frame_samples}: the encoder stem needs "
+                             "a frame length divisible by 4")
+        self.task = task
+        self.frame_samples = int(frame_samples)
+        self.batch_size = int(batch_size)
+
+    def _model_input(self, frames: np.ndarray) -> torch.Tensor:
+        """(B, F) frames → (B, 4, F) on the model's device."""
+        x = torch.from_numpy(np.ascontiguousarray(frames, np.float32)).to(self.task.device)
+        return x[:, None, :].expand(-1, 4, -1).contiguous()
+
+    @torch.inference_mode()
+    def _separate(self, model_in: torch.Tensor) -> torch.Tensor:
+        """(B, 4, F) → (B, 4, F): get_quantized → decode, the training
+        forward's waveform without its losses."""
+        net = self.task.net
+        return net.decode(net.get_quantized(model_in).quantized)
+
+    def separate(self, mixture: np.ndarray, overlap: bool = False) -> np.ndarray:
+        """(T,) mixture → (4, T) stems. T is padded up to whole frames.
+
+        overlap=True separates 50%-overlapped frames and cross-fades them with
+        a triangular window, at 2× the compute.
+        """
+        mixture = np.asarray(mixture, np.float32).reshape(-1)
+        t = mixture.shape[0]
+        f = self.frame_samples
+        hop = f // 2 if overlap else f
+        n_frames = max(1, -(-max(t - f, 0) // hop) + 1)
+        total = (n_frames - 1) * hop + f
+        padded_sig = np.pad(mixture, (0, total - t))
+        frames = np.stack([padded_sig[i * hop: i * hop + f] for i in range(n_frames)])
+
+        out_frames = []
+        for start in range(0, n_frames, self.batch_size):
+            chunk = frames[start:start + self.batch_size]
+            rows = chunk.shape[0]
+            if rows < self.batch_size:  # fixed batch shape; pad rows dropped below
+                chunk = np.pad(chunk, ((0, self.batch_size - rows), (0, 0)))
+            stems = self._separate(self._model_input(chunk))
+            out_frames.append(stems[:rows].cpu().numpy())
+        sep = np.concatenate(out_frames, axis=0)  # (n_frames, 4, F)
+
+        if not overlap:
+            stems = sep.transpose(1, 0, 2).reshape(4, n_frames * f)
+            return stems[:, :t]
+
+        # triangular cross-fade overlap-add with weight normalization
+        window = np.bartlett(f).astype(np.float32) + 1e-3
+        out = np.zeros((4, total), np.float32)
+        weight = np.zeros(total, np.float32)
+        for i in range(n_frames):
+            sl = slice(i * hop, i * hop + f)
+            out[:, sl] += sep[i] * window
+            weight[sl] += window
+        return (out / weight).astype(np.float32)[:, :t]
+
+    def encode_codes(self, mixture: np.ndarray) -> np.ndarray:
+        """(T,) mixture → (n_frames, W) int32 codebook indices."""
+        mixture = np.asarray(mixture, np.float32).reshape(-1)
+        f = self.frame_samples
+        n_frames = -(-mixture.shape[0] // f)
+        padded = np.pad(mixture, (0, n_frames * f - mixture.shape[0])).reshape(n_frames, f)
+        q = self.task.get_quantized(self._model_input(padded))
+        return q.encoding_indices.cpu().numpy()

@@ -1,0 +1,57 @@
+"""Index of the L2-nearest codebook row for each input row.
+
+Port of msla_tpu/ops/vq_pallas.py (``nearest_codes_pallas``). On a CUDA tensor
+``nearest_codes`` launches the hand-written kernel ``csrc/nearest_codes.cu``,
+which never materialises the (N, K) distance matrix; on a CPU tensor it runs
+``nearest_codes_ref``. Both compute dist = ‖e‖² − 2·x·e (‖x‖² is constant per
+row and dropped) and pick the lowest index on ties.
+"""
+from __future__ import annotations
+
+import torch
+
+from msla_tpu_torch.ops._build import (check, forward_only, kernel, on_one_device,
+                                       require, stream_of)
+
+#: the row width the CUDA kernel is compiled for (the model's embedding_dim)
+D = 64
+_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on Hopper
+_REF_ROWS = 1 << 16    # rows per chunk of the plain version: a 128 MB block at K=512
+
+
+def code_norms(codebook: torch.Tensor) -> torch.Tensor:
+    """‖e_k‖², shared by the kernel and its plain version."""
+    return (codebook * codebook).sum(dim=1)
+
+
+def nearest_codes_ref(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Plain version, in row chunks so the distance block stays bounded."""
+    e2 = code_norms(codebook)
+    out = [torch.argmin(e2 - 2.0 * (chunk @ codebook.T), dim=1)
+           for chunk in flat_x.split(_REF_ROWS)]
+    return torch.cat(out).to(torch.int32)
+
+
+def nearest_codes(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(N, D) fp32 × (K, D) fp32 → (N,) int32 nearest-codebook indices."""
+    forward_only("nearest_codes", flat_x, codebook)
+    if on_one_device("nearest_codes", flat_x, codebook).type == "cpu":
+        return nearest_codes_ref(flat_x, codebook)
+
+    n = flat_x.shape[0]
+    k = codebook.shape[0]
+    require("nearest_codes", flat_x, "flat_x", (n, D))
+    require("nearest_codes", codebook, "codebook", (k, D))
+    if k % 2 or k * (D + 1) * 4 > _SMEM_BYTES:
+        raise ValueError(f"nearest_codes: the kernel takes an even number of codes "
+                         f"whose codebook fits in shared memory, got K={k}")
+    e2 = code_norms(codebook)
+    idx = torch.empty((n,), dtype=torch.int32, device=flat_x.device)
+    check("nearest_codes", kernel("nearest_codes")(
+        flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
+        n, k, stream_of(flat_x)))
+    nearest_codes.launches += 1
+    return idx
+
+
+nearest_codes.launches = 0

@@ -1,0 +1,78 @@
+"""msla_tpu_torch.ops.conv_stem on the CPU (its plain version) against the JAX
+package's fused stem in interpret mode and its plain-XLA stem. fp32 both;
+atol = rtol = 1e-5 (sums of 16 and 32 products taken in another order)."""
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from _torch_layout import ncw, t32, torch_weight
+from msla_tpu.ops.conv_stem import conv_stem_pallas, conv_stem_ref as jax_conv_stem_ref
+from msla_tpu_torch.ops.conv_stem import conv_stem, conv_stem_ref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(b=2, t=256, c0=4, c1=8, c2=16, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, c0)).astype(np.float32)
+    w1 = (rng.standard_normal((4, c0, c1)) * 0.2).astype(np.float32)
+    b1 = (rng.standard_normal((c1,)) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((4, c1, c2)) * 0.2).astype(np.float32)
+    b2 = (rng.standard_normal((c2,)) * 0.1).astype(np.float32)
+    return x, w1, b1, w2, b2
+
+
+def _port(x, w1, b1, w2, b2):
+    return conv_stem_ref(ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+
+
+@pytest.mark.parametrize("t,tile", [(64, 8), (256, 16), (192, 48)])
+def test_plain_matches_jax_pallas_interpret(t, tile):
+    args = _inputs(t=t)
+    want = np.asarray(conv_stem_pallas(*args, tile_w=tile, interpret=True))
+    np.testing.assert_allclose(ncw(want).numpy(), _port(*args).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("t", [64, 256, 192])
+def test_plain_matches_jax_ref(t):
+    args = _inputs(t=t, seed=1)
+    want, _ = jax_conv_stem_ref(*args)
+    np.testing.assert_allclose(ncw(want).numpy(), _port(*args).numpy(), **TOL)
+
+
+def test_single_tile_edges():
+    """One JAX tile holds both edges: out1[-1] and out1[T/2] are conv2 padding."""
+    args = _inputs(t=64, seed=3)
+    want = np.asarray(conv_stem_pallas(*args, tile_w=16, interpret=True))
+    np.testing.assert_allclose(ncw(want).numpy(), _port(*args).numpy(), **TOL)
+
+
+def test_plain_matches_library_conv_pair():
+    x, w1, b1, w2, b2 = _inputs(seed=5)
+    x, w1, w2, b1, b2 = ncw(x), torch_weight(w1), torch_weight(w2), t32(b1), t32(b2)
+    want = F.relu(F.conv1d(F.relu(F.conv1d(x, w1, b1, 2, 1)), w2, b2, 2, 1))
+    torch.testing.assert_close(conv_stem_ref(x, w1, b1, w2, b2), want, **TOL)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version():
+    x, w1, b1, w2, b2 = _inputs(t=64, seed=6)
+    args = (ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+    before = conv_stem.launches
+    torch.testing.assert_close(conv_stem(*args), conv_stem_ref(*args), rtol=0, atol=0)
+    assert conv_stem.launches == before  # no kernel launched on the CPU
+
+
+def test_rejects_length_not_divisible_by_4():
+    x, w1, b1, w2, b2 = _inputs(t=64)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        conv_stem(ncw(x)[..., :62], torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+
+
+def test_forward_only_under_grad():
+    x, w1, b1, w2, b2 = _inputs(t=64)
+    w1 = torch_weight(w1).requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
+    with torch.no_grad():
+        conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))

@@ -1,0 +1,45 @@
+"""The port stands alone: no module of msla_tpu_torch/, and not chip_smoke.py,
+imports JAX, flax, optax or the JAX package, and no kernel wrapper catches an
+exception (a failed launch must raise, never fall back to the plain version)."""
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msla_tpu"}
+FILES = sorted((ROOT / "msla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                node.func, "id", None)) in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(name, line) for name, line in _imported_roots(tree) if name in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_whole_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for expected in ("msla_tpu_torch/inference.py", "msla_tpu_torch/ops/conv_stem.py",
+                     "msla_tpu_torch/ops/deconv_stem.py",
+                     "msla_tpu_torch/ops/nearest_codes.py", "chip_smoke.py"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("name", ["conv_stem", "deconv_stem", "nearest_codes"])
+def test_kernel_wrappers_have_no_fallback(name):
+    tree = ast.parse((ROOT / "msla_tpu_torch" / "ops" / f"{name}.py").read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
