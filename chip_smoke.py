@@ -5,27 +5,45 @@
 
 Phases, each of which raises (exit code != 0) when its check fails:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the three CUDA kernels from msla_tpu_torch/csrc with nvcc, in parallel;
-  3. each kernel against its plain PyTorch version on the card, at the shapes
-     of a batch-64 separation (stems at atol = rtol = 1e-4; every nearest-code
+  2. build the CUDA sources in msla_tpu_torch/csrc with nvcc, one process per
+     source, in parallel, and print what ptxas reports (registers, spills);
+  3. the serving kernels (K1 conv_stem, K2 deconv_stem, K3 nearest_codes)
+     against their plain PyTorch versions on the card, at the shapes of a
+     batch-64 separation (stems at atol = rtol = 1e-4; every nearest-code
      mismatch must be a near-tie), with median times over 20 CUDA-event-timed
      runs of the kernel, its plain version and one library call;
-  4. the main path through the user's entry points: the full-width VQ-VAE
+  4. the serving path through the user's entry points: the full-width VQ-VAE
      (configs/model/vqvae.yaml) with seeded random weights,
      SourceSeparator.separate (plain and overlap) and encode_codes on a 60 s
-     22 kHz mixture, and a timed batch-64 separation; every kernel's launch
-     count must grow and every output be finite;
+     22 kHz mixture, and a timed batch-64 separation; every serving kernel's
+     launch count must grow and every output be finite;
   5. the card against the port on the CPU (plain versions) on 2 frames;
-  6. one JSON line with every kernel's numbers, then the device line.
+  6. the training kernels (K1b, K2b: the stems' save-hidden forwards; #4
+     vq_fused_fwd; #5 vq_codebook_grad) against their plain versions at the
+     shapes of a batch-64 train step, timed as in phase 3; #5 on uniform ids
+     and on the seeded model's ids of the first batch;
+  7. gradients on 2 frames of the full-width model: loss and every parameter
+     gradient through the kernels against the same net with the plain
+     versions forced (atol 1e-4, rtol 1e-3), and one train step on the card
+     against the same step on the CPU, masking off;
+  8. the training path through the user's entry point: Trainer.fit of the
+     full-width model on synthetic batch-64 stems with masking on (6 train
+     and 2 validation batches); every training kernel's launch count must
+     grow, every loss and metric be finite, every parameter move and the
+     codebook CSV be written; then a train step's device time (CUDA events)
+     and its parts, fit's host time per step and the peak device memory;
+  9. one JSON line with every kernel's numbers, then the device line.
 It exits non-zero without a result when no CUDA card is present.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,6 +57,8 @@ SR, FRAME, BATCH = 22000, 44000, 64   # configs/data/default.yaml: 22 kHz x 2 s,
 SONG_S = 60.0                          # the separated song: 30 frames
 HOST_RUNS = 20                         # timed batch-64 separations
 STEM_TOL = 1e-4
+TRAIN_BATCHES, VAL_BATCHES = 6, 2      # Trainer.fit's batches in phase 8
+OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # codebook CSV
 
 
 def fail(msg: str) -> None:
@@ -70,12 +90,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = STEM_TOL,
+                rtol: float = STEM_TOL) -> float:
     err = (got - want).abs()
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite kernel output")
-    if (err > STEM_TOL + STEM_TOL * want.abs()).any():
-        fail(f"{name}: max abs error {err.max().item():.3e} beyond atol=rtol={STEM_TOL}")
+    if (err > atol + rtol * want.abs()).any():
+        fail(f"{name}: max abs error {err.max().item():.3e} beyond atol={atol} rtol={rtol}")
     return err.max().item()
 
 
@@ -101,7 +122,7 @@ def near_ties(x, codebook, idx_a, idx_b) -> tuple[int, float, float]:
 def phase_kernels(net, dev) -> list[dict]:
     import torch.nn.functional as F
 
-    from msla_tpu_torch.nn.layers import fp32_convs
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
     from msla_tpu_torch.ops import (conv_stem, conv_stem_ref, deconv_stem,
                                     deconv_stem_ref, nearest_codes, nearest_codes_ref)
 
@@ -115,7 +136,7 @@ def phase_kernels(net, dev) -> list[dict]:
         args = (x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
         out = conv_stem(*args)
         torch.cuda.synchronize()
-        err = check_close("conv_stem", out, conv_stem_ref(*args))
+        err = check_close("conv_stem", out, conv_stem_ref(*args)[0])
         with fp32_convs():
             lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(x, args[1], args[2], 2, 1)),
                                                   args[3], args[4], 2, 1)))
@@ -133,7 +154,7 @@ def phase_kernels(net, dev) -> list[dict]:
                 dec.conv2_transpose.weight, dec.conv2_transpose.bias)
         out = deconv_stem(*args)
         torch.cuda.synchronize()
-        err = check_close("deconv_stem", out, deconv_stem_ref(*args))
+        err = check_close("deconv_stem", out, deconv_stem_ref(*args)[0])
         with fp32_convs():
             lib = time_ms(lambda: F.conv_transpose1d(
                 F.relu(F.conv_transpose1d(q, args[1], args[2], 2, 1)), args[3], args[4], 2, 1))
@@ -165,13 +186,18 @@ def phase_kernels(net, dev) -> list[dict]:
             plain_ms=time_ms(lambda: nearest_codes_ref(flat, cb)),
             library_ms=lib, flop=2 * n * 512 * 64, bytes=nbytes(flat, cb, idx)))
         del flat, cb, idx, want
+    return with_bounds(report)
+
+
+def with_bounds(report: list[dict]) -> list[dict]:
+    """Add each kernel's bound from its FLOP and bytes, and print its line."""
     for k in report:
         k["bound_ms"], k["bound_by"] = bound(k["flop"], k["bytes"])
+        extra = {key: k[key] for key in ("index_mismatches", "max_tie_gap", "ms_uniform_ids",
+                                         "max_abs_err_uniform_ids") if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
-              f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']})"
-              + (f" mismatches={k['index_mismatches']} max_tie_gap={k['max_tie_gap']:.3e}"
-                 if "index_mismatches" in k else ""), flush=True)
+              f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) {extra or ''}", flush=True)
     return report
 
 
@@ -238,7 +264,7 @@ def phase_main_path(task, kernels) -> dict:
 
 def breakdown(net, x) -> dict:
     """Device ms of each layer of one batch-64 separation (CUDA events)."""
-    from msla_tpu_torch.nn.layers import fp32_convs
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
     from msla_tpu_torch.ops import conv_stem, deconv_stem
 
     enc, dec, vq = net.encoder, net.decoder, net.vector_quantizer
@@ -246,14 +272,14 @@ def breakdown(net, x) -> dict:
         h = conv_stem(x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
         h2 = enc.conv3(h)
         z = net.conv(enc.residual_stack(h2)).transpose(1, 2).contiguous()
-        q = vq(z).quantized_ste.transpose(1, 2).contiguous()
+        q = vq(z, inference=True).quantized_ste.transpose(1, 2).contiguous()
         d = dec.residual_stack(dec.conv1(q))
         parts = {
             "encoder_stem_kernel": lambda: conv_stem(x, enc.conv1.weight, enc.conv1.bias,
                                                      enc.conv2.weight, enc.conv2.bias),
             "encoder_conv3_residual": lambda: enc.residual_stack(enc.conv3(h)),
             "pre_vq_conv": lambda: net.conv(h2).transpose(1, 2).contiguous(),
-            "vector_quantize": lambda: vq(z),
+            "vector_quantize": lambda: vq(z, inference=True),
             "decoder_conv1_residual": lambda: dec.residual_stack(dec.conv1(q)),
             "decoder_stem_kernel": lambda: deconv_stem(
                 d, dec.conv1_transpose.weight, dec.conv1_transpose.bias,
@@ -297,6 +323,348 @@ def phase_cpu_agreement(task) -> dict:
     return result
 
 
+def ptxas_report() -> dict:
+    """Registers and spill bytes of every kernel function, from the build logs."""
+    from msla_tpu_torch.ops import _build
+
+    out = {}
+    for source in _build.SOURCES:
+        fn = None
+        for line in _build.build_log(source).splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                fn = re.findall(r"\d+([a-z_]+_kernel)", m.group(1))[0]  # from the mangled name
+                out[fn] = {"source": source}
+            elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                        line)):
+                out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            elif fn and (m := re.search(r"Used (\d+) registers", line)):
+                out[fn]["registers"] = int(m.group(1))
+    for fn, info in out.items():
+        print(f"[ptxas] {fn}: {info}", flush=True)
+    return out
+
+
+def synthetic_stems(n_batches: int, seed: int) -> list[np.ndarray]:
+    """Batch-64 (64, 4, FRAME) stems: one tone per stem at a random pitch and
+    phase, plus a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(FRAME, dtype=np.float32) / SR
+    batches = []
+    for _ in range(n_batches):
+        f0 = (55.0 * 2.0 ** rng.uniform(0, 4, (BATCH, 4, 1))).astype(np.float32)
+        phase = rng.uniform(0, 2 * np.pi, (BATCH, 4, 1)).astype(np.float32)
+        noise = 0.01 * rng.standard_normal((BATCH, 4, FRAME), dtype=np.float32)
+        batches.append((0.2 * np.sin(2 * np.pi * f0 * t + phase) + noise).astype(np.float32))
+    return batches
+
+
+def in_memory_datamodule(train: list, val: list, masking: bool = True):
+    """The port's SlakhDataModule with in-memory loaders (its WAV loaders are
+    not ported yet)."""
+    from msla_tpu_torch.data.datamodule import SlakhDataModule
+
+    class InMemory(SlakhDataModule):
+        def train_dataloader(self):
+            return train
+
+        def val_dataloader(self):
+            return val
+
+    return InMemory(train_dir="", val_dir="", test_dir="", target_sample_rate=SR,
+                    target_sample_duration=FRAME // SR, max_duration=120,
+                    maximum_dataset_size=len(train) * BATCH, batch_size=BATCH,
+                    masking=masking)
+
+
+def first_batch_latents(net, dm, raw: np.ndarray) -> torch.Tensor:
+    """The seeded model's pre-VQ rows of the first train batch, masked as the
+    first train step masks it: (B*W, D)."""
+    dev = next(net.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(1)  # the Trainer's seed + 1
+    with torch.no_grad():
+        model_in, _ = dm.on_after_batch_transfer(
+            dm.train_transform(torch.from_numpy(raw).to(dev), gen))
+        return net.encode(model_in).reshape(-1, MODEL["embedding_dim"])
+
+
+def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (conv_stem_ref, conv_stem_save_hidden, deconv_stem_ref,
+                                    deconv_stem_save_hidden, vq_codebook_grad,
+                                    vq_codebook_grad_ref, vq_fused_fwd, vq_fused_fwd_ref)
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    enc, dec = net.encoder, net.decoder
+    w = FRAME // 4
+    k_codes = MODEL["num_embedding"]
+    report = []
+    with torch.no_grad():
+        # K1b at the batch-64 encoder input of a train step
+        x = torch.randn((BATCH, 4, FRAME), generator=g, device=dev) * 0.3
+        args = (x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
+        out, h = conv_stem_save_hidden(*args)
+        torch.cuda.synchronize()
+        want_out, want_h = conv_stem_ref(*args)
+        err = max(check_close("conv_stem_save_hidden out", out, want_out),
+                  check_close("conv_stem_save_hidden hidden", h, want_h))
+        del want_out, want_h
+        with fp32_convs():
+            lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(x, args[1], args[2], 2, 1)),
+                                                  args[3], args[4], 2, 1)))
+        report.append(dict(
+            name="conv_stem_save_hidden", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
+            replaces="msla_tpu/ops/conv_stem.py:132", max_abs_err=err,
+            ms=time_ms(lambda: conv_stem_save_hidden(*args)),
+            plain_ms=time_ms(lambda: conv_stem_ref(*args)), library_ms=lib,
+            flop=2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4),
+            bytes=nbytes(*args, out, h)))
+        del x, out, h
+
+        # K2b at the batch-64 decoder stem input
+        q = torch.rand((BATCH, 128, w), generator=g, device=dev)
+        args = (q, dec.conv1_transpose.weight, dec.conv1_transpose.bias,
+                dec.conv2_transpose.weight, dec.conv2_transpose.bias)
+        out, h = deconv_stem_save_hidden(*args)
+        torch.cuda.synchronize()
+        want_out, want_h = deconv_stem_ref(*args)
+        err = max(check_close("deconv_stem_save_hidden out", out, want_out),
+                  check_close("deconv_stem_save_hidden hidden", h, want_h))
+        del want_out, want_h
+        with fp32_convs():
+            lib = time_ms(lambda: F.conv_transpose1d(
+                F.relu(F.conv_transpose1d(q, args[1], args[2], 2, 1)), args[3], args[4], 2, 1))
+        report.append(dict(
+            name="deconv_stem_save_hidden", route="cuda",
+            source="msla_tpu_torch/csrc/deconv_stem.cu",
+            replaces="msla_tpu/ops/deconv_stem.py:132", max_abs_err=err,
+            ms=time_ms(lambda: deconv_stem_save_hidden(*args)),
+            plain_ms=time_ms(lambda: deconv_stem_ref(*args)), library_ms=lib,
+            flop=2 * BATCH * (2 * w * 64 * 128 * 2 + 4 * w * 4 * 64 * 2),
+            bytes=nbytes(*args, out, h)))
+        del q, out, h
+
+        # #4 on the seeded model's latents of the first batch and its codebook
+        cb = net.vector_quantizer.codebook.weight.detach()
+        flat = flat_model.contiguous()
+        n = flat.shape[0]
+        q, idx, counts, sq = vq_fused_fwd(flat, cb)
+        torch.cuda.synchronize()
+        _, want_idx, _, _ = vq_fused_fwd_ref(flat, cb)
+        mismatches, gap, rel_gap = near_ties(flat, cb, idx, want_idx)
+        if not torch.equal(q, cb[idx.long()]):
+            fail("vq_fused_fwd: q is not codebook[idx] bit for bit")
+        if not torch.equal(counts, torch.bincount(idx.long(), minlength=k_codes).float()):
+            fail("vq_fused_fwd: counts differ from a bincount of its ids")
+        sq64 = ((cb.double()[idx.long()] - flat.double()) ** 2).sum().item()
+        sq_rel = abs(sq.item() - sq64) / sq64
+        if sq_rel > 1e-5:
+            fail(f"vq_fused_fwd: squared-error sum off by {sq_rel:.3e} of the fp64 sum")
+        e2 = (cb * cb).sum(1)
+
+        def composite():  # one library call each: matmul, argmin, gather, bincount, sum
+            i = torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1)
+            qq = cb.index_select(0, i)
+            return torch.bincount(i, minlength=k_codes), ((qq - flat) ** 2).sum()
+
+        report.append(dict(
+            name="vq_fused_fwd", route="cuda", source="msla_tpu_torch/csrc/vq_fused.cu",
+            replaces="msla_tpu/ops/vq_fused.py:42", max_abs_err=gap,
+            index_mismatches=mismatches, max_tie_gap=rel_gap, sq_rel_err=sq_rel,
+            codes_used=int((counts > 0).sum().item()),
+            ms=time_ms(lambda: vq_fused_fwd(flat, cb)),
+            plain_ms=time_ms(lambda: vq_fused_fwd_ref(flat, cb)),
+            library_ms=time_ms(composite),
+            library_call="composite: matmul + argmin + index_select + bincount + sum",
+            flop=2 * n * k_codes * 64, bytes=nbytes(flat, cb, q, idx, counts, sq)))
+        model_idx = idx
+        del q, want_idx
+
+        # #5 on the model's ids (main figure) and on uniform ids
+        grad = torch.randn((n, 64), generator=g, device=dev)
+        uniform = torch.randint(0, k_codes, (n,), generator=g, device=dev, dtype=torch.int32)
+        errs, times = {}, {}
+        for label, ids in (("model", model_idx), ("uniform", uniform)):
+            dcb = vq_codebook_grad(grad, ids, k_codes)
+            torch.cuda.synchronize()
+            want = torch.zeros((k_codes, 64), dtype=torch.float64, device=dev).index_add_(
+                0, ids.long(), grad.double())
+            errs[label] = check_close(f"vq_codebook_grad ({label} ids)", dcb.double(), want)
+            if not torch.equal(dcb, vq_codebook_grad(grad, ids, k_codes)):
+                fail(f"vq_codebook_grad ({label} ids): two runs differ")
+            times[label] = time_ms(lambda: vq_codebook_grad(grad, ids, k_codes))
+        ids_long = model_idx.long()
+        zeros = torch.zeros((k_codes, 64), device=dev)
+        report.append(dict(
+            name="vq_codebook_grad", route="cuda", source="msla_tpu_torch/csrc/vq_fused.cu",
+            replaces="msla_tpu/ops/vq_fused.py:81", max_abs_err=errs["model"],
+            max_abs_err_uniform_ids=errs["uniform"], ms=times["model"],
+            ms_uniform_ids=times["uniform"],
+            plain_ms=time_ms(lambda: vq_codebook_grad_ref(grad, model_idx, k_codes)),
+            library_ms=time_ms(lambda: zeros.index_add_(0, ids_long, grad)),
+            library_call="index_add_", flop=n * 64, bytes=nbytes(grad, model_idx, dcb)))
+        del grad, uniform, dcb, want
+    torch.cuda.empty_cache()
+    return with_bounds(report)
+
+
+def phase_gradients(task, raw: np.ndarray) -> dict:
+    """2 frames of the full-width model: the kernels' path against the plain
+    versions forced on the card, and one train step against the CPU."""
+    from contextlib import nullcontext
+
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.ops._build import plain_versions
+
+    dm = in_memory_datamodule([], [], masking=False)
+    cpu = VQVAETask(**MODEL, checkpoint_dir=str(OUT_DIR), codebook_file=str(OUT_DIR / "cb.csv"),
+                    device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in task.net.state_dict().items()})
+    stems = torch.from_numpy(np.ascontiguousarray(raw[:2]))
+
+    def run(t, plain=False):
+        batch = dm.on_after_batch_transfer(stems.to(t.device))
+        t.net.zero_grad(set_to_none=True)
+        with plain_versions() if plain else nullcontext():
+            loss, _ = t.loss_fn(batch, None)
+            loss.backward()
+            with torch.no_grad():
+                z = t.net.encode(batch[0])
+                idx = t.net.vector_quantizer(z).encoding_indices
+        grads = {k: p.grad.detach().clone() for k, p in t.net.named_parameters()}
+        return loss.item(), grads, z.reshape(-1, z.shape[-1]), idx.flatten()
+
+    def compare(label, a, b) -> dict:
+        loss_a, grads_a, z_a, idx_a = a
+        loss_b, grads_b, _, idx_b = b
+        mismatches, _, gap = near_ties(z_a.cpu(), cpu.net.vector_quantizer.codebook.weight,
+                                       idx_a.cpu(), idx_b.cpu())
+        if abs(loss_a - loss_b) > 1e-4 * abs(loss_b):
+            fail(f"{label}: loss {loss_a} against {loss_b}")
+        errs = {}
+        for k, g in grads_a.items():
+            if mismatches and k == "vector_quantizer.codebook.weight":
+                continue  # a flipped near-tie moves a row's gradient to another code
+            errs[k] = check_close(f"{label}: grad {k}", g.cpu(), grads_b[k].cpu(),
+                                  atol=1e-4, rtol=1e-3)
+        return dict(loss=loss_a, loss_other=loss_b, code_mismatches=mismatches,
+                    max_tie_gap=gap, max_grad_abs_err=max(errs.values()),
+                    grads_compared=len(errs))
+
+    card = run(task)
+    result = {"kernels_vs_plain": compare("card kernels vs plain", card, run(task, plain=True))}
+    result["card_vs_cpu"] = compare("card vs CPU", card, run(cpu))
+    # one Adam step from the same weights and gradients on both devices, then
+    # the loss of the stepped weights (rtol 1e-3: Adam moves a parameter whose
+    # gradient is near 0 by up to lr whatever that gradient's last digits)
+    before = {k: v.detach().clone() for k, v in task.net.state_dict().items()}
+    for t in (task, cpu):
+        run(t)
+        t.configure_optimizer().step()
+    loss_card, loss_cpu = run(task)[0], run(cpu)[0]
+    if abs(loss_card - loss_cpu) > 1e-3 * abs(loss_cpu):
+        fail(f"card vs CPU after one Adam step: loss {loss_card} against {loss_cpu}")
+    cpu_sd = cpu.net.state_dict()
+    result["card_vs_cpu"].update(
+        loss_after_step=loss_card, loss_after_step_cpu=loss_cpu,
+        param_max_abs_err_after_step=max((v.cpu() - cpu_sd[k]).abs().max().item()
+                                         for k, v in task.net.state_dict().items()))
+    task.net.load_state_dict(before)  # the training phase starts from the seeded init
+    task.net.zero_grad(set_to_none=True)
+    print(f"[gradients] {json.dumps(result)}", flush=True)
+    return result
+
+
+def timed_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
+    """One train step as Trainer._train_step runs it, with CUDA events between
+    its parts: augment and mixture, forward, backward, Adam."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    batch = dm.on_after_batch_transfer(dm.train_transform(raw, trainer._generator))
+    ev[1].record()
+    trainer._optimizer.zero_grad(set_to_none=True)
+    loss, _ = task.loss_fn(batch, trainer._generator)
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    trainer._optimizer.step()
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def phase_training(task, dm, kernels) -> dict:
+    from msla_tpu_torch.train.trainer import Trainer
+
+    path_kernels = ("conv_stem", "deconv_stem", "conv_stem_save_hidden",
+                    "deconv_stem_save_hidden", "vq_fused_fwd", "vq_codebook_grad")
+    csv = Path(task.hparams["codebook_file"])
+    csv.unlink(missing_ok=True)
+    before = {k: v.detach().clone() for k, v in task.net.state_dict().items()}
+    trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_BATCHES,
+                      limit_val_batches=VAL_BATCHES, seed=0, enable_progress_bar=False)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(task, dm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    if any(counts[name] == 0 for name in path_kernels):
+        fail(f"a kernel of the training path never launched: {counts}")
+    cm = trainer.callback_metrics
+    if len(cm) != 21 or not all(np.isfinite(v) for v in cm.values()):
+        fail(f"fit: {len(cm)} metrics, or a non-finite one: {cm}")
+    unmoved = [k for k, v in task.net.state_dict().items() if torch.equal(v, before[k])]
+    if unmoved:
+        fail(f"fit: parameters that did not change: {unmoved}")
+    codebook = np.loadtxt(csv, delimiter=",", skiprows=1)
+    if codebook.shape != (MODEL["num_embedding"], MODEL["embedding_dim"]):
+        fail(f"fit: codebook CSV of shape {codebook.shape}")
+    print(f"[train] fit: {trainer.global_step} steps in {fit_s:.2f} s, launches {counts}, "
+          f"train/loss {cm['train/loss']:.5f}, validation/loss {cm['validation/loss']:.5f}",
+          flush=True)
+
+    # a train step: device time and its parts (CUDA events, median of 10)
+    loader = dm.train_dataloader()
+    raw = torch.from_numpy(loader[0]).to(task.device)
+    for _ in range(2):
+        timed_step(trainer, task, dm, raw)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    parts = [timed_step(trainer, task, dm, raw) for _ in range(10)]
+    per_step = {k.__name__: k.launches // 10 for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    names = ("augment_and_mixture", "forward", "backward", "adam")
+    breakdown = {n: statistics.median(p[i] for p in parts) for i, n in enumerate(names)}
+    step_ms = time_ms(lambda: trainer._train_step(task, dm, raw), reps=10, warmup=2)
+    # fit's train loop (prefetch + step) on the host clock, ending in a sync
+    host_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        steps = 0
+        for _, batch in trainer._prefetched(loader, len(loader)):
+            trainer._train_step(task, dm, batch)
+            steps += 1
+        torch.cuda.synchronize()
+        host_s.append((time.perf_counter() - t0) / steps)
+    host_step_s = statistics.median(host_s)
+    result = dict(fit_steps=trainer.global_step, fit_s=fit_s, launches=counts,
+                  launches_per_step=per_step, callback_metrics=cm,
+                  step_device_ms=step_ms, step_host_ms=host_step_s * 1e3,
+                  step_host_ms_runs=[s * 1e3 for s in host_s],
+                  samples_per_s=BATCH * FRAME / host_step_s,
+                  device_samples_per_s=BATCH * FRAME / (step_ms / 1e3),
+                  device_busy_share=step_ms / 1e3 / host_step_s,
+                  peak_mem_gb=peak_gb, breakdown_ms=breakdown)
+    print(f"[train] step {step_ms:.2f} ms on the device, {host_step_s * 1e3:.2f} ms per step "
+          f"through fit's loop, {result['samples_per_s']:.0f} samples/s, peak "
+          f"{peak_gb:.2f} GB, breakdown {breakdown}, per step {per_step}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -319,23 +687,39 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[build] {build_s:.1f} s for {len(_build.SIGNATURES)} kernels", flush=True)
+    print(f"[build] {build_s:.1f} s for {len(_build.SOURCES)} sources", flush=True)
+    ptxas = ptxas_report()
 
     dev = torch.device("cuda")
-    task = VQVAETask(**MODEL, checkpoint_dir=".", codebook_file="codebook.csv", device=dev,
-                     seed=0)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    task = VQVAETask(**MODEL, checkpoint_dir=str(OUT_DIR),
+                     codebook_file=str(OUT_DIR / "codebook.csv"), device=dev, seed=0)
+    serving = [k for k in KERNELS if k.__name__ in ("conv_stem", "deconv_stem",
+                                                    "nearest_codes")]
 
-    # 3. kernels against their plain versions; 4. the main path; 5. CPU vs card
+    # 3. serving kernels against their plain versions; 4. the serving path;
+    # 5. CPU vs card
     report = phase_kernels(task.net, dev)
-    main_path = phase_main_path(task, KERNELS)
+    main_path = phase_main_path(task, serving)
     agreement = phase_cpu_agreement(task)
-
     for k in report:
-        k["launches"] = main_path["launches"][k["name"]]
-        k["launches_per_batch64"] = main_path["launches_per_batch64"][k["name"]]
-    print(json.dumps({"card": smi, "build_s": build_s, "main_path": main_path,
-                      "cpu_vs_card": agreement}), flush=True)
-    print(json.dumps({"kernels": report}), flush=True)
+        k.update(path="serving", launches=main_path["launches"][k["name"]],
+                 launches_per_batch64=main_path["launches_per_batch64"][k["name"]])
+
+    # 6. training kernels; 7. gradients; 8. the training path
+    train, val = synthetic_stems(TRAIN_BATCHES, seed=10), synthetic_stems(VAL_BATCHES, seed=11)
+    dm = in_memory_datamodule(train, val)
+    train_report = phase_train_kernels(task.net, dev, first_batch_latents(task.net, dm, train[0]))
+    gradients = phase_gradients(task, train[0])
+    training = phase_training(task, dm, KERNELS)
+    for k in train_report:
+        k.update(path="training", launches=training["launches"][k["name"]],
+                 launches_per_step=training["launches_per_step"][k["name"]])
+
+    print(json.dumps({"card": smi, "build_s": build_s, "ptxas": ptxas, "main_path": main_path,
+                      "cpu_vs_card": agreement, "gradients": gradients,
+                      "training": training}), flush=True)
+    print(json.dumps({"kernels": report + train_report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

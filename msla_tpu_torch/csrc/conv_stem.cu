@@ -1,21 +1,29 @@
 // Fused VQ-VAE encoder stem: conv k4 s2 p1 (4 -> 64) + ReLU, then
 // conv k4 s2 p1 (64 -> 128) + ReLU, in one pass over device memory.
 //
-// Replaces: msla_tpu/ops/conv_stem.py:48 _stem_kernel (conv_stem_pallas, forward
-// without save_hidden).
+// Replaces: msla_tpu/ops/conv_stem.py:48 _stem_kernel (conv_stem_pallas), both
+// its forward (K1) and, with a non-null `hidden`, its save_hidden forward for
+// training (K1b, the pallas_call at conv_stem.py:132).
 //
 // Bound on an H100: at batch 64, T = 44,000 the stem does 4.90e10 fp32 FLOP and
-// must move 45.1 MB in + 360.4 MB out, so it is bound by the fp32 FMA rate
-// (67 TFLOP/s outside the tensor cores), not by memory.
+// must move 45.1 MB in + 360.4 MB out (+ 360.4 MB of h1 for K1b), so it is
+// bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by
+// memory.
 //
-// Design: conv1's output h1 (B, 64, T/2) never reaches device memory. A block
+// Design: in K1, conv1's output h1 (B, 64, T/2) never reaches device memory;
+// K1b also writes it, for the backward. A block
 // holds the whole conv2 weight (128 KB) plus a tile of h1 in shared memory and is
 // persistent: one block per SM loads the weights once and walks over
 // (batch row, tile) pairs. Each thread keeps an 8 channel x 8 position register
 // tile of conv2 accumulators, so every shared-memory read feeds 8 FMAs.
 // Accumulation is fp32 FMA throughout; no tensor cores (fp32 exactness first).
+// K1b stores each h1 row of the tile's interior [2*q0, 2*q0 + 2*TILE) once,
+// after the ReLU, as it is computed: consecutive threads hold consecutive rows,
+// so the stores are coalesced along W, no row is written by two blocks and the
+// halo and pad rows are never written.
 //
-// Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4). Weights arrive
+// Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4), hidden (B, 64, T/2).
+// Weights arrive
 // pre-transposed by the wrapper: w1t (4*4, 64) indexed [c0*4+tap][c1],
 // w2t (64*4, 128) indexed [c1*4+tap][c2].
 #include <cuda_runtime.h>
@@ -40,7 +48,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
                  const float* __restrict__ b1, const float* __restrict__ w2t,
                  const float* __restrict__ b2, float* __restrict__ out,
-                 int batch, int t_len) {
+                 float* __restrict__ hidden, int batch, int t_len) {
   extern __shared__ float smem[];
   float* w2s = smem;                    // [C1*4][C2]
   float* h1s = w2s + C1 * 4 * C2;       // [C1][NH]
@@ -87,7 +95,10 @@ conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 #pragma unroll
         for (int t = 0; t < 4; ++t)
           acc = fmaf(w1s[(c0 * 4 + t) * C1 + c1], xs[c0 * NX + 2 * k + t], acc);
-      h1s[i] = (j >= 0 && j < w1_len) ? fmaxf(acc, 0.0f) : 0.0f;
+      const float h = (j >= 0 && j < w1_len) ? fmaxf(acc, 0.0f) : 0.0f;
+      h1s[i] = h;
+      if (hidden != nullptr && k >= 1 && k <= 2 * TILE && j < w1_len)
+        hidden[((size_t)b * C1 + c1) * w1_len + j] = h;
     }
     __syncthreads();
 
@@ -129,9 +140,10 @@ conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
 
 }  // namespace
 
+// hidden may be null (K1); otherwise it receives h1 (K1b).
 extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                              const float* w2t, const float* b2, float* out,
-                             int batch, int t_len, void* stream) {
+                             float* hidden, int batch, int t_len, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       conv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -144,6 +156,6 @@ extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (grid == 0) return 0;
   conv_stem_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, w1t, b1, w2t, b2, out, batch, t_len);
+      x, w1t, b1, w2t, b2, out, hidden, batch, t_len);
   return (int)cudaGetLastError();
 }

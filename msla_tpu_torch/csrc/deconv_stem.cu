@@ -1,12 +1,13 @@
 // Fused VQ-VAE decoder stem: convT k4 s2 p1 (128 -> 64) + ReLU, then
 // convT k4 s2 p1 (64 -> 4), in one pass over device memory.
 //
-// Replaces: msla_tpu/ops/deconv_stem.py:35 _deconv_kernel (deconv_stem_pallas,
-// forward without save_hidden).
+// Replaces: msla_tpu/ops/deconv_stem.py:35 _deconv_kernel (deconv_stem_pallas),
+// both its forward (K2) and, with a non-null `hidden`, its save_hidden forward
+// for training (K2b, the pallas_call at deconv_stem.py:132).
 //
 // Bound on an H100: at batch 64, W = 11,000 the stem does 4.90e10 fp32 FLOP and
-// must move 360.4 MB in + 45.1 MB out, so it is bound by the fp32 FMA rate
-// (67 TFLOP/s outside the tensor cores), not by memory.
+// must move 360.4 MB in + 45.1 MB out (+ 360.4 MB of h for K2b), so it is bound
+// by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by memory.
 //
 // Design: a stride-2 transposed conv splits into two unit-stride phases,
 //   out[2m]   = x[m] W1 + x[m-1] W3,     out[2m+1] = x[m] W2 + x[m+1] W0,
@@ -16,9 +17,14 @@
 // tile plus a one-row halo on each side into shared memory, then the 4-channel
 // output from it. In the first layer each thread keeps 4 channels x 5 positions
 // of both phases in registers; both phases read the same two input rows, so
-// every shared-memory read feeds 8 FMAs. fp32 FMA throughout.
+// every shared-memory read feeds 8 FMAs. fp32 FMA throughout. K2b copies the
+// tile's interior rows of h, [2*m0, 2*m0 + 2*TILE), from shared memory to
+// device memory once they are complete: consecutive threads take consecutive
+// rows, so the stores are coalesced along W, no row is written by two blocks
+// and the halo and pad rows are never written.
 //
-// Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W). Weights in torch's
+// Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
+// Weights in torch's
 // ConvTranspose1d layout (in, out, k): w1 (128, 64, 4), w2 (64, 4, 4).
 #include <cuda_runtime.h>
 
@@ -42,7 +48,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ out,
-                   int batch, int width) {
+                   float* __restrict__ hidden, int batch, int width) {
   extern __shared__ float smem[];
   float* w1s = smem;                    // [CI][C1][4]
   float* qs = w1s + CI * C1 * 4;        // [CI][NQ]
@@ -126,6 +132,14 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
     }
     __syncthreads();
 
+    if (hidden != nullptr) {
+      float* hb = hidden + (size_t)b * C1 * 2 * width;
+      for (int i = tid; i < C1 * 2 * TILE; i += THREADS) {
+        const int c = i / (2 * TILE), k = 1 + i % (2 * TILE), j = 2 * m0 - 1 + k;
+        if (j < 2 * width) hb[(size_t)c * 2 * width + j] = hs[c * NH + k];
+      }
+    }
+
     // out[4*m0 + tid] = out[2j'+ph], j' = 2*m0+s, h[j'] at hs[s+1]:
     //   ph 0: h[j'] V1 + h[j'-1] V3;  ph 1: h[j'] V2 + h[j'+1] V0  (no ReLU)
     const int s = tid >> 1, ph = tid & 1;
@@ -153,9 +167,10 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
 
 }  // namespace
 
+// hidden may be null (K2); otherwise it receives h (K2b).
 extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* out,
-                               int batch, int width, void* stream) {
+                               float* hidden, int batch, int width, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       deconv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -168,6 +183,6 @@ extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (grid == 0) return 0;
   deconv_stem_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      q, w1, b1, w2, b2, out, batch, width);
+      q, w1, b1, w2, b2, out, hidden, batch, width);
   return (int)cudaGetLastError();
 }

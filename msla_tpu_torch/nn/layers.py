@@ -8,8 +8,6 @@ and then moved, so one seed gives one model on every device.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 from torch import nn
 
@@ -41,13 +39,3 @@ def conv_transpose1d(cin: int, cout: int, kernel_size: int, stride: int = 1,
     conv = nn.utils.skip_init(nn.ConvTranspose1d, cin, cout, kernel_size, stride=stride,
                               padding=padding, device=device)
     return _init_conv(conv, cout * kernel_size, generator)
-
-
-def fp32_convs():
-    """cuDNN convs in full fp32 (no TF32) for the scope of a call: TF32 keeps
-    ~3 decimal digits, enough to flip VQ codes on near-ties."""
-    cudnn = torch.backends.cudnn
-    if not cudnn.is_available():
-        return contextlib.nullcontext()
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)

@@ -15,15 +15,20 @@ from msla_tpu_torch.ops.vq import VQResult, vector_quantize
 
 class VectorQuantizer(nn.Module):
     def __init__(self, num_embedding: int, embedding_dim: int, commitment_cost: float,
-                 *, generator: torch.Generator, device):
+                 use_pallas: bool | None = None, *, generator: torch.Generator, device):
         super().__init__()
         self.commitment_cost = commitment_cost
+        self.use_pallas = use_pallas
         self.codebook = nn.utils.skip_init(nn.Embedding, num_embedding, embedding_dim,
                                            device=device)
         uniform_(self.codebook.weight, 1.0 / num_embedding, generator)
 
-    def forward(self, x: torch.Tensor) -> VQResult:
-        return vector_quantize(x, self.codebook.weight, self.commitment_cost)
+    def forward(self, x: torch.Tensor, inference: bool = False) -> VQResult:
+        # inference=True pins the lookup path, as the JAX module does: it
+        # computes only what inference reads, where the fused training kernel
+        # always computes every output
+        return vector_quantize(x, self.codebook.weight, self.commitment_cost,
+                               use_pallas=False if inference else self.use_pallas)
 
     def lookup(self, indices: torch.Tensor) -> torch.Tensor:
         """Code ids → codebook rows, (...,) → (..., D)."""

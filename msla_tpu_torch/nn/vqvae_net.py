@@ -16,8 +16,9 @@ from torch import nn
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.nn.decoder import Decoder
 from msla_tpu_torch.nn.encoder import Encoder
-from msla_tpu_torch.nn.layers import conv1d, fp32_convs
+from msla_tpu_torch.nn.layers import conv1d
 from msla_tpu_torch.nn.vector_quantizer import VectorQuantizer
+from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
 
 class VQVAEOutput(NamedTuple):
@@ -36,9 +37,12 @@ class QuantizedOutput(NamedTuple):
 class VQVAENet(nn.Module):
     def __init__(self, num_hidden: int, num_residual_layer: int, num_residual_hidden: int,
                  num_embedding: int, embedding_dim: int, commitment_cost: float,
-                 compute_dtype: str | None = None, *, device=None, seed: int = 0):
+                 use_pallas: bool | None = None, compute_dtype: str | None = None, *,
+                 device=None, seed: int = 0):
         """Weights are U(±1/√fan_in) (codebook U(±1/K)) from a torch.Generator
-        seeded with ``seed``; ``device`` None means the card."""
+        seeded with ``seed``; ``device`` None means the card. ``use_pallas``
+        selects the VQ path of ``forward`` as in the JAX package: None or True
+        the fused training VQ, False the lookup."""
         super().__init__()
         if compute_dtype not in (None, "float32"):
             raise NotImplementedError(
@@ -49,7 +53,7 @@ class VQVAENet(nn.Module):
         self.encoder = Encoder(num_hidden, num_residual_layer, num_residual_hidden, **kw)
         self.conv = conv1d(num_hidden, embedding_dim, 1, **kw)  # pre-VQ projection
         self.vector_quantizer = VectorQuantizer(num_embedding, embedding_dim,
-                                                commitment_cost, **kw)
+                                                commitment_cost, use_pallas, **kw)
         self.decoder = Decoder(embedding_dim, num_hidden, num_residual_layer,
                                num_residual_hidden, **kw)
 
@@ -66,8 +70,9 @@ class VQVAENet(nn.Module):
         return VQVAEOutput(out, res.embedding_loss, res.commitment_loss, res.perplexity)
 
     def get_quantized(self, x_bcw: torch.Tensor) -> QuantizedOutput:
-        """Inference path to the quantized representation."""
-        res = self.vector_quantizer(self.encode(x_bcw))
+        """Inference path to the quantized representation: the lookup VQ
+        whatever ``use_pallas`` says."""
+        res = self.vector_quantizer(self.encode(x_bcw), inference=True)
         return QuantizedOutput(res.quantized_ste.transpose(1, 2), res.encoding_indices,
                                res.perplexity)
 

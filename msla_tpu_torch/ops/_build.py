@@ -3,16 +3,19 @@ what a wrapper hands them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own, with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``,
-into ``build/msla_tpu_torch/<name>.<hash>.so`` at the repository root. The hash
-is the source's, so an edited source is rebuilt at its next use and an
-unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per source,
-all at once, and waits for them.
+into ``build/msla_tpu_torch/<name>.<hash>.so`` at the repository root, beside
+``<name>.<hash>.log`` (what ``-Xptxas=-v`` reports: registers, spills). The
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is rebuilt at its next use and an unchanged one is loaded as it
+is. One source may export several entry points. ``build_all`` starts one
+``nvcc`` per source, all at once, and waits for them.
 
 Nothing here runs when a module is imported: a kernel is built and loaded at
 its first launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,20 +28,27 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "msla_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+#: dynamic shared memory one block may use on Hopper
+SMEM_BYTES = 232_448
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 
-#: C entry point of each source and its argument types (pointers and the
-#: stream as c_void_p, so ctypes does not cut them to 32 bits)
+#: each C entry point: the source that exports it and its argument types
+#: (pointers and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "conv_stem": ("conv_stem_fwd", [P, P, P, P, P, P, I32, I32, P]),
-    "deconv_stem": ("deconv_stem_fwd", [P, P, P, P, P, P, I32, I32, P]),
-    "nearest_codes": ("nearest_codes_fwd", [P, P, P, P, I64, I32, P]),
+    "conv_stem_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
+    "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
+    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I32, P]),
 }
+SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 
+_libraries: dict[str, ctypes.CDLL] = {}
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -54,9 +64,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}.{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}.{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """What nvcc and ptxas printed when ``csrc/<name>.cu`` was built."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -77,10 +94,11 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)  # atomic: another process never loads half a file
 
 
-def build_all(names=tuple(SIGNATURES)) -> None:
+def build_all(names=SOURCES) -> None:
     """Build every stale kernel library, one nvcc per source, in parallel."""
     jobs = {n: _start(n) for n in names}
     errors = []
@@ -95,16 +113,19 @@ def build_all(names=tuple(SIGNATURES)) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-def kernel(name: str):
-    """The bound C entry point of ``csrc/<name>.cu``, built at first use."""
-    fn = _loaded.get(name)
+def kernel(symbol: str):
+    """The bound C entry point ``symbol``, its source built at first use."""
+    fn = _loaded.get(symbol)
     if fn is None:
-        build_all((name,))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        source, argtypes = SIGNATURES[symbol]
+        lib = _libraries.get(source)
+        if lib is None:
+            build_all((source,))
+            lib = _libraries[source] = ctypes.CDLL(str(library_path(source)))
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[symbol] = fn
     return fn
 
 
@@ -112,14 +133,6 @@ def check(name: str, status: int) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
-
-
-def forward_only(name: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse inputs that need one."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only: its backward kernel comes with the training "
-            "slice (ROADMAP.md, queue item 2); call it under torch.no_grad()")
 
 
 def on_one_device(name: str, *tensors) -> torch.device:
@@ -131,13 +144,47 @@ def on_one_device(name: str, *tensors) -> torch.device:
     return dev
 
 
-def require(name: str, t: torch.Tensor, what: str, shape: tuple) -> None:
-    """A CUDA kernel's operand: fp32, contiguous, of exactly ``shape``."""
-    if t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: {what} must be a contiguous float32 tensor of shape "
+_force_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block every wrapper runs its plain version, on CUDA tensors
+    too. For holding the kernels' path against the plain path on the card
+    (chip_smoke.py); the port's own code never enters it."""
+    global _force_plain
+    before, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = before
+
+
+def runs_plain(name: str, *tensors) -> bool:
+    """Whether a wrapper runs its plain version: on CPU tensors, or inside
+    ``plain_versions()``. Otherwise it launches its kernel or raises."""
+    return on_one_device(name, *tensors).type == "cpu" or _force_plain
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these inputs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def require(name: str, t: torch.Tensor, what: str, shape: tuple,
+            dtype: torch.dtype = torch.float32) -> None:
+    """A CUDA kernel's operand: contiguous, of ``dtype`` and exactly ``shape``."""
+    if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: {what} must be a contiguous {dtype} tensor of shape "
                          f"{shape}, got {t.dtype} {tuple(t.shape)} "
                          f"contiguous={t.is_contiguous()}")
 
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a card: the most blocks a persistent
+    kernel launches, and so the most per-block partials it writes."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,19 +1,27 @@
 """The VQ-VAE encoder stem: conv k4 s2 p1 + ReLU, then conv k4 s2 p1 + ReLU.
 
-Port of msla_tpu/ops/conv_stem.py (forward). On a CUDA tensor ``conv_stem``
-launches the hand-written kernel ``csrc/conv_stem.cu``, which keeps conv1's
-(B, 64, T/2) output out of device memory; on a CPU tensor it runs
-``conv_stem_ref``, the plain PyTorch version of the same arithmetic.
+Port of msla_tpu/ops/conv_stem.py. On CUDA tensors the hand-written kernel
+``csrc/conv_stem.cu`` runs the forward: ``conv_stem`` launches it without the
+hidden (K1, which keeps conv1's (B, 64, T/2) output out of device memory), and
+``conv_stem_save_hidden`` launches it with the hidden (K1b). On CPU tensors
+both run ``conv_stem_ref``, the plain PyTorch version of the same arithmetic.
 
-Layout is torch's: x (B, C0, T), weights (out, in, k), output (B, C2, T/4).
+Under autograd, ``conv_stem`` is an ``autograd.Function`` whose forward is
+K1b and whose backward is the JAX package's ``_fused_bwd``: ReLU masks from
+the saved outputs and the exact conv adjoints (cuDNN on the card, in fp32),
+with no forward recompute. The Function is the same on both devices.
+
+Layout is torch's: x (B, C0, T), weights (out, in, k), output (B, C2, T/4),
+hidden (B, C1, T/2).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, forward_only, kernel, on_one_device,
-                                       require, stream_of)
+from msla_tpu_torch.ops._build import (check, kernel, needs_grad, require, runs_plain,
+                                       stream_of)
+from msla_tpu_torch.ops.conv_adjoints import conv_grads
 
 #: the widths the CUDA kernel is compiled for (the full-width model's)
 C0, C1, C2 = 4, 64, 128
@@ -26,19 +34,13 @@ def _conv_k4s2p1_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
 
 def conv_stem_ref(x, w1, b1, w2, b2):
     """Plain version: both convs as explicit tap sums over zero-padded windows.
-    conv2's padding pads relu(conv1), as in the kernel."""
-    return _conv_k4s2p1_relu(_conv_k4s2p1_relu(x, w1, b1), w2, b2)
+    conv2's padding pads relu(conv1), as in the kernel. Returns (out, h1)."""
+    h1 = _conv_k4s2p1_relu(x, w1, b1)
+    return _conv_k4s2p1_relu(h1, w2, b2), h1
 
 
-def conv_stem(x, w1, b1, w2, b2):
-    """(B, C0, T) → (B, C2, T/4). T must be divisible by 4."""
-    if x.dim() != 3 or x.shape[-1] % 4:
-        raise ValueError(f"conv_stem needs (B, C, T) with T divisible by 4, got "
-                         f"{tuple(x.shape)}")
-    forward_only("conv_stem", x, w1, b1, w2, b2)
-    if on_one_device("conv_stem", x, w1, b1, w2, b2).type == "cpu":
-        return conv_stem_ref(x, w1, b1, w2, b2)
-
+def _launch(x, w1, b1, w2, b2, save_hidden: bool):
+    """K1 (no hidden) or K1b on CUDA tensors; returns (out, h1 or None)."""
     b, _, t = x.shape
     require("conv_stem", x, "x", (b, C0, t))
     require("conv_stem", w1, "w1", (C1, C0, 4))
@@ -48,11 +50,59 @@ def conv_stem(x, w1, b1, w2, b2):
     w1t = w1.permute(1, 2, 0).contiguous()  # [c0*4+tap][c1]
     w2t = w2.permute(1, 2, 0).contiguous()  # [c1*4+tap][c2]
     out = torch.empty((b, C2, t // 4), dtype=torch.float32, device=x.device)
-    check("conv_stem", kernel("conv_stem")(
+    h1 = (torch.empty((b, C1, t // 2), dtype=torch.float32, device=x.device)
+          if save_hidden else None)
+    check("conv_stem", kernel("conv_stem_fwd")(
         x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, t, stream_of(x)))
+        out.data_ptr(), None if h1 is None else h1.data_ptr(), b, t, stream_of(x)))
+    return out, h1
+
+
+def _check_input(x: torch.Tensor) -> None:
+    if x.dim() != 3 or x.shape[-1] % 4:
+        raise ValueError(f"conv_stem needs (B, C, T) with T divisible by 4, got "
+                         f"{tuple(x.shape)}")
+
+
+def conv_stem_save_hidden(x, w1, b1, w2, b2):
+    """(B, C0, T) → (out (B, C2, T/4), h1 (B, C1, T/2)): the training forward."""
+    _check_input(x)
+    if runs_plain("conv_stem", x, w1, b1, w2, b2):
+        return conv_stem_ref(x, w1, b1, w2, b2)
+    out = _launch(x, w1, b1, w2, b2, save_hidden=True)
+    conv_stem_save_hidden.launches += 1
+    return out
+
+
+class _ConvStem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        out, h1 = conv_stem_save_hidden(x, w1, b1, w2, b2)
+        ctx.save_for_backward(x, h1, out, w1, w2)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h1, out, w1, w2 = ctx.saved_tensors
+        g2 = torch.where(out > 0, g, 0.0).contiguous()
+        dh1, dw2, db2 = conv_grads(g2, h1, w2, transposed=False, need_input=True)
+        dh1 = torch.where(h1 > 0, dh1, 0.0)
+        dx, dw1, db1 = conv_grads(dh1, x, w1, transposed=False,
+                                  need_input=ctx.needs_input_grad[0])
+        return dx, dw1, db1, dw2, db2
+
+
+def conv_stem(x, w1, b1, w2, b2):
+    """(B, C0, T) → (B, C2, T/4). T must be divisible by 4. Differentiable."""
+    _check_input(x)
+    if needs_grad(x, w1, b1, w2, b2):
+        return _ConvStem.apply(x, w1, b1, w2, b2)
+    if runs_plain("conv_stem", x, w1, b1, w2, b2):
+        return conv_stem_ref(x, w1, b1, w2, b2)[0]
+    out, _ = _launch(x, w1, b1, w2, b2, save_hidden=False)
     conv_stem.launches += 1
     return out
 
 
 conv_stem.launches = 0
+conv_stem_save_hidden.launches = 0

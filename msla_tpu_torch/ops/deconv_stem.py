@@ -1,22 +1,29 @@
 """The VQ-VAE decoder stem: convT k4 s2 p1 + ReLU, then convT k4 s2 p1.
 
-Port of msla_tpu/ops/deconv_stem.py (forward). On a CUDA tensor
-``deconv_stem`` launches the hand-written kernel ``csrc/deconv_stem.cu``,
-which keeps the (B, 64, 2W) hidden out of device memory; on a CPU tensor it
-runs ``deconv_stem_ref``, the plain PyTorch version of the same arithmetic.
+Port of msla_tpu/ops/deconv_stem.py. On CUDA tensors the hand-written kernel
+``csrc/deconv_stem.cu`` runs the forward: ``deconv_stem`` launches it without
+the hidden (K2, which keeps the (B, 64, 2W) hidden out of device memory), and
+``deconv_stem_save_hidden`` launches it with the hidden (K2b). On CPU tensors
+both run ``deconv_stem_ref``, the plain PyTorch version of the same arithmetic.
+
+Under autograd, ``deconv_stem`` is an ``autograd.Function`` whose forward is
+K2b and whose backward is the JAX package's ``_fused_bwd``: the ReLU mask from
+the saved hidden and the exact conv-transpose adjoints (cuDNN on the card, in
+fp32), with no forward recompute. The Function is the same on both devices.
 
 A stride-2 transposed conv splits into two phases (torch weight (in, out, k)):
   out[2m]   = x[m]·W[..., 1] + x[m-1]·W[..., 3]
   out[2m+1] = x[m]·W[..., 2] + x[m+1]·W[..., 0]
-Layout is torch's: q (B, C, W), output (B, C_out, 4W).
+Layout is torch's: q (B, C, W), output (B, C_out, 4W), hidden (B, C1, 2W).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, forward_only, kernel, on_one_device,
-                                       require, stream_of)
+from msla_tpu_torch.ops._build import (check, kernel, needs_grad, require, runs_plain,
+                                       stream_of)
+from msla_tpu_torch.ops.conv_adjoints import conv_grads
 
 #: the widths the CUDA kernel is compiled for (the full-width model's)
 C, C1, C_OUT = 128, 64, 4
@@ -33,18 +40,14 @@ def _convt_k4s2p1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def deconv_stem_ref(q, w1, b1, w2, b2):
-    """Plain version: both transposed convs as explicit phase sums."""
-    return _convt_k4s2p1(torch.relu(_convt_k4s2p1(q, w1, b1)), w2, b2)
+    """Plain version: both transposed convs as explicit phase sums.
+    Returns (out, h)."""
+    h = torch.relu(_convt_k4s2p1(q, w1, b1))
+    return _convt_k4s2p1(h, w2, b2), h
 
 
-def deconv_stem(q, w1, b1, w2, b2):
-    """(B, C, W) → (B, C_out, 4W); ReLU after the first layer only."""
-    if q.dim() != 3:
-        raise ValueError(f"deconv_stem needs (B, C, W), got {tuple(q.shape)}")
-    forward_only("deconv_stem", q, w1, b1, w2, b2)
-    if on_one_device("deconv_stem", q, w1, b1, w2, b2).type == "cpu":
-        return deconv_stem_ref(q, w1, b1, w2, b2)
-
+def _launch(q, w1, b1, w2, b2, save_hidden: bool):
+    """K2 (no hidden) or K2b on CUDA tensors; returns (out, h or None)."""
     b, _, w = q.shape
     require("deconv_stem", q, "q", (b, C, w))
     require("deconv_stem", w1, "w1", (C, C1, 4))
@@ -52,11 +55,57 @@ def deconv_stem(q, w1, b1, w2, b2):
     require("deconv_stem", w2, "w2", (C1, C_OUT, 4))
     require("deconv_stem", b2, "b2", (C_OUT,))
     out = torch.empty((b, C_OUT, 4 * w), dtype=torch.float32, device=q.device)
-    check("deconv_stem", kernel("deconv_stem")(
+    h = (torch.empty((b, C1, 2 * w), dtype=torch.float32, device=q.device)
+         if save_hidden else None)
+    check("deconv_stem", kernel("deconv_stem_fwd")(
         q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), b, w, stream_of(q)))
+        out.data_ptr(), None if h is None else h.data_ptr(), b, w, stream_of(q)))
+    return out, h
+
+
+def _check_input(q: torch.Tensor) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"deconv_stem needs (B, C, W), got {tuple(q.shape)}")
+
+
+def deconv_stem_save_hidden(q, w1, b1, w2, b2):
+    """(B, C, W) → (out (B, C_out, 4W), h (B, C1, 2W)): the training forward."""
+    _check_input(q)
+    if runs_plain("deconv_stem", q, w1, b1, w2, b2):
+        return deconv_stem_ref(q, w1, b1, w2, b2)
+    out = _launch(q, w1, b1, w2, b2, save_hidden=True)
+    deconv_stem_save_hidden.launches += 1
+    return out
+
+
+class _DeconvStem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, w1, b1, w2, b2):
+        out, h = deconv_stem_save_hidden(q, w1, b1, w2, b2)
+        ctx.save_for_backward(q, h, w1, w2)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, h, w1, w2 = ctx.saved_tensors
+        dh, dw2, db2 = conv_grads(g, h, w2, transposed=True, need_input=True)
+        dh = torch.where(h > 0, dh, 0.0)
+        dq, dw1, db1 = conv_grads(dh, q, w1, transposed=True,
+                                  need_input=ctx.needs_input_grad[0])
+        return dq, dw1, db1, dw2, db2
+
+
+def deconv_stem(q, w1, b1, w2, b2):
+    """(B, C, W) → (B, C_out, 4W); ReLU after the first layer only. Differentiable."""
+    _check_input(q)
+    if needs_grad(q, w1, b1, w2, b2):
+        return _DeconvStem.apply(q, w1, b1, w2, b2)
+    if runs_plain("deconv_stem", q, w1, b1, w2, b2):
+        return deconv_stem_ref(q, w1, b1, w2, b2)[0]
+    out, _ = _launch(q, w1, b1, w2, b2, save_hidden=False)
     deconv_stem.launches += 1
     return out
 
 
 deconv_stem.launches = 0
+deconv_stem_save_hidden.launches = 0

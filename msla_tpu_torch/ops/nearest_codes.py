@@ -10,12 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from msla_tpu_torch.ops._build import (check, forward_only, kernel, on_one_device,
-                                       require, stream_of)
+from msla_tpu_torch.ops._build import SMEM_BYTES, check, kernel, require, runs_plain, stream_of
 
 #: the row width the CUDA kernel is compiled for (the model's embedding_dim)
 D = 64
-_SMEM_BYTES = 232_448  # dynamic shared memory one block may use on Hopper
 _REF_ROWS = 1 << 16    # rows per chunk of the plain version: a 128 MB block at K=512
 
 
@@ -34,20 +32,19 @@ def nearest_codes_ref(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
 
 def nearest_codes(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """(N, D) fp32 × (K, D) fp32 → (N,) int32 nearest-codebook indices."""
-    forward_only("nearest_codes", flat_x, codebook)
-    if on_one_device("nearest_codes", flat_x, codebook).type == "cpu":
+    if runs_plain("nearest_codes", flat_x, codebook):
         return nearest_codes_ref(flat_x, codebook)
 
     n = flat_x.shape[0]
     k = codebook.shape[0]
     require("nearest_codes", flat_x, "flat_x", (n, D))
     require("nearest_codes", codebook, "codebook", (k, D))
-    if k % 2 or k * (D + 1) * 4 > _SMEM_BYTES:
+    if k % 2 or k * (D + 1) * 4 > SMEM_BYTES:
         raise ValueError(f"nearest_codes: the kernel takes an even number of codes "
                          f"whose codebook fits in shared memory, got K={k}")
     e2 = code_norms(codebook)
     idx = torch.empty((n,), dtype=torch.int32, device=flat_x.device)
-    check("nearest_codes", kernel("nearest_codes")(
+    check("nearest_codes", kernel("nearest_codes_fwd")(
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
         n, k, stream_of(flat_x)))
     nearest_codes.launches += 1

@@ -1,0 +1,90 @@
+"""The fused training VQ's two kernels (port of msla_tpu/ops/vq_fused.py).
+
+``vq_fused_fwd`` computes, in one pass over the rows, each row's nearest code,
+the quantized rows q = codebook[idx], the per-code counts and Σ‖q − x‖².
+``vq_codebook_grad`` computes the codebook's gradient through the gather,
+dcb = Σᵢ onehot(idxᵢ)ᵀ gᵢ, a segment sum. On CUDA tensors each launches its
+hand-written kernel in ``csrc/vq_fused.cu``; on CPU tensors each runs its plain
+version (``vq_fused_fwd_ref``, ``vq_codebook_grad_ref``).
+
+The CUDA sums (Σ‖q − x‖² and dcb) are deterministic: per-block partials
+reduced in block order. They are not taken in the TPU kernel's order.
+"""
+from __future__ import annotations
+
+import torch
+
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, kernel, require, runs_plain,
+                                       sm_count, stream_of)
+from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref
+
+_GRAD_STAGE_BYTES = 8 * 64 * 16  # the codebook-gradient kernel's per-warp row staging
+
+
+def vq_fused_fwd_ref(flat_x: torch.Tensor, codebook: torch.Tensor):
+    """Plain version: matmul distances and argmin (``nearest_codes_ref``),
+    ``index_select``, ``bincount`` and a sum. Returns (q, idx, counts, sq)."""
+    idx = nearest_codes_ref(flat_x, codebook)
+    q = codebook.index_select(0, idx)
+    counts = torch.bincount(idx, minlength=codebook.shape[0]).to(torch.float32)
+    return q, idx, counts, ((q - flat_x) ** 2).sum()
+
+
+def vq_fused_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
+    """(N, D) × (K, D) fp32 → q (N, D) fp32, idx (N,) int32, counts (K,) fp32
+    and sq () fp32 = Σ‖q − x‖² over the N rows."""
+    if runs_plain("vq_fused_fwd", flat_x, codebook):
+        return vq_fused_fwd_ref(flat_x, codebook)
+
+    n, k = flat_x.shape[0], codebook.shape[0]
+    require("vq_fused_fwd", flat_x, "flat_x", (n, D))
+    require("vq_fused_fwd", codebook, "codebook", (k, D))
+    if k % 2 or k * (D + 2) * 4 + 64 > SMEM_BYTES:
+        raise ValueError(f"vq_fused_fwd: the kernel takes an even number of codes "
+                         f"whose codebook fits in shared memory, got K={k}")
+    dev = flat_x.device
+    parts = sm_count(dev)
+    q = torch.empty((n, D), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    sq = torch.empty((), dtype=torch.float32, device=dev)
+    counts_i = torch.empty((k,), dtype=torch.int32, device=dev)     # scratch
+    sq_part = torch.empty((parts,), dtype=torch.float64, device=dev)  # scratch
+    e2 = code_norms(codebook)
+    check("vq_fused_fwd", kernel("vq_fused_fwd")(
+        flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), q.data_ptr(), idx.data_ptr(),
+        counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts,
+        n, k, stream_of(flat_x)))
+    vq_fused_fwd.launches += 1
+    return q, idx, counts, sq
+
+
+def vq_codebook_grad_ref(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version: one ``index_add_``."""
+    return torch.zeros((k, g.shape[1]), dtype=g.dtype, device=g.device).index_add_(
+        0, idx.long(), g)
+
+
+def vq_codebook_grad(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """(N, D) fp32 gradients and (N,) int32 ids → (K, D) fp32 per-code sums."""
+    if runs_plain("vq_codebook_grad", g, idx):
+        return vq_codebook_grad_ref(g, idx, k)
+
+    n = g.shape[0]
+    require("vq_codebook_grad", g, "g", (n, D))
+    require("vq_codebook_grad", idx, "idx", (n,), torch.int32)
+    if k * (D + 4) * 4 + _GRAD_STAGE_BYTES > SMEM_BYTES:
+        raise ValueError(f"vq_codebook_grad: K={k} codes do not fit in shared memory")
+    dev = g.device
+    parts = sm_count(dev)
+    dcb = torch.empty((k, D), dtype=torch.float32, device=dev)
+    partials = torch.empty((parts, k, D), dtype=torch.float32, device=dev)  # scratch
+    check("vq_codebook_grad", kernel("vq_codebook_grad")(
+        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), parts, n, k,
+        stream_of(g)))
+    vq_codebook_grad.launches += 1
+    return dcb
+
+
+vq_fused_fwd.launches = 0
+vq_codebook_grad.launches = 0

@@ -24,7 +24,7 @@ def _inputs(b=2, t=256, c0=4, c1=8, c2=16, seed=0):
 
 
 def _port(x, w1, b1, w2, b2):
-    return conv_stem_ref(ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+    return conv_stem_ref(ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))[0]
 
 
 @pytest.mark.parametrize("t,tile", [(64, 8), (256, 16), (192, 48)])
@@ -52,14 +52,14 @@ def test_plain_matches_library_conv_pair():
     x, w1, b1, w2, b2 = _inputs(seed=5)
     x, w1, w2, b1, b2 = ncw(x), torch_weight(w1), torch_weight(w2), t32(b1), t32(b2)
     want = F.relu(F.conv1d(F.relu(F.conv1d(x, w1, b1, 2, 1)), w2, b2, 2, 1))
-    torch.testing.assert_close(conv_stem_ref(x, w1, b1, w2, b2), want, **TOL)
+    torch.testing.assert_close(conv_stem_ref(x, w1, b1, w2, b2)[0], want, **TOL)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():
     x, w1, b1, w2, b2 = _inputs(t=64, seed=6)
     args = (ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
     before = conv_stem.launches
-    torch.testing.assert_close(conv_stem(*args), conv_stem_ref(*args), rtol=0, atol=0)
+    torch.testing.assert_close(conv_stem(*args), conv_stem_ref(*args)[0], rtol=0, atol=0)
     assert conv_stem.launches == before  # no kernel launched on the CPU
 
 
@@ -70,9 +70,14 @@ def test_rejects_length_not_divisible_by_4():
 
 
 def test_forward_only_under_grad():
+    """Under grad the stem runs its training forward, an autograd Function:
+    the same output as without grad, and a gradient for every weight."""
     x, w1, b1, w2, b2 = _inputs(t=64)
     w1 = torch_weight(w1).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
+    out = conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
+    assert type(out.grad_fn).__name__ == "_ConvStemBackward"
     with torch.no_grad():
-        conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
+        want = conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    out.sum().backward()
+    assert w1.grad is not None and torch.isfinite(w1.grad).all()

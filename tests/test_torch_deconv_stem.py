@@ -24,7 +24,7 @@ def _inputs(b=2, w=64, c=16, c1=8, c_out=4, seed=0):
 
 
 def _port(q, k1, b1, k2, b2):
-    return deconv_stem_ref(ncw(q), torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
+    return deconv_stem_ref(ncw(q), torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))[0]
 
 
 # output lengths t = 4w ∈ {64, 256, 192}
@@ -53,19 +53,26 @@ def test_plain_matches_library_conv_transpose_pair():
     q, k1, b1, k2, b2 = _inputs(seed=5)
     q, k1, k2, b1, b2 = ncw(q), torch_weight(k1), torch_weight(k2), t32(b1), t32(b2)
     want = F.conv_transpose1d(F.relu(F.conv_transpose1d(q, k1, b1, 2, 1)), k2, b2, 2, 1)
-    torch.testing.assert_close(deconv_stem_ref(q, k1, b1, k2, b2), want, **TOL)
+    torch.testing.assert_close(deconv_stem_ref(q, k1, b1, k2, b2)[0], want, **TOL)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version():
     q, k1, b1, k2, b2 = _inputs(w=16, seed=6)
     args = (ncw(q), torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
     before = deconv_stem.launches
-    torch.testing.assert_close(deconv_stem(*args), deconv_stem_ref(*args), rtol=0, atol=0)
+    torch.testing.assert_close(deconv_stem(*args), deconv_stem_ref(*args)[0], rtol=0, atol=0)
     assert deconv_stem.launches == before  # no kernel launched on the CPU
 
 
 def test_forward_only_under_grad():
+    """Under grad the stem runs its training forward, an autograd Function:
+    the same output as without grad, and a gradient for its input."""
     q, k1, b1, k2, b2 = _inputs(w=16)
     q = ncw(q).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        deconv_stem(q, torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
+    out = deconv_stem(q, torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
+    assert type(out.grad_fn).__name__ == "_DeconvStemBackward"
+    with torch.no_grad():
+        want = deconv_stem(q, torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()

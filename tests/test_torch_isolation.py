@@ -35,11 +35,16 @@ def test_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for expected in ("msla_tpu_torch/inference.py", "msla_tpu_torch/ops/conv_stem.py",
                      "msla_tpu_torch/ops/deconv_stem.py",
-                     "msla_tpu_torch/ops/nearest_codes.py", "chip_smoke.py"):
+                     "msla_tpu_torch/ops/nearest_codes.py", "msla_tpu_torch/ops/vq_fused.py",
+                     "msla_tpu_torch/ops/vq.py", "msla_tpu_torch/ops/conv_adjoints.py",
+                     "msla_tpu_torch/ops/metrics.py", "msla_tpu_torch/ops/stft.py",
+                     "msla_tpu_torch/data/augment.py", "msla_tpu_torch/data/datamodule.py",
+                     "msla_tpu_torch/models/module.py", "msla_tpu_torch/models/vqvae.py",
+                     "msla_tpu_torch/train/trainer.py", "chip_smoke.py"):
         assert expected in names
 
 
-@pytest.mark.parametrize("name", ["conv_stem", "deconv_stem", "nearest_codes"])
+@pytest.mark.parametrize("name", ["conv_stem", "deconv_stem", "nearest_codes", "vq_fused"])
 def test_kernel_wrappers_have_no_fallback(name):
     tree = ast.parse((ROOT / "msla_tpu_torch" / "ops" / f"{name}.py").read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]

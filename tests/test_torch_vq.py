@@ -1,6 +1,6 @@
 """msla_tpu_torch.ops.{nearest_codes,vq} on the CPU against the JAX package:
 the nearest-code kernel in interpret mode (ids bit-equal) and the jnp VQ
-forward (losses and perplexity at 1e-6)."""
+forward against the port's lookup path (losses and perplexity at 1e-6)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,7 +49,7 @@ def test_vector_quantize_matches_jnp(shape, k):
     x = rng.standard_normal(shape).astype(np.float32)
     cb = (rng.uniform(-1, 1, (k, shape[-1])) * 0.5).astype(np.float32)
     want = _vector_quantize_jnp(jnp.asarray(x), jnp.asarray(cb), 0.25)
-    got = vector_quantize(torch.from_numpy(x), torch.from_numpy(cb), 0.25)
+    got = vector_quantize(torch.from_numpy(x), torch.from_numpy(cb), 0.25, use_pallas=False)
     np.testing.assert_array_equal(got.encoding_indices.numpy(), np.asarray(want.encoding_indices))
     np.testing.assert_array_equal(got.quantized.numpy(), np.asarray(want.quantized))
     # x + (q - x) rounds as in JAX, not to q: bit-equal
