@@ -23,9 +23,10 @@ Phases, each of which raises (exit code != 0) when its check fails:
      shapes of a batch-64 train step, timed as in phase 3; #5 on uniform ids
      and on the seeded model's ids of the first batch;
   7. gradients on 2 frames of the full-width model: loss and every parameter
-     gradient through the kernels against the same net with the plain
-     versions forced (atol 1e-4, rtol 1e-3), and one train step on the card
-     against the same step on the CPU, masking off;
+     gradient through the kernels against the same loss written with the
+     plain versions and torch's autograd on the card (atol 1e-4, rtol 1e-3),
+     and one train step on the card against the same step on the CPU,
+     masking off;
   8. the training path through the user's entry point: Trainer.fit of the
      full-width model on synthetic batch-64 stems with masking on (6 train
      and 2 validation batches); every training kernel's launch count must
@@ -509,13 +510,40 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
     return with_bounds(report)
 
 
+def plain_loss(net, batch):
+    """The training loss of ``net`` computed with the plain versions alone and
+    torch's own autograd: the stems' ``*_ref`` tap sums, the nearest codes of
+    ``vq_fused_fwd_ref`` and the VQ losses written out. No kernel and no custom
+    backward runs in it. Returns (loss, pre-VQ rows, ids)."""
+    from msla_tpu_torch.ops import conv_stem_ref, deconv_stem_ref, vq_fused_fwd_ref
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+    from msla_tpu_torch.ops.metrics import l1_loss
+
+    mixed, instruments = batch
+    enc, dec, vq = net.encoder, net.decoder, net.vector_quantizer
+    with fp32_convs():
+        h = conv_stem_ref(mixed, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight,
+                          enc.conv2.bias)[0]
+        z = net.conv(enc.residual_stack(enc.conv3(h))).transpose(1, 2)
+        flat = z.reshape(-1, z.shape[-1])
+        cb = vq.codebook.weight
+        idx = vq_fused_fwd_ref(flat.detach(), cb.detach())[1]
+        q = cb.index_select(0, idx)
+        loss = torch.mean((q - flat.detach()) ** 2)                            # embedding
+        loss = loss + vq.commitment_cost * torch.mean((q.detach() - flat) ** 2)  # commitment
+        q_ste = (flat + (q - flat).detach()).reshape(z.shape).transpose(1, 2).contiguous()
+        d = dec.residual_stack(dec.conv1(q_ste))
+        out = deconv_stem_ref(d, dec.conv1_transpose.weight, dec.conv1_transpose.bias,
+                              dec.conv2_transpose.weight, dec.conv2_transpose.bias)[0]
+    for i in range(4):
+        loss = loss + l1_loss(out[:, i, :], instruments[:, i, :])
+    return loss, flat.detach(), idx
+
+
 def phase_gradients(task, raw: np.ndarray) -> dict:
     """2 frames of the full-width model: the kernels' path against the plain
-    versions forced on the card, and one train step against the CPU."""
-    from contextlib import nullcontext
-
+    loss on the card, and one train step against the CPU."""
     from msla_tpu_torch.models.vqvae import VQVAETask
-    from msla_tpu_torch.ops._build import plain_versions
 
     dm = in_memory_datamodule([], [], masking=False)
     cpu = VQVAETask(**MODEL, checkpoint_dir=str(OUT_DIR), codebook_file=str(OUT_DIR / "cb.csv"),
@@ -526,14 +554,17 @@ def phase_gradients(task, raw: np.ndarray) -> dict:
     def run(t, plain=False):
         batch = dm.on_after_batch_transfer(stems.to(t.device))
         t.net.zero_grad(set_to_none=True)
-        with plain_versions() if plain else nullcontext():
+        if plain:
+            loss, z, idx = plain_loss(t.net, batch)
+            loss.backward()
+        else:
             loss, _ = t.loss_fn(batch, None)
             loss.backward()
             with torch.no_grad():
-                z = t.net.encode(batch[0])
+                z = t.net.encode(batch[0]).reshape(-1, MODEL["embedding_dim"])
                 idx = t.net.vector_quantizer(z).encoding_indices
         grads = {k: p.grad.detach().clone() for k, p in t.net.named_parameters()}
-        return loss.item(), grads, z.reshape(-1, z.shape[-1]), idx.flatten()
+        return loss.item(), grads, z, idx.flatten()
 
     def compare(label, a, b) -> dict:
         loss_a, grads_a, z_a, idx_a = a
@@ -553,7 +584,8 @@ def phase_gradients(task, raw: np.ndarray) -> dict:
                     grads_compared=len(errs))
 
     card = run(task)
-    result = {"kernels_vs_plain": compare("card kernels vs plain", card, run(task, plain=True))}
+    result = {"kernels_vs_plain": compare("card kernels vs plain loss", card,
+                                          run(task, plain=True))}
     result["card_vs_cpu"] = compare("card vs CPU", card, run(cpu))
     # one Adam step from the same weights and gradients on both devices, then
     # the loss of the stepped weights (rtol 1e-3: Adam moves a parameter whose

@@ -20,8 +20,6 @@ from torch import nn
 class TaskModule:
     hparams: dict
     net: nn.Module
-    #: metric prefix of test_step (the reference's transformer logs "testing/...")
-    test_mode_name: str = "test"
 
     @property
     def device(self) -> torch.device:
@@ -40,6 +38,3 @@ class TaskModule:
 
     def on_train_epoch_end(self, trainer) -> None:
         pass
-
-    def predict_step(self, batch):
-        raise NotImplementedError

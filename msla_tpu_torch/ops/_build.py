@@ -15,7 +15,6 @@ its first launch.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,26 +143,10 @@ def on_one_device(name: str, *tensors) -> torch.device:
     return dev
 
 
-_force_plain = False
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Within the block every wrapper runs its plain version, on CUDA tensors
-    too. For holding the kernels' path against the plain path on the card
-    (chip_smoke.py); the port's own code never enters it."""
-    global _force_plain
-    before, _force_plain = _force_plain, True
-    try:
-        yield
-    finally:
-        _force_plain = before
-
-
 def runs_plain(name: str, *tensors) -> bool:
-    """Whether a wrapper runs its plain version: on CPU tensors, or inside
-    ``plain_versions()``. Otherwise it launches its kernel or raises."""
-    return on_one_device(name, *tensors).type == "cpu" or _force_plain
+    """Whether a wrapper runs its plain version: only on CPU tensors. On CUDA
+    tensors it launches its kernel or raises."""
+    return on_one_device(name, *tensors).type == "cpu"
 
 
 def needs_grad(*tensors) -> bool:

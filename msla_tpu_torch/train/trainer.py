@@ -1,8 +1,9 @@
 """Training loop (port of msla_tpu/train/trainer.py: fit and validate).
 
 The constructor takes the JAX Trainer's keywords. What this slice runs:
-``fit`` and ``validate``; ``max_epochs``, ``min_epochs``, ``limit_*_batches``,
-``fast_dev_run``, ``log_every_n_steps``, ``enable_progress_bar`` and ``seed``;
+``fit`` and ``validate``; ``max_epochs``, ``limit_train_batches``,
+``limit_val_batches``, ``fast_dev_run``, ``log_every_n_steps``,
+``enable_progress_bar`` and ``seed``;
 epoch metrics as batch-size-weighted means of the per-batch means (Lightning's
 ``on_epoch`` reduction), in ``callback_metrics``. A keyword whose feature waits
 for a later slice raises ``NotImplementedError`` naming its ROADMAP.md item
@@ -70,9 +71,13 @@ class Trainer:
                  seed: int = 0):
         """``precision``: the port's path is fp32 with TF32 off at "medium"
         (the default), "highest" and "32" alike; reduced precision waits for
-        bf16. ``devices``: -1 or 1, one card. ``default_root_dir``,
-        ``limit_test_batches`` and ``pipeline_microbatches`` are accepted for
-        the JAX signature; nothing of this slice reads them."""
+        bf16. ``devices``: -1 or 1, one card. ``default_root_dir`` (where the
+        JAX Trainer writes its profiler trace), ``min_epochs`` (read only with
+        early stopping), ``limit_test_batches`` (``test``) and
+        ``pipeline_microbatches`` wait with the features that read them."""
+        _refuse("default_root_dir", default_root_dir, ".", _REST_OF_TRAINER)
+        _refuse("min_epochs", min_epochs, 1, _REST_OF_TRAINER)
+        _refuse("limit_test_batches", limit_test_batches, 1.0, _REST_OF_TRAINER)
         _refuse("callbacks", list(callbacks or []), [], _REST_OF_TRAINER)
         _refuse("logger", logger or None, None, _REST_OF_TRAINER)
         _refuse("detect_anomaly", detect_anomaly, False, _REST_OF_TRAINER)
@@ -81,6 +86,7 @@ class Trainer:
         _refuse("remat", remat, False, _REST_OF_TRAINER)
         for name, value, default in (("model_parallel", model_parallel, 1),
                                      ("pipeline_parallel", pipeline_parallel, 1),
+                                     ("pipeline_microbatches", pipeline_microbatches, 2),
                                      ("zero1", zero1, False), ("fsdp", fsdp, False),
                                      ("num_nodes", num_nodes, 1)):
             _refuse(name, value, default, _PARALLEL)
@@ -89,7 +95,6 @@ class Trainer:
         if str(precision) not in ("medium", "highest", "32"):
             _refuse("precision", precision, "medium", "ROADMAP.md queue item 1 (bf16)")
 
-        self.min_epochs = int(min_epochs or 0)
         self.max_epochs = int(max_epochs)
         self.enable_progress_bar = enable_progress_bar
         self.log_every_n_steps = log_every_n_steps or 0

@@ -66,7 +66,8 @@ def test_wrapper_on_cpu_runs_the_plain_version():
 
 def test_forward_only_under_grad():
     """Under grad the stem runs its training forward, an autograd Function:
-    the same output as without grad, and a gradient for its input."""
+    the same output as without grad, and a gradient for its input. The test
+    keeps the name it had when the stem was forward-only."""
     q, k1, b1, k2, b2 = _inputs(w=16)
     q = ncw(q).requires_grad_()
     out = deconv_stem(q, torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))

@@ -89,9 +89,10 @@ def test_forward_output_and_losses(nets):
 
 
 def test_forward_under_grad_is_refused(nets):
-    """The forward under grad is no longer refused: it runs the training path
-    (the stems' save-hidden forwards and custom backwards, the fused VQ) and
-    its gradients match jax.grad of the same loss. Gradients at rtol 1e-4 and
+    """The forward under grad, which the serving-only port refused, runs the
+    training path (the stems' save-hidden forwards and custom backwards, the
+    fused VQ) and its gradients match jax.grad of the same loss. The test
+    keeps the name it had when it checked the refusal. Gradients at rtol 1e-4 and
     atol 1e-6 of the largest (sums over thousands of products in another
     order)."""
     jax_net, params, net = nets
