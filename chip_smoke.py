@@ -33,11 +33,29 @@ Phases, each of which raises (exit code != 0) when its check fails:
      grow, every loss and metric be finite, every parameter move and the
      codebook CSV be written; then a train step's device time (CUDA events)
      and its parts, fit's host time per step and the peak device memory;
-  9. one JSON line with every kernel's numbers, then the device line.
+  9. the Audio-BERT kernels against their plain versions on the card: #7
+     flash_attn at one layer's shapes of the batch-16 call (352 sequences x
+     12 heads x 512 x 64, rows of padding and sequences of padding alone
+     included; atol = rtol = 1e-4), #6 mlm_argmax and mlm_argmax_conf at
+     M = 180,224 rows (compared on the first 16,384: every differing id a
+     near-tie, conf at rtol 1e-4) and on planted ties (the lowest index must
+     win), each timed as in phase 3 beside one library call;
+ 10. the Audio-BERT serving path through the user's entry points: an
+     AudioGenerator over the full-width bert-base AudioBertTask (seed 0)
+     and phase 8's VQ-VAE, with its codebook CSV: batch-16
+     corrupt_and_generate on 2 s stems (timed: median of 5 host-clock calls,
+     the device time by CUDA events, and its parts), sample_codes at
+     W = 11,000 and generate_waveform; both #6 variants' and #7's launch
+     counts must grow, every output be finite and every code in [0, 512);
+ 11. the card against the CPU (plain versions) on code_proposals of one row
+     of 1,000 codes (two windows, the second partly padding);
+ 12. one JSON line with every kernel's numbers, then the device line.
+Each phase's seconds are printed as it ends.
 It exits non-zero without a result when no CUDA card is present.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -60,6 +78,11 @@ HOST_RUNS = 20                         # timed batch-64 separations
 STEM_TOL = 1e-4
 TRAIN_BATCHES, VAL_BATCHES = 6, 2      # Trainer.fit's batches in phase 8
 OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # codebook CSV
+BERT_BATCH = 16                        # the JAX package's BERT batch (bench.py:74)
+BERT_SEQS = 352                        # 16 rows x 22 windows of 512: one folded call
+BERT_ROWS = BERT_SEQS * 512            # M of the fused argmax
+ARGMAX_CHECK_ROWS = 16_384             # rows held against the plain logits (2 GB)
+GEN_HOST_RUNS = 5                      # timed corrupt_and_generate calls
 
 
 def fail(msg: str) -> None:
@@ -334,6 +357,8 @@ def ptxas_report() -> dict:
         for line in _build.build_log(source).splitlines():
             if m := re.search(r"Compiling entry function '(\S+)'", line):
                 fn = re.findall(r"\d+([a-z_]+_kernel)", m.group(1))[0]  # from the mangled name
+                fn += {"ILb0E": "<false>", "ILb1E": "<true>"}.get(
+                    (re.findall(r"_kernel(ILb[01]E)", m.group(1)) or [""])[0], "")
                 out[fn] = {"source": source}
             elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                         line)):
@@ -697,11 +722,318 @@ def phase_training(task, dm, kernels) -> dict:
     return result
 
 
+def mlm_near_ties(h, emb, bias, ids_a, ids_b) -> tuple[int, float]:
+    """Rows where two vocab-id vectors differ, and the largest fp64 logit gap
+    between the two picks relative to |logit|+1. Fails unless every gap is
+    below 1e-5 (a near-tie that fp32 sums in another order may flip)."""
+    rows = (ids_a != ids_b).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    hs, e, b = h[rows].double(), emb.double(), bias.double()
+    la = (hs * e[ids_a[rows].long()]).sum(1) + b[ids_a[rows].long()]
+    lb = (hs * e[ids_b[rows].long()]).sum(1) + b[ids_b[rows].long()]
+    rel = ((la - lb).abs() / (lb.abs() + 1)).max().item()
+    if rel >= 1e-5:
+        fail(f"mlm_argmax: {rows.numel()} mismatches, one is not a near-tie "
+             f"(relative gap {rel:.3e})")
+    return rows.numel(), rel
+
+
+def batch16_mask(dev) -> torch.Tensor:
+    """The key mask of the batch-16 call's 352 folded sequences (row f*16 + i is
+    window f of row i; window 21 holds 11,000 - 21*512 = 248 codes), with the
+    last two sequences made all padding, as batch 64 gives them."""
+    mask = torch.ones((BERT_SEQS, 512), device=dev)
+    mask[21 * BERT_BATCH:, 248:] = 0.0
+    mask[-2:] = 0.0
+    return mask
+
+
+def phase_bert_kernels(bert_task, dev) -> list[dict]:
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (attention_ref, flash_attn, mlm_argmax, mlm_argmax_conf,
+                                    mlm_argmax_ref)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    report = []
+    with torch.inference_mode():
+        # #7 at one layer's shapes: q, k, v (352, 512, 12, 64), the projections' layout
+        shape = (BERT_SEQS, 512, 12, 64)
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        mask = batch16_mask(dev)
+        out = flash_attn(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        bhsd = [t.transpose(1, 2) for t in (q, k, v)]
+        want = attention_ref(*bhsd, mask, 0.125).transpose(1, 2)
+        err = check_close("flash_attn", out, want)
+        mean_v = v[-1].mean(dim=0, keepdim=True).expand(512, -1, -1)
+        check_close("flash_attn (all keys padding: the mean of v)", out[-1], mean_v)
+        del want
+        additive = ((1.0 - mask) * -1e9)[:, None, None, :]
+        report.append(dict(
+            name="flash_attn", route="cuda", source="msla_tpu_torch/csrc/flash_attn.cu",
+            replaces="msla_tpu/ops/flash_attn.py:51", max_abs_err=err,
+            ms=time_ms(lambda: flash_attn(q, k, v, mask, 0.125)),
+            plain_ms=time_ms(lambda: attention_ref(*bhsd, mask, 0.125)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *bhsd, attn_mask=additive, scale=0.125)),
+            library_call="scaled_dot_product_attention, additive mask",
+            flop=4 * BERT_SEQS * 12 * 512 * 512 * 64, bytes=nbytes(q, k, v, out, mask)))
+        del q, k, v, out, bhsd, additive
+        torch.cuda.empty_cache()
+
+        # #6 at M = 180,224 rows against the model's tied decoder
+        emb = bert_task._decoder_weights()[0]
+        bias = torch.randn((emb.shape[0],), generator=g, device=dev) * 0.1
+        h = torch.randn((BERT_ROWS, 768), generator=g, device=dev)
+        hc = h[:ARGMAX_CHECK_ROWS]
+        ids = mlm_argmax(h, emb, bias)
+        ids_c, conf_c = mlm_argmax_conf(h, emb, bias)
+        torch.cuda.synchronize()
+        want_ids, want_conf = mlm_argmax_ref(hc, emb, bias, with_conf=True)
+        mismatches, gap = mlm_near_ties(hc, emb, bias, ids[:ARGMAX_CHECK_ROWS], want_ids)
+        mismatches_c, gap_c = mlm_near_ties(hc, emb, bias, ids_c[:ARGMAX_CHECK_ROWS], want_ids)
+        if not torch.equal(ids, ids_c):
+            fail("mlm_argmax and mlm_argmax_conf pick different ids")
+        conf_err = check_close("mlm_argmax_conf conf", conf_c[:ARGMAX_CHECK_ROWS], want_conf,
+                               atol=0.0, rtol=1e-4)
+        if not torch.equal(conf_c, mlm_argmax_conf(h, emb, bias)[1]):
+            fail("mlm_argmax_conf: two runs give different confidences")
+        ties = planted_ties(h, emb, bias)
+
+        def library(with_conf):  # addmm + argmax (+ logsumexp) over row chunks
+            for chunk in h.split(4096):
+                logits = torch.addmm(bias, chunk, emb.T)
+                logits.argmax(dim=-1)
+                if with_conf:
+                    torch.logsumexp(logits, dim=-1)
+
+        flop = 2 * BERT_ROWS * emb.shape[0] * 768
+        for name, line, with_conf in (("mlm_argmax", 47, False), ("mlm_argmax_conf", 67, True)):
+            fn = mlm_argmax_conf if with_conf else mlm_argmax
+            outs = (ids_c, conf_c) if with_conf else (ids,)
+            report.append(dict(
+                name=name, route="cuda", source="msla_tpu_torch/csrc/mlm_argmax.cu",
+                replaces=f"msla_tpu/ops/mlm_argmax.py:{line}",
+                max_abs_err=conf_err if with_conf else gap,
+                index_mismatches=mismatches_c if with_conf else mismatches,
+                max_tie_gap=gap_c if with_conf else gap, rows_compared=ARGMAX_CHECK_ROWS,
+                planted_ties=ties,
+                ms=time_ms(lambda: fn(h, emb, bias)),
+                plain_ms=time_ms(lambda: mlm_argmax_ref(h, emb, bias, with_conf=with_conf)),
+                library_ms=time_ms(lambda: library(with_conf)),
+                library_call="addmm + argmax" + (" + logsumexp" if with_conf else "")
+                + ", 4,096-row chunks",
+                flop=flop, bytes=nbytes(h, emb, bias, *outs)))
+        del h, hc, ids, ids_c, conf_c
+    torch.cuda.empty_cache()
+    return with_bounds(report)
+
+
+def planted_ties(h, emb, bias) -> int:
+    """2,000 rows (no multiple of the 128-row tile), each with two equal vocab
+    rows set to 3·h/|h|, far above any other logit: across tiles (one of them
+    in the ragged last tile), in adjacent columns, and 64 columns apart (one
+    thread). The lower index must win in the kernel and in the plain version,
+    and the two variants' confidences (≈ 0.5) agree with the plain ones."""
+    from msla_tpu_torch.ops import mlm_argmax, mlm_argmax_conf, mlm_argmax_ref
+
+    n, v = 2000, emb.shape[0]
+    r = torch.arange(n, device=h.device)
+    k = r - 1400
+    lo = torch.where(r < 700, r, torch.where(r < 1400, 4000 + 2 * (r - 700),
+                                             10240 + 128 * (k // 64) + k % 64))
+    hi = torch.where(r < 700, v - 1 - r, torch.where(r < 1400, lo + 1, lo + 64))
+    hs = h[:n]
+    e = emb.clone()
+    b = bias.clone()
+    planted = 3.0 * hs / hs.norm(dim=1, keepdim=True)
+    e[lo], e[hi] = planted, planted
+    b[lo], b[hi] = 0.0, 0.0
+    ids = mlm_argmax(hs, e, b)
+    ids_c, conf = mlm_argmax_conf(hs, e, b)
+    want_ids, want_conf = mlm_argmax_ref(hs, e, b, with_conf=True)
+    for label, got in (("kernel", ids), ("conf kernel", ids_c), ("plain version", want_ids)):
+        if not torch.equal(got.long(), lo):
+            fail(f"mlm_argmax planted ties: the {label} did not pick the lower index")
+    check_close("mlm_argmax_conf planted ties", conf, want_conf, atol=0.0, rtol=1e-4)
+    return n
+
+
+def bert_breakdown(bert_task, vq_task, x: torch.Tensor) -> dict:
+    """Device ms of the parts of one batch-16 corrupt_and_generate on model
+    input x: CUDA events around each op of one pass, summed by part (median
+    of 3 passes). The pass repeats AudioBertTask.forward op by op."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import flash_attn, mlm_argmax
+
+    net = bert_task.bert
+    runs = collections.defaultdict(list)
+    with torch.inference_mode():
+        for _ in range(3):
+            marks = []
+
+            def mark(part):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((part, ev))
+
+            mark("start")
+            codes = vq_task.get_quantized(x).encoding_indices
+            mark("vqvae_get_quantized")
+            tokens, attn, unfold = bert_task._fold(codes.long())
+            h = net.bert.embeddings(tokens[0])
+            mark("embeddings_and_fold")
+            b, s, e = h.shape
+            for layer in net.bert.encoder.layer:
+                sa, ao = layer.attention.self, layer.attention.output
+                qkv = [lin(h).view(b, s, 12, 64) for lin in (sa.query, sa.key, sa.value)]
+                mark("encoder_linears")
+                o = flash_attn(*qkv, attn[0], 0.125)
+                mark("flash_attn")
+                o = ao.dense(o.reshape(b, s, e))
+                mark("encoder_linears")
+                h = ao.LayerNorm(h + o)
+                mark("norms_gelu_residuals")
+                i = layer.intermediate.dense(h)
+                mark("encoder_linears")
+                i = F.gelu(i)
+                mark("norms_gelu_residuals")
+                o = layer.output.dense(i)
+                mark("encoder_linears")
+                h = layer.output.LayerNorm(h + o)
+                mark("norms_gelu_residuals")
+            t = net.cls.predictions.transform
+            h = t.LayerNorm(F.gelu(t.dense(h)))
+            mark("mlm_transform")
+            ids = mlm_argmax(h, *bert_task._decoder_weights())
+            mark("mlm_argmax")
+            code_ids = bert_task._code_ids(unfold(ids[None]))
+            quantized = bert_task.net.codebook.index_select(0, code_ids)
+            quantized = quantized.reshape(x.shape[0], -1, quantized.shape[-1])
+            mark("rescale_and_gather")
+            bert_task.net.head(quantized.transpose(1, 2).contiguous())
+            mark("head")
+            torch.cuda.synchronize()
+            sums = collections.defaultdict(float)
+            for (_, e0), (part, e1) in zip(marks, marks[1:]):
+                sums[part] += e0.elapsed_time(e1)
+            for part, ms in sums.items():
+                runs[part].append(ms)
+    return {part: statistics.median(ms) for part, ms in runs.items()}
+
+
+def phase_bert_serving(bert_task, vq_task, kernels) -> dict:
+    from msla_tpu_torch.inference import AudioGenerator
+
+    gen = AudioGenerator(bert_task, vq_task)
+    stems = synthetic_stems(1, seed=20)[0][:BERT_BATCH]
+    for k in kernels:
+        k.launches = 0
+    out = gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(0))
+    codes = gen.sample_codes(width=FRAME // 4, batch=1, rounds=4, seed=0)
+    wave = gen.generate_waveform(width=FRAME // 4, batch=1, rounds=4, seed=1)
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    for name, a, shape in (("corrupt_and_generate", out, (BERT_BATCH, 4, FRAME)),
+                           ("sample_codes", codes, (1, FRAME // 4)),
+                           ("generate_waveform", wave, (1, 4, FRAME))):
+        if a.shape != shape or not np.isfinite(a).all():
+            fail(f"{name}: shape {a.shape} (want {shape}) or non-finite values")
+    if codes.min() < 0 or codes.max() >= MODEL["num_embedding"]:
+        fail("sample_codes: codes out of [0, 512)")
+    path = ("mlm_argmax", "mlm_argmax_conf", "flash_attn", "conv_stem", "nearest_codes",
+            "deconv_stem")
+    if any(counts[name] == 0 for name in path):
+        fail(f"a kernel of the Audio-BERT path never launched: {counts}")
+
+    # timed: batch-16 corrupt_and_generate, host clock, then the device time
+    torch.cuda.reset_peak_memory_stats()
+    before = [k.launches for k in kernels]
+    host_s = []
+    for i in range(GEN_HOST_RUNS):
+        t0 = time.perf_counter()
+        gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(i))
+        host_s.append(time.perf_counter() - t0)
+    per_call = {k.__name__: (k.launches - b) // GEN_HOST_RUNS for k, b in zip(kernels, before)}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    noisy = stems.copy()
+    noisy[:, 1, :] = np.random.default_rng(0).random(FRAME, dtype=np.float32)
+    x = torch.from_numpy(noisy).cuda()
+    with torch.inference_mode():
+        device_ms = time_ms(lambda: bert_task.predict_step(
+            (vq_task.get_quantized(x).encoding_indices, x)), reps=5, warmup=1)
+    median = statistics.median(host_s)
+    codes_per_call = BERT_BATCH * FRAME // 4
+    result = dict(launches=counts, launches_per_call=per_call,
+                  host_s=dict(n=GEN_HOST_RUNS, median=median, runs=host_s),
+                  device_ms=device_ms, codes_per_s=codes_per_call / median,
+                  device_codes_per_s=codes_per_call / (device_ms / 1e3),
+                  device_busy_share=device_ms / 1e3 / median, peak_mem_gb=peak_gb,
+                  breakdown_ms=bert_breakdown(bert_task, vq_task, x))
+    print(f"[bert] launches={counts} per call={per_call}; batch-16 corrupt_and_generate "
+          f"{median * 1e3:.1f} ms end to end (median of {GEN_HOST_RUNS}), {device_ms:.1f} ms "
+          f"on the device, {result['codes_per_s']:.0f} codes/s, peak {peak_gb:.2f} GB, "
+          f"breakdown {result['breakdown_ms']}", flush=True)
+    return result
+
+
+def phase_bert_cpu_agreement(bert_task) -> dict:
+    from msla_tpu_torch.models.bert import AudioBertTask
+
+    cpu = AudioBertTask(**bert_task_args(), device="cpu", seed=0)
+    cpu.net.load_state_dict({k: v.cpu() for k, v in bert_task.net.state_dict().items()})
+    w = 1000
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (1, w)))
+    tokens[:, ::7] = bert_task.config.mask_token_id
+    with torch.inference_mode():
+        pc, pg = cpu.code_proposals(tokens), bert_task.code_proposals(tokens).cpu()
+        ic, cc = cpu._chunked_argmax(tokens, with_conf=True)
+        ig, cg = (t.cpu() for t in bert_task._chunked_argmax(tokens.cuda(), with_conf=True))
+        tok, am, _ = cpu._fold(tokens)
+        h = torch.cat([cpu.bert(t, a, return_mlm_hidden=True) for t, a in zip(tok, am)])
+        emb, bias = cpu._decoder_weights()
+        mismatches, gap = mlm_near_ties(h.reshape(-1, 768)[:w], emb, bias, ig.flatten(),
+                                        ic.flatten())
+        conf_err = check_close("code_proposals conf card vs CPU", cg, cc, atol=0.0, rtol=1e-4)
+    result = dict(vocab_id_mismatches=mismatches, max_tie_gap=gap, conf_max_abs_err=conf_err,
+                  code_id_agreement=(pc[..., 0] == pg[..., 0]).double().mean().item(),
+                  proposal_conf_max_abs_err=(pc[..., 1] - pg[..., 1]).abs().max().item())
+    print(f"[bert cpu-vs-card] {json.dumps(result)}", flush=True)
+    return result
+
+
+def bert_task_args() -> dict:
+    """configs/model/bert.yaml at the data config's 22 kHz x 2 s frame, with the
+    codebook phase 8 wrote; no pretrained weights (random init, seed 0)."""
+    return dict(learning_rate=2e-4, checkpoint_dir=str(OUT_DIR),
+                codebook=str(OUT_DIR / "codebook.csv"), sample_rate=SR,
+                frame_length=FRAME // SR, num_embedding=MODEL["num_embedding"])
+
+
+
+class Phases:
+    """Prints each phase's seconds as it ends, and keeps them."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+
+    def __call__(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.seconds[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {self.seconds[name]:.1f} s", flush=True)
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
               file=sys.stderr)
         return 2
+    from msla_tpu_torch.models.bert import AudioBertTask
     from msla_tpu_torch.models.vqvae import VQVAETask
     from msla_tpu_torch.ops import KERNELS, _build
 
@@ -716,10 +1048,9 @@ def main() -> int:
         fail("torch.backends.cuda.matmul.allow_tf32 is on: the fp32 path would run in TF32")
 
     # 2. build
-    t0 = time.perf_counter()
-    _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"[build] {build_s:.1f} s for {len(_build.SOURCES)} sources", flush=True)
+    phase = Phases()
+    phase("build", _build.build_all)
+    print(f"[build] {len(_build.SOURCES)} sources", flush=True)
     ptxas = ptxas_report()
 
     dev = torch.device("cuda")
@@ -731,9 +1062,9 @@ def main() -> int:
 
     # 3. serving kernels against their plain versions; 4. the serving path;
     # 5. CPU vs card
-    report = phase_kernels(task.net, dev)
-    main_path = phase_main_path(task, serving)
-    agreement = phase_cpu_agreement(task)
+    report = phase("3 separation kernels", phase_kernels, task.net, dev)
+    main_path = phase("4 separation path", phase_main_path, task, serving)
+    agreement = phase("5 separation card vs CPU", phase_cpu_agreement, task)
     for k in report:
         k.update(path="serving", launches=main_path["launches"][k["name"]],
                  launches_per_batch64=main_path["launches_per_batch64"][k["name"]])
@@ -741,17 +1072,30 @@ def main() -> int:
     # 6. training kernels; 7. gradients; 8. the training path
     train, val = synthetic_stems(TRAIN_BATCHES, seed=10), synthetic_stems(VAL_BATCHES, seed=11)
     dm = in_memory_datamodule(train, val)
-    train_report = phase_train_kernels(task.net, dev, first_batch_latents(task.net, dm, train[0]))
-    gradients = phase_gradients(task, train[0])
-    training = phase_training(task, dm, KERNELS)
+    train_report = phase("6 training kernels", phase_train_kernels, task.net, dev,
+                         first_batch_latents(task.net, dm, train[0]))
+    gradients = phase("7 gradients", phase_gradients, task, train[0])
+    training = phase("8 training path", phase_training, task, dm, KERNELS)
     for k in train_report:
         k.update(path="training", launches=training["launches"][k["name"]],
                  launches_per_step=training["launches_per_step"][k["name"]])
 
-    print(json.dumps({"card": smi, "build_s": build_s, "ptxas": ptxas, "main_path": main_path,
-                      "cpu_vs_card": agreement, "gradients": gradients,
-                      "training": training}), flush=True)
-    print(json.dumps({"kernels": report + train_report}), flush=True)
+    # 9. Audio-BERT kernels; 10. the Audio-BERT serving path; 11. CPU vs card
+    bert_task = AudioBertTask(**bert_task_args(), device=dev, seed=0)
+    bert_report = phase("9 Audio-BERT kernels", phase_bert_kernels, bert_task, dev)
+    bert_serving = phase("10 Audio-BERT serving path", phase_bert_serving, bert_task, task,
+                         KERNELS)
+    bert_agreement = phase("11 Audio-BERT card vs CPU", phase_bert_cpu_agreement, bert_task)
+    for k in bert_report:
+        k.update(path="audio_bert_serving", launches=bert_serving["launches"][k["name"]],
+                 launches_per_call=bert_serving["launches_per_call"][k["name"]])
+
+    print(json.dumps({"card": smi, "ptxas": ptxas, "phase_s": phase.seconds,
+                      "main_path": main_path, "cpu_vs_card": agreement,
+                      "gradients": gradients, "training": training,
+                      "audio_bert_serving": bert_serving,
+                      "audio_bert_cpu_vs_card": bert_agreement}), flush=True)
+    print(json.dumps({"kernels": report + train_report + bert_report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

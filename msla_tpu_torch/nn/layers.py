@@ -1,10 +1,11 @@
-"""Conv wrappers with the reference's initialisers, drawn from an explicit
-torch.Generator (port of msla_tpu/nn/layers.py).
+"""Conv, linear and embedding layers with the JAX package's initialisers,
+drawn from an explicit torch.Generator (port of msla_tpu/nn/layers.py).
 
-Weights and biases are U(±1/√fan_in), the torch Conv1d default family that the
-JAX package reproduces: fan_in is in·k for Conv1d's (out, in, k) weight and
-out·k for ConvTranspose1d's (in, out, k) weight. Values are drawn on the CPU
-and then moved, so one seed gives one model on every device.
+Conv and linear weights and biases are U(±1/√fan_in), the torch default family
+that the JAX package reproduces: fan_in is in·k for Conv1d's (out, in, k)
+weight, out·k for ConvTranspose1d's (in, out, k) weight and in for Linear.
+Values are drawn on the CPU and then moved, so one seed gives one model on
+every device.
 """
 from __future__ import annotations
 
@@ -39,3 +40,29 @@ def conv_transpose1d(cin: int, cout: int, kernel_size: int, stride: int = 1,
     conv = nn.utils.skip_init(nn.ConvTranspose1d, cin, cout, kernel_size, stride=stride,
                               padding=padding, device=device)
     return _init_conv(conv, cout * kernel_size, generator)
+
+
+def linear(cin: int, cout: int, *, generator: torch.Generator, device) -> nn.Linear:
+    """nn.Linear with the JAX ``Linear``/``Dense`` init (``torch_kernel_init``,
+    ``torch_bias_init``): weight and bias U(±1/√cin)."""
+    lin = nn.utils.skip_init(nn.Linear, cin, cout, device=device)
+    return _init_conv(lin, cin, generator)
+
+
+#: flax's truncated normal is cut at ±2σ and rescaled to keep its variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def embedding(num: int, features: int, *, generator: torch.Generator,
+              device) -> nn.Embedding:
+    """nn.Embedding with flax ``nn.Embed``'s default init,
+    variance_scaling(1, "fan_in", "normal", out_axis=0): a normal truncated at
+    ±2σ with σ = 1/√features / 0.8796 (the variance of the cut normal is then
+    1/features)."""
+    emb = nn.utils.skip_init(nn.Embedding, num, features, device=device)
+    std = (1.0 / features) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        draw = torch.empty((num, features), dtype=torch.float32)
+        nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std, generator=generator)
+        emb.weight.copy_(draw)
+    return emb

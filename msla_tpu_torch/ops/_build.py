@@ -35,6 +35,7 @@ SMEM_BYTES = 232_448
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+F32 = ctypes.c_float
 
 #: each C entry point: the source that exports it and its argument types
 #: (pointers and the stream as c_void_p, so ctypes does not cut them to 32 bits)
@@ -44,6 +45,9 @@ SIGNATURES = {
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I32, P]),
+    "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
+    "mlm_argmax_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
+    "mlm_argmax_conf_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
 }
 SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 

@@ -1,0 +1,70 @@
+"""Attention with a key-padding mask (port of msla_tpu/ops/flash_attn.py).
+
+softmax(q·kᵀ·sm_scale + (1 − kv_mask)·(−1e9))·v in fp32. On CUDA tensors
+``flash_attn`` launches the hand-written kernel ``csrc/flash_attn.cu``, which
+keeps the (S, S) scores out of device memory with an online softmax; on CPU
+tensors it runs ``attention_ref``, the JAX package's XLA chain
+(``_xla_attention``): scaled scores plus the mask bias, an fp32 softmax, then
+``@ v``.
+
+Both follow that chain on every row, padded query rows included, and a
+sequence whose keys are all padding gets the mean of v (its scores all round
+to −1e9). The JAX TPU kernel differs at padded query rows (it masks with
+segment ids); the port does not.
+"""
+from __future__ import annotations
+
+import torch
+
+from msla_tpu_torch.ops._build import check, kernel, require, runs_plain, stream_of
+
+#: the head width the CUDA kernel is compiled for (bert-base: 768 / 12)
+D = 64
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_mask: torch.Tensor | None, sm_scale: float) -> torch.Tensor:
+    """Plain version on (B, H, S, D) tensors."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    if kv_mask is not None:
+        scores = scores + (1.0 - kv_mask[:, None, None, :].to(torch.float32)) * -1e9
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_mask: torch.Tensor | None, sm_scale: float) -> torch.Tensor:
+    """(B, S, H, D) q, k, v fp32 (the projections' layout) and an optional
+    (B, S) mask, 1 attend / 0 pad → (B, S, H, D) fp32."""
+    tensors = (q, k, v) if kv_mask is None else (q, k, v, kv_mask)
+    if runs_plain("flash_attn", *tensors):
+        out = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            kv_mask, sm_scale)
+        return out.transpose(1, 2)
+
+    b, s, h, _ = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require("flash_attn", t, name, (b, s, h, D))
+    if kv_mask is not None:
+        require("flash_attn", kv_mask, "kv_mask", (b, s))
+    out = torch.empty_like(q)
+    check("flash_attn", kernel("flash_attn_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
+        b, h, s, float(sm_scale), stream_of(q)))
+    flash_attn.launches += 1
+    return out
+
+
+flash_attn.launches = 0
+
+
+def scaled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_mask: torch.Tensor | None = None,
+                     sm_scale: float) -> torch.Tensor:
+    """The JAX function's interface: (B, H, S, D) q, k, v and an optional
+    (B, S) mask → (B, H, S, D) fp32 (a view of a (B, S, H, D) tensor)."""
+    def bshd(t):
+        return t.transpose(1, 2).contiguous()
+
+    return flash_attn(bshd(q), bshd(k), bshd(v), kv_mask, sm_scale).transpose(1, 2)

@@ -1,0 +1,83 @@
+"""Argmax over the tied-decoder logits h·Eᵀ + b without the logits
+(port of msla_tpu/ops/mlm_argmax.py).
+
+On CUDA tensors ``mlm_argmax`` and ``mlm_argmax_conf`` launch the two variants
+of the hand-written kernel ``csrc/mlm_argmax.cu``, which never writes the
+(M, V) logits; on CPU tensors they run ``mlm_argmax_ref``, the JAX package's
+``_mlm_argmax_jnp`` math in row chunks. Ties go to the lowest index, as
+``torch.argmax`` and ``jnp.argmax`` give them.
+"""
+from __future__ import annotations
+
+import torch
+
+from msla_tpu_torch.ops._build import check, kernel, require, runs_plain, stream_of
+
+#: the hidden width the CUDA kernel is compiled for (bert-base)
+K = 768
+_REF_ROWS = 4096   # rows per chunk of the plain version: 500 MB of logits at V = 30,522
+
+
+def mlm_argmax_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
+                   with_conf: bool = False):
+    """Plain version on (M, K) rows: logits = h @ embᵀ + bias, their argmax
+    and, with ``with_conf``, exp(max − logsumexp)."""
+    ids, conf = [], []
+    for chunk in h.split(_REF_ROWS):
+        logits = chunk @ emb.T + bias
+        ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        if with_conf:
+            lse = torch.logsumexp(logits, dim=-1)
+            conf.append(torch.exp(logits.max(dim=-1).values - lse))
+    if not ids:  # no rows
+        ids, conf = [h.new_empty((0,), dtype=torch.int32)], [h.new_empty((0,))]
+    return (torch.cat(ids), torch.cat(conf)) if with_conf else torch.cat(ids)
+
+
+def _operands(name: str, h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
+    m, v = h.shape[0], emb.shape[0]
+    require(name, h, "h", (m, K))
+    require(name, emb, "emb", (v, K))
+    require(name, bias, "bias", (v,))
+    if h.data_ptr() % 16 or emb.data_ptr() % 16:
+        raise ValueError(f"{name}: h and emb must be 16-byte aligned (float4 loads)")
+    return m, v
+
+
+def mlm_argmax_conf(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
+    """(M, K) × (V, K) + (V,) fp32 → (ids (M,) int32, conf (M,) fp32)."""
+    if runs_plain("mlm_argmax_conf", h, emb, bias):
+        return mlm_argmax_ref(h, emb, bias, with_conf=True)
+    m, v = _operands("mlm_argmax_conf", h, emb, bias)
+    ids = torch.empty((m,), dtype=torch.int32, device=h.device)
+    conf = torch.empty((m,), dtype=torch.float32, device=h.device)
+    check("mlm_argmax_conf", kernel("mlm_argmax_conf_fwd")(
+        h.data_ptr(), emb.data_ptr(), bias.data_ptr(), ids.data_ptr(), conf.data_ptr(),
+        m, v, stream_of(h)))
+    mlm_argmax_conf.launches += 1
+    return ids, conf
+
+
+def mlm_argmax(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor, *,
+               with_conf: bool = False):
+    """argmax over ``h @ embᵀ + bias``. h: (..., K); emb: (V, K); bias: (V,).
+    Returns int32 ids shaped like h[..., 0], plus fp32 confidences when
+    ``with_conf`` (through ``mlm_argmax_conf``)."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if with_conf:
+        ids, conf = mlm_argmax_conf(h2, emb, bias)
+        return ids.reshape(lead), conf.reshape(lead)
+    if runs_plain("mlm_argmax", h2, emb, bias):
+        return mlm_argmax_ref(h2, emb, bias).reshape(lead)
+    m, v = _operands("mlm_argmax", h2, emb, bias)
+    ids = torch.empty((m,), dtype=torch.int32, device=h.device)
+    check("mlm_argmax", kernel("mlm_argmax_fwd")(
+        h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), ids.data_ptr(), m, v,
+        stream_of(h2)))
+    mlm_argmax.launches += 1
+    return ids.reshape(lead)
+
+
+mlm_argmax.launches = 0
+mlm_argmax_conf.launches = 0

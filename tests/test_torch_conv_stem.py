@@ -69,10 +69,9 @@ def test_rejects_length_not_divisible_by_4():
         conv_stem(ncw(x)[..., :62], torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
 
 
-def test_forward_only_under_grad():
+def test_training_forward_under_grad():
     """Under grad the stem runs its training forward, an autograd Function:
-    the same output as without grad, and a gradient for every weight. The
-    test keeps the name it had when the stem was forward-only."""
+    the same output as without grad, and a gradient for every weight."""
     x, w1, b1, w2, b2 = _inputs(t=64)
     w1 = torch_weight(w1).requires_grad_()
     out = conv_stem(ncw(x), w1, t32(b1), torch_weight(w2), t32(b2))
