@@ -49,7 +49,17 @@ Phases, each of which raises (exit code != 0) when its check fails:
      counts must grow, every output be finite and every code in [0, 512);
  11. the card against the CPU (plain versions) on code_proposals of one row
      of 1,000 codes (two windows, the second partly padding);
- 12. one JSON line with every kernel's numbers, then the device line.
+ 12. the VQ measurement tools through their entry points at their full
+     N = 704,000 rows (msla_tpu_torch.tools.bench_vq_lean and
+     bench_vq_precision, main(device="cuda")): #8 vq_lean_fwd and the launch
+     counts of #8, #9's new modes, #4 and #5 must grow; then #8 (both
+     regimes) and #9's bf16/split2, bf16/f32, split3/split2 forwards and
+     split2 gradient against their plain versions on the tools' own inputs
+     (every differing id a near-tie on the mode's own distance, q and counts
+     bit-equal where the ids are, sq at rtol 1e-5, plus the lean form's
+     cancellation bound; the gradient within 1e-5 of max |plain| and the
+     same bits twice), each timed as in phase 3 beside one library chain;
+ 13. one JSON line with every kernel's numbers, then the device line.
 Each phase's seconds are printed as it ends.
 It exits non-zero without a result when no CUDA card is present.
 """
@@ -67,7 +77,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores (data sheet)
+PEAK_FLOPS = {"fp32": 67e12,     # H100 SXM, fp32 outside the tensor cores (data sheet)
+              "bf16": 989e12}    # H100 SXM, bf16 dense on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 MODEL = dict(num_hidden=128, num_residual_layer=2, num_residual_hidden=32,
              num_embedding=512, embedding_dim=64, commitment_cost=0.25,
@@ -105,8 +116,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS["fp32"]) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -124,23 +135,36 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = 
     return err.max().item()
 
 
-def near_ties(x, codebook, idx_a, idx_b) -> tuple[int, float, float]:
+def near_ties_by(dist, idx_a, idx_b, what: str = "nearest_codes") -> tuple[int, float, float]:
     """Rows where two id vectors differ, and the largest fp64 distance gap between
-    the two picks, absolute and relative to |dist|+1. Fails unless every relative
-    gap is below 1e-5 (a near-tie that fp32 sums in another order may flip)."""
+    the two picks, absolute and relative to |dist|+1, where dist(rows, ids) gives
+    the fp64 distances. Fails unless every relative gap is below 1e-5 (a
+    near-tie that fp32 sums in another order may flip)."""
     rows = (idx_a != idx_b).nonzero().flatten()
     if rows.numel() == 0:
         return 0, 0.0, 0.0
-    xs, cb = x[rows].double(), codebook.double()
-    e2 = (cb * cb).sum(1)
-    da = e2[idx_a[rows].long()] - 2 * (xs * cb[idx_a[rows].long()]).sum(1)
-    db = e2[idx_b[rows].long()] - 2 * (xs * cb[idx_b[rows].long()]).sum(1)
+    da, db = dist(rows, idx_a[rows].long()), dist(rows, idx_b[rows].long())
     gap = (da - db).abs()
     rel = (gap / (db.abs() + 1)).max().item()
     if rel >= 1e-5:
-        fail(f"nearest_codes: {rows.numel()} mismatches, one is not a near-tie "
+        fail(f"{what}: {rows.numel()} mismatches, one is not a near-tie "
              f"(relative gap {rel:.3e})")
     return rows.numel(), gap.max().item(), rel
+
+
+def l2_dist(x, codebook):
+    """dist(rows, ids) = |e|^2 - 2 x.e in fp64, for near_ties_by."""
+    cb = codebook.double()
+
+    def dist(rows, ids):
+        e = cb[ids]
+        return (e * e).sum(1) - 2 * (x[rows].double() * e).sum(1)
+    return dist
+
+
+def near_ties(x, codebook, idx_a, idx_b) -> tuple[int, float, float]:
+    """near_ties_by on the fp32 operands' L2 distance."""
+    return near_ties_by(l2_dist(x, codebook), idx_a, idx_b)
 
 
 def phase_kernels(net, dev) -> list[dict]:
@@ -214,11 +238,14 @@ def phase_kernels(net, dev) -> list[dict]:
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
-    """Add each kernel's bound from its FLOP and bytes, and print its line."""
+    """Add each kernel's bound from its FLOP (at the peak of its "flop_type",
+    fp32 unless it says bf16) and bytes, and print its line."""
     for k in report:
-        k["bound_ms"], k["bound_by"] = bound(k["flop"], k["bytes"])
+        k["bound_ms"], k["bound_by"] = bound(k["flop"], k["bytes"],
+                                             PEAK_FLOPS[k.setdefault("flop_type", "fp32")])
         extra = {key: k[key] for key in ("index_mismatches", "max_tie_gap", "ms_uniform_ids",
-                                         "max_abs_err_uniform_ids") if key in k}
+                                         "max_abs_err_uniform_ids", "sq_rel_err",
+                                         "sq_rel_err_converged") if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) {extra or ''}", flush=True)
@@ -356,10 +383,8 @@ def ptxas_report() -> dict:
         fn = None
         for line in _build.build_log(source).splitlines():
             if m := re.search(r"Compiling entry function '(\S+)'", line):
-                fn = re.findall(r"\d+([a-z_]+_kernel)", m.group(1))[0]  # from the mangled name
-                fn += {"ILb0E": "<false>", "ILb1E": "<true>"}.get(
-                    (re.findall(r"_kernel(ILb[01]E)", m.group(1)) or [""])[0], "")
-                out[fn] = {"source": source}
+                fn = f"{source}/{kernel_name(m.group(1))}"
+                out[fn] = {}
             elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                         line)):
                 out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
@@ -368,6 +393,22 @@ def ptxas_report() -> dict:
     for fn, info in out.items():
         print(f"[ptxas] {fn}: {info}", flush=True)
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name:
+    '_ZN12_GLOBAL__N_117mlm_argmax_kernelILb1EEEv...' -> 'mlm_argmax_kernel<true>'."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = ""
+    while m := re.match(r"\d+", mangled[pos:]):  # the nested names, length-prefixed
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += int(m.group())
+    if args := re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[pos:]):
+        values = [{"b0": "false", "b1": "true"}.get(t + v, v)
+                  for t, v in re.findall(r"L([a-z]+)(\d+)E", args.group(1))]
+        name += f"<{','.join(values)}>"
+    return name
 
 
 def synthetic_stems(n_batches: int, seed: int) -> list[np.ndarray]:
@@ -1014,6 +1055,182 @@ def bert_task_args() -> dict:
 
 
 
+VQ_TOOL_MODES = ("bf16/split2", "bf16/f32", "split3/split2")  # #9's modes new to the port
+
+
+def mode_dist(x, codebook, dist_mode: str):
+    """dist(rows, ids) in fp64 on a precision mode's own operands, for
+    near_ties_by: bf16(x) against cb_hi (bf16), or the three products of
+    split3 against |cb_hi + cb_lo|^2."""
+    from msla_tpu_torch.ops.vq_precision import split_bf16
+
+    (xh, xl), (ch, cl) = ([p.double() for p in split_bf16(t)] for t in (x, codebook))
+    if dist_mode == "bf16":
+        return l2_dist(xh, ch)
+
+    def dist(rows, ids):
+        e = ch[ids] + cl[ids]
+        dots = (xh[rows] * ch[ids] + xh[rows] * cl[ids] + xl[rows] * ch[ids]).sum(1)
+        return (e * e).sum(1) - 2 * dots
+    return dist
+
+
+def check_vq_fwd(name: str, got, want, dist, sq_atol: float = 0.0) -> dict:
+    """A VQ forward's (q, idx, counts, sq) against its plain version's: every
+    differing id a near-tie, q bit-equal where the ids are, counts a bincount of
+    the ids (and the plain counts where no id differs), sq within rtol 1e-5 +
+    sq_atol."""
+    q, idx, counts, sq = got[0], *(t.flatten() for t in got[1:])
+    q_r, idx_r, counts_r, sq_r = want[0], *(t.flatten() for t in want[1:])
+    mismatches, gap, rel_gap = near_ties_by(dist, idx, idx_r, name)
+    same = idx == idx_r
+    if not torch.equal(q[same], q_r[same]):
+        fail(f"{name}: q differs from the plain version's on rows with the same id")
+    if not torch.equal(counts, torch.bincount(idx.long(), minlength=counts.numel()).float()):
+        fail(f"{name}: counts differ from a bincount of its ids")
+    if not mismatches and not torch.equal(counts, counts_r):
+        fail(f"{name}: counts differ from the plain version's")
+    sq_err = abs(sq.item() - sq_r.item())
+    if sq_err > 1e-5 * abs(sq_r.item()) + sq_atol:
+        fail(f"{name}: sq {sq.item()} against {sq_r.item()} (atol {sq_atol:.3e})")
+    return dict(max_abs_err=gap, index_mismatches=mismatches, max_tie_gap=rel_gap,
+                sq_rel_err=sq_err / abs(sq_r.item()))
+
+
+def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
+    """The port's two VQ measurement tools through their entry points at their
+    full N, then #8 and #9's new modes against their plain versions on the
+    tools' own inputs."""
+    from msla_tpu_torch.ops import (vq_lean_fwd, vq_lean_fwd_ref, vq_precision_bwd,
+                                    vq_precision_bwd_ref, vq_precision_fwd, vq_precision_fwd_ref)
+    from msla_tpu_torch.ops.vq_lean import sq_error_bound
+    from msla_tpu_torch.ops.vq_precision import dotted_norms, split_bf16
+    from msla_tpu_torch.tools import bench_vq_lean, bench_vq_precision
+
+    for k in kernels:
+        k.launches = 0
+    vq_precision_fwd.mode_launches.clear()
+    tools = {"bench_vq_lean": bench_vq_lean.main(device=dev),
+             "bench_vq_precision": bench_vq_precision.main(device=dev)}
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    modes = {m: vq_precision_fwd.mode_launches[m] for m in VQ_TOOL_MODES}
+    path = ("vq_lean_fwd", "vq_precision_fwd", "vq_precision_bwd", "vq_fused_fwd",
+            "vq_codebook_grad")
+    if any(counts[name] == 0 for name in path) or 0 in modes.values():
+        fail(f"a kernel of the VQ tools' path never launched: {counts}, modes {modes}")
+    tools.update(launches=counts, mode_launches=modes)
+    print(f"[vq tools] launches {counts}, #9 forward by mode {modes}", flush=True)
+
+    k_codes = bench_vq_lean.K
+    report = []
+    with torch.no_grad():
+        # #8 in both regimes of its tool; timed on the random rows, as the tool times it
+        cb, x_rand, x_conv = bench_vq_lean.inputs(bench_vq_lean.N, dev)
+        checks = {}
+        for regime, x in (("random", x_rand), ("converged", x_conv)):
+            got = vq_lean_fwd(x, cb)
+            torch.cuda.synchronize()
+            checks[regime] = check_vq_fwd(f"vq_lean_fwd ({regime})", got, vq_lean_fwd_ref(x, cb),
+                                          l2_dist(x, cb), sq_error_bound(x))
+        x = x_rand
+        e2 = (cb * cb).sum(1)
+
+        def lean_library():  # addmm + min + index_select + bincount + (x.x).sum
+            m, i = torch.addmm(e2, x, cb.T, alpha=-2.0).min(dim=1)
+            return (cb.index_select(0, i), torch.bincount(i, minlength=k_codes),
+                    ((x * x).sum(1) + m).sum())
+
+        q, idx, counts_out, sq = vq_lean_fwd(x, cb)
+        report.append(dict(
+            checks["random"], name="vq_lean_fwd", route="cuda",
+            source="msla_tpu_torch/csrc/vq_lean.cu", replaces="tools/bench_vq_lean.py:32",
+            sq_rel_err_converged=checks["converged"]["sq_rel_err"],
+            index_mismatches_converged=checks["converged"]["index_mismatches"],
+            sq_atol_converged=sq_error_bound(x_conv),
+            ms=time_ms(lambda: vq_lean_fwd(x, cb)), plain_ms=time_ms(lambda: vq_lean_fwd_ref(x, cb)),
+            gather_ms=time_ms(lambda: cb.index_select(0, idx)),
+            library_ms=time_ms(lean_library),
+            library_call="addmm(e2, x, cb.T, alpha=-2) + min + index_select + bincount + "
+                         "(x*x).sum, fp32",
+            flop=2 * x.shape[0] * k_codes * 64,
+            bytes=nbytes(x, cb, q, idx, counts_out, sq)))
+        del cb, x_rand, x_conv, x, q, idx
+
+        # #9: the new forward modes, then the split2 gradient, on the precision tool's inputs
+        x, cb, g = bench_vq_precision.inputs(bench_vq_precision.N, dev)
+        n = x.shape[0]
+        for mode in VQ_TOOL_MODES:
+            dist_mode, quant_mode = mode.split("/")
+            got = vq_precision_fwd(x, cb, dist_mode, quant_mode)
+            torch.cuda.synchronize()
+            check = check_vq_fwd(f"vq_precision_fwd {mode}", got,
+                                 vq_precision_fwd_ref(x, cb, dist_mode, quant_mode),
+                                 mode_dist(x, cb, dist_mode))
+            hi, lo = split_bf16(cb)
+            e2 = dotted_norms(hi, lo, dist_mode)
+            q_cb = cb if quant_mode == "f32" else hi.float() + lo.float()
+
+            def library():  # bf16 addmm chain, fp32 out + argmin + gather + bincount + sum
+                xh, xl = split_bf16(x)
+                dist = torch.addmm(e2, xh, hi.T, alpha=-2.0, out_dtype=torch.float32)
+                if dist_mode == "split3":
+                    for a, b in ((xh, lo), (xl, hi)):
+                        dist = torch.addmm(dist, a, b.T, alpha=-2.0, out_dtype=torch.float32)
+                i = dist.argmin(dim=1)
+                qq = q_cb.index_select(0, i)
+                return torch.bincount(i, minlength=k_codes), ((qq - x) ** 2).sum()
+
+            products = 3 if dist_mode == "split3" else 1
+            report.append(dict(
+                check, name=f"vq_precision_fwd[{mode}]", route="cuda",
+                source="msla_tpu_torch/csrc/vq_precision.cu",
+                replaces="tools/bench_vq_precision.py:35", launches=modes[mode],
+                ms=time_ms(lambda: vq_precision_fwd(x, cb, dist_mode, quant_mode)),
+                plain_ms=time_ms(lambda: vq_precision_fwd_ref(x, cb, dist_mode, quant_mode)),
+                library_ms=time_ms(library),
+                library_call=f"{products} bf16 addmm (cuBLAS tensor cores, fp32 output by "
+                             f"out_dtype, not rounded) + argmin + index_select + bincount + sum",
+                flop=2 * n * k_codes * 64 * products, flop_type="bf16",
+                bytes=nbytes(x, cb, *got)))
+            del got
+
+        idx = vq_precision_fwd(x, cb, "f32", "f32")[1][:, 0]
+        dcb = vq_precision_bwd(g, idx, "split2")
+        torch.cuda.synchronize()
+        want = vq_precision_bwd_ref(g, idx, "split2")
+        err = (dcb - want).abs().max().item()
+        if err > 1e-5 * want.abs().max().item():
+            fail(f"vq_precision_bwd split2: max abs error {err:.3e} against the plain version")
+        if not torch.equal(dcb, vq_precision_bwd(g, idx, "split2")):
+            fail("vq_precision_bwd split2: two runs differ")
+        ids = idx.long()
+
+        def bwd_library():  # the bf16 split, then two index_add_
+            hi, lo = split_bf16(g)
+            sums = torch.zeros((2, k_codes, 64), device=dev)
+            sums[0].index_add_(0, ids, hi.float())
+            sums[1].index_add_(0, ids, lo.float())
+            return sums[0] + sums[1]
+
+        report.append(dict(
+            name="vq_precision_bwd[split2]", route="cuda",
+            source="msla_tpu_torch/csrc/vq_precision.cu",
+            replaces="tools/bench_vq_precision.py:139", max_abs_err=err,
+            ms=time_ms(lambda: vq_precision_bwd(g, idx, "split2")),
+            plain_ms=time_ms(lambda: vq_precision_bwd_ref(g, idx, "split2")),
+            library_ms=time_ms(bwd_library),
+            library_call="bf16 split + two index_add_", flop=2 * n * 64,
+            bytes=nbytes(g, idx, dcb)))
+        report[0]["launches"] = counts["vq_lean_fwd"]
+        report[-1]["launches"] = counts["vq_precision_bwd"]
+        for k in report:
+            k["path"] = "vq_tools"
+        del x, cb, g, idx, dcb, want
+    torch.cuda.empty_cache()
+    return tools, with_bounds(report)
+
+
 class Phases:
     """Prints each phase's seconds as it ends, and keeps them."""
 
@@ -1090,12 +1307,18 @@ def main() -> int:
         k.update(path="audio_bert_serving", launches=bert_serving["launches"][k["name"]],
                  launches_per_call=bert_serving["launches_per_call"][k["name"]])
 
+    # 12. the VQ measurement tools, and their kernels against their plain versions
+    vq_tools, vq_tools_report = phase("12 VQ measurement variants", phase_vq_tools, KERNELS,
+                                    dev)
+
     print(json.dumps({"card": smi, "ptxas": ptxas, "phase_s": phase.seconds,
                       "main_path": main_path, "cpu_vs_card": agreement,
                       "gradients": gradients, "training": training,
                       "audio_bert_serving": bert_serving,
-                      "audio_bert_cpu_vs_card": bert_agreement}), flush=True)
-    print(json.dumps({"kernels": report + train_report + bert_report}), flush=True)
+                      "audio_bert_cpu_vs_card": bert_agreement, "vq_tools": vq_tools}),
+          flush=True)
+    print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

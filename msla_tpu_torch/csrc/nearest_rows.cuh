@@ -1,6 +1,6 @@
-// The L2 nearest-code search shared by nearest_codes.cu and vq_fused.cu: two
-// rows of x held in registers against a codebook and its |e|^2 in shared
-// memory.
+// The L2 nearest-code search shared by nearest_codes.cu, vq_fused.cu and
+// vq_lean.cu: two rows of x held in registers against a codebook and its
+// |e|^2 in shared memory.
 //
 // dist = |e_k|^2 - 2 x . e_k (|x|^2 is constant per row and dropped), the
 // expression of the TPU kernels, in fp32 FMA. Codes are walked two at a time,
@@ -62,6 +62,20 @@ __device__ __forceinline__ void nearest_two(const float (&xa)[D], const float (&
     d = ea - 2.0f * db0; if (d < best_b) { best_b = d; ib = k; }
     d = eb - 2.0f * db1; if (d < best_b) { best_b = d; ib = k + 1; }
   }
+}
+
+// The dist of row xr to code k, |e_k|^2 - 2 x . e_k, summed in the order
+// nearest_two sums it: for the chosen code, the same bits as its minimum.
+__device__ __forceinline__ float dist_to(const float (&xr)[D], const float4* __restrict__ cb4,
+                                         const float* __restrict__ e2s, int k) {
+  float dot = 0.0f;
+#pragma unroll
+  for (int i = 0; i < D / 4; ++i) {
+    const float4 e = cb4[k * (D / 4) + i];
+    dot = fmaf(xr[4 * i], e.x, dot); dot = fmaf(xr[4 * i + 1], e.y, dot);
+    dot = fmaf(xr[4 * i + 2], e.z, dot); dot = fmaf(xr[4 * i + 3], e.w, dot);
+  }
+  return e2s[k] - 2.0f * dot;
 }
 
 }  // namespace nearest_rows

@@ -39,11 +39,13 @@
 // block takes one contiguous run of rows and writes its accumulator as a
 // partial; a second kernel sums the partials in block order. Deterministic.
 #include "nearest_rows.cuh"
+#include "vq_common.cuh"
 
 namespace {
 
 using nearest_rows::D;
-constexpr unsigned FULL = 0xffffffffu;
+using vq_common::add4;
+using vq_common::FULL;
 
 // ---- forward ------------------------------------------------------------------
 
@@ -73,14 +75,6 @@ __device__ __forceinline__ float sq_err(const float (&xr)[D], const float* __res
   return s;
 }
 
-__device__ __forceinline__ void count(int* hist, int code, bool valid, int lane) {
-  const unsigned active = __ballot_sync(FULL, valid);
-  if (valid) {
-    const unsigned peers = __match_any_sync(active, code);
-    if (lane == __ffs(peers) - 1) atomicAdd(&hist[code], __popc(peers));
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
                     const float* __restrict__ e2, float* __restrict__ q,
@@ -90,7 +84,6 @@ vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   float* cbs = smem;                                   // [K][D]
   float* e2s = cbs + (size_t)k_codes * D;              // [K]
   int* hist = reinterpret_cast<int*>(e2s + k_codes);   // [K]
-  __shared__ double warp_sq[THREADS / 32];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = tid; i < k_codes * D; i += THREADS) cbs[i] = cb[i];
@@ -120,36 +113,14 @@ vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
       idx[rb] = ib;
       acc += sq_err(xb, cbs + ib * D);
     }
-    count(hist, ia, ra < n, lane);
-    count(hist, ib, rb < n, lane);
+    vq_common::count(hist, ia, ra < n, lane);
+    vq_common::count(hist, ib, rb < n, lane);
     const long long warp_row = blk * ROWS_PER_BLOCK + warp * 32;
     store_rows(q4, cb4, warp_row, n, ia, lane);
     store_rows(q4, cb4, warp_row + THREADS, n, ib, lane);
   }
 
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
-  if (lane == 0) warp_sq[warp] = acc;
-  __syncthreads();  // also: every warp's histogram adds are done
-  if (tid == 0) {
-    double s = 0.0;
-    for (int w = 0; w < THREADS / 32; ++w) s += warp_sq[w];
-    sq_part[blockIdx.x] = s;
-  }
-  for (int k = tid; k < k_codes; k += THREADS)
-    if (hist[k]) atomicAdd(&counts_i[k], hist[k]);
-}
-
-__global__ void vq_fused_finish_kernel(const int* __restrict__ counts_i,
-                                       const double* __restrict__ sq_part, int parts,
-                                       float* __restrict__ counts, float* __restrict__ sq,
-                                       int k_codes) {
-  for (int k = threadIdx.x; k < k_codes; k += blockDim.x) counts[k] = (float)counts_i[k];
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int p = 0; p < parts; ++p) s += sq_part[p];
-    *sq = (float)s;
-  }
+  vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
 }
 
 // ---- codebook gradient ----------------------------------------------------------
@@ -175,10 +146,6 @@ __device__ __forceinline__ RowSlice fetch(const float* __restrict__ g,
     s.hi = p[1];
   }
   return s;
-}
-
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
 
 __global__ void __launch_bounds__(GRAD_THREADS, 1)
@@ -225,22 +192,6 @@ vq_codebook_grad_kernel(const float* __restrict__ g, const int* __restrict__ idx
     out[i] = acc[(i / D) * ACC_STRIDE + i % D];
 }
 
-__global__ void vq_codebook_grad_reduce_kernel(const float* __restrict__ partials, int parts,
-                                               int kd, float* __restrict__ dcb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= kd) return;
-  float s = 0.0f;
-  for (int p = 0; p < parts; ++p) s += partials[(size_t)p * kd + i];
-  dcb[i] = s;
-}
-
-int sm_count(int* sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-}
-
 }  // namespace
 
 // q (n, D), idx (n,), counts (K,) and sq () are the outputs; counts_i (K,) int
@@ -252,24 +203,15 @@ extern "C" int vq_fused_fwd(const float* x, const float* cb, const float* e2, fl
                             void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)k_codes * (D + 2) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      vq_fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  if (int e = sm_count(&sms)) return e;
-  if ((err = cudaMemsetAsync(counts_i, 0, (size_t)k_codes * sizeof(int), s)) != cudaSuccess)
-    return (int)err;
   const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  long long grid = blocks < sms ? blocks : sms;
-  if (grid > max_parts) grid = max_parts;
-  if (grid > 0) {
-    vq_fused_fwd_kernel<<<(int)grid, THREADS, smem, s>>>(x, cb, e2, q, idx, counts_i,
-                                                         sq_part, n, k_codes);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  vq_fused_finish_kernel<<<1, 512, 0, s>>>(counts_i, sq_part, (int)grid, counts, sq,
-                                           k_codes);
-  return (int)cudaGetLastError();
+  int grid = 0;
+  if (int e = vq_common::fwd_begin(vq_fused_fwd_kernel, smem, counts_i, k_codes, blocks,
+                                   max_parts, s, &grid))
+    return e;
+  if (grid > 0)
+    vq_fused_fwd_kernel<<<grid, THREADS, smem, s>>>(x, cb, e2, q, idx, counts_i, sq_part, n,
+                                                    k_codes);
+  return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
 }
 
 // dcb (K, D) is the output; partials (max_parts, K, D) is scratch. The wrapper
@@ -283,7 +225,7 @@ extern "C" int vq_codebook_grad(const float* g, const int* idx, float* dcb, floa
       vq_codebook_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int sms = 0;
-  if (int e = sm_count(&sms)) return e;
+  if (int e = vq_common::sm_count(&sms)) return e;
   long long grid = (n + 31) / 32;  // at least 32 rows a block
   if (grid > sms) grid = sms;
   if (grid > max_parts) grid = max_parts;
@@ -295,7 +237,7 @@ extern "C" int vq_codebook_grad(const float* g, const int* idx, float* dcb, floa
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int kd = k_codes * D;
-  vq_codebook_grad_reduce_kernel<<<(kd + 255) / 256, 256, 0, s>>>(partials, (int)grid, kd,
-                                                                  dcb);
+  vq_common::grad_reduce_kernel<<<(kd + 255) / 256, 256, 0, s>>>(partials, (int)grid, kd, 1,
+                                                                 dcb);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,10 @@ SIGNATURES = {
     "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "mlm_argmax_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
     "mlm_argmax_conf_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
+    "vq_lean_fwd": ("vq_lean", [P, P, P, P, P, P, P, P, I32, I64, I32, P]),
+    "vq_precision_fwd": ("vq_precision", [I32, I32, P, P, P, P, P, P, P, P, P, P, P, I32, I64,
+                                          I32, P]),
+    "vq_precision_bwd_split2": ("vq_precision", [P, P, P, P, I32, I64, I32, P]),
 }
 SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 

@@ -21,6 +21,17 @@ from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref
 _GRAD_STAGE_BYTES = 8 * 64 * 16  # the codebook-gradient kernel's per-warp row staging
 
 
+def count_outputs(k: int, dev: torch.device):
+    """A VQ forward kernel's counts (K,) fp32 and sq () fp32, the integer counts
+    and per-block fp64 partials it sums them in (``csrc/vq_common.cuh``), and
+    the most blocks it may launch."""
+    parts = sm_count(dev)
+    return (torch.empty((k,), dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.float32, device=dev),
+            torch.empty((k,), dtype=torch.int32, device=dev),
+            torch.empty((parts,), dtype=torch.float64, device=dev), parts)
+
+
 def vq_fused_fwd_ref(flat_x: torch.Tensor, codebook: torch.Tensor):
     """Plain version: matmul distances and argmin (``nearest_codes_ref``),
     ``index_select``, ``bincount`` and a sum. Returns (q, idx, counts, sq)."""
@@ -43,13 +54,9 @@ def vq_fused_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
         raise ValueError(f"vq_fused_fwd: the kernel takes an even number of codes "
                          f"whose codebook fits in shared memory, got K={k}")
     dev = flat_x.device
-    parts = sm_count(dev)
     q = torch.empty((n, D), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    counts = torch.empty((k,), dtype=torch.float32, device=dev)
-    sq = torch.empty((), dtype=torch.float32, device=dev)
-    counts_i = torch.empty((k,), dtype=torch.int32, device=dev)     # scratch
-    sq_part = torch.empty((parts,), dtype=torch.float64, device=dev)  # scratch
+    counts, sq, counts_i, sq_part, parts = count_outputs(k, dev)
     e2 = code_norms(codebook)
     check("vq_fused_fwd", kernel("vq_fused_fwd")(
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), q.data_ptr(), idx.data_ptr(),

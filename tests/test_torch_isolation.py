@@ -43,12 +43,15 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/train/trainer.py", "msla_tpu_torch/ops/flash_attn.py",
                      "msla_tpu_torch/ops/mlm_argmax.py", "msla_tpu_torch/nn/attention.py",
                      "msla_tpu_torch/nn/bert.py", "msla_tpu_torch/models/bert.py",
-                     "msla_tpu_torch/utils/jax_compat.py", "chip_smoke.py"):
+                     "msla_tpu_torch/utils/jax_compat.py", "msla_tpu_torch/ops/vq_lean.py",
+                     "msla_tpu_torch/ops/vq_precision.py",
+                     "msla_tpu_torch/tools/bench_vq_lean.py",
+                     "msla_tpu_torch/tools/bench_vq_precision.py", "chip_smoke.py"):
         assert expected in names
 
 
 @pytest.mark.parametrize("name", ["conv_stem", "deconv_stem", "nearest_codes", "vq_fused",
-                                  "flash_attn", "mlm_argmax"])
+                                  "flash_attn", "mlm_argmax", "vq_lean", "vq_precision"])
 def test_kernel_wrappers_have_no_fallback(name):
     tree = ast.parse((ROOT / "msla_tpu_torch" / "ops" / f"{name}.py").read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
