@@ -36,10 +36,15 @@ Phases, each of which raises (exit code != 0) when its check fails:
   9. the Audio-BERT kernels against their plain versions on the card: #7
      flash_attn at one layer's shapes of the batch-16 call (352 sequences x
      12 heads x 512 x 64, rows of padding and sequences of padding alone
-     included; atol = rtol = 1e-4), #6 mlm_argmax and mlm_argmax_conf at
-     M = 180,224 rows (compared on the first 16,384: every differing id a
-     near-tie, conf at rtol 1e-4) and on planted ties (the lowest index must
-     win), each timed as in phase 3 beside one library call;
+     included; atol = rtol = 1e-4), #6 mlm_argmax and mlm_argmax_conf (3xTF32
+     on the tensor cores) at M = 180,224 rows (all rows compared: every
+     differing id a near-tie, conf at rtol 1e-4 and the same bits twice, the
+     two variants' ids equal), on planted ties (the lowest index must win),
+     on planted close pairs 1e-4 apart that one TF32 pass would tie (the
+     larger must win, the gap within what the accumulation may lose) and on
+     coherent rows (logits of 83 whose terms all add: the kernel's error
+     against fp64 within that bound, printed beside cuBLAS fp32's), each
+     timed as in phase 3 beside one library call;
  10. the Audio-BERT serving path through the user's entry points: an
      AudioGenerator over the full-width bert-base AudioBertTask (seed 0)
      and phase 8's VQ-VAE, with its codebook CSV: batch-16
@@ -78,6 +83,7 @@ import numpy as np
 import torch
 
 PEAK_FLOPS = {"fp32": 67e12,     # H100 SXM, fp32 outside the tensor cores (data sheet)
+              "tf32": 495e12,    # H100 SXM, TF32 dense on the tensor cores (data sheet)
               "bf16": 989e12}    # H100 SXM, bf16 dense on the tensor cores (data sheet)
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 MODEL = dict(num_hidden=128, num_residual_layer=2, num_residual_hidden=32,
@@ -92,7 +98,6 @@ OUT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"  # codebook C
 BERT_BATCH = 16                        # the JAX package's BERT batch (bench.py:74)
 BERT_SEQS = 352                        # 16 rows x 22 windows of 512: one folded call
 BERT_ROWS = BERT_SEQS * 512            # M of the fused argmax
-ARGMAX_CHECK_ROWS = 16_384             # rows held against the plain logits (2 GB)
 GEN_HOST_RUNS = 5                      # timed corrupt_and_generate calls
 
 
@@ -239,11 +244,13 @@ def phase_kernels(net, dev) -> list[dict]:
 
 def with_bounds(report: list[dict]) -> list[dict]:
     """Add each kernel's bound from its FLOP (at the peak of its "flop_type",
-    fp32 unless it says bf16) and bytes, and print its line."""
+    fp32 unless it says tf32 or bf16) and bytes, and print its line."""
     for k in report:
         k["bound_ms"], k["bound_by"] = bound(k["flop"], k["bytes"],
                                              PEAK_FLOPS[k.setdefault("flop_type", "fp32")])
-        extra = {key: k[key] for key in ("index_mismatches", "max_tie_gap", "ms_uniform_ids",
+        extra = {key: k[key] for key in ("index_mismatches", "max_tie_gap", "fp32_bound_ms",
+                                         "three_products_ms", "planted_close_pairs",
+                                         "coherent_logit_err", "ms_uniform_ids",
                                          "max_abs_err_uniform_ids", "sq_rel_err",
                                          "sq_rel_err_converged") if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
@@ -824,24 +831,28 @@ def phase_bert_kernels(bert_task, dev) -> list[dict]:
         del q, k, v, out, bhsd, additive
         torch.cuda.empty_cache()
 
-        # #6 at M = 180,224 rows against the model's tied decoder
+        # #6 at M = 180,224 rows against the model's tied decoder, all rows held
+        # against the plain version (in its 4,096-row chunks)
         emb = bert_task._decoder_weights()[0]
         bias = torch.randn((emb.shape[0],), generator=g, device=dev) * 0.1
         h = torch.randn((BERT_ROWS, 768), generator=g, device=dev)
-        hc = h[:ARGMAX_CHECK_ROWS]
         ids = mlm_argmax(h, emb, bias)
         ids_c, conf_c = mlm_argmax_conf(h, emb, bias)
         torch.cuda.synchronize()
-        want_ids, want_conf = mlm_argmax_ref(hc, emb, bias, with_conf=True)
-        mismatches, gap = mlm_near_ties(hc, emb, bias, ids[:ARGMAX_CHECK_ROWS], want_ids)
-        mismatches_c, gap_c = mlm_near_ties(hc, emb, bias, ids_c[:ARGMAX_CHECK_ROWS], want_ids)
+        want_ids, want_conf = mlm_argmax_ref(h, emb, bias, with_conf=True)
+        mismatches, gap = mlm_near_ties(h, emb, bias, ids, want_ids)
+        mismatches_c, gap_c = mlm_near_ties(h, emb, bias, ids_c, want_ids)
+        print(f"[mlm_argmax] {BERT_ROWS} rows: {mismatches} near-tie mismatches (largest "
+              f"relative gap {gap:.3e}), conf variant {mismatches_c} ({gap_c:.3e})", flush=True)
         if not torch.equal(ids, ids_c):
             fail("mlm_argmax and mlm_argmax_conf pick different ids")
-        conf_err = check_close("mlm_argmax_conf conf", conf_c[:ARGMAX_CHECK_ROWS], want_conf,
-                               atol=0.0, rtol=1e-4)
+        conf_err = check_close("mlm_argmax_conf conf", conf_c, want_conf, atol=0.0, rtol=1e-4)
         if not torch.equal(conf_c, mlm_argmax_conf(h, emb, bias)[1]):
             fail("mlm_argmax_conf: two runs give different confidences")
+        del want_ids, want_conf
         ties = planted_ties(h, emb, bias)
+        close_pairs = planted_close_pairs(h, emb, bias)
+        coherent = coherent_logit_errors(h)
 
         def library(with_conf):  # addmm + argmax (+ logsumexp) over row chunks
             for chunk in h.split(4096):
@@ -850,7 +861,7 @@ def phase_bert_kernels(bert_task, dev) -> list[dict]:
                 if with_conf:
                     torch.logsumexp(logits, dim=-1)
 
-        flop = 2 * BERT_ROWS * emb.shape[0] * 768
+        flop = 2 * BERT_ROWS * emb.shape[0] * 768  # the function's, held at the TF32 peak
         for name, line, with_conf in (("mlm_argmax", 47, False), ("mlm_argmax_conf", 67, True)):
             fn = mlm_argmax_conf if with_conf else mlm_argmax
             outs = (ids_c, conf_c) if with_conf else (ids,)
@@ -859,15 +870,19 @@ def phase_bert_kernels(bert_task, dev) -> list[dict]:
                 replaces=f"msla_tpu/ops/mlm_argmax.py:{line}",
                 max_abs_err=conf_err if with_conf else gap,
                 index_mismatches=mismatches_c if with_conf else mismatches,
-                max_tie_gap=gap_c if with_conf else gap, rows_compared=ARGMAX_CHECK_ROWS,
-                planted_ties=ties,
+                max_tie_gap=gap_c if with_conf else gap, rows_compared=BERT_ROWS,
+                planted_ties=ties, planted_close_pairs=close_pairs, coherent_logit_err=coherent,
+                fp32_bound_ms=bound(flop, nbytes(h, emb, bias, *outs))[0],
+                # the design's own floor: 3xTF32 runs three products at the TF32 peak
+                three_products_ms=bound(3 * flop, nbytes(h, emb, bias, *outs),
+                                        PEAK_FLOPS["tf32"])[0],
                 ms=time_ms(lambda: fn(h, emb, bias)),
                 plain_ms=time_ms(lambda: mlm_argmax_ref(h, emb, bias, with_conf=with_conf)),
                 library_ms=time_ms(lambda: library(with_conf)),
                 library_call="addmm + argmax" + (" + logsumexp" if with_conf else "")
                 + ", 4,096-row chunks",
-                flop=flop, bytes=nbytes(h, emb, bias, *outs)))
-        del h, hc, ids, ids_c, conf_c
+                flop=flop, flop_type="tf32", bytes=nbytes(h, emb, bias, *outs)))
+        del h, ids, ids_c, conf_c
     torch.cuda.empty_cache()
     return with_bounds(report)
 
@@ -900,6 +915,132 @@ def planted_ties(h, emb, bias) -> int:
             fail(f"mlm_argmax planted ties: the {label} did not pick the lower index")
     check_close("mlm_argmax_conf planted ties", conf, want_conf, atol=0.0, rtol=1e-4)
     return n
+
+
+def planted_close_pairs(h, emb, bias) -> int:
+    """2,000 rows, each with two vocab rows lo < hi whose fp64 logits differ by
+    1e-4 of the larger (hi's), far above any other logit: E[lo] = tf32(3·h/|h|)
+    and E[hi] = E[lo] + δ with each |δ_k| under half a TF32 ulp of E[lo]_k, so
+    one TF32 pass sees two equal rows and picks lo. The gap is 10× the near-tie
+    limit: both kernels, the plain version and the 3xTF32 emulation must pick
+    hi. Pairs in adjacent columns (one thread), 8 apart (the thread's next
+    n8 block), 64 apart, 256 apart (the next vocab tile) and across the vocab
+    into the ragged last tile, 400 rows each. The kernel's gap, read back
+    from conf ≈ σ(gap), is held to fp64 within `accumulation_bound`."""
+    from msla_tpu_torch.ops import mlm_argmax, mlm_argmax_conf, mlm_argmax_ref
+    from msla_tpu_torch.ops.mlm_argmax import mlm_logits_3xtf32_ref, tf32_round_ref
+
+    n, v = 2000, emb.shape[0]
+    kind, i = torch.arange(n, device=h.device).div(400, rounding_mode="floor"), \
+        torch.arange(n, device=h.device) % 400
+    lo = torch.stack([2 * i, 1000 + 16 * (i // 8) + i % 8, 2048 + 128 * (i // 64) + i % 64,
+                      3072 + 512 * (i // 256) + i % 256, 5000 + i]).gather(0, kind[None])[0]
+    hi = torch.stack([lo + 1, lo + 8, lo + 64, lo + 256, v - 1 - i]).gather(0, kind[None])[0]
+    hs = h[:n]
+    planted = tf32_round_ref(3.0 * hs / hs.norm(dim=1, keepdim=True))
+    step = torch.sign(hs) * torch.ldexp(torch.ones_like(planted), torch.frexp(planted)[1] - 11)
+    scale = 1e-4 * (hs.double() * planted.double()).sum(1) / (hs.double() * step.double()).sum(1)
+    if (scale >= 0.5).any():
+        fail("planted close pairs: δ would reach half a TF32 ulp")
+    e, b = emb.clone(), bias.clone()
+    e[lo] = planted
+    e[hi] = planted + (scale[:, None] * step.double()).float()
+    b[lo], b[hi] = 0.0, 0.0
+    exact = [(hs.double() * e[c].double()).sum(1) for c in (lo, hi)]
+    rel = ((exact[1] - exact[0]) / exact[1]).aminmax()
+    if rel.min < 5e-5:
+        fail(f"planted close pairs: relative gap {rel.min.item():.3e}, not 1e-4")
+    if not torch.equal(tf32_round_ref(e[lo]), tf32_round_ref(e[hi])):
+        fail("planted close pairs: one TF32 pass would not tie them")
+    emulated = [torch.diagonal(mlm_logits_3xtf32_ref(hs, e[c], b[c])) for c in (lo, hi)]
+    ids = mlm_argmax(hs, e, b)
+    ids_c, conf = mlm_argmax_conf(hs, e, b)
+    want_ids, want_conf = mlm_argmax_ref(hs, e, b, with_conf=True)
+    for label, got in (("kernel", ids), ("conf kernel", ids_c), ("plain version", want_ids)):
+        if not torch.equal(got.long(), hi):
+            fail(f"mlm_argmax planted close pairs: the {label} missed the larger logit in "
+                 f"{(got.long() != hi).sum().item()} of {n} rows")
+    if not (emulated[1] > emulated[0]).all():
+        fail("mlm_argmax planted close pairs: the 3xTF32 emulation missed the larger logit")
+    # conf = σ(gap) here (every other logit is below 10), so the conf variant
+    # gives the kernel's gap l_hi − l_lo: held against fp64 to what the two
+    # logits' accumulations may lose plus the read-back's resolution (conf
+    # carries its fp32 logsumexp's rounding at |l| ≈ 83); cuBLAS fp32's beside it
+    r = torch.arange(n, device=h.device)
+    gap = exact[1] - exact[0]
+    c = conf.double()
+    gap_err = (torch.log(c) - torch.log1p(-c) - gap).abs()
+    limit = accumulation_bound(hs, e[lo]) + accumulation_bound(hs, e[hi]) + 4 * fp32_ulp(exact[1])
+    ratio = (gap_err / limit).max().item()
+    logits = torch.addmm(b, hs, e.T)
+    gap_err_p = ((logits[r, hi] - logits[r, lo]).double() - gap).abs().max().item()
+    print(f"[mlm_argmax] planted close pairs: {n} rows, relative gaps {rel.min.item():.3e}"
+          f"..{rel.max.item():.3e}, every pick the larger; one TF32 pass ties them; gap error "
+          f"against fp64: kernel {gap_err.max().item():.3e} ({ratio:.3f} of its bound), cuBLAS "
+          f"fp32 {gap_err_p:.3e}; conf off the plain version's by at most "
+          f"{(conf - want_conf).abs().max().item():.3e}", flush=True)
+    if ratio > 1:
+        fail(f"mlm_argmax_conf planted close pairs: the gap is off fp64 by {ratio:.2f}x what "
+             f"the kernel's accumulation may lose")
+    return n
+
+
+def fp32_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of fp32 values at |x| (fp64 in and out)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x.abs().float())[1].to(x.device) - 24)
+
+
+def accumulation_bound(hs, e) -> torch.Tensor:
+    """Per row, the most the kernel may lose on h_i·e_i if each of its 288
+    accumulations into the tensor cores' fp32 accumulator (96 k8 steps × its
+    three products) is off by less than one fp32 ulp of the running sum, as
+    an adder that truncates is: Σ_t 3·ulp(max(|S_t−1|, |S_t|)) with S_t the
+    exact sum after step t (fp64)."""
+    s = (hs.double() * e.double()).view(hs.shape[0], 96, 8).sum(2).cumsum(1)
+    prev = torch.cat([torch.zeros_like(s[:, :1]), s[:, :-1]], 1)
+    return 3 * fp32_ulp(torch.maximum(s.abs(), prev.abs()) * (1 + 1e-6)).sum(1)
+
+
+def coherent_logit_errors(h) -> dict:
+    """The kernel's logit error where its fp32 accumulation is hardest, against
+    fp64 and beside cuBLAS fp32's (addmm, as in the plain version) on the same
+    rows: 2,000 rows h_i, each with a vocab row e_i = 83·h_i/|h_i|² (the 768
+    terms of h_i·e_i ≈ 83 all add, as on the planted pairs) under bias −83,
+    and one zero row under bias 0; every other logit is below −40. The bias
+    add is exact near 0, so the conf variant returns σ(|l_i|), the pick gives
+    its sign, and the kernel's l_i = h_i·e_i − 83 comes back to ~3e-7. Fails
+    where the kernel's error exceeds `accumulation_bound` (+ 1e-6 for the
+    read-back). Returns the largest and the mean signed error of each, over 83,
+    and the kernel's largest share of its bound."""
+    from msla_tpu_torch.ops import mlm_argmax_conf
+
+    n, big = 2000, 83.0
+    hs = h[:n]
+    e = torch.cat([big * hs / (hs * hs).sum(1, keepdim=True), hs.new_zeros((1, 768))])
+    b = torch.cat([hs.new_full((n,), -big), hs.new_zeros((1,))])
+    rows = torch.arange(n, device=h.device)
+    ids, conf = mlm_argmax_conf(hs, e, b)
+    own = ids.long() == rows
+    if not (own | (ids == n)).all():
+        fail("coherent rows: a pick is neither the row's own column nor the zero row")
+    c = conf.double()
+    got = torch.where(own, 1.0, -1.0) * (torch.log(c) - torch.log1p(-c))
+    exact = (hs.double() * e[:n].double()).sum(1) - big
+    plain = torch.addmm(b, hs, e.T)[rows, rows].double()
+    out = {}
+    for label, err in (("kernel", got - exact), ("plain", plain - exact)):
+        out[f"{label}_max"] = err.abs().max().item() / big
+        out[f"{label}_mean"] = err.mean().item() / big
+    out["kernel_share_of_bound"] = ((got - exact).abs()
+                                    / (accumulation_bound(hs, e[:n]) + 1e-6)).max().item()
+    print(f"[mlm_argmax] coherent rows: {n} logits of 83 against fp64, relative error: kernel "
+          f"max {out['kernel_max']:.3e} mean {out['kernel_mean']:+.3e} "
+          f"({out['kernel_share_of_bound']:.3f} of its accumulation bound); cuBLAS fp32 max "
+          f"{out['plain_max']:.3e} mean {out['plain_mean']:+.3e}", flush=True)
+    if out["kernel_share_of_bound"] > 1:
+        fail(f"mlm_argmax coherent rows: the kernel's logit error is "
+             f"{out['kernel_share_of_bound']:.2f}x what its accumulation may lose")
+    return out
 
 
 def bert_breakdown(bert_task, vq_task, x: torch.Tensor) -> dict:

@@ -2,10 +2,12 @@
 (port of msla_tpu/ops/mlm_argmax.py).
 
 On CUDA tensors ``mlm_argmax`` and ``mlm_argmax_conf`` launch the two variants
-of the hand-written kernel ``csrc/mlm_argmax.cu``, which never writes the
-(M, V) logits; on CPU tensors they run ``mlm_argmax_ref``, the JAX package's
-``_mlm_argmax_jnp`` math in row chunks. Ties go to the lowest index, as
-``torch.argmax`` and ``jnp.argmax`` give them.
+of the hand-written kernel ``csrc/mlm_argmax.cu``, which computes the logits
+on the tensor cores in 3xTF32 and never writes them; on CPU tensors they run
+``mlm_argmax_ref``, the JAX package's ``_mlm_argmax_jnp`` math in row chunks.
+Ties go to the lowest index, as ``torch.argmax`` and ``jnp.argmax`` give them.
+``tf32_round_ref`` and ``mlm_logits_3xtf32_ref`` emulate the kernel's
+arithmetic for the tests; no wrapper calls them.
 """
 from __future__ import annotations
 
@@ -34,13 +36,41 @@ def mlm_argmax_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     return (torch.cat(ids), torch.cat(conf)) if with_conf else torch.cat(ids)
 
 
+def tf32_round_ref(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half a TF32 ulp to the bit
+    pattern's magnitude and clear the 13 low bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mlm_logits_3xtf32_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
+    """The CUDA kernel's logits on (M, K) rows, emulated with fp32 products of
+    TF32 parts: each operand split as hi = tf32(x), lo = tf32(x − hi), and per
+    8-deep step of the reduction lo_h·hi_E, hi_h·lo_E, then hi_h·hi_E added to
+    one fp32 accumulator; the bias last. Each product of two TF32 parts is
+    exact in fp32. The adds here round to nearest; the card's tensor cores
+    accumulate more coarsely (``csrc/mlm_argmax.cu``), so this shows the
+    split's arithmetic, not the accumulator's. For tests and
+    ``chip_smoke.py``: (M, V) logits."""
+    h_hi, e_hi = tf32_round_ref(h), tf32_round_ref(emb)
+    h_lo, e_lo = tf32_round_ref(h - h_hi), tf32_round_ref(emb - e_hi)
+    acc = h.new_zeros((h.shape[0], emb.shape[0]))
+    for k in range(0, h.shape[1], 8):
+        s = slice(k, k + 8)
+        acc += h_lo[:, s] @ e_hi[:, s].T
+        acc += h_hi[:, s] @ e_lo[:, s].T
+        acc += h_hi[:, s] @ e_hi[:, s].T
+    return acc + bias
+
+
 def _operands(name: str, h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
     m, v = h.shape[0], emb.shape[0]
     require(name, h, "h", (m, K))
     require(name, emb, "emb", (v, K))
     require(name, bias, "bias", (v,))
     if h.data_ptr() % 16 or emb.data_ptr() % 16:
-        raise ValueError(f"{name}: h and emb must be 16-byte aligned (float4 loads)")
+        raise ValueError(f"{name}: h and emb must be 16-byte aligned (16-byte cp.async loads)")
     return m, v
 
 
