@@ -64,7 +64,34 @@ Phases, each of which raises (exit code != 0) when its check fails:
      bit-equal where the ids are, sq at rtol 1e-5, plus the lean form's
      cancellation bound; the gradient within 1e-5 of max |plain| and the
      same bits twice), each timed as in phase 3 beside one library chain;
- 13. one JSON line with every kernel's numbers, then the device line.
+ 13. the bf16 separation kernels (K1 and K2 on bf16 operands, the Pallas
+     kernel's function) against their plain bf16 versions at batch 64
+     (within 2 bf16 ulps; the bit-equal share printed), K1 in bf16 at
+     lengths T not divisible by 4, each timed beside the cuDNN bf16 pair;
+ 14. the bf16 separation path through the user's entry points:
+     SourceSeparator over VQVAETask(compute_dtype="bfloat16") with phase 8's
+     weights, a 60 s song, then timed separations at batch 64 and at
+     fast_serving's 128 (configs/experiment/fast_serving.yaml); K1 and K2
+     must launch in bf16 and K3 in fp32, in the run and in each timed
+     separation (counts read before any timing), then device time and parts;
+ 15. its codes, card against the CPU's plain bf16 path on 2 frames: at
+     least 99 % equal, each differing code a near-tie on the card's latents;
+ 16. the bf16 Audio-BERT kernels (#7, #6, #6b on bf16 operands) against their
+     plain bf16 versions at the batch-16 call's shapes: #7 within
+     2·2⁻⁹·Σ p|v| + 1e-5, every #6 id equal or a near-tie, planted ties to
+     the lowest index, conf at rtol 1e-4, timed beside bf16 SDPA and a bf16
+     addmm chain;
+ 17. the bf16 Audio-BERT serving path: AudioGenerator over a bf16 bert-base
+     AudioBertTask and the bf16 VQ-VAE, as phase 10, timed and in parts;
+ 18. its code_proposals, card against the CPU's plain bf16 path;
+ 19. one JSON line with every kernel's numbers, then the device line.
+The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
+(phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
+residual conv's weight gradient against fp64), and K1 and K1b are held at
+lengths T not divisible by 4 (phases 3 and 6) and through encode_codes
+(phase 4).
+A path's parts (phases 4, 10, 14, 17) come from a torch.profiler trace of
+the path's own call: each kernel's device time, summed by kind of kernel.
 Each phase's seconds are printed as it ends.
 It exits non-zero without a result when no CUDA card is present.
 """
@@ -105,6 +132,20 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
+def reset_counts(kernels) -> None:
+    """Every wrapper's launch counts to 0."""
+    for k in kernels:
+        k.launches.clear()
+
+
+def launch_counts(kernels, dtypes: dict | None = None) -> dict:
+    """Each wrapper's launches by name: all of them, or with ``dtypes`` those
+    on the operand type it gives the wrapper's name (all for a name it lacks)."""
+    from msla_tpu_torch.ops._build import launch_count
+
+    return {k.__name__: launch_count(k, (dtypes or {}).get(k.__name__)) for k in kernels}
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median device time of fn() in ms, each run between two CUDA events."""
     for _ in range(warmup):
@@ -138,6 +179,67 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, atol: float = 
     if (err > atol + rtol * want.abs()).any():
         fail(f"{name}: max abs error {err.max().item():.3e} beyond atol={atol} rtol={rtol}")
     return err.max().item()
+
+
+def check_bf16(name: str, got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor):
+    """A bf16 stem's output against its plain version. The two sum the same
+    exact products in fp32 in another order and round once each: 2 bf16 ulps
+    of the larger magnitude (or 1e-6 near 0). But the hidden layer is rounded
+    to bf16 too, and where the two fp32 sums of a hidden value straddle a
+    rounding point, the two round it apart by one bf16 ulp, at most 2⁻⁷ of
+    it; ``terms`` is Σ |w2|·|h| of each output, so 2⁻⁷·terms bounds what such
+    flips may move it. Every value must be within both parts, and at most
+    1e-4 of the values beyond the first. Returns the largest abs error, the
+    share beyond 2 ulps and the share of bit-equal values."""
+    g, w = got.float(), want.float()
+    if got.dtype != torch.bfloat16 or not torch.isfinite(g).all():
+        fail(f"{name}: a {got.dtype} output, or non-finite values")
+    err = (g - w).abs()
+    ulp = torch.ldexp(torch.ones_like(err), torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    beyond = err > torch.clamp(2 * ulp, min=1e-6)
+    share = beyond.double().mean().item()
+    if (err > torch.clamp(2 * ulp, min=1e-6) + 2.0 ** -7 * terms).any() or share > 1e-4:
+        fail(f"{name}: {beyond.sum().item()} values beyond 2 bf16 ulps (share {share:.2e}), "
+             f"max abs error {err.max().item():.3e}")
+    return err.max().item(), share, (got == want).double().mean().item()
+
+
+def stem_terms(h: torch.Tensor, w2: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """Σ |w2|·|h| of each output of a stem's second layer (k4 s2 p1), fp32."""
+    import torch.nn.functional as F
+
+    conv = F.conv_transpose1d if transposed else F.conv1d
+    return conv(h.float().abs(), w2.float().abs(), None, 2, 1)
+
+
+RAGGED_T = (44_002, 44_003, 44_546)  # T/2 odd; T % 4 = 3; h1's extra row after a whole tile
+
+
+def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
+    """K1 (K1b with ``save_hidden``) at lengths T not divisible by 4, batch 4,
+    against conv_stem_ref: floor(T/4) columns, floor(T/2) hidden rows (the
+    last a real row when T/2 is odd), fp32 at atol = rtol = 1e-4 and bf16
+    as ``check_bf16`` holds it. Returns the largest error at each T."""
+    from msla_tpu_torch.ops import conv_stem, conv_stem_ref, conv_stem_save_hidden
+
+    errs = {}
+    for t in RAGGED_T:
+        x = (torch.randn((4, 4, t), generator=g, device=dev) * 0.3).to(dtype)
+        args = (x, enc.conv1.weight.detach().to(dtype), enc.conv1.bias.detach(),
+                enc.conv2.weight.detach().to(dtype), enc.conv2.bias.detach())
+        want, want_h = conv_stem_ref(*args)
+        got, h = conv_stem_save_hidden(*args) if save_hidden else (conv_stem(*args), None)
+        torch.cuda.synchronize()
+        if got.shape != (4, 128, t // 4) or (h is not None and h.shape != (4, 64, t // 2)):
+            fail(f"conv_stem at T = {t}: shapes {got.shape}, {None if h is None else h.shape}")
+        name = f"conv_stem{'_save_hidden' if save_hidden else ''} {dtype} at T = {t}"
+        if dtype == torch.bfloat16:
+            errs[t] = check_bf16(name, got, want, stem_terms(want_h, args[3], False))[0]
+        else:
+            errs[t] = max(check_close(name, got, want),
+                          check_close(name + " hidden", h, want_h) if save_hidden else 0.0)
+    print(f"[kernel] {'K1b' if save_hidden else 'K1'} {dtype} at ragged T: {errs}", flush=True)
+    return errs
 
 
 def near_ties_by(dist, idx_a, idx_b, what: str = "nearest_codes") -> tuple[int, float, float]:
@@ -198,7 +300,8 @@ def phase_kernels(net, dev) -> list[dict]:
             name="conv_stem", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
             replaces="msla_tpu/ops/conv_stem.py:48", max_abs_err=err,
             ms=time_ms(lambda: conv_stem(*args)), plain_ms=time_ms(lambda: conv_stem_ref(*args)),
-            library_ms=lib, flop=flops, bytes=nbytes(*args, out)))
+            library_ms=lib, flop=flops, bytes=nbytes(*args, out),
+            ragged_t_max_abs_err=ragged_stem(enc, dev, g)))
         del x, out
 
         # K2 at the batch-64 decoder stem input (post-ReLU activations)
@@ -252,7 +355,9 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "three_products_ms", "planted_close_pairs",
                                          "coherent_logit_err", "ms_uniform_ids",
                                          "max_abs_err_uniform_ids", "sq_rel_err",
-                                         "sq_rel_err_converged") if key in k}
+                                         "sq_rel_err_converged", "bit_equal_share",
+                                         "beyond_2_ulps_share", "max_share_of_bound")
+                 if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) {extra or ''}", flush=True)
@@ -270,8 +375,7 @@ def synthetic_mixture(seconds: float, seed: int) -> np.ndarray:
 def phase_main_path(task, kernels) -> dict:
     from msla_tpu_torch.inference import SourceSeparator
 
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     song = synthetic_mixture(SONG_S, seed=2)
     sep = SourceSeparator(task, frame_samples=FRAME, batch_size=16)
     stems = sep.separate(song)
@@ -284,21 +388,22 @@ def phase_main_path(task, kernels) -> dict:
             fail(f"{name}: shape {a.shape} (want {shape}) or non-finite values")
     if codes.min() < 0 or codes.max() >= MODEL["num_embedding"]:
         fail("encode_codes: ids out of range")
+    ragged_frame(task, song)
 
     sep64 = SourceSeparator(task, frame_samples=FRAME, batch_size=BATCH)
     song64 = synthetic_mixture(BATCH * FRAME / SR, seed=3)
     sep64.separate(song64)                           # warm-up
-    before = [k.launches for k in kernels]
+    before = launch_counts(kernels)
     torch.cuda.reset_peak_memory_stats()
     host_s = []
     for _ in range(HOST_RUNS):
         t0 = time.perf_counter()
         out64 = sep64.separate(song64)
         host_s.append(time.perf_counter() - t0)
-    per_batch = {k.__name__: (k.launches - b) // HOST_RUNS for k, b in zip(kernels, before)}
+    counts = launch_counts(kernels)
+    per_batch = {name: (n - before[name]) // HOST_RUNS for name, n in counts.items()}
     if not np.isfinite(out64).all():
         fail("batch-64 separate: non-finite values")
-    counts = {k.__name__: k.launches for k in kernels}
     if min(counts.values()) == 0:
         fail(f"a kernel of the main path never launched: {counts}")
 
@@ -313,37 +418,90 @@ def phase_main_path(task, kernels) -> dict:
                   device_samples_per_s=BATCH * FRAME / (device_ms / 1e3),
                   device_busy_share=device_ms / 1e3 / median,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                  breakdown_ms=breakdown(task.net, model_in))
+                  breakdown_ms=device_parts(lambda: sep64._separate(model_in)))
     print(f"[main] launches={counts} per_batch64={per_batch} batch-64 separate: "
           f"{result['samples_per_s']:.0f} samples/s end to end (median of {HOST_RUNS}), "
           f"{result['device_samples_per_s']:.0f} samples/s on the device", flush=True)
     return result
 
 
-def breakdown(net, x) -> dict:
-    """Device ms of each layer of one batch-64 separation (CUDA events)."""
-    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
-    from msla_tpu_torch.ops import conv_stem, deconv_stem
+def ragged_frame(task, song) -> None:
+    """A frame length not divisible by 4 (F4): encode_codes gives floor(F/4)
+    codes a frame, and separate raises ValueError, as the JAX package's do."""
+    from msla_tpu_torch.inference import SourceSeparator
 
-    enc, dec, vq = net.encoder, net.decoder, net.vector_quantizer
-    with torch.inference_mode(), fp32_convs():
-        h = conv_stem(x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
-        h2 = enc.conv3(h)
-        z = net.conv(enc.residual_stack(h2)).transpose(1, 2).contiguous()
-        q = vq(z, inference=True).quantized_ste.transpose(1, 2).contiguous()
-        d = dec.residual_stack(dec.conv1(q))
-        parts = {
-            "encoder_stem_kernel": lambda: conv_stem(x, enc.conv1.weight, enc.conv1.bias,
-                                                     enc.conv2.weight, enc.conv2.bias),
-            "encoder_conv3_residual": lambda: enc.residual_stack(enc.conv3(h)),
-            "pre_vq_conv": lambda: net.conv(h2).transpose(1, 2).contiguous(),
-            "vector_quantize": lambda: vq(z, inference=True),
-            "decoder_conv1_residual": lambda: dec.residual_stack(dec.conv1(q)),
-            "decoder_stem_kernel": lambda: deconv_stem(
-                d, dec.conv1_transpose.weight, dec.conv1_transpose.bias,
-                dec.conv2_transpose.weight, dec.conv2_transpose.bias),
-        }
-        return {name: time_ms(fn, reps=10, warmup=2) for name, fn in parts.items()}
+    frame = FRAME + 2
+    sep = SourceSeparator(task, frame_samples=frame, batch_size=16)
+    codes = sep.encode_codes(song)
+    if codes.shape != (-(-song.size // frame), frame // 4):
+        fail(f"encode_codes at a frame of {frame}: shape {codes.shape}")
+    try:
+        sep.separate(song)
+    except ValueError:
+        return
+    fail(f"separate took a frame of {frame} samples")
+
+
+#: the part of a breakdown a kernel belongs to: the first entry whose words
+#: its name holds, else "other". The port's kernels of the serving paths by
+#: their __global__ names (K2's holds K1's, so it comes first) ...
+PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_kernel",)),
+              ("K1 conv_stem", ("conv_stem_kernel",)),
+              ("K3 nearest_codes", ("nearest_codes_kernel",)),
+              ("#7 flash_attn", ("flash_attn_kernel",)),
+              ("#6 mlm_argmax", ("mlm_argmax",)))
+#: ... then the libraries' kernels by the words in theirs
+LIBRARY_PARTS = (("cuDNN convs", ("conv", "fprop", "cudnn", "nhwc", "Nhwc")),
+                 ("cuBLAS GEMMs", ("gemm", "nvjet", "gemv", "splitK")))
+
+
+def kernel_part(name: str) -> str:
+    return next((part for part, words in PORT_PARTS + LIBRARY_PARTS
+                 if any(w in name for w in words)),
+                "other: elementwise, casts, reductions, gathers, copies")
+
+
+def device_parts(fn, passes: int = 3) -> dict:
+    """Device ms of the parts of one fn() call, from a torch.profiler trace
+    (CUPTI) of the call: each kernel's device time summed by ``kernel_part``,
+    "kernels" their sum and "idle" the call's device span less it; the
+    median of ``passes`` traced calls. The call is the path's own, so the
+    parts are what the path runs; "top" names its five longest kernels.
+    Each trace follows one untraced warm-up step of the profiler's schedule
+    (a trace started at the call drops its first kernels), and must hold as
+    many of the port's kernels as the wrappers counted launches in the call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from msla_tpu_torch.ops import KERNELS
+
+    ours = {part for part, _ in PORT_PARTS}
+    runs, top = collections.defaultdict(list), collections.Counter()
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the traced one
+                before = sum(launch_counts(KERNELS).values())
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        launched = sum(launch_counts(KERNELS).values()) - before
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]  # the step's own span
+        traced = sum(kernel_part(e.name) in ours for e in kernels)
+        if traced != launched:
+            fail(f"device_parts: the trace holds {traced} of the port's kernels, the "
+                 f"wrappers counted {launched} launches")
+        sums = collections.defaultdict(float)
+        for e in kernels:
+            sums[kernel_part(e.name)] += e.device_time / 1e3
+            top[e.name[:80]] += e.device_time / 1e3 / passes
+        sums["kernels"] = sum(e.device_time for e in kernels) / 1e3
+        span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+        sums["idle"] = span / 1e3 - sums["kernels"]
+        for part, ms in sums.items():
+            runs[part].append(ms)
+    parts = {part: statistics.median(ms + [0.0] * (passes - len(ms))) for part, ms in runs.items()}
+    return dict(parts, top={name: ms for name, ms in top.most_common(5)})
 
 
 def phase_cpu_agreement(task) -> dict:
@@ -404,7 +562,8 @@ def ptxas_report() -> dict:
 
 def kernel_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name:
-    '_ZN12_GLOBAL__N_117mlm_argmax_kernelILb1EEEv...' -> 'mlm_argmax_kernel<true>'."""
+    '_ZN12_GLOBAL__N_117mlm_argmax_kernelILb1EEEv...' -> 'mlm_argmax_kernel<true>',
+    a float or named type argument as 'conv_stem_kernel<float>'."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = ""
     while m := re.match(r"\d+", mangled[pos:]):  # the nested names, length-prefixed
@@ -415,6 +574,10 @@ def kernel_name(mangled: str) -> str:
         values = [{"b0": "false", "b1": "true"}.get(t + v, v)
                   for t, v in re.findall(r"L([a-z]+)(\d+)E", args.group(1))]
         name += f"<{','.join(values)}>"
+    elif mangled[pos:].startswith("IfE"):
+        name += "<float>"
+    elif m := re.match(r"I(\d+)", mangled[pos:]):  # a named type: I13__nv_bfloat16E
+        name += f"<{mangled[pos + m.end():pos + m.end() + int(m.group(1))]}>"
     return name
 
 
@@ -493,7 +656,8 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
             ms=time_ms(lambda: conv_stem_save_hidden(*args)),
             plain_ms=time_ms(lambda: conv_stem_ref(*args)), library_ms=lib,
             flop=2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4),
-            bytes=nbytes(*args, out, h)))
+            bytes=nbytes(*args, out, h),
+            ragged_t_max_abs_err=ragged_stem(enc, dev, g, save_hidden=True)))
         del x, out, h
 
         # K2b at the batch-64 decoder stem input
@@ -614,9 +778,12 @@ def plain_loss(net, batch):
 
 
 def phase_gradients(task, raw: np.ndarray) -> dict:
-    """2 frames of the full-width model: the kernels' path against the plain
-    loss on the card, and one train step against the CPU."""
+    """2 frames of the full-width model: the backward in fp32 (the TF32 flag
+    off while it runs, a residual conv's weight gradient against fp64), the
+    kernels' path against the plain loss on the card, and one train step
+    against the CPU."""
     from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
     dm = in_memory_datamodule([], [], masking=False)
     cpu = VQVAETask(**MODEL, checkpoint_dir=str(OUT_DIR), codebook_file=str(OUT_DIR / "cb.csv"),
@@ -629,10 +796,12 @@ def phase_gradients(task, raw: np.ndarray) -> dict:
         t.net.zero_grad(set_to_none=True)
         if plain:
             loss, z, idx = plain_loss(t.net, batch)
-            loss.backward()
+            with fp32_convs():
+                loss.backward()
         else:
             loss, _ = t.loss_fn(batch, None)
-            loss.backward()
+            with fp32_convs():  # as Trainer._train_step runs it
+                loss.backward()
             with torch.no_grad():
                 z = t.net.encode(batch[0]).reshape(-1, MODEL["embedding_dim"])
                 idx = t.net.vector_quantizer(z).encoding_indices
@@ -656,8 +825,10 @@ def phase_gradients(task, raw: np.ndarray) -> dict:
                     max_tie_gap=gap, max_grad_abs_err=max(errs.values()),
                     grads_compared=len(errs))
 
-    card = run(task)
-    result = {"kernels_vs_plain": compare("card kernels vs plain loss", card,
+    with backward_probe(task.net) as probe:
+        card = run(task)
+    result = {"fp32_backward": probe.check(),
+              "kernels_vs_plain": compare("card kernels vs plain loss", card,
                                           run(task, plain=True))}
     result["card_vs_cpu"] = compare("card vs CPU", card, run(cpu))
     # one Adam step from the same weights and gradients on both devices, then
@@ -681,9 +852,68 @@ def phase_gradients(task, raw: np.ndarray) -> dict:
     return result
 
 
+class backward_probe:
+    """Hooks on the encoder's first residual k3 conv (128 -> 32) during one
+    backward: cuDNN's TF32 flag as its weight gradient is made, and the conv's
+    input and output gradient. ``check`` holds the card's weight gradient
+    against fp64 on the CPU from the same input and output gradient: its error
+    must be under a quarter of what TF32's operand rounding alone costs the
+    same sum (the fp64 gradient of the TF32-rounded operands), so a TF32
+    backward fails it."""
+
+    def __init__(self, net):
+        self.conv = net.encoder.residual_stack.residual_layers[0][1]
+        self.flags, self.saved = [], {}
+
+    def __enter__(self):
+        def forward_hook(_, inputs, out):
+            if out.requires_grad:  # the forward of the backward, not a later no-grad pass
+                self.saved["x"] = inputs[0].detach()
+                out.register_hook(lambda g: self.saved.__setitem__("g", g.detach()))
+
+        self.handles = [
+            self.conv.register_forward_hook(forward_hook),
+            self.conv.weight.register_hook(
+                lambda g: self.flags.append(torch.backends.cudnn.allow_tf32))]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def check(self) -> dict:
+        from msla_tpu_torch.ops.mlm_argmax import tf32_round_ref
+
+        if not self.flags or any(self.flags):
+            fail(f"backward: cuDNN's TF32 flag read {self.flags} while the conv's weight "
+                 "gradient was made (F1)")
+        x, g = self.saved["x"], self.saved["g"]
+        w = self.conv.weight
+
+        def grad64(a, b):
+            return torch.ops.aten.convolution_backward(
+                b.cpu().double(), a.cpu().double(), w.detach().cpu().double(), None, [1], [1],
+                [1], False, [0], 1, [False, True, False])[1]
+
+        exact = grad64(x, g)
+        card_err = (w.grad.cpu().double() - exact).abs().max().item()
+        tf32_err = (grad64(tf32_round_ref(x), tf32_round_ref(g)) - exact).abs().max().item()
+        out = dict(tf32_flag_in_backward=self.flags, residual_conv_grad_err=card_err,
+                   tf32_operand_err=tf32_err, share_of_tf32=card_err / tf32_err)
+        print(f"[gradients] residual conv weight gradient against fp64: {card_err:.3e}, "
+              f"{out['share_of_tf32']:.4f} of TF32's operand rounding ({tf32_err:.3e}); "
+              f"TF32 flag during the backward {self.flags}", flush=True)
+        if card_err > 0.25 * tf32_err:
+            fail("backward: the residual conv's weight gradient is as far from fp64 as TF32 "
+                 "would put it (F1)")
+        return out
+
+
 def timed_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
     """One train step as Trainer._train_step runs it, with CUDA events between
     its parts: augment and mixture, forward, backward, Adam."""
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
     ev[0].record()
     batch = dm.on_after_batch_transfer(dm.train_transform(raw, trainer._generator))
@@ -691,7 +921,8 @@ def timed_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
     trainer._optimizer.zero_grad(set_to_none=True)
     loss, _ = task.loss_fn(batch, trainer._generator)
     ev[2].record()
-    loss.backward()
+    with fp32_convs():
+        loss.backward()
     ev[3].record()
     trainer._optimizer.step()
     ev[4].record()
@@ -709,13 +940,12 @@ def phase_training(task, dm, kernels) -> dict:
     before = {k: v.detach().clone() for k, v in task.net.state_dict().items()}
     trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_BATCHES,
                       limit_val_batches=VAL_BATCHES, seed=0, enable_progress_bar=False)
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     trainer.fit(task, dm)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = launch_counts(kernels)
     if any(counts[name] == 0 for name in path_kernels):
         fail(f"a kernel of the training path never launched: {counts}")
     cm = trainer.callback_metrics
@@ -737,10 +967,9 @@ def phase_training(task, dm, kernels) -> dict:
     for _ in range(2):
         timed_step(trainer, task, dm, raw)
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     parts = [timed_step(trainer, task, dm, raw) for _ in range(10)]
-    per_step = {k.__name__: k.launches // 10 for k in kernels}
+    per_step = {name: n // 10 for name, n in launch_counts(kernels).items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     names = ("augment_and_mixture", "forward", "backward", "adam")
     breakdown = {n: statistics.median(p[i] for p in parts) for i, n in enumerate(names)}
@@ -1043,82 +1272,17 @@ def coherent_logit_errors(h) -> dict:
     return out
 
 
-def bert_breakdown(bert_task, vq_task, x: torch.Tensor) -> dict:
-    """Device ms of the parts of one batch-16 corrupt_and_generate on model
-    input x: CUDA events around each op of one pass, summed by part (median
-    of 3 passes). The pass repeats AudioBertTask.forward op by op."""
-    import torch.nn.functional as F
-
-    from msla_tpu_torch.ops import flash_attn, mlm_argmax
-
-    net = bert_task.bert
-    runs = collections.defaultdict(list)
-    with torch.inference_mode():
-        for _ in range(3):
-            marks = []
-
-            def mark(part):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((part, ev))
-
-            mark("start")
-            codes = vq_task.get_quantized(x).encoding_indices
-            mark("vqvae_get_quantized")
-            tokens, attn, unfold = bert_task._fold(codes.long())
-            h = net.bert.embeddings(tokens[0])
-            mark("embeddings_and_fold")
-            b, s, e = h.shape
-            for layer in net.bert.encoder.layer:
-                sa, ao = layer.attention.self, layer.attention.output
-                qkv = [lin(h).view(b, s, 12, 64) for lin in (sa.query, sa.key, sa.value)]
-                mark("encoder_linears")
-                o = flash_attn(*qkv, attn[0], 0.125)
-                mark("flash_attn")
-                o = ao.dense(o.reshape(b, s, e))
-                mark("encoder_linears")
-                h = ao.LayerNorm(h + o)
-                mark("norms_gelu_residuals")
-                i = layer.intermediate.dense(h)
-                mark("encoder_linears")
-                i = F.gelu(i)
-                mark("norms_gelu_residuals")
-                o = layer.output.dense(i)
-                mark("encoder_linears")
-                h = layer.output.LayerNorm(h + o)
-                mark("norms_gelu_residuals")
-            t = net.cls.predictions.transform
-            h = t.LayerNorm(F.gelu(t.dense(h)))
-            mark("mlm_transform")
-            ids = mlm_argmax(h, *bert_task._decoder_weights())
-            mark("mlm_argmax")
-            code_ids = bert_task._code_ids(unfold(ids[None]))
-            quantized = bert_task.net.codebook.index_select(0, code_ids)
-            quantized = quantized.reshape(x.shape[0], -1, quantized.shape[-1])
-            mark("rescale_and_gather")
-            bert_task.net.head(quantized.transpose(1, 2).contiguous())
-            mark("head")
-            torch.cuda.synchronize()
-            sums = collections.defaultdict(float)
-            for (_, e0), (part, e1) in zip(marks, marks[1:]):
-                sums[part] += e0.elapsed_time(e1)
-            for part, ms in sums.items():
-                runs[part].append(ms)
-    return {part: statistics.median(ms) for part, ms in runs.items()}
-
-
 def phase_bert_serving(bert_task, vq_task, kernels) -> dict:
     from msla_tpu_torch.inference import AudioGenerator
 
     gen = AudioGenerator(bert_task, vq_task)
     stems = synthetic_stems(1, seed=20)[0][:BERT_BATCH]
-    for k in kernels:
-        k.launches = 0
+    reset_counts(kernels)
     out = gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(0))
     codes = gen.sample_codes(width=FRAME // 4, batch=1, rounds=4, seed=0)
     wave = gen.generate_waveform(width=FRAME // 4, batch=1, rounds=4, seed=1)
     torch.cuda.synchronize()
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = launch_counts(kernels)
     for name, a, shape in (("corrupt_and_generate", out, (BERT_BATCH, 4, FRAME)),
                            ("sample_codes", codes, (1, FRAME // 4)),
                            ("generate_waveform", wave, (1, 4, FRAME))):
@@ -1133,20 +1297,24 @@ def phase_bert_serving(bert_task, vq_task, kernels) -> dict:
 
     # timed: batch-16 corrupt_and_generate, host clock, then the device time
     torch.cuda.reset_peak_memory_stats()
-    before = [k.launches for k in kernels]
+    before = launch_counts(kernels)
     host_s = []
     for i in range(GEN_HOST_RUNS):
         t0 = time.perf_counter()
         gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(i))
         host_s.append(time.perf_counter() - t0)
-    per_call = {k.__name__: (k.launches - b) // GEN_HOST_RUNS for k, b in zip(kernels, before)}
+    per_call = {name: (n - before[name]) // GEN_HOST_RUNS
+                for name, n in launch_counts(kernels).items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     noisy = stems.copy()
     noisy[:, 1, :] = np.random.default_rng(0).random(FRAME, dtype=np.float32)
     x = torch.from_numpy(noisy).cuda()
-    with torch.inference_mode():
-        device_ms = time_ms(lambda: bert_task.predict_step(
-            (vq_task.get_quantized(x).encoding_indices, x)), reps=5, warmup=1)
+
+    def call():  # corrupt_and_generate's device work on the corrupted batch
+        with torch.inference_mode():
+            return bert_task.predict_step((vq_task.get_quantized(x).encoding_indices, x))
+
+    device_ms = time_ms(call, reps=5, warmup=1)
     median = statistics.median(host_s)
     codes_per_call = BERT_BATCH * FRAME // 4
     result = dict(launches=counts, launches_per_call=per_call,
@@ -1154,7 +1322,7 @@ def phase_bert_serving(bert_task, vq_task, kernels) -> dict:
                   device_ms=device_ms, codes_per_s=codes_per_call / median,
                   device_codes_per_s=codes_per_call / (device_ms / 1e3),
                   device_busy_share=device_ms / 1e3 / median, peak_mem_gb=peak_gb,
-                  breakdown_ms=bert_breakdown(bert_task, vq_task, x))
+                  breakdown_ms=device_parts(call))
     print(f"[bert] launches={counts} per call={per_call}; batch-16 corrupt_and_generate "
           f"{median * 1e3:.1f} ms end to end (median of {GEN_HOST_RUNS}), {device_ms:.1f} ms "
           f"on the device, {result['codes_per_s']:.0f} codes/s, peak {peak_gb:.2f} GB, "
@@ -1248,14 +1416,12 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
     from msla_tpu_torch.ops.vq_precision import dotted_norms, split_bf16
     from msla_tpu_torch.tools import bench_vq_lean, bench_vq_precision
 
-    for k in kernels:
-        k.launches = 0
-    vq_precision_fwd.mode_launches.clear()
+    reset_counts(kernels)
     tools = {"bench_vq_lean": bench_vq_lean.main(device=dev),
              "bench_vq_precision": bench_vq_precision.main(device=dev)}
     torch.cuda.synchronize()
-    counts = {k.__name__: k.launches for k in kernels}
-    modes = {m: vq_precision_fwd.mode_launches[m] for m in VQ_TOOL_MODES}
+    counts = launch_counts(kernels)
+    modes = {m: vq_precision_fwd.launches[m] for m in VQ_TOOL_MODES}
     path = ("vq_lean_fwd", "vq_precision_fwd", "vq_precision_bwd", "vq_fused_fwd",
             "vq_codebook_grad")
     if any(counts[name] == 0 for name in path) or 0 in modes.values():
@@ -1372,6 +1538,392 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
     return tools, with_bounds(report)
 
 
+BF16_BATCHES = (64, 128)  # the training batch, and fast_serving's (configs/experiment)
+
+
+#: the operand type each kernel of the bf16 serving paths launches on (the VQ stays fp32)
+BF16_PATH = {"conv_stem": torch.bfloat16, "deconv_stem": torch.bfloat16,
+             "nearest_codes": torch.float32, "mlm_argmax": torch.bfloat16,
+             "mlm_argmax_conf": torch.bfloat16, "flash_attn": torch.bfloat16}
+
+
+def phase_bf16_sep_kernels(net16, dev) -> list[dict]:
+    """K1 and K2 on bf16 operands at the batch-64 separation's shapes against
+    their plain bf16 versions on the card, K1 at ragged T, and the cuDNN bf16
+    conv pair as the library yardstick."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import conv_stem, conv_stem_ref, deconv_stem, deconv_stem_ref
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    enc, dec = net16.encoder, net16.decoder
+    w = FRAME // 4
+    report = []
+    with torch.no_grad():
+        x = (torch.randn((BATCH, 4, FRAME), generator=g, device=dev) * 0.3).to(bf)
+        args = (x, enc.conv1.weight.to(bf), enc.conv1.bias, enc.conv2.weight.to(bf),
+                enc.conv2.bias)
+        out = conv_stem(*args)
+        torch.cuda.synchronize()
+        want, h1 = conv_stem_ref(*args)
+        err, beyond, equal = check_bf16("conv_stem bf16", out, want,
+                                        stem_terms(h1, args[3], False))
+        del want, h1
+        lib_w = (args[1], args[2].to(bf), args[3], args[4].to(bf))
+        report.append(dict(
+            name="conv_stem[bf16]", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
+            replaces="msla_tpu/ops/conv_stem.py:48", max_abs_err=err, bit_equal_share=equal,
+            beyond_2_ulps_share=beyond,
+            ragged_t_max_abs_err=ragged_stem(enc, dev, g, torch.bfloat16),
+            ms=time_ms(lambda: conv_stem(*args)), plain_ms=time_ms(lambda: conv_stem_ref(*args)),
+            library_ms=time_ms(lambda: F.relu(F.conv1d(
+                F.relu(F.conv1d(x, lib_w[0], lib_w[1], 2, 1)), lib_w[2], lib_w[3], 2, 1))),
+            library_call="cuDNN bf16 conv1d pair, bf16 biases",
+            flop=2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4), flop_type="bf16",
+            bytes=nbytes(*args, out)))
+        del x, out
+
+        q = torch.rand((BATCH, 128, w), generator=g, device=dev).to(bf)
+        args = (q, dec.conv1_transpose.weight.to(bf), dec.conv1_transpose.bias,
+                dec.conv2_transpose.weight.to(bf), dec.conv2_transpose.bias)
+        out = deconv_stem(*args)
+        torch.cuda.synchronize()
+        want, h = deconv_stem_ref(*args)
+        err, beyond, equal = check_bf16("deconv_stem bf16", out, want,
+                                        stem_terms(h, args[3], True))
+        del want, h
+        lib_w = (args[1], args[2].to(bf), args[3], args[4].to(bf))
+        report.append(dict(
+            name="deconv_stem[bf16]", route="cuda", source="msla_tpu_torch/csrc/deconv_stem.cu",
+            replaces="msla_tpu/ops/deconv_stem.py:35", max_abs_err=err, bit_equal_share=equal,
+            beyond_2_ulps_share=beyond,
+            ms=time_ms(lambda: deconv_stem(*args)),
+            plain_ms=time_ms(lambda: deconv_stem_ref(*args)),
+            library_ms=time_ms(lambda: F.conv_transpose1d(F.relu(F.conv_transpose1d(
+                q, lib_w[0], lib_w[1], 2, 1)), lib_w[2], lib_w[3], 2, 1)),
+            library_call="cuDNN bf16 conv_transpose1d pair, bf16 biases",
+            flop=2 * BATCH * (2 * w * 64 * 128 * 2 + 4 * w * 4 * 64 * 2), flop_type="bf16",
+            bytes=nbytes(*args, out)))
+        del q, out
+    torch.cuda.empty_cache()
+    return with_bounds(report)
+
+
+def phase_bf16_separation(task16, kernels) -> dict:
+    """SourceSeparator with the bf16 VQVAETask through its entry points: a 60 s
+    song (plain, overlap, encode_codes), then timed separations at batch 64
+    and at fast_serving's 128. The launch counts, of the whole run and of one
+    separation at each batch, are read when the entry points' calls end,
+    before any timing or breakdown calls a kernel; then device time and parts."""
+    from msla_tpu_torch.inference import SourceSeparator
+
+    reset_counts(kernels)
+    song = synthetic_mixture(SONG_S, seed=2)
+    sep = SourceSeparator(task16, frame_samples=FRAME, batch_size=16)
+    stems, stems_ov, codes = sep.separate(song), sep.separate(song, overlap=True), \
+        sep.encode_codes(song)
+    for name, a, shape in (("bf16 separate", stems, (4, song.size)),
+                           ("bf16 separate(overlap)", stems_ov, (4, song.size)),
+                           ("bf16 encode_codes", codes, (-(-song.size // FRAME), FRAME // 4))):
+        if a.shape != shape or not np.isfinite(a).all():
+            fail(f"{name}: shape {a.shape} (want {shape}) or non-finite values")
+    if codes.min() < 0 or codes.max() >= MODEL["num_embedding"]:
+        fail("bf16 encode_codes: ids out of range")
+    result, separators = {}, {}
+    for batch in BF16_BATCHES:
+        sep_b = SourceSeparator(task16, frame_samples=FRAME, batch_size=batch)
+        song_b = synthetic_mixture(batch * FRAME / SR, seed=3)
+        sep_b.separate(song_b)                       # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts(kernels, BF16_PATH)
+        host_s = []
+        for _ in range(HOST_RUNS // 2):
+            t0 = time.perf_counter()
+            out = sep_b.separate(song_b)
+            host_s.append(time.perf_counter() - t0)
+        per_batch = {name: (n - before[name]) // len(host_s)
+                     for name, n in launch_counts(kernels, BF16_PATH).items()}
+        if not np.isfinite(out).all():
+            fail(f"bf16 batch-{batch} separate: non-finite values")
+        if min(per_batch.values()) == 0:
+            fail(f"a batch-{batch} bf16 separation launched a kernel of its path on its "
+                 f"operand type no time: {per_batch}")
+        q1, median, q3 = statistics.quantiles(host_s, n=4)
+        result[f"batch{batch}"] = dict(
+            launches_per_batch=per_batch,
+            host_s=dict(n=len(host_s), median=median, q1=q1, q3=q3, min=min(host_s),
+                        max=max(host_s)),
+            samples_per_s=batch * FRAME / median,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        separators[batch] = sep_b, sep_b._model_input(song_b.reshape(batch, FRAME))
+    counts = launch_counts(kernels, BF16_PATH)
+    if min(counts.values()) == 0:
+        fail(f"a kernel of the bf16 separation path never launched in bf16: {counts}")
+    result["launches"] = counts
+
+    for batch, (sep_b, model_in) in separators.items():
+        r = result[f"batch{batch}"]
+        r["device_ms"] = time_ms(lambda: sep_b._separate(model_in), reps=10, warmup=2)
+        r.update(device_samples_per_s=batch * FRAME / (r["device_ms"] / 1e3),
+                 device_busy_share=r["device_ms"] / 1e3 / r["host_s"]["median"],
+                 breakdown_ms=device_parts(lambda: sep_b._separate(model_in)))
+        print(f"[bf16 separation] batch {batch}: {r}", flush=True)
+    return result
+
+
+def phase_bf16_separation_cpu(task16) -> dict:
+    """The card's bf16 codes against the CPU's plain bf16 path on 2 frames:
+    at least 99 % equal, each differing code a near-tie on the card's own
+    latents: the two picks' fp64 distance gap within 4 bf16 ulps of each term
+    of 2·z·(e_a − e_b), what the two latents' bf16 roundings may move it."""
+    from msla_tpu_torch.models.vqvae import VQVAETask
+
+    cpu = VQVAETask(**MODEL, checkpoint_dir=".", codebook_file="codebook.csv", device="cpu",
+                    compute_dtype="bfloat16")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in task16.net.state_dict().items()})
+    frames = synthetic_mixture(2 * FRAME / SR, seed=4).reshape(2, 1, FRAME).repeat(4, axis=1)
+    x_cpu = torch.from_numpy(np.ascontiguousarray(frames))
+    with torch.inference_mode():
+        zg = task16.net.encode(x_cpu.cuda()).cpu().reshape(-1, MODEL["embedding_dim"])
+        ig = task16.get_quantized(x_cpu.cuda()).encoding_indices.cpu().flatten()
+        ic = cpu.get_quantized(x_cpu).encoding_indices.flatten()
+        stems_g = task16.net.decode_indices(ic.reshape(2, -1).cuda()).cpu()
+        stems_c = cpu.net.decode_indices(ic.reshape(2, -1))
+    agree = (ig == ic).double().mean().item()
+    if agree < 0.99:
+        fail(f"bf16 card vs CPU: only {agree:.5f} of codes agree")
+    cb = cpu.net.vector_quantizer.codebook.weight.detach().double()
+    rows = (ig != ic).nonzero().flatten()
+    z, ea, eb = zg[rows].double(), cb[ig[rows].long()], cb[ic[rows].long()]
+    gap = ((eb * eb).sum(1) - 2 * (z * eb).sum(1)) - ((ea * ea).sum(1) - 2 * (z * ea).sum(1))
+    limit = 2.0 ** -6 * 2 * (z.abs() * (ea - eb).abs()).sum(1)
+    if (gap.abs() > limit).any():
+        fail(f"bf16 card vs CPU: a differing code is no near-tie on the card's latents "
+             f"({(gap.abs() / limit).max().item():.2f} of the bound)")
+    scale = stems_c.abs().max().item()
+    dec_err = (stems_g - stems_c).abs().max().item()
+    if dec_err > 0.02 * scale:
+        fail(f"bf16 decode_indices card vs CPU: {dec_err:.3e} beyond 0.02 of {scale:.3e}")
+    result = dict(code_agreement=agree, code_mismatches=rows.numel(),
+                  max_share_of_tie_bound=(gap.abs() / limit).max().item() if rows.numel() else 0.0,
+                  decode_indices_max_abs_err=dec_err, decode_scale=scale)
+    print(f"[bf16 cpu-vs-card] {json.dumps(result)}", flush=True)
+    return result
+
+
+def attention_bound(q, k, v, mask) -> torch.Tensor:
+    """2·2⁻⁹·Σₖ pₖ|vₖ| + 1e-5 per (sequence, head, row, column) of (B, S, H, D)
+    bf16 q, k, v: what rounding P to bf16 at two different points may cost."""
+    from msla_tpu_torch.ops import attention_ref
+
+    bhsd = [t.transpose(1, 2) for t in (q, k, v.abs())]
+    # p·|v| with p unrounded: the chain on fp32 copies of the rounded operands
+    pv = attention_ref(*(t.float() for t in bhsd), mask, 0.125)
+    return (2 * 2.0 ** -9 * pv + 1e-5).transpose(1, 2)
+
+
+def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
+    """#7, #6 and #6b on bf16 operands at the batch-16 call's shapes against
+    their plain bf16 versions on the card."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (attention_ref, flash_attn, mlm_argmax, mlm_argmax_conf,
+                                    mlm_argmax_ref)
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(17)
+    report = []
+    with torch.inference_mode():
+        shape = (BERT_SEQS, 512, 12, 64)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(bf) for _ in range(3))
+        mask = batch16_mask(dev)
+        out = flash_attn(q, k, v, mask, 0.125)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32:
+            fail(f"flash_attn bf16: a {out.dtype} output")
+        bhsd = [t.transpose(1, 2) for t in (q, k, v)]
+        want = attention_ref(*bhsd, mask, 0.125).transpose(1, 2)
+        err = (out - want).abs()
+        limit = attention_bound(q, k, v, mask)
+        if not torch.isfinite(out).all() or (err > limit).any():
+            fail(f"flash_attn bf16: {(err > limit).sum().item()} values beyond "
+                 f"2·2⁻⁹·Σ p|v| + 1e-5 (max abs error {err.max().item():.3e})")
+        mean_v = v[-1].float().mean(dim=0, keepdim=True).expand(512, -1, -1)
+        check_close("flash_attn bf16 (all keys padding: the mean of v)", out[-1], mean_v)
+        share = (err / limit).max().item()
+        del want, limit
+        keep = mask.bool()[:, None, None, :]
+        report.append(dict(
+            name="flash_attn[bf16]", route="cuda", source="msla_tpu_torch/csrc/flash_attn.cu",
+            replaces="msla_tpu/ops/flash_attn.py:51", max_abs_err=err.max().item(),
+            max_share_of_bound=share,
+            ms=time_ms(lambda: flash_attn(q, k, v, mask, 0.125)),
+            plain_ms=time_ms(lambda: attention_ref(*bhsd, mask, 0.125)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *bhsd, attn_mask=keep, scale=0.125)),
+            library_call="scaled_dot_product_attention, bf16, boolean key mask",
+            flop=4 * BERT_SEQS * 12 * 512 * 512 * 64, flop_type="bf16",
+            bytes=nbytes(q, k, v, out, mask)))
+        del q, k, v, out, bhsd, err
+        torch.cuda.empty_cache()
+
+        emb = bert16._decoder_weights()[0]
+        if emb.dtype != bf:
+            fail(f"bf16 Audio-BERT: a {emb.dtype} tied decoder")
+        bias = torch.randn((emb.shape[0],), generator=g, device=dev) * 0.1
+        h = torch.randn((BERT_ROWS, 768), generator=g, device=dev).to(bf)
+        ids = mlm_argmax(h, emb, bias)
+        ids_c, conf_c = mlm_argmax_conf(h, emb, bias)
+        torch.cuda.synchronize()
+        want_ids, want_conf = mlm_argmax_ref(h, emb, bias, with_conf=True)
+        mismatches, gap = mlm_near_ties(h, emb, bias, ids, want_ids)
+        mismatches_c, gap_c = mlm_near_ties(h, emb, bias, ids_c, want_ids)
+        print(f"[mlm_argmax bf16] {BERT_ROWS} rows: {mismatches} near-tie mismatches (largest "
+              f"relative gap {gap:.3e}), conf variant {mismatches_c} ({gap_c:.3e})", flush=True)
+        if not torch.equal(ids, ids_c):
+            fail("mlm_argmax and mlm_argmax_conf pick different ids in bf16")
+        conf_err = check_close("mlm_argmax_conf bf16 conf", conf_c, want_conf, atol=0.0,
+                               rtol=1e-4)
+        if not torch.equal(conf_c, mlm_argmax_conf(h, emb, bias)[1]):
+            fail("mlm_argmax_conf bf16: two runs give different confidences")
+        del want_ids, want_conf
+        ties = planted_ties(h, emb, bias)
+
+        def library(with_conf):  # bf16 addmm with fp32 output + argmax (+ logsumexp)
+            for chunk in h.split(4096):
+                logits = torch.addmm(bias, chunk, emb.T, out_dtype=torch.float32)
+                logits.argmax(dim=-1)
+                if with_conf:
+                    torch.logsumexp(logits, dim=-1)
+
+        flop = 2 * BERT_ROWS * emb.shape[0] * 768
+        for name, line, with_conf in (("mlm_argmax", 47, False), ("mlm_argmax_conf", 67, True)):
+            fn = mlm_argmax_conf if with_conf else mlm_argmax
+            outs = (ids_c, conf_c) if with_conf else (ids,)
+            report.append(dict(
+                name=f"{name}[bf16]", route="cuda", source="msla_tpu_torch/csrc/mlm_argmax.cu",
+                replaces=f"msla_tpu/ops/mlm_argmax.py:{line}",
+                max_abs_err=conf_err if with_conf else gap,
+                index_mismatches=mismatches_c if with_conf else mismatches,
+                max_tie_gap=gap_c if with_conf else gap, rows_compared=BERT_ROWS,
+                planted_ties=ties,
+                ms=time_ms(lambda: fn(h, emb, bias)),
+                plain_ms=time_ms(lambda: mlm_argmax_ref(h, emb, bias, with_conf=with_conf)),
+                library_ms=time_ms(lambda: library(with_conf)),
+                library_call="bf16 addmm (cuBLAS, fp32 output by out_dtype) + argmax"
+                + (" + logsumexp" if with_conf else "") + ", 4,096-row chunks",
+                flop=flop, flop_type="bf16", bytes=nbytes(h, emb, bias, *outs)))
+        del h, ids, ids_c, conf_c
+    torch.cuda.empty_cache()
+    return with_bounds(report)
+
+
+def phase_bf16_bert_serving(bert16, vq16, kernels) -> dict:
+    """AudioGenerator with the bf16 Audio-BERT over the bf16 VQ-VAE through its
+    entry points; every kernel of the path launched in bf16 (K3 in fp32);
+    the batch-16 corrupt_and_generate timed as in phase 10."""
+    from msla_tpu_torch.inference import AudioGenerator
+
+    gen = AudioGenerator(bert16, vq16)
+    stems = synthetic_stems(1, seed=20)[0][:BERT_BATCH]
+    reset_counts(kernels)
+    out = gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(0))
+    codes = gen.sample_codes(width=FRAME // 4, batch=1, rounds=4, seed=0)
+    wave = gen.generate_waveform(width=FRAME // 4, batch=1, rounds=4, seed=1)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels, BF16_PATH)
+    for name, a, shape in (("bf16 corrupt_and_generate", out, (BERT_BATCH, 4, FRAME)),
+                           ("bf16 sample_codes", codes, (1, FRAME // 4)),
+                           ("bf16 generate_waveform", wave, (1, 4, FRAME))):
+        if a.shape != shape or not np.isfinite(a).all():
+            fail(f"{name}: shape {a.shape} (want {shape}) or non-finite values")
+    if codes.min() < 0 or codes.max() >= MODEL["num_embedding"]:
+        fail("bf16 sample_codes: codes out of [0, 512)")
+    path = ("mlm_argmax", "mlm_argmax_conf", "flash_attn", "conv_stem", "nearest_codes",
+            "deconv_stem")
+    if any(counts[name] == 0 for name in path):
+        fail(f"a kernel of the bf16 Audio-BERT path never launched in bf16: {counts}")
+
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts(kernels, BF16_PATH)
+    host_s = []
+    for i in range(GEN_HOST_RUNS):
+        t0 = time.perf_counter()
+        gen.corrupt_and_generate(stems, corrupt_stem=1, rng=np.random.default_rng(i))
+        host_s.append(time.perf_counter() - t0)
+    after = launch_counts(kernels, BF16_PATH)
+    per_call = {name: (after[name] - before[name]) // GEN_HOST_RUNS for name in after}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    noisy = stems.copy()
+    noisy[:, 1, :] = np.random.default_rng(0).random(FRAME, dtype=np.float32)
+    x = torch.from_numpy(noisy).cuda()
+
+    def call():
+        with torch.inference_mode():
+            return bert16.predict_step((vq16.get_quantized(x).encoding_indices, x))
+
+    device_ms = time_ms(call, reps=5, warmup=1)
+    median = statistics.median(host_s)
+    codes_per_call = BERT_BATCH * FRAME // 4
+    result = dict(launches=counts, launches_per_call=per_call,
+                  host_s=dict(n=GEN_HOST_RUNS, median=median, runs=host_s),
+                  device_ms=device_ms, codes_per_s=codes_per_call / median,
+                  device_codes_per_s=codes_per_call / (device_ms / 1e3),
+                  device_busy_share=device_ms / 1e3 / median, peak_mem_gb=peak_gb,
+                  breakdown_ms=device_parts(call))
+    print(f"[bf16 bert] launches={counts} per call={per_call}; batch-16 corrupt_and_generate "
+          f"{median * 1e3:.1f} ms end to end (median of {GEN_HOST_RUNS}), {device_ms:.1f} ms "
+          f"on the device, {result['codes_per_s']:.0f} codes/s, peak {peak_gb:.2f} GB, "
+          f"breakdown {result['breakdown_ms']}", flush=True)
+    return result
+
+
+def phase_bf16_bert_cpu(bert16) -> dict:
+    """code_proposals of the bf16 Audio-BERT, card against the CPU's plain
+    bf16 path, on one row of 1,000 codes: vocab ids at least 95 % equal, each
+    differing id a bf16 near-tie on the card's own hidden states (the fp64
+    logit gap within 4 bf16 ulps of each term, 2⁻⁶·Σₖ |hₖ|·|e_a,k − e_b,k|),
+    each confidence within 2·2⁻⁶·max_v Σₖ |hₖ|·|e_v,k| in log (the bounds of
+    tests/test_torch_bf16_bert.py)."""
+    from msla_tpu_torch.models.bert import AudioBertTask
+
+    cpu = AudioBertTask(**bert_task_args(), device="cpu", seed=0, compute_dtype="bfloat16")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in bert16.net.state_dict().items()})
+    w = 1000
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 512, (1, w)))
+    tokens[:, ::7] = bert16.config.mask_token_id
+    with torch.inference_mode():
+        pc, pg = cpu.code_proposals(tokens), bert16.code_proposals(tokens).cpu()
+        ic, cc = (t.flatten() for t in cpu._chunked_argmax(tokens, with_conf=True))
+        ig, cg = (t.cpu().flatten() for t in bert16._chunked_argmax(tokens.cuda(),
+                                                                    with_conf=True))
+        tok, am, _ = bert16._fold(tokens.cuda())
+        h = torch.cat([bert16.bert(t, a, return_mlm_hidden=True) for t, a in zip(tok, am)])
+        h = h.reshape(-1, 768)[:w].cpu().double()
+        emb, bias = (t.cpu().double() for t in bert16._decoder_weights())
+    agree = (ig == ic).double().mean().item()
+    if agree < 0.95:
+        fail(f"bf16 code_proposals card vs CPU: only {agree:.4f} of vocab ids agree")
+    rows = (ig != ic).nonzero().flatten()
+    a, b = ig[rows].long(), ic[rows].long()
+    gap = (h[rows] * (emb[a] - emb[b])).sum(1) + bias[a] - bias[b]
+    tie = 2.0 ** -6 * (h[rows].abs() * (emb[a] - emb[b]).abs()).sum(1)
+    if (gap.abs() > tie).any():
+        fail("bf16 code_proposals card vs CPU: a differing id is no bf16 near-tie")
+    moved = 2 * 2.0 ** -6 * (h.abs() @ emb.abs().T).max(1).values
+    conf_share = ((cg.double().log() - cc.double().log()).abs() / moved).max().item()
+    if conf_share > 1:
+        fail(f"bf16 code_proposals card vs CPU: a confidence moved {conf_share:.2f}x its bound")
+    result = dict(vocab_id_agreement=agree, vocab_id_mismatches=rows.numel(),
+                  max_share_of_tie_bound=(gap.abs() / tie).max().item() if rows.numel() else 0.0,
+                  max_conf_share_of_bound=conf_share,
+                  code_id_agreement=(pc[..., 0] == pg[..., 0]).double().mean().item(),
+                  proposal_conf_max_abs_err=(pc[..., 1] - pg[..., 1]).abs().max().item())
+    print(f"[bf16 bert cpu-vs-card] {json.dumps(result)}", flush=True)
+    return result
+
+
 class Phases:
     """Prints each phase's seconds as it ends, and keeps them."""
 
@@ -1452,14 +2004,42 @@ def main() -> int:
     vq_tools, vq_tools_report = phase("12 VQ measurement variants", phase_vq_tools, KERNELS,
                                     dev)
 
+    # 13-15. bf16 separation: kernels, the path, CPU vs card (the trained weights)
+    task16 = VQVAETask(**MODEL, checkpoint_dir=str(OUT_DIR),
+                       codebook_file=str(OUT_DIR / "codebook.csv"), device=dev, seed=0,
+                       compute_dtype="bfloat16")
+    task16.net.load_state_dict(task.net.state_dict())
+    bf16_report = phase("13 bf16 separation kernels", phase_bf16_sep_kernels, task16.net, dev)
+    bf16_sep = phase("14 bf16 separation path", phase_bf16_separation, task16, serving)
+    bf16_sep_cpu = phase("15 bf16 separation card vs CPU", phase_bf16_separation_cpu, task16)
+    for k in bf16_report:
+        name = k["name"].split("[")[0]
+        k.update(path="bf16_serving", launches=bf16_sep["launches"][name],
+                 **{f"launches_per_batch{b}": bf16_sep[f"batch{b}"]["launches_per_batch"][name]
+                    for b in BF16_BATCHES})
+
+    # 16-18. bf16 Audio-BERT: kernels, serving over the bf16 VQ-VAE, CPU vs card
+    bert16 = AudioBertTask(**bert_task_args(), device=dev, seed=0, compute_dtype="bfloat16")
+    bf16_bert_report = phase("16 bf16 Audio-BERT kernels", phase_bf16_bert_kernels, bert16, dev)
+    bf16_bert = phase("17 bf16 Audio-BERT serving path", phase_bf16_bert_serving, bert16,
+                      task16, KERNELS)
+    bf16_bert_cpu = phase("18 bf16 Audio-BERT card vs CPU", phase_bf16_bert_cpu, bert16)
+    for k in bf16_bert_report:
+        name = k["name"].split("[")[0]
+        k.update(path="bf16_audio_bert_serving", launches=bf16_bert["launches"][name],
+                 launches_per_call=bf16_bert["launches_per_call"][name])
+
     print(json.dumps({"card": smi, "ptxas": ptxas, "phase_s": phase.seconds,
                       "main_path": main_path, "cpu_vs_card": agreement,
                       "gradients": gradients, "training": training,
                       "audio_bert_serving": bert_serving,
-                      "audio_bert_cpu_vs_card": bert_agreement, "vq_tools": vq_tools}),
+                      "audio_bert_cpu_vs_card": bert_agreement, "vq_tools": vq_tools,
+                      "bf16_separation": bf16_sep, "bf16_separation_cpu_vs_card": bf16_sep_cpu,
+                      "bf16_audio_bert_serving": bf16_bert,
+                      "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu}),
           flush=True)
-    print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report}),
-          flush=True)
+    print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
+                      + bf16_report + bf16_bert_report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

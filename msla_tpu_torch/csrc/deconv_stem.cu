@@ -1,5 +1,6 @@
 // Fused VQ-VAE decoder stem: convT k4 s2 p1 (128 -> 64) + ReLU, then
-// convT k4 s2 p1 (64 -> 4), in one pass over device memory.
+// convT k4 s2 p1 (64 -> 4), in one pass over device memory, on fp32 operands
+// or, for the bf16 compute_dtype, bf16 ones (q, w1, w2; the biases stay fp32).
 //
 // Replaces: msla_tpu/ops/deconv_stem.py:35 _deconv_kernel (deconv_stem_pallas),
 // both its forward (K2) and, with a non-null `hidden`, its save_hidden forward
@@ -8,6 +9,11 @@
 // Bound on an H100: at batch 64, W = 11,000 the stem does 4.90e10 fp32 FLOP and
 // must move 360.4 MB in + 45.1 MB out (+ 360.4 MB of h for K2b), so it is bound
 // by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by memory.
+// In bf16 the same FLOP held to the bf16 tensor-core peak (989 TFLOP/s) take
+// 0.050 ms and the 180.2 MB in + 22.5 MB out 0.061 ms: bound by bytes. This
+// kernel does not reach for that bound: it runs the bf16 function on the fp32
+// FMA units, as the Pallas kernel's own arithmetic (exact bf16 products summed
+// in fp32), and the bf16 operands only halve its traffic.
 //
 // Design: a stride-2 transposed conv splits into two unit-stride phases,
 //   out[2m]   = x[m] W1 + x[m-1] W3,     out[2m+1] = x[m] W2 + x[m+1] W0,
@@ -21,14 +27,24 @@
 // tile's interior rows of h, [2*m0, 2*m0 + 2*TILE), from shared memory to
 // device memory once they are complete: consecutive threads take consecutive
 // rows, so the stores are coalesced along W, no row is written by two blocks
-// and the halo and pad rows are never written.
+// and the halo and pad rows are never written. In bf16 (the Pallas kernel's
+// cast points, msla_tpu/ops/deconv_stem.py:35-63) q and the weights are
+// widened to fp32 as they enter shared memory, h = relu(sum + b1) is rounded to
+// bf16 before the second layer reads it, and the output is rounded to bf16 as
+// it is stored.
 //
 // Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
 // Weights in torch's
 // ConvTranspose1d layout (in, out, k): w1 (128, 64, 4), w2 (64, 4, 4).
 #include <cuda_runtime.h>
 
+#include "operand_type.cuh"
+
 namespace {
+
+using operand_type::from_float;
+using operand_type::round_to;
+using operand_type::to_float;
 
 constexpr int CI = 128;               // input channels
 constexpr int C1 = 64;                // hidden channels
@@ -44,11 +60,12 @@ constexpr size_t SMEM_FLOATS =
     (size_t)CI * C1 * 4 + (size_t)CI * NQ + (size_t)C1 * NH + C1 * CO * 4 + C1 + CO;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
-                   const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, float* __restrict__ out,
-                   float* __restrict__ hidden, int batch, int width) {
+deconv_stem_kernel(const T* __restrict__ q, const T* __restrict__ w1,
+                   const float* __restrict__ b1, const T* __restrict__ w2,
+                   const float* __restrict__ b2, T* __restrict__ out,
+                   T* __restrict__ hidden, int batch, int width) {
   extern __shared__ float smem[];
   float* w1s = smem;                    // [CI][C1][4]
   float* qs = w1s + CI * C1 * 4;        // [CI][NQ]
@@ -58,8 +75,8 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
   float* b2s = b1s + C1;                // [CO]
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < CI * C1 * 4; i += THREADS) w1s[i] = w1[i];
-  for (int i = tid; i < C1 * CO * 4; i += THREADS) w2s[i] = w2[i];
+  for (int i = tid; i < CI * C1 * 4; i += THREADS) w1s[i] = to_float(w1[i]);
+  for (int i = tid; i < C1 * CO * 4; i += THREADS) w2s[i] = to_float(w2[i]);
   for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
   for (int i = tid; i < CO; i += THREADS) b2s[i] = b2[i];
 
@@ -75,10 +92,10 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
     __syncthreads();  // previous tile's readers of qs/hs are done
 
     // qs[ci][u] = q[m0-1+u], zero outside [0, W)
-    const float* qb = q + (size_t)b * CI * width;
+    const T* qb = q + (size_t)b * CI * width;
     for (int i = tid; i < CI * NQ; i += THREADS) {
       const int ci = i / NQ, u = i % NQ, m = m0 - 1 + u;
-      qs[i] = (m >= 0 && m < width) ? qb[(size_t)ci * width + m] : 0.0f;
+      qs[i] = (m >= 0 && m < width) ? to_float(qb[(size_t)ci * width + m]) : 0.0f;
     }
     __syncthreads();
 
@@ -124,19 +141,20 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
         const int r = tx + 16 * i;
         if (r <= TILE) {
           const int me = m0 + r, mo = m0 - 1 + r;
-          hs[c * NH + 2 * r + 1] = me < width ? fmaxf(he[j][i] + b1s[c], 0.0f) : 0.0f;
+          hs[c * NH + 2 * r + 1] =
+              me < width ? round_to<T>(fmaxf(he[j][i] + b1s[c], 0.0f)) : 0.0f;
           hs[c * NH + 2 * r] =
-              (mo >= 0 && mo < width) ? fmaxf(ho[j][i] + b1s[c], 0.0f) : 0.0f;
+              (mo >= 0 && mo < width) ? round_to<T>(fmaxf(ho[j][i] + b1s[c], 0.0f)) : 0.0f;
         }
       }
     }
     __syncthreads();
 
     if (hidden != nullptr) {
-      float* hb = hidden + (size_t)b * C1 * 2 * width;
+      T* hb = hidden + (size_t)b * C1 * 2 * width;
       for (int i = tid; i < C1 * 2 * TILE; i += THREADS) {
         const int c = i / (2 * TILE), k = 1 + i % (2 * TILE), j = 2 * m0 - 1 + k;
-        if (j < 2 * width) hb[(size_t)c * 2 * width + j] = hs[c * NH + k];
+        if (j < 2 * width) hb[(size_t)c * 2 * width + j] = from_float<T>(hs[c * NH + k]);
       }
     }
 
@@ -158,21 +176,18 @@ deconv_stem_kernel(const float* __restrict__ q, const float* __restrict__ w1,
     }
     const int jo = 4 * m0 + tid;
     if (jo < 4 * width) {
-      float* ob = out + (size_t)b * CO * 4 * width;
+      T* ob = out + (size_t)b * CO * 4 * width;
 #pragma unroll
-      for (int o = 0; o < CO; ++o) ob[(size_t)o * 4 * width + jo] = acc[o];
+      for (int o = 0; o < CO; ++o) ob[(size_t)o * 4 * width + jo] = from_float<T>(acc[o]);
     }
   }
 }
 
-}  // namespace
-
-// hidden may be null (K2); otherwise it receives h (K2b).
-extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
-                               const float* w2, const float* b2, float* out,
-                               float* hidden, int batch, int width, void* stream) {
+template <typename T>
+int launch(const T* q, const T* w1, const float* b1, const T* w2, const float* b2, T* out,
+           T* hidden, int batch, int width, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      deconv_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      deconv_stem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
@@ -182,7 +197,23 @@ extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
   const long long tiles = (long long)batch * ((width + TILE - 1) / TILE);
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (grid == 0) return 0;
-  deconv_stem_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  deconv_stem_kernel<T><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
       q, w1, b1, w2, b2, out, hidden, batch, width);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// fp32: hidden may be null (K2); otherwise it receives h (K2b).
+extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
+                               const float* w2, const float* b2, float* out,
+                               float* hidden, int batch, int width, void* stream) {
+  return launch<float>(q, w1, b1, w2, b2, out, hidden, batch, width, stream);
+}
+
+// bf16 q, w1, w2 and out, fp32 biases (K2 in bf16; no hidden).
+extern "C" int deconv_stem_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16* w1,
+                                    const float* b1, const __nv_bfloat16* w2, const float* b2,
+                                    __nv_bfloat16* out, int batch, int width, void* stream) {
+  return launch<__nv_bfloat16>(q, w1, b1, w2, b2, out, nullptr, batch, width, stream);
 }

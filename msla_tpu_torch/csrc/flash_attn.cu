@@ -1,4 +1,5 @@
-// Flash attention with a key-padding mask, fp32:
+// Flash attention with a key-padding mask, on fp32 q, k, v or, for the bf16
+// compute_dtype, bf16 ones; fp32 statistics and an fp32 output either way:
 //   out = softmax(q . k^T * sm_scale + (1 - mask) * -1e9) . v
 // per (sequence, head), without the (S, S) scores ever reaching device memory.
 //
@@ -9,6 +10,10 @@
 // sequences x 12 heads x 512 tokens x 64 dims. QK^T and PV are 4*B*H*S*S*D =
 // 2.83e11 fp32 FLOP against q, k, v and out of 554 MB each (2.2 GB), so it is
 // bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores): >= 4.2 ms.
+// In bf16 the inputs are 277 MB and the output 554 MB (831 MB, 0.25 ms at
+// 3.35 TB/s), and the FLOP held to the bf16 tensor-core peak (989 TFLOP/s)
+// take 0.29 ms: bound by operations. This kernel does not reach for that
+// bound: it runs the bf16 function on the fp32 FMA units (R3, ROADMAP.md).
 //
 // Design: one block per (query tile of 64 rows, head, sequence), 256 threads.
 // The Q tile stays in shared memory; the 512 keys are walked in tiles of 64
@@ -28,10 +33,21 @@
 // version, not 0/0. Keys past the sequence end (S not a multiple of 64) are
 // dropped entirely. q, k, v and out are read and written in the projections'
 // (B, S, H, D) layout, so no transpose is needed on either side.
+//
+// bf16 (JAX's TPU kernel on bf16 q, k, v): the tiles are widened to fp32 as
+// they enter shared memory, so the scores are fp32 sums of exact products and
+// the statistics fp32, as before; each p = exp(s - m) is rounded to bf16 for
+// P . V (the kernel's p.astype(v.dtype)) while the row sum l takes it unrounded,
+// and the output stays fp32. The plain version rounds the normalised
+// probabilities instead, so the two part by up to 2^-8 of sum_k p_k |v_k|.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "operand_type.cuh"
+
 namespace {
+
+using operand_type::round_to;
 
 constexpr int D = 64;        // head dim the kernel is compiled for
 constexpr int BQ = 64;       // query rows per block
@@ -41,7 +57,7 @@ constexpr int LD = D + 4;    // padded shared row (floats): float4-aligned, conf
 constexpr int SMEM_FLOATS = BQ * LD + 2 * BK * LD + BQ * (BK + 4) + BK;
 
 // Copy rows [row0, row0 + 64) of one head from a (B, S, H, D) tensor into a
-// padded (64, LD) shared tile; rows at or past S are zero.
+// padded (64, LD) fp32 shared tile; rows at or past S are zero.
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const float* __restrict__ src, int row0,
                                           int seq_len, long long row_stride) {
@@ -51,6 +67,23 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
     if (row0 + r < seq_len)
       v = reinterpret_cast<const float4*>(src + (long long)(row0 + r) * row_stride)[c4];
     *reinterpret_cast<float4*>(dst + r * LD + 4 * c4) = v;
+  }
+}
+
+// The same from bf16: 16 bytes (8 values) a load, widened to fp32 (exact).
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const __nv_bfloat16* __restrict__ src, int row0,
+                                          int seq_len, long long row_stride) {
+  for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += THREADS) {
+    const int r = idx >> 3, c8 = idx & 7;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < seq_len)
+      u = reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride)[c8];
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
+    const float2 c = __bfloat1622float2(p[2]), d = __bfloat1622float2(p[3]);
+    *reinterpret_cast<float4*>(dst + r * LD + 8 * c8) = make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(dst + r * LD + 8 * c8 + 4) = make_float4(c.x, c.y, d.x, d.y);
   }
 }
 
@@ -66,9 +99,10 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
+flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ mask,
                   float* __restrict__ out, int n_heads, int seq_len, float sm_scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -152,7 +186,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         part += p;
-        ps[(ty + 16 * i) * (BK + 4) + tx + 16 * j] = p;
+        ps[(ty + 16 * i) * (BK + 4) + tx + 16 * j] = round_to<T>(p);
       }
       l[i] = l[i] * alpha + part;  // this thread's keys only; summed at the end
       m[i] = m_new;
@@ -197,20 +231,34 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// q, k, v, out: (B, S, H, 64) fp32, contiguous; mask: (B, S) fp32 (1 attend,
-// 0 pad) or null for no mask.
-extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
-                              const float* mask, float* out, int batch, int n_heads,
-                              int seq_len, float sm_scale, void* stream) {
+template <typename T>
+int launch(const T* q, const T* k, const T* v, const float* mask, float* out, int batch,
+           int n_heads, int seq_len, float sm_scale, void* stream) {
   const int smem = SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0 || seq_len == 0 || n_heads == 0) return 0;
   const dim3 grid((seq_len + BQ - 1) / BQ, n_heads, batch);
-  flash_attn_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  flash_attn_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, k, v, mask, out, n_heads, seq_len, sm_scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, out: (B, S, H, 64) fp32, contiguous, 16-byte aligned; mask: (B, S)
+// fp32 (1 attend, 0 pad) or null for no mask.
+extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
+                              const float* mask, float* out, int batch, int n_heads,
+                              int seq_len, float sm_scale, void* stream) {
+  return launch<float>(q, k, v, mask, out, batch, n_heads, seq_len, sm_scale, stream);
+}
+
+// The same with bf16 q, k, v; out stays fp32.
+extern "C" int flash_attn_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                   const __nv_bfloat16* v, const float* mask, float* out,
+                                   int batch, int n_heads, int seq_len, float sm_scale,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, mask, out, batch, n_heads, seq_len, sm_scale, stream);
 }

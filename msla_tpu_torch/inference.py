@@ -21,9 +21,10 @@ class SourceSeparator:
     """Mixture waveform → per-stem waveforms through the trained VQ-VAE."""
 
     def __init__(self, task: VQVAETask, frame_samples: int, batch_size: int = 16):
-        if frame_samples % 4:
-            raise ValueError(f"frame_samples={frame_samples}: the encoder stem needs "
-                             "a frame length divisible by 4")
+        """``task``'s ``compute_dtype`` is the mode it serves in. Any frame
+        length takes ``encode_codes`` (floor(F/4) codes a frame); ``separate``
+        needs F divisible by 4 and, as the JAX package's, raises ValueError
+        when it stitches the floor(F/4)·4 samples a frame gives back."""
         self.task = task
         self.frame_samples = int(frame_samples)
         self.batch_size = int(batch_size)

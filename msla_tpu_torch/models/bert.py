@@ -142,9 +142,11 @@ class AudioBertTask(TaskModule):
         return max(1, min(n_chunks, 512 // max(batch, 1)))
 
     def _decoder_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The tied decoder's operands: word embeddings and vocab bias."""
+        """The tied decoder's operands: the word embeddings, cast to the compute
+        dtype when one is set, and the fp32 vocab bias."""
         pred = self.bert.cls.predictions
-        return pred.decoder.weight, pred.bias
+        emb = pred.decoder.weight
+        return (emb if self.bert.dtype is None else emb.to(self.bert.dtype)), pred.bias
 
     def _fold(self, x: torch.Tensor):
         """(B, W) token ids → tokens and masks (n_groups, fold·B, 512), and the
@@ -177,8 +179,8 @@ class AudioBertTask(TaskModule):
         one BERT call per group of ``_fold``."""
         tokens, attn, unfold = self._fold(x)
         emb, bias = self._decoder_weights()
-        outs = [mlm_argmax(self.bert(tok, am, return_mlm_hidden=True), emb, bias,
-                           with_conf=with_conf)
+        outs = [mlm_argmax(self.bert(tok, am, return_mlm_hidden=True).to(emb.dtype), emb,
+                           bias, with_conf=with_conf)
                 for tok, am in zip(tokens, attn)]
         if with_conf:
             return tuple(unfold(torch.stack(o)) for o in zip(*outs))

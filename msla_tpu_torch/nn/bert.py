@@ -8,6 +8,12 @@ bert-base-uncased's architecture: post-norm layers, erf-GELU, LayerNorm eps
 strictly. Attention runs through ``nn.attention.attend`` and so through the
 flash-attention kernel on the card.
 
+``compute_dtype="bfloat16"`` follows the JAX package's bf16 BERT: the
+embeddings, projections, FFN, GELU, LayerNorm outputs and the residual stream
+in bf16 (LayerNorm statistics in fp32), attention on bf16 q, k, v with an fp32
+output, and the MLM transform in fp32 on the bf16 stream (it has no dtype in
+the JAX package) before a bf16 ``mlm_norm``. Parameters stay fp32.
+
 Inference only in this slice: dropout is the training path's (ROADMAP.md
 queue item 5) and ``forward(deterministic=False)`` raises.
 """
@@ -21,7 +27,7 @@ from torch import nn
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.nn.attention import attend
-from msla_tpu_torch.nn.layers import embedding, linear
+from msla_tpu_torch.nn.layers import compute, dense, embedding, layer_norm, linear
 
 
 @dataclass(frozen=True)
@@ -35,7 +41,7 @@ class BertConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     hidden_dropout_prob: float = 0.1
-    #: None or "float32"; bf16 is ROADMAP.md queue item 1
+    #: None or "float32", or "bfloat16"
     compute_dtype: str | None = None
     #: None or True: the flash-attention kernel on the card
     use_flash: bool | None = None
@@ -51,13 +57,15 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = embedding(c.max_position_embeddings, c.hidden_size, **kw)
         self.token_type_embeddings = embedding(c.type_vocab_size, c.hidden_size, **kw)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps, device=device)
+        self.dtype = compute(c.compute_dtype)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         s = input_ids.shape[1]
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings.weight[:s][None]
-             + self.token_type_embeddings.weight[0])  # token type 0 everywhere
-        return self.LayerNorm(x)
+        parts = (self.word_embeddings(input_ids), self.position_embeddings.weight[:s][None],
+                 self.token_type_embeddings.weight[0])  # token type 0 everywhere
+        if self.dtype is not None:  # each embedding cast, then summed in bf16
+            parts = [p.to(self.dtype) for p in parts]
+        return layer_norm(self.LayerNorm, parts[0] + parts[1] + parts[2], self.dtype)
 
 
 class BertSelfAttention(nn.Module):
@@ -86,6 +94,7 @@ class BertAttention(nn.Module):
     def __init__(self, c: BertConfig, *, generator: torch.Generator, device):
         super().__init__()
         self.num_heads = c.num_attention_heads
+        self.dtype = compute(c.compute_dtype)
         self.self = BertSelfAttention(c, generator=generator, device=device)
         self.output = BertDense(c.hidden_size, c.hidden_size, c.layer_norm_eps,
                                 generator=generator, device=device)
@@ -93,22 +102,24 @@ class BertAttention(nn.Module):
     def forward(self, x: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
         sa = self.self
         a = attend(sa.query, sa.key, sa.value, self.output.dense, self.num_heads,
-                   x, x, x, kv_mask)
-        return self.output.LayerNorm(x + a)
+                   x, x, x, kv_mask, self.dtype)
+        return layer_norm(self.output.LayerNorm, x + a, self.dtype)
 
 
 class BertLayer(nn.Module):
     def __init__(self, c: BertConfig, *, generator: torch.Generator, device):
         super().__init__()
         kw = dict(generator=generator, device=device)
+        self.dtype = compute(c.compute_dtype)
         self.attention = BertAttention(c, **kw)
         self.intermediate = BertDense(c.hidden_size, c.intermediate_size, None, **kw)
         self.output = BertDense(c.intermediate_size, c.hidden_size, c.layer_norm_eps, **kw)
 
     def forward(self, x: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
         x = self.attention(x, kv_mask)
-        h = F.gelu(self.intermediate.dense(x))  # erf-GELU, as HF BERT
-        return self.output.LayerNorm(x + self.output.dense(h))
+        h = F.gelu(dense(self.intermediate.dense, x, self.dtype))  # erf-GELU, as HF BERT
+        return layer_norm(self.output.LayerNorm, x + dense(self.output.dense, h, self.dtype),
+                          self.dtype)
 
 
 class BertEncoder(nn.Module):
@@ -156,10 +167,7 @@ class BertForMaskedLM(nn.Module):
         ``generator`` given), with the JAX package's init families; ``device``
         None means the card."""
         super().__init__()
-        if config.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={config.compute_dtype!r}: bf16 is ROADMAP.md queue item 1; "
-                "this slice runs fp32")
+        self.dtype = compute(config.compute_dtype)
         if config.use_flash is False:
             raise NotImplementedError(
                 "use_flash=False asks for the plain attention on the card, which the port "
@@ -174,8 +182,8 @@ class BertForMaskedLM(nn.Module):
                 deterministic: bool = True, return_mlm_hidden: bool = False) -> torch.Tensor:
         """(B, S) int ids → (B, S, vocab) MLM logits; with
         ``return_mlm_hidden`` the (B, S, hidden) states after the MLM
-        transform and norm, for callers that fuse the decoder with an argmax
-        (``ops.mlm_argmax``)."""
+        transform and norm (bf16 in bf16 mode), for callers that fuse the
+        decoder with an argmax (``ops.mlm_argmax``)."""
         if not deterministic:
             raise NotImplementedError("dropout (deterministic=False) is the training path, "
                                       "ROADMAP.md queue item 5")
@@ -186,8 +194,8 @@ class BertForMaskedLM(nn.Module):
         for layer in self.bert.encoder.layer:
             x = layer(x, attention_mask)
         t = self.cls.predictions.transform
-        h = t.LayerNorm(F.gelu(t.dense(x)))
+        h = layer_norm(t.LayerNorm, F.gelu(t.dense(x.float())), self.dtype)
         if return_mlm_hidden:
             return h
         pred = self.cls.predictions
-        return h @ pred.decoder.weight.T + pred.bias
+        return h.float() @ pred.decoder.weight.T + pred.bias

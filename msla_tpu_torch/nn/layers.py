@@ -6,11 +6,53 @@ that the JAX package reproduces: fan_in is in·k for Conv1d's (out, in, k)
 weight, out·k for ConvTranspose1d's (in, out, k) weight and in for Linear.
 Values are drawn on the CPU and then moved, so one seed gives one model on
 every device.
+
+``compute`` names a model's compute dtype, and ``conv``, ``dense`` and
+``layer_norm`` apply a layer as flax applies it under that dtype (parameters
+stay fp32; only the compute casts).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def compute(compute_dtype: str | None) -> torch.dtype | None:
+    """The JAX package's ``compute_dtype``: None (or "float32") for fp32,
+    where the layers run as they are, or "bfloat16"."""
+    if compute_dtype in (None, "float32"):
+        return None
+    if compute_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype={compute_dtype!r}: the port runs None, 'float32' or "
+                     "'bfloat16'")
+
+
+def conv(layer: nn.Conv1d, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``layer`` as flax's ``nn.Conv(dtype=dtype)``: in bf16 the input and the
+    weight cast, the convolution given in bf16, then the bias added in bf16."""
+    if dtype is None:
+        return layer(x)
+    y = F.conv1d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding)
+    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None]
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``layer`` as flax's ``nn.Dense(dtype=dtype)``: in bf16 the input and the
+    weight cast, the product given in bf16, then the bias added in bf16."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def layer_norm(layer: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype | None) -> torch.Tensor:
+    """``layer`` as flax's ``nn.LayerNorm(dtype=dtype)``: statistics and the
+    affine map in fp32 on the widened input, the result in ``dtype``."""
+    if dtype is None:
+        return layer(x)
+    return layer(x.float()).to(dtype)
 
 
 def uniform_(t: torch.Tensor, limit: float, generator: torch.Generator) -> None:

@@ -5,6 +5,11 @@ JAX package's layouts: (B, 4, T) stems in and out, ``encode`` returns
 (B, W, embedding_dim), quantized latents are (B, embedding_dim, W). Inside,
 everything is torch's NCW. The state_dict uses the reference torch model's key
 names, so ``utils.jax_compat.vqvae_state_dict_from_jax`` output loads strictly.
+
+``compute_dtype="bfloat16"`` runs the convs in bf16 as the JAX package does:
+parameters stay fp32, the pre-VQ latents are cast to fp32 (so the VQ distances
+and losses stay fp32) and the decoder's output is fp32. Inference only: the
+bf16 backward is the bf16 training slice (ROADMAP.md queue item 1).
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from torch import nn
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.nn.decoder import Decoder
 from msla_tpu_torch.nn.encoder import Encoder
-from msla_tpu_torch.nn.layers import conv1d
+from msla_tpu_torch.nn.layers import compute, conv, conv1d
 from msla_tpu_torch.nn.vector_quantizer import VectorQuantizer
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
@@ -44,23 +49,21 @@ class VQVAENet(nn.Module):
         selects the VQ path of ``forward`` as in the JAX package: None or True
         the fused training VQ, False the lookup."""
         super().__init__()
-        if compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: bf16 convs are ROADMAP.md queue "
-                "item 1; this slice runs fp32")
+        self.dtype = compute(compute_dtype)
         dev = resolve_device(device)
         kw = dict(generator=torch.Generator().manual_seed(seed), device=dev)
-        self.encoder = Encoder(num_hidden, num_residual_layer, num_residual_hidden, **kw)
+        self.encoder = Encoder(num_hidden, num_residual_layer, num_residual_hidden,
+                               dtype=self.dtype, **kw)
         self.conv = conv1d(num_hidden, embedding_dim, 1, **kw)  # pre-VQ projection
         self.vector_quantizer = VectorQuantizer(num_embedding, embedding_dim,
                                                 commitment_cost, use_pallas, **kw)
         self.decoder = Decoder(embedding_dim, num_hidden, num_residual_layer,
-                               num_residual_hidden, **kw)
+                               num_residual_hidden, dtype=self.dtype, **kw)
 
     def encode(self, x_bcw: torch.Tensor) -> torch.Tensor:
         """(B, 4, T) → (B, W, embedding_dim) pre-quantization latents."""
         with fp32_convs():
-            z = self.conv(self.encoder(x_bcw.contiguous()))
+            z = conv(self.conv, self.encoder(x_bcw.contiguous()), self.dtype).float()
         return z.transpose(1, 2).contiguous()
 
     def forward(self, x_bcw: torch.Tensor) -> VQVAEOutput:

@@ -11,7 +11,8 @@ from msla_tpu_torch.ops.vq_lean import vq_lean_fwd, vq_lean_fwd_ref
 from msla_tpu_torch.ops.vq_precision import (vq_precision_bwd, vq_precision_bwd_ref,
                                              vq_precision_fwd, vq_precision_fwd_ref)
 
-#: every kernel wrapper; each counts its launches in ``.launches``
+#: every kernel wrapper; each counts its launches in ``.launches``, a Counter
+#: by operand type that ``_build.launch_count`` reads
 KERNELS = (conv_stem, deconv_stem, nearest_codes, conv_stem_save_hidden,
            deconv_stem_save_hidden, vq_fused_fwd, vq_codebook_grad, mlm_argmax,
            mlm_argmax_conf, flash_attn, vq_lean_fwd, vq_precision_fwd, vq_precision_bwd)

@@ -41,13 +41,18 @@ F32 = ctypes.c_float
 #: (pointers and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "conv_stem_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "conv_stem_bf16_fwd": ("conv_stem", [P, P, P, P, P, P, I32, I32, P]),
     "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, I32, I32, P]),
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I32, P]),
     "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
+    "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "mlm_argmax_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
     "mlm_argmax_conf_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
+    "mlm_argmax_bf16_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
+    "mlm_argmax_conf_bf16_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
     "vq_lean_fwd": ("vq_lean", [P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_precision_fwd": ("vq_precision", [I32, I32, P, P, P, P, P, P, P, P, P, P, P, I32, I64,
                                           I32, P]),
@@ -169,6 +174,18 @@ def require(name: str, t: torch.Tensor, what: str, shape: tuple,
         raise ValueError(f"{name}: {what} must be a contiguous {dtype} tensor of shape "
                          f"{shape}, got {t.dtype} {tuple(t.shape)} "
                          f"contiguous={t.is_contiguous()}")
+
+
+def count_launch(wrapper, key) -> None:
+    """One launch of a wrapper's kernel. Each wrapper's ``.launches`` is a
+    Counter of its launches by operand type (by "dist/quant" mode for
+    ``vq_precision_fwd``); ``launch_count`` reads it."""
+    wrapper.launches[key] += 1
+
+
+def launch_count(wrapper, key=None) -> int:
+    """A wrapper's launches: all of them, or those of one key."""
+    return sum(wrapper.launches.values()) if key is None else wrapper.launches[key]
 
 
 def stream_of(t: torch.Tensor) -> int:

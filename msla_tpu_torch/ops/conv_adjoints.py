@@ -3,17 +3,15 @@ backward passes use (the JAX package takes them with ``jax.linear_transpose``,
 msla_tpu/ops/conv_stem.py:177-190 and deconv_stem.py:180-190)."""
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 
 def fp32_convs():
     """cuDNN convs in full fp32 (no TF32) for the scope of a call: TF32 keeps
-    ~3 decimal digits, enough to flip VQ codes on near-ties."""
+    ~3 decimal digits, enough to flip VQ codes on near-ties. A backward runs
+    the convs' adjoints when it runs, so it needs the scope of its own. The
+    flag is set on every build of torch, with or without cuDNN."""
     cudnn = torch.backends.cudnn
-    if not cudnn.is_available():
-        return contextlib.nullcontext()
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
 
@@ -21,8 +19,8 @@ def fp32_convs():
 def conv_grads(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, *, transposed: bool,
                need_input: bool):
     """(dx or None, dw, db) of y = conv(x, w) + b with kernel 4, stride 2,
-    padding 1, at the output gradient g; ``transposed`` for ConvTranspose1d.
-    Both layers' lengths are even, so no output padding is needed."""
+    padding 1, at the output gradient g; ``transposed`` for ConvTranspose1d,
+    whose output is exactly twice its input, so no output padding is needed."""
     bias_size = [w.shape[1] if transposed else w.shape[0]]
     with fp32_convs():
         return torch.ops.aten.convolution_backward(

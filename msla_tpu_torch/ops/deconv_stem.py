@@ -11,6 +11,12 @@ K2b and whose backward is the JAX package's ``_fused_bwd``: the ReLU mask from
 the saved hidden and the exact conv-transpose adjoints (cuDNN on the card, in
 fp32), with no forward recompute. The Function is the same on both devices.
 
+The bf16 compute_dtype runs the Pallas kernel's bf16 function
+(msla_tpu/ops/deconv_stem.py:35-63): q, w1 and w2 bf16, the biases fp32, the
+products summed in fp32, h rounded to bf16 before the second layer and a bf16
+output. The operand type is q's. The kernel takes it as K2 only: the bf16 K2b
+and the bf16 backward are the bf16 training slice (ROADMAP.md queue item 1).
+
 A stride-2 transposed conv splits into two phases (torch weight (in, out, k)):
   out[2m]   = x[m]·W[..., 1] + x[m-1]·W[..., 3]
   out[2m+1] = x[m]·W[..., 2] + x[m+1]·W[..., 0]
@@ -18,11 +24,13 @@ Layout is torch's: q (B, C, W), output (B, C_out, 4W), hidden (B, C1, 2W).
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, kernel, needs_grad, require, runs_plain,
-                                       stream_of)
+from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, require,
+                                       runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
 
 #: the widths the CUDA kernel is compiled for (the full-width model's)
@@ -40,26 +48,36 @@ def _convt_k4s2p1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def deconv_stem_ref(q, w1, b1, w2, b2):
-    """Plain version: both transposed convs as explicit phase sums.
-    Returns (out, h)."""
-    h = torch.relu(_convt_k4s2p1(q, w1, b1))
-    return _convt_k4s2p1(h, w2, b2), h
+    """Plain version: both transposed convs as explicit phase sums, in q's
+    type: for bf16 the sums run in fp32 on the exact products and h and the
+    output are rounded to bf16. Returns (out, h)."""
+    dt = q.dtype
+    h = torch.relu(_convt_k4s2p1(q.float(), w1.float(), b1)).to(dt)
+    return _convt_k4s2p1(h.float(), w2.float(), b2).to(dt), h
 
 
 def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     """K2 (no hidden) or K2b on CUDA tensors; returns (out, h or None)."""
     b, _, w = q.shape
-    require("deconv_stem", q, "q", (b, C, w))
-    require("deconv_stem", w1, "w1", (C, C1, 4))
+    dt = q.dtype
+    bf16 = dt == torch.bfloat16
+    if bf16 and save_hidden:
+        raise NotImplementedError("deconv_stem_save_hidden in bf16 (K2b) is the bf16 training "
+                                  "slice, ROADMAP.md queue item 1")
+    require("deconv_stem", q, "q", (b, C, w), dtype=torch.bfloat16 if bf16 else torch.float32)
+    require("deconv_stem", w1, "w1", (C, C1, 4), dtype=dt)
     require("deconv_stem", b1, "b1", (C1,))
-    require("deconv_stem", w2, "w2", (C1, C_OUT, 4))
+    require("deconv_stem", w2, "w2", (C1, C_OUT, 4), dtype=dt)
     require("deconv_stem", b2, "b2", (C_OUT,))
-    out = torch.empty((b, C_OUT, 4 * w), dtype=torch.float32, device=q.device)
-    h = (torch.empty((b, C1, 2 * w), dtype=torch.float32, device=q.device)
-         if save_hidden else None)
+    out = torch.empty((b, C_OUT, 4 * w), dtype=dt, device=q.device)
+    ptrs = (q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr())
+    if bf16:
+        check("deconv_stem", kernel("deconv_stem_bf16_fwd")(*ptrs, b, w, stream_of(q)))
+        return out, None
+    h = torch.empty((b, C1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
     check("deconv_stem", kernel("deconv_stem_fwd")(
-        q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), None if h is None else h.data_ptr(), b, w, stream_of(q)))
+        *ptrs, None if h is None else h.data_ptr(), b, w, stream_of(q)))
     return out, h
 
 
@@ -74,7 +92,7 @@ def deconv_stem_save_hidden(q, w1, b1, w2, b2):
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)
     out = _launch(q, w1, b1, w2, b2, save_hidden=True)
-    deconv_stem_save_hidden.launches += 1
+    count_launch(deconv_stem_save_hidden, torch.float32)
     return out
 
 
@@ -96,16 +114,20 @@ class _DeconvStem(torch.autograd.Function):
 
 
 def deconv_stem(q, w1, b1, w2, b2):
-    """(B, C, W) → (B, C_out, 4W); ReLU after the first layer only. Differentiable."""
+    """(B, C, W) → (B, C_out, 4W) in q's type (fp32 or bf16); ReLU after the
+    first layer only. Differentiable in fp32."""
     _check_input(q)
     if needs_grad(q, w1, b1, w2, b2):
+        if q.dtype != torch.float32:
+            raise NotImplementedError("deconv_stem's backward in bf16 is the bf16 training "
+                                      "slice, ROADMAP.md queue item 1")
         return _DeconvStem.apply(q, w1, b1, w2, b2)
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)[0]
     out, _ = _launch(q, w1, b1, w2, b2, save_hidden=False)
-    deconv_stem.launches += 1
+    count_launch(deconv_stem, q.dtype)
     return out
 
 
-deconv_stem.launches = 0
-deconv_stem_save_hidden.launches = 0
+deconv_stem.launches = collections.Counter()
+deconv_stem_save_hidden.launches = collections.Counter()

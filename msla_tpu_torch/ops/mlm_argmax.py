@@ -6,14 +6,20 @@ of the hand-written kernel ``csrc/mlm_argmax.cu``, which computes the logits
 on the tensor cores in 3xTF32 and never writes them; on CPU tensors they run
 ``mlm_argmax_ref``, the JAX package's ``_mlm_argmax_jnp`` math in row chunks.
 Ties go to the lowest index, as ``torch.argmax`` and ``jnp.argmax`` give them.
+With bf16 h and E (the bf16 compute_dtype; the bias stays fp32) the logits
+are the fp32 sums of the exact bf16 products, as the Pallas kernel takes them,
+and the kernel runs one bf16 pass on the tensor cores.
 ``tf32_round_ref`` and ``mlm_logits_3xtf32_ref`` emulate the kernel's
 arithmetic for the tests; no wrapper calls them.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from msla_tpu_torch.ops._build import check, kernel, require, runs_plain, stream_of
+from msla_tpu_torch.ops._build import (check, count_launch, kernel, require, runs_plain,
+                                       stream_of)
 
 #: the hidden width the CUDA kernel is compiled for (bert-base)
 K = 768
@@ -22,11 +28,13 @@ _REF_ROWS = 4096   # rows per chunk of the plain version: 500 MB of logits at V 
 
 def mlm_argmax_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
                    with_conf: bool = False):
-    """Plain version on (M, K) rows: logits = h @ embᵀ + bias, their argmax
-    and, with ``with_conf``, exp(max − logsumexp)."""
+    """Plain version on (M, K) rows: logits = h @ embᵀ + bias in fp32 (for
+    bf16 h and emb, of the exact products), their argmax and, with
+    ``with_conf``, exp(max − logsumexp)."""
     ids, conf = [], []
+    e = emb.float()
     for chunk in h.split(_REF_ROWS):
-        logits = chunk @ emb.T + bias
+        logits = chunk.float() @ e.T + bias
         ids.append(torch.argmax(logits, dim=-1).to(torch.int32))
         if with_conf:
             lse = torch.logsumexp(logits, dim=-1)
@@ -65,32 +73,38 @@ def mlm_logits_3xtf32_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor
 
 
 def _operands(name: str, h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
+    """Checks the operands; returns M, V and the entry point's suffix for
+    their type ("" for fp32, "_bf16")."""
     m, v = h.shape[0], emb.shape[0]
-    require(name, h, "h", (m, K))
-    require(name, emb, "emb", (v, K))
+    bf16 = h.dtype == torch.bfloat16
+    dt = torch.bfloat16 if bf16 else torch.float32
+    require(name, h, "h", (m, K), dtype=dt)
+    require(name, emb, "emb", (v, K), dtype=dt)
     require(name, bias, "bias", (v,))
     if h.data_ptr() % 16 or emb.data_ptr() % 16:
         raise ValueError(f"{name}: h and emb must be 16-byte aligned (16-byte cp.async loads)")
-    return m, v
+    return m, v, "_bf16" if bf16 else ""
 
 
 def mlm_argmax_conf(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
-    """(M, K) × (V, K) + (V,) fp32 → (ids (M,) int32, conf (M,) fp32)."""
+    """(M, K) × (V, K), both fp32 or both bf16, + (V,) fp32 → (ids (M,) int32,
+    conf (M,) fp32)."""
     if runs_plain("mlm_argmax_conf", h, emb, bias):
         return mlm_argmax_ref(h, emb, bias, with_conf=True)
-    m, v = _operands("mlm_argmax_conf", h, emb, bias)
+    m, v, suffix = _operands("mlm_argmax_conf", h, emb, bias)
     ids = torch.empty((m,), dtype=torch.int32, device=h.device)
     conf = torch.empty((m,), dtype=torch.float32, device=h.device)
-    check("mlm_argmax_conf", kernel("mlm_argmax_conf_fwd")(
+    check("mlm_argmax_conf", kernel(f"mlm_argmax_conf{suffix}_fwd")(
         h.data_ptr(), emb.data_ptr(), bias.data_ptr(), ids.data_ptr(), conf.data_ptr(),
         m, v, stream_of(h)))
-    mlm_argmax_conf.launches += 1
+    count_launch(mlm_argmax_conf, h.dtype)
     return ids, conf
 
 
 def mlm_argmax(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor, *,
                with_conf: bool = False):
-    """argmax over ``h @ embᵀ + bias``. h: (..., K); emb: (V, K); bias: (V,).
+    """argmax over ``h @ embᵀ + bias``. h: (..., K) and emb: (V, K), both fp32
+    or both bf16; bias: (V,) fp32.
     Returns int32 ids shaped like h[..., 0], plus fp32 confidences when
     ``with_conf`` (through ``mlm_argmax_conf``)."""
     lead = h.shape[:-1]
@@ -100,14 +114,14 @@ def mlm_argmax(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor, *,
         return ids.reshape(lead), conf.reshape(lead)
     if runs_plain("mlm_argmax", h2, emb, bias):
         return mlm_argmax_ref(h2, emb, bias).reshape(lead)
-    m, v = _operands("mlm_argmax", h2, emb, bias)
+    m, v, suffix = _operands("mlm_argmax", h2, emb, bias)
     ids = torch.empty((m,), dtype=torch.int32, device=h.device)
-    check("mlm_argmax", kernel("mlm_argmax_fwd")(
+    check("mlm_argmax", kernel(f"mlm_argmax{suffix}_fwd")(
         h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), ids.data_ptr(), m, v,
         stream_of(h2)))
-    mlm_argmax.launches += 1
+    count_launch(mlm_argmax, h2.dtype)
     return ids.reshape(lead)
 
 
-mlm_argmax.launches = 0
-mlm_argmax_conf.launches = 0
+mlm_argmax.launches = collections.Counter()
+mlm_argmax_conf.launches = collections.Counter()

@@ -8,9 +8,12 @@ row and dropped) and pick the lowest index on ties.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from msla_tpu_torch.ops._build import SMEM_BYTES, check, kernel, require, runs_plain, stream_of
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
+                                       runs_plain, stream_of)
 
 #: the row width the CUDA kernel is compiled for (the model's embedding_dim)
 D = 64
@@ -47,8 +50,8 @@ def nearest_codes(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     check("nearest_codes", kernel("nearest_codes_fwd")(
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
         n, k, stream_of(flat_x)))
-    nearest_codes.launches += 1
+    count_launch(nearest_codes, torch.float32)
     return idx
 
 
-nearest_codes.launches = 0
+nearest_codes.launches = collections.Counter()

@@ -12,10 +12,12 @@ reduced in block order. They are not taken in the TPU kernel's order.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from msla_tpu_torch.ops._build import (SMEM_BYTES, check, kernel, require, runs_plain,
-                                       sm_count, stream_of)
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
+                                       runs_plain, sm_count, stream_of)
 from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref
 
 _GRAD_STAGE_BYTES = 8 * 64 * 16  # the codebook-gradient kernel's per-warp row staging
@@ -62,7 +64,7 @@ def vq_fused_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), q.data_ptr(), idx.data_ptr(),
         counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts,
         n, k, stream_of(flat_x)))
-    vq_fused_fwd.launches += 1
+    count_launch(vq_fused_fwd, torch.float32)
     return q, idx, counts, sq
 
 
@@ -89,9 +91,9 @@ def vq_codebook_grad(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor
     check("vq_codebook_grad", kernel("vq_codebook_grad")(
         g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), parts, n, k,
         stream_of(g)))
-    vq_codebook_grad.launches += 1
+    count_launch(vq_codebook_grad, torch.float32)
     return dcb
 
 
-vq_fused_fwd.launches = 0
-vq_codebook_grad.launches = 0
+vq_fused_fwd.launches = collections.Counter()
+vq_codebook_grad.launches = collections.Counter()

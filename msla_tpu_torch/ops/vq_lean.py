@@ -12,9 +12,12 @@ its fp32 error is a few units in the last place of ‖x‖², not of the result.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from msla_tpu_torch.ops._build import SMEM_BYTES, check, kernel, require, runs_plain, stream_of
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
+                                       runs_plain, stream_of)
 from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms
 from msla_tpu_torch.ops.vq_fused import count_outputs
 
@@ -65,8 +68,8 @@ def vq_lean_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(),
         counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts,
         n, k, stream_of(flat_x)))
-    vq_lean_fwd.launches += 1
+    count_launch(vq_lean_fwd, torch.float32)
     return codebook.index_select(0, idx), idx, counts, sq
 
 
-vq_lean_fwd.launches = 0
+vq_lean_fwd.launches = collections.Counter()

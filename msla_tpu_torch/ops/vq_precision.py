@@ -22,8 +22,8 @@ import collections
 
 import torch
 
-from msla_tpu_torch.ops._build import (SMEM_BYTES, check, kernel, require, runs_plain,
-                                       sm_count, stream_of)
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
+                                       runs_plain, sm_count, stream_of)
 from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms
 from msla_tpu_torch.ops.vq_fused import (count_outputs, vq_codebook_grad, vq_codebook_grad_ref,
                                          vq_fused_fwd)
@@ -120,8 +120,7 @@ def vq_precision_fwd(flat_x: torch.Tensor, codebook: torch.Tensor, dist_mode: st
         hi.data_ptr(), lo.data_ptr(), e2.data_ptr(), q.data_ptr(), idx.data_ptr(),
         counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts, n,
         k, stream_of(flat_x)))
-    vq_precision_fwd.launches += 1
-    vq_precision_fwd.mode_launches[f"{dist_mode}/{quant_mode}"] += 1
+    count_launch(vq_precision_fwd, f"{dist_mode}/{quant_mode}")
     return q, idx[:, None], counts[None], sq.reshape(1, 1)
 
 
@@ -158,10 +157,9 @@ def vq_precision_bwd(g: torch.Tensor, idx: torch.Tensor, mode: str,
     check("vq_precision_bwd", kernel("vq_precision_bwd_split2")(
         g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), parts, n, k,
         stream_of(g)))
-    vq_precision_bwd.launches += 1
+    count_launch(vq_precision_bwd, torch.float32)
     return dcb
 
 
-vq_precision_fwd.launches = 0
-vq_precision_fwd.mode_launches = collections.Counter()  # launches by "dist/quant"
-vq_precision_bwd.launches = 0
+vq_precision_fwd.launches = collections.Counter()  # keyed by "dist/quant" mode
+vq_precision_bwd.launches = collections.Counter()

@@ -30,6 +30,7 @@ from typing import Iterable, Iterator, Mapping
 import torch
 
 from msla_tpu_torch.device import resolve_device
+from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
 log = logging.getLogger(__name__)
 
@@ -174,7 +175,8 @@ class Trainer:
         batch = datamodule.on_after_batch_transfer(raw)
         self._optimizer.zero_grad(set_to_none=True)
         loss, metrics = model.loss_fn(batch, self._generator)
-        loss.backward()
+        with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
+            loss.backward()
         self._optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -128,11 +128,12 @@ def test_keywords_that_wait_raise(tmp_path):
     kw = dict(device="cpu", config=BertConfig(**SMALL))
     for bad, match in ((dict(use_pallas=False), "ROADMAP.md §3"),
                        (dict(use_flash=False), "ROADMAP.md §3"),
-                       (dict(compute_dtype="bfloat16"), "queue item 1"),
                        (dict(pretrained_weights=str(tmp_path / "codebook.csv")),
                         "queue item 8")):
         with pytest.raises(NotImplementedError, match=match):
             AudioBertTask(*args, **bad, **kw)
+    # bf16 serves now (tests/test_torch_bf16_bert.py holds it against JAX)
+    assert AudioBertTask(*args, compute_dtype="bfloat16", **kw).bert.dtype == torch.bfloat16
     task = AudioBertTask(*args, pretrained_weights=str(tmp_path / "absent.msgpack"), **kw)
     idx = torch.zeros((1, 500), dtype=torch.int64)
     batch = (idx, torch.zeros((1, 4, 2000)))

@@ -93,8 +93,10 @@ def test_init_families():
 
 
 def test_waiting_options_raise():
-    with pytest.raises(NotImplementedError, match="queue item 1"):
-        BertForMaskedLM(BertConfig(**SMALL, compute_dtype="bfloat16"), device="cpu")
+    """bf16 runs now (tests/test_torch_bf16_bert.py holds it against JAX)."""
+    bf16 = BertForMaskedLM(BertConfig(**SMALL, compute_dtype="bfloat16"), device="cpu")
+    assert bf16(torch.zeros((1, 4), dtype=torch.int64), return_mlm_hidden=True).dtype == \
+        torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md §3"):
         BertForMaskedLM(BertConfig(**SMALL, use_flash=False), device="cpu")
     net = BertForMaskedLM(BertConfig(**SMALL), device="cpu")

@@ -1,0 +1,144 @@
+"""The stems' plain versions in bf16 (msla_tpu_torch.ops.conv_stem_ref and
+deconv_stem_ref on bf16 x/q, w1, w2 and fp32 biases) on the CPU against the
+JAX package's Pallas stems in interpret mode on the same bf16 operands, the
+function the port's bf16 kernels compute: within 1 bf16 ulp of the larger
+value (both sum the same exact products in fp32, in another order, then round
+h and the output to bf16; these inputs give the same bits). Against the JAX
+package's XLA stems, which add the bias after casting it to bf16, within
+4 bf16 ulps of the output's largest value. And K1's lengths that are not a
+multiple of 4, fp32 and bf16, against the JAX XLA stem."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_layout import ncw, t32, torch_weight
+from msla_tpu.ops.conv_stem import conv_stem_pallas, conv_stem_ref as jax_conv_stem_ref
+from msla_tpu.ops.deconv_stem import deconv_stem_pallas, deconv_stem_ref as jax_deconv_stem_ref
+from msla_tpu_torch.ops._build import launch_count
+from msla_tpu_torch.ops.conv_stem import conv_stem, conv_stem_ref, conv_stem_save_hidden
+from msla_tpu_torch.ops.deconv_stem import deconv_stem, deconv_stem_ref
+
+BF = torch.bfloat16
+
+
+def bf16_ulps(got: np.ndarray, want: np.ndarray) -> np.ndarray:
+    """|got − want| in bf16 ulps of the larger of the two magnitudes."""
+    m = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(m, np.finfo(np.float32).tiny))) - 7)
+    return np.abs(got - want) / ulp
+
+
+def _stem_inputs(t, seed, b=2, c0=4, c1=8, c2=16):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, t, c0)).astype(np.float32),
+            (rng.standard_normal((4, c0, c1)) * 0.2).astype(np.float32),
+            (rng.standard_normal((c1,)) * 0.1).astype(np.float32),
+            (rng.standard_normal((4, c1, c2)) * 0.2).astype(np.float32),
+            (rng.standard_normal((c2,)) * 0.1).astype(np.float32))
+
+
+def _jax_bf16(x, w1, b1, w2, b2):
+    """The JAX stems' bf16 operands: x and the kernels bf16, the biases fp32."""
+    bf = jnp.bfloat16
+    return (jnp.asarray(x, bf), jnp.asarray(w1, bf), jnp.asarray(b1), jnp.asarray(w2, bf),
+            jnp.asarray(b2))
+
+
+def _port_bf16(x, w1, b1, w2, b2):
+    return (ncw(x).to(BF), torch_weight(w1).to(BF), t32(b1), torch_weight(w2).to(BF), t32(b2))
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a).astype(np.float32)
+
+
+@pytest.mark.parametrize("t,tile,seed", [(64, 8, 0), (256, 16, 1), (192, 48, 2)])
+def test_conv_stem_bf16_matches_jax_pallas_interpret(t, tile, seed):
+    args = _stem_inputs(t, seed)
+    want = _f32(conv_stem_pallas(*_jax_bf16(*args), tile_w=tile, interpret=True))
+    got, h1 = conv_stem_ref(*_port_bf16(*args))
+    assert got.dtype == h1.dtype == BF
+    assert bf16_ulps(got.float().numpy(), ncw(want).numpy()).max() <= 1
+
+
+@pytest.mark.parametrize("t", [64, 256])
+def test_conv_stem_bf16_hidden_matches_jax_pallas_interpret(t):
+    args = _stem_inputs(t, 3)
+    _, want = conv_stem_pallas(*_jax_bf16(*args), tile_w=16, save_hidden=True, interpret=True)
+    got = conv_stem_ref(*_port_bf16(*args))[1]
+    assert bf16_ulps(got.float().numpy(), ncw(_f32(want)).numpy()).max() <= 1
+
+
+@pytest.mark.parametrize("t", [64, 192])
+def test_conv_stem_bf16_near_jax_xla(t):
+    args = _stem_inputs(t, 4)
+    want = ncw(_f32(jax_conv_stem_ref(*_jax_bf16(*args))[0])).numpy()
+    got = conv_stem_ref(*_port_bf16(*args))[0].float().numpy()
+    assert np.abs(got - want).max() <= 4 * 2.0 ** -8 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("w,tile,seed", [(16, 8, 0), (64, 16, 1), (48, 24, 2)])
+def test_deconv_stem_bf16_matches_jax_pallas_interpret(w, tile, seed):
+    rng = np.random.default_rng(seed)
+    args = (rng.standard_normal((2, w, 16)).astype(np.float32),
+            (rng.standard_normal((4, 8, 16)) * 0.2).astype(np.float32),
+            (rng.standard_normal((8,)) * 0.1).astype(np.float32),
+            (rng.standard_normal((4, 4, 8)) * 0.2).astype(np.float32),
+            (rng.standard_normal((4,)) * 0.1).astype(np.float32))
+    want = ncw(_f32(deconv_stem_pallas(*_jax_bf16(*args), tile_w=tile, interpret=True)))
+    got, h = deconv_stem_ref(*_port_bf16(*args))
+    assert got.dtype == h.dtype == BF
+    assert bf16_ulps(got.float().numpy(), want.numpy()).max() <= 1
+    near = ncw(_f32(jax_deconv_stem_ref(*_jax_bf16(*args))[0])).numpy()
+    assert np.abs(got.float().numpy() - near).max() <= 4 * 2.0 ** -8 * np.abs(near).max()
+
+
+@pytest.mark.parametrize("t", [62, 63, 65, 66, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_conv_stem_takes_any_length_as_jax_xla(t, dtype):
+    """floor(T/2) hidden rows and floor(T/4) outputs, as the JAX XLA stem gives
+    them (fp32 at 1e-5; bf16 against the port's own fp32 at 2 bf16 ulps of the
+    largest value, since the XLA stem rounds its bias to bf16)."""
+    args = _stem_inputs(t, 5)
+    want, want_h = (ncw(_f32(a)) for a in jax_conv_stem_ref(*args))
+    port = (ncw(args[0]), torch_weight(args[1]), t32(args[2]), torch_weight(args[3]),
+            t32(args[4]))
+    if dtype == BF:
+        port = (port[0].to(BF), port[1].to(BF), port[2], port[3].to(BF), port[4])
+    got, h1 = conv_stem_ref(*port)
+    assert got.shape == (2, 16, t // 4) and h1.shape == (2, 8, t // 2)
+    assert torch.equal(conv_stem(*port), got)
+    tol = 1e-5 if dtype == torch.float32 else 2 * 2.0 ** -8 * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0 if dtype == BF else 1e-5, atol=tol)
+    torch.testing.assert_close(h1.float(), want_h, rtol=0 if dtype == BF else 1e-5,
+                               atol=tol if dtype == BF else 1e-5)
+
+
+def test_wrappers_on_cpu_run_the_bf16_plain_versions():
+    args = _port_bf16(*_stem_inputs(64, 6))
+    before = launch_count(conv_stem)
+    assert torch.equal(conv_stem(*args), conv_stem_ref(*args)[0])
+    out, h1 = conv_stem_save_hidden(*args)
+    assert out.dtype == h1.dtype == BF
+    q = torch.randn((2, 16, 16), generator=torch.Generator().manual_seed(0)).to(BF)
+    w1, w2 = torch.randn((16, 8, 4)).to(BF), torch.randn((8, 4, 4)).to(BF)
+    b1, b2 = torch.zeros(8), torch.zeros(4)
+    assert torch.equal(deconv_stem(q, w1, b1, w2, b2), deconv_stem_ref(q, w1, b1, w2, b2)[0])
+    assert launch_count(conv_stem) == before  # no kernel launched on the CPU
+
+
+def test_bf16_backward_is_a_later_slice():
+    x, w1, b1, w2, b2 = _port_bf16(*_stem_inputs(64, 7))
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        conv_stem(x, w1.requires_grad_(), b1, w2, b2)
+    q = torch.randn((1, 16, 8)).to(BF)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        deconv_stem(q, torch.randn((16, 8, 4)).to(BF).requires_grad_(), torch.zeros(8),
+                    torch.randn((8, 4, 4)).to(BF), torch.zeros(4))
+
+
+def test_lengths_below_4_are_refused():
+    x, w1, b1, w2, b2 = _port_bf16(*_stem_inputs(8, 8))
+    with pytest.raises(ValueError, match="T >= 4"):
+        conv_stem(x[..., :3], w1, b1, w2, b2)

@@ -8,6 +8,7 @@ import torch.nn.functional as F
 
 from _torch_layout import ncw, t32, torch_weight
 from msla_tpu.ops.conv_stem import conv_stem_pallas, conv_stem_ref as jax_conv_stem_ref
+from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.conv_stem import conv_stem, conv_stem_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -58,15 +59,27 @@ def test_plain_matches_library_conv_pair():
 def test_wrapper_on_cpu_runs_the_plain_version():
     x, w1, b1, w2, b2 = _inputs(t=64, seed=6)
     args = (ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
-    before = conv_stem.launches
+    before = launch_count(conv_stem)
     torch.testing.assert_close(conv_stem(*args), conv_stem_ref(*args)[0], rtol=0, atol=0)
-    assert conv_stem.launches == before  # no kernel launched on the CPU
+    assert launch_count(conv_stem) == before  # no kernel launched on the CPU
 
 
-def test_rejects_length_not_divisible_by_4():
+@pytest.mark.parametrize("t", [3, 62, 63, 65])
+def test_rejects_length_not_divisible_by_4(t):
+    """A length T not divisible by 4 is taken now, as the JAX package's XLA
+    stem takes it: floor(T/4) columns equal to its conv_stem_ref's; only T < 4
+    is refused."""
     x, w1, b1, w2, b2 = _inputs(t=64)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        conv_stem(ncw(x)[..., :62], torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+    x = x[:, :t]
+    args = (ncw(x), torch_weight(w1), t32(b1), torch_weight(w2), t32(b2))
+    if t < 4:
+        with pytest.raises(ValueError, match="T >= 4"):
+            conv_stem(*args)
+        return
+    got = conv_stem(*args)
+    assert got.shape == (2, 16, t // 4)
+    want, _ = jax_conv_stem_ref(x, w1, b1, w2, b2)
+    np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
 
 
 def test_training_forward_under_grad():

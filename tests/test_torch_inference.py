@@ -52,10 +52,24 @@ def test_encode_codes_matches_jax(separators):
     np.testing.assert_array_equal(got, want)
 
 
-def test_frame_length_must_suit_the_stem_kernel(separators):
-    _, sep = separators
-    with pytest.raises(ValueError, match="divisible by 4"):
-        SourceSeparator(sep.task, frame_samples=FRAME + 2)
+@pytest.mark.parametrize("frame", [FRAME + 1, FRAME + 2, FRAME + 3])
+def test_frame_length_must_suit_the_stem_kernel(separators, frame):
+    """Any frame length is taken now, as the JAX package takes it:
+    encode_codes gives JAX's floor(F/4) codes a frame, and separate, whose
+    frames come back floor(F/4)·4 samples long, raises ValueError where JAX's
+    raises."""
+    jax_sep, sep = separators
+    jax_sep = JaxSourceSeparator(jax_sep.task, jax_sep.params, frame_samples=frame,
+                                 batch_size=4)
+    sep = SourceSeparator(sep.task, frame_samples=frame, batch_size=4)
+    got = sep.encode_codes(_song())
+    assert got.shape == (-(-9500 // frame), frame // 4)
+    np.testing.assert_array_equal(got, jax_sep.encode_codes(_song()))
+    for overlap in (False, True):
+        with pytest.raises(ValueError):
+            jax_sep.separate(_song(), overlap=overlap)
+        with pytest.raises(ValueError):
+            sep.separate(_song(), overlap=overlap)
 
 
 def test_default_device_is_the_card_and_refuses_to_fall_back():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from msla_tpu.ops.mlm_argmax import _mlm_argmax_jnp, mlm_argmax_pallas
+from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.mlm_argmax import (mlm_argmax, mlm_argmax_conf, mlm_argmax_ref,
                                            mlm_logits_3xtf32_ref, tf32_round_ref)
 
@@ -47,10 +48,10 @@ def test_wrapper_matches_jax_jnp_path(with_conf):
     on CPU tensors runs the plain version without counting a launch."""
     h, emb, bias = _rand(6 * 5, 8, 40, seed=2)
     want = _mlm_argmax_jnp(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias), with_conf)
-    before = (mlm_argmax.launches, mlm_argmax_conf.launches)
+    before = (launch_count(mlm_argmax), launch_count(mlm_argmax_conf))
     got = mlm_argmax(torch.from_numpy(h).reshape(6, 5, 8), torch.from_numpy(emb),
                      torch.from_numpy(bias), with_conf=with_conf)
-    assert (mlm_argmax.launches, mlm_argmax_conf.launches) == before
+    assert (launch_count(mlm_argmax), launch_count(mlm_argmax_conf)) == before
     if with_conf:
         (want, want_conf), (got, got_conf) = want, got
         assert got_conf.shape == (6, 5)

@@ -180,6 +180,24 @@ def test_fit_writes_the_codebook_csv_and_moves_every_parameter(jax_side, tmp_pat
                                   task.net.vector_quantizer.codebook.weight.detach().numpy())
 
 
+def test_backward_runs_with_cudnn_tf32_off(jax_side, tmp_path):
+    """The convs' adjoints run when loss.backward() runs, outside the forward's
+    fp32 scope: the Trainer gives the backward one of its own. Hooks on a
+    residual conv's and the decoder's first conv's weight gradients read
+    cuDNN's TF32 flag while the backward computes them."""
+    _, params = jax_side
+    task = _port_task(params, tmp_path)
+    seen = []
+    for w in (task.net.encoder.residual_stack.residual_layers[0][1].weight,
+              task.net.decoder.conv1.weight):
+        w.register_hook(lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+    assert torch.backends.cudnn.allow_tf32  # torch's default, outside any scope
+    Trainer(max_epochs=1, limit_train_batches=2, accelerator="cpu",
+            enable_progress_bar=False).fit(task, PortDM(TRAIN, VAL))
+    assert len(seen) == 4 and not any(seen)
+    assert torch.backends.cudnn.allow_tf32
+
+
 @pytest.mark.parametrize("kw,steps,epochs", [(dict(fast_dev_run=True, max_epochs=5), 1, 1),
                                              (dict(max_epochs=2, limit_train_batches=2), 4, 2),
                                              (dict(max_epochs=1, limit_train_batches=0.5), 1, 1)])

@@ -18,6 +18,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.vq_fused import vq_fused_fwd_ref
 from msla_tpu_torch.ops.vq_precision import (split_bf16, vq_precision_bwd, vq_precision_bwd_ref,
                                              vq_precision_fwd, vq_precision_fwd_ref)
@@ -118,12 +119,12 @@ def test_bad_modes_raise(call):
 def test_wrappers_on_cpu_run_the_plain_versions():
     x, cb, g = bench_vq_precision.inputs(300)
     idx = vq_fused_fwd_ref(x, cb)[1]
-    before = vq_precision_fwd.launches, vq_precision_bwd.launches
+    before = launch_count(vq_precision_fwd), launch_count(vq_precision_bwd)
     for a, b in zip(vq_precision_fwd(x, cb, "split3", "split2"),
                     vq_precision_fwd_ref(x, cb, "split3", "split2")):
         assert torch.equal(a, b)
     assert torch.equal(vq_precision_bwd(g, idx, "split2"),
                        vq_precision_bwd_ref(g, idx, "split2"))
-    assert (vq_precision_fwd.launches, vq_precision_bwd.launches) == before
+    assert (launch_count(vq_precision_fwd), launch_count(vq_precision_bwd)) == before
     with pytest.raises(ValueError, match="cpu or cuda"):
         vq_precision_fwd(x.to("meta"), cb.to("meta"), "bf16", "f32")

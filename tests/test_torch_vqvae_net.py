@@ -124,8 +124,14 @@ def test_converter_agrees_with_the_jax_package_exporter(nets):
 
 
 def test_bf16_is_a_later_slice():
+    """bf16 serving runs (tests/test_torch_bf16_vqvae.py holds it against
+    JAX); bf16 training, the backward, is the later slice and raises."""
+    net = VQVAENet(**CFG, compute_dtype="bfloat16", device="cpu")
+    x = torch.zeros((1, 4, 64))
+    with torch.no_grad():
+        assert net(x).output.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VQVAENet(**CFG, compute_dtype="bfloat16", device="cpu")
+        net(x)
 
 
 def test_seeded_init_is_reproducible_and_in_range():
