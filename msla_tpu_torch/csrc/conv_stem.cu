@@ -11,13 +11,15 @@
 // must move 45.1 MB in + 360.4 MB out (+ 360.4 MB of h1 for K1b), so it is
 // bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by
 // memory. In bf16 the same FLOP held to the bf16 tensor-core peak (989
-// TFLOP/s) take 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms: bound by
-// bytes. This kernel does not reach for that bound: it runs the bf16 function
+// TFLOP/s) take 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms (K1b in
+// bf16 also writes 180.2 MB of h1: 0.114 ms): bound by bytes. This kernel
+// does not reach for that bound: it runs the bf16 function
 // on the fp32 FMA units, as the Pallas kernel's own arithmetic (exact bf16
 // products summed in fp32), and the bf16 operands only halve its traffic.
 //
 // Design: in K1, conv1's output h1 (B, 64, T/2) never reaches device memory;
-// K1b also writes it, for the backward. A block
+// K1b also writes it, for the backward, in the operand type (in bf16 the
+// rounded h1 that conv2 read, as the Pallas kernel's hidden). A block
 // holds the whole conv2 weight (128 KB) plus a tile of h1 in shared memory and is
 // persistent: one block per SM loads the weights once and walks over
 // (batch row, tile) pairs. Each thread keeps an 8 channel x 8 position register
@@ -190,9 +192,11 @@ extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
   return launch<float>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
 }
 
-// bf16 x, w1t, w2t and out, fp32 biases (K1 in bf16; no hidden).
+// bf16 x, w1t, w2t and out, fp32 biases: hidden may be null (K1 in bf16);
+// otherwise it receives the bf16 h1 that conv2 read (K1b in bf16).
 extern "C" int conv_stem_bf16_fwd(const __nv_bfloat16* x, const __nv_bfloat16* w1t,
                                   const float* b1, const __nv_bfloat16* w2t, const float* b2,
-                                  __nv_bfloat16* out, int batch, int t_len, void* stream) {
-  return launch<__nv_bfloat16>(x, w1t, b1, w2t, b2, out, nullptr, batch, t_len, stream);
+                                  __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
+                                  int t_len, void* stream) {
+  return launch<__nv_bfloat16>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
 }

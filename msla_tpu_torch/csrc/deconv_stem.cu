@@ -10,8 +10,9 @@
 // must move 360.4 MB in + 45.1 MB out (+ 360.4 MB of h for K2b), so it is bound
 // by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by memory.
 // In bf16 the same FLOP held to the bf16 tensor-core peak (989 TFLOP/s) take
-// 0.050 ms and the 180.2 MB in + 22.5 MB out 0.061 ms: bound by bytes. This
-// kernel does not reach for that bound: it runs the bf16 function on the fp32
+// 0.050 ms and the 180.2 MB in + 22.5 MB out 0.061 ms (K2b in bf16 also
+// writes 180.2 MB of h: 0.114 ms): bound by bytes. This kernel does not reach
+// for that bound: it runs the bf16 function on the fp32
 // FMA units, as the Pallas kernel's own arithmetic (exact bf16 products summed
 // in fp32), and the bf16 operands only halve its traffic.
 //
@@ -30,8 +31,8 @@
 // and the halo and pad rows are never written. In bf16 (the Pallas kernel's
 // cast points, msla_tpu/ops/deconv_stem.py:35-63) q and the weights are
 // widened to fp32 as they enter shared memory, h = relu(sum + b1) is rounded to
-// bf16 before the second layer reads it, and the output is rounded to bf16 as
-// it is stored.
+// bf16 before the second layer reads it (K2b in bf16 writes that rounded h),
+// and the output is rounded to bf16 as it is stored.
 //
 // Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
 // Weights in torch's
@@ -211,9 +212,11 @@ extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
   return launch<float>(q, w1, b1, w2, b2, out, hidden, batch, width, stream);
 }
 
-// bf16 q, w1, w2 and out, fp32 biases (K2 in bf16; no hidden).
+// bf16 q, w1, w2 and out, fp32 biases: hidden may be null (K2 in bf16);
+// otherwise it receives the bf16 h that the second layer read (K2b in bf16).
 extern "C" int deconv_stem_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16* w1,
                                     const float* b1, const __nv_bfloat16* w2, const float* b2,
-                                    __nv_bfloat16* out, int batch, int width, void* stream) {
-  return launch<__nv_bfloat16>(q, w1, b1, w2, b2, out, nullptr, batch, width, stream);
+                                    __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
+                                    int width, void* stream) {
+  return launch<__nv_bfloat16>(q, w1, b1, w2, b2, out, hidden, batch, width, stream);
 }

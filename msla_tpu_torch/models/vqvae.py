@@ -3,8 +3,10 @@
 Training loss = embedding_loss + commitment_loss + Σᵢ L1(stemᵢ) (reference:
 vqvae.py:62-66); validation/test return the reference's metric catalog
 (vqvae.py:108-165); Adam(lr) (vqvae.py:168-171); the codebook is written as
-CSV each epoch (vqvae.py:239-243). The audio demo of the first validation
-batch waits for the loggers (ROADMAP.md queue item 2).
+CSV each epoch (vqvae.py:239-243). With ``compute_dtype="bfloat16"`` the
+network runs in bf16 and the loss, metrics, VQ and Adam's parameters stay
+fp32, as in the JAX task. The audio demo of the first validation batch waits
+for the WAV writer (ROADMAP.md queue items 2 and 3).
 """
 from __future__ import annotations
 

@@ -6,10 +6,11 @@ JAX package's layouts: (B, 4, T) stems in and out, ``encode`` returns
 everything is torch's NCW. The state_dict uses the reference torch model's key
 names, so ``utils.jax_compat.vqvae_state_dict_from_jax`` output loads strictly.
 
-``compute_dtype="bfloat16"`` runs the convs in bf16 as the JAX package does:
-parameters stay fp32, the pre-VQ latents are cast to fp32 (so the VQ distances
-and losses stay fp32) and the decoder's output is fp32. Inference only: the
-bf16 backward is the bf16 training slice (ROADMAP.md queue item 1).
+``compute_dtype="bfloat16"`` runs the convs in bf16 as the JAX package does,
+in inference and under grad: parameters stay fp32 (each layer casts its
+weights, and their gradients come back to fp32 through the cast), the pre-VQ
+latents are cast to fp32 (so the VQ distances, losses and the straight-through
+gradient stay fp32 until that cast) and the decoder's output is fp32.
 """
 from __future__ import annotations
 

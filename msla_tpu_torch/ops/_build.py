@@ -41,9 +41,9 @@ F32 = ctypes.c_float
 #: (pointers and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
     "conv_stem_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
-    "conv_stem_bf16_fwd": ("conv_stem", [P, P, P, P, P, P, I32, I32, P]),
+    "conv_stem_bf16_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
     "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
-    "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, I32, I32, P]),
+    "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I32, P]),

@@ -7,15 +7,18 @@ hidden (K1, which keeps conv1's (B, 64, T/2) output out of device memory), and
 both run ``conv_stem_ref``, the plain PyTorch version of the same arithmetic.
 
 Under autograd, ``conv_stem`` is an ``autograd.Function`` whose forward is
-K1b and whose backward is the JAX package's ``_fused_bwd``: ReLU masks from
-the saved outputs and the exact conv adjoints (cuDNN on the card, in fp32),
-with no forward recompute. The Function is the same on both devices.
+K1b and whose backward is the JAX package's ``_fused_bwd``
+(msla_tpu/ops/conv_stem.py:177-190): ReLU masks from the saved outputs and the
+exact conv adjoints (cuDNN on the card), with no forward recompute. The
+Function is the same on both devices.
 
 The bf16 compute_dtype runs the Pallas kernel's bf16 function
-(msla_tpu/ops/conv_stem.py:54-75): x, w1 and w2 bf16, the biases fp32, the
-products summed in fp32, h1 rounded to bf16 before conv2 and a bf16 output.
-The operand type is x's. The kernel takes it as K1 only: the bf16 K1b and the
-bf16 backward are the bf16 training slice (ROADMAP.md queue item 1).
+(msla_tpu/ops/conv_stem.py:54-80): x, w1 and w2 bf16, the biases fp32, the
+products summed in fp32, h1 rounded to bf16 before conv2 (and saved so by
+K1b) and a bf16 output. The operand type is x's. Its backward is
+``_fused_bwd`` on bf16 operands: the output gradient masked and cast to bf16,
+the conv adjoints in bf16 (``conv_grads``), dh1 masked by h1 > 0 and kept
+bf16, the biases' gradients summed in fp32.
 
 Any length T >= 4: the output has floor(T/4) columns and the hidden floor(T/2),
 as the JAX package's XLA stem gives them.
@@ -58,9 +61,6 @@ def _launch(x, w1, b1, w2, b2, save_hidden: bool):
     b, _, t = x.shape
     dt = x.dtype
     bf16 = dt == torch.bfloat16
-    if bf16 and save_hidden:
-        raise NotImplementedError("conv_stem_save_hidden in bf16 (K1b) is the bf16 training "
-                                  "slice, ROADMAP.md queue item 1")
     require("conv_stem", x, "x", (b, C0, t), dtype=torch.bfloat16 if bf16 else torch.float32)
     require("conv_stem", w1, "w1", (C1, C0, 4), dtype=dt)
     require("conv_stem", b1, "b1", (C1,))
@@ -69,14 +69,10 @@ def _launch(x, w1, b1, w2, b2, save_hidden: bool):
     w1t = w1.permute(1, 2, 0).contiguous()  # [c0*4+tap][c1]
     w2t = w2.permute(1, 2, 0).contiguous()  # [c1*4+tap][c2]
     out = torch.empty((b, C2, t // 4), dtype=dt, device=x.device)
-    ptrs = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-            out.data_ptr())
-    if bf16:
-        check("conv_stem", kernel("conv_stem_bf16_fwd")(*ptrs, b, t, stream_of(x)))
-        return out, None
     h1 = torch.empty((b, C1, t // 2), dtype=dt, device=x.device) if save_hidden else None
-    check("conv_stem", kernel("conv_stem_fwd")(
-        *ptrs, None if h1 is None else h1.data_ptr(), b, t, stream_of(x)))
+    check("conv_stem", kernel("conv_stem_bf16_fwd" if bf16 else "conv_stem_fwd")(
+        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), None if h1 is None else h1.data_ptr(), b, t, stream_of(x)))
     return out, h1
 
 
@@ -91,7 +87,7 @@ def conv_stem_save_hidden(x, w1, b1, w2, b2):
     if runs_plain("conv_stem", x, w1, b1, w2, b2):
         return conv_stem_ref(x, w1, b1, w2, b2)
     out = _launch(x, w1, b1, w2, b2, save_hidden=True)
-    count_launch(conv_stem_save_hidden, torch.float32)
+    count_launch(conv_stem_save_hidden, x.dtype)
     return out
 
 
@@ -105,7 +101,7 @@ class _ConvStem(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, h1, out, w1, w2 = ctx.saved_tensors
-        g2 = torch.where(out > 0, g, 0.0).contiguous()
+        g2 = torch.where(out > 0, g, 0.0).to(h1.dtype)
         dh1, dw2, db2 = conv_grads(g2, h1, w2, transposed=False, need_input=True)
         dh1 = torch.where(h1 > 0, dh1, 0.0)
         dx, dw1, db1 = conv_grads(dh1, x, w1, transposed=False,
@@ -114,13 +110,10 @@ class _ConvStem(torch.autograd.Function):
 
 
 def conv_stem(x, w1, b1, w2, b2):
-    """(B, C0, T) → (B, C2, floor(T/4)), T >= 4, in x's type (fp32 or bf16).
-    Differentiable in fp32."""
+    """(B, C0, T) → (B, C2, floor(T/4)), T >= 4, in x's type (fp32 or bf16),
+    differentiable in both."""
     _check_input(x)
     if needs_grad(x, w1, b1, w2, b2):
-        if x.dtype != torch.float32:
-            raise NotImplementedError("conv_stem's backward in bf16 is the bf16 training "
-                                      "slice, ROADMAP.md queue item 1")
         return _ConvStem.apply(x, w1, b1, w2, b2)
     if runs_plain("conv_stem", x, w1, b1, w2, b2):
         return conv_stem_ref(x, w1, b1, w2, b2)[0]

@@ -7,15 +7,18 @@ the hidden (K2, which keeps the (B, 64, 2W) hidden out of device memory), and
 both run ``deconv_stem_ref``, the plain PyTorch version of the same arithmetic.
 
 Under autograd, ``deconv_stem`` is an ``autograd.Function`` whose forward is
-K2b and whose backward is the JAX package's ``_fused_bwd``: the ReLU mask from
-the saved hidden and the exact conv-transpose adjoints (cuDNN on the card, in
-fp32), with no forward recompute. The Function is the same on both devices.
+K2b and whose backward is the JAX package's ``_fused_bwd``
+(msla_tpu/ops/deconv_stem.py:180-190): the ReLU mask from the saved hidden and
+the exact conv-transpose adjoints (cuDNN on the card), with no forward
+recompute. The Function is the same on both devices.
 
 The bf16 compute_dtype runs the Pallas kernel's bf16 function
 (msla_tpu/ops/deconv_stem.py:35-63): q, w1 and w2 bf16, the biases fp32, the
-products summed in fp32, h rounded to bf16 before the second layer and a bf16
-output. The operand type is q's. The kernel takes it as K2 only: the bf16 K2b
-and the bf16 backward are the bf16 training slice (ROADMAP.md queue item 1).
+products summed in fp32, h rounded to bf16 before the second layer (and saved
+so by K2b) and a bf16 output. The operand type is q's. Its backward is
+``_fused_bwd`` on bf16 operands: the output gradient cast to bf16, the
+adjoints in bf16 (``conv_grads``), dh masked by h > 0 and kept bf16, the
+biases' gradients summed in fp32.
 
 A stride-2 transposed conv splits into two phases (torch weight (in, out, k)):
   out[2m]   = x[m]·W[..., 1] + x[m-1]·W[..., 3]
@@ -61,23 +64,16 @@ def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     b, _, w = q.shape
     dt = q.dtype
     bf16 = dt == torch.bfloat16
-    if bf16 and save_hidden:
-        raise NotImplementedError("deconv_stem_save_hidden in bf16 (K2b) is the bf16 training "
-                                  "slice, ROADMAP.md queue item 1")
     require("deconv_stem", q, "q", (b, C, w), dtype=torch.bfloat16 if bf16 else torch.float32)
     require("deconv_stem", w1, "w1", (C, C1, 4), dtype=dt)
     require("deconv_stem", b1, "b1", (C1,))
     require("deconv_stem", w2, "w2", (C1, C_OUT, 4), dtype=dt)
     require("deconv_stem", b2, "b2", (C_OUT,))
     out = torch.empty((b, C_OUT, 4 * w), dtype=dt, device=q.device)
-    ptrs = (q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr())
-    if bf16:
-        check("deconv_stem", kernel("deconv_stem_bf16_fwd")(*ptrs, b, w, stream_of(q)))
-        return out, None
     h = torch.empty((b, C1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
-    check("deconv_stem", kernel("deconv_stem_fwd")(
-        *ptrs, None if h is None else h.data_ptr(), b, w, stream_of(q)))
+    check("deconv_stem", kernel("deconv_stem_bf16_fwd" if bf16 else "deconv_stem_fwd")(
+        q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), None if h is None else h.data_ptr(), b, w, stream_of(q)))
     return out, h
 
 
@@ -92,7 +88,7 @@ def deconv_stem_save_hidden(q, w1, b1, w2, b2):
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)
     out = _launch(q, w1, b1, w2, b2, save_hidden=True)
-    count_launch(deconv_stem_save_hidden, torch.float32)
+    count_launch(deconv_stem_save_hidden, q.dtype)
     return out
 
 
@@ -106,7 +102,7 @@ class _DeconvStem(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, h, w1, w2 = ctx.saved_tensors
-        dh, dw2, db2 = conv_grads(g, h, w2, transposed=True, need_input=True)
+        dh, dw2, db2 = conv_grads(g.to(h.dtype), h, w2, transposed=True, need_input=True)
         dh = torch.where(h > 0, dh, 0.0)
         dq, dw1, db1 = conv_grads(dh, q, w1, transposed=True,
                                   need_input=ctx.needs_input_grad[0])
@@ -115,12 +111,9 @@ class _DeconvStem(torch.autograd.Function):
 
 def deconv_stem(q, w1, b1, w2, b2):
     """(B, C, W) → (B, C_out, 4W) in q's type (fp32 or bf16); ReLU after the
-    first layer only. Differentiable in fp32."""
+    first layer only. Differentiable in both types."""
     _check_input(q)
     if needs_grad(q, w1, b1, w2, b2):
-        if q.dtype != torch.float32:
-            raise NotImplementedError("deconv_stem's backward in bf16 is the bf16 training "
-                                      "slice, ROADMAP.md queue item 1")
         return _DeconvStem.apply(q, w1, b1, w2, b2)
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)[0]

@@ -6,7 +6,8 @@ value (both sum the same exact products in fp32, in another order, then round
 h and the output to bf16; these inputs give the same bits). Against the JAX
 package's XLA stems, which add the bias after casting it to bf16, within
 4 bf16 ulps of the output's largest value. And K1's lengths that are not a
-multiple of 4, fp32 and bf16, against the JAX XLA stem."""
+multiple of 4, fp32 and bf16, against the JAX XLA stem; and the bf16 stems
+under grad (their values in tests/test_torch_bf16_train.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,13 +130,23 @@ def test_wrappers_on_cpu_run_the_bf16_plain_versions():
 
 
 def test_bf16_backward_is_a_later_slice():
+    """The name is older than the bf16 backward, which the bf16 training
+    slice ported: under grad the bf16 stems are their autograd.Functions,
+    with bf16 input and weight gradients and fp32 bias gradients, as the JAX
+    package's _fused_bwd (tests/test_torch_bf16_train.py holds the values)."""
     x, w1, b1, w2, b2 = _port_bf16(*_stem_inputs(64, 7))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        conv_stem(x, w1.requires_grad_(), b1, w2, b2)
+    weights = [w.requires_grad_() for w in (w1, b1, w2, b2)]
+    out = conv_stem(x, *weights)
+    assert type(out.grad_fn).__name__ == "_ConvStemBackward" and out.dtype == BF
+    out.float().sum().backward()
+    assert [w.grad.dtype for w in weights] == [BF, torch.float32, BF, torch.float32]
     q = torch.randn((1, 16, 8)).to(BF)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        deconv_stem(q, torch.randn((16, 8, 4)).to(BF).requires_grad_(), torch.zeros(8),
-                    torch.randn((8, 4, 4)).to(BF), torch.zeros(4))
+    weights = [torch.randn((16, 8, 4)).to(BF).requires_grad_(), torch.zeros(8).requires_grad_(),
+               torch.randn((8, 4, 4)).to(BF).requires_grad_(), torch.zeros(4).requires_grad_()]
+    out = deconv_stem(q, *weights)
+    assert type(out.grad_fn).__name__ == "_DeconvStemBackward" and out.dtype == BF
+    out.float().sum().backward()
+    assert [w.grad.dtype for w in weights] == [BF, torch.float32, BF, torch.float32]
 
 
 def test_lengths_below_4_are_refused():

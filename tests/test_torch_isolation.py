@@ -1,13 +1,14 @@
 """The port stands alone: no module of msla_tpu_torch/, and not chip_smoke.py,
-imports JAX, flax, optax or the JAX package, and no kernel wrapper catches an
-exception (a failed launch must raise, never fall back to the plain version)."""
+imports JAX, flax, optax, msgpack (the card's machine has none) or the JAX
+package, and no kernel wrapper catches an exception (a failed launch must
+raise, never fall back to the plain version)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msla_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "msla_tpu"}
 FILES = sorted((ROOT / "msla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -40,7 +41,9 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/ops/metrics.py", "msla_tpu_torch/ops/stft.py",
                      "msla_tpu_torch/data/augment.py", "msla_tpu_torch/data/datamodule.py",
                      "msla_tpu_torch/models/module.py", "msla_tpu_torch/models/vqvae.py",
-                     "msla_tpu_torch/train/trainer.py", "msla_tpu_torch/ops/flash_attn.py",
+                     "msla_tpu_torch/train/trainer.py", "msla_tpu_torch/train/checkpoint.py",
+                     "msla_tpu_torch/train/callbacks.py", "msla_tpu_torch/train/loggers.py",
+                     "msla_tpu_torch/ops/flash_attn.py",
                      "msla_tpu_torch/ops/mlm_argmax.py", "msla_tpu_torch/nn/attention.py",
                      "msla_tpu_torch/nn/bert.py", "msla_tpu_torch/models/bert.py",
                      "msla_tpu_torch/utils/jax_compat.py", "msla_tpu_torch/ops/vq_lean.py",

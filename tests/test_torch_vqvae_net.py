@@ -124,14 +124,20 @@ def test_converter_agrees_with_the_jax_package_exporter(nets):
 
 
 def test_bf16_is_a_later_slice():
-    """bf16 serving runs (tests/test_torch_bf16_vqvae.py holds it against
-    JAX); bf16 training, the backward, is the later slice and raises."""
+    """The name is older than bf16 training: bf16 serving runs
+    (tests/test_torch_bf16_vqvae.py holds it against JAX), and so does the
+    bf16 backward, ported by the bf16 training slice: fp32 output, fp32
+    gradients on every fp32 parameter (tests/test_torch_bf16_train.py holds
+    their values)."""
     net = VQVAENet(**CFG, compute_dtype="bfloat16", device="cpu")
-    x = torch.zeros((1, 4, 64))
+    x = torch.randn((1, 4, 64), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         assert net(x).output.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net(x)
+    out = net(x)
+    assert out.output.dtype == torch.float32
+    (out.output.abs().mean() + out.embedding_loss + out.commitment_loss).backward()
+    for key, p in net.named_parameters():
+        assert p.dtype == p.grad.dtype == torch.float32, key
 
 
 def test_seeded_init_is_reproducible_and_in_range():
