@@ -36,8 +36,11 @@ Phases, each of which raises (exit code != 0) when its check fails:
   9. the Audio-BERT kernels against their plain versions on the card: #7
      flash_attn at one layer's shapes of the batch-16 call (352 sequences x
      12 heads x 512 x 64, rows of padding and sequences of padding alone
-     included; atol = rtol = 1e-4), #6 mlm_argmax and mlm_argmax_conf (3xTF32
-     on the tensor cores) at M = 180,224 rows (all rows compared: every
+     included; atol = rtol = 1e-4; against fp64 within the 3xTF32
+     accumulation bound, its share printed beside the plain fp32 chain's;
+     and at ragged S = 130 and 401, the latter at sm_scale 0.1), #6
+     mlm_argmax and mlm_argmax_conf (3xTF32 on the tensor cores) at M =
+     180,224 rows (all rows compared: every
      differing id a near-tie, conf at rtol 1e-4 and the same bits twice, the
      two variants' ids equal), on planted ties (the lowest index must win),
      on planted close pairs 1e-4 apart that one TF32 pass would tie (the
@@ -67,7 +70,10 @@ Phases, each of which raises (exit code != 0) when its check fails:
  13. the bf16 separation kernels (K1 and K2 on bf16 operands, the Pallas
      kernel's function) against their plain bf16 versions at batch 64
      (within 2 bf16 ulps; the bit-equal share printed), K1 in bf16 at
-     lengths T not divisible by 4, each timed beside the cuDNN bf16 pair;
+     lengths T not divisible by 4, K2 and K2b in bf16 at widths W around
+     their 120-position tile (the hidden within 2 ulps, the output within 2
+     ulps of the plain second layer on the kernel's own hidden, K2's equal
+     to K2b's), each timed beside the cuDNN bf16 pair;
  14. the bf16 separation path through the user's entry points:
      SourceSeparator over VQVAETask(compute_dtype="bfloat16") with phase 8's
      weights, a 60 s song, then timed separations at batch 64 and at
@@ -78,7 +84,7 @@ Phases, each of which raises (exit code != 0) when its check fails:
      least 99 % equal, each differing code a near-tie on the card's latents;
  16. the bf16 Audio-BERT kernels (#7, #6, #6b on bf16 operands) against their
      plain bf16 versions at the batch-16 call's shapes: #7 within
-     2·2⁻⁹·Σ p|v| + 1e-5, every #6 id equal or a near-tie, planted ties to
+     2·2⁻⁹·Σ p|v| + 1e-5 (also at ragged S), every #6 id equal or a near-tie, planted ties to
      the lowest index, conf at rtol 1e-4, timed beside bf16 SDPA and a bf16
      addmm chain;
  17. the bf16 Audio-BERT serving path: AudioGenerator over a bf16 bert-base
@@ -87,7 +93,8 @@ Phases, each of which raises (exit code != 0) when its check fails:
  19. the bf16 training kernels (K1b and K2b on bf16 operands) against their
      plain bf16 versions at a batch-64 train step's shapes (out within 2 bf16
      ulps or check_bf16's hidden-flip bound, the hidden within 2 ulps), K1b
-     in bf16 at lengths T not divisible by 4, timed beside the cuDNN bf16 pair;
+     in bf16 at lengths T not divisible by 4, K2b at the ragged W of phase
+     13, timed beside the cuDNN bf16 pair;
  20. one batch-64 bf16 step's loss and gradients through the kernels against
      plain_loss on plain bf16 ops (each gradient within twice bf16's own
      distance from the fp32 step's), and each module's distance from fp32;
@@ -110,6 +117,8 @@ lengths T not divisible by 4 (phases 3 and 6) and through encode_codes
 (phase 4).
 A path's parts (phases 4, 10, 14, 17) come from a torch.profiler trace of
 the path's own call: each kernel's device time, summed by kind of kernel.
+The kernels this slice redesigned (#7 in both types, K2/K2b in bf16) each
+print their time over their library call's and over their bound.
 Each phase's seconds are printed as it ends.
 It exits non-zero without a result when no CUDA card is present.
 """
@@ -366,6 +375,12 @@ def phase_kernels(net, dev) -> list[dict]:
     return with_bounds(report)
 
 
+#: the kernel entries whose kernels this slice redesigned: each also prints
+#: its time over its library call's and over its bound
+REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem[bf16]",
+              "deconv_stem_save_hidden[bf16]")
+
+
 def with_bounds(report: list[dict]) -> list[dict]:
     """Add each kernel's bound from its FLOP (at the peak of its "flop_type",
     fp32 unless it says tf32 or bf16) and bytes, and print its line."""
@@ -377,11 +392,17 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "coherent_logit_err", "ms_uniform_ids",
                                          "max_abs_err_uniform_ids", "sq_rel_err",
                                          "sq_rel_err_converged", "bit_equal_share",
-                                         "beyond_2_ulps_share", "max_share_of_bound")
+                                         "beyond_2_ulps_share", "max_share_of_bound",
+                                         "fp64_share_of_bound", "ragged_s_max_abs_err",
+                                         "ragged_w_max_abs_err")
                  if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) {extra or ''}", flush=True)
+        if k["name"] in REDESIGNED:
+            print(f"[redesigned] {k['name']}: kernel / library = "
+                  f"{k['ms'] / k['library_ms']:.3f}, kernel / bound = "
+                  f"{k['ms'] / k['bound_ms']:.2f}", flush=True)
     return report
 
 
@@ -466,7 +487,7 @@ def ragged_frame(task, song) -> None:
 #: the part of a breakdown a kernel belongs to: the first entry whose words
 #: its name holds, else "other". The port's kernels of the serving paths by
 #: their __global__ names (K2's holds K1's, so it comes first) ...
-PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_kernel",)),
+PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_kernel", "deconv_stem_bf16_kernel")),
               ("K1 conv_stem", ("conv_stem_kernel",)),
               ("K3 nearest_codes", ("nearest_codes_kernel",)),
               ("#7 flash_attn", ("flash_attn_kernel",)),
@@ -1088,17 +1109,27 @@ def phase_bert_kernels(bert_task, dev) -> list[dict]:
         err = check_close("flash_attn", out, want)
         mean_v = v[-1].mean(dim=0, keepdim=True).expand(512, -1, -1)
         check_close("flash_attn (all keys padding: the mean of v)", out[-1], mean_v)
+        # against fp64: two sequences without padding, two with 264 keys of it
+        seqs = [0, 1, 21 * BERT_BATCH, 21 * BERT_BATCH + 1]
+        share = fp64_share("flash_attn", out[seqs], q[seqs], k[seqs], v[seqs], mask[seqs],
+                           want[seqs])
         del want
         additive = ((1.0 - mask) * -1e9)[:, None, None, :]
+        flop, moved = 4 * BERT_SEQS * 12 * 512 * 512 * 64, nbytes(q, k, v, out, mask)
         report.append(dict(
             name="flash_attn", route="cuda", source="msla_tpu_torch/csrc/flash_attn.cu",
             replaces="msla_tpu/ops/flash_attn.py:51", max_abs_err=err,
+            fp64_share_of_bound=share, ragged_s_max_abs_err=ragged_attention(dev, g, torch.float32),
+            # held to its FLOP at the TF32 peak, as #6 fp32: beside it the design's
+            # three products there, and the FLOP on the fp32 FMA units
+            three_products_ms=bound(3 * flop, moved, PEAK_FLOPS["tf32"])[0],
+            fp32_bound_ms=bound(flop, moved)[0],
             ms=time_ms(lambda: flash_attn(q, k, v, mask, 0.125)),
             plain_ms=time_ms(lambda: attention_ref(*bhsd, mask, 0.125)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 *bhsd, attn_mask=additive, scale=0.125)),
             library_call="scaled_dot_product_attention, additive mask",
-            flop=4 * BERT_SEQS * 12 * 512 * 512 * 64, bytes=nbytes(q, k, v, out, mask)))
+            flop=flop, flop_type="tf32", bytes=moved))
         del q, k, v, out, bhsd, additive
         torch.cuda.empty_cache()
 
@@ -1639,7 +1670,7 @@ def phase_bf16_sep_kernels(net16, dev) -> list[dict]:
         report.append(dict(
             name="deconv_stem[bf16]", route="cuda", source="msla_tpu_torch/csrc/deconv_stem.cu",
             replaces="msla_tpu/ops/deconv_stem.py:35", max_abs_err=err, bit_equal_share=equal,
-            beyond_2_ulps_share=beyond,
+            beyond_2_ulps_share=beyond, ragged_w_max_abs_err=ragged_deconv(dec, dev, g),
             ms=time_ms(lambda: deconv_stem(*args)),
             plain_ms=time_ms(lambda: deconv_stem_ref(*args)),
             library_ms=time_ms(lambda: F.conv_transpose1d(F.relu(F.conv_transpose1d(
@@ -1754,15 +1785,161 @@ def phase_bf16_separation_cpu(task16) -> dict:
     return result
 
 
-def attention_bound(q, k, v, mask) -> torch.Tensor:
+def attention_bound(q, k, v, mask, sm_scale: float = 0.125) -> torch.Tensor:
     """2·2⁻⁹·Σₖ pₖ|vₖ| + 1e-5 per (sequence, head, row, column) of (B, S, H, D)
     bf16 q, k, v: what rounding P to bf16 at two different points may cost."""
     from msla_tpu_torch.ops import attention_ref
 
     bhsd = [t.transpose(1, 2) for t in (q, k, v.abs())]
     # p·|v| with p unrounded: the chain on fp32 copies of the rounded operands
-    pv = attention_ref(*(t.float() for t in bhsd), mask, 0.125)
+    pv = attention_ref(*(t.float() for t in bhsd), mask, sm_scale)
     return (2 * 2.0 ** -9 * pv + 1e-5).transpose(1, 2)
+
+
+#: #7 with a short last key tile and a short last query tile: (S, sm_scale),
+#: the second scale no power of two (the kernel multiplies by it per score)
+RAGGED_S = ((130, 0.125), (384 + 17, 0.1))
+
+
+def attention_accumulation_bound(q, k, v, mask, sm_scale):
+    """The exact attention of fp32 (B, S, H, D) q, k, v in fp64 (the mask's
+    bias added unrounded), and an upper bound, per output value, on how far
+    #7 fp32 (3xTF32 on mma.sync) may fall from it; both (B, S, H, D).
+
+    The model is #6's (``accumulation_bound``): each accumulation into the
+    tensor cores' fp32 accumulator is off by less than one fp32 ulp of the sum
+    of its terms' magnitudes so far, and ulp(x) <= 2^-23·x. Per query row:
+    - scores: Q·Kᵀ runs 3 products (lo·hi, hi·lo, hi·hi) in each of D/8 k8
+      steps, 3D/8 accumulations of at most 2^-23·A_k each, A_k = Σ_d |q_d||k_d|;
+      the split drops lo·lo and the parts' remainders, at most 3·2^-22·A_k: so
+      |δs_k| <= (3D/8 + 7)·2^-23·A_k, times sm_scale (a power of two is folded
+      into q exactly; another scale's product rounds once more, within the 7);
+    - exp: ex2.approx of z·log2(e) − m·log2(e) (one FFMA after one product)
+      or of (z − m)·log2(e): p_k off by a factor 1 + η_k, |η_k| <= 2^-21 +
+      2^-22·|z_k − m| (twice what the approximation and the roundings allow;
+      a factor common to a row's p and to its l cancels);
+    - both reach the output through ∂out/∂z_k = p_k(v_k − out), and
+      |v_k − out| <= |v_k| + |out|: Σ_k p_k w_k (|v_k| + |out|), with w_k the
+      bound on sm_scale·|δs_k| plus that on |η_k|;
+    - P·V: 3 products in each of S'/8 k8 steps (S' = S rounded up to 64), each
+      accumulation off by at most 2^-23·Σ_k p_k|v_k| once the running rescales
+      (factors <= 1) are applied, the split's 3·2^-22·Σ_k p_k|v_k|, and the
+      S'/64 rescales' products, 2^-24 each;
+    - l: S' positive terms summed in fp32, then 1/l and o·(1/l): at most
+      (S' + 1)·2^-24·|out|.
+    The sum is first order in roundings that are each below 1e-5 here; plain
+    single-pass TF32 products are off by ~2^-11·A_k, some 70 times the score
+    term. Sequences whose keys are all padding are not held to it: the fp32
+    chain rounds all their scores to one value, which fp64 does not."""
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    n, d = q.shape[1], q.shape[3]
+    n_pad = -(-n // 64) * 64
+    z = (qd @ kd.transpose(-1, -2)) * sm_scale
+    if mask is not None:
+        z = z + ((1.0 - mask.double()) * -1e9)[:, None, None, :]
+    p = torch.softmax(z, dim=-1)
+    out = p @ vd
+    u = 2.0 ** -23
+    w = (sm_scale * (3 * d / 8 + 7) * u * (qd.abs() @ kd.abs().transpose(-1, -2))
+         + 2.0 ** -21 + 2.0 ** -22 * (z - z.amax(-1, keepdim=True)).abs())
+    pw = p * w
+    bound = (pw @ vd.abs() + out.abs() * pw.sum(-1, keepdim=True)
+             + (3 * n_pad / 8 * u + 3 * 2.0 ** -22 + n_pad / 64 * 2.0 ** -24) * (p @ vd.abs())
+             + (n_pad + 1) * 2.0 ** -24 * out.abs())
+    return out.transpose(1, 2), bound.transpose(1, 2)
+
+
+def fp64_share(name: str, got, q, k, v, mask, want=None, sm_scale: float = 0.125) -> float:
+    """#7 fp32's largest error against fp64 as a share of
+    ``attention_accumulation_bound``; fails above 1. With ``want`` (the
+    plain version's fp32 output) prints that one's share beside it."""
+    exact, limit = attention_accumulation_bound(q, k, v, mask, sm_scale)
+    share = ((got.double() - exact).abs() / limit).max().item()
+    plain = "" if want is None else \
+        f", the plain fp32 chain's {((want.double() - exact).abs() / limit).max().item():.3f}"
+    print(f"[flash_attn] {name}: against fp64, {share:.3f} of the 3xTF32 accumulation bound "
+          f"(largest error {(got.double() - exact).abs().max().item():.3e}){plain}", flush=True)
+    if share > 1:
+        fail(f"{name}: off fp64 by {share:.2f}x what its 3xTF32 accumulation may lose")
+    return share
+
+
+def ragged_attention(dev, g, dtype) -> dict:
+    """#7 at lengths S that are no multiple of 64, with their sm_scale
+    (RAGGED_S), 4 sequences of 12 heads: sequence 1 with its last third of
+    keys padding, sequence 3 all padding (its output the mean of v). fp32
+    at atol = rtol = 1e-4 and within the fp64 accumulation bound on the
+    other three, bf16 within ``attention_bound``. Returns the largest error
+    at each S."""
+    from msla_tpu_torch.ops import attention_ref, flash_attn
+
+    errs = {}
+    for n, scale in RAGGED_S:
+        q, k, v = (torch.randn((4, n, 12, 64), generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        mask = torch.ones((4, n), device=dev)
+        mask[1, 2 * n // 3:] = 0.0
+        mask[3] = 0.0
+        out = flash_attn(q, k, v, mask, scale)
+        torch.cuda.synchronize()
+        if out.shape != (4, n, 12, 64) or out.dtype != torch.float32:
+            fail(f"flash_attn at S = {n}: a {out.dtype} output of shape {tuple(out.shape)}")
+        want = attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), mask, scale)
+        want = want.transpose(1, 2)
+        name = f"flash_attn {dtype} at S = {n}, sm_scale = {scale}"
+        mean_v = v[3].float().mean(dim=0, keepdim=True).expand(n, -1, -1)
+        check_close(name + " (all keys padding: the mean of v)", out[3], mean_v)
+        if dtype == torch.float32:
+            errs[n] = check_close(name, out, want)
+            fp64_share(name, out[:3], q[:3], k[:3], v[:3], mask[:3], sm_scale=scale)
+        else:
+            err, limit = (out - want).abs(), attention_bound(q, k, v, mask, scale)
+            if not torch.isfinite(out).all() or (err > limit).any():
+                fail(f"{name}: {(err > limit).sum().item()} values beyond "
+                     f"2·2⁻⁹·Σ p|v| + 1e-5")
+            errs[n] = err.max().item()
+    print(f"[kernel] #7 {dtype} at ragged S: {errs}", flush=True)
+    return errs
+
+
+RAGGED_W = (1, 2, 119, 121, 361, 368)  # K2 bf16's tile is 120; 368 % 8 == 0: 16-byte loads
+
+
+def ragged_deconv(dec, dev, g) -> dict:
+    """K2 and K2b on bf16 operands at widths W around their 120-position tile
+    (RAGGED_W), batch 4, with the decoder's weights: K2b's hidden within 2
+    bf16 ulps of the plain version's, K2b's output within 2 ulps of the plain
+    second layer (fp32, TF32 off) on K2b's own hidden (the same exact
+    products summed in fp32 in another order, one rounding each), and K2's
+    output equal to K2b's bit for bit. Returns the largest error at each W."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import deconv_stem, deconv_stem_ref, deconv_stem_save_hidden
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    bf = torch.bfloat16
+    weights = (dec.conv1_transpose.weight.detach().to(bf), dec.conv1_transpose.bias.detach(),
+               dec.conv2_transpose.weight.detach().to(bf), dec.conv2_transpose.bias.detach())
+    errs = {}
+    for w in RAGGED_W:
+        args = (torch.rand((4, 128, w), generator=g, device=dev).to(bf), *weights)
+        out, h = deconv_stem_save_hidden(*args)
+        out_k2 = deconv_stem(*args)
+        want_h = deconv_stem_ref(*args)[1]
+        torch.cuda.synchronize()
+        if out.shape != (4, 4, 4 * w) or h.shape != (4, 64, 2 * w):
+            fail(f"deconv_stem bf16 at W = {w}: shapes {tuple(out.shape)}, {tuple(h.shape)}")
+        with fp32_convs():
+            want = F.conv_transpose1d(h.float(), args[3].float(), args[4], 2, 1).to(bf)
+        name = f"deconv_stem bf16 at W = {w}"
+        zero = torch.zeros_like(want, dtype=torch.float32)
+        err = check_bf16(name + " (layer 2 on its own hidden)", out, want, zero)[0]
+        err_h = check_bf16(name + " hidden", h, want_h, torch.zeros_like(h, dtype=torch.float32))[0]
+        if not torch.equal(out, out_k2):
+            fail(f"{name}: K2 and K2b give different outputs")
+        errs[w] = max(err, err_h)
+    print(f"[kernel] K2/K2b bf16 at ragged W: {errs}", flush=True)
+    return errs
 
 
 def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
@@ -1800,6 +1977,7 @@ def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
             name="flash_attn[bf16]", route="cuda", source="msla_tpu_torch/csrc/flash_attn.cu",
             replaces="msla_tpu/ops/flash_attn.py:51", max_abs_err=err.max().item(),
             max_share_of_bound=share,
+            ragged_s_max_abs_err=ragged_attention(dev, g, torch.bfloat16),
             ms=time_ms(lambda: flash_attn(q, k, v, mask, 0.125)),
             plain_ms=time_ms(lambda: attention_ref(*bhsd, mask, 0.125)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -2023,6 +2201,7 @@ def phase_bf16_train_kernels(net16, dev) -> list[dict]:
             name="deconv_stem_save_hidden[bf16]", route="cuda",
             source="msla_tpu_torch/csrc/deconv_stem.cu",
             replaces="msla_tpu/ops/deconv_stem.py:132", **checked,
+            ragged_w_max_abs_err=ragged_deconv(dec, dev, g),
             ms=time_ms(lambda: deconv_stem_save_hidden(*args)),
             plain_ms=time_ms(lambda: deconv_stem_ref(*args)),
             library_ms=time_ms(lambda: F.conv_transpose1d(F.relu(F.conv_transpose1d(

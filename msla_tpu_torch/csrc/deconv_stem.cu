@@ -6,38 +6,76 @@
 // both its forward (K2) and, with a non-null `hidden`, its save_hidden forward
 // for training (K2b, the pallas_call at deconv_stem.py:132).
 //
-// Bound on an H100: at batch 64, W = 11,000 the stem does 4.90e10 fp32 FLOP and
-// must move 360.4 MB in + 45.1 MB out (+ 360.4 MB of h for K2b), so it is bound
-// by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by memory.
-// In bf16 the same FLOP held to the bf16 tensor-core peak (989 TFLOP/s) take
-// 0.050 ms and the 180.2 MB in + 22.5 MB out 0.061 ms (K2b in bf16 also
-// writes 180.2 MB of h: 0.114 ms): bound by bytes. This kernel does not reach
-// for that bound: it runs the bf16 function on the fp32
-// FMA units, as the Pallas kernel's own arithmetic (exact bf16 products summed
-// in fp32), and the bf16 operands only halve its traffic.
-//
-// Design: a stride-2 transposed conv splits into two unit-stride phases,
+// A stride-2 transposed conv splits into two unit-stride phases,
 //   out[2m]   = x[m] W1 + x[m-1] W3,     out[2m+1] = x[m] W2 + x[m+1] W0,
-// so no thread does a zero multiply of the stride-dilated input. The hidden
-// h (B, 64, 2W) never reaches device memory: a persistent block (one per SM)
-// keeps the first layer's weights (128 KB) in shared memory, computes h for a
-// tile plus a one-row halo on each side into shared memory, then the 4-channel
-// output from it. In the first layer each thread keeps 4 channels x 5 positions
-// of both phases in registers; both phases read the same two input rows, so
-// every shared-memory read feeds 8 FMAs. fp32 FMA throughout. K2b copies the
-// tile's interior rows of h, [2*m0, 2*m0 + 2*TILE), from shared memory to
-// device memory once they are complete: consecutive threads take consecutive
-// rows, so the stores are coalesced along W, no row is written by two blocks
-// and the halo and pad rows are never written. In bf16 (the Pallas kernel's
-// cast points, msla_tpu/ops/deconv_stem.py:35-63) q and the weights are
-// widened to fp32 as they enter shared memory, h = relu(sum + b1) is rounded to
-// bf16 before the second layer reads it (K2b in bf16 writes that rounded h),
-// and the output is rounded to bf16 as it is stored.
+// so no product touches the stride-dilated input's zeros. The hidden h (B, 64,
+// 2W) never reaches device memory (K2b writes it once, for the backward): a
+// persistent block (one per SM) keeps the first layer's weights in shared
+// memory, computes h for a tile of positions plus a one-row halo on each side
+// into shared memory, then the 4-channel output from it.
+//
+// fp32 (deconv_stem_kernel). Bound on an H100: at batch 64, W = 11,000 the stem
+// does 4.90e10 fp32 FLOP and must move 360.4 MB in + 45.1 MB out (+ 360.4 MB
+// of h for K2b), so it is bound by the fp32 FMA rate (67 TFLOP/s outside the
+// tensor cores), not by memory. In the first layer each thread keeps 4
+// channels x 5 positions of both phases in registers; both phases read the
+// same two input rows, so every shared-memory read feeds 8 FMAs. fp32 FMA
+// throughout. K2b copies the tile's interior rows of h, [2*m0, 2*m0 + 2*TILE),
+// from shared memory to device memory once they are complete: consecutive
+// threads take consecutive rows, so the stores are coalesced along W, no row
+// is written by two blocks and the halo and pad rows are never written.
+//
+// bf16 (deconv_stem_bf16_kernel; the Pallas kernel's cast points,
+// msla_tpu/ops/deconv_stem.py:35-63): h = relu(sum of exact bf16 products in
+// fp32 + b1) is rounded to bf16 before the second layer reads it (K2b in bf16
+// writes that rounded h), and the output is rounded to bf16 as it is stored.
+// Bound: the same FLOP at the bf16 tensor-core peak (989 TFLOP/s) take 0.050
+// ms and the 180.2 MB in + 22.5 MB out 0.061 ms (K2b in bf16 also writes 180.2
+// MB of h: 0.114 ms): bound by bytes. So both layers run on the tensor cores
+// (mma.sync.m16n8k16 bf16 -> fp32, whose products of bf16 values are exact),
+// as the Pallas kernel runs them on the MXU, and the q tiles stream through a
+// double buffer of cp.async loads that run under the previous tile's products.
+// Both layers are computed transposed, channels as the mma's rows and
+// positions as its columns, because q is NCW (positions contiguous) and the
+// first layer reads it at two shifts, q[m-1] and q[m]: a B fragment gathers
+// its two channels of one position with two 16-bit shared loads, which take
+// any shift (ldmatrix would need 16-byte-aligned rows).
+// - Layer 1, per tile of TILE = 120 positions: [he | ho] (128 x 128) = W1'
+//   (128 x 256) . [q[r-1] ; q[r]] (256 x 128 columns r = m0 .. m0 + 127), where
+//   column r gives he[r] = h[2r] and ho[r-1] = h[2r-1] (its first 121 columns
+//   are used: the tile's h plus both halo rows). W1' stacks the phase weights
+//   ([W3 W1] over [W2 W0], transposed); the prologue packs it from w1 (64 KB
+//   bf16) into shared memory, where it stays for the block's lifetime and
+//   ldmatrix reads the A fragments. Add b1, ReLU, zero the rows outside
+//   [0, 2W), round to bf16 in the accumulator registers, then store even and
+//   odd rows of h in two arrays (hsE, hsO), position-major: the second layer's
+//   four row sets are then consecutive rows of one of them.
+// - Layer 2: the packed output [out[4l] .. out[4l+3]] x 4 channels (16 rows) =
+//   W2' (16 x 256, zero blocks included: the Pallas kernel's
+//   _phase_weights_2) . [h[2l] ; h[2l-1] ; h[2l+1] ; h[2l+2]] (256 x positions),
+//   B fragments by ldmatrix from hsE / hsO. Add b2, round to bf16, stage in
+//   shared memory and store each channel's 4 * TILE samples coalesced.
+// - K2b: the tile's interior h rows go from hsE / hsO to device memory as
+//   (even, odd) bf16 pairs, eight positions of four channel pairs a warp
+//   instruction: 32 B runs along W, no bank conflicts.
+// - A width W % 8 != 0 leaves q's rows unaligned for 16-byte copies; then the
+//   tile is loaded by 16-bit loads, the same double buffer.
+// Layer 1 is 94 % of the FLOP: 2 x 4 warps of 64 channels x 32 positions, 16
+// products a k16 step for 4 ldmatrix and 16 16-bit loads. The kernel runs at
+// some 8x its bound (PERF.md): those 16-bit loads and one block of 8 warps
+// an SM are the likely brakes, not measured apart. The tensor cores'
+// accumulator truncates where fp32 adds round to nearest, so one 256-deep
+// chain on it leaves each h value further from the plain version's sum, and
+// more of them round to the other bf16 neighbour (chip_smoke.py counts the
+// outputs that then move beyond 2 ulps): each half of the sum, q[r-1]'s 128
+// channels and q[r]'s, runs on the tensor cores from zero, and the two halves
+// add in fp32, as the plain version adds its two taps' products.
 //
 // Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
-// Weights in torch's
-// ConvTranspose1d layout (in, out, k): w1 (128, 64, 4), w2 (64, 4, 4).
+// Weights in torch's ConvTranspose1d layout (in, out, k): w1 (128, 64, 4),
+// w2 (64, 4, 4).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "operand_type.cuh"
 
@@ -184,22 +222,281 @@ deconv_stem_kernel(const T* __restrict__ q, const T* __restrict__ w1,
   }
 }
 
+// ---- bf16 on the tensor cores ------------------------------------------------
+
+namespace bf16_mma {
+
+constexpr int TILE = 120;             // positions per tile (a multiple of 8)
+constexpr int M1 = 2 * C1;            // layer-1 rows: he channels, then ho channels
+constexpr int N1 = 128;               // layer-1 columns r = m0 .. m0 + 127 (TILE + 1 used)
+constexpr int K1 = 2 * CI;            // layer-1 depth: q[r-1], then q[r]
+constexpr int NQ = N1 + 8;            // q positions in shared memory: m0 - 8 .. m0 + 127
+constexpr int W1_LD = K1 + 8;         // bf16 a row of W1' (528 B: ldmatrix rows on 32 banks)
+constexpr int H_LD = C1 + 8;          // bf16 a row of hsE / hsO (144 B)
+constexpr int H_ROWS = N1 + 8;        // layer 2 reads rows up to N1; the last 8 stay zero
+constexpr int M2 = 4 * CO;            // layer-2 rows: out[4l + j] of channel o at row 4o + j
+constexpr int K2 = 4 * C1;            // layer-2 depth: h[2l], h[2l-1], h[2l+1], h[2l+2]
+constexpr int W2_LD = K2 + 8;
+constexpr int O_LD = 4 * TILE + 8;    // bf16 a staged output channel
+constexpr int THREADS = 256;          // 8 warps
+// k16 steps a partial sum runs on the tensor cores: q[r-1]'s 128 channels,
+// then q[r]'s, added in fp32 registers (see the note at the top)
+constexpr int PROMOTE = 8;
+
+// shared memory, in bytes from the start
+constexpr int W1S = 0;
+constexpr int QS = W1S + M1 * W1_LD * 2;          // two q buffers [CI][NQ]
+constexpr int HSE = QS + 2 * CI * NQ * 2;         // hsE[i] = h[2(m0 + i)]
+constexpr int HSO = HSE + H_ROWS * H_LD * 2;      // hsO[i] = h[2(m0 + i) - 1]
+constexpr int W2S = HSO + H_ROWS * H_LD * 2;
+constexpr int OS = W2S + M2 * W2_LD * 2;          // [CO][O_LD]
+constexpr int B1S = OS + CO * O_LD * 2;
+constexpr int B2S = B1S + C1 * 4;
+constexpr int SMEM_BYTES = B2S + CO * 4;          // 189,008
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b over one m16n8k16 tile, from zero accumulators.
+__device__ __forceinline__ void mma_first(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// Tap of w2 that multiplies row set g (0: h[2l], 1: h[2l-1], 2: h[2l+1],
+// 3: h[2l+2]) into out[4l + j], or -1 for a zero block (_phase_weights_2).
+__device__ __forceinline__ int w2_tap(int g, int j) {
+  switch (g) {
+    case 0: return j < 3 ? j + 1 : -1;
+    case 1: return j == 0 ? 3 : -1;
+    case 2: return j > 0 ? j - 1 : -1;
+    default: return j == 3 ? 0 : -1;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+deconv_stem_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ w1,
+                        const float* __restrict__ b1, const bf16* __restrict__ w2,
+                        const float* __restrict__ b2, bf16* __restrict__ out,
+                        bf16* __restrict__ hidden, int batch, int width) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  bf16* w1s = reinterpret_cast<bf16*>(smem + W1S);
+  bf16* qbuf = reinterpret_cast<bf16*>(smem + QS);
+  bf16* hse = reinterpret_cast<bf16*>(smem + HSE);
+  bf16* hso = reinterpret_cast<bf16*>(smem + HSO);
+  bf16* w2s = reinterpret_cast<bf16*>(smem + W2S);
+  bf16* os = reinterpret_cast<bf16*>(smem + OS);
+  float* b1s = reinterpret_cast<float*>(smem + B1S);
+  float* b2s = reinterpret_cast<float*>(smem + B2S);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // W1'[n][k]: row n < 64 is he channel n, row 64 + o is ho channel o; column
+  // k < 128 multiplies q[r-1] channel k, column 128 + c q[r] channel c:
+  // he[r] = q[r-1] W3 + q[r] W1, ho[r-1] = q[r-1] W2 + q[r] W0.
+  for (int i = tid; i < M1 * K1; i += THREADS) {
+    const int n = i / K1, k = i % K1, c = k % CI, later = k / CI, o = n % C1;
+    const int tap = n < C1 ? (later ? 1 : 3) : (later ? 0 : 2);
+    w1s[n * W1_LD + k] = w1[(c * C1 + o) * 4 + tap];
+  }
+  for (int i = tid; i < M2 * K2; i += THREADS) {  // W2'[4o + j][64 set + c]
+    const int n = i / K2, k = i % K2, tap = w2_tap(k / C1, n % 4);
+    w2s[n * W2_LD + k] = tap < 0 ? zero : w2[((k % C1) * CO + n / 4) * 4 + tap];
+  }
+  for (int i = tid; i < (H_ROWS - N1) * H_LD; i += THREADS) {
+    hse[N1 * H_LD + i] = zero;
+    hso[N1 * H_LD + i] = zero;
+  }
+  for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < CO; i += THREADS) b2s[i] = b2[i];
+
+  const int tiles_per_row = (width + TILE - 1) / TILE;
+  const long long total = (long long)batch * tiles_per_row;
+  // qs column u holds position m0 - 8 + u of every channel, zero outside [0, W)
+  auto load_q = [&](long long tile, bf16* qs) {
+    const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+    const bf16* qb = q + (size_t)b * CI * width;
+    if (width % 8 == 0) {  // whole 16-byte chunks, each inside [0, W) or outside it
+      for (int i = tid; i < CI * (NQ / 8); i += THREADS) {
+        const int ch = i / (NQ / 8), u = 8 * (i % (NQ / 8)), m = m0 - 8 + u;
+        const bool valid = m >= 0 && m < width;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(qs + ch * NQ + u)),
+                     "l"(qb + (size_t)ch * width + (valid ? m : 0)), "r"(valid ? 16 : 0));
+      }
+    } else {  // rows not 16-byte aligned: 16-bit loads
+      for (int i = tid; i < CI * NQ; i += THREADS) {
+        const int ch = i / NQ, u = i % NQ, m = m0 - 8 + u;
+        qs[i] = (m >= 0 && m < width) ? qb[(size_t)ch * width + m] : zero;
+      }
+    }
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < total) load_q(tile, qbuf);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int it = 0; tile < total; tile += gridDim.x, ++it) {
+    const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+    const bf16* qs = qbuf + (it & 1) * CI * NQ;
+    if (tile + gridDim.x < total) load_q(tile + gridDim.x, qbuf + ((it + 1) & 1) * CI * NQ);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's q is in
+    __syncthreads();  // for every thread; the weights too, on the first tile
+
+    // layer 1: warp (wm, wn) takes rows 64 wm .. (he or ho) x columns 32 wn ..
+    {
+      const int wm = warp >> 2, wn = warp & 3;
+      const unsigned short* q16 = reinterpret_cast<const unsigned short*>(qs);
+      float acc[4][4][4];
+#pragma unroll
+      for (int kb = 0; kb < K1; kb += 16 * PROMOTE) {
+        float part[4][4][4];
+#pragma unroll
+        for (int k0 = kb; k0 < kb + 16 * PROMOTE; k0 += 16) {
+          uint32_t a[4][4];
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+            ldsm_x4(a[mi], w1s + (64 * wm + 16 * mi + (lane & 15)) * W1_LD + k0 +
+                               (lane >> 4) * 8);
+          // column r = m0 + lambda reads q[r - 1] (k0 < 128) or q[r] at u = lambda + 7 (+ 1)
+          const unsigned short* col =
+              q16 + ((k0 % CI) + 2 * t) * NQ + 32 * wn + g + 7 + k0 / CI;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const unsigned short* c = col + 8 * ni;
+            const uint32_t b0 = c[0] | ((uint32_t)c[NQ] << 16);
+            const uint32_t bb = c[8 * NQ] | ((uint32_t)c[9 * NQ] << 16);
+#pragma unroll
+            for (int mi = 0; mi < 4; ++mi) {
+              if (k0 == kb) mma_first(part[mi][ni], a[mi], b0, bb);
+              else mma(part[mi][ni], a[mi], b0, bb);
+            }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[mi][ni][i] = kb == 0 ? part[mi][ni][i] : acc[mi][ni][i] + part[mi][ni][i];
+      }
+      // + b1, ReLU, zero outside [0, 2W) (he[r]: r < W; ho[r-1]: 1 <= r <= W), bf16
+      bf16* hs = wm ? hso : hse;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 16 * mi + g + 8 * (i >> 1);
+            const int lam = 32 * wn + 8 * ni + 2 * t + (i & 1), r = m0 + lam;
+            const bool inside = wm ? (r >= 1 && r <= width) : r < width;
+            hs[lam * H_LD + c] =
+                __float2bfloat16_rn(inside ? fmaxf(acc[mi][ni][i] + b1s[c], 0.f) : 0.f);
+          }
+    }
+    __syncthreads();
+
+    if (hidden != nullptr) {  // K2b: h[2(m0 + i)], h[2(m0 + i) + 1] of channels c, c + 1
+      for (int blk = warp; blk < (TILE / 8) * (C1 / 8); blk += THREADS / 32) {
+        const int i = 8 * (blk / (C1 / 8)) + (lane & 7);
+        const int c = 2 * (4 * (blk % (C1 / 8)) + (lane >> 3));
+        if (m0 + i < width) {
+          const uint32_t e = *reinterpret_cast<const uint32_t*>(hse + i * H_LD + c);
+          const uint32_t d = *reinterpret_cast<const uint32_t*>(hso + (i + 1) * H_LD + c);
+          bf16* dst = hidden + ((size_t)b * C1 + c) * 2 * width + 2 * (m0 + i);
+          *reinterpret_cast<uint32_t*>(dst) = (e & 0xffffu) | (d << 16);
+          *reinterpret_cast<uint32_t*>(dst + 2 * width) = (e >> 16) | (d & 0xffff0000u);
+        }
+      }
+    }
+
+    // layer 2: warp w takes positions 16 w .. 16 w + 15 (two n8 tiles)
+    {
+      const int lam0 = 16 * warp;
+      float acc[2][4] = {};
+#pragma unroll
+      for (int k0 = 0; k0 < K2; k0 += 16) {
+        // row set 0: h[2l] = hsE[l], 1: h[2l-1] = hsO[l], 2: hsO[l+1], 3: hsE[l+1]
+        const int set = k0 / C1;
+        const bf16* hs = (set == 0 || set == 3) ? hse : hso;
+        uint32_t a[4], bf[4];
+        ldsm_x4(a, w2s + (lane & 15) * W2_LD + k0 + (lane >> 4) * 8);
+        ldsm_x4(bf, hs + (lam0 + (lane >> 4) * 8 + (lane & 7) + (set >= 2)) * H_LD + k0 % C1 +
+                        ((lane >> 3) & 1) * 8);
+        mma(acc[0], a, bf[0], bf[1]);
+        mma(acc[1], a, bf[2], bf[3]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = g + 8 * (i >> 1), o = n >> 2;
+          const int lam = lam0 + 8 * ni + 2 * t + (i & 1);
+          if (lam < TILE)
+            os[o * O_LD + 4 * lam + (n & 3)] = __float2bfloat16_rn(acc[ni][i] + b2s[o]);
+        }
+    }
+    __syncthreads();
+
+    // out[b][o][4 (m0 + lam) .. + 3], 8 bytes a thread, coalesced along W
+    for (int i = tid; i < CO * TILE; i += THREADS) {
+      const int o = i / TILE, lam = i % TILE;
+      if (m0 + lam < width)
+        *reinterpret_cast<uint2*>(out + ((size_t)b * CO + o) * 4 * width + 4 * (m0 + lam)) =
+            *reinterpret_cast<const uint2*>(os + o * O_LD + 4 * lam);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace bf16_mma
+
+// One persistent block an SM (at most one a tile).
 template <typename T>
-int launch(const T* q, const T* w1, const float* b1, const T* w2, const float* b2, T* out,
-           T* hidden, int batch, int width, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      deconv_stem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+int launch(void (*kernel)(const T*, const T*, const float*, const T*, const float*, T*, T*, int,
+                          int),
+           int smem, int threads, int tile, const T* q, const T* w1, const float* b1,
+           const T* w2, const float* b2, T* out, T* hidden, int batch, int width,
+           void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  const long long tiles = (long long)batch * ((width + TILE - 1) / TILE);
+  const long long tiles = (long long)batch * ((width + tile - 1) / tile);
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (grid == 0) return 0;
-  deconv_stem_kernel<T><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      q, w1, b1, w2, b2, out, hidden, batch, width);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(q, w1, b1, w2, b2, out, hidden, batch,
+                                                       width);
   return (int)cudaGetLastError();
 }
 
@@ -209,7 +506,8 @@ int launch(const T* q, const T* w1, const float* b1, const T* w2, const float* b
 extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* out,
                                float* hidden, int batch, int width, void* stream) {
-  return launch<float>(q, w1, b1, w2, b2, out, hidden, batch, width, stream);
+  return launch<float>(deconv_stem_kernel<float>, (int)SMEM_BYTES, THREADS, TILE, q, w1, b1, w2,
+                       b2, out, hidden, batch, width, stream);
 }
 
 // bf16 q, w1, w2 and out, fp32 biases: hidden may be null (K2 in bf16);
@@ -218,5 +516,7 @@ extern "C" int deconv_stem_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16*
                                     const float* b1, const __nv_bfloat16* w2, const float* b2,
                                     __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
                                     int width, void* stream) {
-  return launch<__nv_bfloat16>(q, w1, b1, w2, b2, out, hidden, batch, width, stream);
+  return launch<__nv_bfloat16>(bf16_mma::deconv_stem_bf16_kernel, bf16_mma::SMEM_BYTES,
+                               bf16_mma::THREADS, bf16_mma::TILE, q, w1, b1, w2, b2, out,
+                               hidden, batch, width, stream);
 }

@@ -7,239 +7,585 @@
 // attention, jax.experimental.pallas.ops.tpu.flash_attention).
 //
 // Bound on an H100: one BERT layer of the batch-16 Audio-BERT call has 352
-// sequences x 12 heads x 512 tokens x 64 dims. QK^T and PV are 4*B*H*S*S*D =
-// 2.83e11 fp32 FLOP against q, k, v and out of 554 MB each (2.2 GB), so it is
-// bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores): >= 4.2 ms.
-// In bf16 the inputs are 277 MB and the output 554 MB (831 MB, 0.25 ms at
-// 3.35 TB/s), and the FLOP held to the bf16 tensor-core peak (989 TFLOP/s)
-// take 0.29 ms: bound by operations. This kernel does not reach for that
-// bound: it runs the bf16 function on the fp32 FMA units (R3, ROADMAP.md).
+// sequences x 12 heads x 512 tokens x 64 dims; Q K^T and P V are 4*B*H*S*S*D =
+// 2.83e11 FLOP.
+// - bf16: q, k, v are 277 MB each (831 MB) and the fp32 output 554 MB, 1.385
+//   GB in all: 0.413 ms at 3.35 TB/s, against 0.29 ms for the FLOP at the
+//   bf16 tensor-core peak (989 TFLOP/s). Bound by bytes: 0.413 ms.
+// - fp32 on the tensor cores, held (as #6 fp32 is) to its FLOP at the TF32
+//   peak (495 TFLOP/s): 0.57 ms, against 2.22 GB at 3.35 TB/s = 0.66 ms.
+//   Bound by bytes: 0.66 ms. The 3xTF32 design runs three products, 1.72 ms
+//   at the TF32 peak; the same FLOP on the fp32 FMA units take 4.23 ms.
 //
-// Design: one block per (query tile of 64 rows, head, sequence), 256 threads.
-// The Q tile stays in shared memory; the 512 keys are walked in tiles of 64
-// (a whole (512, 64) K plus V is 256 KB, more than a block's 227 KB), with an
-// online softmax in fp32: running row max m, running row sum l, and the
-// output accumulator rescaled by exp(m_old - m_new). Thread (ty, tx) owns
-// query rows ty + 16i and, in QK^T, keys tx + 16j (i, j < 4): a row's 16
-// threads are one half-warp, so row maxima and sums are butterfly shuffles
-// in a fixed order (deterministic). In PV it owns output columns 4tx..4tx+3,
-// read as float4 from V. Shared rows are padded to 68 floats so the float4
-// reads of 16 threads hit distinct banks.
+// Design (FA2 on mma.sync): a block of 4 warps takes the query rows of one
+// (sequence, head), each warp MT m-tiles of 16 rows (bf16: 2, a block 128
+// rows; fp32: 1, a block 64 rows, its split Q fragments leave no registers for
+// a second). The Q tile is loaded once; K and V come in tiles of 64 keys
+// through a two-stage cp.async ring, so the next tile's loads run under this
+// tile's products, with one barrier a tile. Q K^T and P V run on the tensor
+// cores with fp32 accumulators; the online softmax stays in registers: each
+// row's running max m and sum l, and the output accumulator rescaled by
+// exp(m_old - m_new). A row's scores sit in the four threads of a quad (the
+// m16n8 C layout), so row maxima and sums are two __shfl_xor_sync steps after
+// a fixed tree over the thread's 16 values: the result has the same bits run
+// after run. exp is ex2.approx (~2^-22 of p) of one FFMA, s log2(e) - m
+// log2(e) (m log2(e) rounded: FA2's form), in blocks whose sequence's key 0
+// is no padding, and of (s - m) log2(e) in the others (see the kernel).
+// - A power-of-two sm_scale (1/8 for 64-wide heads) is folded into Q's
+//   fragments when they are loaded: q * 2^e is exact (short of underflow), so
+//   every partial sum of the products, and the score, is the unscaled one
+//   times 2^e bit for bit, and no multiply is left per score. A warp whose
+//   key tile lies inside the sequence with every mask value 1 adds no bias
+//   (a bias of -0 changes nothing); it learns that from one vote.
+// - Each K or V fragment feeds the warp's MT m-tiles, and K/V tiles are read
+//   by S / 128 blocks of a head in bf16 (S / 64 in fp32) through L2.
+// - bf16: mma.sync.m16n8k16 bf16 x bf16 -> fp32. Fragments come from shared
+//   memory by ldmatrix (.trans for V); rows are padded to 72 values (144 B),
+//   so the 8 rows of each 8x8 matrix hit distinct banks. P never touches
+//   shared memory: the S accumulator's m16n8 C layout, rounded to bf16
+//   pairs, is the A fragment of P V. Products of bf16 values are exact in
+//   fp32, so only the order of the fp32 sums differs from the plain version.
+// - fp32: 3xTF32 on mma.sync.m16n8k8 tf32 -> fp32: each operand x is split as
+//   hi = tf32(x), lo = tf32(x - hi) (cvt.rna.tf32.f32's rounding, as #6 fp32
+//   rounds, mlm_argmax.cu), and each k8 step adds lo.hi, hi.lo, then hi.hi
+//   into one accumulator. q is split once as its fragments are loaded, k and
+//   v as theirs are, and P in registers. Plain single-pass TF32 would lose
+//   ~11 bits of each product. The m16n8 C layout gives a thread P's columns
+//   2t and 2t+1, while tf32's m16n8k8 A fragment wants columns t and t+4. A
+//   sum over keys does not care about their order, so the kernel lets A's
+//   column t be key 2t and column t+4 be key 2t+1, and each B fragment reads
+//   V's rows 2t and 2t+1 to match: P stays in registers and needs no
+//   shuffle or shared-memory staging (rows padded to 68 floats: those reads
+//   hit 32 banks). Per key tile a warp then runs 384 tensor-core products.
+// What binds it (PERF.md section 7): neither product nor the softmax alone;
+// a warp runs Q K^T, softmax and P V in turn, and 8 warps an SM (the
+// registers of two m-tiles allow no more) overlap them only in part. Per
+// score it spends what FA2 spends (a max, an FFMA, an ex2, an add). A
+// pipeline that issued tile t + 1's Q K^T before tile t's softmax needed the
+// registers of a second score tile and lost more to occupancy than it won;
+// overlapping them takes asynchronous products (wgmma), the next design.
 //
 // The mask is added as the plain version adds it: s * sm_scale, rounded, plus
 // (1 - mask) * -1e9, rounded (no FMA contraction). A sequence whose keys are
 // all padding then has every score equal to -1e9 in fp32 (for |s| < 32) and
 // its softmax is uniform: its output is the mean of v, as in the plain
-// version, not 0/0. Keys past the sequence end (S not a multiple of 64) are
-// dropped entirely. q, k, v and out are read and written in the projections'
-// (B, S, H, D) layout, so no transpose is needed on either side.
+// version, not 0/0. Keys past the sequence end (S not a multiple of 64) carry
+// -inf and no weight; query rows past it are computed on zero rows and never
+// stored. q, k, v and out are read and written in the projections' (B, S, H,
+// D) layout, so no transpose is needed on either side.
 //
-// bf16 (JAX's TPU kernel on bf16 q, k, v): the tiles are widened to fp32 as
-// they enter shared memory, so the scores are fp32 sums of exact products and
-// the statistics fp32, as before; each p = exp(s - m) is rounded to bf16 for
-// P . V (the kernel's p.astype(v.dtype)) while the row sum l takes it unrounded,
-// and the output stays fp32. The plain version rounds the normalised
-// probabilities instead, so the two part by up to 2^-8 of sum_k p_k |v_k|.
+// bf16 (JAX's TPU kernel on bf16 q, k, v): the scores are fp32 sums of exact
+// products and the statistics fp32; each p = exp(s - m) is rounded to bf16 for
+// P . V (the kernel's p.astype(v.dtype)) while the row sum l takes it
+// unrounded, and the output stays fp32. The plain version rounds the
+// normalised probabilities instead, so the two part by up to 2^-8 of
+// sum_k p_k |v_k|.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-
-#include "operand_type.cuh"
+#include <stdint.h>
 
 namespace {
 
-using operand_type::round_to;
-
 constexpr int D = 64;        // head dim the kernel is compiled for
-constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
-constexpr int THREADS = 256;
-constexpr int LD = D + 4;    // padded shared row (floats): float4-aligned, conflict-free
-constexpr int SMEM_FLOATS = BQ * LD + 2 * BK * LD + BQ * (BK + 4) + BK;
+constexpr int NT = BK / 8;   // n8 tiles of keys
+constexpr int STAGES = 2;    // K/V tiles in the cp.async ring
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Copy rows [row0, row0 + 64) of one head from a (B, S, H, D) tensor into a
-// padded (64, LD) fp32 shared tile; rows at or past S are zero.
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src, int row0,
-                                          int seq_len, long long row_stride) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 4); idx += THREADS) {
-    const int r = idx >> 4, c4 = idx & 15;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < seq_len)
-      v = reinterpret_cast<const float4*>(src + (long long)(row0 + r) * row_stride)[c4];
-    *reinterpret_cast<float4*>(dst + r * LD + 4 * c4) = v;
-  }
-}
-
-// The same from bf16: 16 bytes (8 values) a load, widened to fp32 (exact).
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const __nv_bfloat16* __restrict__ src, int row0,
-                                          int seq_len, long long row_stride) {
-  for (int idx = threadIdx.x; idx < 64 * (D / 8); idx += THREADS) {
-    const int r = idx >> 3, c8 = idx & 7;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq_len)
-      u = reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride)[c8];
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
-    const float2 c = __bfloat1622float2(p[2]), d = __bfloat1622float2(p[3]);
-    *reinterpret_cast<float4*>(dst + r * LD + 8 * c8) = make_float4(a.x, a.y, b.x, b.y);
-    *reinterpret_cast<float4*>(dst + r * LD + 8 * c8 + 4) = make_float4(c.x, c.y, d.x, d.y);
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// Per operand type: the padded shared row (elements), the m-tiles of 16 query
+// rows a warp takes, and the shared memory (bytes) of a stage (the K tile,
+// the V tile, the mask values) and of the block (the Q tile and the ring).
+// Two blocks of 4 warps an SM.
+template <typename T, int LD_, int MT_>
+struct LayoutOf {
+  static constexpr int LD = LD_;
+  static constexpr int MT = MT_;
+  static constexpr int BQ = 16 * MT * WARPS;  // query rows per block
+  static constexpr int STAGE_BYTES = 2 * BK * LD * (int)sizeof(T) + BK * (int)sizeof(float);
+  static constexpr int SMEM_BYTES = BQ * LD * (int)sizeof(T) + STAGES * STAGE_BYTES;
+};
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ out, int n_heads, int seq_len, float sm_scale) {
+struct Layout;
+template <>
+struct Layout<__nv_bfloat16> : LayoutOf<__nv_bfloat16, D + 8, 2> {};  // 144-byte rows
+template <>
+struct Layout<float> : LayoutOf<float, D + 4, 1> {};                  // 272-byte rows
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes, or 4 zero bytes when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + ROWS) of one head from a (B, S, H, D) tensor into a
+// padded (ROWS, LD) shared tile; rows at or past S are zero.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0,
+                                          int seq_len, long long row_stride) {
+  constexpr int PER = 16 / (int)sizeof(T);   // values per 16-byte chunk
+  constexpr int CHUNKS = D / PER;            // chunks per row
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool valid = row0 + r < seq_len;
+    cp_async16(dst + r * Layout<T>::LD + c * PER,
+               src + (long long)(valid ? row0 + r : 0) * row_stride + c * PER, valid);
+  }
+}
+
+// ---- the products, per operand type ------------------------------------------
+// s[n][0..3]: the m16n8 C layout of key tile n (keys 8n..8n+7 of the tile):
+// rows g (c0, c1) and g + 8 (c2, c3) of the warp's 16, keys 8n + 2t, 8n + 2t + 1,
+// with g = lane / 4, t = lane % 4. o[e][0..3] likewise for columns 8e.. of out.
+
+// c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b over one m16n8k16 tile, from zero accumulators.
+__device__ __forceinline__ void mma_bf16_first(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// c += a . b over one m16n8k8 tile: tf32 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values as a bf16x2 word, a in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// cvt.rna.tf32.f32 as bit arithmetic (mlm_argmax.cu): add half a TF32 ulp to
+// the magnitude and clear the 13 low bits.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), each part a TF32 value
+__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  hi = tf32(f);
+  lo = tf32(f - __uint_as_float(hi));
+}
+
+// lo.hi, hi.lo, then hi.hi into one accumulator (#6 fp32's order)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// The warp's MT m-tiles of 16 query rows: Q K^T into s, P V into o.
+template <typename T, int MT>
+struct Products;
+
+template <int MT>
+struct Products<__nv_bfloat16, MT> {
+  using T = __nv_bfloat16;
+  static constexpr int LD = Layout<T>::LD;
+  uint32_t qf[MT][4][4];  // A fragments of Q, one per m-tile and k16 step
+
+  // scale: 1, or sm_scale when it is a power of two (then exact, see the kernel)
+  __device__ __forceinline__ void load_q(const T* qs, int warp, int lane, float scale) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ldsm_x4(qf[i][j], qs + (16 * (MT * warp + i) + (lane & 15)) * LD + 16 * j +
+                              (lane >> 4) * 8);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 f = unpack_bf16(qf[i][j][c]);
+          qf[i][j][c] = pack_bf16(f.x * scale, f.y * scale);
+        }
+      }
+  }
+
+  __device__ __forceinline__ void scores(float (&s)[MT][NT][4], const T* ks, int lane) const {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {  // key tiles 2p, 2p + 1
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + (16 * p + (lane & 7) + (lane >> 4) * 8) * LD + 16 * j +
+                       ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (j == 0) {
+            mma_bf16_first(s[i][2 * p], qf[i][j], b[0], b[1]);
+            mma_bf16_first(s[i][2 * p + 1], qf[i][j], b[2], b[3]);
+          } else {
+            mma_bf16(s[i][2 * p], qf[i][j], b[0], b[1]);
+            mma_bf16(s[i][2 * p + 1], qf[i][j], b[2], b[3]);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void accumulate(float (&o)[MT][8][4], const float (&p)[MT][NT][4],
+                                             const T* vs, int lane) const {
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {  // keys 16j .. 16j + 15: key tiles 2j, 2j + 1
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        a[i][0] = pack_bf16(p[i][2 * j][0], p[i][2 * j][1]);
+        a[i][1] = pack_bf16(p[i][2 * j][2], p[i][2 * j][3]);
+        a[i][2] = pack_bf16(p[i][2 * j + 1][0], p[i][2 * j + 1][1]);
+        a[i][3] = pack_bf16(p[i][2 * j + 1][2], p[i][2 * j + 1][3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // output columns 16e .. 16e + 15
+        uint32_t b[4];
+        ldsm_x4_trans(b, vs + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + 16 * e +
+                             (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(o[i][2 * e], a[i], b[0], b[1]);
+          mma_bf16(o[i][2 * e + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+};
+
+template <int MT>
+struct Products<float, MT> {
+  using T = float;
+  static constexpr int LD = Layout<T>::LD;
+  uint32_t qh[MT][8][4], ql[MT][8][4];  // A fragments of Q, split, one per k8 step
+
+  __device__ __forceinline__ void load_q(const T* qs, int warp, int lane, float scale) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t r[4];
+        ldsm_x4(r, qs + (16 * (MT * warp + i) + (lane & 15)) * LD + 8 * j + (lane >> 4) * 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          split(__float_as_uint(__uint_as_float(r[c]) * scale), qh[i][j][c], ql[i][j][c]);
+      }
+  }
+
+  __device__ __forceinline__ void scores(float (&s)[MT][NT][4], const T* ks, int lane) const {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {  // k8 steps j, j + 1: d 8j .. 8j + 15
+        uint32_t b[4], bh[4], bl[4];
+        ldsm_x4(b, ks + (8 * n + (lane & 7)) * LD + 8 * j + (lane >> 3) * 4);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split(b[c], bh[c], bl[c]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_3xtf32(s[i][n], qh[i][j], ql[i][j], bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(s[i][n], qh[i][j + 1], ql[i][j + 1], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void accumulate(float (&o)[MT][8][4], const float (&p)[MT][NT][4],
+                                             const T* vs, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {  // key tile j: A column t is key 2t, column t + 4 key 2t + 1
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float a[4] = {p[i][j][0], p[i][j][2], p[i][j][1], p[i][j][3]};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) split(__float_as_uint(a[c]), ah[i][c], al[i][c]);
+      }
+      const T* v0 = vs + (8 * j + 2 * t) * LD + g;  // V rows 2t, 2t + 1 of the key tile
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(__float_as_uint(v0[8 * e]), bh0, bl0);
+        split(__float_as_uint(v0[LD + 8 * e]), bh1, bl1);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_3xtf32(o[i][e], ah[i], al[i], bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+};
+
+// The largest (sum) of a thread's 16 values of one row: a tree, in a fixed order.
+__device__ __forceinline__ float row_max(const float (&s)[NT][4], int r) {
+  float v[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) v[n] = fmaxf(s[n][2 * r], s[n][2 * r + 1]);
+#pragma unroll
+  for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+    for (int n = 0; n < w; ++n) v[n] = fmaxf(v[n], v[n + w]);
+  return v[0];
+}
+
+__device__ __forceinline__ float row_sum(const float (&s)[NT][4], int r) {
+  float v[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) v[n] = s[n][2 * r] + s[n][2 * r + 1];
+#pragma unroll
+  for (int w = NT / 2; w > 0; w >>= 1)
+#pragma unroll
+    for (int n = 0; n < w; ++n) v[n] += v[n + w];
+  return v[0];
+}
+
+// One block's work. KEY0: its sequence's key 0 is not padding, so every
+// row's running max is a real score from the first tile on (see the kernel).
+template <typename T, bool KEY0>
+__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k,
+                                       const T* __restrict__ v, const float* __restrict__ mask,
+                                       float* __restrict__ out, int n_heads, int seq_len,
+                                       float sm_scale) {
+  constexpr int LD = Layout<T>::LD;
+  constexpr int BQ = Layout<T>::BQ;
+  constexpr int MT = Layout<T>::MT;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                 // [BQ][LD]
-  float* ks = qs + BQ * LD;         // [BK][LD]
-  float* vs = ks + BK * LD;         // [BK][LD]
-  float* ps = vs + BK * LD;         // [BQ][BK + 4]
-  float* bias = ps + BQ * (BK + 4);  // [BK]
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* qs = reinterpret_cast<T*>(smem);
+  auto ks = [&](int st) {
+    return reinterpret_cast<T*>(smem + BQ * LD * sizeof(T) + st * Layout<T>::STAGE_BYTES);
+  };
+  auto vs = [&](int st) { return ks(st) + BK * LD; };
+  auto ms = [&](int st) { return reinterpret_cast<float*>(vs(st) + BK * LD); };
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const long long row_stride = (long long)n_heads * D;
   const long long base = (long long)b * seq_len * row_stride + (long long)h * D;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (seq_len + BK - 1) / BK;
+  const float* mrow = mask ? mask + (long long)b * seq_len : nullptr;
+  // A power-of-two sm_scale (1/8 for 64-wide heads) is folded into Q's
+  // fragments: q * 2^e is exact, so every partial sum of the products is the
+  // unscaled one times 2^e, bit for bit, and the scores come out as
+  // s * sm_scale rounded without a multiply.
+  const bool pow2 = sm_scale > 0.f && sm_scale < CUDART_INF_F &&
+                    (__float_as_uint(sm_scale) & 0x7fffffu) == 0u;
+  const float score_scale = pow2 ? 1.f : sm_scale;
 
-  load_tile(qs, q + base, q0, seq_len, row_stride);
+  auto load_tile = [&](int tile) {  // K, V and mask of key tile `tile` into its stage
+    const int st = tile % STAGES, k0 = tile * BK;
+    load_rows<BK>(ks(st), k + base, k0, seq_len, row_stride);
+    load_rows<BK>(vs(st), v + base, k0, seq_len, row_stride);
+    for (int i = threadIdx.x; mrow && i < BK; i += THREADS) {
+      const int key = k0 + i;
+      cp_async4(ms(st) + i, mrow + (key < seq_len ? key : 0), key < seq_len);
+    }
+  };
 
-  float acc[4][4], m[4], l[4];
+  // group 0: Q and key tile 0; then one group per tile (empty past the end)
+  load_rows<BQ>(qs, q + base, q0, seq_len, row_stride);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
 
-  for (int k0 = 0; k0 < seq_len; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done with ks, vs, ps
-    load_tile(ks, k + base, k0, seq_len, row_stride);
-    load_tile(vs, v + base, k0, seq_len, row_stride);
-    if (threadIdx.x < BK) {
-      const int key = k0 + threadIdx.x;
-      float bv = -CUDART_INF_F;  // past the end: no weight at all
-      if (key < seq_len)
-        bv = mask ? __fmul_rn(1.f - mask[(long long)b * seq_len + key], -1e9f) : 0.f;
-      bias[threadIdx.x] = bv;
-    }
-    __syncthreads();
+  Products<T, MT> prod;
+  float o[MT][8][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    m[i][0] = m[i][1] = -CUDART_INF_F;
+    l[i][0] = l[i][1] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[i][e][c] = 0.f;
+  }
 
-    // s = Q K^T for rows ty + 16i, keys tx + 16j
-    float s[4][4];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();  // tile landed for every thread; tile - 1's stage is free
+    if (tile + STAGES - 1 < n_tiles) load_tile(tile + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tile == 0) prod.load_q(qs, warp, lane, pow2 ? sm_scale : 1.f);
+
+    const int st = tile % STAGES, k0 = tile * BK;
+    float s[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qf[4], kf[4];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qf[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
+        for (int c = 0; c < 4; ++c) s[i][n][c] = 0.f;
+    prod.scores(s, ks(st), lane);
+
+    // scores: s * sm_scale, rounded, + bias, rounded; -inf past the end. A
+    // mask of 1 gives a bias of -0, whose add changes nothing: a warp whose
+    // tile lies inside the sequence with every mask value 1 skips the adds.
+    bool ones = true;
+    if (mrow) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
+      for (int c = 0; c < BK / 32; ++c) ones = ones && ms(st)[32 * c + lane] == 1.f;
+    }
+    if (__all_sync(0xffffffffu, ones) && k0 + BK <= seq_len) {
+      if (!pow2) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[i][n][c] = __fmul_rn(s[i][n][c], score_scale);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * n + 2 * t + c;
+          float bias = mrow ? __fmul_rn(1.f - ms(st)[col], -1e9f) : 0.f;
+          if (k0 + col >= seq_len) bias = -CUDART_INF_F;
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              s[i][n][2 * r + c] = __fadd_rn(__fmul_rn(s[i][n][2 * r + c], score_scale), bias);
         }
     }
 
-    // online softmax over this tile
+    // online softmax, per row: key 0 of the first tile is in range, so m is finite
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tile_max = -CUDART_INF_F;
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bj = bias[tx + 16 * j];
-        s[i][j] = (bj == -CUDART_INF_F) ? -CUDART_INF_F
-                                        : __fadd_rn(__fmul_rn(s[i][j], sm_scale), bj);
-        tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      // key 0 of the first tile is always in range, so m_new is finite
-      const float m_new = fmaxf(m[i], half_warp_max(tile_max));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float part = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        float mx = row_max(s[i], r);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i][r], mx);
+        float alpha;  // 0 on the first tile
+        if constexpr (KEY0) {  // p = 2^(s log2(e) - ml), ml = m log2(e) rounded: one FFMA
+          const float ml = __fmul_rn(m_new, LOG2E);
+          alpha = ex2(__fmul_rn(m[i][r], LOG2E) - ml);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        part += p;
-        ps[(ty + 16 * i) * (BK + 4) + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + part;  // this thread's keys only; summed at the end
-      m[i] = m_new;
+          for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V for rows ty + 16i, columns 4tx..4tx+3
-#pragma unroll 2
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 pf[4], vf[4];
+            for (int c = 0; c < 2; ++c)
+              s[i][n][2 * r + c] = ex2(fmaf(s[i][n][2 * r + c], LOG2E, -ml));
+        } else {  // p = 2^((s - m) log2(e)): 1 where s = m, as for all-padding keys
+          alpha = ex2((m[i][r] - m_new) * LOG2E);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pf[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * (BK + 4) + kk);
+          for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        vf[e] = *reinterpret_cast<const float4*>(vs + (kk + e) * LD + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pk[4] = {pf[i].x, pf[i].y, pf[i].z, pf[i].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[i][0] = fmaf(pk[e], vf[e].x, acc[i][0]);
-          acc[i][1] = fmaf(pk[e], vf[e].y, acc[i][1]);
-          acc[i][2] = fmaf(pk[e], vf[e].z, acc[i][2]);
-          acc[i][3] = fmaf(pk[e], vf[e].w, acc[i][3]);
+            for (int c = 0; c < 2; ++c)
+              s[i][n][2 * r + c] = ex2((s[i][n][2 * r + c] - m_new) * LOG2E);
         }
+        m[i][r] = m_new;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[i][e][2 * r] *= alpha;
+          o[i][e][2 * r + 1] *= alpha;
+        }
+        l[i][r] = l[i][r] * alpha + row_sum(s[i], r);  // this thread's keys
       }
-    }
+    prod.accumulate(o, s, vs(st), lane);
   }
 
+  // the quad's partial sums, in a fixed order; then the fp32 output
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / half_warp_sum(l[i]);
-    const int row = q0 + ty + 16 * i;
-    if (row < seq_len) {
-      float4 o = make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
-                             acc[i][3] * inv);
-      reinterpret_cast<float4*>(out + base + (long long)row * row_stride)[tx] = o;
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[i][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / sum;
+      const int row = q0 + 16 * (MT * warp + i) + g + 8 * r;
+      if (row < seq_len) {
+        float* dst = out + base + (long long)row * row_stride + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          *reinterpret_cast<float2*>(dst + 8 * e) =
+              make_float2(o[i][e][2 * r] * inv, o[i][e][2 * r + 1] * inv);
+      }
     }
-  }
+}
+
+// A block whose sequence's key 0 is not padding (no mask, or mask 1 there)
+// takes the exponent in one FFMA: every row's max is then a real score from
+// the first tile on, and p = 2^(s log2(e) - ml) is exp(s - m) times
+// 2^(m log2(e) - ml), within 2^-20 or so of 1 and shared by o and l, whose
+// ratio cancels it. Where key 0 is padding, a row's max can be a padding score
+// (-1e9, whose product with log2(e) rounds by up to 64): such blocks keep the
+// two-step exponent, exactly 1 at the max, so an all-padding sequence gets
+// exactly the mean of v.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const float* __restrict__ mask, float* __restrict__ out, int n_heads,
+                  int seq_len, float sm_scale) {
+  if (mask == nullptr || mask[(long long)blockIdx.z * seq_len] == 1.f)
+    attend<T, true>(q, k, v, mask, out, n_heads, seq_len, sm_scale);
+  else
+    attend<T, false>(q, k, v, mask, out, n_heads, seq_len, sm_scale);
 }
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const float* mask, float* out, int batch,
            int n_heads, int seq_len, float sm_scale, void* stream) {
-  const int smem = SMEM_FLOATS * (int)sizeof(float);
+  constexpr int smem = Layout<T>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   if (batch == 0 || seq_len == 0 || n_heads == 0) return 0;
-  const dim3 grid((seq_len + BQ - 1) / BQ, n_heads, batch);
+  const dim3 grid((seq_len + Layout<T>::BQ - 1) / Layout<T>::BQ, n_heads, batch);
   flash_attn_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       q, k, v, mask, out, n_heads, seq_len, sm_scale);
   return (int)cudaGetLastError();

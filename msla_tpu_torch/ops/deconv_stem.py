@@ -24,6 +24,12 @@ A stride-2 transposed conv splits into two phases (torch weight (in, out, k)):
   out[2m]   = x[m]·W[..., 1] + x[m-1]·W[..., 3]
   out[2m+1] = x[m]·W[..., 2] + x[m+1]·W[..., 0]
 Layout is torch's: q (B, C, W), output (B, C_out, 4W), hidden (B, C1, 2W).
+
+The bf16 kernel runs both layers as matrix products on the tensor cores, with
+the phases stacked into two operands that its prologue packs from w1 and w2;
+``phase_operands`` is the same packing in plain PyTorch, and
+``deconv_stem_phase_ref`` the stem written with it, for the tests (no wrapper
+calls either).
 """
 from __future__ import annotations
 
@@ -57,6 +63,51 @@ def deconv_stem_ref(q, w1, b1, w2, b2):
     dt = q.dtype
     h = torch.relu(_convt_k4s2p1(q.float(), w1.float(), b1)).to(dt)
     return _convt_k4s2p1(h.float(), w2.float(), b2).to(dt), h
+
+
+#: the tap of w2 that multiplies row set g of the packed second layer
+#: (0: h[2l], 1: h[2l-1], 2: h[2l+1], 3: h[2l+2]) into out[4l + j]; None: zero
+_W2_TAPS = ((1, 2, 3, None), (3, None, None, None), (None, 0, 1, 2), (None, None, None, 0))
+
+
+def phase_operands(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's stacked phase operands, from torch-layout weights
+    w1 (C, C1, 4) and w2 (C1, C_out, 4):
+    W1' (2·C1, 2·C): row o is he channel o, row C1 + o ho channel o; column
+    c multiplies q[r-1] channel c, column C + c q[r] channel c, so that
+    W1'·[q[r-1]; q[r]] = [he[r]; ho[r-1]] (he = h[2r], ho[r-1] = h[2r-1]);
+    W2' (4·C_out, 4·C1): row 4o + j gives out[4l + j] of channel o from
+    [h[2l]; h[2l-1]; h[2l+1]; h[2l+2]] (zero blocks included)."""
+    c, c1, c_out = w1.shape[0], w1.shape[1], w2.shape[1]
+    t1 = lambda tap: w1[..., tap].T                     # (C1, C)
+    w1p = torch.cat([torch.cat([t1(3), t1(1)], 1), torch.cat([t1(2), t1(0)], 1)], 0)
+    w2p = w2.new_zeros((4 * c_out, 4 * c1))
+    for g, taps in enumerate(_W2_TAPS):
+        for j, tap in enumerate(taps):
+            if tap is not None:
+                w2p[j::4, g * c1:(g + 1) * c1] = w2[..., tap].T  # rows 4o + j
+    return w1p, w2p
+
+
+def deconv_stem_phase_ref(q, w1, b1, w2, b2):
+    """The stem written as the bf16 kernel computes it, from
+    ``phase_operands``: both layers as products in fp32 of q's type's values,
+    h rounded to q's type with its rows outside [0, 2W) zero, the output
+    rounded to q's type. Returns (out, h) as ``deconv_stem_ref``."""
+    dt = q.dtype
+    (b, _, w), c1, c_out = q.shape, w1.shape[1], w2.shape[1]
+    w1p, w2p = (t.float() for t in phase_operands(w1, w2))
+    qp = F.pad(q.float(), (1, 1))                        # q[-1] .. q[W]
+    cols = torch.cat([qp[..., :-1], qp[..., 1:]], 1)     # [q[r-1]; q[r]], r = 0 .. W
+    hr = torch.relu(torch.einsum("nk,bkr->bnr", w1p, cols) + b1.repeat(2)[:, None])
+    he, ho = hr[:, :c1].clone(), hr[:, c1:].clone()      # he[r] = h[2r], ho[r] = h[2r-1]
+    he[..., w], ho[..., 0] = 0.0, 0.0                    # h[2W] and h[-1]: padding
+    he, ho = he.to(dt).float(), ho.to(dt).float()
+    rows = torch.cat([he[..., :-1], ho[..., :-1], ho[..., 1:], he[..., 1:]], 1)
+    packed = torch.einsum("nk,bkl->bnl", w2p, rows) + b2.repeat_interleave(4)[:, None]
+    out = packed.view(b, c_out, 4, w).transpose(2, 3).flatten(2)  # out[o][4l + j]: row 4o + j
+    h = torch.stack([he[..., :-1], ho[..., 1:]], -1).flatten(2)   # h[2m], h[2m+1]
+    return out.to(dt), h.to(dt)
 
 
 def _launch(q, w1, b1, w2, b2, save_hidden: bool):

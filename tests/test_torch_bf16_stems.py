@@ -15,10 +15,12 @@ import torch
 
 from _torch_layout import ncw, t32, torch_weight
 from msla_tpu.ops.conv_stem import conv_stem_pallas, conv_stem_ref as jax_conv_stem_ref
-from msla_tpu.ops.deconv_stem import deconv_stem_pallas, deconv_stem_ref as jax_deconv_stem_ref
+from msla_tpu.ops.deconv_stem import _phase_weights_1, _phase_weights_2, deconv_stem_pallas
+from msla_tpu.ops.deconv_stem import deconv_stem_ref as jax_deconv_stem_ref
 from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.conv_stem import conv_stem, conv_stem_ref, conv_stem_save_hidden
-from msla_tpu_torch.ops.deconv_stem import deconv_stem, deconv_stem_ref
+from msla_tpu_torch.ops.deconv_stem import (deconv_stem, deconv_stem_phase_ref, deconv_stem_ref,
+                                            phase_operands)
 
 BF = torch.bfloat16
 
@@ -129,11 +131,10 @@ def test_wrappers_on_cpu_run_the_bf16_plain_versions():
     assert launch_count(conv_stem) == before  # no kernel launched on the CPU
 
 
-def test_bf16_backward_is_a_later_slice():
-    """The name is older than the bf16 backward, which the bf16 training
-    slice ported: under grad the bf16 stems are their autograd.Functions,
-    with bf16 input and weight gradients and fp32 bias gradients, as the JAX
-    package's _fused_bwd (tests/test_torch_bf16_train.py holds the values)."""
+def test_bf16_stems_have_their_autograd_functions():
+    """Under grad the bf16 stems are their autograd.Functions, with bf16 input
+    and weight gradients and fp32 bias gradients, as the JAX package's
+    _fused_bwd (tests/test_torch_bf16_train.py holds the values)."""
     x, w1, b1, w2, b2 = _port_bf16(*_stem_inputs(64, 7))
     weights = [w.requires_grad_() for w in (w1, b1, w2, b2)]
     out = conv_stem(x, *weights)
@@ -153,3 +154,51 @@ def test_lengths_below_4_are_refused():
     x, w1, b1, w2, b2 = _port_bf16(*_stem_inputs(8, 8))
     with pytest.raises(ValueError, match="T >= 4"):
         conv_stem(x[..., :3], w1, b1, w2, b2)
+
+
+def _deconv_weights(seed, c=16, c1=8, c_out=4):
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((4, c1, c)) * 0.2).astype(np.float32),
+            (rng.standard_normal((c1,)) * 0.1).astype(np.float32),
+            (rng.standard_normal((4, c_out, c1)) * 0.2).astype(np.float32),
+            (rng.standard_normal((c_out,)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_phase_operands_are_the_pallas_kernels(dtype):
+    """W1' and W2' as the bf16 kernel packs them: the same values as the JAX
+    _phase_weights_1/_2 (flax layouts) at the places the kernel's rows and
+    columns give them: W1'[o][c] of he from q[r-1] is _phase_weights_1[0][c][o],
+    and so on; W2'[4o + j][64 g + c] is _phase_weights_2[g][c][4 j + o] (C_out = 4)."""
+    k1, _, k2, _ = _deconv_weights(9)
+    w1p, w2p = phase_operands(torch_weight(k1).to(dtype), torch_weight(k2).to(dtype))
+    p1 = torch.from_numpy(np.array(_phase_weights_1(jnp.asarray(k1)))).to(dtype)
+    p2 = torch.from_numpy(np.array(_phase_weights_2(jnp.asarray(k2)))).to(dtype)
+    c1, c = k1.shape[1], k1.shape[2]
+    assert w1p.shape == (2 * c1, 2 * c) and w2p.shape == (16, 4 * c1)
+    want1 = torch.cat([torch.cat([p1[0].T, p1[1].T], 1), torch.cat([p1[2].T, p1[3].T], 1)], 0)
+    assert torch.equal(w1p, want1)
+    want2 = p2.reshape(4 * c1, 4, 4).permute(2, 1, 0).reshape(16, 4 * c1)  # [o][j] <- [j][o]
+    assert torch.equal(w2p, want2)
+
+
+@pytest.mark.parametrize("w", [1, 2, 13, 40])
+def test_phase_formulation_is_the_stem(w):
+    """The stem as the bf16 kernel computes it (deconv_stem_phase_ref: both
+    layers as products with the stacked operands, the halo rows zero): in
+    fp32 within 1e-5 of deconv_stem_ref at widths from 1, and in bf16 within
+    1 bf16 ulp of the JAX Pallas kernel in interpret mode."""
+    k1, b1, k2, b2 = _deconv_weights(10 + w)
+    q = np.random.default_rng(w).standard_normal((2, w, 16)).astype(np.float32)
+    port = (ncw(q), torch_weight(k1), t32(b1), torch_weight(k2), t32(b2))
+    got, h = deconv_stem_phase_ref(*port)
+    want, want_h = deconv_stem_ref(*port)
+    assert got.shape == (2, 4, 4 * w) and h.shape == (2, 8, 2 * w)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+    if w % 8 == 0:
+        pallas = ncw(_f32(deconv_stem_pallas(*_jax_bf16(q, k1, b1, k2, b2), tile_w=8,
+                                             interpret=True)))
+        got16 = deconv_stem_phase_ref(*_port_bf16(q, k1, b1, k2, b2))[0]
+        assert got16.dtype == BF
+        assert bf16_ulps(got16.float().numpy(), pallas.numpy()).max() <= 1

@@ -3,7 +3,13 @@ package: ``attention_ref``/``scaled_attention`` against JAX ``scaled_attention``
 (whose CPU dispatch is the XLA chain) on every row, padded query rows and a
 sequence whose keys are all padding included, and ``MultiHeadAttention`` with
 a key-padding mask against JAX's on the same weights. fp32 at atol 1e-5:
-sums over 64 to 128 products in another order."""
+sums over 64 to 128 products in another order. Then the fp32 kernel's 3xTF32
+products, emulated (``attention_3xtf32_ref``), against the JAX XLA chain at
+the kernel's tolerance, and chip_smoke.py's fp64 accumulation bound for that
+kernel on CPU tensors."""
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,10 +17,13 @@ import pytest
 import torch
 
 from msla_tpu.nn.attention import MultiHeadAttention as JaxMultiHeadAttention
+from msla_tpu.ops.flash_attn import _xla_attention
 from msla_tpu.ops.flash_attn import scaled_attention as jax_scaled_attention
 from msla_tpu_torch.nn.attention import MultiHeadAttention
 from msla_tpu_torch.ops._build import launch_count
-from msla_tpu_torch.ops.flash_attn import attention_ref, flash_attn, scaled_attention
+from msla_tpu_torch.ops.flash_attn import (attention_3xtf32_ref, attention_ref, flash_attn,
+                                           scaled_attention)
+from msla_tpu_torch.ops.mlm_argmax import tf32_round_ref
 
 B, H, S, D = 3, 2, 40, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -102,3 +111,63 @@ def test_transformer_paths_wait():
     x = torch.zeros((1, 4, 8))
     with pytest.raises(NotImplementedError, match="queue item 4"):
         mha(x, x, x, mask=torch.zeros((1, 1, 4, 4)))
+
+
+def _ragged(seed, b=3, s=130, d=64):
+    """(b, 2, s, d) q, k, v at a length that is no multiple of the kernel's
+    64-key tile, and a mask: row 1 with its last 40 keys padding, row 2
+    (when b = 3) all padding."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, 2, s, d)).astype(np.float32) for _ in range(3))
+    am = np.ones((b, s), np.float32)
+    am[1, s - 40:] = 0.0
+    am[2:] = 0.0
+    return q, k, v, am
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_3xtf32_products_meet_the_kernels_fp32_tolerance(masked):
+    """The fp32 kernel's arithmetic (Q·Kᵀ and P·V in 3xTF32, P split in
+    registers) at S = 130 lies within atol = rtol = 1e-4 of the JAX XLA
+    chain, the tolerance chip_smoke.py holds the kernel to on the card."""
+    q, k, v, am = _ragged(11)
+    mask = am if masked else None
+    want = np.asarray(_xla_attention(*map(jnp.asarray, (q, k, v)),
+                                     None if mask is None else jnp.asarray(mask), 0.125))
+    got = attention_3xtf32_ref(*map(torch.from_numpy, (q, k, v)),
+                               None if mask is None else torch.from_numpy(mask), 0.125)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_accumulation_bound_holds_the_plain_versions():
+    """chip_smoke.py's fp64 bound for #7 fp32, on CPU tensors at a tiny size
+    ((B, S, H, D) = (2, 130, 2, 64), a row with padded keys): the plain fp32
+    chain and the 3xTF32 emulation sit inside it, single-pass TF32 products
+    do not, and ``fp64_share`` fails above 1."""
+    cs = _chip_smoke()
+    q, k, v, am = (torch.from_numpy(a) for a in _ragged(12, b=2))
+    bshd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    exact, limit = cs.attention_accumulation_bound(*bshd, am, 0.125)
+    assert exact.shape == limit.shape == (2, 130, 2, 64) and exact.dtype == torch.float64
+
+    def share(out):  # (B, H, S, D) fp32
+        return ((out.transpose(1, 2).double() - exact).abs() / limit).max().item()
+
+    plain, emulated = attention_ref(q, k, v, am, 0.125), attention_3xtf32_ref(q, k, v, am, 0.125)
+    assert share(plain) < 1 and share(emulated) < 1
+    one_pass = torch.softmax(tf32_round_ref(q) @ tf32_round_ref(k).transpose(-1, -2) * 0.125
+                             + (1.0 - am[:, None, None, :]) * -1e9, dim=-1)
+    one_pass = tf32_round_ref(one_pass) @ tf32_round_ref(v)
+    assert share(one_pass) > 1
+    assert cs.fp64_share("plain", plain.transpose(1, 2), *bshd, am) < 1
+    with pytest.raises(RuntimeError, match="3xTF32 accumulation"):
+        cs.fp64_share("one pass", one_pass.transpose(1, 2), *bshd, am)
