@@ -85,8 +85,10 @@ Phases, each of which raises (exit code != 0) when its check fails:
  16. the bf16 Audio-BERT kernels (#7, #6, #6b on bf16 operands) against their
      plain bf16 versions at the batch-16 call's shapes: #7 within
      2·2⁻⁹·Σ p|v| + 1e-5 (also at ragged S), every #6 id equal or a near-tie, planted ties to
-     the lowest index, conf at rtol 1e-4, timed beside bf16 SDPA and a bf16
-     addmm chain;
+     the lowest index, conf at rtol 1e-4 (also at M = 1, 129, 257 and at
+     V = 100, MLM_SMALL), timed beside bf16 SDPA and a bf16 addmm chain;
+     the first #6 bf16 kernel (csrc/mlm_argmax_probe.cu) and its three
+     probes timed beside its successor;
  17. the bf16 Audio-BERT serving path: AudioGenerator over a bf16 bert-base
      AudioBertTask and the bf16 VQ-VAE, as phase 10, timed and in parts;
  18. its code_proposals, card against the CPU's plain bf16 path;
@@ -117,8 +119,10 @@ lengths T not divisible by 4 (phases 3 and 6) and through encode_codes
 (phase 4).
 A path's parts (phases 4, 10, 14, 17) come from a torch.profiler trace of
 the path's own call: each kernel's device time, summed by kind of kernel.
-The kernels this slice redesigned (#7 in both types, K2/K2b in bf16) each
-print their time over their library call's and over their bound.
+The redesigned kernels (#7 in both types; K1/K1b, K2/K2b, #6/#6b in bf16)
+each print their time over their library call's and over their bound.
+The bf16 #6 kernel traps when an mbarrier wait outlasts 2 s, so a hang
+fails the phase with a launch error.
 Each phase's seconds are printed as it ends.
 It exits non-zero without a result when no CUDA card is present.
 """
@@ -239,7 +243,9 @@ def stem_terms(h: torch.Tensor, w2: torch.Tensor, transposed: bool) -> torch.Ten
     return conv(h.float().abs(), w2.float().abs(), None, 2, 1)
 
 
-RAGGED_T = (44_002, 44_003, 44_546)  # T/2 odd; T % 4 = 3; h1's extra row after a whole tile
+#: T/2 odd; T % 4 = 3; h1's extra row after a whole tile; one column (T/2
+#: odd); two whole 128-column tiles and one more column (T/2 odd)
+RAGGED_T = (44_002, 44_003, 44_546, 7, 1_030)
 
 
 def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
@@ -375,10 +381,11 @@ def phase_kernels(net, dev) -> list[dict]:
     return with_bounds(report)
 
 
-#: the kernel entries whose kernels this slice redesigned: each also prints
-#: its time over its library call's and over its bound
+#: the kernel entries whose kernels were redesigned for Hopper: each also
+#: prints its time over its library call's and over its bound
 REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem[bf16]",
-              "deconv_stem_save_hidden[bf16]")
+              "deconv_stem_save_hidden[bf16]", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
+              "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]")
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
@@ -394,7 +401,7 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "sq_rel_err_converged", "bit_equal_share",
                                          "beyond_2_ulps_share", "max_share_of_bound",
                                          "fp64_share_of_bound", "ragged_s_max_abs_err",
-                                         "ragged_w_max_abs_err")
+                                         "ragged_w_max_abs_err", "previous_ms")
                  if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
@@ -488,7 +495,7 @@ def ragged_frame(task, song) -> None:
 #: its name holds, else "other". The port's kernels of the serving paths by
 #: their __global__ names (K2's holds K1's, so it comes first) ...
 PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_kernel", "deconv_stem_bf16_kernel")),
-              ("K1 conv_stem", ("conv_stem_kernel",)),
+              ("K1 conv_stem", ("conv_stem_kernel", "conv_stem_bf16_kernel")),
               ("K3 nearest_codes", ("nearest_codes_kernel",)),
               ("#7 flash_attn", ("flash_attn_kernel",)),
               ("#6 mlm_argmax", ("mlm_argmax",)))
@@ -2009,6 +2016,8 @@ def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
             fail("mlm_argmax_conf bf16: two runs give different confidences")
         del want_ids, want_conf
         ties = planted_ties(h, emb, bias)
+        small = mlm_bf16_small_shapes(emb, bias, g)
+        probes = mlm_bf16_probes(h, emb, bias)
 
         def library(with_conf):  # bf16 addmm with fp32 output + argmax (+ logsumexp)
             for chunk in h.split(4096):
@@ -2027,8 +2036,9 @@ def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
                 max_abs_err=conf_err if with_conf else gap,
                 index_mismatches=mismatches_c if with_conf else mismatches,
                 max_tie_gap=gap_c if with_conf else gap, rows_compared=BERT_ROWS,
-                planted_ties=ties,
-                ms=time_ms(lambda: fn(h, emb, bias)),
+                planted_ties=ties, small_shapes=small,
+                previous_ms=probes["first kernel" + (", conf" if with_conf else "")],
+                probe_ms=probes, ms=time_ms(lambda: fn(h, emb, bias)),
                 plain_ms=time_ms(lambda: mlm_argmax_ref(h, emb, bias, with_conf=with_conf)),
                 library_ms=time_ms(lambda: library(with_conf)),
                 library_call="bf16 addmm (cuBLAS, fp32 output by out_dtype) + argmax"
@@ -2037,6 +2047,76 @@ def phase_bf16_bert_kernels(bert16, dev) -> list[dict]:
         del h, ids, ids_c, conf_c
     torch.cuda.empty_cache()
     return with_bounds(report)
+
+
+#: (M, V) of #6/#6b bf16 beside the batch-16 call's: one row; 129 and 257
+#: rows, whose last 128-row block has a cluster partner with no rows (the
+#: kernel's clusters are two blocks along M); V = 100, less than one
+#: 256-wide vocab tile
+MLM_SMALL = ((1, 30_522), (129, 30_522), (257, 30_522), (1, 100), (129, 100), (257, 100))
+
+
+def mlm_bf16_small_shapes(emb, bias, g) -> dict:
+    """#6 and #6b on bf16 operands at ``MLM_SMALL``, against the plain
+    version: ids equal or near-ties, the two variants' ids equal, a planted
+    tie of row 0 between columns 1 and V - 1 (two threads' slices, and two
+    tiles where V > 256) to the lower, conf within rtol 1e-4 and the same
+    bits twice. An mbarrier wait that hangs traps in the kernel
+    (csrc/mlm_argmax.cu), and the launch's error fails the run here."""
+    from msla_tpu_torch.ops import mlm_argmax, mlm_argmax_conf, mlm_argmax_ref
+
+    out = {}
+    for m, v in MLM_SMALL:
+        h = torch.randn((m, 768), generator=g, device=emb.device).to(torch.bfloat16)
+        e, b = emb[:v].clone(), bias[:v].clone()
+        e[1] = e[v - 1] = (3.0 * h[0].float() / h[0].float().norm()).to(torch.bfloat16)
+        b[1] = b[v - 1] = 0.0
+        ids = mlm_argmax(h, e, b)
+        ids_c, conf = mlm_argmax_conf(h, e, b)
+        torch.cuda.synchronize()
+        want, want_conf = mlm_argmax_ref(h, e, b, with_conf=True)
+        name = f"mlm_argmax bf16 at M = {m}, V = {v}"
+        n = mlm_near_ties(h, e, b, ids, want)[0]
+        if not torch.equal(ids, ids_c) or ids[0].item() != 1 or want[0].item() != 1:
+            fail(f"{name}: the variants' ids differ, or the planted tie did not go to column 1")
+        err = check_close(name + " conf", conf, want_conf, atol=0.0, rtol=1e-4)
+        if not torch.equal(conf, mlm_argmax_conf(h, e, b)[1]):
+            fail(f"{name}: two runs give different confidences")
+        out[f"{m}x{v}"] = dict(index_mismatches=n, conf_max_abs_err=err)
+    print(f"[mlm_argmax bf16] small shapes: {out}", flush=True)
+    return out
+
+
+def mlm_bf16_probes(h, emb, bias) -> dict:
+    """The first bf16 kernel, kept in csrc/mlm_argmax_probe.cu, timed on the
+    batch-16 call's operands beside its successor: as it was (probe 0, both
+    variants; its ids held to the plain version's near-tie rule), and (a)
+    without its fold, (b) with every block reading vocab tile 0's rows of E,
+    so that E stays in L2, (c) without the mainloop's __syncthreads (wrong
+    ids; timing only). Median ms of 20 CUDA-event-timed calls."""
+    from msla_tpu_torch.ops import mlm_argmax_ref
+    from msla_tpu_torch.ops._build import check, kernel, stream_of
+
+    fn = kernel("mlm_argmax_bf16_probe")
+    m, v = h.shape[0], emb.shape[0]
+    ids = torch.empty((m,), dtype=torch.int32, device=h.device)
+    conf = torch.empty((m,), dtype=torch.float32, device=h.device)
+
+    def run(probe, with_conf=0):
+        check("mlm_argmax_bf16_probe", fn(probe, with_conf, h.data_ptr(), emb.data_ptr(),
+                                          bias.data_ptr(), ids.data_ptr(), conf.data_ptr(), m,
+                                          v, stream_of(h)))
+
+    run(0)
+    torch.cuda.synchronize()
+    mlm_near_ties(h, emb, bias, ids, mlm_argmax_ref(h, emb, bias))
+    times = {"first kernel": time_ms(lambda: run(0)),
+             "first kernel, conf": time_ms(lambda: run(0, 1)),
+             "(a) no fold": time_ms(lambda: run(1)),
+             "(b) E tile 0 for every tile": time_ms(lambda: run(2)),
+             "(c) no __syncthreads": time_ms(lambda: run(3))}
+    print(f"[probe] the first mlm_argmax bf16 at M = {m}, V = {v}: {times}", flush=True)
+    return times
 
 
 def phase_bf16_bert_serving(bert16, vq16, kernels) -> dict:

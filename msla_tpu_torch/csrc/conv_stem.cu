@@ -1,55 +1,79 @@
 // Fused VQ-VAE encoder stem: conv k4 s2 p1 (4 -> 64) + ReLU, then
 // conv k4 s2 p1 (64 -> 128) + ReLU, in one pass over device memory, on fp32
-// operands or, for the bf16 compute_dtype, bf16 ones (x, w1, w2; the biases
-// stay fp32).
+// operands (conv_stem_kernel) or, for the bf16 compute_dtype, bf16 ones (x,
+// w1, w2; the biases stay fp32) on the tensor cores (conv_stem_bf16_kernel).
 //
 // Replaces: msla_tpu/ops/conv_stem.py:48 _stem_kernel (conv_stem_pallas), both
 // its forward (K1) and, with a non-null `hidden`, its save_hidden forward for
 // training (K1b, the pallas_call at conv_stem.py:132).
 //
-// Bound on an H100: at batch 64, T = 44,000 the stem does 4.90e10 fp32 FLOP and
-// must move 45.1 MB in + 360.4 MB out (+ 360.4 MB of h1 for K1b), so it is
-// bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), not by
-// memory. In bf16 the same FLOP held to the bf16 tensor-core peak (989
-// TFLOP/s) take 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms (K1b in
-// bf16 also writes 180.2 MB of h1: 0.114 ms): bound by bytes. This kernel
-// does not reach for that bound: it runs the bf16 function
-// on the fp32 FMA units, as the Pallas kernel's own arithmetic (exact bf16
-// products summed in fp32), and the bf16 operands only halve its traffic.
-//
-// Design: in K1, conv1's output h1 (B, 64, T/2) never reaches device memory;
-// K1b also writes it, for the backward, in the operand type (in bf16 the
-// rounded h1 that conv2 read, as the Pallas kernel's hidden). A block
-// holds the whole conv2 weight (128 KB) plus a tile of h1 in shared memory and is
-// persistent: one block per SM loads the weights once and walks over
-// (batch row, tile) pairs. Each thread keeps an 8 channel x 8 position register
-// tile of conv2 accumulators, so every shared-memory read feeds 8 FMAs.
-// Accumulation is fp32 FMA throughout; no tensor cores (fp32 exactness first).
-// In bf16 (the Pallas kernel's cast points, msla_tpu/ops/conv_stem.py:54-75)
-// x and the weights are widened to fp32 as they enter shared memory, so every
-// product of two bf16 values is exact; h1 = relu(sum + b1) is rounded to bf16
-// before conv2 reads it, and the output is rounded to bf16 as it is stored.
-// Any T >= 4 (the last tile is ragged): out has floor(T/4) columns and h1
-// floor(T/2); when T/2 is odd, h1's last row 2*(T/4) is a real row that
+// Both take any T >= 4 (the last tile is ragged): out has floor(T/4) columns
+// and h1 floor(T/2); when T/2 is odd, h1's last row 2*(T/4) is a real row that
 // conv2's last column reads, not padding, and the last tile writes it in K1b.
-// K1b stores each h1 row of the tile's interior [2*q0, 2*q0 + 2*TILE) once,
-// after the ReLU, as it is computed: consecutive threads hold consecutive rows,
-// so the stores are coalesced along W, no row is written by two blocks and the
-// halo and pad rows are never written.
-//
+// Each h1 row is written once, coalesced along W; halo and pad rows never.
 // Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4), hidden (B, 64, T/2).
-// Weights arrive
-// pre-transposed by the wrapper: w1t (4*4, 64) indexed [c0*4+tap][c1],
-// w2t (64*4, 128) indexed [c1*4+tap][c2].
+// Weights arrive pre-transposed by the wrapper: w1t (4*4, 64) indexed
+// [c0*4+tap][c1], w2t (64*4, 128) indexed [c1*4+tap][c2].
+//
+// fp32 (conv_stem_kernel). Bound on an H100: at batch 64, T = 44,000 the stem
+// does 4.90e10 fp32 FLOP and must move 45.1 MB in + 360.4 MB out (+ 360.4 MB
+// of h1 for K1b), so it is bound by the fp32 FMA rate (67 TFLOP/s outside the
+// tensor cores), not by memory. Conv1's output h1 never reaches device memory
+// in K1 (K1b also writes it, for the backward). A block holds the whole conv2
+// weight (128 KB) plus a tile of h1 in shared memory and is persistent: one
+// block per SM loads the weights once and walks over (batch row, tile) pairs.
+// Each thread keeps an 8 channel x 8 position register tile of conv2
+// accumulators, so every shared-memory read feeds 8 FMAs; fp32 FMA throughout.
+// K1b stores each h1 row of the tile's interior [2*q0, 2*q0 + 2*TILE) once,
+// after the ReLU, as it is computed.
+//
+// bf16 (conv_stem_bf16_kernel; the Pallas kernel's cast points,
+// msla_tpu/ops/conv_stem.py:54-80): exact bf16 products summed in fp32,
+// h1 = bf16(relu(sum + b1)), conv2 on that rounded h1, out = bf16(relu(sum +
+// b2)). Bound: the same FLOP at the bf16 tensor-core peak (989 TFLOP/s) take
+// 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms (K1b also writes 180.2
+// MB of h1: 0.114 ms): bound by bytes, and by the output's bytes above all. So
+// both convs run on the tensor cores (mma.sync.m16n8k16 bf16 -> fp32, whose
+// products of bf16 values are exact, as the MXU's are), and everything the
+// output does not need stays on chip:
+// - Conv1, per tile of TILE = 128 output positions q0 .. q0 + 127: the rows
+//   k = 0 .. 2 TILE + 1 hold h1[2 q0 - 1 + k] (the tile's h1 and both halo
+//   rows) = P (rows x 16) . W1 (16 x 64), where P[k][c0*4 + tap] =
+//   x[c0][2 (2 q0 - 1 + k) - 1 + tap] is conv1's window of that row: the
+//   Pallas kernel's packing of 4 samples x 4 channels a row, shifted by 2
+//   samples from one row to the next, so that the even and odd phases are
+//   one product (the Pallas kernel's w1e, and w1oa/w1ob where its odd phase
+//   straddles two packed rows). Its depth is one k16 step; the A fragments
+//   come by 16-bit loads from the tile's x window in shared memory, W1 in
+//   shared memory (2 KB). The accumulator gives a thread one row and two
+//   channels: add b1, ReLU, zero the rows outside [0, T/2) (conv2's own
+//   padding), round to bf16 in registers and store the pair into hE[i] =
+//   h1[2 (q0 + i)] or hO[i] = h1[2 (q0 + i) - 1], position-major.
+// - Conv2, transposed as K2 bf16's layers: [out channels] (128) = W2' (128 x
+//   256) . [hO[i]; hE[i]; hO[i+1]; hE[i+1]] (256 x TILE columns i): its four
+//   taps are four 64-deep row sets of the two phases at shifts 0 and 1, which
+//   ldmatrix reads straight from hE / hO. W2'[c2][tap*64 + c1] = w2[c2][c1]
+//   [tap] is packed once a block into shared memory (rows padded to 528 B:
+//   ldmatrix's 8 rows land on 32 banks). 8 warps of 64 channels x 32
+//   positions, 16 products a k16 step for 4 + 2 ldmatrix. The tensor cores'
+//   accumulator truncates where fp32 adds round to nearest (K2 bf16's note), so
+//   taps 0-1 and taps 2-3 run as two 128-deep partial sums, added in fp32.
+// - Stores: conv2's tile is staged in shared memory, add b2, ReLU, bf16, and
+//   goes out 16 B a thread along positions (16-bit stores where T/4 % 8 != 0).
+//   K1b writes h1 from hE / hO as (h1[2i], h1[2i+1]) pairs, eight positions of
+//   four channel pairs a warp instruction (32 B runs along W; 16-bit stores
+//   where T/2 is odd), then the real last row where T/2 is odd.
+// - Loads overlap compute: blocks are persistent (one an SM, at most one a
+//   tile) and the next tile's x window streams in by cp.async under this
+//   tile's products (16-bit loads where T % 8 != 0). 154 KB of shared memory
+//   and 255 registers a thread (ptxas) hold one block of 8 warps an SM: TILE
+//   = 128 at one block an SM is the shape measured; two blocks an SM would
+//   need half the registers.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "operand_type.cuh"
+#include <stdint.h>
 
 namespace {
-
-using operand_type::from_float;
-using operand_type::round_to;
-using operand_type::to_float;
 
 constexpr int C0 = 4;
 constexpr int C1 = 64;
@@ -65,12 +89,11 @@ constexpr size_t SMEM_FLOATS =
     (size_t)C1 * 4 * C2 + (size_t)C1 * NH + (size_t)C0 * NX + C0 * 4 * C1 + C1 + C2;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
-                 const float* __restrict__ b1, const T* __restrict__ w2t,
-                 const float* __restrict__ b2, T* __restrict__ out,
-                 T* __restrict__ hidden, int batch, int t_len) {
+conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                 const float* __restrict__ b1, const float* __restrict__ w2t,
+                 const float* __restrict__ b2, float* __restrict__ out,
+                 float* __restrict__ hidden, int batch, int t_len) {
   extern __shared__ float smem[];
   float* w2s = smem;                    // [C1*4][C2]
   float* h1s = w2s + C1 * 4 * C2;       // [C1][NH]
@@ -80,8 +103,8 @@ conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
   float* b2s = b1s + C1;                // [C2]
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < C1 * 4 * C2; i += THREADS) w2s[i] = to_float(w2t[i]);
-  for (int i = tid; i < C0 * 4 * C1; i += THREADS) w1s[i] = to_float(w1t[i]);
+  for (int i = tid; i < C1 * 4 * C2; i += THREADS) w2s[i] = w2t[i];
+  for (int i = tid; i < C0 * 4 * C1; i += THREADS) w1s[i] = w1t[i];
   for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
   for (int i = tid; i < C2; i += THREADS) b2s[i] = b2[i];
 
@@ -98,11 +121,11 @@ conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
     __syncthreads();  // previous tile's readers of xs/h1s are done
 
     // waveform window, zero outside [0, T) (conv1's own p=1 padding)
-    const T* xb = x + (size_t)b * C0 * t_len;
+    const float* xb = x + (size_t)b * C0 * t_len;
     const int x0 = 4 * q0 - 3;
     for (int i = tid; i < C0 * NX; i += THREADS) {
       const int c = i / NX, u = i % NX, s = x0 + u;
-      xs[i] = (s >= 0 && s < t_len) ? to_float(xb[(size_t)c * t_len + s]) : 0.0f;
+      xs[i] = (s >= 0 && s < t_len) ? xb[(size_t)c * t_len + s] : 0.0f;
     }
     __syncthreads();
 
@@ -120,10 +143,10 @@ conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
 #pragma unroll
         for (int t = 0; t < 4; ++t)
           acc = fmaf(w1s[(c0 * 4 + t) * C1 + c1], xs[c0 * NX + 2 * k + t], acc);
-      const float h = (j >= 0 && j < w1_len) ? round_to<T>(fmaxf(acc, 0.0f)) : 0.0f;
+      const float h = (j >= 0 && j < w1_len) ? fmaxf(acc, 0.0f) : 0.0f;
       h1s[i] = h;
       if (hidden != nullptr && k >= 1 && k <= last_k && j < w1_len)
-        hidden[((size_t)b * C1 + c1) * w1_len + j] = from_float<T>(h);
+        hidden[((size_t)b * C1 + c1) * w1_len + j] = h;
     }
     __syncthreads();
 
@@ -150,36 +173,315 @@ conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w1t,
       }
     }
 
-    T* ob = out + (size_t)b * C2 * w2_len;
+    float* ob = out + (size_t)b * C2 * w2_len;
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
       const int c2 = ty + 16 * j;
 #pragma unroll
       for (int i = 0; i < PT; ++i) {
         const int q = q0 + tx + 16 * i;
-        if (q < w2_len)
-          ob[(size_t)c2 * w2_len + q] = from_float<T>(fmaxf(acc[j][i] + b2s[c2], 0.0f));
+        if (q < w2_len) ob[(size_t)c2 * w2_len + q] = fmaxf(acc[j][i] + b2s[c2], 0.0f);
       }
     }
   }
 }
 
+// ---- bf16 on the tensor cores ------------------------------------------------
+
+namespace bf16_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE = 128;             // conv2 output positions per tile
+constexpr int THREADS = 256;          // 8 warps
+constexpr int XW = 4 * TILE + 16;     // x window: samples 4 q0 - 8 .. 4 q0 + 4 TILE + 7
+constexpr int KROWS = 2 * TILE + 2;   // conv1 rows k: h1[2 q0 - 1 + k]
+constexpr int MT1 = (KROWS + 15) / 16;  // conv1's m16 tiles (the last one partly unused)
+constexpr int W1_LD = 16 + 8;         // bf16 a row of W1 [c1][c0*4 + tap] (48 B)
+constexpr int K2D = 4 * C1;           // conv2 depth: hO[i], hE[i], hO[i+1], hE[i+1]
+constexpr int W2_LD = K2D + 8;        // bf16 a row of W2' (528 B)
+constexpr int H_LD = C1 + 8;          // bf16 a row of hE / hO (144 B)
+constexpr int H_ROWS = TILE + 8;      // conv2 reads rows 0 .. TILE
+constexpr int O_LD = TILE + 8;        // bf16 a staged output channel (272 B)
+// k16 steps a partial sum runs on the tensor cores: taps 0-1, then taps 2-3,
+// added in fp32 registers (see the note at the top)
+constexpr int PROMOTE = 8;
+
+// shared memory, in bytes from the start
+constexpr int W2S = 0;
+constexpr int XS = W2S + C2 * W2_LD * 2;          // two x windows [C0][XW]
+constexpr int HSE = XS + 2 * C0 * XW * 2;         // hE[i] = h1[2 (q0 + i)]
+constexpr int HSO = HSE + H_ROWS * H_LD * 2;      // hO[i] = h1[2 (q0 + i) - 1]
+constexpr int OS = HSO + H_ROWS * H_LD * 2;       // [C2][O_LD]
+constexpr int W1S = OS + C2 * O_LD * 2;           // [C1][W1_LD]
+constexpr int B1S = W1S + C1 * W1_LD * 2;
+constexpr int B2S = B1S + C1 * 4;
+constexpr int SMEM_BYTES = B2S + C2 * 4;          // 153,856
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b over one m16n8k16 tile, from zero accumulators.
+__device__ __forceinline__ void mma_first(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower address
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_stem_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
+                      const float* __restrict__ b1, const bf16* __restrict__ w2t,
+                      const float* __restrict__ b2, bf16* __restrict__ out,
+                      bf16* __restrict__ hidden, int batch, int t_len) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  bf16* w2s = reinterpret_cast<bf16*>(smem + W2S);
+  bf16* xbuf = reinterpret_cast<bf16*>(smem + XS);
+  bf16* hse = reinterpret_cast<bf16*>(smem + HSE);
+  bf16* hso = reinterpret_cast<bf16*>(smem + HSO);
+  bf16* os = reinterpret_cast<bf16*>(smem + OS);
+  bf16* w1s = reinterpret_cast<bf16*>(smem + W1S);
+  float* b1s = reinterpret_cast<float*>(smem + B1S);
+  float* b2s = reinterpret_cast<float*>(smem + B2S);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  // W2'[c2][tap*64 + c1] = w2t[c1*4 + tap][c2]; W1[c1][c0*4 + tap] = w1t[c0*4 + tap][c1]
+  for (int i = tid; i < C2 * K2D; i += THREADS) {
+    const int c2 = i % C2, k = i / C2, tap = k / C1, c1 = k % C1;
+    w2s[c2 * W2_LD + k] = w2t[(c1 * 4 + tap) * C2 + c2];
+  }
+  for (int i = tid; i < C1 * 16; i += THREADS) {
+    const int c1 = i % C1, k = i / C1;
+    w1s[c1 * W1_LD + k] = w1t[k * C1 + c1];
+  }
+  for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < C2; i += THREADS) b2s[i] = b2[i];
+
+  const int w1_len = t_len / 2;       // h1 rows
+  const int w2_len = t_len / 4;       // output columns
+  const int tiles_per_row = (w2_len + TILE - 1) / TILE;
+  const long long total = (long long)batch * tiles_per_row;
+
+  // xs[c0][u] = x[c0][4 q0 - 8 + u], zero outside [0, T)
+  const bool aligned = t_len % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto load_x = [&](long long tile, bf16* xs) {
+    const int b = (int)(tile / tiles_per_row), s0 = 4 * ((int)(tile % tiles_per_row) * TILE) - 8;
+    const bf16* xb = x + (size_t)b * C0 * t_len;
+    if (aligned) {  // whole 16-byte chunks, each inside [0, T) or outside it
+      for (int i = tid; i < C0 * (XW / 8); i += THREADS) {
+        const int c = i / (XW / 8), u = 8 * (i % (XW / 8)), s = s0 + u;
+        const bool valid = s >= 0 && s < t_len;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(xs + c * XW + u)),
+                     "l"(xb + (size_t)c * t_len + (valid ? s : 0)), "r"(valid ? 16 : 0));
+      }
+    } else {  // channel rows not 16-byte aligned: 16-bit loads
+      for (int i = tid; i < C0 * XW; i += THREADS) {
+        const int c = i / XW, u = i % XW, s = s0 + u;
+        xs[i] = (s >= 0 && s < t_len) ? xb[(size_t)c * t_len + s] : zero;
+      }
+    }
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < total) load_x(tile, xbuf);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int it = 0; tile < total; tile += gridDim.x, ++it) {
+    const int b = (int)(tile / tiles_per_row), q0 = (int)(tile % tiles_per_row) * TILE;
+    const int n_valid = min(TILE, w2_len - q0);
+    const bf16* xs = xbuf + (it & 1) * C0 * XW;
+    if (tile + gridDim.x < total) load_x(tile + gridDim.x, xbuf + ((it + 1) & 1) * C0 * XW);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's x is in
+    // for every thread; the weights too, on the first tile; and the previous
+    // tile's readers of hE, hO and the staged output are done
+    __syncthreads();
+
+    // conv1: warp w takes the m16 row tiles w, w + 8, ...; row k's A row is
+    // x[c0][4 q0 - 3 + 2k + tap] at u = 5 + 2k + tap (rows past KROWS repeat
+    // the last and are not stored)
+    {
+      const unsigned short* x16 = reinterpret_cast<const unsigned short*>(xs);
+      auto pair = [&](int c0, int k) {  // A[k][c0*4 + 2(t&1)], and the next tap
+        const unsigned short* p = x16 + c0 * XW + 5 + 2 * min(k, KROWS - 1) + 2 * (t & 1);
+        return (uint32_t)p[0] | ((uint32_t)p[1] << 16);
+      };
+      for (int mt = warp; mt < MT1; mt += THREADS / 32) {
+        const int ka = 16 * mt + g, kb = ka + 8;
+        const uint32_t a[4] = {pair(t >> 1, ka), pair(t >> 1, kb), pair((t >> 1) + 2, ka),
+                               pair((t >> 1) + 2, kb)};
+        // rows ka and kb have g's parity: both go to hO (even k) or hE (odd k)
+        bf16* hs = (g & 1) ? hse : hso;
+#pragma unroll
+        for (int ni = 0; ni < C1 / 8; ++ni) {
+          const bf16* wrow = w1s + (8 * ni + g) * W1_LD + 2 * t;
+          float c[4];
+          mma_first(c, a, *reinterpret_cast<const uint32_t*>(wrow),
+                    *reinterpret_cast<const uint32_t*>(wrow + 8));
+          const int ch = 8 * ni + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int k = r ? kb : ka, j = 2 * q0 - 1 + k;
+            if (k < KROWS) {
+              const bool inside = j >= 0 && j < w1_len;
+              *reinterpret_cast<uint32_t*>(hs + (k >> 1) * H_LD + ch) =
+                  pack_bf16(inside ? fmaxf(c[2 * r] + b1s[ch], 0.f) : 0.f,
+                            inside ? fmaxf(c[2 * r + 1] + b1s[ch + 1], 0.f) : 0.f);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (hidden != nullptr) {  // K1b: h1[2 (q0 + i)] = hE[i], h1[2 (q0 + i) + 1] = hO[i + 1]
+      const bool pairs = w1_len % 2 == 0;  // channel rows 4-byte aligned
+      for (int blk = warp; blk < (TILE / 8) * (C1 / 8); blk += THREADS / 32) {
+        const int i = 8 * (blk / (C1 / 8)) + (lane & 7);
+        const int c = 2 * (4 * (blk % (C1 / 8)) + (lane >> 3));
+        if (i < n_valid) {
+          const uint32_t e = *reinterpret_cast<const uint32_t*>(hse + i * H_LD + c);
+          const uint32_t d = *reinterpret_cast<const uint32_t*>(hso + (i + 1) * H_LD + c);
+          bf16* dst = hidden + ((size_t)b * C1 + c) * w1_len + 2 * (q0 + i);
+          if (pairs) {
+            *reinterpret_cast<uint32_t*>(dst) = (e & 0xffffu) | (d << 16);
+            *reinterpret_cast<uint32_t*>(dst + w1_len) = (e >> 16) | (d & 0xffff0000u);
+          } else {
+            unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+            d16[0] = (unsigned short)e;
+            d16[1] = (unsigned short)d;
+            d16[w1_len] = (unsigned short)(e >> 16);
+            d16[w1_len + 1] = (unsigned short)(d >> 16);
+          }
+        }
+      }
+      // where T/2 is odd, the row's last tile also writes h1[T/2 - 1] = hE[n_valid]
+      if (w1_len % 2 == 1 && q0 + TILE >= w2_len && tid < C1)
+        hidden[((size_t)b * C1 + tid) * w1_len + w1_len - 1] = hse[n_valid * H_LD + tid];
+    }
+
+    // conv2: warp (wm, wn) takes channels 64 wm .. and positions 32 wn ..
+    {
+      const int wm = warp >> 2, wn = warp & 3;
+      float acc[4][4][4];
+#pragma unroll
+      for (int kb = 0; kb < K2D; kb += 16 * PROMOTE) {
+        float part[4][4][4];
+#pragma unroll
+        for (int k0 = kb; k0 < kb + 16 * PROMOTE; k0 += 16) {
+          // tap k0 / 64: 0 hO[i], 1 hE[i], 2 hO[i + 1], 3 hE[i + 1]
+          const int tap = k0 / C1;
+          const bf16* hs = (tap & 1) ? hse : hso;
+          uint32_t a[4][4];
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi)
+            ldsm_x4(a[mi], w2s + (64 * wm + 16 * mi + (lane & 15)) * W2_LD + k0 +
+                               (lane >> 4) * 8);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t bf[4];
+            ldsm_x4(bf, hs + (32 * wn + 16 * np + (lane >> 4) * 8 + (lane & 7) + (tap >> 1)) *
+                                 H_LD + k0 % C1 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+            for (int mi = 0; mi < 4; ++mi) {
+              if (k0 == kb) {
+                mma_first(part[mi][2 * np], a[mi], bf[0], bf[1]);
+                mma_first(part[mi][2 * np + 1], a[mi], bf[2], bf[3]);
+              } else {
+                mma(part[mi][2 * np], a[mi], bf[0], bf[1]);
+                mma(part[mi][2 * np + 1], a[mi], bf[2], bf[3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[mi][ni][i] = kb == 0 ? part[mi][ni][i] : acc[mi][ni][i] + part[mi][ni][i];
+      }
+      // + b2, ReLU, bf16, staged as os[c2][i]
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int c2 = 64 * wm + 16 * mi + g + 8 * r;
+            const int i = 32 * wn + 8 * ni + 2 * t;
+            *reinterpret_cast<uint32_t*>(os + c2 * O_LD + i) =
+                pack_bf16(fmaxf(acc[mi][ni][2 * r] + b2s[c2], 0.f),
+                          fmaxf(acc[mi][ni][2 * r + 1] + b2s[c2], 0.f));
+          }
+    }
+    __syncthreads();
+
+    // out[b][c2][q0 + i], 16 B a thread along positions (16-bit stores where
+    // T/4 % 8 != 0, which leaves the channel rows unaligned)
+    for (int u = tid; u < C2 * (TILE / 8); u += THREADS) {
+      const int c2 = u / (TILE / 8), i = 8 * (u % (TILE / 8));
+      if (i >= n_valid) continue;
+      bf16* dst = out + ((size_t)b * C2 + c2) * w2_len + q0 + i;
+      if (w2_len % 8 == 0) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(os + c2 * O_LD + i);
+      } else {
+        for (int e = 0; e < 8 && i + e < n_valid; ++e) dst[e] = os[c2 * O_LD + i + e];
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+}  // namespace bf16_mma
+
+// One persistent block an SM (at most one a tile).
 template <typename T>
-int launch(const T* x, const T* w1t, const float* b1, const T* w2t, const float* b2, T* out,
-           T* hidden, int batch, int t_len, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_stem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+int launch(void (*kernel)(const T*, const T*, const float*, const T*, const float*, T*, T*, int,
+                          int),
+           int smem, int threads, int tile, const T* x, const T* w1t, const float* b1,
+           const T* w2t, const float* b2, T* out, T* hidden, int batch, int t_len,
+           void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  const long long tiles = (long long)batch * ((t_len / 4 + TILE - 1) / TILE);
+  const long long tiles = (long long)batch * ((t_len / 4 + tile - 1) / tile);
   const int grid = (int)(tiles < sms ? tiles : sms);
   if (grid == 0) return 0;
-  conv_stem_kernel<T><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, w1t, b1, w2t, b2, out, hidden, batch, t_len);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, w1t, b1, w2t, b2, out, hidden, batch,
+                                                       t_len);
   return (int)cudaGetLastError();
 }
 
@@ -189,7 +491,8 @@ int launch(const T* x, const T* w1t, const float* b1, const T* w2t, const float*
 extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                              const float* w2t, const float* b2, float* out,
                              float* hidden, int batch, int t_len, void* stream) {
-  return launch<float>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
+  return launch<float>(conv_stem_kernel, (int)SMEM_BYTES, THREADS, TILE, x, w1t, b1, w2t, b2,
+                       out, hidden, batch, t_len, stream);
 }
 
 // bf16 x, w1t, w2t and out, fp32 biases: hidden may be null (K1 in bf16);
@@ -198,5 +501,7 @@ extern "C" int conv_stem_bf16_fwd(const __nv_bfloat16* x, const __nv_bfloat16* w
                                   const float* b1, const __nv_bfloat16* w2t, const float* b2,
                                   __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
                                   int t_len, void* stream) {
-  return launch<__nv_bfloat16>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
+  return launch<__nv_bfloat16>(bf16_mma::conv_stem_bf16_kernel, bf16_mma::SMEM_BYTES,
+                               bf16_mma::THREADS, bf16_mma::TILE, x, w1t, b1, w2t, b2, out,
+                               hidden, batch, t_len, stream);
 }

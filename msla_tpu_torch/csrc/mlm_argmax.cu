@@ -67,34 +67,59 @@
 //   first maximum in any order); the sums combine in a fixed order, so conf
 //   has the same bits run after run.
 //
-// bf16 (mlm_argmax_bf16_kernel; the Pallas kernel on bf16 h and E, the fp32
-// bias, msla_tpu/models/bert.py:116-121, :213):
+// bf16 (tma_ws::mlm_argmax_bf16_kernel; the Pallas kernel on bf16 h and E, the
+// fp32 bias, msla_tpu/models/bert.py:116-121, :213):
 // - Bound: the same 8.45e12 FLOP at the bf16 tensor-core peak (989 TFLOP/s),
-//   8.5 ms, bound by operations; the inputs are 277 MB + 47 MB. Through L2 a
-//   block still re-reads its slab of h for each vocab tile: 100 GB a call at
-//   128 x 256 in bf16.
-// - The products of two bf16 values are exact in the tensor cores' fp32
-//   accumulator, so one wgmma.m64n256k16 pass a k16 step is the function; no
-//   split. The accumulator's own rounding (up to an ulp of the running sum at
-//   each of its 48 k16 accumulations, as for 3xTF32's 288) is the only part
-//   that is not the plain version's fp32 sum.
-// - cp.async writes each 64-deep chunk of h and E straight into the swizzled
-//   layout wgmma reads, as two 32-deep halves (one 64-byte row each): 48 KB a
-//   stage, four stages in 192 KB. One barrier a chunk: at chunk s it tells
-//   every thread that chunk s has landed and that both warpgroups have waited
-//   for chunk s - 2's products, whose stage then takes chunk s + 2.
-// - Tiles, the epilogue, the first-maximum rule and the online logsumexp are
-//   the fp32 kernel's (fold_tile, store_best).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+//   8.5 ms, bound by operations; the inputs are 277 MB + 47 MB. The products
+//   of two bf16 values are exact in the tensor cores' fp32 accumulator, so one
+//   wgmma.m64n256k16 pass a k16 step is the function; the accumulator's own
+//   rounding (up to an ulp of the running sum at each of its 48 k16 steps) is
+//   the only part that is not the plain version's fp32 sum.
+// - What bound the first bf16 design (a cp.async ring that all threads fill, a
+//   __syncthreads a 64-deep chunk, both warpgroups folding each finished tile
+//   at once while no product runs): its probes on an H100
+//   (mlm_argmax_probe.cu, PERF.md §7) took about a tenth off each without the
+//   fold or without the barrier, and nothing with E held in L2; its blocks
+//   pulled ~100 GB a call through L2 (each 128-row block re-reads its slab of h
+//   for every 256-wide vocab tile, and every E tile once a block: 1,408 x 120
+//   x (128 + 256) x 768 x 2 B) at 4.4 TB/s.
+// - Design: blocks of 128 rows in clusters of CLUSTER = 2 along M walk the
+//   vocab in step; each loads its h chunk and half of the E tile by TMA and
+//   multicasts that half into both blocks, so a tile's E crosses L2 once a
+//   cluster: 66 GB a call. Clusters of 4 and 8 (50 and 42 GB) were no faster
+//   on the card. A ring of 4 stages of 64-deep chunks (48 KB: h 128 x 64 and
+//   E 256 x 64, rows of 128 B in the 128-byte swizzle that wgmma reads) is
+//   filled by one producer thread (its warpgroup keeps 24 registers,
+//   setmaxnreg) and drained by two consumer warpgroups of 64 rows x 256
+//   columns (wgmma.m64n256k16, 128 fp32 accumulators a thread, 240
+//   registers). Full barriers take the producer's arrival and the stage's
+//   bytes (TMA zero-fills rows past M and V); empty barriers take an arrival
+//   of each consumer warp of both blocks, since each block's producer writes
+//   into both. No __syncthreads in the mainloop; one wgmma group stays in
+//   flight while the next stage is awaited. The second consumer starts LAG
+//   = 2 chunks behind the first (bar.sync 1), so that one warpgroup's fold
+//   of a finished tile runs while the other's products run, as far as the
+//   4-stage ring lets them drift apart; staggers of 0, 1 and 3 chunks were
+//   no faster on the card. The fold (fold_tile_bf16) is fold_tile's, with the conf sums on
+//   ex2.approx, which keeps the conf variant inside 240 registers.
+// - A block past M (M not a multiple of 256) still loads its half of E for
+//   its partner and arrives on every barrier; its rows arrive as zeros and
+//   are never stored. An mbarrier wait longer than 2 s traps, so a hang fails
+//   the launch with an error. The tensor maps are encoded on the host once a
+//   call (h's pointer changes) and passed as __grid_constant__ parameters.
+// - Grid: a plain one of ceil(M / 128) blocks rounded up to whole clusters,
+//   one block an SM (193 KB of shared memory): 1,408 blocks are 10.7 waves of
+//   132, so the partial last wave costs at most 3 %.
+// - Tiles, the first-maximum rule, the online logsumexp and the quad's
+//   combine are the fp32 kernel's (mlm_argmax.cuh).
+#include <cuda.h>  // CUtensorMap and its enums; libcuda's functions are looked up at run time
+
+#include "mlm_argmax.cuh"
 
 namespace {
 
-constexpr int K = 768;                      // hidden width the kernel is compiled for
-constexpr int BM = 128;                     // rows per block, 64 per warpgroup
-constexpr int BN = 256;                     // vocab rows per tile
+using namespace mlm;
+
 constexpr int BK = 16;                      // reduction chunk of one ring stage
 constexpr int STAGES = 4;
 constexpr int THREADS = 256;
@@ -105,33 +130,6 @@ constexpr int A_F = BM * BK, B_F = BN * BK; // floats of one split operand
 constexpr int SPLIT_F = 2 * (A_F + B_F);    // h hi, h lo, E hi, E lo
 constexpr int SMEM_BYTES = (STAGES * RING_F + 2 * SPLIT_F) * (int)sizeof(float);  // 221,184
 constexpr int A_UNITS = A_F / 4 / THREADS, B_UNITS = B_F / 4 / THREADS;  // 16 B a thread: 2, 4
-constexpr int NO_INDEX = 0x7fffffff;
-
-struct Best {
-  float m;    // running max logit
-  float s;    // running sum of exp(logit - m) (conf variant)
-  int idx;    // first column holding m
-};
-
-__device__ __forceinline__ void combine(Best& a, const Best& b, bool with_conf) {
-  if (with_conf) {
-    const float mx = fmaxf(a.m, b.m);
-    const float sa = a.m == -CUDART_INF_F ? 0.f : a.s * expf(a.m - mx);
-    const float sb = b.m == -CUDART_INF_F ? 0.f : b.s * expf(b.m - mx);
-    a.s = sa + sb;
-  }
-  if (b.m > a.m || (b.m == a.m && b.idx < a.idx)) {
-    a.m = b.m;
-    a.idx = b.idx;
-  }
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
 
 // cvt.rna.tf32.f32 (round to nearest, ties away) as bit arithmetic: add half
 // a TF32 ulp to the magnitude and clear the 13 low bits. The same value for
@@ -162,50 +160,6 @@ __device__ __forceinline__ void unit(int u, int& row, int& kg) {
   kg = (rest / (R / 8)) * 4 + ((u >> 3) & 3);
 }
 
-// Descriptor of a K-major operand with the 64-byte swizzle: rows of 16 TF32
-// values (64 B), 16-byte group kg of row r at r * 64 + (kg ^ (r / 2 % 4)) * 16
-// from a 512-byte-aligned base; the next 8 rows (SBO) 512 B on, LBO unused.
-// A k8 step starts 32 B into the row.
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
-         ((uint64_t)2 << 62);
-}
-
-// The 128 fp32 accumulators of an m64n256 wgmma: their PTX operands %0..%127
-// and their asm constraints, read and written.
-#define ACC_REGS \
-  "{" \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19," \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37," \
-  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55," \
-  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73," \
-  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91," \
-  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108," \
-  "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123," \
-  "%124, %125, %126, %127" \
-  "}"
-#define ACC_OPERANDS(d) \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-  "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
-  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
-  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
-  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
-  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), \
-  "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
-  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), \
-  "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
-  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), \
-  "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), \
-  "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
-  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
-  "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
-  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
-  "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-
 // d (+)= a . b over m64n256k8, TF32 from shared memory, fp32 accumulators;
 // scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
@@ -214,92 +168,6 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db,
                ", %128, %129, p, 1, 1;\n}\n"
                : ACC_OPERANDS(d)
                : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (+)= a . b over m64n256k16, bf16 from shared memory (both K-major),
-// fp32 accumulators; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ACC_REGS
-               ", %128, %129, p, 1, 1, 0, 0;\n}\n"
-               : ACC_OPERANDS(d)
-               : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// An empty asm that reads and writes every accumulator register, put after
-// each wgmma.wait_group and before each wgmma.fence: the compiler may then
-// move no read of d above the wait and no write of d below the fence
-// (CUTLASS's warpgroup_fence_operand).
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Fold a finished vocab tile's logits into the running best of this thread's
-// two rows: d[4 j + 2 r + e] is row g + 8 r, column col0 + 8 j + e. The bias is
-// added (-inf past V), the columns are taken in ascending order with a strict
-// >, and the conf variant keeps a running sum of exp(logit - max).
-template <bool WITH_CONF>
-__device__ __forceinline__ void fold_tile(float (&d)[128], Best (&best)[2], int col0,
-                                          const float* __restrict__ bias, int vocab) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = col0 + 8 * j + e;
-      const float b = col < vocab ? __ldg(bias + col) : -CUDART_INF_F;
-      d[4 * j + e] += b;
-      d[4 * j + 2 + e] += b;
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    Best& b = best[r];
-    const float m_old = b.m;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)  // ascending columns, strict >
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (d[4 * j + 2 * r + e] > b.m) {
-          b.m = d[4 * j + 2 * r + e];
-          b.idx = col0 + 8 * j + e;
-        }
-    if (WITH_CONF && b.m != -CUDART_INF_F) {
-      float s = b.m > m_old ? b.s * expf(m_old - b.m) : b.s;
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) s += expf(d[4 * j + 2 * r + e] - b.m);
-      b.s = s;
-    }
-  }
-}
-
-// Combine the quad's four partial bests of its two rows (rows row0 and
-// row0 + 8) and write them: the id, and in the conf variant the probability.
-template <bool WITH_CONF>
-__device__ __forceinline__ void store_best(Best (&best)[2], long long row0, long long m_rows,
-                                           int t, int* __restrict__ ids,
-                                           float* __restrict__ conf) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {  // the quad's 4 threads hold the same rows
-      Best other;
-      other.m = __shfl_xor_sync(0xffffffffu, best[r].m, o);
-      other.s = __shfl_xor_sync(0xffffffffu, best[r].s, o);
-      other.idx = __shfl_xor_sync(0xffffffffu, best[r].idx, o);
-      combine(best[r], other, WITH_CONF);
-    }
-    const long long row = row0 + 8 * r;
-    if (t == 0 && row < m_rows) {
-      ids[row] = best[r].idx;
-      if (WITH_CONF) {
-        const float lse = logf(best[r].s) + best[r].m;
-        conf[row] = expf(best[r].m - lse);
-      }
-    }
-  }
 }
 
 template <bool WITH_CONF>
@@ -422,115 +290,296 @@ int launch(const float* h, const float* emb, const float* bias, int* ids, float*
   return (int)cudaGetLastError();
 }
 
-// bf16 (the bf16 compute_dtype): a ring stage holds a 64-deep chunk of the
-// block's BM rows of h and the tile's BN rows of E as two 32-deep halves, each
-// row of a half 64 bytes in wgmma's K-major layout with the 64-byte swizzle,
-// as the split operands above. cp.async writes them there straight from
-// device memory, so the tensor cores read the ring itself.
-constexpr int BK16 = 64;                           // bf16 reduction depth of one stage
-constexpr int CHUNKS16 = K / BK16;                 // stages per vocab tile: 12
-constexpr int HALF16 = (BM + BN) * 32;             // bf16 values of one 32-deep half
-constexpr int STAGE16 = 2 * HALF16;                // of one stage: 48 KB
-constexpr int SMEM16_BYTES = STAGES * STAGE16 * 2;  // 196,608
-constexpr int A16_UNITS = BM * BK16 / 8 / THREADS;  // 16 B a thread: 4
-constexpr int B16_UNITS = BN * BK16 / 8 / THREADS;  // 8
+// ---- bf16: TMA, a producer warp and two consumer warpgroups ------------------
 
-// Where 16-byte unit c (0..7, 8 bf16 each along k) of row `row` of a stage's
-// operand sits: its half, then the 64-byte swizzle of the unit within it.
-__device__ __forceinline__ int unit16(int row, int c) {
-  return (c >> 2) * HALF16 + row * 32 + (((c & 3) ^ ((row >> 1) & 3)) * 8);
+namespace tma_ws {
+
+constexpr int CLUSTER = 2;                  // blocks along M that share each E tile
+constexpr int BK = 64;                      // bf16 depth of a stage: one 128-byte row
+constexpr int CHUNKS = K / BK;              // stages per vocab tile: 12
+constexpr int STAGES = 4;
+constexpr int H_BYTES = BM * BK * 2;        // the block's rows of h, a stage: 16 KB
+constexpr int E_BYTES = BN * BK * 2;        // the tile's rows of E, a stage: 32 KB
+constexpr int STAGE_BYTES = H_BYTES + E_BYTES;
+constexpr int E_PART = BN / CLUSTER;        // rows of E each block loads for the cluster
+constexpr int THREADS = 384;                // producer warpgroup + 2 consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr int LAG = 2;                      // chunks the second consumer starts behind
+static_assert(LAG > 0 && LAG < STAGES, "the first consumer runs LAG chunks alone");
+// the ring, the full and empty barriers, and 1 KB to align the ring to 1,024 B
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // 197,696
+constexpr long long WAIT_NS = 2000000000LL;  // an mbarrier wait longer than this traps
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// Wait until the phase of parity `parity` of the mbarrier at `bar` has
+// completed. A wait that outlasts WAIT_NS traps: the launch then fails with
+// an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               "selp.u32 %0, 1, 0, p;\n}\n"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  if (done) return;
+  long long t0;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  for (;;) {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > WAIT_NS) __trap();
+  }
+}
+
+// One arrival on the mbarrier at local address `bar` in block `cta` of the
+// cluster (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile("{\n.reg .b32 r;\nmapa.shared::cluster.u32 r, %0, %1;\n"
+               "mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n"
+               :: "r"(bar), "r"(cta) : "memory");
+}
+
+// Rows [c1, c1 + box rows) x depth [c0, c0 + 64) of a 2-D tensor map into
+// this block's shared memory at `dst`, completing `bytes` on `bar`; rows
+// past the tensor's end arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%2, %3}], [%4];\n"
+               :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar) : "memory");
+}
+
+// The same into `dst` of every block in `mask`, completing on each one's
+// mbarrier at `bar`.
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                   int c1, uint32_t bar, uint16_t mask) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+               :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar), "h"(mask) : "memory");
+}
+
+// Descriptor of a K-major operand as TMA writes it with the 128-byte swizzle:
+// rows of 64 bf16 (128 B), 8 rows (SBO) 1,024 B apart from a 1,024-byte
+// aligned base, LBO unused. A k16 step starts 32 B into the rows.
+__device__ __forceinline__ uint64_t desc128(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// 2^x on the SFU (ex2.approx.ftz.f32): 0 for x = -inf.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fold a finished vocab tile into this thread's two rows, as fold_tile does
+// (the bias added, -inf past V, ascending columns with a strict >), with both
+// rows in one pass over the columns, each bias used as it is loaded; and in
+// the conf variant the sum of exp(logit - max) as 2^((logit - max) log2 e) on
+// ex2.approx (relative error ~2^-22, the same bits run after run). Fewer
+// values stay live than in fold_tile, so the conf variant fits the
+// consumers' 240 registers.
 template <bool WITH_CONF>
-__global__ void __launch_bounds__(THREADS, 1)
-mlm_argmax_bf16_kernel(const __nv_bfloat16* __restrict__ h,
-                       const __nv_bfloat16* __restrict__ emb, const float* __restrict__ bias,
-                       int* __restrict__ ids, float* __restrict__ conf, long long m_rows,
-                       int vocab) {
-  extern __shared__ __align__(1024) __nv_bfloat16 ring16[];  // [STAGES][2 halves][BM + BN][32]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wg = warp >> 2;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int steps = (vocab + BN - 1) / BN * CHUNKS16;
-
-  // chunk `step` (k-chunk step % CHUNKS16 of vocab tile step / CHUNKS16) into
-  // stage step % STAGES; a warp reads 4 rows' 128 contiguous bytes
-  auto load = [&](int step) {
-    if (step < steps) {
-      __nv_bfloat16* stage = ring16 + (step % STAGES) * STAGE16;
-      const int n0 = (step / CHUNKS16) * BN, k0 = (step % CHUNKS16) * BK16;
+__device__ __forceinline__ void fold_tile_bf16(float (&d)[128], Best (&best)[2], int col0,
+                                               const float* __restrict__ bias, int vocab) {
+  const float m_old[2] = {best[0].m, best[1].m};
 #pragma unroll
-      for (int q = 0; q < A16_UNITS; ++q) {
-        const int u = tid + THREADS * q, row = u >> 3, c = u & 7;
-        const bool ok = m0 + row < m_rows;
-        cp_async16(stage + unit16(row, c), ok ? h + (m0 + row) * K + k0 + 8 * c : h, ok);
-      }
+  for (int j = 0; j < 32; ++j)  // ascending columns, strict >
 #pragma unroll
-      for (int q = 0; q < B16_UNITS; ++q) {
-        const int u = tid + THREADS * q, row = u >> 3, c = u & 7;
-        const bool ok = n0 + row < vocab;
-        cp_async16(stage + unit16(BM + row, c),
-                   ok ? emb + (long long)(n0 + row) * K + k0 + 8 * c : emb, ok);
+    for (int e = 0; e < 2; ++e) {
+      const int col = col0 + 8 * j + e;
+      const float b = col < vocab ? __ldg(bias + col) : -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v = d[4 * j + 2 * r + e] += b;
+        if (v > best[r].m) {
+          best[r].m = v;
+          best[r].idx = col;
+        }
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  float d[128];
+  if (WITH_CONF) {
+    constexpr float LOG2E = 1.4426950408889634f;
 #pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  Best best[2] = {{-CUDART_INF_F, 0.f, NO_INDEX}, {-CUDART_INF_F, 0.f, NO_INDEX}};
-
+    for (int r = 0; r < 2; ++r) {
+      Best& b = best[r];
+      if (b.m == -CUDART_INF_F) continue;
+      const float ml = b.m * LOG2E;
+      float s = b.m > m_old[r] ? b.s * ex2(fmaf(m_old[r], LOG2E, -ml)) : b.s;
 #pragma unroll
-  for (int s = 0; s < STAGES - 2; ++s) load(s);
-
-#pragma unroll 1
-  for (int step = 0; step < steps; ++step) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 3) : "memory");  // step is in
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // ... for wgmma to read
-    // every thread's copies of `step` are in, and both warpgroups are past
-    // their wait for step - 2's products: its stage may be refilled
-    __syncthreads();
-    load(step + STAGES - 2);
-    const __nv_bfloat16* stage = ring16 + (step % STAGES) * STAGE16;
-    fence_acc(d);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int j = 0; j < 32; ++j)
 #pragma unroll
-    for (int kk = 0; kk < BK16 / 16; ++kk) {  // half kk / 2, 32 bytes into its rows for odd kk
-      const __nv_bfloat16* half = stage + (kk >> 1) * HALF16 + 16 * (kk & 1);
-      wgmma_bf16(d, desc(half + wg * 64 * 32), desc(half + BM * 32),
-                 (step % CHUNKS16) + kk != 0);  // a tile's first product overwrites
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // step - 1's are done
-    fence_acc(d);
-
-    if (step % CHUNKS16 == CHUNKS16 - 1) {  // the tile is complete: fold it
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc(d);
-      fold_tile<WITH_CONF>(d, best, (step / CHUNKS16) * BN + 2 * t, bias, vocab);
+        for (int e = 0; e < 2; ++e) s += ex2(fmaf(d[4 * j + 2 * r + e], LOG2E, -ml));
+      b.s = s;
     }
   }
-
-  store_best<WITH_CONF>(best, m0 + wg * 64 + (warp & 3) * 16 + g, m_rows, t, ids, conf);
 }
 
 template <bool WITH_CONF>
-int launch_bf16(const __nv_bfloat16* h, const __nv_bfloat16* emb, const float* bias, int* ids,
-                float* conf, long long m_rows, int vocab, void* stream) {
+__global__ void __launch_bounds__(THREADS, 1) __cluster_dims__(CLUSTER, 1, 1)
+mlm_argmax_bf16_kernel(const __grid_constant__ CUtensorMap map_h,
+                       const __grid_constant__ CUtensorMap map_e,
+                       const float* __restrict__ bias, int* __restrict__ ids,
+                       float* __restrict__ conf, long long m_rows, int vocab) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (smem_addr(smem_raw) + 1023) & ~1023u;  // [STAGES][h | E]
+  const uint32_t full = ring + STAGES * STAGE_BYTES;            // STAGES mbarriers
+  const uint32_t empty = full + STAGES * 8;                     // STAGES mbarriers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const uint32_t rank = cluster_rank();
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n_tiles = (vocab + BN - 1) / BN;
+  const int steps = n_tiles * CHUNKS;  // chunk `step`: k-chunk step % CHUNKS of step / CHUNKS
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // full: the producer's arrival and the stage's bytes (h, and E from
+      // every block of the cluster); empty: one arrival of each consumer
+      // warp of every block of the cluster, which all read the E the
+      // producer writes into them
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(full + 8 * s));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   :: "r"(empty + 8 * s), "r"(8 * CLUSTER));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // every block's barriers exist before any block uses them
+
+  if (wg == 0) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp == 0 && lane == 0) {
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % STAGES;
+        const uint32_t parity = ((step / STAGES) & 1) ^ 1;  // a fresh stage is free
+        mbar_wait(empty + 8 * s, parity);
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(full + 8 * s), "r"(STAGE_BYTES) : "memory");
+        const int k0 = (step % CHUNKS) * BK, n0 = (step / CHUNKS) * BN;
+        const uint32_t stage = ring + s * STAGE_BYTES;
+        tma_load(stage, &map_h, k0, (int)m0, full + 8 * s);
+        tma_load_multicast(stage + H_BYTES + rank * (E_PART * BK * 2), &map_e, k0,
+                           n0 + (int)rank * E_PART, full + 8 * s, (1 << CLUSTER) - 1);
+      }
+    }
+    __syncwarp();
+  } else {  // consumer warpgroup cw: rows 64 cw .. 64 cw + 63 of the block
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+    const int cw = wg - 1, g = lane >> 2, t = lane & 3;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    Best best[2] = {{-CUDART_INF_F, 0.f, NO_INDEX}, {-CUDART_INF_F, 0.f, NO_INDEX}};
+    // the second warpgroup starts LAG chunks behind the first, so that
+    // their folds fall while the other one's products run (named barrier 1)
+    if (cw == 1) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    auto release = [&](int step) {  // each warp's arrival, in every block of the cluster
+      if (lane < CLUSTER) mbar_arrive_cluster(empty + 8 * (step % STAGES), lane);
+    };
+
+    int step = 0;  // chunk `step` is k-chunk c of vocab tile n
+#pragma unroll 1
+    for (int n = 0; n < n_tiles; ++n) {
+      fence_acc(d);  // the fold's writes of d come before the tile's first product
+#pragma unroll 1
+      for (int c = 0; c < CHUNKS; ++c, ++step) {
+        const int s = step % STAGES;
+        mbar_wait(full + 8 * s, (step / STAGES) & 1);
+        const uint32_t stage = ring + s * STAGE_BYTES;
+        const uint32_t a = stage + cw * 64 * BK * 2, b = stage + H_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)  // a tile's first product overwrites
+          wgmma_bf16(d, desc128(a + 32 * kk), desc128(b + 32 * kk), c != 0 || kk != 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (cw == 0 && step == LAG - 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+        if (c < CHUNKS - 1) {
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // c - 1's are done
+          if (c > 0) release(step - 1);
+        }
+      }
+      // the tile is complete: release its last two stages and fold it
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(d);
+      release(step - 2);
+      release(step - 1);
+      fold_tile_bf16<WITH_CONF>(d, best, n * BN + 2 * t, bias, vocab);
+    }
+    store_best<WITH_CONF>(best, m0 + cw * 64 + (warp & 3) * 16 + g, m_rows, t, ids, conf);
+  }
+  cluster_sync();  // no block leaves while another may still arrive on its barriers
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The tensor map of a (rows, K) bf16 matrix read in boxes of box_rows x 64
+// with the 128-byte swizzle, rows past its end read as zeros.
+// cuTensorMapEncodeTiled lives in libcuda: it is looked up through
+// cudaGetDriverEntryPoint, so the library links against the runtime alone.
+int encode(CUtensorMap* map, const __nv_bfloat16* p, long long rows, int box_rows) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* sym = nullptr;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess) return (int)cudaErrorSymbolNotFound;
+    fn = (EncodeTiled)sym;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)p, dims, strides, box,
+                        step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool WITH_CONF>
+int launch(const __nv_bfloat16* h, const __nv_bfloat16* emb, const float* bias, int* ids,
+           float* conf, long long m_rows, int vocab, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(mlm_argmax_bf16_kernel<WITH_CONF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM16_BYTES);
+                                         SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (m_rows == 0) return 0;
-  const long long blocks = (m_rows + BM - 1) / BM;
+  if (vocab < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_h, map_e;  // h's pointer changes from call to call: encoded each call
+  int status = encode(&map_h, h, m_rows, BM);
+  if (status == 0) status = encode(&map_e, emb, vocab, E_PART);
+  if (status != 0) return status;
+  // whole clusters: a block past M loads its part of E for its partners,
+  // and its own rows arrive as zeros and are never stored
+  const long long blocks = ((m_rows + BM - 1) / BM + CLUSTER - 1) / CLUSTER * CLUSTER;
   mlm_argmax_bf16_kernel<WITH_CONF>
-      <<<(unsigned)blocks, THREADS, SMEM16_BYTES, (cudaStream_t)stream>>>(
-          h, emb, bias, ids, conf, m_rows, vocab);
+      <<<(unsigned)blocks, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+          map_h, map_e, bias, ids, conf, m_rows, vocab);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tma_ws
 
 }  // namespace
 
@@ -548,17 +597,17 @@ extern "C" int mlm_argmax_conf_fwd(const float* h, const float* emb, const float
   return launch<true>(h, emb, bias, ids, conf, m_rows, vocab, stream);
 }
 
-// bf16 h: (M, 768) and emb: (V, 768), 16-byte aligned, fp32 bias: (V,); ids as
-// above (the logits summed in fp32 on the tensor cores).
+// bf16 h: (M, 768) and emb: (V, 768), 16-byte aligned, fp32 bias: (V,), V >= 1;
+// ids as above (the logits summed in fp32 on the tensor cores).
 extern "C" int mlm_argmax_bf16_fwd(const __nv_bfloat16* h, const __nv_bfloat16* emb,
                                    const float* bias, int* ids, long long m_rows, int vocab,
                                    void* stream) {
-  return launch_bf16<false>(h, emb, bias, ids, nullptr, m_rows, vocab, stream);
+  return tma_ws::launch<false>(h, emb, bias, ids, nullptr, m_rows, vocab, stream);
 }
 
 // The same, plus conf.
 extern "C" int mlm_argmax_conf_bf16_fwd(const __nv_bfloat16* h, const __nv_bfloat16* emb,
                                         const float* bias, int* ids, float* conf,
                                         long long m_rows, int vocab, void* stream) {
-  return launch_bf16<true>(h, emb, bias, ids, conf, m_rows, vocab, stream);
+  return tma_ws::launch<true>(h, emb, bias, ids, conf, m_rows, vocab, stream);
 }

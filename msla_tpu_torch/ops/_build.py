@@ -53,6 +53,7 @@ SIGNATURES = {
     "mlm_argmax_conf_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
     "mlm_argmax_bf16_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
     "mlm_argmax_conf_bf16_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
+    "mlm_argmax_bf16_probe": ("mlm_argmax_probe", [I32, I32, P, P, P, P, P, I64, I32, P]),
     "vq_lean_fwd": ("vq_lean", [P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_precision_fwd": ("vq_precision", [I32, I32, P, P, P, P, P, P, P, P, P, P, P, I32, I64,
                                           I32, P]),

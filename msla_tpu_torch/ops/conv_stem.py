@@ -25,6 +25,13 @@ as the JAX package's XLA stem gives them.
 
 Layout is torch's: x (B, C0, T), weights (out, in, k), output (B, C2, T/4),
 hidden (B, C1, T/2).
+
+The bf16 kernel runs both convs as matrix products on the tensor cores:
+conv1 on each h1 row's packed window of 4 samples x 4 channels, conv2 on the
+even and odd rows of h1 at shifts 0 and 1, with operands its prologue packs
+from w1 and w2. ``stem_operands`` is the same packing in plain PyTorch and
+``conv_stem_phase_ref`` the stem written with it, for the tests (no wrapper
+calls either).
 """
 from __future__ import annotations
 
@@ -54,6 +61,43 @@ def conv_stem_ref(x, w1, b1, w2, b2):
     dt = x.dtype
     h1 = _conv_k4s2p1_relu(x.float(), w1.float(), b1).to(dt)
     return _conv_k4s2p1_relu(h1.float(), w2.float(), b2).to(dt), h1
+
+
+def stem_operands(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's packed operands, from torch-layout weights w1 (C1, C0, 4)
+    and w2 (C2, C1, 4):
+    W1 (C1, 4·C0): W1[c1][c0·4 + tap] = w1[c1][c0][tap], so that h1[j] =
+    relu(W1·P[j] + b1) where P[j][c0·4 + tap] = x[c0][2j − 1 + tap] is row j's
+    window (the even and odd rows alike);
+    W2' (C2, 4·C1): W2'[c2][tap·C1 + c1] = w2[c2][c1][tap], so that out[q] =
+    relu(W2'·[h1[2q − 1]; h1[2q]; h1[2q + 1]; h1[2q + 2]] + b2)."""
+    return w1.reshape(w1.shape[0], -1), w2.permute(0, 2, 1).reshape(w2.shape[0], -1)
+
+
+def conv_stem_phase_ref(x, w1, b1, w2, b2):
+    """The stem as the bf16 kernel computes it, from ``stem_operands``: each
+    h1 row j = -1 .. 2·(T/4) (the rows conv2 reads, halo included) as the
+    product of its packed window, in fp32 of x's type's values, + b1, ReLU,
+    zero outside [0, T/2) and rounded to x's type; then conv2 on the odd rows
+    hO[i] = h1[2i − 1] and even rows hE[i] = h1[2i] as two partial sums, taps
+    0-1 and taps 2-3, added in fp32, + b2, ReLU, rounded to x's type.
+    Returns (out, h1) as ``conv_stem_ref``."""
+    dt = x.dtype
+    t = x.shape[-1]
+    half, w2_len = t // 2, t // 4
+    w1p, w2p = (w.float() for w in stem_operands(w1, w2))
+    xp = F.pad(x.float(), (3, 6))                        # x[-3] .. x[T + 5]
+    win = xp.unfold(2, 4, 2)[:, :, :2 * w2_len + 2]      # window m: x[2m - 3 ..], row j = m - 1
+    p = win.permute(0, 2, 1, 3).flatten(2)               # P[j][c0·4 + tap]
+    rows = torch.relu(p @ w1p.T + b1)                    # (B, rows, C1)
+    j = torch.arange(-1, 2 * w2_len + 1, device=x.device)
+    rows = torch.where(((j >= 0) & (j < half))[:, None], rows, 0.0).to(dt).float()
+    h_o, h_e = rows[:, 0::2], rows[:, 1::2]             # hO[i] = h1[2i - 1], hE[i] = h1[2i]
+    taps = torch.cat([h_o[:, :-1], h_e[:, :-1], h_o[:, 1:], h_e[:, 1:]], 2)
+    c = 2 * w1.shape[0]                                  # taps 0-1, then taps 2-3
+    acc = taps[..., :c] @ w2p[:, :c].T + taps[..., c:] @ w2p[:, c:].T
+    out = torch.relu(acc + b2).transpose(1, 2)
+    return out.to(dt), rows[:, 1:half + 1].transpose(1, 2).to(dt)
 
 
 def _launch(x, w1, b1, w2, b2, save_hidden: bool):

@@ -10,7 +10,8 @@ With bf16 h and E (the bf16 compute_dtype; the bias stays fp32) the logits
 are the fp32 sums of the exact bf16 products, as the Pallas kernel takes them,
 and the kernel runs one bf16 pass on the tensor cores.
 ``tf32_round_ref`` and ``mlm_logits_3xtf32_ref`` emulate the kernel's
-arithmetic for the tests; no wrapper calls them.
+arithmetic, and ``mlm_fold_tiled_ref`` the order in which the bf16 kernel
+folds the logits, for the tests; no wrapper calls them.
 """
 from __future__ import annotations
 
@@ -70,6 +71,72 @@ def mlm_logits_3xtf32_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor
         acc += h_hi[:, s] @ e_lo[:, s].T
         acc += h_hi[:, s] @ e_hi[:, s].T
     return acc + bias
+
+
+#: the kernel's vocab tile, and the columns of it that thread t of a row's
+#: quad holds: 8j + 2t + e for j < 32, e < 2 (the m64n256 accumulator's)
+TILE_N = 256
+_THREAD_COLS = torch.tensor([[8 * j + 2 * t + e for j in range(32) for e in range(2)]
+                             for t in range(4)])
+
+
+def _combine(a: dict, b: dict, with_conf: bool) -> dict:
+    """The kernel's ``combine`` of two partial results per row: the larger
+    max, or on equal maxima the lower index; the sums rescaled to the max."""
+    out = dict(a)
+    if with_conf:
+        mx = torch.maximum(a["m"], b["m"])
+        sa = torch.where(a["m"] == -torch.inf, 0.0, a["s"] * torch.exp(a["m"] - mx))
+        sb = torch.where(b["m"] == -torch.inf, 0.0, b["s"] * torch.exp(b["m"] - mx))
+        out["s"] = sa + sb
+    take = (b["m"] > a["m"]) | ((b["m"] == a["m"]) & (b["idx"] < a["idx"]))
+    out["m"] = torch.where(take, b["m"], a["m"])
+    out["idx"] = torch.where(take, b["idx"], a["idx"])
+    return out
+
+
+def mlm_fold_tiled_ref(logits: torch.Tensor, with_conf: bool = False):
+    """The bf16 kernel's fold of (M, V) fp32 logits (bias included), emulated:
+    the vocab in tiles of 256 columns, each row's 4 quad threads holding the
+    columns ``_THREAD_COLS`` of every tile (columns past V are -inf) and
+    folding them tile by tile in ascending order into a running (max, first
+    column) with a strict >, and with ``with_conf`` a running sum of
+    2^((logit − max)·log2 e), rescaled when the max rises; after the last
+    tile the quad's four partials combine as its shuffles do, lane t with
+    t ^ 1, then with t ^ 2 (``_combine``), and lane 0's is the row's.
+    The two consumer warpgroups own different rows, so the order in which
+    they fold does not enter. Returns int32 ids and, with ``with_conf``,
+    exp(max − logsumexp)."""
+    m_rows, v = logits.shape
+    n_tiles = -(-v // TILE_N)
+    padded = torch.full((m_rows, n_tiles * TILE_N), -torch.inf, dtype=torch.float32)
+    padded[:, :v] = logits
+    log2e = 1.4426950408889634
+    best = dict(m=torch.full((m_rows, 4), -torch.inf), s=torch.zeros((m_rows, 4)),
+                idx=torch.full((m_rows, 4), 0x7FFFFFFF, dtype=torch.int64))
+    for n in range(n_tiles):
+        cols = n * TILE_N + _THREAD_COLS                  # (4, 64), ascending per thread
+        tile = padded[:, cols]                            # (M, 4, 64)
+        m_old = best["m"]
+        for c in range(cols.shape[1]):
+            upd = tile[..., c] > best["m"]
+            best["m"] = torch.where(upd, tile[..., c], best["m"])
+            best["idx"] = torch.where(upd, cols[:, c], best["idx"])
+        if with_conf:
+            ml = best["m"] * log2e
+            s = torch.where(best["m"] > m_old, best["s"] * torch.exp2(m_old * log2e - ml),
+                            best["s"])
+            for c in range(cols.shape[1]):
+                s = s + torch.exp2(tile[..., c] * log2e - ml)
+            best["s"] = torch.where(best["m"] == -torch.inf, best["s"], s)
+    for o in (1, 2):
+        lanes = torch.arange(4) ^ o
+        best = _combine(best, {k: t[:, lanes] for k, t in best.items()}, with_conf)
+    ids = best["idx"][:, 0].to(torch.int32)
+    if not with_conf:
+        return ids
+    m, s = best["m"][:, 0], best["s"][:, 0]
+    return ids, torch.exp(m - (torch.log(s) + m))
 
 
 def _operands(name: str, h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):

@@ -78,3 +78,42 @@ def test_bf16_planted_ties_go_to_the_lowest_index():
     assert torch.equal(mlm_argmax(h, emb, bias).long(), lo)
     assert torch.equal(ids, mlm_argmax_ref(h, emb, bias))
     assert (conf <= 0.5).all()
+
+
+def _plant(emb, bias, h, row, cols):
+    """Make every vocab row of ``cols`` the same far-ahead logit for ``row``."""
+    planted = (4 * h[row] / h[row].float().norm()).to(BF)
+    for c in cols:
+        emb[c] = planted
+        bias[c] = 0.0
+
+
+@pytest.mark.parametrize("m,k,v", [(50, 16, 300), (129, 32, 513), (7, 8, 100)])
+@pytest.mark.parametrize("with_conf", [False, True])
+def test_tiled_fold_matches_jax_pallas_interpret(m, k, v, with_conf):
+    """The bf16 kernel's fold as it orders it (mlm_fold_tiled_ref: 256-wide
+    vocab tiles, each quad thread's 64 columns folded in ascending order with
+    a strict >, the quad combined by xor 1 then xor 2, the sums as powers of
+    2) on the plain version's logits, against the JAX Pallas kernel in
+    interpret mode: ids bit-equal, conf within rtol 1e-4. The cases have a
+    last tile past V and row counts that are no multiple of 64, and planted
+    ties between columns of different tiles, of different threads' slices
+    of one tile and of one thread's slice: the lowest index wins."""
+    from msla_tpu_torch.ops.mlm_argmax import mlm_fold_tiled_ref
+
+    (h, emb, bias), _ = _rand(m, k, v, seed=m + v)
+    ties = {0: (v - 1, 3), 1: (9, 10), 2: (12, 4), 3: (2, 258 % v, 66)}  # row: columns
+    for row, cols in ties.items():
+        _plant(emb, bias, h, row, cols)
+    jax_args = (jnp.asarray(h.float().numpy(), jnp.bfloat16),
+                jnp.asarray(emb.float().numpy(), jnp.bfloat16), jnp.asarray(bias.numpy()))
+    want = mlm_argmax_pallas(*jax_args, with_conf=with_conf, tile_m=16, tile_v=128,
+                             interpret=True)
+    got = mlm_fold_tiled_ref(h.float() @ emb.float().T + bias, with_conf=with_conf)
+    if with_conf:
+        (want, want_conf), (got, got_conf) = want, got
+        np.testing.assert_allclose(got_conf.numpy(), np.asarray(want_conf), rtol=1e-4, atol=0)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for row, cols in ties.items():
+        assert got[row].item() == min(cols)

@@ -202,3 +202,68 @@ def test_phase_formulation_is_the_stem(w):
         got16 = deconv_stem_phase_ref(*_port_bf16(q, k1, b1, k2, b2))[0]
         assert got16.dtype == BF
         assert bf16_ulps(got16.float().numpy(), pallas.numpy()).max() <= 1
+
+
+def _pallas_stem_operands(w1, w2):
+    """w1e, w1oa, w1ob and w2 as msla_tpu/ops/conv_stem.py:101-105 builds them
+    for the Pallas kernel, from flax-layout w1 (4, C0, C1) and w2 (4, C1, C2)."""
+    c0, c1 = w1.shape[1], w1.shape[2]
+    w1r = jnp.asarray(w1).reshape(4 * c0, c1)          # row tap·C0 + c0
+    half = 2 * c0
+    zeros = jnp.zeros((half, c1), w1r.dtype)
+    w1oa = jnp.concatenate([zeros, w1r[:half]], axis=0)
+    w1ob = jnp.concatenate([w1r[half:], zeros], axis=0)
+    return (np.array(w1r), np.array(w1oa), np.array(w1ob), np.array(jnp.asarray(w2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_stem_operands_are_the_pallas_kernels(dtype):
+    """W1 and W2' as the bf16 K1 kernel's prologue packs them: W1[c1][c0·4 +
+    tap] is the Pallas kernel's w1e[tap·C0 + c0][c1] (the even phase), and
+    for the odd phase, which the Pallas kernel straddles over two packed rows,
+    w1oa[2·C0 + tap·C0 + c0][c1] for taps 0-1 and w1ob[(tap − 2)·C0 + c0][c1]
+    for taps 2-3, the other halves zero; W2'[c2][tap·C1 + c1] is its
+    w2[tap][c1][c2]."""
+    from msla_tpu_torch.ops.conv_stem import stem_operands
+
+    _, k1, _, k2, _ = _stem_inputs(8, 11)
+    w1p, w2p = stem_operands(torch_weight(k1).to(dtype), torch_weight(k2).to(dtype))
+    w1e, w1oa, w1ob, w2 = (torch.from_numpy(a).to(dtype) for a in _pallas_stem_operands(k1, k2))
+    c0, c1, c2 = k1.shape[1], k1.shape[2], k2.shape[2]
+    assert w1p.shape == (c1, 4 * c0) and w2p.shape == (c2, 4 * c1)
+    for c0i in range(c0):
+        for tap in range(4):
+            col = w1p[:, c0i * 4 + tap]
+            assert torch.equal(col, w1e[tap * c0 + c0i])
+            odd = w1oa[2 * c0 + tap * c0 + c0i] if tap < 2 else w1ob[(tap - 2) * c0 + c0i]
+            assert torch.equal(col, odd)
+    assert not w1oa[:2 * c0].any() and not w1ob[2 * c0:].any()
+    for tap in range(4):
+        assert torch.equal(w2p[:, tap * c1:(tap + 1) * c1], w2[tap].T)
+
+
+@pytest.mark.parametrize("t", [4, 7, 62, 63, 65, 256])
+def test_stem_phase_formulation_is_the_stem(t):
+    """The stem as the bf16 K1 kernel computes it (conv_stem_phase_ref: each h1
+    row from its packed window, conv2 on the odd and even rows as two
+    128-deep halves added in fp32): in fp32 within 1e-5 of conv_stem_ref, out
+    and hidden, at lengths from 4 and not divisible by 4; in bf16 within
+    1 bf16 ulp of the JAX Pallas kernel in interpret mode, out and hidden,
+    where the Pallas kernel takes the length."""
+    from msla_tpu_torch.ops.conv_stem import conv_stem_phase_ref
+
+    args = _stem_inputs(t, 20 + t)
+    port = (ncw(args[0]), torch_weight(args[1]), t32(args[2]), torch_weight(args[3]),
+            t32(args[4]))
+    got, h1 = conv_stem_phase_ref(*port)
+    want, want_h = conv_stem_ref(*port)
+    assert got.shape == (2, 16, t // 4) and h1.shape == (2, 8, t // 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h1, want_h, rtol=1e-5, atol=1e-5)
+    if t % 32 == 0:
+        out, hidden = conv_stem_pallas(*_jax_bf16(*args), tile_w=16, save_hidden=True,
+                                       interpret=True)
+        got16, h16 = conv_stem_phase_ref(*_port_bf16(*args))
+        assert got16.dtype == h16.dtype == BF
+        assert bf16_ulps(got16.float().numpy(), ncw(_f32(out)).numpy()).max() <= 1
+        assert bf16_ulps(h16.float().numpy(), ncw(_f32(hidden)).numpy()).max() <= 1
