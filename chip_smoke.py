@@ -9,19 +9,22 @@ Phases, each of which raises (exit code != 0) when its check fails:
      source, in parallel, and print what ptxas reports (registers, spills);
   3. the serving kernels (K1 conv_stem, K2 deconv_stem, K3 nearest_codes)
      against their plain PyTorch versions on the card, at the shapes of a
-     batch-64 separation (stems at atol = rtol = 1e-4; every nearest-code
-     mismatch must be a near-tie), with median times over 20 CUDA-event-timed
-     runs of the kernel, its plain version and one library call;
+     batch-64 separation (stems at atol = rtol = 1e-4, and against fp64
+     within their 3xTF32 accumulation bound, stem_accumulation_bound, also
+     at ragged T for K1 and ragged W for K2; every nearest-code mismatch
+     must be a near-tie), with median times over 20 CUDA-event-timed runs of
+     the kernel, its plain version and one library call;
   4. the serving path through the user's entry points: the full-width VQ-VAE
      (configs/model/vqvae.yaml) with seeded random weights,
      SourceSeparator.separate (plain and overlap) and encode_codes on a 60 s
      22 kHz mixture, and a timed batch-64 separation; every serving kernel's
      launch count must grow and every output be finite;
   5. the card against the port on the CPU (plain versions) on 2 frames;
-  6. the training kernels (K1b, K2b: the stems' save-hidden forwards; #4
-     vq_fused_fwd; #5 vq_codebook_grad) against their plain versions at the
-     shapes of a batch-64 train step, timed as in phase 3; #5 on uniform ids
-     and on the seeded model's ids of the first batch;
+  6. the training kernels (K1b, K2b: the stems' save-hidden forwards, held
+     as in phase 3, hidden included; #4 vq_fused_fwd; #5 vq_codebook_grad)
+     against their plain versions at the shapes of a batch-64 train step,
+     timed as in phase 3; #5 on uniform ids and on the seeded model's ids of
+     the first batch;
   7. gradients on 2 frames of the full-width model: loss and every parameter
      gradient through the kernels against the same loss written with the
      plain versions and torch's autograd on the card (atol 1e-4, rtol 1e-3),
@@ -119,8 +122,10 @@ lengths T not divisible by 4 (phases 3 and 6) and through encode_codes
 (phase 4).
 A path's parts (phases 4, 10, 14, 17) come from a torch.profiler trace of
 the path's own call: each kernel's device time, summed by kind of kernel.
-The redesigned kernels (#7 in both types; K1/K1b, K2/K2b, #6/#6b in bf16)
-each print their time over their library call's and over their bound.
+The redesigned kernels (#7, K1/K1b and K2/K2b in both types; #6/#6b in
+bf16) each print their time over their library call's and over their bound.
+msla_tpu_torch/tools/bench_stems.py times the fp32 stems beside probes of
+their parts and another commit's stems.
 The bf16 #6 kernel traps when an mbarrier wait outlasts 2 s, so a hang
 fails the phase with a launch error.
 Each phase's seconds are printed as it ends.
@@ -251,9 +256,9 @@ RAGGED_T = (44_002, 44_003, 44_546, 7, 1_030)
 def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
     """K1 (K1b with ``save_hidden``) at lengths T not divisible by 4, batch 4,
     against conv_stem_ref: floor(T/4) columns, floor(T/2) hidden rows (the
-    last a real row when T/2 is odd), fp32 at atol = rtol = 1e-4 and bf16
-    as ``check_bf16`` holds it (the bf16 hidden within 2 ulps). Returns the
-    largest error at each T."""
+    last a real row when T/2 is odd), fp32 at atol = rtol = 1e-4 and within
+    the fp64 accumulation bound, bf16 as ``check_bf16`` holds it (the bf16
+    hidden within 2 ulps). Returns the largest error at each T."""
     from msla_tpu_torch.ops import conv_stem, conv_stem_ref, conv_stem_save_hidden
 
     errs = {}
@@ -274,8 +279,81 @@ def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
         else:
             errs[t] = max(check_close(name, got, want),
                           check_close(name + " hidden", h, want_h) if save_hidden else 0.0)
+            stem_fp64_share(name, stem_accumulation_bound(*args, transposed=False), got, h)
     print(f"[kernel] {'K1b' if save_hidden else 'K1'} {dtype} at ragged T: {errs}", flush=True)
     return errs
+
+
+def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
+    """The exact stem of fp32 operands in fp64 (K1's conv pair with both
+    ReLUs, or with ``transposed`` K2's, ReLU after the first layer), and an
+    upper bound, per value of its output and of its hidden, on how far the
+    fp32 kernels (3xTF32 on mma.sync) may fall from it: (out, its bound, the
+    hidden, its bound), fp64.
+
+    The model is #7's (``attention_accumulation_bound``): each accumulation
+    into the tensor cores' fp32 accumulator is off by less than one fp32 ulp
+    of the sum of its terms' magnitudes so far, ulp(x) <= u·x with u = 2^-23.
+    A layer of depth K runs 3 products in each of its K/8 k8 steps, 3K/8
+    accumulations of at most u·A each, A = Σ|w|·|a| its terms' magnitudes;
+    the split drops lo·lo and the parts' remainders, at most 3·2^-22·A =
+    6u·A; the bias add rounds once, and K2's second layer adds its two
+    chains' partial sums once more, within 2u·(A + |b|). So a layer's own
+    error is at most (3K/8 + 8)·u·A + 2u·|b|, and a ReLU passes on no more
+    than it gets:
+    - hidden (K1's conv1, K = 16; K2's first layer, K = 256): e1 = (3K/8 +
+      8)·u·A1 + 2u·|b1|; the pad rows are 0 in both;
+    - output: e1 carried through the second layer's weights, Σ|w2|·e1 (first
+      order), plus its own (3·256/8 + 8)·u·A2 + 2u·|b2|, A2 = Σ|w2|·h.
+    The fp32 plain version sums in another order, rounding each add to
+    nearest, and stays well inside it; single-pass TF32 products, ~2^-11 of
+    each term off, do not (tests/test_torch_fp32_stems_3xtf32.py)."""
+    import torch.nn.functional as F
+
+    conv = F.conv_transpose1d if transposed else F.conv1d
+    u = 2.0 ** -23
+    xd, w1d, b1d, w2d, b2d = (t.double() for t in (x, w1, b1, w2, b2))
+    k1 = 2 * x.shape[1] if transposed else 4 * x.shape[1]   # taps x channels a value sums
+    k2 = 4 * w2.shape[0 if transposed else 1]
+    h = torch.relu(conv(xd, w1d, b1d, 2, 1))
+    e1 = (3 * k1 / 8 + 8) * u * conv(xd.abs(), w1d.abs(), None, 2, 1) + 2 * u * b1d.abs()[:, None]
+    out = conv(h, w2d, b2d, 2, 1)
+    if not transposed:
+        out = torch.relu(out)
+    e2 = (conv(e1, w2d.abs(), None, 2, 1) + (3 * k2 / 8 + 8) * u * conv(h, w2d.abs(), None, 2, 1)
+          + 2 * u * b2d.abs()[:, None])
+    return out, e2, h, e1
+
+
+def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None) -> float:
+    """A fp32 stem's largest error against fp64, output and (if given) hidden,
+    as a share of ``stem_accumulation_bound``'s ``bounds``; fails above 1.
+    With ``plain`` (the plain version's (out, hidden)) prints its share
+    beside it."""
+    exact, limit, exact_h, limit_h = bounds
+
+    def share(got, got_h):
+        s = ((got.double() - exact).abs() / (limit + 1e-30)).max().item()
+        if got_h is not None:
+            s = max(s, ((got_h.double() - exact_h).abs() / (limit_h + 1e-30)).max().item())
+        return s
+
+    got = share(out, hidden)
+    beside = "" if plain is None else \
+        f", the plain fp32 version's {share(plain[0], None if hidden is None else plain[1]):.3f}"
+    print(f"[stem] {name}: against fp64, {got:.3f} of the 3xTF32 accumulation bound{beside}",
+          flush=True)
+    if got > 1:
+        fail(f"{name}: off fp64 by {got:.2f}x what its 3xTF32 accumulation may lose")
+    return got
+
+
+def tf32_bounds(flop: float, moved: float) -> dict:
+    """An fp32 kernel on the TF32 tensor cores is held to its FLOP at the TF32
+    peak, as #6 and #7 fp32 are; beside it, its three products there and the
+    FLOP on the fp32 FMA units."""
+    return dict(flop_type="tf32", three_products_ms=bound(3 * flop, moved, PEAK_FLOPS["tf32"])[0],
+                fp32_bound_ms=bound(flop, moved)[0])
 
 
 def near_ties_by(dist, idx_a, idx_b, what: str = "nearest_codes") -> tuple[int, float, float]:
@@ -327,7 +405,11 @@ def phase_kernels(net, dev) -> list[dict]:
         args = (x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
         out = conv_stem(*args)
         torch.cuda.synchronize()
-        err = check_close("conv_stem", out, conv_stem_ref(*args)[0])
+        want = conv_stem_ref(*args)[0]
+        err = check_close("conv_stem", out, want)
+        share = stem_fp64_share("conv_stem", stem_accumulation_bound(*args, transposed=False),
+                                out, plain=(want, None))
+        del want
         with fp32_convs():
             lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(x, args[1], args[2], 2, 1)),
                                                   args[3], args[4], 2, 1)))
@@ -335,8 +417,10 @@ def phase_kernels(net, dev) -> list[dict]:
         report.append(dict(
             name="conv_stem", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
             replaces="msla_tpu/ops/conv_stem.py:48", max_abs_err=err,
+            fp64_share_of_bound=share,
             ms=time_ms(lambda: conv_stem(*args)), plain_ms=time_ms(lambda: conv_stem_ref(*args)),
             library_ms=lib, flop=flops, bytes=nbytes(*args, out),
+            **tf32_bounds(flops, nbytes(*args, out)),
             ragged_t_max_abs_err=ragged_stem(enc, dev, g)))
         del x, out
 
@@ -346,7 +430,11 @@ def phase_kernels(net, dev) -> list[dict]:
                 dec.conv2_transpose.weight, dec.conv2_transpose.bias)
         out = deconv_stem(*args)
         torch.cuda.synchronize()
-        err = check_close("deconv_stem", out, deconv_stem_ref(*args)[0])
+        want = deconv_stem_ref(*args)[0]
+        err = check_close("deconv_stem", out, want)
+        share = stem_fp64_share("deconv_stem", stem_accumulation_bound(*args, transposed=True),
+                                out, plain=(want, None))
+        del want
         with fp32_convs():
             lib = time_ms(lambda: F.conv_transpose1d(
                 F.relu(F.conv_transpose1d(q, args[1], args[2], 2, 1)), args[3], args[4], 2, 1))
@@ -354,9 +442,12 @@ def phase_kernels(net, dev) -> list[dict]:
         report.append(dict(
             name="deconv_stem", route="cuda", source="msla_tpu_torch/csrc/deconv_stem.cu",
             replaces="msla_tpu/ops/deconv_stem.py:35", max_abs_err=err,
+            fp64_share_of_bound=share,
+            ragged_w_max_abs_err=ragged_deconv(dec, dev, g, torch.float32),
             ms=time_ms(lambda: deconv_stem(*args)),
             plain_ms=time_ms(lambda: deconv_stem_ref(*args)),
-            library_ms=lib, flop=flops, bytes=nbytes(*args, out)))
+            library_ms=lib, flop=flops, bytes=nbytes(*args, out),
+            **tf32_bounds(flops, nbytes(*args, out))))
         del q, out
 
         # K3 at N = B*W rows against a 512 x 64 codebook
@@ -383,8 +474,9 @@ def phase_kernels(net, dev) -> list[dict]:
 
 #: the kernel entries whose kernels were redesigned for Hopper: each also
 #: prints its time over its library call's and over its bound
-REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem[bf16]",
-              "deconv_stem_save_hidden[bf16]", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
+REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem", "deconv_stem_save_hidden",
+              "deconv_stem[bf16]", "deconv_stem_save_hidden[bf16]", "conv_stem",
+              "conv_stem_save_hidden", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
               "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]")
 
 
@@ -494,8 +586,8 @@ def ragged_frame(task, song) -> None:
 #: the part of a breakdown a kernel belongs to: the first entry whose words
 #: its name holds, else "other". The port's kernels of the serving paths by
 #: their __global__ names (K2's holds K1's, so it comes first) ...
-PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_kernel", "deconv_stem_bf16_kernel")),
-              ("K1 conv_stem", ("conv_stem_kernel", "conv_stem_bf16_kernel")),
+PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_3xtf32_kernel", "deconv_stem_bf16_kernel")),
+              ("K1 conv_stem", ("conv_stem_3xtf32_kernel", "conv_stem_bf16_kernel")),
               ("K3 nearest_codes", ("nearest_codes_kernel",)),
               ("#7 flash_attn", ("flash_attn_kernel",)),
               ("#6 mlm_argmax", ("mlm_argmax",)))
@@ -708,17 +800,21 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
         want_out, want_h = conv_stem_ref(*args)
         err = max(check_close("conv_stem_save_hidden out", out, want_out),
                   check_close("conv_stem_save_hidden hidden", h, want_h))
+        share = stem_fp64_share("conv_stem_save_hidden",
+                                stem_accumulation_bound(*args, transposed=False), out, h,
+                                plain=(want_out, want_h))
         del want_out, want_h
         with fp32_convs():
             lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(x, args[1], args[2], 2, 1)),
                                                   args[3], args[4], 2, 1)))
+        flops = 2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4)
         report.append(dict(
             name="conv_stem_save_hidden", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
             replaces="msla_tpu/ops/conv_stem.py:132", max_abs_err=err,
+            fp64_share_of_bound=share,
             ms=time_ms(lambda: conv_stem_save_hidden(*args)),
             plain_ms=time_ms(lambda: conv_stem_ref(*args)), library_ms=lib,
-            flop=2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4),
-            bytes=nbytes(*args, out, h),
+            flop=flops, bytes=nbytes(*args, out, h), **tf32_bounds(flops, nbytes(*args, out, h)),
             ragged_t_max_abs_err=ragged_stem(enc, dev, g, save_hidden=True)))
         del x, out, h
 
@@ -731,18 +827,23 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
         want_out, want_h = deconv_stem_ref(*args)
         err = max(check_close("deconv_stem_save_hidden out", out, want_out),
                   check_close("deconv_stem_save_hidden hidden", h, want_h))
+        share = stem_fp64_share("deconv_stem_save_hidden",
+                                stem_accumulation_bound(*args, transposed=True), out, h,
+                                plain=(want_out, want_h))
         del want_out, want_h
         with fp32_convs():
             lib = time_ms(lambda: F.conv_transpose1d(
                 F.relu(F.conv_transpose1d(q, args[1], args[2], 2, 1)), args[3], args[4], 2, 1))
+        flops = 2 * BATCH * (2 * w * 64 * 128 * 2 + 4 * w * 4 * 64 * 2)
         report.append(dict(
             name="deconv_stem_save_hidden", route="cuda",
             source="msla_tpu_torch/csrc/deconv_stem.cu",
             replaces="msla_tpu/ops/deconv_stem.py:132", max_abs_err=err,
+            fp64_share_of_bound=share,
+            ragged_w_max_abs_err=ragged_deconv(dec, dev, g, torch.float32),
             ms=time_ms(lambda: deconv_stem_save_hidden(*args)),
             plain_ms=time_ms(lambda: deconv_stem_ref(*args)), library_ms=lib,
-            flop=2 * BATCH * (2 * w * 64 * 128 * 2 + 4 * w * 4 * 64 * 2),
-            bytes=nbytes(*args, out, h)))
+            flop=flops, bytes=nbytes(*args, out, h), **tf32_bounds(flops, nbytes(*args, out, h))))
         del q, out, h
 
         # #4 on the seeded model's latents of the first batch and its codebook
@@ -950,7 +1051,7 @@ class backward_probe:
             h.remove()
 
     def check(self) -> dict:
-        from msla_tpu_torch.ops.mlm_argmax import tf32_round_ref
+        from msla_tpu_torch.ops.tf32 import tf32_round_ref
 
         if not self.flags or any(self.flags):
             fail(f"backward: cuDNN's TF32 flag read {self.flags} while the conv's weight "
@@ -1237,7 +1338,8 @@ def planted_close_pairs(h, emb, bias) -> int:
     into the ragged last tile, 400 rows each. The kernel's gap, read back
     from conf ≈ σ(gap), is held to fp64 within `accumulation_bound`."""
     from msla_tpu_torch.ops import mlm_argmax, mlm_argmax_conf, mlm_argmax_ref
-    from msla_tpu_torch.ops.mlm_argmax import mlm_logits_3xtf32_ref, tf32_round_ref
+    from msla_tpu_torch.ops.mlm_argmax import mlm_logits_3xtf32_ref
+    from msla_tpu_torch.ops.tf32 import tf32_round_ref
 
     n, v = 2000, emb.shape[0]
     kind, i = torch.arange(n, device=h.device).div(400, rounding_mode="floor"), \
@@ -1909,43 +2011,52 @@ def ragged_attention(dev, g, dtype) -> dict:
     return errs
 
 
-RAGGED_W = (1, 2, 119, 121, 361, 368)  # K2 bf16's tile is 120; 368 % 8 == 0: 16-byte loads
+#: K2's tiles are 120 positions in bf16 and 60 in fp32; W % 8 != 0 breaks
+#: bf16's 16-byte loads and W % 4 != 0 fp32's (368 % 8 == 0: 16-byte loads)
+RAGGED_W = (1, 2, 59, 60, 61, 119, 121, 240, 361, 368)
 
 
-def ragged_deconv(dec, dev, g) -> dict:
-    """K2 and K2b on bf16 operands at widths W around their 120-position tile
-    (RAGGED_W), batch 4, with the decoder's weights: K2b's hidden within 2
-    bf16 ulps of the plain version's, K2b's output within 2 ulps of the plain
-    second layer (fp32, TF32 off) on K2b's own hidden (the same exact
-    products summed in fp32 in another order, one rounding each), and K2's
-    output equal to K2b's bit for bit. Returns the largest error at each W."""
+def ragged_deconv(dec, dev, g, dtype=torch.bfloat16) -> dict:
+    """K2 and K2b at widths W around their tiles (RAGGED_W), batch 4, with the
+    decoder's weights, and K2's output equal to K2b's bit for bit. fp32: the
+    output and hidden at atol = rtol = 1e-4 of the plain version and within
+    the fp64 accumulation bound. bf16: K2b's hidden within 2 bf16 ulps of
+    the plain version's, K2b's output within 2 ulps of the plain second
+    layer (fp32, TF32 off) on K2b's own hidden (the same exact products
+    summed in fp32 in another order, one rounding each). Returns the largest
+    error at each W."""
     import torch.nn.functional as F
 
     from msla_tpu_torch.ops import deconv_stem, deconv_stem_ref, deconv_stem_save_hidden
     from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
-    bf = torch.bfloat16
-    weights = (dec.conv1_transpose.weight.detach().to(bf), dec.conv1_transpose.bias.detach(),
-               dec.conv2_transpose.weight.detach().to(bf), dec.conv2_transpose.bias.detach())
+    weights = (dec.conv1_transpose.weight.detach().to(dtype), dec.conv1_transpose.bias.detach(),
+               dec.conv2_transpose.weight.detach().to(dtype), dec.conv2_transpose.bias.detach())
     errs = {}
     for w in RAGGED_W:
-        args = (torch.rand((4, 128, w), generator=g, device=dev).to(bf), *weights)
+        args = (torch.rand((4, 128, w), generator=g, device=dev).to(dtype), *weights)
         out, h = deconv_stem_save_hidden(*args)
         out_k2 = deconv_stem(*args)
-        want_h = deconv_stem_ref(*args)[1]
+        want_out, want_h = deconv_stem_ref(*args)
         torch.cuda.synchronize()
         if out.shape != (4, 4, 4 * w) or h.shape != (4, 64, 2 * w):
-            fail(f"deconv_stem bf16 at W = {w}: shapes {tuple(out.shape)}, {tuple(h.shape)}")
-        with fp32_convs():
-            want = F.conv_transpose1d(h.float(), args[3].float(), args[4], 2, 1).to(bf)
-        name = f"deconv_stem bf16 at W = {w}"
-        zero = torch.zeros_like(want, dtype=torch.float32)
-        err = check_bf16(name + " (layer 2 on its own hidden)", out, want, zero)[0]
-        err_h = check_bf16(name + " hidden", h, want_h, torch.zeros_like(h, dtype=torch.float32))[0]
+            fail(f"deconv_stem {dtype} at W = {w}: shapes {tuple(out.shape)}, {tuple(h.shape)}")
+        name = f"deconv_stem {dtype} at W = {w}"
+        if dtype == torch.float32:
+            errs[w] = max(check_close(name, out, want_out),
+                          check_close(name + " hidden", h, want_h))
+            stem_fp64_share(name, stem_accumulation_bound(*args, transposed=True), out, h)
+        else:
+            with fp32_convs():
+                want = F.conv_transpose1d(h.float(), args[3].float(), args[4], 2, 1).to(dtype)
+            zero = torch.zeros_like(want, dtype=torch.float32)
+            err = check_bf16(name + " (layer 2 on its own hidden)", out, want, zero)[0]
+            err_h = check_bf16(name + " hidden", h, want_h,
+                               torch.zeros_like(h, dtype=torch.float32))[0]
+            errs[w] = max(err, err_h)
         if not torch.equal(out, out_k2):
             fail(f"{name}: K2 and K2b give different outputs")
-        errs[w] = max(err, err_h)
-    print(f"[kernel] K2/K2b bf16 at ragged W: {errs}", flush=True)
+    print(f"[kernel] K2/K2b {dtype} at ragged W: {errs}", flush=True)
     return errs
 
 

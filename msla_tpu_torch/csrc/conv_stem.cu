@@ -1,7 +1,8 @@
 // Fused VQ-VAE encoder stem: conv k4 s2 p1 (4 -> 64) + ReLU, then
 // conv k4 s2 p1 (64 -> 128) + ReLU, in one pass over device memory, on fp32
-// operands (conv_stem_kernel) or, for the bf16 compute_dtype, bf16 ones (x,
-// w1, w2; the biases stay fp32) on the tensor cores (conv_stem_bf16_kernel).
+// operands (conv_stem_3xtf32_kernel) or, for the bf16 compute_dtype, bf16 ones
+// (x, w1, w2; the biases stay fp32; conv_stem_bf16_kernel), both on the
+// tensor cores.
 //
 // Replaces: msla_tpu/ops/conv_stem.py:48 _stem_kernel (conv_stem_pallas), both
 // its forward (K1) and, with a non-null `hidden`, its save_hidden forward for
@@ -15,27 +16,7 @@
 // Weights arrive pre-transposed by the wrapper: w1t (4*4, 64) indexed
 // [c0*4+tap][c1], w2t (64*4, 128) indexed [c1*4+tap][c2].
 //
-// fp32 (conv_stem_kernel). Bound on an H100: at batch 64, T = 44,000 the stem
-// does 4.90e10 fp32 FLOP and must move 45.1 MB in + 360.4 MB out (+ 360.4 MB
-// of h1 for K1b), so it is bound by the fp32 FMA rate (67 TFLOP/s outside the
-// tensor cores), not by memory. Conv1's output h1 never reaches device memory
-// in K1 (K1b also writes it, for the backward). A block holds the whole conv2
-// weight (128 KB) plus a tile of h1 in shared memory and is persistent: one
-// block per SM loads the weights once and walks over (batch row, tile) pairs.
-// Each thread keeps an 8 channel x 8 position register tile of conv2
-// accumulators, so every shared-memory read feeds 8 FMAs; fp32 FMA throughout.
-// K1b stores each h1 row of the tile's interior [2*q0, 2*q0 + 2*TILE) once,
-// after the ReLU, as it is computed.
-//
-// bf16 (conv_stem_bf16_kernel; the Pallas kernel's cast points,
-// msla_tpu/ops/conv_stem.py:54-80): exact bf16 products summed in fp32,
-// h1 = bf16(relu(sum + b1)), conv2 on that rounded h1, out = bf16(relu(sum +
-// b2)). Bound: the same FLOP at the bf16 tensor-core peak (989 TFLOP/s) take
-// 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms (K1b also writes 180.2
-// MB of h1: 0.114 ms): bound by bytes, and by the output's bytes above all. So
-// both convs run on the tensor cores (mma.sync.m16n8k16 bf16 -> fp32, whose
-// products of bf16 values are exact, as the MXU's are), and everything the
-// output does not need stays on chip:
+// Both kernels share one decomposition, on mma.sync:
 // - Conv1, per tile of TILE = 128 output positions q0 .. q0 + 127: the rows
 //   k = 0 .. 2 TILE + 1 hold h1[2 q0 - 1 + k] (the tile's h1 and both halo
 //   rows) = P (rows x 16) . W1 (16 x 64), where P[k][c0*4 + tap] =
@@ -43,148 +24,322 @@
 //   Pallas kernel's packing of 4 samples x 4 channels a row, shifted by 2
 //   samples from one row to the next, so that the even and odd phases are
 //   one product (the Pallas kernel's w1e, and w1oa/w1ob where its odd phase
-//   straddles two packed rows). Its depth is one k16 step; the A fragments
-//   come by 16-bit loads from the tile's x window in shared memory, W1 in
-//   shared memory (2 KB). The accumulator gives a thread one row and two
-//   channels: add b1, ReLU, zero the rows outside [0, T/2) (conv2's own
-//   padding), round to bf16 in registers and store the pair into hE[i] =
-//   h1[2 (q0 + i)] or hO[i] = h1[2 (q0 + i) - 1], position-major.
-// - Conv2, transposed as K2 bf16's layers: [out channels] (128) = W2' (128 x
-//   256) . [hO[i]; hE[i]; hO[i+1]; hE[i+1]] (256 x TILE columns i): its four
-//   taps are four 64-deep row sets of the two phases at shifts 0 and 1, which
-//   ldmatrix reads straight from hE / hO. W2'[c2][tap*64 + c1] = w2[c2][c1]
-//   [tap] is packed once a block into shared memory (rows padded to 528 B:
-//   ldmatrix's 8 rows land on 32 banks). 8 warps of 64 channels x 32
-//   positions, 16 products a k16 step for 4 + 2 ldmatrix. The tensor cores'
-//   accumulator truncates where fp32 adds round to nearest (K2 bf16's note), so
-//   taps 0-1 and taps 2-3 run as two 128-deep partial sums, added in fp32.
-// - Stores: conv2's tile is staged in shared memory, add b2, ReLU, bf16, and
-//   goes out 16 B a thread along positions (16-bit stores where T/4 % 8 != 0).
-//   K1b writes h1 from hE / hO as (h1[2i], h1[2i+1]) pairs, eight positions of
-//   four channel pairs a warp instruction (32 B runs along W; 16-bit stores
-//   where T/2 is odd), then the real last row where T/2 is odd.
+//   straddles two packed rows). The A fragments come by scalar loads from
+//   the tile's x window in shared memory, W1 from shared memory. The
+//   accumulator gives a thread one row and two channels: add b1, ReLU, zero
+//   the rows outside [0, T/2) (conv2's own padding) and store the pair into
+//   hE[i] = h1[2 (q0 + i)] or hO[i] = h1[2 (q0 + i) - 1], position-major.
+// - Conv2, transposed: [out channels] (128) = W2' (128 x 256) . [hO[i]; hE[i];
+//   hO[i+1]; hE[i+1]] (256 x TILE columns i): its four taps are four 64-deep
+//   row sets of the two phases at shifts 0 and 1, which ldmatrix reads
+//   straight from hE / hO. W2'[c2][tap*64 + c1] = w2[c2][c1][tap] is packed
+//   once a block into shared memory, rows padded so that ldmatrix's 8 rows
+//   land on 32 banks. 8 warps of 64 channels x 32 positions.
 // - Loads overlap compute: blocks are persistent (one an SM, at most one a
 //   tile) and the next tile's x window streams in by cp.async under this
-//   tile's products (16-bit loads where T % 8 != 0). 154 KB of shared memory
-//   and 255 registers a thread (ptxas) hold one block of 8 warps an SM: TILE
-//   = 128 at one block an SM is the shape measured; two blocks an SM would
-//   need half the registers.
+//   tile's products (narrower loads where T is not a multiple of 16 bytes).
+//   K1b writes h1 from hE / hO as (h1[2i], h1[2i+1]) pairs, eight positions
+//   of four channels a warp instruction (runs along W; narrower stores where
+//   T/2 is odd), then the real last row where T/2 is odd.
+//
+// fp32 (conv_stem_3xtf32_kernel). Bound on an H100: at batch 64, T = 44,000
+// the stem does 4.90e10 FLOP and must move 45.1 MB in + 360.4 MB out (+ 360.4
+// MB of h1 for K1b): 0.121 ms (0.229 ms for K1b) by bytes at 3.35 TB/s, 0.099
+// ms for the FLOP at the TF32 tensor-core peak (495 TFLOP/s), 0.732 ms on the
+// fp32 FMA units (67 TFLOP/s). The FMA kernel this replaces ran at some 2.7x
+// that FMA floor, so the products move to the tensor cores in 3xTF32
+// (tf32_split.cuh: mma.sync.m16n8k8 on hi = tf32(x) and lo = tf32(x - hi),
+// lo.hi + hi.lo + hi.hi a k8 step into one fp32 accumulator; plain one-pass
+// TF32 would keep ~11 bits of each product), three products: 0.297 ms at the
+// TF32 peak. Conv1 is one 16-deep product a row (two k8 steps); conv2 one
+// 256-deep chain. The split happens in registers, as each fragment is loaded:
+// the split of a W2' A fragment serves the warp's 4 n-tiles, that of an h B
+// fragment its 4 m-tiles (24 splits a warp a k8 step for 48 products), and
+// shared memory keeps the fp32 size: W2' (133 KB padded), two x windows (17
+// KB), hE and hO (74 KB) and W1 fill 229.9 KB of the 232.4 KB a block may
+// have, at TILE = 128. h1 stored split (hi and lo) would not fit beside
+// them; at TILE = 64 it would, and save conv2 the B third of its splits.
+// Measured instead (tools/bench_stems.py, PERF.md): the whole split costs
+// about a fifth of the kernel's time, the second and third products about
+// half, so that third cannot pay for halving the tile, and the split stays
+// in registers. Each thread loads and splits W1's B fragments once a tile
+// and holds them through conv1. The output goes from the accumulators
+// straight to device memory: a warp instruction writes 8 channels x 32 B
+// runs.
+//
+// bf16 (conv_stem_bf16_kernel; the Pallas kernel's cast points,
+// msla_tpu/ops/conv_stem.py:54-80): exact bf16 products summed in fp32,
+// h1 = bf16(relu(sum + b1)), conv2 on that rounded h1, out = bf16(relu(sum +
+// b2)). Bound: the same FLOP at the bf16 tensor-core peak (989 TFLOP/s) take
+// 0.050 ms and the 22.5 MB in + 180.2 MB out 0.061 ms (K1b also writes 180.2
+// MB of h1: 0.114 ms): bound by bytes, and by the output's bytes above all.
+// Both convs run on mma.sync.m16n8k16 bf16 -> fp32, whose products of bf16
+// values are exact, as the MXU's are; conv1's depth is one k16 step, its A
+// fragments come by 16-bit loads, and its accumulators are rounded to bf16 in
+// registers before hE / hO take them. Conv2 runs 16 products a k16 step for 4
+// + 2 ldmatrix. The tensor cores' accumulator truncates where fp32 adds
+// round to nearest (deconv_stem.cu's note), so taps 0-1 and taps 2-3 run as
+// two 128-deep partial sums, added in fp32. The output tile is staged in
+// shared memory, add b2, ReLU, bf16, and goes out 16 B a thread along
+// positions (16-bit stores where T/4 % 8 != 0). 154 KB of shared memory and
+// 255 registers a thread (ptxas) hold one block of 8 warps an SM: TILE = 128
+// at one block an SM is the shape measured; two blocks an SM would need half
+// the registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_split.cuh"
+
 namespace {
+
+using tf32_split::mma_3xtf32;
+using tf32_split::split;
 
 constexpr int C0 = 4;
 constexpr int C1 = 64;
 constexpr int C2 = 128;
-constexpr int TILE = 128;             // conv2 output positions per tile
-constexpr int NH = 2 * TILE + 2;      // h1 rows a tile needs: 2*q0-1 .. 2*q0+2*TILE
-constexpr int NX = 4 * TILE + 6;      // samples a tile needs: 4*q0-3 .. 4*q0+4*TILE+2
-constexpr int THREADS = 256;
-constexpr int PT = 8;                 // positions per thread (stride 16)
-constexpr int CT = 8;                 // channels per thread (stride 16)
+constexpr int THREADS = 256;          // 8 warps
+constexpr int K2D = 4 * C1;           // conv2 depth: hO[i], hE[i], hO[i+1], hE[i+1]
 
-constexpr size_t SMEM_FLOATS =
-    (size_t)C1 * 4 * C2 + (size_t)C1 * NH + (size_t)C0 * NX + C0 * 4 * C1 + C1 + C2;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// ---- fp32 in 3xTF32 on the tensor cores --------------------------------------
+
+namespace tf32_mma {
+
+constexpr int TILE = 128;             // conv2 output positions per tile
+constexpr int XW = 4 * TILE + 16;     // x window: samples 4 q0 - 8 .. 4 q0 + 4 TILE + 7
+constexpr int KROWS = 2 * TILE + 2;   // conv1 rows k: h1[2 q0 - 1 + k]
+constexpr int MT1 = (KROWS + 15) / 16;  // conv1's m16 tiles (the last one partly unused)
+constexpr int W1_LD = 16 + 4;         // floats a row of W1 [c1][c0*4 + tap]: B loads on 32 banks
+constexpr int W2_LD = K2D + 4;        // floats a row of W2' (1,040 B: ldmatrix rows on 32 banks)
+constexpr int H_LD = C1 + 4;          // floats a row of hE / hO (272 B)
+constexpr int H_ROWS = TILE + 8;      // conv2 reads rows 0 .. TILE
+
+// shared memory, in bytes from the start
+constexpr int W2S = 0;
+constexpr int XS = W2S + C2 * W2_LD * 4;          // two x windows [C0][XW]
+constexpr int HSE = XS + 2 * C0 * XW * 4;         // hE[i] = h1[2 (q0 + i)]
+constexpr int HSO = HSE + H_ROWS * H_LD * 4;      // hO[i] = h1[2 (q0 + i) - 1]
+constexpr int W1S = HSO + H_ROWS * H_LD * 4;      // [C1][W1_LD]
+constexpr int B1S = W1S + C1 * W1_LD * 4;
+constexpr int B2S = B1S + C1 * 4;
+constexpr int SMEM_BYTES = B2S + C2 * 4;          // 229,888
 
 __global__ void __launch_bounds__(THREADS, 1)
-conv_stem_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-                 const float* __restrict__ b1, const float* __restrict__ w2t,
-                 const float* __restrict__ b2, float* __restrict__ out,
-                 float* __restrict__ hidden, int batch, int t_len) {
-  extern __shared__ float smem[];
-  float* w2s = smem;                    // [C1*4][C2]
-  float* h1s = w2s + C1 * 4 * C2;       // [C1][NH]
-  float* xs = h1s + C1 * NH;            // [C0][NX]
-  float* w1s = xs + C0 * NX;            // [C0*4][C1]
-  float* b1s = w1s + C0 * 4 * C1;       // [C1]
-  float* b2s = b1s + C1;                // [C2]
+conv_stem_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                        const float* __restrict__ b1, const float* __restrict__ w2t,
+                        const float* __restrict__ b2, float* __restrict__ out,
+                        float* __restrict__ hidden, int batch, int t_len) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* w2s = reinterpret_cast<float*>(smem + W2S);
+  float* xbuf = reinterpret_cast<float*>(smem + XS);
+  float* hse = reinterpret_cast<float*>(smem + HSE);
+  float* hso = reinterpret_cast<float*>(smem + HSO);
+  float* w1s = reinterpret_cast<float*>(smem + W1S);
+  float* b1s = reinterpret_cast<float*>(smem + B1S);
+  float* b2s = reinterpret_cast<float*>(smem + B2S);
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < C1 * 4 * C2; i += THREADS) w2s[i] = w2t[i];
-  for (int i = tid; i < C0 * 4 * C1; i += THREADS) w1s[i] = w1t[i];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // W2'[c2][tap*64 + c1] = w2t[c1*4 + tap][c2]; W1[c1][c0*4 + tap] = w1t[c0*4 + tap][c1]
+  for (int i = tid; i < C2 * K2D; i += THREADS) {
+    const int c2 = i % C2, k = i / C2, tap = k / C1, c1 = k % C1;
+    w2s[c2 * W2_LD + k] = w2t[(c1 * 4 + tap) * C2 + c2];
+  }
+  for (int i = tid; i < C1 * 16; i += THREADS) {
+    const int c1 = i % C1, k = i / C1;
+    w1s[c1 * W1_LD + k] = w1t[k * C1 + c1];
+  }
   for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
   for (int i = tid; i < C2; i += THREADS) b2s[i] = b2[i];
 
-  const int w1_len = t_len / 2;       // conv1 output width
-  const int w2_len = t_len / 4;       // conv2 output width
+  const int w1_len = t_len / 2;       // h1 rows
+  const int w2_len = t_len / 4;       // output columns
   const int tiles_per_row = (w2_len + TILE - 1) / TILE;
-  const long long total_tiles = (long long)batch * tiles_per_row;
-  const int tx = tid & 15;            // position lane
-  const int ty = tid >> 4;            // channel lane
+  const long long total = (long long)batch * tiles_per_row;
 
-  for (long long tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
-    const int b = (int)(tile / tiles_per_row);
-    const int q0 = (int)(tile % tiles_per_row) * TILE;
-    __syncthreads();  // previous tile's readers of xs/h1s are done
-
-    // waveform window, zero outside [0, T) (conv1's own p=1 padding)
+  // xs[c0][u] = x[c0][4 q0 - 8 + u], zero outside [0, T)
+  const bool aligned = t_len % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto load_x = [&](long long tile, float* xs) {
+    const int b = (int)(tile / tiles_per_row), s0 = 4 * ((int)(tile % tiles_per_row) * TILE) - 8;
     const float* xb = x + (size_t)b * C0 * t_len;
-    const int x0 = 4 * q0 - 3;
-    for (int i = tid; i < C0 * NX; i += THREADS) {
-      const int c = i / NX, u = i % NX, s = x0 + u;
-      xs[i] = (s >= 0 && s < t_len) ? xb[(size_t)c * t_len + s] : 0.0f;
+    if (aligned) {  // whole 16-byte chunks, each inside [0, T) or outside it
+      for (int i = tid; i < C0 * (XW / 4); i += THREADS) {
+        const int c = i / (XW / 4), u = 4 * (i % (XW / 4)), s = s0 + u;
+        const bool valid = s >= 0 && s < t_len;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(xs + c * XW + u)),
+                     "l"(xb + (size_t)c * t_len + (valid ? s : 0)), "r"(valid ? 16 : 0));
+      }
+    } else {  // channel rows not 16-byte aligned: 4-byte copies
+      for (int i = tid; i < C0 * XW; i += THREADS) {
+        const int c = i / XW, u = i % XW, s = s0 + u;
+        const bool valid = s >= 0 && s < t_len;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_addr(xs + c * XW + u)),
+                     "l"(xb + (size_t)c * t_len + (valid ? s : 0)), "r"(valid ? 4 : 0));
+      }
+    }
+  };
+
+  long long tile = blockIdx.x;
+  if (tile < total) load_x(tile, xbuf);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int it = 0; tile < total; tile += gridDim.x, ++it) {
+    const int b = (int)(tile / tiles_per_row), q0 = (int)(tile % tiles_per_row) * TILE;
+    const int n_valid = min(TILE, w2_len - q0);
+    const float* xs = xbuf + (it & 1) * C0 * XW;
+    if (tile + gridDim.x < total) load_x(tile + gridDim.x, xbuf + ((it + 1) & 1) * C0 * XW);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's x is in
+    // for every thread; the weights too, on the first tile; and the previous
+    // tile's readers of hE and hO are done
+    __syncthreads();
+
+    // conv1: warp w takes the m16 row tiles w, w + 8, ...; row k's A row is
+    // x[c0][4 q0 - 3 + 2k + tap] at u = 5 + 2k + tap (rows past KROWS repeat
+    // the last and are not stored). k8 step s holds c0 = 2s (columns t) and
+    // 2s + 1 (columns t + 4).
+    {
+      // W1's B fragments, split: b0 = W1[8 ni + g][8 s + t], b1 = W1[8 ni + g][8 s + t + 4]
+      uint32_t wh[C1 / 8][2][2], wl[C1 / 8][2][2];
+#pragma unroll
+      for (int ni = 0; ni < C1 / 8; ++ni)
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            split(__float_as_uint(w1s[(8 * ni + g) * W1_LD + 8 * s + 4 * e + t]), wh[ni][s][e],
+                  wl[ni][s][e]);
+      for (int mt = warp; mt < MT1; mt += THREADS / 32) {
+        const int ka = 16 * mt + g, kb = ka + 8;
+        const int ua = 5 + 2 * min(ka, KROWS - 1) + t, ub = 5 + 2 * min(kb, KROWS - 1) + t;
+        float c[C1 / 8][4] = {};
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t ah[4], al[4];
+          split(__float_as_uint(xs[2 * s * XW + ua]), ah[0], al[0]);
+          split(__float_as_uint(xs[2 * s * XW + ub]), ah[1], al[1]);
+          split(__float_as_uint(xs[(2 * s + 1) * XW + ua]), ah[2], al[2]);
+          split(__float_as_uint(xs[(2 * s + 1) * XW + ub]), ah[3], al[3]);
+#pragma unroll
+          for (int ni = 0; ni < C1 / 8; ++ni)
+            mma_3xtf32(c[ni], ah, al, wh[ni][s][0], wh[ni][s][1], wl[ni][s][0], wl[ni][s][1]);
+        }
+        // rows ka and kb have g's parity: both go to hO (even k) or hE (odd k)
+        float* hs = (g & 1) ? hse : hso;
+#pragma unroll
+        for (int ni = 0; ni < C1 / 8; ++ni) {
+          const int ch = 8 * ni + 2 * t;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int k = r ? kb : ka, j = 2 * q0 - 1 + k;
+            if (k < KROWS) {
+              const bool inside = j >= 0 && j < w1_len;
+              *reinterpret_cast<float2*>(hs + (k >> 1) * H_LD + ch) =
+                  make_float2(inside ? fmaxf(c[ni][2 * r] + b1s[ch], 0.f) : 0.f,
+                              inside ? fmaxf(c[ni][2 * r + 1] + b1s[ch + 1], 0.f) : 0.f);
+            }
+          }
+        }
+      }
     }
     __syncthreads();
 
-    // h1[j] = relu(conv1) for j = 2*q0-1+k; rows outside [0, T/2) are conv2's
-    // p=1 zero padding, which applies to relu(conv1), not to the waveform.
-    // A tile writes the hidden rows of its interior [2*q0, 2*q0 + 2*TILE); a
-    // row's last tile also writes row 2*q0 + 2*TILE if it is a real row
-    const int j0 = 2 * q0 - 1;
-    const int last_k = q0 + TILE >= w2_len ? 2 * TILE + 1 : 2 * TILE;
-    for (int i = tid; i < C1 * NH; i += THREADS) {
-      const int c1 = i / NH, k = i % NH, j = j0 + k;
-      float acc = b1s[c1];
-#pragma unroll
-      for (int c0 = 0; c0 < C0; ++c0)
-#pragma unroll
-        for (int t = 0; t < 4; ++t)
-          acc = fmaf(w1s[(c0 * 4 + t) * C1 + c1], xs[c0 * NX + 2 * k + t], acc);
-      const float h = (j >= 0 && j < w1_len) ? fmaxf(acc, 0.0f) : 0.0f;
-      h1s[i] = h;
-      if (hidden != nullptr && k >= 1 && k <= last_k && j < w1_len)
-        hidden[((size_t)b * C1 + c1) * w1_len + j] = h;
-    }
-    __syncthreads();
-
-    // out2[q0+p] = relu(b2 + sum_{c1,t} w2[c2][c1][t] * h1[2(q0+p)-1+t]),
-    // and h1[2(q0+p)-1+t] sits at h1s[c1][2p+t]
-    float acc[CT][PT];
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-#pragma unroll
-      for (int i = 0; i < PT; ++i) acc[j][i] = 0.0f;
-
-    for (int c1 = 0; c1 < C1; ++c1) {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float hv[PT], wv[CT];
-#pragma unroll
-        for (int i = 0; i < PT; ++i) hv[i] = h1s[c1 * NH + 2 * (tx + 16 * i) + t];
-#pragma unroll
-        for (int j = 0; j < CT; ++j) wv[j] = w2s[(c1 * 4 + t) * C2 + ty + 16 * j];
-#pragma unroll
-        for (int j = 0; j < CT; ++j)
-#pragma unroll
-          for (int i = 0; i < PT; ++i) acc[j][i] = fmaf(wv[j], hv[i], acc[j][i]);
+    if (hidden != nullptr) {  // K1b: h1[2 (q0 + i)] = hE[i], h1[2 (q0 + i) + 1] = hO[i + 1]
+      const bool pairs = w1_len % 2 == 0;  // channel rows 8-byte aligned
+      for (int blk = warp; blk < (TILE / 8) * (C1 / 4); blk += THREADS / 32) {
+        const int i = 8 * (blk / (C1 / 4)) + (lane & 7);
+        const int c = 4 * (blk % (C1 / 4)) + (lane >> 3);
+        if (i < n_valid) {
+          const float e = hse[i * H_LD + c], d = hso[(i + 1) * H_LD + c];
+          float* dst = hidden + ((size_t)b * C1 + c) * w1_len + 2 * (q0 + i);
+          if (pairs) {
+            *reinterpret_cast<float2*>(dst) = make_float2(e, d);
+          } else {
+            dst[0] = e;
+            dst[1] = d;
+          }
+        }
       }
+      // where T/2 is odd, the row's last tile also writes h1[T/2 - 1] = hE[n_valid]
+      if (w1_len % 2 == 1 && q0 + TILE >= w2_len && tid < C1)
+        hidden[((size_t)b * C1 + tid) * w1_len + w1_len - 1] = hse[n_valid * H_LD + tid];
     }
 
-    float* ob = out + (size_t)b * C2 * w2_len;
+    // conv2: warp (wm, wn) takes channels 64 wm .. and positions 32 wn ..
+    {
+      const int wm = warp >> 2, wn = warp & 3;
+      float acc[4][4][4] = {};
+#pragma unroll 2
+      for (int k0 = 0; k0 < K2D; k0 += 8) {
+        // tap k0 / 64: 0 hO[i], 1 hE[i], 2 hO[i + 1], 3 hE[i + 1]
+        const int tap = k0 / C1;
+        const float* hs = (tap & 1) ? hse : hso;
+        // A: W2' rows 16 mi + (g, g + 8), columns k0 + (t, t + 4), as 8x4 fp32
+        // tiles read as 8x8 b16 ones; B likewise from hE / hO's position rows
+        uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int c2 = ty + 16 * j;
+        for (int mi = 0; mi < 4; ++mi) {
+          uint32_t r[4];
+          ldsm_x4(r, w2s + (64 * wm + 16 * mi + (lane & 15)) * W2_LD + k0 + (lane >> 4) * 4);
 #pragma unroll
-      for (int i = 0; i < PT; ++i) {
-        const int q = q0 + tx + 16 * i;
-        if (q < w2_len) ob[(size_t)c2 * w2_len + q] = fmaxf(acc[j][i] + b2s[c2], 0.0f);
+          for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4], bh[4], bl[4];
+          ldsm_x4(r, hs + (32 * wn + 16 * np + (lane >> 4) * 8 + (lane & 7) + (tap >> 1)) *
+                              H_LD + k0 % C1 + ((lane >> 3) & 1) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(r[e], bh[e], bl[e]);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            mma_3xtf32(acc[mi][2 * np], ah[mi], al[mi], bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(acc[mi][2 * np + 1], ah[mi], al[mi], bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
       }
+      // + b2, ReLU, straight to out[b][c2][q0 + i]: a thread's two positions
+      // 2t, 2t + 1 as one 8-byte store where T/4 is even
+      float* ob = out + (size_t)b * C2 * w2_len + q0;
+      const bool pairs = w2_len % 2 == 0;
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int c2 = 64 * wm + 16 * mi + g + 8 * r;
+            const int i = 32 * wn + 8 * ni + 2 * t;
+            const float v0 = fmaxf(acc[mi][ni][2 * r] + b2s[c2], 0.f);
+            const float v1 = fmaxf(acc[mi][ni][2 * r + 1] + b2s[c2], 0.f);
+            float* dst = ob + (size_t)c2 * w2_len + i;
+            if (pairs && i < n_valid) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              if (i < n_valid) dst[0] = v0;
+              if (i + 1 < n_valid) dst[1] = v1;
+            }
+          }
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+}  // namespace tf32_mma
 
 // ---- bf16 on the tensor cores ------------------------------------------------
 
@@ -193,12 +348,10 @@ namespace bf16_mma {
 using bf16 = __nv_bfloat16;
 
 constexpr int TILE = 128;             // conv2 output positions per tile
-constexpr int THREADS = 256;          // 8 warps
 constexpr int XW = 4 * TILE + 16;     // x window: samples 4 q0 - 8 .. 4 q0 + 4 TILE + 7
 constexpr int KROWS = 2 * TILE + 2;   // conv1 rows k: h1[2 q0 - 1 + k]
 constexpr int MT1 = (KROWS + 15) / 16;  // conv1's m16 tiles (the last one partly unused)
 constexpr int W1_LD = 16 + 8;         // bf16 a row of W1 [c1][c0*4 + tap] (48 B)
-constexpr int K2D = 4 * C1;           // conv2 depth: hO[i], hE[i], hO[i+1], hE[i+1]
 constexpr int W2_LD = K2D + 8;        // bf16 a row of W2' (528 B)
 constexpr int H_LD = C1 + 8;          // bf16 a row of hE / hO (144 B)
 constexpr int H_ROWS = TILE + 8;      // conv2 reads rows 0 .. TILE
@@ -217,16 +370,6 @@ constexpr int W1S = OS + C2 * O_LD * 2;           // [C1][W1_LD]
 constexpr int B1S = W1S + C1 * W1_LD * 2;
 constexpr int B2S = B1S + C1 * 4;
 constexpr int SMEM_BYTES = B2S + C2 * 4;          // 153,856
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -491,8 +634,8 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                              const float* w2t, const float* b2, float* out,
                              float* hidden, int batch, int t_len, void* stream) {
-  return launch<float>(conv_stem_kernel, (int)SMEM_BYTES, THREADS, TILE, x, w1t, b1, w2t, b2,
-                       out, hidden, batch, t_len, stream);
+  return launch<float>(tf32_mma::conv_stem_3xtf32_kernel, tf32_mma::SMEM_BYTES, THREADS,
+                       tf32_mma::TILE, x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
 }
 
 // bf16 x, w1t, w2t and out, fp32 biases: hidden may be null (K1 in bf16);
@@ -501,7 +644,7 @@ extern "C" int conv_stem_bf16_fwd(const __nv_bfloat16* x, const __nv_bfloat16* w
                                   const float* b1, const __nv_bfloat16* w2t, const float* b2,
                                   __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
                                   int t_len, void* stream) {
-  return launch<__nv_bfloat16>(bf16_mma::conv_stem_bf16_kernel, bf16_mma::SMEM_BYTES,
-                               bf16_mma::THREADS, bf16_mma::TILE, x, w1t, b1, w2t, b2, out,
+  return launch<__nv_bfloat16>(bf16_mma::conv_stem_bf16_kernel, bf16_mma::SMEM_BYTES, THREADS,
+                               bf16_mma::TILE, x, w1t, b1, w2t, b2, out,
                                hidden, batch, t_len, stream);
 }

@@ -1,6 +1,8 @@
 // Fused VQ-VAE decoder stem: convT k4 s2 p1 (128 -> 64) + ReLU, then
 // convT k4 s2 p1 (64 -> 4), in one pass over device memory, on fp32 operands
-// or, for the bf16 compute_dtype, bf16 ones (q, w1, w2; the biases stay fp32).
+// (deconv_stem_3xtf32_kernel) or, for the bf16 compute_dtype, bf16 ones (q,
+// w1, w2; the biases stay fp32; deconv_stem_bf16_kernel), both on the tensor
+// cores.
 //
 // Replaces: msla_tpu/ops/deconv_stem.py:35 _deconv_kernel (deconv_stem_pallas),
 // both its forward (K2) and, with a non-null `hidden`, its save_hidden forward
@@ -10,20 +12,58 @@
 //   out[2m]   = x[m] W1 + x[m-1] W3,     out[2m+1] = x[m] W2 + x[m+1] W0,
 // so no product touches the stride-dilated input's zeros. The hidden h (B, 64,
 // 2W) never reaches device memory (K2b writes it once, for the backward): a
-// persistent block (one per SM) keeps the first layer's weights in shared
-// memory, computes h for a tile of positions plus a one-row halo on each side
-// into shared memory, then the 4-channel output from it.
+// persistent block (one per SM, at most one a tile) keeps the first layer's
+// weights in shared memory, computes h for a tile of positions plus a
+// one-row halo on each side into shared memory, then the 4-channel output
+// from it. Both layers are computed transposed, channels as the mma's rows
+// and positions as its columns, because q is NCW (positions contiguous) and
+// the first layer reads it at two shifts, q[m-1] and q[m]:
+// - Layer 1: [he | ho] = W1' (128 x 256) . [q[r-1] ; q[r]] (256 x columns r),
+//   where column r gives he[r] = h[2r] and ho[r-1] = h[2r-1] (the tile's h
+//   plus both halo rows). W1' stacks the phase weights ([W3 W1] over [W2 W0],
+//   transposed); the prologue packs it from w1 into shared memory, where it
+//   stays for the block's lifetime and ldmatrix reads the A fragments. Add
+//   b1, ReLU, zero the rows outside [0, 2W), then store even and odd rows of
+//   h in two arrays (hsE, hsO), position-major: the second layer's four row
+//   sets are then consecutive rows of one of them.
+// - Layer 2: the packed output [out[4l] .. out[4l+3]] x 4 channels (16 rows)
+//   from W2' (16 x 256, zero blocks included: the Pallas kernel's
+//   _phase_weights_2) and [h[2l] ; h[2l-1] ; h[2l+1] ; h[2l+2]] (256 x
+//   positions), ldmatrix reading hsE / hsO.
+// - K2b: the tile's interior h rows go from hsE / hsO to device memory as
+//   (even, odd) pairs, eight positions of four channels a warp instruction:
+//   runs along W, no bank conflicts.
 //
-// fp32 (deconv_stem_kernel). Bound on an H100: at batch 64, W = 11,000 the stem
-// does 4.90e10 fp32 FLOP and must move 360.4 MB in + 45.1 MB out (+ 360.4 MB
-// of h for K2b), so it is bound by the fp32 FMA rate (67 TFLOP/s outside the
-// tensor cores), not by memory. In the first layer each thread keeps 4
-// channels x 5 positions of both phases in registers; both phases read the
-// same two input rows, so every shared-memory read feeds 8 FMAs. fp32 FMA
-// throughout. K2b copies the tile's interior rows of h, [2*m0, 2*m0 + 2*TILE),
-// from shared memory to device memory once they are complete: consecutive
-// threads take consecutive rows, so the stores are coalesced along W, no row
-// is written by two blocks and the halo and pad rows are never written.
+// fp32 (deconv_stem_3xtf32_kernel). Bound on an H100: at batch 64, W =
+// 11,000 the stem does 4.90e10 FLOP and must move 360.4 MB in + 45.1 MB out
+// (+ 360.4 MB of h for K2b): 0.121 ms (0.229 ms for K2b) by bytes at 3.35
+// TB/s, 0.099 ms for the FLOP at the TF32 tensor-core peak (495 TFLOP/s),
+// 0.732 ms on the fp32 FMA units (67 TFLOP/s), where the FMA kernel this
+// replaces ran at 3.4x that floor. So both layers run on the tensor cores in
+// 3xTF32 (tf32_split.cuh: mma.sync.m16n8k8 on hi = tf32(x), lo = tf32(x -
+// hi), lo.hi + hi.lo + hi.hi a k8 step into one fp32 accumulator; one-pass
+// TF32 would keep ~11 bits of each product): three products, 0.297 ms at the
+// TF32 peak. The split happens in registers as each fragment is loaded (K1's
+// note says why), so shared memory holds fp32 values, and still it is what
+// shapes the kernel: W1' alone is 133 KB (rows padded so ldmatrix's 8 rows
+// land on 32 banks) of the 232.4 KB a block may have. So the tile is TILE =
+// 60 positions (64 layer-1 columns, 61 used) and q's tile is held once, not
+// double-buffered (37 KB): the first layer runs over q's channels 0-63 (at
+// r-1 and r), then 64-127, and each half of the next tile's q streams in by
+// cp.async as soon as every warp is done with that half, the first under
+// this tile's second half of products, the second under the epilogue, K2b's
+// stores and layer 2.
+// - Layer 1: 8 warps of 32 rows x 32 columns, 16 splits a k8 step for 24
+//   products; its B fragments are 4-byte loads from q's NCW rows (padded to
+//   72 floats, 32 banks), which take either shift.
+// - Layer 2, transposed once more so that h is its A operand (ldmatrix from
+//   hsE / hsO) and W2' its B: warp w takes positions 16 (w % 4) .. and the
+//   row sets h[2l], h[2l-1] (w < 4) or h[2l+1], h[2l+2] (w >= 4), two
+//   128-deep chains; the second adds its partial sums to the first's through
+//   shared memory, + b2, and the first writes out[o][4l .. 4l + 3] straight
+//   from its accumulators, 16 B runs along W.
+// - A width W % 4 != 0 leaves q's rows unaligned for 16-byte copies; then q
+//   comes by 4-byte copies, into the same buffer.
 //
 // bf16 (deconv_stem_bf16_kernel; the Pallas kernel's cast points,
 // msla_tpu/ops/deconv_stem.py:35-63): h = relu(sum of exact bf16 products in
@@ -31,214 +71,312 @@
 // writes that rounded h), and the output is rounded to bf16 as it is stored.
 // Bound: the same FLOP at the bf16 tensor-core peak (989 TFLOP/s) take 0.050
 // ms and the 180.2 MB in + 22.5 MB out 0.061 ms (K2b in bf16 also writes 180.2
-// MB of h: 0.114 ms): bound by bytes. So both layers run on the tensor cores
-// (mma.sync.m16n8k16 bf16 -> fp32, whose products of bf16 values are exact),
-// as the Pallas kernel runs them on the MXU, and the q tiles stream through a
-// double buffer of cp.async loads that run under the previous tile's products.
-// Both layers are computed transposed, channels as the mma's rows and
-// positions as its columns, because q is NCW (positions contiguous) and the
-// first layer reads it at two shifts, q[m-1] and q[m]: a B fragment gathers
-// its two channels of one position with two 16-bit shared loads, which take
-// any shift (ldmatrix would need 16-byte-aligned rows).
-// - Layer 1, per tile of TILE = 120 positions: [he | ho] (128 x 128) = W1'
-//   (128 x 256) . [q[r-1] ; q[r]] (256 x 128 columns r = m0 .. m0 + 127), where
-//   column r gives he[r] = h[2r] and ho[r-1] = h[2r-1] (its first 121 columns
-//   are used: the tile's h plus both halo rows). W1' stacks the phase weights
-//   ([W3 W1] over [W2 W0], transposed); the prologue packs it from w1 (64 KB
-//   bf16) into shared memory, where it stays for the block's lifetime and
-//   ldmatrix reads the A fragments. Add b1, ReLU, zero the rows outside
-//   [0, 2W), round to bf16 in the accumulator registers, then store even and
-//   odd rows of h in two arrays (hsE, hsO), position-major: the second layer's
-//   four row sets are then consecutive rows of one of them.
-// - Layer 2: the packed output [out[4l] .. out[4l+3]] x 4 channels (16 rows) =
-//   W2' (16 x 256, zero blocks included: the Pallas kernel's
-//   _phase_weights_2) . [h[2l] ; h[2l-1] ; h[2l+1] ; h[2l+2]] (256 x positions),
-//   B fragments by ldmatrix from hsE / hsO. Add b2, round to bf16, stage in
-//   shared memory and store each channel's 4 * TILE samples coalesced.
-// - K2b: the tile's interior h rows go from hsE / hsO to device memory as
-//   (even, odd) bf16 pairs, eight positions of four channel pairs a warp
-//   instruction: 32 B runs along W, no bank conflicts.
+// MB of h: 0.114 ms): bound by bytes. So both layers run on mma.sync.m16n8k16
+// bf16 -> fp32, whose products of bf16 values are exact, as the Pallas kernel
+// runs them on the MXU, and the q tiles stream through a double buffer of
+// cp.async loads that run under the previous tile's products. A B fragment
+// of layer 1 gathers its two channels of one position with two 16-bit shared
+// loads, which take any shift (ldmatrix would need 16-byte-aligned rows).
+// - Layer 1, per tile of TILE = 120 positions: 128 columns r = m0 .. m0 + 127
+//   (121 used), W1' in shared memory as 64 KB bf16; h rounded to bf16 in the
+//   accumulator registers. 2 x 4 warps of 64 channels x 32 positions, 16
+//   products a k16 step for 4 ldmatrix and 16 16-bit loads.
+// - Layer 2: W2' is the A operand; B fragments by ldmatrix from hsE / hsO.
+//   Add b2, round to bf16, stage in shared memory and store each channel's 4
+//   * TILE samples coalesced.
 // - A width W % 8 != 0 leaves q's rows unaligned for 16-byte copies; then the
 //   tile is loaded by 16-bit loads, the same double buffer.
-// Layer 1 is 94 % of the FLOP: 2 x 4 warps of 64 channels x 32 positions, 16
-// products a k16 step for 4 ldmatrix and 16 16-bit loads. The kernel runs at
-// some 8x its bound (PERF.md): those 16-bit loads and one block of 8 warps
-// an SM are the likely brakes, not measured apart. The tensor cores'
-// accumulator truncates where fp32 adds round to nearest, so one 256-deep
-// chain on it leaves each h value further from the plain version's sum, and
-// more of them round to the other bf16 neighbour (chip_smoke.py counts the
-// outputs that then move beyond 2 ulps): each half of the sum, q[r-1]'s 128
-// channels and q[r]'s, runs on the tensor cores from zero, and the two halves
-// add in fp32, as the plain version adds its two taps' products.
+// The kernel runs at some 8x its bound (PERF.md): those 16-bit loads and one
+// block of 8 warps an SM are the likely brakes, not measured apart. The
+// tensor cores' accumulator truncates where fp32 adds round to nearest, so
+// one 256-deep chain on it leaves each h value further from the plain
+// version's sum, and more of them round to the other bf16 neighbour
+// (chip_smoke.py counts the outputs that then move beyond 2 ulps): each half
+// of the sum, q[r-1]'s 128 channels and q[r]'s, runs on the tensor cores from
+// zero, and the two halves add in fp32, as the plain version adds its two
+// taps' products.
 //
 // Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
 // Weights in torch's ConvTranspose1d layout (in, out, k): w1 (128, 64, 4),
 // w2 (64, 4, 4).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "operand_type.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
-using operand_type::from_float;
-using operand_type::round_to;
-using operand_type::to_float;
+using tf32_split::mma_3xtf32;
+using tf32_split::split;
 
 constexpr int CI = 128;               // input channels
 constexpr int C1 = 64;                // hidden channels
 constexpr int CO = 4;                 // output channels
-constexpr int TILE = 64;              // input positions per tile
-constexpr int NQ = TILE + 2;          // q rows: m0-1 .. m0+TILE
-constexpr int NH = 2 * TILE + 2;      // h rows: 2*m0-1 .. 2*m0+2*TILE
-constexpr int THREADS = 256;          // == 4 * TILE: one output sample each
-constexpr int PT = 5;                 // phase positions per thread (stride 16)
-constexpr int CT = 4;                 // hidden channels per thread (stride 16)
+constexpr int M1 = 2 * C1;            // layer-1 rows: he channels, then ho channels
+constexpr int K1 = 2 * CI;            // layer-1 depth: q[r-1], then q[r]
+constexpr int M2 = 4 * CO;            // layer-2 rows: out[4l + j] of channel o at row 4o + j
+constexpr int K2 = 4 * C1;            // layer-2 depth: h[2l], h[2l-1], h[2l+1], h[2l+2]
+constexpr int THREADS = 256;          // 8 warps
 
-constexpr size_t SMEM_FLOATS =
-    (size_t)CI * C1 * 4 + (size_t)CI * NQ + (size_t)C1 * NH + C1 * CO * 4 + C1 + CO;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-template <typename T>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Tap of w2 that multiplies row set g (0: h[2l], 1: h[2l-1], 2: h[2l+1],
+// 3: h[2l+2]) into out[4l + j], or -1 for a zero block (_phase_weights_2).
+__device__ __forceinline__ int w2_tap(int g, int j) {
+  switch (g) {
+    case 0: return j < 3 ? j + 1 : -1;
+    case 1: return j == 0 ? 3 : -1;
+    case 2: return j > 0 ? j - 1 : -1;
+    default: return j == 3 ? 0 : -1;
+  }
+}
+
+// ---- fp32 in 3xTF32 on the tensor cores --------------------------------------
+
+namespace tf32_mma {
+
+constexpr int TILE = 60;              // positions per tile (a multiple of 4: 16-byte q rows)
+constexpr int N1 = 64;                // layer-1 columns r = m0 .. m0 + 63 (TILE + 1 used)
+constexpr int NQ = N1 + 8;            // q positions m0 - 4 .. m0 + 67 (B loads on 32 banks)
+constexpr int HALF = CI / 2;          // q's channels a cp.async group carries
+constexpr int W1_LD = K1 + 4;         // floats a row of W1' (1,040 B: ldmatrix rows on 32 banks)
+constexpr int H_LD = C1 + 4;          // floats a row of hsE / hsO (272 B)
+constexpr int H_ROWS = N1 + 8;        // layer 2 reads rows up to N1; the last 8 stay zero
+constexpr int W2_LD = K2 + 4;         // floats a row of W2' (B loads on 32 banks)
+constexpr int P_LD = M2 + 8;          // floats a row of the second chain's partial sums
+
+// shared memory, in bytes from the start
+constexpr int W1S = 0;
+constexpr int QS = W1S + M1 * W1_LD * 4;          // q's tile [CI][NQ]
+constexpr int HSE = QS + CI * NQ * 4;             // hsE[i] = h[2(m0 + i)]
+constexpr int HSO = HSE + H_ROWS * H_LD * 4;      // hsO[i] = h[2(m0 + i) - 1]
+constexpr int W2S = HSO + H_ROWS * H_LD * 4;      // [M2][W2_LD]
+constexpr int PS = W2S + M2 * W2_LD * 4;          // [N1][P_LD]
+constexpr int B1S = PS + N1 * P_LD * 4;
+constexpr int B2S = B1S + C1 * 4;
+constexpr int SMEM_BYTES = B2S + CO * 4;          // 232,208
+
 __global__ void __launch_bounds__(THREADS, 1)
-deconv_stem_kernel(const T* __restrict__ q, const T* __restrict__ w1,
-                   const float* __restrict__ b1, const T* __restrict__ w2,
-                   const float* __restrict__ b2, T* __restrict__ out,
-                   T* __restrict__ hidden, int batch, int width) {
-  extern __shared__ float smem[];
-  float* w1s = smem;                    // [CI][C1][4]
-  float* qs = w1s + CI * C1 * 4;        // [CI][NQ]
-  float* hs = qs + CI * NQ;             // [C1][NH]
-  float* w2s = hs + C1 * NH;            // [C1][CO][4]
-  float* b1s = w2s + C1 * CO * 4;       // [C1]
-  float* b2s = b1s + C1;                // [CO]
+deconv_stem_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ w1,
+                          const float* __restrict__ b1, const float* __restrict__ w2,
+                          const float* __restrict__ b2, float* __restrict__ out,
+                          float* __restrict__ hidden, int batch, int width) {
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* w1s = reinterpret_cast<float*>(smem + W1S);
+  float* qs = reinterpret_cast<float*>(smem + QS);
+  float* hse = reinterpret_cast<float*>(smem + HSE);
+  float* hso = reinterpret_cast<float*>(smem + HSO);
+  float* w2s = reinterpret_cast<float*>(smem + W2S);
+  float* ps = reinterpret_cast<float*>(smem + PS);
+  float* b1s = reinterpret_cast<float*>(smem + B1S);
+  float* b2s = reinterpret_cast<float*>(smem + B2S);
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < CI * C1 * 4; i += THREADS) w1s[i] = to_float(w1[i]);
-  for (int i = tid; i < C1 * CO * 4; i += THREADS) w2s[i] = to_float(w2[i]);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // W1'[n][k]: row n < 64 is he channel n, row 64 + o is ho channel o; column
+  // k < 128 multiplies q[r-1] channel k, column 128 + c q[r] channel c:
+  // he[r] = q[r-1] W3 + q[r] W1, ho[r-1] = q[r-1] W2 + q[r] W0.
+  for (int i = tid; i < M1 * K1; i += THREADS) {
+    const int n = i / K1, k = i % K1, c = k % CI, later = k / CI, o = n % C1;
+    const int tap = n < C1 ? (later ? 1 : 3) : (later ? 0 : 2);
+    w1s[n * W1_LD + k] = w1[(c * C1 + o) * 4 + tap];
+  }
+  for (int i = tid; i < M2 * K2; i += THREADS) {  // W2'[4o + j][64 set + c]
+    const int n = i / K2, k = i % K2, tap = w2_tap(k / C1, n % 4);
+    w2s[n * W2_LD + k] = tap < 0 ? 0.f : w2[((k % C1) * CO + n / 4) * 4 + tap];
+  }
+  for (int i = tid; i < (H_ROWS - N1) * H_LD; i += THREADS) {
+    hse[N1 * H_LD + i] = 0.f;
+    hso[N1 * H_LD + i] = 0.f;
+  }
   for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
   for (int i = tid; i < CO; i += THREADS) b2s[i] = b2[i];
 
   const int tiles_per_row = (width + TILE - 1) / TILE;
-  const long long total_tiles = (long long)batch * tiles_per_row;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const float4* w1v = reinterpret_cast<const float4*>(w1s);
-
-  for (long long tile = blockIdx.x; tile < total_tiles; tile += gridDim.x) {
-    const int b = (int)(tile / tiles_per_row);
-    const int m0 = (int)(tile % tiles_per_row) * TILE;
-    __syncthreads();  // previous tile's readers of qs/hs are done
-
-    // qs[ci][u] = q[m0-1+u], zero outside [0, W)
-    const T* qb = q + (size_t)b * CI * width;
-    for (int i = tid; i < CI * NQ; i += THREADS) {
-      const int ci = i / NQ, u = i % NQ, m = m0 - 1 + u;
-      qs[i] = (m >= 0 && m < width) ? to_float(qb[(size_t)ci * width + m]) : 0.0f;
-    }
-    __syncthreads();
-
-    // even phase r: h[2m] with m = m0+r    = qs[r+1] W1 + qs[r] W3
-    // odd phase r:  h[2m+1] with m = m0-1+r = qs[r] W2 + qs[r+1] W0
-    // for r = 0..TILE; slots beyond TILE compute on a clamped row, stored never
-    float he[CT][PT], ho[CT][PT];
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-#pragma unroll
-      for (int i = 0; i < PT; ++i) he[j][i] = ho[j][i] = 0.0f;
-    int rr[PT];
-#pragma unroll
-    for (int i = 0; i < PT; ++i) rr[i] = min(tx + 16 * i, TILE);
-
-    for (int ci = 0; ci < CI; ++ci) {
-      float qa[PT], qc[PT];
-#pragma unroll
-      for (int i = 0; i < PT; ++i) {
-        qa[i] = qs[ci * NQ + rr[i]];
-        qc[i] = qs[ci * NQ + rr[i] + 1];
-      }
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const float4 w = w1v[ci * C1 + ty + 16 * j];  // taps 0..3
-#pragma unroll
-        for (int i = 0; i < PT; ++i) {
-          he[j][i] = fmaf(qc[i], w.y, he[j][i]);
-          he[j][i] = fmaf(qa[i], w.w, he[j][i]);
-          ho[j][i] = fmaf(qa[i], w.z, ho[j][i]);
-          ho[j][i] = fmaf(qc[i], w.x, ho[j][i]);
+  const long long total = (long long)batch * tiles_per_row;
+  // qs[ch][u] holds position m0 - 4 + u of channel ch, zero outside [0, W);
+  // one cp.async group a half of the channels
+  const bool aligned = width % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  auto load_q = [&](long long tile, int half) {
+    if (tile < total) {
+      const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+      const float* qb = q + ((size_t)b * CI + half * HALF) * width;
+      float* dst = qs + half * HALF * NQ;
+      if (aligned) {  // whole 16-byte chunks, each inside [0, W) or outside it
+        for (int i = tid; i < HALF * (NQ / 4); i += THREADS) {
+          const int ch = i / (NQ / 4), u = 4 * (i % (NQ / 4)), m = m0 - 4 + u;
+          const bool valid = m >= 0 && m < width;
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                           smem_addr(dst + ch * NQ + u)),
+                       "l"(qb + (size_t)ch * width + (valid ? m : 0)), "r"(valid ? 16 : 0));
+        }
+      } else {  // rows not 16-byte aligned: 4-byte copies
+        for (int i = tid; i < HALF * NQ; i += THREADS) {
+          const int ch = i / NQ, u = i % NQ, m = m0 - 4 + u;
+          const bool valid = m >= 0 && m < width;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                           smem_addr(dst + ch * NQ + u)),
+                       "l"(qb + (size_t)ch * width + (valid ? m : 0)), "r"(valid ? 4 : 0));
         }
       }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-    // h rows outside [0, 2W) are the second layer's zero padding; h index
-    // 2*m0-1+k sits at hs[c][k]: even phase at k = 2r+1, odd phase at k = 2r
+  long long tile = blockIdx.x;
+  load_q(tile, 0);
+  load_q(tile, 1);
+  for (; tile < total; tile += gridDim.x) {
+    const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+    const long long next = tile + gridDim.x;
+
+    // layer 1: warp (wm, wn) takes rows 32 wm .. (he for wm < 2, ho after) x
+    // columns 32 wn ..; k8 steps over q's channels 0-63 at r-1 and at r, then
+    // 64-127 at r-1 and at r
+    const int wm = warp >> 1, wn = warp & 1;
+    float acc[2][4][4] = {};
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const int c = ty + 16 * j;
+    for (int half = 0; half < 2; ++half) {
+      // half 0: its channels are in, and the previous tile's readers of hsE,
+      // hsO and the partial sums are done; half 1: its channels are in, and
+      // every warp is done with half 0, whose buffer the next tile then fills
+      if (half == 0) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (half == 1) load_q(next, 0);
+#pragma unroll 4
+      for (int s = 0; s < 2 * HALF / 8; ++s) {
+        const int later = s / (HALF / 8), ch0 = half * HALF + 8 * (s % (HALF / 8));
+        const int k0 = later * CI + ch0;
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int i = 0; i < PT; ++i) {
-        const int r = tx + 16 * i;
-        if (r <= TILE) {
-          const int me = m0 + r, mo = m0 - 1 + r;
-          hs[c * NH + 2 * r + 1] =
-              me < width ? round_to<T>(fmaxf(he[j][i] + b1s[c], 0.0f)) : 0.0f;
-          hs[c * NH + 2 * r] =
-              (mo >= 0 && mo < width) ? round_to<T>(fmaxf(ho[j][i] + b1s[c], 0.0f)) : 0.0f;
+        for (int mi = 0; mi < 2; ++mi) {
+          uint32_t r[4];
+          ldsm_x4(r, w1s + (32 * wm + 16 * mi + (lane & 15)) * W1_LD + k0 + (lane >> 4) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
+        }
+        // column r = m0 + lambda reads q[r - 1] at u = lambda + 3, q[r] at lambda + 4
+        const float* col = qs + (ch0 + t) * NQ + 32 * wn + g + 3 + later;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__float_as_uint(col[8 * ni]), bh0, bl0);
+          split(__float_as_uint(col[8 * ni + 4 * NQ]), bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
         }
       }
     }
+    __syncthreads();  // every warp is done with q
+    load_q(next, 1);
+
+    // + b1, ReLU, zero outside [0, 2W) (he[r]: r < W; ho[r-1]: 1 <= r <= W)
+    {
+      float* hs = wm < 2 ? hse : hso;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = (32 * wm + 16 * mi + g + 8 * (i >> 1)) % C1;
+            const int lam = 32 * wn + 8 * ni + 2 * t + (i & 1), r = m0 + lam;
+            const bool inside = wm < 2 ? r < width : (r >= 1 && r <= width);
+            hs[lam * H_LD + c] = inside ? fmaxf(acc[mi][ni][i] + b1s[c], 0.f) : 0.f;
+          }
+    }
     __syncthreads();
 
-    if (hidden != nullptr) {
-      T* hb = hidden + (size_t)b * C1 * 2 * width;
-      for (int i = tid; i < C1 * 2 * TILE; i += THREADS) {
-        const int c = i / (2 * TILE), k = 1 + i % (2 * TILE), j = 2 * m0 - 1 + k;
-        if (j < 2 * width) hb[(size_t)c * 2 * width + j] = from_float<T>(hs[c * NH + k]);
+    if (hidden != nullptr) {  // K2b: h[2(m0 + i)], h[2(m0 + i) + 1] of channel c
+      for (int blk = warp; blk < (N1 / 8) * (C1 / 4); blk += THREADS / 32) {
+        const int i = 8 * (blk / (C1 / 4)) + (lane & 7);
+        const int c = 4 * (blk % (C1 / 4)) + (lane >> 3);
+        if (i < TILE && m0 + i < width)
+          *reinterpret_cast<float2*>(hidden + ((size_t)b * C1 + c) * 2 * width + 2 * (m0 + i)) =
+              make_float2(hse[i * H_LD + c], hso[(i + 1) * H_LD + c]);
       }
     }
 
-    // out[4*m0 + tid] = out[2j'+ph], j' = 2*m0+s, h[j'] at hs[s+1]:
-    //   ph 0: h[j'] V1 + h[j'-1] V3;  ph 1: h[j'] V2 + h[j'+1] V0  (no ReLU)
-    const int s = tid >> 1, ph = tid & 1;
-    const int k = s + 1, kb = ph ? k + 1 : k - 1;
-    const int ta = ph ? 2 : 1, tb = ph ? 0 : 3;
-    float acc[CO];
+    // layer 2: out^T (positions x 16) = [h[2l]; h[2l-1]; h[2l+1]; h[2l+2]]^T .
+    // W2'^T; warp w takes positions 16 (w % 4) .. and row sets 2 (w / 4), + 1
+    {
+      const int l0 = 16 * (warp & 3), k_half = warp >> 2;
+      float acc2[2][4] = {};
+#pragma unroll 4
+      for (int k0 = k_half * K2 / 2; k0 < (k_half + 1) * K2 / 2; k0 += 8) {
+        // row set 0: h[2l] = hsE[l], 1: h[2l-1] = hsO[l], 2: hsO[l+1], 3: hsE[l+1]
+        const int set = k0 / C1;
+        const float* hs = (set == 0 || set == 3) ? hse : hso;
+        uint32_t r[4], ah[4], al[4];
+        ldsm_x4(r, hs + (l0 + (lane & 15) + (set >= 2)) * H_LD + k0 % C1 + (lane >> 4) * 4);
 #pragma unroll
-    for (int o = 0; o < CO; ++o) acc[o] = b2s[o];
-    for (int c = 0; c < C1; ++c) {
-      const float ha = hs[c * NH + k], hb = hs[c * NH + kb];
+        for (int e = 0; e < 4; ++e) split(r[e], ah[e], al[e]);
 #pragma unroll
-      for (int o = 0; o < CO; ++o) {
-        acc[o] = fmaf(ha, w2s[(c * CO + o) * 4 + ta], acc[o]);
-        acc[o] = fmaf(hb, w2s[(c * CO + o) * 4 + tb], acc[o]);
+        for (int ni = 0; ni < 2; ++ni) {
+          const float* wrow = w2s + (8 * ni + g) * W2_LD + k0 + t;
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__float_as_uint(wrow[0]), bh0, bl0);
+          split(__float_as_uint(wrow[4]), bh1, bl1);
+          mma_3xtf32(acc2[ni], ah, al, bh0, bh1, bl0, bl1);
+        }
       }
-    }
-    const int jo = 4 * m0 + tid;
-    if (jo < 4 * width) {
-      T* ob = out + (size_t)b * CO * 4 * width;
+      if (k_half == 1) {
 #pragma unroll
-      for (int o = 0; o < CO; ++o) ob[(size_t)o * 4 * width + jo] = from_float<T>(acc[o]);
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2)
+            *reinterpret_cast<float2*>(ps + (l0 + g + 8 * r2) * P_LD + 8 * ni + 2 * t) =
+                make_float2(acc2[ni][2 * r2], acc2[ni][2 * r2 + 1]);
+      }
+      __syncthreads();
+      if (k_half == 0) {  // out[o][4l + j], j = 2 (t % 2), + 1: o = 2 ni + t / 2
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const int l = l0 + g + 8 * r2, o = 2 * ni + (t >> 1);
+            if (l < TILE && m0 + l < width) {
+              const float2 p =
+                  *reinterpret_cast<const float2*>(ps + l * P_LD + 8 * ni + 2 * t);
+              *reinterpret_cast<float2*>(out + ((size_t)b * CO + o) * 4 * width +
+                                         4 * (m0 + l) + 2 * (t & 1)) =
+                  make_float2(acc2[ni][2 * r2] + p.x + b2s[o],
+                              acc2[ni][2 * r2 + 1] + p.y + b2s[o]);
+            }
+          }
+      }
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+}  // namespace tf32_mma
 
 // ---- bf16 on the tensor cores ------------------------------------------------
 
 namespace bf16_mma {
 
 constexpr int TILE = 120;             // positions per tile (a multiple of 8)
-constexpr int M1 = 2 * C1;            // layer-1 rows: he channels, then ho channels
 constexpr int N1 = 128;               // layer-1 columns r = m0 .. m0 + 127 (TILE + 1 used)
-constexpr int K1 = 2 * CI;            // layer-1 depth: q[r-1], then q[r]
 constexpr int NQ = N1 + 8;            // q positions in shared memory: m0 - 8 .. m0 + 127
 constexpr int W1_LD = K1 + 8;         // bf16 a row of W1' (528 B: ldmatrix rows on 32 banks)
 constexpr int H_LD = C1 + 8;          // bf16 a row of hsE / hsO (144 B)
 constexpr int H_ROWS = N1 + 8;        // layer 2 reads rows up to N1; the last 8 stay zero
-constexpr int M2 = 4 * CO;            // layer-2 rows: out[4l + j] of channel o at row 4o + j
-constexpr int K2 = 4 * C1;            // layer-2 depth: h[2l], h[2l-1], h[2l+1], h[2l+2]
 constexpr int W2_LD = K2 + 8;
 constexpr int O_LD = 4 * TILE + 8;    // bf16 a staged output channel
-constexpr int THREADS = 256;          // 8 warps
 // k16 steps a partial sum runs on the tensor cores: q[r-1]'s 128 channels,
 // then q[r]'s, added in fp32 registers (see the note at the top)
 constexpr int PROMOTE = 8;
@@ -256,16 +394,6 @@ constexpr int SMEM_BYTES = B2S + CO * 4;          // 189,008
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 // c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
@@ -282,17 +410,6 @@ __device__ __forceinline__ void mma_first(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
       : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// Tap of w2 that multiplies row set g (0: h[2l], 1: h[2l-1], 2: h[2l+1],
-// 3: h[2l+2]) into out[4l + j], or -1 for a zero block (_phase_weights_2).
-__device__ __forceinline__ int w2_tap(int g, int j) {
-  switch (g) {
-    case 0: return j < 3 ? j + 1 : -1;
-    case 1: return j == 0 ? 3 : -1;
-    case 2: return j > 0 ? j - 1 : -1;
-    default: return j == 3 ? 0 : -1;
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -506,8 +623,8 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* out,
                                float* hidden, int batch, int width, void* stream) {
-  return launch<float>(deconv_stem_kernel<float>, (int)SMEM_BYTES, THREADS, TILE, q, w1, b1, w2,
-                       b2, out, hidden, batch, width, stream);
+  return launch<float>(tf32_mma::deconv_stem_3xtf32_kernel, tf32_mma::SMEM_BYTES, THREADS,
+                       tf32_mma::TILE, q, w1, b1, w2, b2, out, hidden, batch, width, stream);
 }
 
 // bf16 q, w1, w2 and out, fp32 biases: hidden may be null (K2 in bf16);
@@ -516,7 +633,7 @@ extern "C" int deconv_stem_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16*
                                     const float* b1, const __nv_bfloat16* w2, const float* b2,
                                     __nv_bfloat16* out, __nv_bfloat16* hidden, int batch,
                                     int width, void* stream) {
-  return launch<__nv_bfloat16>(bf16_mma::deconv_stem_bf16_kernel, bf16_mma::SMEM_BYTES,
-                               bf16_mma::THREADS, bf16_mma::TILE, q, w1, b1, w2, b2, out,
+  return launch<__nv_bfloat16>(bf16_mma::deconv_stem_bf16_kernel, bf16_mma::SMEM_BYTES, THREADS,
+                               bf16_mma::TILE, q, w1, b1, w2, b2, out,
                                hidden, batch, width, stream);
 }

@@ -85,7 +85,12 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "tf32_split.cuh"
+
 namespace {
+
+using tf32_split::mma_3xtf32;
+using tf32_split::split;
 
 constexpr int D = 64;        // head dim the kernel is compiled for
 constexpr int BK = 64;       // keys per tile
@@ -186,15 +191,6 @@ __device__ __forceinline__ void mma_bf16_first(float (&c)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// c += a . b over one m16n8k8 tile: tf32 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two fp32 values as a bf16x2 word, a in the low half (the lower column).
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
@@ -203,28 +199,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
   return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
-// cvt.rna.tf32.f32 as bit arithmetic (mlm_argmax.cu): add half a TF32 ulp to
-// the magnitude and clear the 13 low bits.
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + O(2^-22 |x|), each part a TF32 value
-__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  const float f = __uint_as_float(x);
-  hi = tf32(f);
-  lo = tf32(f - __uint_as_float(hi));
-}
-
-// lo.hi, hi.lo, then hi.hi into one accumulator (#6 fp32's order)
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
 }
 
 // The warp's MT m-tiles of 16 query rows: Q K^T into s, P V into o.

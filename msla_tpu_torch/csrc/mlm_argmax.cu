@@ -115,6 +115,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; libcuda's functions are looked up at run time
 
 #include "mlm_argmax.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -131,13 +132,7 @@ constexpr int SPLIT_F = 2 * (A_F + B_F);    // h hi, h lo, E hi, E lo
 constexpr int SMEM_BYTES = (STAGES * RING_F + 2 * SPLIT_F) * (int)sizeof(float);  // 221,184
 constexpr int A_UNITS = A_F / 4 / THREADS, B_UNITS = B_F / 4 / THREADS;  // 16 B a thread: 2, 4
 
-// cvt.rna.tf32.f32 (round to nearest, ties away) as bit arithmetic: add half
-// a TF32 ulp to the magnitude and clear the 13 low bits. The same value for
-// finite x in 2 instructions; ptxas makes the cvt 4 (an isfinite test and a
-// select besides).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
+using tf32_split::tf32;  // cvt.rna.tf32.f32's rounding
 
 // hi and lo of 4 values: x = hi + lo + O(2^-22 |x|), each part a TF32 value
 __device__ __forceinline__ void split_store(float* hi, float* lo, float4 v) {

@@ -26,12 +26,13 @@ as the JAX package's XLA stem gives them.
 Layout is torch's: x (B, C0, T), weights (out, in, k), output (B, C2, T/4),
 hidden (B, C1, T/2).
 
-The bf16 kernel runs both convs as matrix products on the tensor cores:
-conv1 on each h1 row's packed window of 4 samples x 4 channels, conv2 on the
-even and odd rows of h1 at shifts 0 and 1, with operands its prologue packs
-from w1 and w2. ``stem_operands`` is the same packing in plain PyTorch and
-``conv_stem_phase_ref`` the stem written with it, for the tests (no wrapper
-calls either).
+Both kernels run both convs as matrix products on the tensor cores (bf16
+products in bf16, fp32 ones in 3xTF32): conv1 on each h1 row's packed window
+of 4 samples x 4 channels, conv2 on the even and odd rows of h1 at shifts 0
+and 1, with operands their prologues pack from w1 and w2. ``stem_operands``
+is the same packing in plain PyTorch, and ``conv_stem_phase_ref`` and
+``conv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
+kernel compute it, for the tests (no wrapper calls them).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, require,
                                        runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
+from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the widths the CUDA kernel is compiled for (the full-width model's)
 C0, C1, C2 = 4, 64, 128
@@ -74,14 +76,12 @@ def stem_operands(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, tor
     return w1.reshape(w1.shape[0], -1), w2.permute(0, 2, 1).reshape(w2.shape[0], -1)
 
 
-def conv_stem_phase_ref(x, w1, b1, w2, b2):
-    """The stem as the bf16 kernel computes it, from ``stem_operands``: each
-    h1 row j = -1 .. 2·(T/4) (the rows conv2 reads, halo included) as the
-    product of its packed window, in fp32 of x's type's values, + b1, ReLU,
-    zero outside [0, T/2) and rounded to x's type; then conv2 on the odd rows
-    hO[i] = h1[2i − 1] and even rows hE[i] = h1[2i] as two partial sums, taps
-    0-1 and taps 2-3, added in fp32, + b2, ReLU, rounded to x's type.
-    Returns (out, h1) as ``conv_stem_ref``."""
+def _stem_by_phases(x, w1, b1, w2, b2, conv1, conv2):
+    """The stem from ``stem_operands``: each h1 row j = -1 .. 2·(T/4) (the
+    rows conv2 reads, halo included) as ``conv1`` of its packed window and W1,
+    + b1, ReLU, zero outside [0, T/2) and rounded to x's type; then ``conv2``
+    of the odd rows hO[i] = h1[2i − 1] and even rows hE[i] = h1[2i] at shifts
+    0 and 1 and W2', + b2, ReLU, rounded to x's type. Returns (out, h1)."""
     dt = x.dtype
     t = x.shape[-1]
     half, w2_len = t // 2, t // 4
@@ -89,15 +89,32 @@ def conv_stem_phase_ref(x, w1, b1, w2, b2):
     xp = F.pad(x.float(), (3, 6))                        # x[-3] .. x[T + 5]
     win = xp.unfold(2, 4, 2)[:, :, :2 * w2_len + 2]      # window m: x[2m - 3 ..], row j = m - 1
     p = win.permute(0, 2, 1, 3).flatten(2)               # P[j][c0·4 + tap]
-    rows = torch.relu(p @ w1p.T + b1)                    # (B, rows, C1)
+    rows = torch.relu(conv1(p, w1p) + b1)                # (B, rows, C1)
     j = torch.arange(-1, 2 * w2_len + 1, device=x.device)
     rows = torch.where(((j >= 0) & (j < half))[:, None], rows, 0.0).to(dt).float()
     h_o, h_e = rows[:, 0::2], rows[:, 1::2]             # hO[i] = h1[2i - 1], hE[i] = h1[2i]
     taps = torch.cat([h_o[:, :-1], h_e[:, :-1], h_o[:, 1:], h_e[:, 1:]], 2)
-    c = 2 * w1.shape[0]                                  # taps 0-1, then taps 2-3
-    acc = taps[..., :c] @ w2p[:, :c].T + taps[..., c:] @ w2p[:, c:].T
-    out = torch.relu(acc + b2).transpose(1, 2)
+    out = torch.relu(conv2(taps, w2p) + b2).transpose(1, 2)
     return out.to(dt), rows[:, 1:half + 1].transpose(1, 2).to(dt)
+
+
+def conv_stem_phase_ref(x, w1, b1, w2, b2):
+    """The stem as the bf16 kernel computes it (``_stem_by_phases``): the
+    products in fp32 of x's type's values, conv2 as two partial sums, taps 0-1
+    and taps 2-3, added in fp32. Returns (out, h1) as ``conv_stem_ref``."""
+    c = 2 * w1.shape[0]                                  # taps 0-1, then taps 2-3
+    return _stem_by_phases(x, w1, b1, w2, b2, lambda p, w: p @ w.T,
+                           lambda a, w: a[..., :c] @ w[:, :c].T + a[..., c:] @ w[:, c:].T)
+
+
+def conv_stem_3xtf32_ref(x, w1, b1, w2, b2):
+    """The stem as the fp32 kernel computes it (``_stem_by_phases`` on fp32
+    x): both convs in 3xTF32 (``product_3xtf32``) with the kernel's operands,
+    conv1 the windows by W1 over its 16 packed columns, conv2 W2' by the rows
+    over its 256, in their order, one accumulator each. Returns (out, h1) as
+    ``conv_stem_ref``."""
+    return _stem_by_phases(x, w1, b1, w2, b2, lambda p, w: product_3xtf32(p, w.T),
+                           lambda a, w: product_3xtf32(w, a.transpose(1, 2)).transpose(1, 2))
 
 
 def _launch(x, w1, b1, w2, b2, save_hidden: bool):

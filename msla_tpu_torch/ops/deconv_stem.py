@@ -25,11 +25,12 @@ A stride-2 transposed conv splits into two phases (torch weight (in, out, k)):
   out[2m+1] = x[m]·W[..., 2] + x[m+1]·W[..., 0]
 Layout is torch's: q (B, C, W), output (B, C_out, 4W), hidden (B, C1, 2W).
 
-The bf16 kernel runs both layers as matrix products on the tensor cores, with
-the phases stacked into two operands that its prologue packs from w1 and w2;
-``phase_operands`` is the same packing in plain PyTorch, and
-``deconv_stem_phase_ref`` the stem written with it, for the tests (no wrapper
-calls either).
+Both kernels run both layers as matrix products on the tensor cores (bf16
+products in bf16, fp32 ones in 3xTF32), with the phases stacked into two
+operands that their prologues pack from w1 and w2; ``phase_operands`` is the
+same packing in plain PyTorch, and ``deconv_stem_phase_ref`` and
+``deconv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
+kernel compute it, for the tests (no wrapper calls them).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, require,
                                        runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
+from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the widths the CUDA kernel is compiled for (the full-width model's)
 C, C1, C_OUT = 128, 64, 4
@@ -89,25 +91,61 @@ def phase_operands(w1: torch.Tensor, w2: torch.Tensor) -> tuple[torch.Tensor, to
     return w1p, w2p
 
 
-def deconv_stem_phase_ref(q, w1, b1, w2, b2):
-    """The stem written as the bf16 kernel computes it, from
-    ``phase_operands``: both layers as products in fp32 of q's type's values,
-    h rounded to q's type with its rows outside [0, 2W) zero, the output
-    rounded to q's type. Returns (out, h) as ``deconv_stem_ref``."""
+def _deconv_by_phases(q, w1, b1, w2, b2, layer1, layer2):
+    """The stem from ``phase_operands``: [he[r]; ho[r-1]] = ``layer1`` of W1'
+    and [q[r-1]; q[r]] (r = 0 .. W), + b1, ReLU, rounded to q's type with h's
+    rows outside [0, 2W) zero; the packed output = ``layer2`` of W2' and
+    [h[2l]; h[2l-1]; h[2l+1]; h[2l+2]], + b2, rounded to q's type. Returns
+    (out, h) as ``deconv_stem_ref``."""
     dt = q.dtype
     (b, _, w), c1, c_out = q.shape, w1.shape[1], w2.shape[1]
     w1p, w2p = (t.float() for t in phase_operands(w1, w2))
     qp = F.pad(q.float(), (1, 1))                        # q[-1] .. q[W]
     cols = torch.cat([qp[..., :-1], qp[..., 1:]], 1)     # [q[r-1]; q[r]], r = 0 .. W
-    hr = torch.relu(torch.einsum("nk,bkr->bnr", w1p, cols) + b1.repeat(2)[:, None])
+    hr = torch.relu(layer1(w1p, cols) + b1.repeat(2)[:, None])
     he, ho = hr[:, :c1].clone(), hr[:, c1:].clone()      # he[r] = h[2r], ho[r] = h[2r-1]
     he[..., w], ho[..., 0] = 0.0, 0.0                    # h[2W] and h[-1]: padding
     he, ho = he.to(dt).float(), ho.to(dt).float()
     rows = torch.cat([he[..., :-1], ho[..., :-1], ho[..., 1:], he[..., 1:]], 1)
-    packed = torch.einsum("nk,bkl->bnl", w2p, rows) + b2.repeat_interleave(4)[:, None]
+    packed = layer2(w2p, rows) + b2.repeat_interleave(4)[:, None]
     out = packed.view(b, c_out, 4, w).transpose(2, 3).flatten(2)  # out[o][4l + j]: row 4o + j
     h = torch.stack([he[..., :-1], ho[..., 1:]], -1).flatten(2)   # h[2m], h[2m+1]
     return out.to(dt), h.to(dt)
+
+
+def deconv_stem_phase_ref(q, w1, b1, w2, b2):
+    """The stem written as the bf16 kernel computes it (``_deconv_by_phases``):
+    both layers as products in fp32 of q's type's values. Returns (out, h) as
+    ``deconv_stem_ref``."""
+    mm = lambda w, a: torch.einsum("nk,bkl->bnl", w, a)
+    return _deconv_by_phases(q, w1, b1, w2, b2, mm, mm)
+
+
+def _layer1_order(c: int) -> torch.Tensor:
+    """W1''s columns in the order the fp32 kernel's first layer takes them: q's
+    channels [0, c/2) at r-1 and at r, then [c/2, c) at r-1 and at r (the two
+    halves of q's tile arrive apart)."""
+    half = torch.arange(c // 2)
+    return torch.cat([half, c + half, c // 2 + half, c + c // 2 + half])
+
+
+def deconv_stem_3xtf32_ref(q, w1, b1, w2, b2):
+    """The stem as the fp32 kernel computes it (``_deconv_by_phases`` on fp32
+    q), both layers in 3xTF32 (``product_3xtf32``) with the kernel's operands:
+    the first W1' by the columns over its 256 in ``_layer1_order``, one
+    accumulator; the second the rows by W2'ᵀ, as two accumulators over the
+    row sets h[2l], h[2l-1] and h[2l+1], h[2l+2], added in fp32 before b2.
+    Returns (out, h) as ``deconv_stem_ref``."""
+    def layer1(w, cols):
+        order = _layer1_order(cols.shape[1] // 2).to(cols.device)
+        return product_3xtf32(w[:, order], cols[:, order])
+
+    def layer2(w, rows):
+        k = rows.shape[1] // 2
+        half = lambda s: product_3xtf32(rows[:, s].transpose(1, 2), w[:, s].T)
+        return (half(slice(0, k)) + half(slice(k, None))).transpose(1, 2)
+
+    return _deconv_by_phases(q, w1, b1, w2, b2, layer1, layer2)
 
 
 def _launch(q, w1, b1, w2, b2, save_hidden: bool):

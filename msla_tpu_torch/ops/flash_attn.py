@@ -28,7 +28,7 @@ import torch
 
 from msla_tpu_torch.ops._build import (check, count_launch, kernel, require, runs_plain,
                                        stream_of)
-from msla_tpu_torch.ops.mlm_argmax import tf32_round_ref
+from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the head width the CUDA kernel is compiled for (bert-base: 768 / 12)
 D = 64
@@ -44,35 +44,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", weights.float(), v.float())
 
 
-def _product_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b (fp32, batched) as the kernel's tensor cores take it: each operand
-    split as hi = tf32(x), lo = tf32(x − hi), and per 8-deep step of the
-    reduction lo·hi, hi·lo, then hi·hi added to one fp32 accumulator."""
-    a_hi, b_hi = tf32_round_ref(a), tf32_round_ref(b)
-    a_lo, b_lo = tf32_round_ref(a - a_hi), tf32_round_ref(b - b_hi)
-    acc = a.new_zeros(a.shape[:-1] + b.shape[-1:])
-    for i in range(0, a.shape[-1], 8):
-        s = slice(i, i + 8)
-        acc += a_lo[..., s] @ b_hi[..., s, :]
-        acc += a_hi[..., s] @ b_lo[..., s, :]
-        acc += a_hi[..., s] @ b_hi[..., s, :]
-    return acc
-
-
 def attention_3xtf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_mask: torch.Tensor | None, sm_scale: float) -> torch.Tensor:
     """The fp32 kernel's arithmetic on (B, H, S, D) fp32 tensors, emulated:
-    Q·Kᵀ and P·V in 3xTF32 (``_product_3xtf32``; products of two TF32 parts
+    Q·Kᵀ and P·V in 3xTF32 (``product_3xtf32``; products of two TF32 parts
     are exact in fp32), the scores scaled and the mask's bias added in fp32,
     the unnormalised p = exp(s − max) split as the kernel splits it in
     registers, and out = (P·V) / Σp. The adds here round to nearest; the
     card's accumulator is coarser (``csrc/flash_attn.cu``), so this shows
     what the split products cost, not the accumulator."""
-    scores = _product_3xtf32(q, k.transpose(-1, -2)) * sm_scale
+    scores = product_3xtf32(q, k.transpose(-1, -2)) * sm_scale
     if kv_mask is not None:
         scores = scores + (1.0 - kv_mask[:, None, None, :].to(torch.float32)) * -1e9
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    return _product_3xtf32(p, v) / p.sum(dim=-1, keepdim=True)
+    return product_3xtf32(p, v) / p.sum(dim=-1, keepdim=True)
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

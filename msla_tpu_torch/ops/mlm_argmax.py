@@ -9,9 +9,9 @@ Ties go to the lowest index, as ``torch.argmax`` and ``jnp.argmax`` give them.
 With bf16 h and E (the bf16 compute_dtype; the bias stays fp32) the logits
 are the fp32 sums of the exact bf16 products, as the Pallas kernel takes them,
 and the kernel runs one bf16 pass on the tensor cores.
-``tf32_round_ref`` and ``mlm_logits_3xtf32_ref`` emulate the kernel's
-arithmetic, and ``mlm_fold_tiled_ref`` the order in which the bf16 kernel
-folds the logits, for the tests; no wrapper calls them.
+``mlm_logits_3xtf32_ref`` emulates the kernel's arithmetic (``ops/tf32.py``),
+and ``mlm_fold_tiled_ref`` the order in which the bf16 kernel folds the
+logits, for the tests; no wrapper calls them.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 
 from msla_tpu_torch.ops._build import (check, count_launch, kernel, require, runs_plain,
                                        stream_of)
+from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the hidden width the CUDA kernel is compiled for (bert-base)
 K = 768
@@ -45,14 +46,6 @@ def mlm_argmax_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     return (torch.cat(ids), torch.cat(conf)) if with_conf else torch.cat(ids)
 
 
-def tf32_round_ref(x: torch.Tensor) -> torch.Tensor:
-    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: add half a TF32 ulp to the bit
-    pattern's magnitude and clear the 13 low bits."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
 def mlm_logits_3xtf32_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor):
     """The CUDA kernel's logits on (M, K) rows, emulated with fp32 products of
     TF32 parts: each operand split as hi = tf32(x), lo = tf32(x − hi), and per
@@ -62,15 +55,7 @@ def mlm_logits_3xtf32_ref(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor
     accumulate more coarsely (``csrc/mlm_argmax.cu``), so this shows the
     split's arithmetic, not the accumulator's. For tests and
     ``chip_smoke.py``: (M, V) logits."""
-    h_hi, e_hi = tf32_round_ref(h), tf32_round_ref(emb)
-    h_lo, e_lo = tf32_round_ref(h - h_hi), tf32_round_ref(emb - e_hi)
-    acc = h.new_zeros((h.shape[0], emb.shape[0]))
-    for k in range(0, h.shape[1], 8):
-        s = slice(k, k + 8)
-        acc += h_lo[:, s] @ e_hi[:, s].T
-        acc += h_hi[:, s] @ e_lo[:, s].T
-        acc += h_hi[:, s] @ e_hi[:, s].T
-    return acc + bias
+    return product_3xtf32(h, emb.T) + bias
 
 
 #: the kernel's vocab tile, and the columns of it that thread t of a row's

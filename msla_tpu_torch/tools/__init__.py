@@ -1,6 +1,7 @@
 """The port's measurement tools, each run as ``python -m msla_tpu_torch.tools.<name>``:
-``bench_vq_lean`` (the lean fused-VQ forward against the fused one) and
-``bench_vq_precision`` (the fused VQ's bf16 precision variants)."""
+``bench_vq_lean`` (the lean fused-VQ forward against the fused one),
+``bench_vq_precision`` (the fused VQ's bf16 precision variants) and
+``bench_stems`` (the fp32 stems beside probes of their parts)."""
 from __future__ import annotations
 
 import time

@@ -23,7 +23,7 @@ from msla_tpu_torch.nn.attention import MultiHeadAttention
 from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.flash_attn import (attention_3xtf32_ref, attention_ref, flash_attn,
                                            scaled_attention)
-from msla_tpu_torch.ops.mlm_argmax import tf32_round_ref
+from msla_tpu_torch.ops.tf32 import tf32_round_ref
 
 B, H, S, D = 3, 2, 40, 16
 TOL = dict(rtol=1e-5, atol=1e-5)

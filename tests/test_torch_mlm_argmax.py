@@ -15,7 +15,8 @@ import torch
 from msla_tpu.ops.mlm_argmax import _mlm_argmax_jnp, mlm_argmax_pallas
 from msla_tpu_torch.ops._build import launch_count
 from msla_tpu_torch.ops.mlm_argmax import (mlm_argmax, mlm_argmax_conf, mlm_argmax_ref,
-                                           mlm_logits_3xtf32_ref, tf32_round_ref)
+                                           mlm_logits_3xtf32_ref)
+from msla_tpu_torch.ops.tf32 import tf32_round_ref
 
 CONF_TOL = dict(rtol=1e-5, atol=1e-7)
 
