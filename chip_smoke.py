@@ -12,8 +12,11 @@ Phases, each of which raises (exit code != 0) when its check fails:
      batch-64 separation (stems at atol = rtol = 1e-4, and against fp64
      within their 3xTF32 accumulation bound, stem_accumulation_bound, also
      at ragged T for K1 and ragged W for K2; every nearest-code mismatch
-     must be a near-tie), with median times over 20 CUDA-event-timed runs of
-     the kernel, its plain version and one library call;
+     must be a near-tie, also at ragged N, RAGGED_N; planted ties must go to
+     the lower index and planted close pairs 1e-4 apart, which one TF32 pass
+     would get wrong, to the nearer code, vq_planted), with median times
+     over 20 CUDA-event-timed runs of the kernel, its plain version and one
+     library call;
   4. the serving path through the user's entry points: the full-width VQ-VAE
      (configs/model/vqvae.yaml) with seeded random weights,
      SourceSeparator.separate (plain and overlap) and encode_codes on a 60 s
@@ -23,8 +26,10 @@ Phases, each of which raises (exit code != 0) when its check fails:
   6. the training kernels (K1b, K2b: the stems' save-hidden forwards, held
      as in phase 3, hidden included; #4 vq_fused_fwd; #5 vq_codebook_grad)
      against their plain versions at the shapes of a batch-64 train step,
-     timed as in phase 3; #5 on uniform ids and on the seeded model's ids of
-     the first batch;
+     timed as in phase 3; #4 also on planted ties and close pairs and at N =
+     704,001 (q = codebook[id] bit for bit, counts a bincount, sq within
+     1e-5 of fp64 and the same bits twice); #5 on uniform ids and on the
+     seeded model's ids of the first batch;
   7. gradients on 2 frames of the full-width model: loss and every parameter
      gradient through the kernels against the same loss written with the
      plain versions and torch's autograd on the card (atol 1e-4, rtol 1e-3),
@@ -123,9 +128,10 @@ lengths T not divisible by 4 (phases 3 and 6) and through encode_codes
 A path's parts (phases 4, 10, 14, 17) come from a torch.profiler trace of
 the path's own call: each kernel's device time, summed by kind of kernel.
 The redesigned kernels (#7, K1/K1b and K2/K2b in both types; #6/#6b in
-bf16) each print their time over their library call's and over their bound.
-msla_tpu_torch/tools/bench_stems.py times the fp32 stems beside probes of
-their parts and another commit's stems.
+bf16; K3 and #4) each print their time over their library call's and over
+their bound.
+msla_tpu_torch/tools/bench_stems.py times the 3xTF32 kernels (the fp32 stems,
+K3, #4) beside probes of their parts and another commit's kernels.
 The bf16 #6 kernel traps when an mbarrier wait outlasts 2 s, so a hang
 fails the phase with a launch error.
 Each phase's seconds are printed as it ends.
@@ -388,6 +394,129 @@ def near_ties(x, codebook, idx_a, idx_b) -> tuple[int, float, float]:
     return near_ties_by(l2_dist(x, codebook), idx_a, idx_b)
 
 
+#: planted (lower, higher) code pairs of the VQ search at K = 512. A lane of
+#: the search holds columns 2t and 2t + 1 of each n8 tile of codes and walks
+#: them in groups of 32, then merges over its quad: pairs in one lane, in two
+#: lanes of one tile, from lane 3 to the next tile's lane 0 (the lower index
+#: in the higher lane), in one lane of two tiles, in two groups, and to the
+#: last codes
+VQ_PAIRS = ((0, 1), (100, 101), (2, 5), (104, 110), (7, 8), (118, 121), (16, 24), (130, 138),
+            (40, 77), (200, 263), (48, 511), (300, 509))
+VQ_PLANTED_ROWS = 2000   # no multiple of the search's 32-row tile
+
+
+def vq_planted(cb, close: bool, g, n: int = VQ_PLANTED_ROWS):
+    """Rows x, a codebook and the id each row must get, row r planted on the
+    pair VQ_PAIRS[r % 12] of ``cb`` (512 standard normal codes, which lie far
+    from each other and from the rows).
+    - Ties (``close`` false): e[hi] = e[lo] exactly, x = e[lo] + noise: the
+      lower index must win.
+    - Close pairs: e[lo] = tf32(cb[lo]), e[hi] = e[lo] + δ, δ_k of e[lo]_k's
+      sign and 0.4 of its TF32 ulp, so one TF32 pass rounds both to e[lo] and,
+      e[hi] being longer, picks lo; x = e[lo] + noise ⟂ δ + a·δ/|δ|, a set so
+      that hi is nearer by 1e-4 of |dist| + 1 (near_ties' unit: 10x its
+      limit). Every pick must be hi.
+    The construction is checked in fp64."""
+    from msla_tpu_torch.ops.tf32 import tf32_round_ref
+
+    dev = cb.device
+    pairs = torch.tensor(VQ_PAIRS, device=dev)
+    lo, hi = pairs[torch.arange(n, device=dev) % len(VQ_PAIRS)].unbind(1)
+    e = cb.clone()
+    noise = (torch.randn((n, cb.shape[1]), generator=g, device=dev) * 0.3).double()
+    if close:
+        base = tf32_round_ref(cb[pairs[:, 0]])
+        step = torch.sign(base) * torch.ldexp(torch.ones_like(base), torch.frexp(base)[1] - 11)
+        e[pairs[:, 0]], e[pairs[:, 1]] = base, base + 0.4 * step
+        if not torch.equal(tf32_round_ref(e[pairs[:, 1]]), base):
+            fail("planted close pairs: one TF32 pass would not tie them")
+        el, eh = e[lo].double(), e[hi].double()
+        delta = eh - el
+        dn = delta.norm(dim=1)
+        u = delta / dn[:, None]
+        w = noise - (noise * u).sum(1, keepdim=True) * u
+        d0 = (eh * eh).sum(1) - 2 * ((el + w) * eh).sum(1)   # dist_hi less a's share
+        a = (1e-4 * (1 - d0) + dn ** 2) / (2 * dn - 2e-4 * (u * eh).sum(1))
+        x, want = (el + w + a[:, None] * u).float(), hi
+    else:
+        e[pairs[:, 1]] = e[pairs[:, 0]]
+        x, want = (e[lo].double() + noise).float(), lo
+    ed = e.double()
+    dist = (ed * ed).sum(1) - 2 * x.double() @ ed.T
+    two = dist.topk(2, dim=1, largest=False)
+    gap = (dist.gather(1, lo[:, None]) - dist.gather(1, hi[:, None]))[:, 0]
+    rel = (gap / (two.values[:, 0].abs() + 1)).aminmax()
+    if (not torch.equal(torch.sort(two.indices, 1).values, torch.stack([lo, hi], 1))
+            or (close and (rel.min < 5e-5 or rel.max > 2e-4)) or (not close and rel.max != 0)):
+        fail(f"planted {'close pairs' if close else 'ties'}: the construction did not plant "
+             f"them (relative gaps {rel.min.item():.3e}..{rel.max.item():.3e})")
+    return x, e, want
+
+
+def vq_planted_picks(what: str, search, dev, g) -> dict:
+    """K3 or #4 (``search`` gives the ids of (x, codebook)) and the plain
+    version on vq_planted's ties and close pairs: every id as planted."""
+    from msla_tpu_torch.ops import nearest_codes_ref
+
+    cb = torch.randn((512, 64), generator=g, device=dev)
+    for close in (False, True):
+        x, e, want = vq_planted(cb, close, g)
+        for label, ids in (("kernel", search(x, e)), ("plain version", nearest_codes_ref(x, e))):
+            if not torch.equal(ids.long(), want):
+                fail(f"{what} planted {'close pairs' if close else 'ties'}: the {label} missed "
+                     f"{(ids.long() != want).sum().item()} of {want.numel()} rows")
+    print(f"[{what}] planted ties to the lower index and close pairs 1e-4 apart to the "
+          f"nearer, {VQ_PLANTED_ROWS} rows each: every pick right", flush=True)
+    return dict(planted_ties=VQ_PLANTED_ROWS, planted_close_pairs=VQ_PLANTED_ROWS)
+
+
+#: row counts around the search's 32-row tile, and one past a batch-64 call's
+RAGGED_N = (1, 7, 129, 704_001)
+
+
+def ragged_rows(search, dev, g, ns=RAGGED_N) -> dict:
+    """K3 or #4 (``search`` gives the ids) at N rows no multiple of its tile,
+    against 512 codes: each id equal to the plain version's or a near-tie.
+    Returns the mismatches at each N."""
+    from msla_tpu_torch.ops import nearest_codes_ref
+
+    cb = torch.randn((512, 64), generator=g, device=dev)
+    out = {}
+    for n in ns:
+        x = torch.randn((n, 64), generator=g, device=dev)
+        ids = search(x, cb)
+        torch.cuda.synchronize()
+        if ids.shape != (n,):
+            fail(f"ragged N = {n}: ids of shape {tuple(ids.shape)}")
+        out[n] = near_ties(x, cb, ids, nearest_codes_ref(x, cb))[0]
+    print(f"[vq search] ragged N, mismatches (each a near-tie): {out}", flush=True)
+    return out
+
+
+def check_fused(flat, cb):
+    """#4 on (flat, cb) against the plain version: each id equal or a
+    near-tie, q = codebook[id] bit for bit, counts a bincount of the ids, sq
+    within 1e-5 of the fp64 sum, and a second call the same bits. Returns
+    (q, ids, counts, sq, near_ties' triple, sq's relative error)."""
+    from msla_tpu_torch.ops import vq_fused_fwd, vq_fused_fwd_ref
+
+    q, idx, counts, sq = vq_fused_fwd(flat, cb)
+    torch.cuda.synchronize()
+    ties = near_ties_by(l2_dist(flat, cb), idx, vq_fused_fwd_ref(flat, cb)[1], "vq_fused_fwd")
+    if not torch.equal(q, cb[idx.long()]):
+        fail("vq_fused_fwd: q is not codebook[idx] bit for bit")
+    if not torch.equal(counts, torch.bincount(idx.long(), minlength=cb.shape[0]).float()):
+        fail("vq_fused_fwd: counts differ from a bincount of its ids")
+    sq64 = ((cb.double()[idx.long()] - flat.double()) ** 2).sum().item()
+    sq_rel = abs(sq.item() - sq64) / max(sq64, 1e-30)
+    if sq_rel > 1e-5:
+        fail(f"vq_fused_fwd: squared-error sum off by {sq_rel:.3e} of the fp64 sum")
+    again = vq_fused_fwd(flat, cb)
+    if not all(torch.equal(a, b) for a, b in zip(again, (q, idx, counts, sq))):
+        fail("vq_fused_fwd: two calls on the same inputs differ")
+    return q, idx, counts, sq, ties, sq_rel
+
+
 def phase_kernels(net, dev) -> list[dict]:
     import torch.nn.functional as F
 
@@ -450,7 +579,7 @@ def phase_kernels(net, dev) -> list[dict]:
             **tf32_bounds(flops, nbytes(*args, out))))
         del q, out
 
-        # K3 at N = B*W rows against a 512 x 64 codebook
+        # K3 at N = B*W rows against a 512 x 64 codebook (3xTF32 on mma.sync)
         n = BATCH * w
         flat = torch.randn((n, 64), generator=g, device=dev)
         cb = torch.randn((512, 64), generator=g, device=dev)
@@ -461,13 +590,17 @@ def phase_kernels(net, dev) -> list[dict]:
         mismatches, gap, rel_gap = near_ties(flat, cb, idx, want)
         e2 = (cb * cb).sum(1)
         lib = time_ms(lambda: torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1))
+        flops = 2 * n * 512 * 64
         report.append(dict(
             name="nearest_codes", route="cuda", source="msla_tpu_torch/csrc/nearest_codes.cu",
             replaces="msla_tpu/ops/vq_pallas.py:40", max_abs_err=gap,
             index_mismatches=mismatches, max_tie_gap=rel_gap,
+            **vq_planted_picks("nearest_codes", nearest_codes, dev, g),
+            ragged_n_mismatches=ragged_rows(nearest_codes, dev, g),
             ms=time_ms(lambda: nearest_codes(flat, cb)),
             plain_ms=time_ms(lambda: nearest_codes_ref(flat, cb)),
-            library_ms=lib, flop=2 * n * 512 * 64, bytes=nbytes(flat, cb, idx)))
+            library_ms=lib, flop=flops, bytes=nbytes(flat, cb, idx),
+            **tf32_bounds(flops, nbytes(flat, cb, idx))))
         del flat, cb, idx, want
     return with_bounds(report)
 
@@ -477,7 +610,7 @@ def phase_kernels(net, dev) -> list[dict]:
 REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem", "deconv_stem_save_hidden",
               "deconv_stem[bf16]", "deconv_stem_save_hidden[bf16]", "conv_stem",
               "conv_stem_save_hidden", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
-              "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]")
+              "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]", "nearest_codes", "vq_fused_fwd")
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
@@ -493,7 +626,8 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "sq_rel_err_converged", "bit_equal_share",
                                          "beyond_2_ulps_share", "max_share_of_bound",
                                          "fp64_share_of_bound", "ragged_s_max_abs_err",
-                                         "ragged_w_max_abs_err", "previous_ms")
+                                         "ragged_w_max_abs_err", "previous_ms", "planted_ties",
+                                         "ragged_n_mismatches")
                  if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
@@ -847,21 +981,13 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
         del q, out, h
 
         # #4 on the seeded model's latents of the first batch and its codebook
+        # (3xTF32 on mma.sync); planted ties and close pairs, ragged N
         cb = net.vector_quantizer.codebook.weight.detach()
         flat = flat_model.contiguous()
         n = flat.shape[0]
-        q, idx, counts, sq = vq_fused_fwd(flat, cb)
-        torch.cuda.synchronize()
-        _, want_idx, _, _ = vq_fused_fwd_ref(flat, cb)
-        mismatches, gap, rel_gap = near_ties(flat, cb, idx, want_idx)
-        if not torch.equal(q, cb[idx.long()]):
-            fail("vq_fused_fwd: q is not codebook[idx] bit for bit")
-        if not torch.equal(counts, torch.bincount(idx.long(), minlength=k_codes).float()):
-            fail("vq_fused_fwd: counts differ from a bincount of its ids")
-        sq64 = ((cb.double()[idx.long()] - flat.double()) ** 2).sum().item()
-        sq_rel = abs(sq.item() - sq64) / sq64
-        if sq_rel > 1e-5:
-            fail(f"vq_fused_fwd: squared-error sum off by {sq_rel:.3e} of the fp64 sum")
+        q, idx, counts, sq, (mismatches, gap, rel_gap), sq_rel = check_fused(flat, cb)
+        planted = vq_planted_picks("vq_fused_fwd", lambda x, e: check_fused(x, e)[1], dev, g)
+        ragged = ragged_rows(lambda x, e: check_fused(x, e)[1], dev, g, RAGGED_N[-1:])
         e2 = (cb * cb).sum(1)
 
         def composite():  # one library call each: matmul, argmin, gather, bincount, sum
@@ -873,14 +999,15 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
             name="vq_fused_fwd", route="cuda", source="msla_tpu_torch/csrc/vq_fused.cu",
             replaces="msla_tpu/ops/vq_fused.py:42", max_abs_err=gap,
             index_mismatches=mismatches, max_tie_gap=rel_gap, sq_rel_err=sq_rel,
-            codes_used=int((counts > 0).sum().item()),
+            codes_used=int((counts > 0).sum().item()), **planted, ragged_n_mismatches=ragged,
             ms=time_ms(lambda: vq_fused_fwd(flat, cb)),
             plain_ms=time_ms(lambda: vq_fused_fwd_ref(flat, cb)),
             library_ms=time_ms(composite),
             library_call="composite: matmul + argmin + index_select + bincount + sum",
-            flop=2 * n * k_codes * 64, bytes=nbytes(flat, cb, q, idx, counts, sq)))
+            flop=2 * n * k_codes * 64, bytes=nbytes(flat, cb, q, idx, counts, sq),
+            **tf32_bounds(2 * n * k_codes * 64, nbytes(flat, cb, q, idx, counts, sq))))
         model_idx = idx
-        del q, want_idx
+        del q
 
         # #5 on the model's ids (main figure) and on uniform ids
         grad = torch.randn((n, 64), generator=g, device=dev)

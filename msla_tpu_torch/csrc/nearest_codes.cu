@@ -5,66 +5,82 @@
 // (nearest_codes_pallas).
 //
 // Bound on an H100: at N = 704,000 rows, K = 512 codes, D = 64 the lookup does
-// 2*N*K*D = 4.61e10 fp32 FLOP and must move 180.2 MB in + 2.8 MB out, so it is
-// bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores).
+// 2*N*K*D = 4.61e10 FLOP and must move 180.2 MB in + 2.8 MB out: 0.093 ms at
+// the TF32 tensor-core peak, 0.279 ms for 3xTF32's three products, 0.055 ms
+// for the bytes.
 //
-// Design: the (N, K) distance matrix (1.44 GB at that size) never exists. A
-// persistent block (one per SM) holds the whole codebook (128 KB) and |e|^2 in
-// shared memory. Each thread keeps two rows of x in registers and runs the
-// search of nearest_rows.cuh over them; it writes only int32 ids.
-#include "nearest_rows.cuh"
+// Design: vq_search.cuh's search, 3xTF32 on mma.sync with the argmin folded
+// in registers; the (N, K) distance matrix (1.44 GB at that size) never
+// exists. A warp splits its 32-row tile's A fragments into registers, starts
+// the copy of its next tile into the freed x tile, then searches the codes and
+// writes its 32 ids as one 128-byte store.
+#include "vq_search.cuh"
 
 namespace {
 
-using nearest_rows::D;
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = 2;
-constexpr int ROWS_PER_BLOCK = THREADS * ROWS_PER_THREAD;
+using namespace vq_search;
 
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 nearest_codes_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                     const float* __restrict__ e2, int* __restrict__ idx,
-                     long long n, int k_codes) {
-  extern __shared__ float smem[];
-  float* cbs = smem;                    // [K][D]
-  float* e2s = cbs + (size_t)k_codes * D;  // [K]
-  for (int i = threadIdx.x; i < k_codes * D; i += THREADS) cbs[i] = cb[i];
-  for (int i = threadIdx.x; i < k_codes; i += THREADS) e2s[i] = e2[i];
-  __syncthreads();
-  const float4* cb4 = reinterpret_cast<const float4*>(cbs);
+                     const float* __restrict__ e2, int* __restrict__ idx, long long n,
+                     int k_codes) {
+  extern __shared__ float4 smem4[];
+  const int kpad = padded_codes(k_codes);
+  float* es = reinterpret_cast<float*>(smem4);  // [kpad][D], swizzled
+  float* e2s = es + (size_t)kpad * D;           // [kpad]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* xs = e2s + kpad + warp * ROWS * D;     // this warp's [ROWS][D], swizzled
 
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
-    const long long ra = blk * ROWS_PER_BLOCK + threadIdx.x;
-    const long long rb = ra + THREADS;
-    float xa[D], xb[D];
-    nearest_rows::load_row(x, ra, n, xa);
-    nearest_rows::load_row(x, rb, n, xb);
-    int ia, ib;
-    nearest_rows::nearest_two(xa, xb, cb4, e2s, k_codes, ia, ib);
-    if (ra < n) idx[ra] = ia;
-    if (rb < n) idx[rb] = ib;
+  const long long tiles = (n + ROWS - 1) / ROWS;
+  const long long stride = (long long)gridDim.x * WARPS;
+  long long tile = (long long)blockIdx.x * WARPS + warp;
+  if (tile < tiles) load_tile<D>(xs, x, tile * ROWS, n, lane);  // under the codebook's load
+  load_codebook<D>(es, e2s, cb, e2, k_codes);
+  __syncthreads();
+
+  constexpr bool hold = kHoldA<D>;
+  for (; tile < tiles; tile += stride) {
+    wait_tile();
+    RowFrags<D> a;
+    a.load(xs, lane);
+    if (hold) {
+      __syncwarp();
+      if (tile + stride < tiles) load_tile<D>(xs, x, (tile + stride) * ROWS, n, lane);
+    }
+    int arg[MT][2];
+    search(a, xs, es, e2s, kpad, lane, arg);
+    if (!hold) {
+      __syncwarp();
+      if (tile + stride < tiles) load_tile<D>(xs, x, (tile + stride) * ROWS, n, lane);
+    }
+    const int code = code_of_lane(arg, lane);
+    const long long row = tile * ROWS + lane;
+    if (row < n) idx[row] = code;
   }
 }
 
+constexpr int D = 64;
+
 }  // namespace
 
-// k_codes must be even; the wrapper checks it and that K*(D+1)*4 bytes fit.
+// k_codes must be even; the wrapper checks it and that smem_bytes<64>(K)
+// fit.
 extern "C" int nearest_codes_fwd(const float* x, const float* cb, const float* e2,
                                  int* idx, long long n, int k_codes, void* stream) {
-  const size_t smem = (size_t)k_codes * (D + 1) * sizeof(float);
+  const size_t smem = smem_bytes<D>(k_codes, false);
   cudaError_t err = cudaFuncSetAttribute(
-      nearest_codes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      nearest_codes_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  const long long blocks = ((n + ROWS - 1) / ROWS + WARPS - 1) / WARPS;
   const int grid = (int)(blocks < sms ? blocks : sms);
   if (grid == 0) return 0;
-  nearest_codes_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  nearest_codes_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x, cb, e2, idx, n, k_codes);
   return (int)cudaGetLastError();
 }

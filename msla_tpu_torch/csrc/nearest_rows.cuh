@@ -1,6 +1,6 @@
-// The L2 nearest-code search shared by nearest_codes.cu, vq_fused.cu and
-// vq_lean.cu: two rows of x held in registers against a codebook and its
-// |e|^2 in shared memory.
+// The L2 nearest-code search of vq_lean.cu (#8) alone, on the fp32 FMA units:
+// two rows of x held in registers against a codebook and its |e|^2 in shared
+// memory. K3 and #4 search on the tensor cores (vq_search.cuh).
 //
 // dist = |e_k|^2 - 2 x . e_k (|x|^2 is constant per row and dropped), the
 // expression of the TPU kernels, in fp32 FMA. Codes are walked two at a time,

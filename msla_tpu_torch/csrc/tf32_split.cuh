@@ -3,7 +3,8 @@
 // TF32 value, so each product of two parts is exact in fp32), and lo.hi,
 // hi.lo, then hi.hi added into one fp32 accumulator; lo.lo (~2^-22 of the
 // product) is dropped. ops/tf32.py emulates it in plain PyTorch.
-// Used by flash_attn.cu, mlm_argmax.cu, conv_stem.cu and deconv_stem.cu.
+// Used by flash_attn.cu, mlm_argmax.cu, conv_stem.cu, deconv_stem.cu and
+// vq_search.cuh (nearest_codes.cu, vq_fused.cu).
 #pragma once
 
 #include <stdint.h>

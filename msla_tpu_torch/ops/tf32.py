@@ -1,7 +1,7 @@
 """3xTF32 in plain PyTorch: what the fp32 kernels that run on the TF32 tensor
-cores (``csrc/tf32_split.cuh``: #6, #7, K1/K1b, K2/K2b) compute, emulated with
-fp32 products of TF32 parts, for the tests and ``chip_smoke.py``. No wrapper
-calls them."""
+cores (``csrc/tf32_split.cuh``: #6, #7, K1/K1b, K2/K2b, K3, #4) compute,
+emulated with fp32 products of TF32 parts, for the tests and
+``chip_smoke.py``. No wrapper calls them."""
 from __future__ import annotations
 
 import torch

@@ -4,7 +4,8 @@
 the quantized rows q = codebook[idx], the per-code counts and Σ‖q − x‖².
 ``vq_codebook_grad`` computes the codebook's gradient through the gather,
 dcb = Σᵢ onehot(idxᵢ)ᵀ gᵢ, a segment sum. On CUDA tensors each launches its
-hand-written kernel in ``csrc/vq_fused.cu``; on CPU tensors each runs its plain
+hand-written kernel in ``csrc/vq_fused.cu`` (the forward's search in 3xTF32 on
+the tensor cores, ``csrc/vq_search.cuh``); on CPU tensors each runs its plain
 version (``vq_fused_fwd_ref``, ``vq_codebook_grad_ref``).
 
 The CUDA sums (Σ‖q − x‖² and dcb) are deterministic: per-block partials
@@ -18,7 +19,7 @@ import torch
 
 from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
                                        runs_plain, sm_count, stream_of)
-from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref
+from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref, search_smem_bytes
 
 _GRAD_STAGE_BYTES = 8 * 64 * 16  # the codebook-gradient kernel's per-warp row staging
 
@@ -52,9 +53,9 @@ def vq_fused_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
     n, k = flat_x.shape[0], codebook.shape[0]
     require("vq_fused_fwd", flat_x, "flat_x", (n, D))
     require("vq_fused_fwd", codebook, "codebook", (k, D))
-    if k % 2 or k * (D + 2) * 4 + 64 > SMEM_BYTES:
+    if k % 2 or search_smem_bytes(k, with_hist=True) > SMEM_BYTES:
         raise ValueError(f"vq_fused_fwd: the kernel takes an even number of codes "
-                         f"whose codebook fits in shared memory, got K={k}")
+                         f"up to 608 (the codebook in shared memory), got K={k}")
     dev = flat_x.device
     q = torch.empty((n, D), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)

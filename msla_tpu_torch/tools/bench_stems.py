@@ -1,30 +1,36 @@
-"""Where the fp32 stems' time goes: their kernels (K1/K1b ``csrc/conv_stem.cu``,
-K2/K2b ``csrc/deconv_stem.cu``, 3xTF32 on the tensor cores) timed on the card
-at a batch-64 call's shapes, beside builds of the same sources with part of
-the work taken out, and of another commit's sources:
+"""Where the 3xTF32 kernels' time goes: the fp32 stems (K1/K1b
+``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``) and the VQ search (K3
+``csrc/nearest_codes.cu``, #4 ``csrc/vq_fused.cu``'s forward, both on
+``csrc/vq_search.cuh``), all on the tensor cores, timed on the card at a
+batch-64 call's shapes (the stems; N = 704,000 rows against 512 codes for K3
+and #4), beside builds of the same sources with part of the work taken out,
+or another layout, and of another commit's sources:
 
     python -m msla_tpu_torch.tools.bench_stems [--previous DIR]     # on the card
 
 - "kernel": the sources as they are, the wrappers' kernels (checked equal to
-  the wrappers' outputs bit for bit, and to the plain versions at atol = rtol
-  = 1e-4);
+  the wrappers' outputs bit for bit, and to the plain versions: the stems at
+  atol = rtol = 1e-4, each id of K3 and #4 equal or a near-tie, #4's q equal
+  to codebook[id]);
 - "no split": ``tf32_split.cuh``'s split() without its arithmetic (hi = lo =
   x), the same products on unsplit operands: the split's ALU work is the
   difference (its sums are wrong and not checked);
 - "one product": ``mma_3xtf32`` as hi·hi alone, one-pass TF32: what the
   second and third products cost (not checked either);
+- "A streamed" (K3 and #4): ``vq_search.cuh`` with ``kHoldA`` false, the A
+  fragments loaded and split from the x tile for each group of codes instead
+  of held in registers for the tile (checked as "kernel");
 - "previous", with ``--previous DIR`` (another commit's
   ``msla_tpu_torch/csrc``, such as the parent's unpacked by ``git archive``):
-  that commit's conv_stem.cu and deconv_stem.cu, checked against the plain
-  versions at atol = rtol = 1e-4.
+  that commit's sources, checked as "kernel" is against the plain versions.
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
 nvcc each, in parallel, under build/bench_stems/. Its fp32 entry points run
 on the same operands (the stems' weights as torch initialises the model's
-convs, seed 0), K1 and K2 without and with the hidden, in turns: every build
-once, then again in reverse order, each time the mean of ``ITERS`` launches
-between two CUDA events. Prints the card's name and power limit (nvidia-smi)
-and a line a build and kernel, and returns the times by build, kernel and
-round.
+convs, seed 0; x and the codebook standard normal, seed 0), K1 and K2
+without and with the hidden, in turns: every build once, then again in
+reverse order, each time the mean of ``ITERS`` launches between two CUDA
+events. Prints the card's name and power limit (nvidia-smi) and a line a
+build and kernel, and returns the times by build, kernel and round.
 """
 from __future__ import annotations
 
@@ -37,20 +43,32 @@ from pathlib import Path
 import torch
 
 from msla_tpu_torch.device import resolve_device
-from msla_tpu_torch.ops import _build, conv_stem, conv_stem_ref, deconv_stem, deconv_stem_ref
+from msla_tpu_torch.ops import (_build, conv_stem, conv_stem_ref, deconv_stem, deconv_stem_ref,
+                                nearest_codes, nearest_codes_ref, vq_fused_fwd)
 from msla_tpu_torch.ops._build import check, stream_of
+from msla_tpu_torch.ops.nearest_codes import code_norms
+from msla_tpu_torch.ops.vq_fused import count_outputs
 from msla_tpu_torch.tools import loop_ms
 
 BATCH, T = 64, 44_000          # a batch-64 separation or train step: 2 s frames at 22 kHz
+N, K = BATCH * T // 4, 512     # the latent rows of such a batch, and the codes
 ITERS = 20
 OUT_DIR = _build.BUILD_DIR.parent / "bench_stems"
-SOURCES = ("conv_stem", "deconv_stem")
+STEMS = ("conv_stem", "deconv_stem")
+SEARCH = ("nearest_codes", "vq_fused")
+SOURCES = STEMS + SEARCH
+ENTRY = {"conv_stem": "conv_stem_fwd", "deconv_stem": "deconv_stem_fwd",
+         "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd"}
 
-#: the probes' edits of tf32_split.cuh: (text, replacement)
+#: the probes' edits: (header, text, replacement, the sources they are built for)
 PROBES = {
-    "no split": ("  const float f = __uint_as_float(x);\n  hi = tf32(f);\n"
-                 "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n"),
-    "one product": ("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),
+    "no split": ("tf32_split.cuh",
+                 "  const float f = __uint_as_float(x);\n  hi = tf32(f);\n"
+                 "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n", SOURCES),
+    "one product": ("tf32_split.cuh",
+                    "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "", SOURCES),
+    "A streamed": ("vq_search.cuh", "constexpr bool kHoldA = D <= 64;",
+                   "constexpr bool kHoldA = false;", SEARCH),
 }
 
 
@@ -62,21 +80,21 @@ def _sources(name: str, csrc: Path) -> Path:
     for f in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]:
         shutil.copy(f, dst)
     if name in PROBES:
-        old, new = PROBES[name]
-        header = dst / "tf32_split.cuh"
-        text = header.read_text()
+        header, old, new, _ = PROBES[name]
+        path = dst / header
+        text = path.read_text()
         if old not in text:
-            raise RuntimeError(f"bench_stems: tf32_split.cuh no longer holds the code the "
+            raise RuntimeError(f"bench_stems: {header} no longer holds the code the "
                                f"{name!r} probe edits")
-        header.write_text(text.replace(old, new))
+        path.write_text(text.replace(old, new))
     return dst
 
 
 def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes._CFuncPtr]:
-    """Each build's conv_stem_fwd and deconv_stem_fwd, all compiled at once."""
+    """Each build's entry points of its sources, all compiled at once."""
     jobs = {}
     for name, src in builds.items():
-        for source in SOURCES:
+        for source in PROBES[name][3] if name in PROBES else SOURCES:
             lib = src / f"{source}.so"
             jobs[name, source] = lib, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{source}.cu")],
@@ -86,14 +104,19 @@ def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes._CFuncPtr]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"bench_stems: {name} {source}.cu did not build:\n{log}")
-        fn = getattr(ctypes.CDLL(str(lib)), f"{source}_fwd")
-        fn.argtypes, fn.restype = _build.SIGNATURES[f"{source}_fwd"][1], ctypes.c_int
+        if name in ("kernel", *PROBES):
+            print(f"[bench_stems] {name} {source}.cu ptxas:\n" + "\n".join(
+                line for line in log.splitlines() if "registers" in line or "spill" in line),
+                flush=True)
+        fn = getattr(ctypes.CDLL(str(lib)), ENTRY[source])
+        fn.argtypes, fn.restype = _build.SIGNATURES[ENTRY[source]][1], ctypes.c_int
         fns[name, source] = fn
     return fns
 
 
 def operands(dev: torch.device):
-    """K1's (x, w1, b1, w2, b2) and K2's (q, ...), fp32, seed 0."""
+    """K1's (x, w1, b1, w2, b2), K2's (q, ...), fp32, seed 0; and the search's
+    (x, codebook)."""
     torch.manual_seed(0)
     enc = (torch.nn.Conv1d(4, 64, 4, device=dev), torch.nn.Conv1d(64, 128, 4, device=dev))
     dec = (torch.nn.ConvTranspose1d(128, 64, 4, device=dev),
@@ -101,9 +124,24 @@ def operands(dev: torch.device):
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((BATCH, 4, T), generator=g, device=dev) * 0.3
     q = torch.rand((BATCH, 128, T // 4), generator=g, device=dev)
+    flat = torch.randn((N, 64), generator=g, device=dev)
+    cb = torch.randn((K, 64), generator=g, device=dev)
     weights = lambda convs: (convs[0].weight.detach(), convs[0].bias.detach(),
                              convs[1].weight.detach(), convs[1].bias.detach())
-    return (x, *weights(enc)), (q, *weights(dec))
+    return (x, *weights(enc)), (q, *weights(dec)), (flat, cb)
+
+
+def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb) -> None:
+    """Every id equal to the plain version's or a near-tie: the two picks'
+    fp64 dists within 1e-5 of |dist| + 1 (chip_smoke.py's rule)."""
+    rows = (ids != want).nonzero().flatten()
+    if rows.numel():
+        e = cb.double()
+        dist = lambda i: (e[i] * e[i]).sum(1) - 2 * (flat[rows].double() * e[i]).sum(1)
+        a, b = dist(ids[rows].long()), dist(want[rows].long())
+        if ((a - b).abs() / (b.abs() + 1)).max().item() >= 1e-5:
+            raise RuntimeError(f"bench_stems: {what}: an id is neither the plain one nor a "
+                               f"near-tie")
 
 
 def main(previous: str | None = None, device: str | torch.device | None = None) -> dict:
@@ -117,36 +155,89 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     fns = build(builds)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    k1, k2 = operands(dev)
+    k1, k2, (flat, cb) = operands(dev)
     with torch.no_grad():
         plain = {"conv_stem": conv_stem_ref(*k1)[0], "deconv_stem": deconv_stem_ref(*k2)[0]}
         wrapper = {"conv_stem": conv_stem(*k1), "deconv_stem": deconv_stem(*k2)}
+        plain_ids = nearest_codes_ref(flat, cb)
+        wrapper_ids = nearest_codes(flat, cb)
+        wrapper_fused = vq_fused_fwd(flat, cb)
     x, w1, b1, w2, b2 = k1
     args = {"conv_stem": (x, w1.permute(1, 2, 0).contiguous(), b1,  # the wrapper's layout
                           w2.permute(1, 2, 0).contiguous(), b2),
             "deconv_stem": k2}
     hidden = {"conv_stem": (BATCH, 64, T // 2), "deconv_stem": (BATCH, 64, T // 2)}
+    e2 = code_norms(cb)
+    counts, sq, counts_i, sq_part, parts = count_outputs(K, dev)
+    checked = ("kernel", "previous", "A streamed")
+
+    def cases(name: str, source: str):
+        """(kernel label, launch, check after the first launch) of a build's source."""
+        fn = fns[name, source]
+        if source in STEMS:
+            for with_hidden in (False, True):
+                a = args[source]
+                out = torch.empty(plain[source].shape, device=dev)  # contiguous
+                h = torch.empty(hidden[source], device=dev) if with_hidden else None
+
+                def run(fn=fn, a=a, out=out, h=h):
+                    check(name, fn(*(t.data_ptr() for t in a), out.data_ptr(),
+                                   None if h is None else h.data_ptr(), BATCH, a[0].shape[-1],
+                                   stream_of(a[0])))
+
+                def verify(out=out, source=source):
+                    if name == "kernel" and not torch.equal(out, wrapper[source]):
+                        raise RuntimeError(f"bench_stems: the {source} build differs from "
+                                           f"the wrapper's kernel")
+                    torch.testing.assert_close(out, plain[source], atol=1e-4, rtol=1e-4)
+
+                label = {"conv_stem": "K1", "deconv_stem": "K2"}[source] + \
+                    ("b" if with_hidden else "")
+                yield label, run, verify
+        elif source == "nearest_codes":
+            ids = torch.empty((N,), dtype=torch.int32, device=dev)
+
+            def run(fn=fn):
+                check(name, fn(flat.data_ptr(), cb.data_ptr(), e2.data_ptr(), ids.data_ptr(), N,
+                               K, stream_of(flat)))
+
+            def verify():
+                if name == "kernel" and not torch.equal(ids, wrapper_ids):
+                    raise RuntimeError("bench_stems: the nearest_codes build differs from the "
+                                       "wrapper's kernel")
+                check_ids(f"{name} K3", ids, plain_ids, flat, cb)
+
+            yield "K3", run, verify
+        else:
+            q = torch.empty((N, 64), device=dev)
+            ids = torch.empty((N,), dtype=torch.int32, device=dev)
+
+            def run(fn=fn):
+                check(name, fn(flat.data_ptr(), cb.data_ptr(), e2.data_ptr(), q.data_ptr(),
+                               ids.data_ptr(), counts.data_ptr(), sq.data_ptr(),
+                               counts_i.data_ptr(), sq_part.data_ptr(), parts, N, K,
+                               stream_of(flat)))
+
+            def verify():
+                if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
+                        (q, ids, counts, sq), wrapper_fused)):
+                    raise RuntimeError("bench_stems: the vq_fused build differs from the "
+                                       "wrapper's kernel")
+                if not torch.equal(q, cb[ids.long()]):
+                    raise RuntimeError(f"bench_stems: {name} #4: q is not codebook[id]")
+                check_ids(f"{name} #4", ids, plain_ids, flat, cb)
+
+            yield "#4", run, verify
+
     times: dict[str, dict[str, list[float]]] = {}
     for rnd, order in enumerate((list(builds), list(builds)[::-1])):
         for name in order:
-            for source in SOURCES:
-                for with_hidden in (False, True):
-                    a = args[source]
-                    out = torch.empty(plain[source].shape, device=dev)  # contiguous
-                    h = torch.empty(hidden[source], device=dev) if with_hidden else None
-                    run = lambda fn=fns[name, source], a=a, out=out, h=h: check(name, fn(
-                        *(t.data_ptr() for t in a), out.data_ptr(),
-                        None if h is None else h.data_ptr(), BATCH, a[0].shape[-1],
-                        stream_of(a[0])))
+            for source in PROBES[name][3] if name in PROBES else SOURCES:
+                for kernel, run, verify in cases(name, source):
                     run()
                     torch.cuda.synchronize()
-                    if rnd == 0 and name == "kernel" and not torch.equal(out, wrapper[source]):
-                        raise RuntimeError(f"bench_stems: the {source} build differs from "
-                                           f"the wrapper's kernel")
-                    if rnd == 0 and name in ("kernel", "previous"):
-                        torch.testing.assert_close(out, plain[source], atol=1e-4, rtol=1e-4)
-                    kernel = {"conv_stem": "K1", "deconv_stem": "K2"}[source] + \
-                        ("b" if with_hidden else "")
+                    if rnd == 0 and name in checked:
+                        verify()
                     ms = loop_ms(run, dev, ITERS)
                     times.setdefault(name, {}).setdefault(kernel, []).append(ms)
                     print(f"[bench_stems] round {rnd} {name:<12s} {kernel:<3s} {ms:.4f} ms",
