@@ -610,7 +610,9 @@ def phase_kernels(net, dev) -> list[dict]:
 REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem", "deconv_stem_save_hidden",
               "deconv_stem[bf16]", "deconv_stem_save_hidden[bf16]", "conv_stem",
               "conv_stem_save_hidden", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
-              "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]", "nearest_codes", "vq_fused_fwd")
+              "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]", "nearest_codes", "vq_fused_fwd",
+              "vq_lean_fwd", "vq_precision_fwd[bf16/split2]", "vq_precision_fwd[bf16/f32]",
+              "vq_precision_fwd[split3/split2]")
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
@@ -627,7 +629,7 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "beyond_2_ulps_share", "max_share_of_bound",
                                          "fp64_share_of_bound", "ragged_s_max_abs_err",
                                          "ragged_w_max_abs_err", "previous_ms", "planted_ties",
-                                         "ragged_n_mismatches")
+                                         "ragged_n_mismatches", "tool_ms", "hgmma")
                  if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
@@ -1715,14 +1717,107 @@ def check_vq_fwd(name: str, got, want, dist, sq_atol: float = 0.0) -> dict:
                 sq_rel_err=sq_err / abs(sq_r.item()))
 
 
+def same_bits(name: str, got, again) -> None:
+    """Fails unless a second call's outputs equal the first's bit for bit."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name}: two calls on the same inputs differ")
+
+
+def ragged_vq(name: str, fwd, plain, dist_of, dev, g, sq_atol_of=lambda x: 0.0,
+              ns=RAGGED_N) -> dict:
+    """A VQ forward (``fwd`` gives (q, idx, counts, sq) of (x, codebook)) at N
+    rows no multiple of its tiles, against 512 codes: check_vq_fwd against
+    its plain version at each N, on the distance ``dist_of(x, codebook)``,
+    and a second call the same bits. Returns the mismatches at each N."""
+    cb = torch.randn((512, 64), generator=g, device=dev)
+    out = {}
+    for n in ns:
+        x = torch.randn((n, 64), generator=g, device=dev)
+        got = fwd(x, cb)
+        torch.cuda.synchronize()
+        if got[0].shape != (n, 64) or got[1].numel() != n:
+            fail(f"{name} at N = {n}: outputs of shapes {[tuple(t.shape) for t in got]}")
+        out[n] = check_vq_fwd(f"{name} at N = {n}", got, plain(x, cb), dist_of(x, cb),
+                              sq_atol_of(x))["index_mismatches"]
+        same_bits(f"{name} at N = {n}", got, fwd(x, cb))
+    print(f"[{name}] ragged N, mismatches (each a near-tie), the same bits twice: {out}",
+          flush=True)
+    return out
+
+
+def vq_bf16_planted(g, dev):
+    """vq_planted's exact ties, made ties of #9's own operands alone: the
+    higher code of each pair moves off the lower one by an eighth of its bf16
+    low part's ulp, towards cb_hi, in each value where that leaves both bf16
+    parts (``split_bf16``) as they were. So the two codes agree in cb_hi and
+    cb_lo, and in both modes' distances, and differ in fp32. Returns (x,
+    codebook, the lower index each row must get)."""
+    from msla_tpu_torch.ops.vq_precision import split_bf16
+
+    x, e, want = vq_planted(torch.randn((512, 64), generator=g, device=dev), False, g)
+    pairs = torch.tensor(VQ_PAIRS, device=dev)
+    base = e[pairs[:, 0]]
+    lo = split_bf16(base)[1].float()
+    step = torch.where(lo != 0, -torch.sign(lo) * torch.ldexp(torch.ones_like(lo),
+                                                             torch.frexp(lo)[1] - 11), 0.0)
+    moved = base + step
+    (mh, ml), (bh, bl) = split_bf16(moved), split_bf16(base)
+    e[pairs[:, 1]] = torch.where((mh == bh) & (ml == bl), moved, base)
+    parts = split_bf16(e)
+    if (not all(torch.equal(t[pairs[:, 0]], t[pairs[:, 1]]) for t in parts)
+            or (e[pairs[:, 0]] == e[pairs[:, 1]]).all(1).any()):
+        fail("planted bf16 ties: a pair differs in cb_hi or cb_lo, or not in fp32")
+    return x, e, want
+
+
+def vq_bf16_planted_picks(fwd, dev, g) -> int:
+    """#9's compiled modes, kernel and plain version, on vq_bf16_planted's
+    rows: every id the lower index of its pair."""
+    from msla_tpu_torch.ops import vq_precision_fwd_ref
+
+    x, e, want = vq_bf16_planted(g, dev)
+    for mode in VQ_TOOL_MODES:
+        dist_mode, quant_mode = mode.split("/")
+        for label, out in (("kernel", fwd(x, e, dist_mode, quant_mode)),
+                           ("plain version", vq_precision_fwd_ref(x, e, dist_mode, quant_mode))):
+            ids = out[1].flatten().long()
+            if not torch.equal(ids, want):
+                fail(f"vq_precision_fwd {mode} planted ties: the {label} missed "
+                     f"{(ids != want).sum().item()} of {want.numel()} rows")
+    print(f"[vq_precision_fwd] {VQ_PLANTED_ROWS} planted ties in cb_hi and cb_lo (apart in "
+          f"fp32) to the lower index in {VQ_TOOL_MODES}: every pick right", flush=True)
+    return VQ_PLANTED_ROWS
+
+
+def sass_ops(source: str) -> dict:
+    """Each kernel function of a built source with its count of HGMMA
+    (wgmma) and HMMA (mma.sync) instructions, from ``cuobjdump -sass``."""
+    from msla_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = kernel_name(m.group(1))
+            out[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in out[fn]:
+                out[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    print(f"[sass] {source}: {out}", flush=True)
+    return out
+
+
 def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
     """The port's two VQ measurement tools through their entry points at their
     full N, then #8 and #9's new modes against their plain versions on the
-    tools' own inputs."""
+    tools' own inputs, on planted ties (and #8's close pairs) and at ragged N,
+    each twice with the same bits; #9's forwards on wgmma (SASS)."""
     from msla_tpu_torch.ops import (vq_lean_fwd, vq_lean_fwd_ref, vq_precision_bwd,
                                     vq_precision_bwd_ref, vq_precision_fwd, vq_precision_fwd_ref)
     from msla_tpu_torch.ops.vq_lean import sq_error_bound
-    from msla_tpu_torch.ops.vq_precision import dotted_norms, split_bf16
+    from msla_tpu_torch.ops.vq_precision import COMPILED, dotted_norms, split_bf16
     from msla_tpu_torch.tools import bench_vq_lean, bench_vq_precision
 
     reset_counts(kernels)
@@ -1737,8 +1832,15 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
         fail(f"a kernel of the VQ tools' path never launched: {counts}, modes {modes}")
     tools.update(launches=counts, mode_launches=modes)
     print(f"[vq tools] launches {counts}, #9 forward by mode {modes}", flush=True)
+    sass = sass_ops("vq_precision")
+    hgmma = {f"{dm}/{qm}": sass.get(f"vq_precision_fwd_kernel<{d},{q}>", {})
+             for (dm, qm), (d, q) in COMPILED.items()}
+    if any(not ops or not ops["HGMMA"] or ops["HMMA"] for ops in hgmma.values()):
+        fail(f"#9's forwards must run wgmma (HGMMA) and no mma.sync (HMMA): {hgmma}")
+    tools["sass"] = hgmma
 
     k_codes = bench_vq_lean.K
+    gen = torch.Generator(device=dev).manual_seed(12)
     report = []
     with torch.no_grad():
         # #8 in both regimes of its tool; timed on the random rows, as the tool times it
@@ -1757,25 +1859,31 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
             return (cb.index_select(0, i), torch.bincount(i, minlength=k_codes),
                     ((x * x).sum(1) + m).sum())
 
-        q, idx, counts_out, sq = vq_lean_fwd(x, cb)
+        q, idx, counts_out, sq = got = vq_lean_fwd(x, cb)
+        same_bits("vq_lean_fwd", got, vq_lean_fwd(x, cb))
+        flop, moved = 2 * x.shape[0] * k_codes * 64, nbytes(x, cb, q, idx, counts_out, sq)
         report.append(dict(
             checks["random"], name="vq_lean_fwd", route="cuda",
             source="msla_tpu_torch/csrc/vq_lean.cu", replaces="tools/bench_vq_lean.py:32",
             sq_rel_err_converged=checks["converged"]["sq_rel_err"],
             index_mismatches_converged=checks["converged"]["index_mismatches"],
             sq_atol_converged=sq_error_bound(x_conv),
+            **vq_planted_picks("vq_lean_fwd", lambda x, e: vq_lean_fwd(x, e)[1], dev, gen),
+            ragged_n_mismatches=ragged_vq(
+                "vq_lean_fwd", vq_lean_fwd, vq_lean_fwd_ref, l2_dist, dev, gen, sq_error_bound),
             ms=time_ms(lambda: vq_lean_fwd(x, cb)), plain_ms=time_ms(lambda: vq_lean_fwd_ref(x, cb)),
+            tool_ms=tools["bench_vq_lean"]["lean_ms"],
             gather_ms=time_ms(lambda: cb.index_select(0, idx)),
             library_ms=time_ms(lean_library),
             library_call="addmm(e2, x, cb.T, alpha=-2) + min + index_select + bincount + "
                          "(x*x).sum, fp32",
-            flop=2 * x.shape[0] * k_codes * 64,
-            bytes=nbytes(x, cb, q, idx, counts_out, sq)))
+            flop=flop, bytes=moved, **tf32_bounds(flop, moved)))
         del cb, x_rand, x_conv, x, q, idx
 
         # #9: the new forward modes, then the split2 gradient, on the precision tool's inputs
         x, cb, g = bench_vq_precision.inputs(bench_vq_precision.N, dev)
         n = x.shape[0]
+        planted = vq_bf16_planted_picks(vq_precision_fwd, dev, gen)
         for mode in VQ_TOOL_MODES:
             dist_mode, quant_mode = mode.split("/")
             got = vq_precision_fwd(x, cb, dist_mode, quant_mode)
@@ -1783,6 +1891,12 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
             check = check_vq_fwd(f"vq_precision_fwd {mode}", got,
                                  vq_precision_fwd_ref(x, cb, dist_mode, quant_mode),
                                  mode_dist(x, cb, dist_mode))
+            same_bits(f"vq_precision_fwd {mode}", got,
+                      vq_precision_fwd(x, cb, dist_mode, quant_mode))
+            ragged = ragged_vq(f"vq_precision_fwd {mode}",
+                               lambda x, e: vq_precision_fwd(x, e, dist_mode, quant_mode),
+                               lambda x, e: vq_precision_fwd_ref(x, e, dist_mode, quant_mode),
+                               lambda x, e: mode_dist(x, e, dist_mode), dev, gen)
             hi, lo = split_bf16(cb)
             e2 = dotted_norms(hi, lo, dist_mode)
             q_cb = cb if quant_mode == "f32" else hi.float() + lo.float()
@@ -1802,7 +1916,9 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
                 check, name=f"vq_precision_fwd[{mode}]", route="cuda",
                 source="msla_tpu_torch/csrc/vq_precision.cu",
                 replaces="tools/bench_vq_precision.py:35", launches=modes[mode],
+                planted_ties=planted, ragged_n_mismatches=ragged, hgmma=hgmma[mode]["HGMMA"],
                 ms=time_ms(lambda: vq_precision_fwd(x, cb, dist_mode, quant_mode)),
+                tool_ms=tools["bench_vq_precision"]["fwd"][mode]["ms"],
                 plain_ms=time_ms(lambda: vq_precision_fwd_ref(x, cb, dist_mode, quant_mode)),
                 library_ms=time_ms(library),
                 library_call=f"{products} bf16 addmm (cuBLAS tensor cores, fp32 output by "

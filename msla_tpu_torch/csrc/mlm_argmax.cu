@@ -368,14 +368,6 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorM
                :: "r"(dst), "l"(map), "r"(c0), "r"(c1), "r"(bar), "h"(mask) : "memory");
 }
 
-// Descriptor of a K-major operand as TMA writes it with the 128-byte swizzle:
-// rows of 64 bf16 (128 B), 8 rows (SBO) 1,024 B apart from a 1,024-byte
-// aligned base, LBO unused. A k16 step starts 32 B into the rows.
-__device__ __forceinline__ uint64_t desc128(uint32_t a) {
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
 // 2^x on the SFU (ex2.approx.ftz.f32): 0 for x = -inf.
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -1,6 +1,8 @@
 // What the fused MLM argmax kernels share (mlm_argmax.cu, mlm_argmax_probe.cu):
 // the m64n256 wgmma accumulator, its fold into a running (max, first index,
-// sum of exponentials) per row, and the quad's combine and store.
+// sum of exponentials) per row, and the quad's combine and store. #9's
+// forward (vq_precision.cu) runs the same m64n256k16 bf16 wgmma, with its A
+// from registers, and folds its distances with the same fold and combine.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,6 +52,15 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
          ((uint64_t)2 << 62);
 }
 
+// Descriptor of a K-major operand with the 128-byte swizzle, as TMA writes it:
+// rows of 64 bf16 (128 B), 16-byte group kg of row r at r * 128 + (kg ^ r % 8)
+// * 16 from a 1,024-byte-aligned base; 8 rows (SBO) 1,024 B apart, LBO
+// unused. A k16 step starts 32 B into the rows.
+__device__ __forceinline__ uint64_t desc128(uint32_t a) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
 // The 128 fp32 accumulators of an m64n256 wgmma: their PTX operands %0..%127
 // and their asm constraints, read and written.
 #define ACC_REGS \
@@ -95,6 +106,19 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t da, uint64_
                : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same with A from registers: the warp's 16 rows of the 64 as
+// mma.m16n8k16's A fragment (a[0]: row g, columns 2t and 2t + 1; a[1]: row
+// g + 8; a[2], a[3]: columns 2t + 8, 2t + 9), bf16x2 each. The registers are
+// read until the wgmma completes: fence them after its wait (fence_frag).
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " ACC_REGS
+               ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+               : ACC_OPERANDS(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // An empty asm that reads and writes every accumulator register, put after
 // each wgmma.wait_group and before each wgmma.fence: the compiler may then
 // move no read of d above the wait and no write of d below the fence
@@ -104,19 +128,28 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Fold a finished vocab tile's logits into the running best of this thread's
-// two rows: d[4 j + 2 r + e] is row g + 8 r, column col0 + 8 j + e. The bias is
-// added (-inf past V), the columns are taken in ascending order with a strict
-// >, and the conf variant keeps a running sum of exp(logit - max).
-template <bool WITH_CONF>
+// The same for a wgmma's A fragments in registers: after its wait, so that
+// the compiler reuses none of them while the wgmma may still read them.
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Fold a finished tile of columns into the running best of this thread's two
+// rows: d[4 j + 2 r + e] is row g + 8 r, column col0 + 8 j + e. bias(col) is
+// added, the columns are taken in ascending order with a strict >, and the
+// conf variant keeps a running sum of exp(logit - max).
+template <bool WITH_CONF, class Bias>
 __device__ __forceinline__ void fold_tile(float (&d)[128], Best (&best)[2], int col0,
-                                          const float* __restrict__ bias, int vocab) {
+                                          Bias bias) {
 #pragma unroll
   for (int j = 0; j < 32; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = col0 + 8 * j + e;
-      const float b = col < vocab ? __ldg(bias + col) : -CUDART_INF_F;
+      const float b = bias(col0 + 8 * j + e);
       d[4 * j + e] += b;
       d[4 * j + 2 + e] += b;
     }
@@ -141,6 +174,16 @@ __device__ __forceinline__ void fold_tile(float (&d)[128], Best (&best)[2], int 
       b.s = s;
     }
   }
+}
+
+// The MLM's fold: the vocab bias, -inf past V.
+template <bool WITH_CONF>
+__device__ __forceinline__ void fold_tile(float (&d)[128], Best (&best)[2], int col0,
+                                          const float* __restrict__ bias, int vocab) {
+  const float* b = bias;
+  fold_tile<WITH_CONF>(d, best, col0, [b, vocab](int col) {
+    return col < vocab ? __ldg(b + col) : -CUDART_INF_F;
+  });
 }
 
 // Combine the quad's four partial bests of its two rows (rows row0 and

@@ -7,79 +7,100 @@
 // and leaves q = codebook[idx] to a gather outside the kernel.
 //
 // Bound on an H100, at N = 704,000 rows, K = 512, D = 64: 2*N*K*D = 4.61e10
-// fp32 FLOP for the distances over 180.2 MB in (x) and 2.8 MB out (ids):
-// bound by the fp32 FMA rate (67 TFLOP/s outside the tensor cores), 0.69 ms,
-// the bound of #4 too. The TPU variant saved an MXU one-hot matmul; #4 has no
-// matmul to save (it copies q from shared memory), so on this card the lean
-// form drops only #4's q stores (180 MB, hidden under its FMAs) and its
-// diff^2 pass per row, against the |x|^2 and m passes here (64 FMAs each).
+// FLOP for the distances, 0.093 ms at the TF32 tensor-core peak (0.279 ms for
+// 3xTF32's three products; 0.689 ms on the fp32 FMA units, where the first
+// design of this kernel searched), over 180.2 MB in (x) and 2.8 MB out (ids):
+// 0.055 ms at 3.35 TB/s. So bound by operations. The TPU variant saved an MXU
+// one-hot matmul; on this card the lean form saves #4's q stores (180 MB) and
+// its diff^2 pass, against one more dot a row.
 //
-// Design: #4's kernel without q. Persistent blocks, each with the codebook
-// and |e|^2 in shared memory and two rows per thread in registers;
-// nearest_rows.cuh's search finds the first index of the minimum dist (strict
-// < in ascending k: the TPU kernel's `dist <= m` then min-lane), and m is that
-// code's dist summed again in the search's order, so the same bits (one more
-// 64-FMA dot a row, where #4 has its diff^2 pass; the search itself stays
-// #4's and K3's code). Each valid row adds |x|^2 + m (fp32, the TPU's
-// expression and its cancellation: when q ~ x the two terms are ~|x|^2 and
-// the result is ~0) to an fp64 per-thread sum; counts and the sum are
-// deterministic as in #4 (vq_common.cuh).
-#include "nearest_rows.cuh"
+// Design: #4's kernel without q. K3's and #4's search (vq_search.cuh: 3xTF32
+// on mma.sync, the argmin folded in registers, the first index among equal
+// minima as the TPU kernel's `dist <= m` then min-lane), a warp a 32-row tile
+// of a persistent block. Then, per tile, with each lane holding one row's
+// code: the id is stored, the code counted in the block's histogram, and each
+// valid row adds |x|^2 + m to an fp64 per-thread sum, where m = |e_c|^2 - 2 x
+// . e_c is taken again in fp32 FMA from the exact x tile and the fp32
+// codebook in shared memory (16 lanes x 4 columns a row, then a fixed tree):
+// the TPU's expression and its cancellation (when q ~ x the two terms are
+// ~|x|^2 and the result ~0). So, as in #4, the x tile holds the exact x until
+// the epilogue has read it, and the copy of the warp's next tile starts after.
+// Counts and the sum are deterministic as in #4 (vq_common.cuh).
 #include "vq_common.cuh"
+#include "vq_search.cuh"
 
 namespace {
 
-using nearest_rows::D;
+using vq_common::FULL;
 
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = 2 * THREADS;  // two rows per thread
+constexpr int D = 64;
 
-__device__ __forceinline__ float sq_norm(const float (&xr)[D]) {
-  float s = 0.0f;
+// The warp's rows row0 .. row0 + 31 (row r's code in lane r): the lane's share
+// of the sum over the valid rows of |x|^2 + |e_c|^2 - 2 x . e_c.
+__device__ __forceinline__ double lean_rows(const float* es, const float* e2s, const float* xs,
+                                            long long row0, long long n, int code, int lane) {
+  using vq_search::chunk;
+  double acc = 0.0;
 #pragma unroll
-  for (int d = 0; d < D; ++d) s = fmaf(xr[d], xr[d], s);
-  return s;
+  for (int s = 0; s < vq_search::ROWS / 2; ++s) {
+    const int r = 2 * s + (lane >> 4);
+    const int c = __shfl_sync(FULL, code, r);
+    const float4 e = chunk(es, c, lane & 15, D), v = chunk(xs, r, lane & 15, D);
+    float x2 = v.x * v.x, dot = v.x * e.x;
+    x2 = fmaf(v.y, v.y, x2);
+    dot = fmaf(v.y, e.y, dot);
+    x2 = fmaf(v.z, v.z, x2);
+    dot = fmaf(v.z, e.z, dot);
+    x2 = fmaf(v.w, v.w, x2);
+    dot = fmaf(v.w, e.w, dot);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      x2 += __shfl_xor_sync(FULL, x2, off);
+      dot += __shfl_xor_sync(FULL, dot, off);
+    }
+    if ((lane & 15) == 0 && row0 + r < n) acc += (double)(x2 + (e2s[c] - 2.0f * dot));
+  }
+  return acc;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(vq_search::THREADS, 1)
 vq_lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
                    const float* __restrict__ e2, int* __restrict__ idx,
                    int* __restrict__ counts_i, double* __restrict__ sq_part, long long n,
                    int k_codes) {
-  extern __shared__ float smem[];
-  float* cbs = smem;                                   // [K][D]
-  float* e2s = cbs + (size_t)k_codes * D;              // [K]
-  int* hist = reinterpret_cast<int*>(e2s + k_codes);   // [K]
+  using namespace vq_search;
+  extern __shared__ float4 lean_smem4[];
+  const int kpad = padded_codes(k_codes);
+  float* es = reinterpret_cast<float*>(lean_smem4);  // [kpad][D], swizzled
+  float* e2s = es + (size_t)kpad * D;                // [kpad]
+  float* tiles_s = e2s + kpad;                       // [WARPS][ROWS][D], swizzled
+  int* hist = reinterpret_cast<int*>(tiles_s + WARPS * ROWS * D);  // [K]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* xs = tiles_s + warp * ROWS * D;
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  for (int i = tid; i < k_codes * D; i += THREADS) cbs[i] = cb[i];
-  for (int i = tid; i < k_codes; i += THREADS) {
-    e2s[i] = e2[i];
-    hist[i] = 0;
-  }
+  const long long tiles = (n + ROWS - 1) / ROWS;
+  const long long stride = (long long)gridDim.x * WARPS;
+  long long tile = (long long)blockIdx.x * WARPS + warp;
+  if (tile < tiles) load_tile<D>(xs, x, tile * ROWS, n, lane);  // under the codebook's load
+  load_codebook<D>(es, e2s, cb, e2, k_codes);
+  for (int i = tid; i < k_codes; i += THREADS) hist[i] = 0;
   __syncthreads();
-  const float4* cb4 = reinterpret_cast<const float4*>(cbs);
 
   double acc = 0.0;
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
-    const long long ra = blk * ROWS_PER_BLOCK + tid;
-    const long long rb = ra + THREADS;
-    float xa[D], xb[D];
-    nearest_rows::load_row(x, ra, n, xa);
-    nearest_rows::load_row(x, rb, n, xb);
-    int ia, ib;
-    nearest_rows::nearest_two(xa, xb, cb4, e2s, k_codes, ia, ib);
-    if (ra < n) {
-      idx[ra] = ia;
-      acc += (double)(sq_norm(xa) + nearest_rows::dist_to(xa, cb4, e2s, ia));
-    }
-    if (rb < n) {
-      idx[rb] = ib;
-      acc += (double)(sq_norm(xb) + nearest_rows::dist_to(xb, cb4, e2s, ib));
-    }
-    vq_common::count(hist, ia, ra < n, lane);
-    vq_common::count(hist, ib, rb < n, lane);
+  for (; tile < tiles; tile += stride) {
+    wait_tile();
+    RowFrags<D> a;
+    a.load(xs, lane);
+    int arg[MT][2];
+    search(a, xs, es, e2s, kpad, lane, arg);
+    const int code = code_of_lane(arg, lane);
+    const long long row0 = tile * ROWS;
+    const bool valid = row0 + lane < n;
+    if (valid) idx[row0 + lane] = code;
+    vq_common::count(hist, code, valid, lane);
+    acc += lean_rows(es, e2s, xs, row0, n, code, lane);
+    __syncwarp();
+    if (tile + stride < tiles) load_tile<D>(xs, x, (tile + stride) * ROWS, n, lane);
   }
 
   vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
@@ -89,19 +110,22 @@ vq_lean_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
 
 // idx (n,), counts (K,) and sq () are the outputs; counts_i (K,) int and
 // sq_part (max_parts,) double are scratch. k_codes must be even; the wrapper
-// checks it and that K*(D+2)*4 bytes fit in shared memory.
+// checks it and that vq_search::smem_bytes<64>(K, true) fit (ops/vq_lean.py
+// check_codes).
 extern "C" int vq_lean_fwd(const float* x, const float* cb, const float* e2, int* idx,
                            float* counts, float* sq, int* counts_i, double* sq_part,
                            int max_parts, long long n, int k_codes, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)k_codes * (D + 2) * sizeof(float);
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  using vq_search::ROWS;
+  using vq_search::WARPS;
+  const size_t smem = vq_search::smem_bytes<D>(k_codes, true);
+  const long long blocks = ((n + ROWS - 1) / ROWS + WARPS - 1) / WARPS;
   int grid = 0;
   if (int e = vq_common::fwd_begin(vq_lean_fwd_kernel, smem, counts_i, k_codes, blocks,
                                    max_parts, s, &grid))
     return e;
   if (grid > 0)
-    vq_lean_fwd_kernel<<<grid, THREADS, smem, s>>>(x, cb, e2, idx, counts_i, sq_part, n,
-                                                   k_codes);
+    vq_lean_fwd_kernel<<<grid, vq_search::THREADS, smem, s>>>(x, cb, e2, idx, counts_i,
+                                                              sq_part, n, k_codes);
   return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
 }

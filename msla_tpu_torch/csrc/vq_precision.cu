@@ -18,22 +18,51 @@
 // - gradient, split2: 2 x 4.5e7 adds on 180.2 MB of g and 2.8 MB of ids:
 //   bound by memory, 0.055 ms.
 //
-// Forward design: persistent blocks of 8 warps, each block with cb_hi (and,
-// for split3, cb_lo) and the |e|^2 of the dotted codebook in shared memory,
-// rows padded to 72 bf16 so that a B-fragment load (8 codes x 4 lanes) hits 32
-// banks. A warp takes 16 rows: it loads them once as fp32 (kept for the
-// squared error), rounds them to bf16 with __float2bfloat16_rn (the RNE of
-// JAX's astype; split3 also xl = bf16(x - xh)) straight into
-// mma.sync.m16n8k16 A fragments, and walks the codebook in chunks of 64 codes
-// (8 n-tiles, D = 64 is 4 k-steps), fp32 accumulators. Split3 accumulates its
-// two small products first, then xh.cbh, in one accumulator. Each lane keeps
-// a running (min, argmin) of its two rows over its codes in ascending order,
-// strict <; the four lanes of a quad then combine by "smaller, or equal and
-// lower index": the first minimum, as the TPU's `dist <= m` then min-lane.
-// q is a gather of the chosen row (split2: float(cb_hi) + float(cb_lo), the
-// bits of the TPU's one-hot products), written by the lanes that hold the
-// row's x, so the exact (q - x)^2 sum needs no second read of x. Counts and
-// the sum are deterministic (vq_common.cuh). No wgmma and no TMA.
+// Forward design: the card's route to its tensor cores, wgmma, with x
+// streamed under it.
+// - Persistent blocks of two warpgroups, one block an SM. A warpgroup takes
+//   64-row tiles (wgmma's M), its tile `+= warpgroups in the grid`; warp w of
+//   it owns rows 16w .. 16w + 15 of the tile, in the products and in the
+//   epilogue alike, so no barrier joins the warps outside the wgmma.
+// - Products: wgmma.mma_async m64n256k16, bf16, fp32 accumulators (128
+//   registers a thread), 256 codes a product tile. B is the codebook from
+//   shared memory: cb_hi, and cb_lo for split3, as the wrapper splits them
+//   (ops/vq_precision.py split_bf16), put there once a block in wgmma's
+//   K-major layout with the 128-byte swizzle (a 64-value bf16 row is one
+//   128-byte swizzle row); codes past K up to a multiple of 256 are zero rows.
+//   A comes from registers: each lane rounds its rows' x to bf16 with
+//   __float2bfloat16_rn (the RNE of JAX's astype; split3 also xl = bf16(x -
+//   xh)) straight into the A fragments (16 registers, 32 for split3), held for
+//   the tile. Split3 runs its three products into one accumulator in the
+//   order of the first design: xl.hi and xh.lo a k16 step, then xh.hi.
+// - x arrives by cp.async, double-buffered: each warp copies its next 16 rows
+//   (4 KB of fp32, each 16-byte chunk c of row r at c ^ r % 8, so a quad's
+//   fragment reads and a half warp's row reads hit distinct banks) while it
+//   runs the current tile's products, fold and epilogue.
+// - Fold: mlm_argmax.cuh's fold_tile, the MLM argmax's (a strict > in
+//   ascending columns per lane, then a quad combine that takes the smaller
+//   index on an equal value), on the value acc - |e|^2 / 2 = -dist / 2:
+//   halving and negation commute with fp32 rounding, so its order and ties
+//   are those of dist = |e|^2 - 2 acc, the first minimum as the TPU's
+//   `dist <= m` then min-lane. -|e|^2 / 2 sits in shared memory, -inf past K.
+//   The (N, K) distances never leave registers. A warpgroup folds each tile
+//   after its products, while the other warpgroup's run: on an H100 the fold
+//   costs 0.05 ms of bf16's 0.20 and 0.12 of split3's 0.27 (bench_stems'
+//   "no fold" probe; PERF.md). Two m64n128 accumulators, each tile folded
+//   while the next one's products run, were slower: ptxas serialized their
+//   wgmmas (C7518, then C7514). Warpgroups that take turns to issue their
+//   products (named barriers) took split3 6 % lower and bf16 no lower, not
+//   worth the barriers (PERF.md section 7).
+// - Epilogue as in #4 (vq_fused.cu): 16 lanes x 16 B write each q row whole,
+//   q = float(hi) + float(lo) from the shared codebook (split2) or cb[idx]
+//   from L2 (f32: the fp32 codebook, 128 KB more, does not fit beside cb_hi
+//   and the x tiles); the code counted in the block's histogram; the exact
+//   sum of (q - x)^2 from the fp32 x tile, per row in fp32 in a fixed tree,
+//   per thread in fp64, deterministic as in #4 (vq_common.cuh).
+// - Shared memory at K = 512: cb_hi 64 KB, cb_lo 64 KB (split3, split2),
+//   8 warps' two x tiles 64 KB, -|e|^2 / 2 and the histogram 4 KB: 197 KB;
+//   so K up to 512 with cb_lo and 1,024 without (ops/vq_precision.py
+//   fwd_smem_bytes).
 //
 // Gradient design: vq_fused.cu's codebook gradient with two accumulators.
 // Two (K, D) fp32 sums do not fit in one block's shared memory, so each block
@@ -46,6 +75,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mlm_argmax.cuh"
 #include "vq_common.cuh"
 
 namespace {
@@ -59,11 +89,29 @@ constexpr int QUANT_F32 = 0, QUANT_SPLIT2 = 1;
 
 // ---- forward ------------------------------------------------------------------
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 8;                    // two warpgroups
 constexpr int THREADS = 32 * WARPS;
-constexpr int ROWS_PER_BLOCK = 16 * WARPS;  // one m16 tile of rows per warp
-constexpr int CB_WORDS = (D + 8) / 2;       // 32-bit words per padded bf16 codebook row
-constexpr int N_TILES = 8;                  // 8 codes each: 64 codes a chunk
+constexpr int GROUPS = WARPS / 4;
+constexpr int TILE_ROWS = 64;               // a warpgroup's tile: wgmma's M
+constexpr int WARP_ROWS = 16;               // a warp's rows of it
+constexpr int BN = mlm::BN;                 // codes a product tile: wgmma's N, 256
+constexpr int ROW_BYTES = D * 2;            // a bf16 codebook row: one 128-byte swizzle row
+constexpr int X_TILE = WARP_ROWS * D;       // floats of a warp's x tile (4 KB)
+constexpr int K_STEPS = D / 16;
+
+__host__ __device__ constexpr int padded(int k) { return (k + BN - 1) / BN * BN; }
+
+// Dynamic shared memory: cb_hi [kpad][128 B] and, with_lo, cb_lo; the warps'
+// x tiles [WARPS][2][16][D] fp32; -|e|^2 / 2 [kpad]; the histogram [kpad];
+// and 1 KB to align the codebook to the swizzle's 1,024 B.
+__host__ __device__ constexpr size_t fwd_smem_bytes(int k_codes, bool with_lo) {
+  return (size_t)padded(k_codes) * (ROW_BYTES * (with_lo ? 2 : 1) + 8) +
+         (size_t)2 * WARPS * X_TILE * sizeof(float) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -84,156 +132,205 @@ __device__ __forceinline__ float2 unpack(uint32_t w) {
   return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
 }
 
-// c += a . b over one m16n8k16 tile: bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Where column `col` of row r of a warp's fp32 x tile sits.
+__device__ __forceinline__ int x_at(int r, int col) {
+  return r * D + 4 * ((col >> 2) ^ (r & 7)) + (col & 3);
 }
 
-__device__ __forceinline__ void keep_min(float d, int code, float& best, int& arg) {
-  if (d < best) {
-    best = d;
-    arg = code;
+// A (K, D) bf16 codebook into shared memory in the 128-byte swizzle, zero rows
+// from K to kpad. Every thread of the block calls it.
+__device__ __forceinline__ void load_codes(unsigned char* dst, const uint4* __restrict__ src,
+                                           int k_codes, int kpad) {
+  for (int i = threadIdx.x; i < kpad * (ROW_BYTES / 16); i += THREADS) {
+    const int r = i / (ROW_BYTES / 16), c = i % (ROW_BYTES / 16);
+    *reinterpret_cast<uint4*>(dst + r * ROW_BYTES + ((c ^ (r & 7)) << 4)) =
+        r < k_codes ? src[i] : make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// Start the copy of rows row0 .. row0 + 15 of x into a warp's tile (rows past
+// n as zeros). Every lane of the warp calls it; the caller commits.
+__device__ __forceinline__ void load_rows(float* xs, const float* __restrict__ x, long long row0,
+                                          long long n, int lane) {
+#pragma unroll
+  for (int i = lane; i < WARP_ROWS * (D / 4); i += 32) {
+    const int r = i / (D / 4), c = i % (D / 4);
+    const long long row = row0 + r;
+    mlm::cp_async16(xs + x_at(r, 4 * c), x + (row < n ? row * D + 4 * c : 0), row < n);
+  }
+}
+
+// The lane's A fragments of its warp's 16 rows, k16 step s: a0 row g, columns
+// 16s + 2t, +1; a1 row g + 8; a2, a3 columns + 8. hi = bf16(x), lo = bf16(x -
+// hi) (split3).
+template <int DIST>
+__device__ __forceinline__ void load_a(const float* xs, int lane, uint32_t (&ah)[K_STEPS][4],
+                                       uint32_t (&al)[K_STEPS][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < K_STEPS; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i & 1), col = 16 * s + 8 * (i >> 1) + 2 * t;
+      const float2 v = *reinterpret_cast<const float2*>(xs + x_at(r, col));
+      ah[s][i] = pack(v.x, v.y);
+      if (DIST == DIST_SPLIT3) al[s][i] = pack_lo(v.x, v.y);
+    }
+}
+
+// d = x . e over one tile of 256 codes, whose cb_hi and cb_lo rows start at
+// shared addresses hi and lo: split3 runs xl.hi and xh.lo a k16 step, then
+// xh.hi, into one accumulator; bf16 runs xh.hi.
+template <int DIST>
+__device__ __forceinline__ void products(float (&d)[128], uint32_t (&ah)[K_STEPS][4],
+                                         uint32_t (&al)[K_STEPS][4], uint32_t hi, uint32_t lo) {
+  mlm::fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  if (DIST == DIST_SPLIT3) {
+#pragma unroll
+    for (int s = 0; s < K_STEPS; ++s) {
+      mlm::wgmma_bf16_rs(d, al[s], mlm::desc128(hi + 32 * s), s != 0);
+      mlm::wgmma_bf16_rs(d, ah[s], mlm::desc128(lo + 32 * s), 1);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < K_STEPS; ++s)
+    mlm::wgmma_bf16_rs(d, ah[s], mlm::desc128(hi + 32 * s), DIST == DIST_SPLIT3 || s != 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  mlm::fence_acc(d);
+  mlm::fence_frag(ah);
+  if (DIST == DIST_SPLIT3) mlm::fence_frag(al);
+}
+
+// The warp's rows row0 .. row0 + 15 (row r's code in lane r) take their q
+// rows, 16 lanes x 16 B a row; returns the lane's share of sum (q - x)^2 over
+// them, from the exact fp32 x.
+template <int QUANT>
+__device__ __forceinline__ double store_rows(float* __restrict__ q, const float* __restrict__ cb,
+                                             const unsigned char* hs, const unsigned char* ls,
+                                             const float* xs, long long row0, long long n,
+                                             int code, int lane) {
+  float4* q4 = reinterpret_cast<float4*>(q);
+  const int l = lane & 15;  // columns 4l .. 4l + 3
+  double acc = 0.0;
+#pragma unroll
+  for (int s = 0; s < WARP_ROWS / 2; ++s) {
+    const int r = 2 * s + (lane >> 4);
+    const int c = __shfl_sync(FULL, code, r);
+    const long long row = row0 + r;
+    float4 e;
+    if (QUANT == QUANT_F32) {
+      e = __ldg(reinterpret_cast<const float4*>(cb) + c * (D / 4) + l);
+    } else {  // 4 bf16 of cb_hi and of cb_lo: half of a swizzled 16-byte group
+      const int o = c * ROW_BYTES + (((l >> 1) ^ (c & 7)) << 4) + ((l & 1) << 3);
+      const uint2 h = *reinterpret_cast<const uint2*>(hs + o);
+      const uint2 w = *reinterpret_cast<const uint2*>(ls + o);
+      const float2 h0 = unpack(h.x), h1 = unpack(h.y), w0 = unpack(w.x), w1 = unpack(w.y);
+      e = make_float4(h0.x + w0.x, h0.y + w0.y, h1.x + w1.x, h1.y + w1.y);
+    }
+    const float4 v = *reinterpret_cast<const float4*>(xs + x_at(r, 4 * l));
+    if (row < n) q4[row * (D / 4) + l] = e;
+    const float dx = e.x - v.x, dy = e.y - v.y, dz = e.z - v.z, dw = e.w - v.w;
+    float part = dx * dx;
+    part = fmaf(dy, dy, part);
+    part = fmaf(dz, dz, part);
+    part = fmaf(dw, dw, part);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+    if (l == 0 && row < n) acc += (double)part;
+  }
+  return acc;
 }
 
 template <int DIST, int QUANT>
 __global__ void __launch_bounds__(THREADS, 1)
 vq_precision_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                        const uint32_t* __restrict__ cbh, const uint32_t* __restrict__ cbl,
+                        const uint4* __restrict__ cbh, const uint4* __restrict__ cbl,
                         const float* __restrict__ e2, float* __restrict__ q,
                         int* __restrict__ idx, int* __restrict__ counts_i,
                         double* __restrict__ sq_part, long long n, int k_codes) {
-  extern __shared__ uint32_t smem_words[];
-  uint32_t* hs = smem_words;                                           // [K][CB_WORDS] cb_hi
-  uint32_t* ls = hs + (size_t)k_codes * CB_WORDS;                      // [K][CB_WORDS] cb_lo
-  float* e2s = reinterpret_cast<float*>(DIST == DIST_SPLIT3 ? ls + (size_t)k_codes * CB_WORDS
-                                                            : ls);     // [K]
-  int* hist = reinterpret_cast<int*>(e2s + k_codes);                   // [K]
+  constexpr bool WITH_LO = DIST == DIST_SPLIT3 || QUANT == QUANT_SPLIT2;
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  const int kpad = padded(k_codes);
+  unsigned char* hs = fwd_smem + ((1024u - (smem_addr(fwd_smem) & 1023u)) & 1023u);
+  unsigned char* ls = hs + (size_t)kpad * ROW_BYTES;                  // cb_lo, WITH_LO
+  float* xt = reinterpret_cast<float*>(WITH_LO ? ls + (size_t)kpad * ROW_BYTES : ls);
+  float* half_e2 = xt + 2 * WARPS * X_TILE;                           // [kpad] -|e|^2 / 2
+  int* hist = reinterpret_cast<int*>(half_e2 + kpad);                 // [kpad]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and thread-in-group
-  for (int i = tid; i < k_codes * (D / 2); i += THREADS) {
-    const int r = i / (D / 2), w = i % (D / 2);
-    hs[r * CB_WORDS + w] = cbh[i];
-    if (DIST == DIST_SPLIT3) ls[r * CB_WORDS + w] = cbl[i];
-  }
-  for (int i = tid; i < k_codes; i += THREADS) {
-    e2s[i] = e2[i];
+  const int t = lane & 3;
+  float* xs = xt + warp * 2 * X_TILE;       // this warp's two x tiles
+  const int wrow = WARP_ROWS * (warp & 3);  // the warp's first row in its warpgroup's tile
+
+  const long long tiles = (n + TILE_ROWS - 1) / TILE_ROWS;
+  const long long stride = (long long)gridDim.x * GROUPS;
+  long long tile = (long long)blockIdx.x * GROUPS + (warp >> 2);
+  if (tile < tiles) load_rows(xs, x, tile * TILE_ROWS + wrow, n, lane);  // under the codebook's
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  load_codes(hs, cbh, k_codes, kpad);
+  if (WITH_LO) load_codes(ls, cbl, k_codes, kpad);
+  for (int i = tid; i < kpad; i += THREADS) {
+    half_e2[i] = i < k_codes ? -0.5f * e2[i] : -CUDART_INF_F;
     hist[i] = 0;
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
   __syncthreads();
 
+  const uint32_t hi_a = smem_addr(hs), lo_a = smem_addr(ls);
+  const auto bias = [half_e2](int col) { return half_e2[col]; };
   double acc = 0.0;
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  for (long long blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
-    // this lane's rows g and g + 8 of the warp's 16, at columns 16s + 8h + 2t (+1)
-    const long long rows[2] = {blk * ROWS_PER_BLOCK + warp * 16 + g,
-                               blk * ROWS_PER_BLOCK + warp * 16 + g + 8};
-    const bool valid[2] = {rows[0] < n, rows[1] < n};
-    float2 xv[2][4][2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          xv[r][s][h] = valid[r] ? *reinterpret_cast<const float2*>(
-                                       x + rows[r] * D + 16 * s + 8 * h + 2 * t)
-                                 : make_float2(0.0f, 0.0f);
-    uint32_t ah[4][4], al[4][4];  // A fragments of x_hi and x_lo, per k-step
-#pragma unroll
-    for (int s = 0; s < 4; ++s)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // a0: (g, lo cols), a1: (g+8, lo), a2: (g, hi), a3: (g+8, hi)
-        const float2 v = xv[i & 1][s][i >> 1];
-        ah[s][i] = pack(v.x, v.y);
-        if (DIST == DIST_SPLIT3) al[s][i] = pack_lo(v.x, v.y);
-      }
-
-    float best[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};
-    int arg[2] = {0, 0};
-    for (int c0 = 0; c0 < k_codes; c0 += 8 * N_TILES) {
-      float d[N_TILES][4];
-#pragma unroll
-      for (int j = 0; j < N_TILES; ++j) {
-        d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
-        const uint32_t* hrow = hs + (c0 + 8 * j + g) * CB_WORDS + t;
-        if (DIST == DIST_SPLIT3) {
-          const uint32_t* lrow = ls + (c0 + 8 * j + g) * CB_WORDS + t;
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            mma(d[j], al[s], hrow[8 * s], hrow[8 * s + 4]);
-            mma(d[j], ah[s], lrow[8 * s], lrow[8 * s + 4]);
-          }
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s) mma(d[j], ah[s], hrow[8 * s], hrow[8 * s + 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < N_TILES; ++j) {  // codes c, c + 1 of rows g (d0, d1), g + 8 (d2, d3)
-        const int c = c0 + 8 * j + 2 * t;
-        const float2 e = *reinterpret_cast<const float2*>(e2s + c);
-        keep_min(e.x - 2.0f * d[j][0], c, best[0], arg[0]);
-        keep_min(e.y - 2.0f * d[j][1], c + 1, best[0], arg[0]);
-        keep_min(e.x - 2.0f * d[j][2], c, best[1], arg[1]);
-        keep_min(e.y - 2.0f * d[j][3], c + 1, best[1], arg[1]);
-      }
+  float d[128];
+  int buf = 0;
+#pragma unroll 1
+  for (; tile < tiles; tile += stride, buf ^= 1) {
+    const long long row0 = tile * TILE_ROWS + wrow;
+    if (tile + stride < tiles)
+      load_rows(xs + (buf ^ 1) * X_TILE, x, row0 + stride * TILE_ROWS, n, lane);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's rows are in
+    __syncwarp();
+    const float* xb = xs + buf * X_TILE;
+    uint32_t ah[K_STEPS][4], al[K_STEPS][4];
+    load_a<DIST>(xb, lane, ah, al);
+    mlm::Best best[2] = {{-CUDART_INF_F, 0.f, mlm::NO_INDEX},
+                         {-CUDART_INF_F, 0.f, mlm::NO_INDEX}};
+#pragma unroll 1
+    for (int n0 = 0; n0 < kpad; n0 += BN) {
+      products<DIST>(d, ah, al, hi_a + n0 * ROW_BYTES, lo_a + n0 * ROW_BYTES);
+      mlm::fold_tile<false>(d, best, n0 + 2 * t, bias);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        const float ob = __shfl_xor_sync(FULL, best[r], off);
-        const int oa = __shfl_xor_sync(FULL, arg[r], off);
-        if (ob < best[r] || (ob == best[r] && oa < arg[r])) {
-          best[r] = ob;
-          arg[r] = oa;
-        }
+      for (int o = 1; o < 4; o <<= 1) {  // the quad's 4 lanes hold the same rows
+        mlm::Best other;
+        other.m = __shfl_xor_sync(FULL, best[r].m, o);
+        other.idx = __shfl_xor_sync(FULL, best[r].idx, o);
+        mlm::combine(best[r], other, false);
       }
-
-    vq_common::count(hist, arg[0], valid[0] && t == 0, lane);
-    vq_common::count(hist, arg[1], valid[1] && t == 0, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (!valid[r]) continue;
-      if (t == 0) idx[rows[r]] = arg[r];
-      float sq = 0.0f;
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = 16 * s + 8 * h + 2 * t;
-          float2 qv;
-          if (QUANT == QUANT_F32) {
-            qv = *reinterpret_cast<const float2*>(cb + arg[r] * D + col);
-          } else {
-            const float2 hi = unpack(cbh[(arg[r] * D + col) / 2]);
-            const float2 lo = unpack(cbl[(arg[r] * D + col) / 2]);
-            qv = make_float2(hi.x + lo.x, hi.y + lo.y);
-          }
-          *reinterpret_cast<float2*>(q + rows[r] * D + col) = qv;
-          const float dx = qv.x - xv[r][s][h].x, dy = qv.y - xv[r][s][h].y;
-          sq = fmaf(dx, dx, sq);
-          sq = fmaf(dy, dy, sq);
-        }
-      acc += (double)sq;
-    }
+    // row L of the warp's 16, in lane L: row g is quad g's best[0], row g + 8 its best[1]
+    const int c0 = __shfl_sync(FULL, best[0].idx, 4 * (lane & 7));
+    const int c1 = __shfl_sync(FULL, best[1].idx, 4 * (lane & 7));
+    const int code = lane & 8 ? c1 : c0;
+    const bool valid = lane < WARP_ROWS && row0 + lane < n;
+    if (valid) idx[row0 + lane] = code;
+    vq_common::count(hist, code, valid, lane);
+    acc += store_rows<QUANT>(q, cb, hs, ls, xb, row0, n, code, lane);
+    __syncwarp();  // the tile is read: the next iteration's copy may overwrite it
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 
   vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
 }
 
 template <int DIST, int QUANT>
-int launch_fwd(const float* x, const float* cb, const uint32_t* cbh, const uint32_t* cbl,
+int launch_fwd(const float* x, const float* cb, const uint4* cbh, const uint4* cbl,
                const float* e2, float* q, int* idx, float* counts, float* sq, int* counts_i,
                double* sq_part, int max_parts, long long n, int k_codes, cudaStream_t s) {
-  const int arrays = DIST == DIST_SPLIT3 ? 2 : 1;
-  const size_t smem = (size_t)k_codes * (arrays * CB_WORDS * 4 + 8);
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  const size_t smem = fwd_smem_bytes(k_codes, DIST == DIST_SPLIT3 || QUANT == QUANT_SPLIT2);
+  const long long blocks = ((n + TILE_ROWS - 1) / TILE_ROWS + GROUPS - 1) / GROUPS;
   int grid = 0;
   if (int e = vq_common::fwd_begin(vq_precision_fwd_kernel<DIST, QUANT>, smem, counts_i,
                                    k_codes, blocks, max_parts, s, &grid))
@@ -333,16 +430,17 @@ vq_grad_split2_kernel(const float* __restrict__ g, const int* __restrict__ idx,
 // measurement tool runs besides f32/f32). x (n, D) and cb (K, D) fp32, cbh and
 // cbl (K, D) bf16, e2 (K,) the |e|^2 of the dotted codebook. q (n, D), idx
 // (n,), counts (K,), sq () are the outputs; counts_i (K,) int and sq_part
-// (max_parts,) double are scratch. The wrapper checks that K is a multiple of
-// 64 and that the codebook fits in shared memory.
+// (max_parts,) double are scratch; cbh and cbl 16-byte aligned. The wrapper
+// checks that K is a multiple of 64 and that fwd_smem_bytes fit
+// (ops/vq_precision.py check_codes).
 extern "C" int vq_precision_fwd(int dist, int quant, const float* x, const float* cb,
                                 const void* cbh, const void* cbl, const float* e2, float* q,
                                 int* idx, float* counts, float* sq, int* counts_i,
                                 double* sq_part, int max_parts, long long n, int k_codes,
                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* h = static_cast<const uint32_t*>(cbh);
-  const uint32_t* l = static_cast<const uint32_t*>(cbl);
+  const uint4* h = static_cast<const uint4*>(cbh);
+  const uint4* l = static_cast<const uint4*>(cbl);
   if (dist == DIST_BF16 && quant == QUANT_SPLIT2)
     return launch_fwd<DIST_BF16, QUANT_SPLIT2>(x, cb, h, l, e2, q, idx, counts, sq, counts_i,
                                                sq_part, max_parts, n, k_codes, s);

@@ -1,14 +1,16 @@
-// The L2 nearest-code search of nearest_codes.cu (K3) and vq_fused.cu (#4):
-// per row, argmin over k of dist = |e_k|^2 - 2 x . e_k (|x|^2 is constant per
-// row and dropped), the first index among equal minima, as the TPU kernels'
-// `dist <= m` then least iota.
+// The L2 nearest-code search of the port's fp32 VQ kernels: nearest_codes.cu
+// (K3), vq_fused.cu (#4's forward) and vq_lean.cu (#8). Per row, argmin over
+// k of dist = |e_k|^2 - 2 x . e_k (|x|^2 is constant per row and dropped),
+// the first index among equal minima, as the TPU kernels' `dist <= m` then
+// least iota.
 //
 // Bound on an H100: at N = 704,000 rows, K = 512, D = 64 the search is a GEMM
 // of 2*N*K*D = 4.61e10 FLOP: 0.093 ms at the TF32 tensor-core peak (495
 // TFLOP/s), 0.279 ms for the three products of 3xTF32, 0.689 ms on the fp32
-// FMA units (67 TFLOP/s), where the search these kernels replace ran
-// (nearest_rows.cuh, now #8's alone). K3 must move 180.2 MB in + 2.8 MB out:
-// 0.055 ms at 3.35 TB/s. So the distances move to the tensor cores, in
+// FMA units (67 TFLOP/s), where the first designs of all three kernels
+// searched. K3 must move 180.2 MB in + 2.8 MB out: 0.055 ms at 3.35 TB/s.
+// No kernel of the port searches codes on the FMA units any more. So the
+// distances run on the tensor cores, in
 // 3xTF32 (tf32_split.cuh: mma.sync.m16n8k8 on hi = tf32(v) and lo = tf32(v -
 // hi), lo.hi + hi.lo + hi.hi a k8 step into one fp32 accumulator), not one
 // TF32 pass, which keeps ~11 bits of each product and flips near-ties.
@@ -44,10 +46,10 @@
 //   at D = 64 the alternative measured (tools/bench_stems.py, "A streamed";
 //   PERF.md): it splits twice as much and takes K3 and #4 about a tenth
 //   longer, so D = 64 holds A. ptxas: 239 registers for K3, 218 for #4, no
-//   spills; one block of 8 warps an SM (the codebook fills its shared
-//   memory). The same tool puts the time in the tensor cores' products:
-//   with one product instead of three K3 takes under half its time, and
-//   without the split's arithmetic it is no faster.
+//   spills (#8's in PERF.md); one block of 8 warps an SM (the codebook fills
+//   its shared memory). The same tool puts the time in the tensor cores'
+//   products: with one product instead of three K3 takes under half its
+//   time, and without the split's arithmetic it is no faster.
 // - The argmin folds in registers: a lane holds columns 2t, 2t + 1 of each
 //   n8 tile for rows g and g + 8, walks them in ascending code order with a
 //   strict <, then merges over its quad as (dist, index) pairs, the smaller

@@ -3,8 +3,9 @@
 It computes what ``vq_fused_fwd`` does, with the squared-error sum taken
 algebraically, Σ‖q − x‖² = Σ(‖x‖² + min_k(‖e_k‖² − 2·x·e_k)), and no (q − x)²
 pass. On CUDA tensors ``vq_lean_fwd`` launches ``csrc/vq_lean.cu`` for the ids,
-counts and sum, and gathers q = codebook[idx] outside the kernel, as the JAX
-function gathers outside its ``pallas_call``; on CPU tensors it runs
+counts and sum (the search of K3 and #4, 3xTF32 on the tensor cores,
+``csrc/vq_search.cuh``), and gathers q = codebook[idx] outside the kernel, as
+the JAX function gathers outside its ``pallas_call``; on CPU tensors it runs
 ``vq_lean_fwd_ref``.
 
 The algebraic form cancels: where q ≈ x a row's two terms are both ≈ ‖x‖², so
@@ -18,8 +19,16 @@ import torch
 
 from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
                                        runs_plain, stream_of)
-from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms
+from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms, search_smem_bytes
 from msla_tpu_torch.ops.vq_fused import count_outputs
+
+
+def check_codes(k: int) -> None:
+    """The kernel's K: #4's rule, an even K whose search fits in shared
+    memory with its histogram (``search_smem_bytes``): up to 608."""
+    if k % 2 or search_smem_bytes(k, with_hist=True) > SMEM_BYTES:
+        raise ValueError(f"vq_lean_fwd: the kernel takes an even number of codes "
+                         f"up to 608 (the codebook in shared memory), got K={k}")
 
 
 def sq_error_bound(flat_x: torch.Tensor) -> float:
@@ -58,9 +67,7 @@ def vq_lean_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
     n, k = flat_x.shape[0], codebook.shape[0]
     require("vq_lean_fwd", flat_x, "flat_x", (n, D))
     require("vq_lean_fwd", codebook, "codebook", (k, D))
-    if k % 2 or k * (D + 2) * 4 + 64 > SMEM_BYTES:
-        raise ValueError(f"vq_lean_fwd: the kernel takes an even number of codes "
-                         f"whose codebook fits in shared memory, got K={k}")
+    check_codes(k)
     idx = torch.empty((n,), dtype=torch.int32, device=flat_x.device)
     counts, sq, counts_i, sq_part, parts = count_outputs(k, flat_x.device)
     e2 = code_norms(codebook)

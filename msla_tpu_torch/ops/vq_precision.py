@@ -11,7 +11,8 @@ bf16(g) plus that of bf16(g − bf16(g)) (``"split2"``).
 
 On CUDA tensors the f32 modes launch the fused VQ's kernels (``vq_fused_fwd``,
 ``vq_codebook_grad``), whose functions they are, and the other modes
-``csrc/vq_precision.cu``, with the bf16 dots on the tensor cores. On CPU
+``csrc/vq_precision.cu``, with the bf16 dots on the tensor cores (``wgmma``
+with the codebook in shared memory, ``fwd_smem_bytes``). On CPU
 tensors each runs its plain version. The forward keeps the JAX function's
 output shapes without its row padding: q (N, D), idx (N, 1) int32,
 counts (1, K), sq (1, 1).
@@ -35,6 +36,8 @@ GRAD_MODES = ("f32", "split2")
 #: ones the measurement tool runs besides f32/f32; values are its mode codes
 COMPILED = {("bf16", "split2"): (0, 1), ("bf16", "f32"): (0, 0), ("split3", "split2"): (1, 1)}
 _BWD_STAGE_BYTES = 8 * 64 * 16  # the split2 gradient kernel's per-warp row staging
+_BN = 256                       # the forward's codes a product tile: K is padded to a multiple
+_X_TILES = 2 * 8 * 16 * D * 4   # the forward's x tiles: two of 16 fp32 rows for each of 8 warps
 
 
 def check_modes(dist_mode: str, quant_mode: str) -> None:
@@ -46,6 +49,26 @@ def check_modes(dist_mode: str, quant_mode: str) -> None:
 def check_grad_mode(mode: str) -> None:
     if mode not in GRAD_MODES:
         raise ValueError(f"vq_precision_bwd: mode must be one of {GRAD_MODES}, got {mode!r}")
+
+
+def fwd_smem_bytes(k: int, dist_mode: str, quant_mode: str) -> int:
+    """Shared memory of the forward kernel (``fwd_smem_bytes`` in
+    ``csrc/vq_precision.cu``, with ``flush_block``'s 64 static bytes): cb_hi,
+    and cb_lo where split3's products or split2's q read it, as bf16 rows
+    padded to a multiple of 256 codes; 8 warps' two x tiles; −‖e‖²/2 and the
+    histogram; 1 KB of alignment."""
+    kpad = -(-k // _BN) * _BN
+    arrays = 2 if dist_mode == "split3" or quant_mode == "split2" else 1
+    return kpad * (arrays * D * 2 + 8) + _X_TILES + 1024 + 64
+
+
+def check_codes(k: int, dist_mode: str, quant_mode: str) -> None:
+    """The forward kernel's K: a multiple of 64 whose shared memory fits,
+    up to 512 with cb_lo (split3, split2) and 1,024 without (bf16/f32)."""
+    if k % 64 or fwd_smem_bytes(k, dist_mode, quant_mode) > SMEM_BYTES:
+        raise ValueError(f"vq_precision_fwd: the kernel takes a multiple of 64 codes whose "
+                         f"bf16 codebook fits in shared memory, got K={k} for "
+                         f"{dist_mode}/{quant_mode}")
 
 
 def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -105,10 +128,7 @@ def vq_precision_fwd(flat_x: torch.Tensor, codebook: torch.Tensor, dist_mode: st
     n, k = flat_x.shape[0], codebook.shape[0]
     require("vq_precision_fwd", flat_x, "flat_x", (n, D))
     require("vq_precision_fwd", codebook, "codebook", (k, D))
-    arrays = 2 if dist_mode == "split3" else 1
-    if k % 64 or k * (arrays * (D + 8) * 2 + 8) + 64 > SMEM_BYTES:
-        raise ValueError(f"vq_precision_fwd: the kernel takes a multiple of 64 codes whose "
-                         f"bf16 codebook fits in shared memory, got K={k}")
+    check_codes(k, dist_mode, quant_mode)
     dev = flat_x.device
     hi, lo = split_bf16(codebook)
     e2 = dotted_norms(hi, lo, dist_mode)

@@ -1,36 +1,44 @@
-"""Where the 3xTF32 kernels' time goes: the fp32 stems (K1/K1b
-``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``) and the VQ search (K3
-``csrc/nearest_codes.cu``, #4 ``csrc/vq_fused.cu``'s forward, both on
-``csrc/vq_search.cuh``), all on the tensor cores, timed on the card at a
-batch-64 call's shapes (the stems; N = 704,000 rows against 512 codes for K3
-and #4), beside builds of the same sources with part of the work taken out,
-or another layout, and of another commit's sources:
+"""Where the tensor-core kernels' time goes: the fp32 stems (K1/K1b
+``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``), the VQ search (K3
+``csrc/nearest_codes.cu``, #4 ``csrc/vq_fused.cu``'s forward and #8
+``csrc/vq_lean.cu``, all on ``csrc/vq_search.cuh``), in 3xTF32, and #9's
+forwards (``csrc/vq_precision.cu``: bf16/split2, bf16/f32 and split3/split2
+on bf16 ``wgmma``), timed on the card at a batch-64 call's shapes (the stems;
+N = 704,000 rows against 512 codes for the VQ kernels), beside builds of the
+same sources with part of the work taken out, or another layout, and of
+another commit's sources:
 
     python -m msla_tpu_torch.tools.bench_stems [--previous DIR]     # on the card
 
 - "kernel": the sources as they are, the wrappers' kernels (checked equal to
   the wrappers' outputs bit for bit, and to the plain versions: the stems at
-  atol = rtol = 1e-4, each id of K3 and #4 equal or a near-tie, #4's q equal
-  to codebook[id]);
+  atol = rtol = 1e-4, each id of K3, #4, #8 and #9 equal or a near-tie on its
+  own distance, #4's q equal to codebook[id]);
 - "no split": ``tf32_split.cuh``'s split() without its arithmetic (hi = lo =
   x), the same products on unsplit operands: the split's ALU work is the
-  difference (its sums are wrong and not checked);
+  difference (its sums are wrong and not checked); not for #9, which has no
+  TF32 split;
 - "one product": ``mma_3xtf32`` as hi·hi alone, one-pass TF32: what the
-  second and third products cost (not checked either);
-- "A streamed" (K3 and #4): ``vq_search.cuh`` with ``kHoldA`` false, the A
+  second and third products cost (not checked either; not for #9);
+- "A streamed" (K3, #4, #8): ``vq_search.cuh`` with ``kHoldA`` false, the A
   fragments loaded and split from the x tile for each group of codes instead
   of held in registers for the tile (checked as "kernel");
+- "no fold" (#9): the products without the fold of their distances into the
+  running minimum (the ids are wrong and not checked);
+- "no q" (#9): everything but the stores of q (not checked);
 - "previous", with ``--previous DIR`` (another commit's
   ``msla_tpu_torch/csrc``, such as the parent's unpacked by ``git archive``):
   that commit's sources, checked as "kernel" is against the plain versions.
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
-nvcc each, in parallel, under build/bench_stems/. Its fp32 entry points run
-on the same operands (the stems' weights as torch initialises the model's
-convs, seed 0; x and the codebook standard normal, seed 0), K1 and K2
-without and with the hidden, in turns: every build once, then again in
+nvcc each, in parallel, under build/bench_stems/. Its entry points run on the
+same operands (the stems' weights as torch initialises the model's convs,
+seed 0; x and the codebook standard normal, seed 0), K1 and K2 without and
+with the hidden, #9 in each mode, in turns: every build once, then again in
 reverse order, each time the mean of ``ITERS`` launches between two CUDA
-events. Prints the card's name and power limit (nvidia-smi) and a line a
-build and kernel, and returns the times by build, kernel and round.
+events. The VQ kernels' time is the kernel's alone: the wrappers' ‖e‖², bf16
+split and allocations are made once, outside the loop. Prints the card's
+name and power limit (nvidia-smi) and a line a build and kernel, and returns
+the times by build, kernel and round.
 """
 from __future__ import annotations
 
@@ -44,10 +52,12 @@ import torch
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops import (_build, conv_stem, conv_stem_ref, deconv_stem, deconv_stem_ref,
-                                nearest_codes, nearest_codes_ref, vq_fused_fwd)
+                                nearest_codes, nearest_codes_ref, vq_fused_fwd, vq_lean_fwd,
+                                vq_precision_fwd, vq_precision_fwd_ref)
 from msla_tpu_torch.ops._build import check, stream_of
 from msla_tpu_torch.ops.nearest_codes import code_norms
 from msla_tpu_torch.ops.vq_fused import count_outputs
+from msla_tpu_torch.ops.vq_precision import COMPILED, dotted_norms, split_bf16
 from msla_tpu_torch.tools import loop_ms
 
 BATCH, T = 64, 44_000          # a batch-64 separation or train step: 2 s frames at 22 kHz
@@ -55,20 +65,26 @@ N, K = BATCH * T // 4, 512     # the latent rows of such a batch, and the codes
 ITERS = 20
 OUT_DIR = _build.BUILD_DIR.parent / "bench_stems"
 STEMS = ("conv_stem", "deconv_stem")
-SEARCH = ("nearest_codes", "vq_fused")
-SOURCES = STEMS + SEARCH
+SEARCH = ("nearest_codes", "vq_fused", "vq_lean")
+TF32 = STEMS + SEARCH           # the 3xTF32 sources, which the TF32 probes edit
+SOURCES = TF32 + ("vq_precision",)
 ENTRY = {"conv_stem": "conv_stem_fwd", "deconv_stem": "deconv_stem_fwd",
-         "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd"}
+         "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd",
+         "vq_lean": "vq_lean_fwd", "vq_precision": "vq_precision_fwd"}
 
 #: the probes' edits: (header, text, replacement, the sources they are built for)
 PROBES = {
     "no split": ("tf32_split.cuh",
                  "  const float f = __uint_as_float(x);\n  hi = tf32(f);\n"
-                 "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n", SOURCES),
+                 "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n", TF32),
     "one product": ("tf32_split.cuh",
-                    "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "", SOURCES),
+                    "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "", TF32),
     "A streamed": ("vq_search.cuh", "constexpr bool kHoldA = D <= 64;",
                    "constexpr bool kHoldA = false;", SEARCH),
+    "no fold": ("vq_precision.cu", "      mlm::fold_tile<false>(d", "      if (0) mlm::fold_tile<false>(d",
+                ("vq_precision",)),
+    "no q": ("vq_precision.cu", "    if (row < n) q4[row * (D / 4) + l] = e;\n", "",
+             ("vq_precision",)),
 }
 
 
@@ -131,13 +147,25 @@ def operands(dev: torch.device):
     return (x, *weights(enc)), (q, *weights(dec)), (flat, cb)
 
 
-def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb) -> None:
+def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb,
+              dist_mode: str = "f32") -> None:
     """Every id equal to the plain version's or a near-tie: the two picks'
-    fp64 dists within 1e-5 of |dist| + 1 (chip_smoke.py's rule)."""
+    fp64 dists within 1e-5 of |dist| + 1 (chip_smoke.py's rule), on the
+    operands of #9's ``dist_mode`` (the fp32 ones for "f32")."""
+    ids, want = ids.flatten(), want.flatten()
     rows = (ids != want).nonzero().flatten()
     if rows.numel():
-        e = cb.double()
-        dist = lambda i: (e[i] * e[i]).sum(1) - 2 * (flat[rows].double() * e[i]).sum(1)
+        x, e = flat[rows].double(), cb.double()
+        (xh, xl), (eh, el) = ([t.double() for t in split_bf16(v)] for v in (flat[rows], cb))
+
+        def dist(i):
+            if dist_mode == "f32":
+                return (e[i] * e[i]).sum(1) - 2 * (x * e[i]).sum(1)
+            if dist_mode == "bf16":
+                return (eh[i] * eh[i]).sum(1) - 2 * (xh * eh[i]).sum(1)
+            full = eh[i] + el[i]
+            return (full * full).sum(1) - 2 * (xh * eh[i] + xh * el[i] + xl * eh[i]).sum(1)
+
         a, b = dist(ids[rows].long()), dist(want[rows].long())
         if ((a - b).abs() / (b.abs() + 1)).max().item() >= 1e-5:
             raise RuntimeError(f"bench_stems: {what}: an id is neither the plain one nor a "
@@ -162,6 +190,10 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
         plain_ids = nearest_codes_ref(flat, cb)
         wrapper_ids = nearest_codes(flat, cb)
         wrapper_fused = vq_fused_fwd(flat, cb)
+        wrapper_lean = vq_lean_fwd(flat, cb)
+        modes = [(f"{d}/{q}", d, q) for d, q in COMPILED]
+        wrapper_prec = {m: vq_precision_fwd(flat, cb, d, q) for m, d, q in modes}
+        plain_prec = {m: vq_precision_fwd_ref(flat, cb, d, q)[1] for m, d, q in modes}
     x, w1, b1, w2, b2 = k1
     args = {"conv_stem": (x, w1.permute(1, 2, 0).contiguous(), b1,  # the wrapper's layout
                           w2.permute(1, 2, 0).contiguous(), b2),
@@ -169,6 +201,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     hidden = {"conv_stem": (BATCH, 64, T // 2), "deconv_stem": (BATCH, 64, T // 2)}
     e2 = code_norms(cb)
     counts, sq, counts_i, sq_part, parts = count_outputs(K, dev)
+    hi, lo = split_bf16(cb)
     checked = ("kernel", "previous", "A streamed")
 
     def cases(name: str, source: str):
@@ -208,6 +241,43 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                 check_ids(f"{name} K3", ids, plain_ids, flat, cb)
 
             yield "K3", run, verify
+        elif source == "vq_lean":
+            ids = torch.empty((N,), dtype=torch.int32, device=dev)
+
+            def run(fn=fn):
+                check(name, fn(flat.data_ptr(), cb.data_ptr(), e2.data_ptr(), ids.data_ptr(),
+                               counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(),
+                               sq_part.data_ptr(), parts, N, K, stream_of(flat)))
+
+            def verify():
+                if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
+                        (ids, counts, sq), wrapper_lean[1:])):
+                    raise RuntimeError("bench_stems: the vq_lean build differs from the "
+                                       "wrapper's kernel")
+                check_ids(f"{name} #8", ids, plain_ids, flat, cb)
+
+            yield "#8", run, verify
+        elif source == "vq_precision":
+            for mode, dist_mode, quant_mode in modes:
+                q = torch.empty((N, 64), device=dev)
+                ids = torch.empty((N,), dtype=torch.int32, device=dev)
+                e2m = dotted_norms(hi, lo, dist_mode)
+
+                def run(fn=fn, q=q, ids=ids, e2m=e2m, codes=COMPILED[dist_mode, quant_mode]):
+                    check(name, fn(*codes, flat.data_ptr(), cb.data_ptr(), hi.data_ptr(),
+                                   lo.data_ptr(), e2m.data_ptr(), q.data_ptr(), ids.data_ptr(),
+                                   counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(),
+                                   sq_part.data_ptr(), parts, N, K, stream_of(flat)))
+
+                def verify(q=q, ids=ids, mode=mode, dist_mode=dist_mode):
+                    got = (q, ids[:, None], counts[None], sq.reshape(1, 1))
+                    if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
+                            got, wrapper_prec[mode])):
+                        raise RuntimeError(f"bench_stems: the vq_precision build differs from "
+                                           f"the wrapper's kernel in {mode}")
+                    check_ids(f"{name} #9 {mode}", ids, plain_prec[mode], flat, cb, dist_mode)
+
+                yield f"#9 {mode}", run, verify
         else:
             q = torch.empty((N, 64), device=dev)
             ids = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -240,7 +310,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                         verify()
                     ms = loop_ms(run, dev, ITERS)
                     times.setdefault(name, {}).setdefault(kernel, []).append(ms)
-                    print(f"[bench_stems] round {rnd} {name:<12s} {kernel:<3s} {ms:.4f} ms",
+                    print(f"[bench_stems] round {rnd} {name:<12s} {kernel:<16s} {ms:.4f} ms",
                           flush=True)
     return times
 
