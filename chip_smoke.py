@@ -28,8 +28,13 @@ Phases, each of which raises (exit code != 0) when its check fails:
      against their plain versions at the shapes of a batch-64 train step,
      timed as in phase 3; #4 also on planted ties and close pairs and at N =
      704,001 (q = codebook[id] bit for bit, counts a bincount, sq within
-     1e-5 of fp64 and the same bits twice); #5 on uniform ids and on the
-     seeded model's ids of the first batch;
+     1e-5 of fp64 and the same bits twice); #5 (csrc/segment_sum.cuh) on
+     the seeded model's ids of the first batch, uniform ids, one code for
+     every row and sorted runs, each timed, and at N = 1, 31, 33, 4,097 and
+     704,001 (RAGGED_GRAD_N): bit-equal to codebook_grad_order_ref at the
+     card's grid, within segment_sum_bound against fp64 (its largest share
+     printed) and the same bits twice, with the scratch bytes and CUDA
+     launches of one call, measured (call_footprint);
   7. gradients on 2 frames of the full-width model: loss and every parameter
      gradient through the kernels against the same loss written with the
      plain versions and torch's autograd on the card (atol 1e-4, rtol 1e-3),
@@ -74,7 +79,8 @@ Phases, each of which raises (exit code != 0) when its check fails:
      (every differing id a near-tie on the mode's own distance, q and counts
      bit-equal where the ids are, sq at rtol 1e-5, plus the lean form's
      cancellation bound; the gradient within 1e-5 of max |plain| and the
-     same bits twice), each timed as in phase 3 beside one library chain;
+     same bits twice, then checked and timed as #5 in phase 6), each timed
+     as in phase 3 beside one library chain;
  13. the bf16 separation kernels (K1 and K2 on bf16 operands, the Pallas
      kernel's function) against their plain bf16 versions at batch 64
      (within 2 bf16 ulps; the bit-equal share printed), K1 in bf16 at
@@ -612,7 +618,7 @@ REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem", "deconv_stem_save
               "conv_stem_save_hidden", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
               "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]", "nearest_codes", "vq_fused_fwd",
               "vq_lean_fwd", "vq_precision_fwd[bf16/split2]", "vq_precision_fwd[bf16/f32]",
-              "vq_precision_fwd[split3/split2]")
+              "vq_precision_fwd[split3/split2]", "vq_codebook_grad", "vq_precision_bwd[split2]")
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
@@ -629,7 +635,9 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "beyond_2_ulps_share", "max_share_of_bound",
                                          "fp64_share_of_bound", "ragged_s_max_abs_err",
                                          "ragged_w_max_abs_err", "previous_ms", "planted_ties",
-                                         "ragged_n_mismatches", "tool_ms", "hgmma")
+                                         "ragged_n_mismatches", "tool_ms", "hgmma",
+                                         "ms_one_code", "ms_sorted_runs", "blocks",
+                                         "scratch_bytes", "cuda_launches_per_call")
                  if key in k}
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
@@ -914,6 +922,111 @@ def first_batch_latents(net, dm, raw: np.ndarray) -> torch.Tensor:
         return net.encode(model_in).reshape(-1, MODEL["embedding_dim"])
 
 
+RAGGED_GRAD_N = (1, 31, 33, 4_097, 704_001)  # the segment sums' rows: around groups and parts
+
+
+def segment_ids(kind: str, n: int, k: int, g, model=None) -> torch.Tensor:
+    """(n,) int32 ids of one kind: ``model`` itself, uniform, one code for
+    every row, or uniform ids sorted (runs of about n / k rows)."""
+    dev = g.device
+    if kind == "model":
+        return model
+    if kind == "one code":
+        return torch.full((n,), 7, dtype=torch.int32, device=dev)
+    ids = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    return torch.sort(ids)[0] if kind == "sorted runs" else ids
+
+
+def check_segment_sum(name: str, fn, grad, ids, k: int, split2: bool) -> dict:
+    """A segment-sum kernel (``fn(g, ids)``, csrc/segment_sum.cuh) against
+    codebook_grad_order_ref at the card's grid, bit for bit; against fp64
+    within segment_sum_bound (summation depth x 2^-24 x sum |g|, the share of
+    it used returned); the same bits twice."""
+    from msla_tpu_torch.ops import segment_sum as ss
+
+    symbol = "vq_precision_bwd_split2" if split2 else "vq_codebook_grad"
+    n = grad.shape[0]
+    clusters, rows = ss.launch_layout(symbol, n, k, grad.device, split2)
+    blocks = clusters * ss.CLUSTER
+    got = fn(grad, ids)
+    torch.cuda.synchronize()
+    if got.shape != (k, 64) or not torch.isfinite(got).all():
+        fail(f"{name}: an output of shape {tuple(got.shape)}, or non-finite values")
+    if not torch.equal(got, ss.codebook_grad_order_ref(grad, ids, k, blocks, split2=split2)):
+        fail(f"{name}: differs from codebook_grad_order_ref at the card's {blocks} blocks")
+    err = (got.double() - ss.segment_sum_fp64(grad, ids, k, split2)).abs()
+    bound = ss.segment_sum_bound(grad, ids, k, ss.summation_depth(n, blocks, split2), split2)
+    if (err > bound).any():
+        fail(f"{name}: {(err > bound).sum().item()} sums beyond segment_sum_bound against fp64")
+    if not torch.equal(got, fn(grad, ids)):
+        fail(f"{name}: two calls on the same inputs differ")
+    share = (err / bound).nan_to_num(0.0).max().item()  # 0/0 where a code has no rows
+    return dict(max_abs_err=err.max().item(), fp64_share_of_bound=share, blocks=blocks,
+                rows_per_part=rows)
+
+
+SEGMENT_SUM_KERNELS = ("segment_sum_kernel", "segment_sum_finish")  # csrc/segment_sum.cuh
+
+
+def call_footprint(fn, kernel_names) -> tuple[int, int]:
+    """(CUDA launches, scratch bytes) of one fn() call, both measured: the
+    kernels whose names hold one of ``kernel_names`` in a torch.profiler trace
+    of one call, after an untraced warm-up step as in device_parts, the most
+    of TRACE_TRIES traces (a trace may drop a kernel, never add one); and the
+    peak of allocated device memory over one call, less what was allocated
+    before it and the output it returns."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the traced one
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        traced.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and any(w in e.name for w in kernel_names)))
+    if max(traced) < 1:
+        fail(f"call_footprint: no kernel named {kernel_names} in {TRACE_TRIES} traces")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - before - out.untyped_storage().nbytes()
+    return max(traced), scratch
+
+
+def segment_sum_checks(name: str, fn, grad, k: int, split2: bool, g, model) -> dict:
+    """check_segment_sum on the model's (or the tool's) ids, uniform ids, one
+    code and sorted runs, each timed, then at RAGGED_GRAD_N on uniform ids;
+    and one call's CUDA launches and scratch bytes on the model's ids
+    (call_footprint)."""
+    out = {}
+    for kind in ("model", "uniform", "one code", "sorted runs"):
+        ids = segment_ids(kind, grad.shape[0], k, g, model)
+        out[kind] = dict(check_segment_sum(f"{name} ({kind} ids)", fn, grad, ids, k, split2),
+                         ms=time_ms(lambda: fn(grad, ids)))
+    ragged = {}
+    for n in RAGGED_GRAD_N:
+        small = torch.randn((n, 64), generator=g, device=grad.device)
+        ragged[n] = check_segment_sum(f"{name} at N = {n}", fn, small,
+                                      segment_ids("uniform", n, k, g), k, split2)
+    launches, scratch = call_footprint(lambda: fn(grad, model), SEGMENT_SUM_KERNELS)
+    model = out["model"]
+    share = max(r["fp64_share_of_bound"] for r in [*out.values(), *ragged.values()])
+    print(f"[{name}] ms by ids " + ", ".join(f"{kind} {r['ms']:.4f}" for kind, r in out.items())
+          + f"; bit-equal to codebook_grad_order_ref at {model['blocks']} blocks and the same "
+          f"bits twice on every kind of ids and at N = {RAGGED_GRAD_N}; largest share of "
+          f"segment_sum_bound {share:.3e}; one call on the model's ids (measured): scratch "
+          f"{scratch} bytes, {launches} CUDA launches", flush=True)
+    return dict(by_ids=out, ragged_n_max_abs_err={n: r["max_abs_err"] for n, r in ragged.items()},
+                fp64_share_of_bound=share, blocks=model["blocks"], scratch_bytes=scratch,
+                cuda_launches_per_call=launches)
+
+
 def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
     import torch.nn.functional as F
 
@@ -1011,30 +1124,36 @@ def phase_train_kernels(net, dev, flat_model: torch.Tensor) -> list[dict]:
         model_idx = idx
         del q
 
-        # #5 on the model's ids (main figure) and on uniform ids
+        # #5 (csrc/segment_sum.cuh) on the model's ids (main figure), uniform
+        # ids, one code and sorted runs, each against fp64 at atol = rtol = 1e-4
+        # as before, then segment_sum_checks; ragged N
         grad = torch.randn((n, 64), generator=g, device=dev)
-        uniform = torch.randint(0, k_codes, (n,), generator=g, device=dev, dtype=torch.int32)
-        errs, times = {}, {}
-        for label, ids in (("model", model_idx), ("uniform", uniform)):
-            dcb = vq_codebook_grad(grad, ids, k_codes)
-            torch.cuda.synchronize()
+        errs = {}
+        for kind in ("model", "uniform", "one code", "sorted runs"):
+            ids = segment_ids(kind, n, k_codes, g, model_idx)
             want = torch.zeros((k_codes, 64), dtype=torch.float64, device=dev).index_add_(
                 0, ids.long(), grad.double())
-            errs[label] = check_close(f"vq_codebook_grad ({label} ids)", dcb.double(), want)
-            if not torch.equal(dcb, vq_codebook_grad(grad, ids, k_codes)):
-                fail(f"vq_codebook_grad ({label} ids): two runs differ")
-            times[label] = time_ms(lambda: vq_codebook_grad(grad, ids, k_codes))
+            errs[kind] = check_close(f"vq_codebook_grad ({kind} ids)",
+                                     vq_codebook_grad(grad, ids, k_codes).double(), want)
+        del want
+        checks = segment_sum_checks("vq_codebook_grad", lambda x, i: vq_codebook_grad(
+            x, i, k_codes), grad, k_codes, False, g, model_idx)
+        by_ids = checks.pop("by_ids")
         ids_long = model_idx.long()
         zeros = torch.zeros((k_codes, 64), device=dev)
         report.append(dict(
-            name="vq_codebook_grad", route="cuda", source="msla_tpu_torch/csrc/vq_fused.cu",
+            checks, name="vq_codebook_grad", route="cuda",
+            source="msla_tpu_torch/csrc/segment_sum.cuh",
             replaces="msla_tpu/ops/vq_fused.py:81", max_abs_err=errs["model"],
-            max_abs_err_uniform_ids=errs["uniform"], ms=times["model"],
-            ms_uniform_ids=times["uniform"],
+            max_abs_err_uniform_ids=errs["uniform"], ms=by_ids["model"]["ms"],
+            ms_uniform_ids=by_ids["uniform"]["ms"], ms_one_code=by_ids["one code"]["ms"],
+            ms_sorted_runs=by_ids["sorted runs"]["ms"],
+            codes_used_model=int(torch.unique(model_idx).numel()),
             plain_ms=time_ms(lambda: vq_codebook_grad_ref(grad, model_idx, k_codes)),
             library_ms=time_ms(lambda: zeros.index_add_(0, ids_long, grad)),
-            library_call="index_add_", flop=n * 64, bytes=nbytes(grad, model_idx, dcb)))
-        del grad, uniform, dcb, want
+            library_call="index_add_", flop=n * 64,
+            bytes=nbytes(grad, model_idx) + k_codes * 64 * 4))
+        del grad
     torch.cuda.empty_cache()
     return with_bounds(report)
 
@@ -1936,6 +2055,10 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
             fail(f"vq_precision_bwd split2: max abs error {err:.3e} against the plain version")
         if not torch.equal(dcb, vq_precision_bwd(g, idx, "split2")):
             fail("vq_precision_bwd split2: two runs differ")
+        # csrc/segment_sum.cuh on the tool's ids, uniform, one code, sorted runs, ragged N
+        checks = segment_sum_checks("vq_precision_bwd split2", lambda x, i: vq_precision_bwd(
+            x, i, "split2"), g, k_codes, True, gen, idx)
+        by_ids = checks.pop("by_ids")
         ids = idx.long()
 
         def bwd_library():  # the bf16 split, then two index_add_
@@ -1946,10 +2069,12 @@ def phase_vq_tools(kernels, dev) -> tuple[dict, list[dict]]:
             return sums[0] + sums[1]
 
         report.append(dict(
-            name="vq_precision_bwd[split2]", route="cuda",
-            source="msla_tpu_torch/csrc/vq_precision.cu",
+            checks, name="vq_precision_bwd[split2]", route="cuda",
+            source="msla_tpu_torch/csrc/segment_sum.cuh",
             replaces="tools/bench_vq_precision.py:139", max_abs_err=err,
-            ms=time_ms(lambda: vq_precision_bwd(g, idx, "split2")),
+            ms=by_ids["model"]["ms"], ms_uniform_ids=by_ids["uniform"]["ms"],
+            ms_one_code=by_ids["one code"]["ms"], ms_sorted_runs=by_ids["sorted runs"]["ms"],
+            tool_ms=tools["bench_vq_precision"]["bwd"]["split2"]["ms"],
             plain_ms=time_ms(lambda: vq_precision_bwd_ref(g, idx, "split2")),
             library_ms=time_ms(bwd_library),
             library_call="bf16 split + two index_add_", flop=2 * n * 64,

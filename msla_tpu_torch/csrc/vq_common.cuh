@@ -1,7 +1,7 @@
-// Pieces shared by the VQ kernels (vq_fused.cu, vq_lean.cu, vq_precision.cu):
-// a float4 add, the per-block code histogram, the deterministic per-block sum
-// of the squared error, the one-block kernels that turn per-block partials
-// into outputs, and the host side of a persistent forward launch.
+// Pieces shared by the VQ forwards (vq_fused.cu, vq_lean.cu, vq_precision.cu):
+// the per-block code histogram, the deterministic per-block sum of the
+// squared error, the one-block kernel that turns per-block partials into
+// outputs, and the host side of a persistent forward launch.
 //
 // Counts are integers (exact in any order); the squared-error sum is fp64 per
 // thread, reduced per block in a fixed order into one partial per block, and
@@ -13,10 +13,6 @@
 namespace vq_common {
 
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-}
 
 // Count `code` in the block's shared-memory histogram: one atomic per group of
 // lanes that picked the same code. Every lane of the warp calls it.
@@ -58,21 +54,6 @@ __global__ void finish_kernel(const int* __restrict__ counts_i,
     for (int p = 0; p < parts; ++p) s += sq_part[p];
     *sq = (float)s;
   }
-}
-
-// dcb[i] = the sum over p of each of the n_acc partial arrays in block order,
-// the arrays added in order: partials is [n_acc][parts][kd].
-__global__ void grad_reduce_kernel(const float* __restrict__ partials, int parts, int kd,
-                                   int n_acc, float* __restrict__ dcb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= kd) return;
-  float total = 0.0f;
-  for (int a = 0; a < n_acc; ++a) {
-    float s = 0.0f;
-    for (int p = 0; p < parts; ++p) s += partials[((size_t)a * parts + p) * kd + i];
-    total = a ? total + s : s;
-  }
-  dcb[i] = total;
 }
 
 inline int sm_count(int* sms) {

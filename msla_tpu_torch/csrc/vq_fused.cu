@@ -34,23 +34,14 @@
 // The x tile holds the exact x until that sum is taken, so the copy of the
 // warp's next tile starts after it, not under the search as in K3.
 //
-// Codebook-gradient design: dcb[k] = sum of g rows whose id is k. At init and
-// early in training most rows pick a handful of codes, so one shared-memory
-// atomic per (row, d) would serialise on a few addresses. Instead each of a
-// block's 8 warps owns 8 of the 64 columns (a 32 B sector per row) of a
-// per-block (K, D) accumulator in shared memory, and lanes map to rows: a warp
-// reads 32 rows' sectors at once, groups the lanes that share a code
-// (__match_any_sync), and the group's lowest lane adds the group's values in
-// lane order into the accumulator. No warp ever touches another warp's
-// columns, so there are no atomics and the order of every sum is fixed. Each
-// block takes one contiguous run of rows and writes its accumulator as a
-// partial; a second kernel sums the partials in block order. Deterministic.
+// Codebook gradient: segment_sum.cuh (the design shared with #9's split2
+// gradient: TMA-fed, sorted per 32-row group, one fixed order, no atomics).
+#include "segment_sum.cuh"
 #include "vq_common.cuh"
 #include "vq_search.cuh"
 
 namespace {
 
-using vq_common::add4;
 using vq_common::FULL;
 
 constexpr int D = 64;
@@ -135,75 +126,6 @@ vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
 }
 
-// ---- codebook gradient ----------------------------------------------------------
-
-constexpr int GRAD_THREADS = 256;          // 8 warps; warp w owns columns [8w, 8w+8)
-constexpr int COLS = D / (GRAD_THREADS / 32);
-constexpr int ACC_STRIDE = D + 4;          // padded rows: leaders of one warp that
-                                           // picked different codes hit other banks
-
-struct RowSlice {
-  int code;      // -1 past the block's rows
-  float4 lo, hi; // the warp's 8 columns of the row
-};
-
-__device__ __forceinline__ RowSlice fetch(const float* __restrict__ g,
-                                          const int* __restrict__ idx, long long row,
-                                          long long end, int warp) {
-  RowSlice s{-1, make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
-  if (row < end) {
-    s.code = idx[row];
-    const float4* p = reinterpret_cast<const float4*>(g + row * D + COLS * warp);
-    s.lo = p[0];
-    s.hi = p[1];
-  }
-  return s;
-}
-
-__global__ void __launch_bounds__(GRAD_THREADS, 1)
-vq_codebook_grad_kernel(const float* __restrict__ g, const int* __restrict__ idx,
-                        float* __restrict__ partials, long long n, int k_codes,
-                        long long rows_per_block) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                                     // [K][ACC_STRIDE]
-  float4* stage = reinterpret_cast<float4*>(acc + (size_t)k_codes * ACC_STRIDE);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < k_codes * ACC_STRIDE; i += GRAD_THREADS) acc[i] = 0.0f;
-  __syncthreads();
-  float4* st = stage + warp * 64;  // [2][32]: lo then hi of each lane's row
-
-  const long long begin = (long long)blockIdx.x * rows_per_block;
-  const long long end = begin + rows_per_block < n ? begin + rows_per_block : n;
-  RowSlice cur = fetch(g, idx, begin + lane, end, warp);
-  for (long long r0 = begin; r0 < end; r0 += 32) {
-    const RowSlice next = fetch(g, idx, r0 + 32 + lane, end, warp);  // in flight meanwhile
-    st[lane] = cur.lo;
-    st[32 + lane] = cur.hi;
-    const bool valid = (unsigned)cur.code < (unsigned)k_codes;
-    const unsigned peers = __match_any_sync(FULL, valid ? cur.code : -1);
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) {
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-      for (unsigned m = peers; m; m &= m - 1) {  // ascending lanes: a fixed order
-        const int j = __ffs(m) - 1;
-        add4(lo, st[j]);
-        add4(hi, st[32 + j]);
-      }
-      float4* a = reinterpret_cast<float4*>(acc + (size_t)cur.code * ACC_STRIDE + COLS * warp);
-      add4(a[0], lo);
-      add4(a[1], hi);
-    }
-    __syncwarp();
-    cur = next;
-  }
-  __syncthreads();
-
-  float* out = partials + (size_t)blockIdx.x * k_codes * D;
-  for (int i = tid; i < k_codes * D; i += GRAD_THREADS)
-    out[i] = acc[(i / D) * ACC_STRIDE + i % D];
-}
-
 }  // namespace
 
 // q (n, D), idx (n,), counts (K,) and sq () are the outputs; counts_i (K,) int
@@ -228,30 +150,18 @@ extern "C" int vq_fused_fwd(const float* x, const float* cb, const float* e2, fl
   return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
 }
 
-// dcb (K, D) is the output; partials (max_parts, K, D) is scratch. The wrapper
-// checks that K*(D+4)*4 + 8 KB bytes fit in shared memory.
+// The most clusters of the codebook-gradient kernel at K codes that run at once.
+extern "C" int vq_codebook_grad_clusters(int k_codes, int* clusters) {
+  return segsum::max_clusters<false>(k_codes, clusters);
+}
+
+// g (n, D) fp32 and idx (n,) int32, both 16-byte aligned; dcb (K, D) is the
+// output; partials (clusters, K, D) is scratch; part p of the clusters * 4
+// blocks takes the rows [p * rows_per_part, ...), a multiple of 64. The
+// wrapper checks that ops/vq_fused.py grad_smem_bytes(K) fit (K <= 701).
 extern "C" int vq_codebook_grad(const float* g, const int* idx, float* dcb, float* partials,
-                                int max_parts, long long n, int k_codes, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)k_codes * ACC_STRIDE * sizeof(float) +
-                      (GRAD_THREADS / 32) * 64 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(
-      vq_codebook_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  if (int e = vq_common::sm_count(&sms)) return e;
-  long long grid = (n + 31) / 32;  // at least 32 rows a block
-  if (grid > sms) grid = sms;
-  if (grid > max_parts) grid = max_parts;
-  if (grid > 0) {
-    long long rows = (n + grid - 1) / grid;
-    rows = (rows + 31) / 32 * 32;
-    vq_codebook_grad_kernel<<<(int)grid, GRAD_THREADS, smem, s>>>(g, idx, partials, n,
-                                                                  k_codes, rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  const int kd = k_codes * D;
-  vq_common::grad_reduce_kernel<<<(kd + 255) / 256, 256, 0, s>>>(partials, (int)grid, kd, 1,
-                                                                 dcb);
-  return (int)cudaGetLastError();
+                                int clusters, long long rows_per_part, long long n, int k_codes,
+                                void* stream) {
+  return segsum::launch<false>(g, idx, dcb, partials, clusters, rows_per_part, n, k_codes,
+                               (cudaStream_t)stream);
 }

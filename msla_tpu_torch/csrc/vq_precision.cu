@@ -64,23 +64,21 @@
 //   so K up to 512 with cb_lo and 1,024 without (ops/vq_precision.py
 //   fwd_smem_bytes).
 //
-// Gradient design: vq_fused.cu's codebook gradient with two accumulators.
-// Two (K, D) fp32 sums do not fit in one block's shared memory, so each block
-// owns half of the columns: (K, 32) for the hi sum and (K, 32) for the lo
-// sum. Its 8 warps own 4 columns each, lanes map to rows, the split is made
-// in registers (no gl array in device memory), lanes with one code are
-// grouped with __match_any_sync and summed in lane order. Blocks write their
-// hi and lo partials apart; a second kernel sums each in block order and adds
-// the two at the end. Deterministic.
+// Gradient design: segment_sum.cuh, shared with #5. Two (K, D) fp32 sums do
+// not fit in one block's shared memory, so each block owns half of the
+// columns, with the hi sum and the lo sum side by side in its (K, 64)
+// accumulator: one consumer warp makes and sums the hi parts, another the lo
+// parts, each split in registers (no gl array in device memory). The hi and
+// lo sums are reduced apart and added at the end. Deterministic.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "mlm_argmax.cuh"
+#include "segment_sum.cuh"
 #include "vq_common.cuh"
 
 namespace {
 
-using vq_common::add4;
 using vq_common::FULL;
 
 constexpr int D = 64;
@@ -341,89 +339,6 @@ int launch_fwd(const float* x, const float* cb, const uint4* cbh, const uint4* c
   return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
 }
 
-// ---- codebook gradient, split2 --------------------------------------------------
-
-constexpr int GRAD_THREADS = 256;                  // 8 warps
-constexpr int HALF = D / 2;                        // columns a block owns
-constexpr int COLS = HALF / (GRAD_THREADS / 32);   // columns a warp owns: 4
-constexpr int ACC_STRIDE = HALF + 4;               // padded rows, as in vq_fused.cu
-
-struct RowSlice {
-  int code;   // -1 past the block's rows
-  float4 v;   // the warp's 4 columns of the row
-};
-
-__device__ __forceinline__ RowSlice fetch(const float* __restrict__ g,
-                                          const int* __restrict__ idx, long long row,
-                                          long long end, int col) {
-  RowSlice s{-1, make_float4(0.f, 0.f, 0.f, 0.f)};
-  if (row < end) {
-    s.code = idx[row];
-    s.v = *reinterpret_cast<const float4*>(g + row * D + col);
-  }
-  return s;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Block 2p + h takes the rows of part p and the columns of half h. partials
-// is [2][parts][K][D]: the hi sums, then the lo sums.
-__global__ void __launch_bounds__(GRAD_THREADS, 1)
-vq_grad_split2_kernel(const float* __restrict__ g, const int* __restrict__ idx,
-                      float* __restrict__ partials, int parts, long long n, int k_codes,
-                      long long rows_per_part) {
-  extern __shared__ float smem[];
-  float* acc_hi = smem;                                      // [K][ACC_STRIDE]
-  float* acc_lo = acc_hi + (size_t)k_codes * ACC_STRIDE;     // [K][ACC_STRIDE]
-  float4* stage = reinterpret_cast<float4*>(acc_lo + (size_t)k_codes * ACC_STRIDE);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int part = blockIdx.x >> 1, half = blockIdx.x & 1;
-  for (int i = tid; i < 2 * k_codes * ACC_STRIDE; i += GRAD_THREADS) acc_hi[i] = 0.0f;
-  __syncthreads();
-  float4* st = stage + warp * 64;  // [2][32]: hi then lo of each lane's row
-  const int col = half * HALF + COLS * warp;
-
-  const long long begin = (long long)part * rows_per_part;
-  const long long end = begin + rows_per_part < n ? begin + rows_per_part : n;
-  RowSlice cur = fetch(g, idx, begin + lane, end, col);
-  for (long long r0 = begin; r0 < end; r0 += 32) {
-    const RowSlice next = fetch(g, idx, r0 + 32 + lane, end, col);  // in flight meanwhile
-    const float4 hi = make_float4(bf16_round(cur.v.x), bf16_round(cur.v.y),
-                                  bf16_round(cur.v.z), bf16_round(cur.v.w));
-    st[lane] = hi;
-    st[32 + lane] = make_float4(bf16_round(cur.v.x - hi.x), bf16_round(cur.v.y - hi.y),
-                                bf16_round(cur.v.z - hi.z), bf16_round(cur.v.w - hi.w));
-    const bool valid = (unsigned)cur.code < (unsigned)k_codes;
-    const unsigned peers = __match_any_sync(FULL, valid ? cur.code : -1);
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) {
-      float4 sh = make_float4(0.f, 0.f, 0.f, 0.f), sl = sh;
-      for (unsigned m = peers; m; m &= m - 1) {  // ascending lanes: a fixed order
-        const int j = __ffs(m) - 1;
-        add4(sh, st[j]);
-        add4(sl, st[32 + j]);
-      }
-      const size_t o = (size_t)cur.code * ACC_STRIDE + COLS * warp;
-      add4(*reinterpret_cast<float4*>(acc_hi + o), sh);
-      add4(*reinterpret_cast<float4*>(acc_lo + o), sl);
-    }
-    __syncwarp();
-    cur = next;
-  }
-  __syncthreads();
-
-  const size_t lo_offset = (size_t)parts * k_codes * D;
-  for (int i = tid; i < k_codes * HALF; i += GRAD_THREADS) {
-    const int r = i / HALF, c = i % HALF;
-    const size_t o = ((size_t)part * k_codes + r) * D + half * HALF + c;
-    partials[o] = acc_hi[r * ACC_STRIDE + c];
-    partials[lo_offset + o] = acc_lo[r * ACC_STRIDE + c];
-  }
-}
-
 }  // namespace
 
 // dist: 0 bf16, 1 split3; quant: 0 f32, 1 split2 (the three pairs the
@@ -453,32 +368,19 @@ extern "C" int vq_precision_fwd(int dist, int quant, const float* x, const float
   return (int)cudaErrorInvalidValue;
 }
 
-// dcb (K, D) is the output; partials (2, max_parts, K, D) is scratch. The
-// wrapper checks that 2*K*(D/2+4)*4 + 8 KB bytes fit in shared memory.
+// The most clusters of the split2 gradient kernel at K codes that run at once.
+extern "C" int vq_precision_bwd_split2_clusters(int k_codes, int* clusters) {
+  return segsum::max_clusters<true>(k_codes, clusters);
+}
+
+// g (n, D) fp32 and idx (n,) int32, both 16-byte aligned; dcb (K, D) is the
+// output; partials (clusters, 2, K, D) is scratch; blocks 2p and 2p + 1 of the
+// clusters * 4 take the rows [p * rows_per_part, ...), a multiple of 128, and
+// the columns of one half each. The wrapper checks that ops/vq_precision.py
+// bwd_smem_bytes(K) fit (K <= 689).
 extern "C" int vq_precision_bwd_split2(const float* g, const int* idx, float* dcb,
-                                       float* partials, int max_parts, long long n,
-                                       int k_codes, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = 2 * (size_t)k_codes * ACC_STRIDE * sizeof(float) +
-                      (GRAD_THREADS / 32) * 64 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(
-      vq_grad_split2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  if (int e = vq_common::sm_count(&sms)) return e;
-  long long parts = (n + 31) / 32;  // at least 32 rows a part; two blocks a part
-  if (parts > sms / 2) parts = sms / 2 > 0 ? sms / 2 : 1;
-  if (parts > max_parts) parts = max_parts;
-  if (parts > 0) {
-    long long rows = (n + parts - 1) / parts;
-    rows = (rows + 31) / 32 * 32;
-    vq_grad_split2_kernel<<<2 * (int)parts, GRAD_THREADS, smem, s>>>(g, idx, partials,
-                                                                     (int)parts, n, k_codes,
-                                                                     rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  const int kd = k_codes * D;
-  vq_common::grad_reduce_kernel<<<(kd + 255) / 256, 256, 0, s>>>(partials, (int)parts, kd, 2,
-                                                                 dcb);
-  return (int)cudaGetLastError();
+                                       float* partials, int clusters, long long rows_per_part,
+                                       long long n, int k_codes, void* stream) {
+  return segsum::launch<true>(g, idx, dcb, partials, clusters, rows_per_part, n, k_codes,
+                              (cudaStream_t)stream);
 }

@@ -46,7 +46,8 @@ SIGNATURES = {
     "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
-    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I32, P]),
+    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, P]),
+    "vq_codebook_grad_clusters": ("vq_fused", [I32, P]),
     "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "mlm_argmax_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
@@ -57,7 +58,8 @@ SIGNATURES = {
     "vq_lean_fwd": ("vq_lean", [P, P, P, P, P, P, P, P, I32, I64, I32, P]),
     "vq_precision_fwd": ("vq_precision", [I32, I32, P, P, P, P, P, P, P, P, P, P, P, I32, I64,
                                           I32, P]),
-    "vq_precision_bwd_split2": ("vq_precision", [P, P, P, P, I32, I64, I32, P]),
+    "vq_precision_bwd_split2": ("vq_precision", [P, P, P, P, I32, I64, I64, I32, P]),
+    "vq_precision_bwd_split2_clusters": ("vq_precision", [I32, P]),
 }
 SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 

@@ -8,8 +8,10 @@ hand-written kernel in ``csrc/vq_fused.cu`` (the forward's search in 3xTF32 on
 the tensor cores, ``csrc/vq_search.cuh``); on CPU tensors each runs its plain
 version (``vq_fused_fwd_ref``, ``vq_codebook_grad_ref``).
 
-The CUDA sums (Σ‖q − x‖² and dcb) are deterministic: per-block partials
-reduced in block order. They are not taken in the TPU kernel's order.
+The CUDA sums are deterministic and not taken in the TPU kernel's order:
+Σ‖q − x‖² from per-block partials reduced in block order, dcb in the order of
+``ops/segment_sum.py`` (``codebook_grad_order_ref``), the kernel of
+``csrc/segment_sum.cuh``.
 """
 from __future__ import annotations
 
@@ -17,11 +19,23 @@ import collections
 
 import torch
 
+from msla_tpu_torch.ops import segment_sum
 from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
                                        runs_plain, sm_count, stream_of)
 from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref, search_smem_bytes
 
-_GRAD_STAGE_BYTES = 8 * 64 * 16  # the codebook-gradient kernel's per-warp row staging
+
+def grad_smem_bytes(k: int) -> int:
+    """Shared memory of the codebook-gradient kernel at K codes
+    (``csrc/segment_sum.cuh``): the (K + 1, 64) fp32 accumulator and three
+    TMA stages of 64 rows; K up to 701 fits."""
+    return segment_sum.smem_bytes(k, split2=False)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes, as a
+    TMA copy needs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def count_outputs(k: int, dev: torch.device):
@@ -83,15 +97,17 @@ def vq_codebook_grad(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor
     n = g.shape[0]
     require("vq_codebook_grad", g, "g", (n, D))
     require("vq_codebook_grad", idx, "idx", (n,), torch.int32)
-    if k * (D + 4) * 4 + _GRAD_STAGE_BYTES > SMEM_BYTES:
-        raise ValueError(f"vq_codebook_grad: K={k} codes do not fit in shared memory")
+    if k < 1 or grad_smem_bytes(k) > SMEM_BYTES:
+        raise ValueError(f"vq_codebook_grad: K={k} codes do not fit in shared memory "
+                         f"(grad_smem_bytes)")
     dev = g.device
-    parts = sm_count(dev)
+    g, idx = aligned(g), aligned(idx)
+    clusters, rows = segment_sum.launch_layout("vq_codebook_grad", n, k, dev, split2=False)
     dcb = torch.empty((k, D), dtype=torch.float32, device=dev)
-    partials = torch.empty((parts, k, D), dtype=torch.float32, device=dev)  # scratch
+    partials = torch.empty((clusters, k, D), dtype=torch.float32, device=dev)  # scratch
     check("vq_codebook_grad", kernel("vq_codebook_grad")(
-        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), parts, n, k,
-        stream_of(g)))
+        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), clusters, rows, n,
+        k, stream_of(g)))
     count_launch(vq_codebook_grad, torch.float32)
     return dcb
 

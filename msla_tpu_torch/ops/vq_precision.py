@@ -23,11 +23,12 @@ import collections
 
 import torch
 
+from msla_tpu_torch.ops import segment_sum
 from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
-                                       runs_plain, sm_count, stream_of)
+                                       runs_plain, stream_of)
 from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms
-from msla_tpu_torch.ops.vq_fused import (count_outputs, vq_codebook_grad, vq_codebook_grad_ref,
-                                         vq_fused_fwd)
+from msla_tpu_torch.ops.vq_fused import (aligned, count_outputs, vq_codebook_grad,
+                                         vq_codebook_grad_ref, vq_fused_fwd)
 
 DIST_MODES = ("f32", "bf16", "split3")
 QUANT_MODES = ("f32", "split2")
@@ -35,7 +36,6 @@ GRAD_MODES = ("f32", "split2")
 #: the (dist_mode, quant_mode) pairs csrc/vq_precision.cu is compiled for: the
 #: ones the measurement tool runs besides f32/f32; values are its mode codes
 COMPILED = {("bf16", "split2"): (0, 1), ("bf16", "f32"): (0, 0), ("split3", "split2"): (1, 1)}
-_BWD_STAGE_BYTES = 8 * 64 * 16  # the split2 gradient kernel's per-warp row staging
 _BN = 256                       # the forward's codes a product tile: K is padded to a multiple
 _X_TILES = 2 * 8 * 16 * D * 4   # the forward's x tiles: two of 16 fp32 rows for each of 8 warps
 
@@ -69,6 +69,14 @@ def check_codes(k: int, dist_mode: str, quant_mode: str) -> None:
         raise ValueError(f"vq_precision_fwd: the kernel takes a multiple of 64 codes whose "
                          f"bf16 codebook fits in shared memory, got K={k} for "
                          f"{dist_mode}/{quant_mode}")
+
+
+def bwd_smem_bytes(k: int) -> int:
+    """Shared memory of the split2 gradient kernel at K codes
+    (``csrc/segment_sum.cuh``): the (K + 1, 64) fp32 accumulator (the hi and
+    lo sums of the block's 32 columns) and three TMA stages of 128 rows; K up
+    to 689 fits."""
+    return segment_sum.smem_bytes(k, split2=True)
 
 
 def split_bf16(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -168,15 +176,17 @@ def vq_precision_bwd(g: torch.Tensor, idx: torch.Tensor, mode: str,
     n = g.shape[0]
     require("vq_precision_bwd", g, "g", (n, D))
     require("vq_precision_bwd", idx, "idx", (n,), torch.int32)
-    if 2 * k * (D // 2 + 4) * 4 + _BWD_STAGE_BYTES > SMEM_BYTES:
-        raise ValueError(f"vq_precision_bwd: K={k} codes do not fit in shared memory")
+    if k < 1 or bwd_smem_bytes(k) > SMEM_BYTES:
+        raise ValueError(f"vq_precision_bwd: K={k} codes do not fit in shared memory "
+                         f"(bwd_smem_bytes)")
     dev = g.device
-    parts = max(1, sm_count(dev) // 2)
+    g, idx = aligned(g), aligned(idx)
+    clusters, rows = segment_sum.launch_layout("vq_precision_bwd_split2", n, k, dev, split2=True)
     dcb = torch.empty((k, D), dtype=torch.float32, device=dev)
-    partials = torch.empty((2, parts, k, D), dtype=torch.float32, device=dev)  # scratch
+    partials = torch.empty((clusters, 2, k, D), dtype=torch.float32, device=dev)  # scratch
     check("vq_precision_bwd", kernel("vq_precision_bwd_split2")(
-        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), parts, n, k,
-        stream_of(g)))
+        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), clusters, rows, n,
+        k, stream_of(g)))
     count_launch(vq_precision_bwd, torch.float32)
     return dcb
 

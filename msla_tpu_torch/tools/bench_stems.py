@@ -1,12 +1,14 @@
-"""Where the tensor-core kernels' time goes: the fp32 stems (K1/K1b
+"""Where the hand-written kernels' time goes: the fp32 stems (K1/K1b
 ``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``), the VQ search (K3
 ``csrc/nearest_codes.cu``, #4 ``csrc/vq_fused.cu``'s forward and #8
-``csrc/vq_lean.cu``, all on ``csrc/vq_search.cuh``), in 3xTF32, and #9's
+``csrc/vq_lean.cu``, all on ``csrc/vq_search.cuh``), in 3xTF32, #9's
 forwards (``csrc/vq_precision.cu``: bf16/split2, bf16/f32 and split3/split2
-on bf16 ``wgmma``), timed on the card at a batch-64 call's shapes (the stems;
-N = 704,000 rows against 512 codes for the VQ kernels), beside builds of the
-same sources with part of the work taken out, or another layout, and of
-another commit's sources:
+on bf16 ``wgmma``) and the two segment sums (#5 ``csrc/vq_fused.cu``'s
+codebook gradient and #9's split2 gradient, both ``csrc/segment_sum.cuh``, on
+uniform ids and on one code for every row), timed on the card at a batch-64
+call's shapes (the stems; N = 704,000 rows against 512 codes for the VQ
+kernels), beside builds of the same sources with part of the work taken out,
+or another layout, and of another commit's sources:
 
     python -m msla_tpu_torch.tools.bench_stems [--previous DIR]     # on the card
 
@@ -26,9 +28,15 @@ another commit's sources:
 - "no fold" (#9): the products without the fold of their distances into the
   running minimum (the ids are wrong and not checked);
 - "no q" (#9): everything but the stores of q (not checked);
+- "stream only" (#5, #9 split2): ``segment_sum.cuh`` without the calls of
+  ``sort_stage``, ``walk`` and ``add_group``: the TMA ring of rows and ids
+  with its barriers and turns, the clusters' sums and the last kernel, but
+  no sort and no sums of rows: the stream's share of the time (not checked);
 - "previous", with ``--previous DIR`` (another commit's
   ``msla_tpu_torch/csrc``, such as the parent's unpacked by ``git archive``):
-  that commit's sources, checked as "kernel" is against the plain versions.
+  that commit's sources, checked as "kernel" is against the plain versions
+  (the segment sums within 1e-5 of the largest |entry| of fp64's; "kernel"'s
+  bit for bit against ``codebook_grad_order_ref`` at the card's grid).
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
 nvcc each, in parallel, under build/bench_stems/. Its entry points run on the
 same operands (the stems' weights as torch initialises the model's convs,
@@ -52,8 +60,9 @@ import torch
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops import (_build, conv_stem, conv_stem_ref, deconv_stem, deconv_stem_ref,
-                                nearest_codes, nearest_codes_ref, vq_fused_fwd, vq_lean_fwd,
-                                vq_precision_fwd, vq_precision_fwd_ref)
+                                nearest_codes, nearest_codes_ref, segment_sum, vq_codebook_grad,
+                                vq_fused_fwd, vq_lean_fwd, vq_precision_bwd, vq_precision_fwd,
+                                vq_precision_fwd_ref)
 from msla_tpu_torch.ops._build import check, stream_of
 from msla_tpu_torch.ops.nearest_codes import code_norms
 from msla_tpu_torch.ops.vq_fused import count_outputs
@@ -72,20 +81,32 @@ ENTRY = {"conv_stem": "conv_stem_fwd", "deconv_stem": "deconv_stem_fwd",
          "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd",
          "vq_lean": "vq_lean_fwd", "vq_precision": "vq_precision_fwd"}
 
-#: the probes' edits: (header, text, replacement, the sources they are built for)
+#: the probes' edits: (header, its (text, replacement) pairs, the sources they
+#: are built for)
 PROBES = {
     "no split": ("tf32_split.cuh",
-                 "  const float f = __uint_as_float(x);\n  hi = tf32(f);\n"
-                 "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n", TF32),
+                 (("  const float f = __uint_as_float(x);\n  hi = tf32(f);\n"
+                   "  lo = tf32(f - __uint_as_float(hi));\n", "  hi = x;\n  lo = x;\n"),), TF32),
     "one product": ("tf32_split.cuh",
-                    "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", "", TF32),
-    "A streamed": ("vq_search.cuh", "constexpr bool kHoldA = D <= 64;",
-                   "constexpr bool kHoldA = false;", SEARCH),
-    "no fold": ("vq_precision.cu", "      mlm::fold_tile<false>(d", "      if (0) mlm::fold_tile<false>(d",
+                    (("  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),), TF32),
+    "A streamed": ("vq_search.cuh",
+                   (("constexpr bool kHoldA = D <= 64;", "constexpr bool kHoldA = false;"),),
+                   SEARCH),
+    "no fold": ("vq_precision.cu",
+                (("      mlm::fold_tile<false>(d", "      if (0) mlm::fold_tile<false>(d"),),
                 ("vq_precision",)),
-    "no q": ("vq_precision.cu", "    if (row < n) q4[row * (D / 4) + l] = e;\n", "",
+    "no q": ("vq_precision.cu", (("    if (row < n) q4[row * (D / 4) + l] = e;\n", ""),),
              ("vq_precision",)),
+    "stream only": ("segment_sum.cuh",
+                    (("      sort_stage<SPLIT2>(", "      if (0) sort_stage<SPLIT2>("),
+                     ("        walk<SPLIT2>(", "        if (0) walk<SPLIT2>("),
+                     ("        add_group(", "        if (0) add_group(")),
+                    ("vq_fused", "vq_precision")),
 }
+#: the segment sums' entry points by source: (label, symbol, split2)
+SEGMENT_SUMS = {"vq_fused": ("#5", "vq_codebook_grad", False),
+                "vq_precision": ("#9 split2", "vq_precision_bwd_split2", True)}
+SEGMENT_BUILDS = ("kernel", "previous", "stream only")  # the builds that time them
 
 
 def _sources(name: str, csrc: Path) -> Path:
@@ -96,26 +117,28 @@ def _sources(name: str, csrc: Path) -> Path:
     for f in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]:
         shutil.copy(f, dst)
     if name in PROBES:
-        header, old, new, _ = PROBES[name]
+        header, edits, _ = PROBES[name]
         path = dst / header
         text = path.read_text()
-        if old not in text:
-            raise RuntimeError(f"bench_stems: {header} no longer holds the code the "
-                               f"{name!r} probe edits")
-        path.write_text(text.replace(old, new))
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"bench_stems: {header} no longer holds the code the "
+                                   f"{name!r} probe edits, once")
+            text = text.replace(old, new)
+        path.write_text(text)
     return dst
 
 
-def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes._CFuncPtr]:
-    """Each build's entry points of its sources, all compiled at once."""
+def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes.CDLL]:
+    """Each build's libraries of its sources, all compiled at once."""
     jobs = {}
     for name, src in builds.items():
-        for source in PROBES[name][3] if name in PROBES else SOURCES:
+        for source in PROBES[name][2] if name in PROBES else SOURCES:
             lib = src / f"{source}.so"
             jobs[name, source] = lib, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{source}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
+    libs = {}
     for (name, source), (lib, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -124,10 +147,59 @@ def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes._CFuncPtr]:
             print(f"[bench_stems] {name} {source}.cu ptxas:\n" + "\n".join(
                 line for line in log.splitlines() if "registers" in line or "spill" in line),
                 flush=True)
-        fn = getattr(ctypes.CDLL(str(lib)), ENTRY[source])
-        fn.argtypes, fn.restype = _build.SIGNATURES[ENTRY[source]][1], ctypes.c_int
-        fns[name, source] = fn
-    return fns
+        libs[name, source] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def entry(lib: ctypes.CDLL, symbol: str, argtypes=None) -> ctypes._CFuncPtr:
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes or _build.SIGNATURES[symbol][1]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def segment_sum_cases(name: str, lib: ctypes.CDLL, source: str, g: torch.Tensor, ids: dict):
+    """(kernel label, launch, check) of a build's segment sum on each kind of
+    ids: the port's entry point, or that of a commit from before
+    ``csrc/segment_sum.cuh`` (no ``*_clusters`` entry: one (K, 64) partial per
+    SM, or per half of the SMs for split2). The second branch serves only the
+    comparison with the kernels that header replaced: delete it once every
+    ``--previous`` tree holds the header."""
+    label, symbol, split2 = SEGMENT_SUMS[source]
+    dev, n = g.device, g.shape[0]
+    dcb = torch.empty((K, 64), device=dev)
+    fp64 = {kind: segment_sum.segment_sum_fp64(g, i, K, split2) for kind, i in ids.items()}
+    if hasattr(lib, f"{symbol}_clusters"):
+        fn = entry(lib, symbol)
+        clusters, rows = segment_sum.launch_layout(symbol, n, K, dev, split2)
+        partials = torch.empty((clusters, 1 + split2, K, 64), device=dev)
+        args = (clusters, rows, n, K)
+    else:
+        P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = entry(lib, symbol, [P, P, P, P, I32, I64, I32, P])
+        parts = _build.sm_count(dev)
+        partials = torch.empty((2, parts, K, 64), device=dev)
+        args = (parts if not split2 else max(1, parts // 2), n, K)
+    wrapper = vq_codebook_grad if not split2 else (
+        lambda g, i, k: vq_precision_bwd(g, i, "split2", k))
+    for kind, i in ids.items():
+        def run(i=i):
+            check(name, fn(g.data_ptr(), i.data_ptr(), dcb.data_ptr(), partials.data_ptr(),
+                           *args, stream_of(g)))
+
+        def verify(i=i, kind=kind):
+            err = (dcb.double() - fp64[kind]).abs().max().item()
+            if err > 1e-5 * fp64[kind].abs().max().item():
+                raise RuntimeError(f"bench_stems: {name} {label} on {kind} ids: max abs "
+                                   f"error {err:.3e} against fp64")
+            if name == "kernel":
+                blocks = args[0] * segment_sum.CLUSTER
+                want = segment_sum.codebook_grad_order_ref(g, i, K, blocks, split2=split2)
+                if not (torch.equal(dcb, want) and torch.equal(dcb, wrapper(g, i, K))):
+                    raise RuntimeError(f"bench_stems: the {source} build's {label} differs "
+                                       f"from the wrapper's kernel or from its order")
+
+        yield f"{label} {kind}", run, verify
 
 
 def operands(dev: torch.device):
@@ -180,7 +252,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     builds = {name: _sources(name, csrc) for name in ("kernel", *PROBES)}
     if previous is not None:
         builds["previous"] = _sources("previous", Path(previous))
-    fns = build(builds)
+    libs = build(builds)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     k1, k2, (flat, cb) = operands(dev)
@@ -203,10 +275,19 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     counts, sq, counts_i, sq_part, parts = count_outputs(K, dev)
     hi, lo = split_bf16(cb)
     checked = ("kernel", "previous", "A streamed")
+    grad = torch.randn((N, 64), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    grad_ids = {"uniform": torch.randint(0, K, (N,), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev, dtype=torch.int32),
+        "one code": torch.full((N,), 7, device=dev, dtype=torch.int32)}
 
     def cases(name: str, source: str):
         """(kernel label, launch, check after the first launch) of a build's source."""
-        fn = fns[name, source]
+        if name in SEGMENT_BUILDS and source in SEGMENT_SUMS:
+            yield from segment_sum_cases(name, libs[name, source], source, grad, grad_ids)
+        if name == "stream only":
+            return
+        fn = entry(libs[name, source], ENTRY[source])
         if source in STEMS:
             for with_hidden in (False, True):
                 a = args[source]
@@ -302,7 +383,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     times: dict[str, dict[str, list[float]]] = {}
     for rnd, order in enumerate((list(builds), list(builds)[::-1])):
         for name in order:
-            for source in PROBES[name][3] if name in PROBES else SOURCES:
+            for source in PROBES[name][2] if name in PROBES else SOURCES:
                 for kernel, run, verify in cases(name, source):
                     run()
                     torch.cuda.synchronize()
