@@ -120,12 +120,28 @@ Phases, each of which raises (exit code != 0) when its check fails:
      EarlyStopping and a CSVLogger in a temporary default_root_dir; the
      launch counts read right after each fit must be exactly K1b/K2b in bf16
      and #5 in fp32 once a step, #4 once a batch, K1/K2 in bf16 once a
-     validation batch; the checkpoints and metrics.csv must exist; a resume
+     validation batch, and K1, #4 and K2 once more for the audio demo of
+     the first; the checkpoints and metrics.csv must exist; a resume
      by fit(ckpt_path="last") must stop at the saved step and epoch with the
      saved weights bit for bit, and go on; the fp32-vs-bf16 code flips of
      the first batch's latents; each batch's step device time and parts,
      samples/s through fit's loop and peak memory;
- 22. one JSON line with every kernel's numbers, then the device line.
+ 22. the command line on the card, from WAV files on disk: a Slakh-shaped
+     fixture (4 stems a track, 16-bit PCM at Slakh's 44.1 kHz, enough for 2
+     train batches and 1 validation and 1 test batch of 64 frames of 2 s)
+     cleaned by the port's SlakhDataset (decode and 44,100 → 22,000 Hz
+     resampling through the native IO library; timed), the loader's
+     batch-64 assembly timed with num_workers 1 and 0, phase 10's bert-base
+     weights written as best_bert.ckpt, then msla_tpu_torch.main.main with
+     train_vqvae=True (configs/train.yaml's full-width VQ-VAE at batch 64,
+     masking on, a CSV logger) in process: fit, test, generate and
+     visualize each timed on the host clock and counted; K1b, K2b, #4, #5
+     (fit), K1, K2 (test), K1, K3 (visualize), K1, K3, #6, #7 (generate)
+     must launch in fp32; the checkpoints, codebook CSV, demo and generated
+     WAVs and the 15 SVGs must exist and test/loss be finite; fit's
+     samples/s and device busy share (a CUDA-only torch.profiler trace of
+     fit) printed beside phase 8's;
+ 23. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -894,8 +910,8 @@ def synthetic_stems(n_batches: int, seed: int, batch: int = BATCH) -> list[np.nd
 
 
 def in_memory_datamodule(train: list, val: list, masking: bool = True, batch: int = BATCH):
-    """The port's SlakhDataModule with in-memory loaders (its WAV loaders are
-    not ported yet)."""
+    """The port's SlakhDataModule with in-memory loaders of synthetic batches:
+    the kernels' phases need no WAV files (phase 22 reads them)."""
     from msla_tpu_torch.data.datamodule import SlakhDataModule
 
     class InMemory(SlakhDataModule):
@@ -2823,14 +2839,16 @@ BF16_TRAIN_BATCHES, BF16_VAL_BATCHES = 4, 2   # each bf16 Trainer.fit's batches
 
 
 def bf16_fit_launches(steps: int, val: int) -> dict:
-    """The launches of a bf16 fit of ``steps`` train steps and ``val``
-    validation batches, by wrapper and operand type: K1b and K2b in bf16 and
-    #5 in fp32 once a step, #4 in fp32 once a batch (validation runs its
-    forward too), K1 and K2 in bf16 once a validation batch; nothing else."""
+    """The launches of a one-epoch bf16 fit of ``steps`` train steps and
+    ``val`` validation batches with a logger, by wrapper and operand type:
+    K1b and K2b in bf16 and #5 in fp32 once a step, #4 in fp32 once a batch
+    (validation runs its forward too), K1 and K2 in bf16 once a validation
+    batch; and the audio demo's forward of one row of the first validation
+    batch (the trainer has a logger), K1, #4 and K2 once more; nothing else."""
     bf, f32 = str(torch.bfloat16), str(torch.float32)
     return {"conv_stem_save_hidden": {bf: steps}, "deconv_stem_save_hidden": {bf: steps},
-            "vq_codebook_grad": {f32: steps}, "vq_fused_fwd": {f32: steps + val},
-            "conv_stem": {bf: val}, "deconv_stem": {bf: val}}
+            "vq_codebook_grad": {f32: steps}, "vq_fused_fwd": {f32: steps + val + 1},
+            "conv_stem": {bf: val + 1}, "deconv_stem": {bf: val + 1}}
 
 
 def code_flips(task16, dm, raw: np.ndarray) -> dict:
@@ -2979,6 +2997,191 @@ class Phases:
         return out
 
 
+CLI_SR = 44100                        # Slakh's own rate: the cleaning pass resamples to SR
+CLI_TRACK_S = 86                      # 66 s after the 10 s trims: 65 frames of 2 s a track
+CLI_TRACKS = {"train": 2, "validation": 1, "test": 1}  # 130 / 65 / 65 frames: 2 / 1 / 1 batches
+CLI_SVGS = tuple(f"{n}_{kind}.svg" for n in ("bass", "drums", "guitar", "piano", "song")
+                 for kind in ("spectrogram", "waveform")) + tuple(
+    f"{n}_embeddings_quantized_representation.svg"
+    for n in ("bass", "drums", "guitar", "piano")) + ("codebook.svg",)
+CLI_STAGE_KERNELS = {
+    "fit": ("conv_stem_save_hidden", "deconv_stem_save_hidden", "vq_fused_fwd",
+            "vq_codebook_grad"),
+    "test": ("conv_stem", "deconv_stem", "vq_fused_fwd"),
+    "visualize": ("conv_stem", "nearest_codes"),
+    "generate": ("conv_stem", "nearest_codes", "mlm_argmax", "flash_attn"),
+}
+
+
+def busy_ms(events) -> float:
+    """The union of the device intervals of a trace's CUDA events, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def phase_cli(bert_task, kernels, smi: str, fp32_training: dict) -> dict:
+    """The port's command line in process, from a fixture of WAV files."""
+    import functools
+    import os
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.data.dataset import SlakhDataset, make_fixture_dataset
+    from msla_tpu_torch.data.loader import DataLoader
+    from msla_tpu_torch.ops._build import launch_count
+    from msla_tpu_torch.train.checkpoint import save_checkpoint
+    from msla_tpu_torch.train.trainer import Trainer
+
+    root = OUT_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    slakh, project = root / "slakh", root / "project"
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(CLI_TRACKS.items()):
+        make_fixture_dataset(slakh / split, n_tracks=n, seconds=CLI_TRACK_S, sr=CLI_SR, seed=i)
+    write_s = time.perf_counter() - t0
+
+    # the cleaning pass: the first build of each split (the CLI reuses its caches)
+    t0 = time.perf_counter()
+    data = {split: SlakhDataset(str(slakh / split), target_sample_duration=FRAME // SR,
+                                target_sample_rate=SR, max_duration=120,
+                                maximum_dataset_size=150000) for split in CLI_TRACKS}
+    clean_s = time.perf_counter() - t0
+    frames = {split: len(ds) for split, ds in data.items()}
+    if frames["train"] < 2 * BATCH or frames["validation"] < BATCH or frames["test"] < BATCH:
+        fail(f"cli: the fixture gives {frames} frames")
+    if data["train"][0].shape != (4, FRAME) or data["train"][0].dtype != np.float32:
+        fail(f"cli: a frame of {data['train'][0].shape} {data['train'][0].dtype}")
+    loader_ms = {}
+    for workers in (1, 0):
+        loader = DataLoader(data["train"], batch_size=BATCH, shuffle=True, drop_last=True,
+                            num_workers=workers, seed=0)
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            runs.append((time.perf_counter() - t0) / n * 1e3)
+        loader_ms[f"num_workers={workers}"] = statistics.median(runs)
+
+    best = project / "logs" / "best_checkpoint"
+    save_checkpoint(best / "best_bert.ckpt", state_dict=bert_task.net.state_dict())
+
+    stages: dict[str, dict] = {}
+
+    def staged(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            before = launch_counts(kernels, {k.__name__: torch.float32 for k in kernels})
+            t0 = time.perf_counter()
+            if name == "fit":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fn(*args, **kw)
+                    torch.cuda.synchronize()
+            else:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            after = launch_counts(kernels, {k.__name__: torch.float32 for k in kernels})
+            stages[name] = dict(s=seconds, launches={k: after[k] - before[k] for k in after
+                                                     if after[k] > before[k]})
+            if name == "fit":
+                trainer = args[0]
+                cuda = [e for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA]
+                stages[name].update(steps=trainer.global_step,
+                                    samples_per_s=trainer.global_step * BATCH * FRAME / seconds,
+                                    device_busy_ms=busy_ms(cuda),
+                                    device_busy_share=busy_ms(cuda) / 1e3 / seconds)
+            return out
+        return wrapper
+
+    saved = {"fit": Trainer.fit, "test": Trainer.test, "generate": cli.generate,
+             "visualize": cli.visualize}
+    env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(slakh), PROJECT_ROOT=str(project))
+    Trainer.fit, Trainer.test = staged("fit", saved["fit"]), staged("test", saved["test"])
+    cli.generate, cli.visualize = (staged("generate", saved["generate"]),
+                                   staged("visualize", saved["visualize"]))
+    reset_counts(kernels)
+    try:
+        t0 = time.perf_counter()
+        test_loss = cli.main(["train_vqvae=True", "trainer.max_epochs=1", "logger=csv",
+                              "extras.print_config=False", "+optimized_metric=test/loss"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        Trainer.fit, Trainer.test = saved["fit"], saved["test"]
+        cli.generate, cli.visualize = saved["generate"], saved["visualize"]
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = launch_counts(kernels)
+
+    missing = [s for s in CLI_STAGE_KERNELS if s not in stages]
+    if missing:
+        fail(f"cli: stages that did not run: {missing}")
+    for stage, names in CLI_STAGE_KERNELS.items():
+        absent = [n for n in names if not stages[stage]["launches"].get(n)]
+        if absent:
+            fail(f"cli {stage}: fp32 kernels that never launched: {absent} "
+                 f"({stages[stage]['launches']})")
+    if test_loss is None or not np.isfinite(test_loss):
+        fail(f"cli: test/loss {test_loss}")
+    run_dirs = sorted((project / "logs" / "train" / "runs").glob("*"))
+    if len(run_dirs) != 1:
+        fail(f"cli: run directories {run_dirs}")
+    ckpt = run_dirs[0] / "checkpoint"
+    wavs = [f"{kind}_{n}.wav" for kind in ("original", "generated")
+            for n in ("bass", "drums", "guitar", "piano", "full_song")]
+    wavs += ["random_instrument.wav", "bert_generated_during_evaluation.wav"]
+    want = ([best / n for n in ("best_vqvae.ckpt", "last.ckpt", "codebook.csv")]
+            + [ckpt / n for n in wavs] + [project / "logs" / "plot_dir" / n for n in CLI_SVGS]
+            + [run_dirs[0] / "csv" / "metrics.csv", run_dirs[0] / "train.log"])
+    absent = [str(p.relative_to(project)) for p in want if not p.is_file()]
+    if absent:
+        fail(f"cli: files not written: {absent}")
+    codebook = np.loadtxt(best / "codebook.csv", delimiter=",", skiprows=1)
+    if codebook.shape != (MODEL["num_embedding"], MODEL["embedding_dim"]):
+        fail(f"cli: codebook CSV of shape {codebook.shape}")
+    from msla_tpu_torch.data.wavio import read_wav
+
+    generated, rate = read_wav(ckpt / "bert_generated_during_evaluation.wav")
+    if rate != SR or generated.shape != (1, FRAME) or not np.isfinite(generated).all():
+        fail(f"cli: generated WAV {generated.shape} at {rate} Hz")
+
+    result = dict(frames=frames, fixture_write_s=write_s, clean_s=clean_s,
+                  loader_ms_per_batch64=loader_ms, cli_s=cli_s, test_loss=test_loss,
+                  launches=counts, stages=stages,
+                  phase8_samples_per_s=fp32_training["samples_per_s"],
+                  phase8_device_busy_share=fp32_training["device_busy_share"])
+    fit = stages["fit"]
+    print(f"[cli] {smi}: cleaning pass (first build of the three splits, {sum(frames.values())} "
+          f"frames from {sum(CLI_TRACKS.values())} tracks at {CLI_SR} Hz) {clean_s:.3f} s",
+          flush=True)
+    print(f"[cli] {smi}: loader batch-64 assembly {loader_ms} ms a batch", flush=True)
+    print(f"[cli] {smi}: fit {fit['steps']} steps in {fit['s']:.3f} s, "
+          f"{fit['samples_per_s']:.4g} samples/s, device busy {fit['device_busy_share']:.4f} "
+          f"(phase 8, in-memory loader: {fp32_training['samples_per_s']:.4g} samples/s, busy "
+          f"{fp32_training['device_busy_share']:.4f})", flush=True)
+    print(f"[cli] {smi}: test {stages['test']['s']:.3f} s, visualize "
+          f"{stages['visualize']['s']:.3f} s, generate {stages['generate']['s']:.3f} s; "
+          f"main() {cli_s:.3f} s; test/loss {test_loss:.5f}", flush=True)
+    print(f"[cli] {json.dumps(result)}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -3076,6 +3279,11 @@ def main() -> int:
     bf16_gradients = phase("20 bf16 gradients", phase_bf16_gradients, task16, task, train[0])
     bf16_training = phase("21 bf16 training path", phase_bf16_training, task16, KERNELS,
                           training)
+    # 22. the command line on the card, from WAV files on disk
+    cli = phase("22 command line", phase_cli, bert_task, KERNELS, smi, training)
+    for k in report + train_report + bert_report:
+        k["cli_launches"] = cli["launches"].get(k["name"], 0)
+
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
         name = k["name"].split("[")[0]
@@ -3091,7 +3299,8 @@ def main() -> int:
                       "bf16_separation": bf16_sep, "bf16_separation_cpu_vs_card": bf16_sep_cpu,
                       "bf16_audio_bert_serving": bf16_bert,
                       "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu,
-                      "bf16_gradients": bf16_gradients, "bf16_training": bf16_training}),
+                      "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
+                      "cli": cli}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report}), flush=True)

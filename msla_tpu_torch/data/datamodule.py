@@ -1,20 +1,21 @@
-"""Slakh datamodule, its device-side half (port of msla_tpu/data/datamodule.py).
+"""Slakh datamodule (port of msla_tpu/data/datamodule.py; reference:
+src/data/datamodule.py:14-119).
 
-The constructor takes the JAX package's arguments. ``train_transform`` (the
-masking augment) and ``on_after_batch_transfer`` (the mixture broadcast) run
-on the batch once it is on the device. The ``*_dataloader`` methods need the
-WAV dataset path (dataset, loader, WAV reading, resampling), which is not
-ported yet: they raise. Until then a caller subclasses this module and returns
-its own loaders, any sized iterables of (B, 4, T) float32 stem batches, as the
-Trainer asks no more of them.
+The loaders are the JAX package's: the train split shuffled with
+``drop_last``, validation and test with ``drop_last``, predict at batch 1;
+each builds its ``SlakhDataset`` when called, and yields numpy batches of
+(B, 4, T) stems, which the Trainer copies to the device one step ahead.
+``train_transform`` (the masking augment) and ``on_after_batch_transfer``
+(the mixture broadcast) run on the batch once it is on the device. One
+process reads all of the data (``process_index`` 0 of 1) until the
+parallel opt-ins (ROADMAP.md queue item 7).
 """
 from __future__ import annotations
 
 import torch
 
-_DATA_PATH = ("the WAV dataset path (dataset, loader, WAV reading, resampling) waits "
-              "for ROADMAP.md queue item 3, the data path and CLI; subclass "
-              "SlakhDataModule with in-memory loaders meanwhile")
+from msla_tpu_torch.data.dataset import SlakhDataset
+from msla_tpu_torch.data.loader import DataLoader
 
 
 class SlakhDataModule:
@@ -53,17 +54,33 @@ class SlakhDataModule:
         self.masking = masking
         self.seed = seed
 
-    def train_dataloader(self):
-        raise NotImplementedError(_DATA_PATH)
+    def create_dataset(self, path: str, masking: bool = False) -> SlakhDataset:
+        return SlakhDataset(path,
+                            target_sample_rate=self.target_sample_rate,
+                            target_sample_duration=self.target_sample_duration,
+                            max_duration=self.max_duration,
+                            maximum_dataset_size=self.maximum_dataset_size,
+                            masking=masking)
 
-    def val_dataloader(self):
-        raise NotImplementedError(_DATA_PATH)
+    def _loader(self, dataset: SlakhDataset, **kw) -> DataLoader:
+        return DataLoader(dataset, num_workers=self.num_workers, seed=self.seed,
+                          process_index=0, process_count=1, **kw)
 
-    def test_dataloader(self):
-        raise NotImplementedError(_DATA_PATH)
+    def train_dataloader(self) -> DataLoader:
+        return self._loader(self.create_dataset(self.train_dir, masking=self.masking),
+                            batch_size=self.batch_size, shuffle=True, drop_last=True)
 
-    def predict_dataloader(self):
-        raise NotImplementedError(_DATA_PATH)
+    def val_dataloader(self) -> DataLoader:
+        return self._loader(self.create_dataset(self.val_dir),
+                            batch_size=self.batch_size, shuffle=False, drop_last=True)
+
+    def test_dataloader(self) -> DataLoader:
+        return self._loader(self.create_dataset(self.test_dir),
+                            batch_size=self.batch_size, shuffle=False, drop_last=True)
+
+    def predict_dataloader(self) -> DataLoader:
+        return self._loader(self.create_dataset(self.test_dir),
+                            batch_size=1, shuffle=False, drop_last=False)
 
     def train_transform(self, batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """Train-only masking augmentation, on the device (the reference applies

@@ -1,0 +1,211 @@
+"""Command line of the port (after main.py; reference: src/main.py:214-241).
+
+    python -m msla_tpu_torch train_vqvae=True
+    python -m msla_tpu_torch debug=default train_vqvae=True
+
+Composes the repository's configs/train.yaml as it is (``config/``, whose
+``instantiate`` maps the JAX package's targets to the port's), trains on the
+train_vqvae flag, tests, then generates and visualizes from the checkpoints
+under ``paths.best_checkpoint_dir``, and returns ``optimized_metric``.
+
+The device comes from ``trainer.accelerator``: "cpu" runs the plain versions
+on the CPU, any other value the kernels on the card, which must be present.
+Checkpoints are the port's ``torch.save`` files (``train/checkpoint.py``).
+``generate`` and ``visualize`` skip, with a warning, when a checkpoint they
+need is missing, and when a checkpoint does not fit the config (its keys or
+shapes); any other error, a kernel's on the card included, raises (ROADMAP.md
+§3). Transformer and Audio-BERT training and multirun sweeps raise naming
+their ROADMAP.md items.
+"""
+from __future__ import annotations
+
+import random
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from msla_tpu_torch.config import (ConfigNode, compose, instantiate, setup_job_logging,
+                                   setup_root, setup_run_dir)
+from msla_tpu_torch.data.wavio import write_wav
+from msla_tpu_torch.train.checkpoint import load_checkpoint
+from msla_tpu_torch.utils.instantiators import instantiate_callbacks, instantiate_loggers
+from msla_tpu_torch.utils.plotting import (plot_codebook, plot_embeddings_from_quantized,
+                                           plot_spectrogram, plot_waveform)
+from msla_tpu_torch.utils.pylogger import RankedLogger
+from msla_tpu_torch.utils.util import extras, get_metric_value, task_wrapper
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
+INSTRUMENTS = ("bass", "drums", "guitar", "piano")
+
+log = RankedLogger(__name__, rank_zero_only=True)
+
+
+class CheckpointMismatch(RuntimeError):
+    """A checkpoint whose keys or shapes do not fit the configured task."""
+
+
+def seed_everything(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def device_of(cfg: ConfigNode) -> str:
+    return "cpu" if str(cfg.select("trainer.accelerator", "gpu")) == "cpu" else "cuda"
+
+
+def make_task(cfg: ConfigNode, name: str):
+    """``cfg.model.<name>`` on the run's device, its random init seeded by ``cfg.seed``."""
+    return instantiate(cfg.model[name], device=device_of(cfg), seed=int(cfg.get("seed") or 0))
+
+
+def restored_task(cfg: ConfigNode, name: str, ckpt: Path):
+    """``make_task`` with the weights of ``ckpt``; CheckpointMismatch when they
+    do not fit it."""
+    task = make_task(cfg, name)
+    state_dict = load_checkpoint(ckpt)["state_dict"]
+    try:
+        task.net.load_state_dict(state_dict)
+    except RuntimeError as err:  # load_state_dict's missing, unexpected or resized keys
+        raise CheckpointMismatch(f"{ckpt} does not fit the config: {err}") from err
+    return task
+
+
+def _make_trainer(cfg: ConfigNode, callbacks, logger, **overrides):
+    return instantiate(cfg.trainer, callbacks=callbacks, logger=logger,
+                       seed=cfg.get("seed") or 0, **overrides)
+
+
+@task_wrapper
+def train_vqvae(cfg: ConfigNode):
+    data_module = instantiate(cfg.data)
+    vqvae = make_task(cfg, "vqvae")
+    logger = instantiate_loggers(cfg.get("logger"))
+    callbacks = instantiate_callbacks(cfg.get("callbacks"))
+    trainer = _make_trainer(cfg, callbacks, logger)
+
+    object_dict = {"cfg": cfg, "datamodule": data_module, "model": vqvae,
+                   "callbacks": callbacks, "logger": logger, "trainer": trainer}
+
+    if cfg.train:
+        trainer.fit(vqvae, data_module, ckpt_path=cfg.get("ckpt_path"))
+    train_metrics = dict(trainer.callback_metrics)
+    if cfg.test:
+        trainer.test(vqvae, data_module, ckpt_path=cfg.get("ckpt_path"))
+    test_metrics = dict(trainer.callback_metrics)
+    return {**train_metrics, **test_metrics}, object_dict
+
+
+def _first_predict_batch(cfg: ConfigNode) -> np.ndarray:
+    data_module = instantiate(cfg.data, batch_size=1, masking=False)
+    return np.asarray(next(iter(data_module.predict_dataloader())))  # (1, 4, T)
+
+
+def visualize(cfg: ConfigNode) -> None:
+    """Plot suite on one predict sample (reference: src/main.py:166-181)."""
+    codebook_file = Path(str(cfg.paths.codebook_file))
+    best_vqvae = Path(f"{cfg.paths.best_checkpoint_dir}/best_vqvae.ckpt")
+    if not codebook_file.exists() or not best_vqvae.exists():
+        log.warning("visualize: skipping (codebook.csv or best_vqvae.ckpt missing)")
+        return
+
+    task = restored_task(cfg, "vqvae", best_vqvae)
+    instruments = _first_predict_batch(cfg)
+    mixed = instruments.squeeze(0).sum(axis=0).reshape(1, 1, -1)
+
+    plot_embeddings_from_quantized(cfg, (mixed, instruments), task)
+    plot_codebook(cfg)
+
+    plot_dir = str(cfg.paths.plot_dir)
+    sr = int(cfg.data.target_sample_rate)
+    for idx, name in enumerate(INSTRUMENTS):
+        plot_spectrogram(instruments[:, idx, :], plot_dir=plot_dir, sample_rate=sr, title=name)
+        plot_waveform(instruments[:, idx, :], plot_dir=plot_dir, sample_rate=sr, title=name)
+    plot_spectrogram(mixed.squeeze(0), plot_dir=plot_dir, sample_rate=sr, title="song")
+    plot_waveform(mixed.squeeze(0), plot_dir=plot_dir, sample_rate=sr, title="song")
+
+    svgs = sorted(Path(plot_dir).glob("*.svg"))
+    log.info(f"visualize: wrote {len(svgs)} SVGs to {plot_dir}: "
+             + ", ".join(f"{p.name} ({p.stat().st_size} B)" for p in svgs))
+
+
+def corrupt(instruments: np.ndarray) -> tuple[np.ndarray, int]:
+    """One random stem of (1, 4, T) stems replaced by uniform noise, drawn as
+    main.py draws it: ``random.randint(0, 3)``, then ``np.random.random``."""
+    idx = random.randint(0, 3)
+    instruments = instruments.copy()
+    instruments[:, idx, :] = np.random.random(instruments.shape[-1]).astype(np.float32)
+    return instruments, idx
+
+
+@torch.no_grad()
+def generate(cfg: ConfigNode) -> None:
+    """Audio-BERT generation (reference: src/main.py:184-211): corrupt one
+    random stem with noise, quantize through the VQ-VAE, reconstruct through
+    Audio-BERT, save both WAVs."""
+    best_dir = Path(str(cfg.paths.best_checkpoint_dir))
+    if not (best_dir / "best_bert.ckpt").exists() or not (best_dir / "best_vqvae.ckpt").exists():
+        log.warning("generate: skipping (best_bert.ckpt or best_vqvae.ckpt missing)")
+        return
+
+    instruments = _first_predict_batch(cfg)
+    bert = restored_task(cfg, "bert", best_dir / "best_bert.ckpt")
+    vqvae = restored_task(cfg, "vqvae", best_dir / "best_vqvae.ckpt")
+    instruments, idx = corrupt(instruments)
+
+    stems = torch.from_numpy(instruments).to(vqvae.device)
+    q = vqvae.get_quantized(stems)
+    output = bert.predict_step((q.encoding_indices, stems)).cpu().numpy()
+
+    ckpt_dir = Path(str(cfg.paths.checkpoint_dir))
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    sr = int(cfg.data.target_sample_rate)
+    write_wav(ckpt_dir / "random_instrument.wav", instruments[:, idx, :], sr)
+    write_wav(ckpt_dir / "bert_generated_during_evaluation.wav", output[:, idx, :], sr)
+    for name in ("random_instrument.wav", "bert_generated_during_evaluation.wav"):
+        p = ckpt_dir / name
+        log.info(f"generate: wrote {p} ({p.stat().st_size} bytes)")
+
+
+def run(cfg: ConfigNode) -> float | None:
+    """One composed-config run (the body of @hydra.main; reference: main.py:215-236)."""
+    extras(cfg)
+    if cfg.get("seed") is not None:
+        seed_everything(int(cfg.seed))
+
+    metric_dict: dict = {}
+    if cfg.train_vqvae:
+        metric_dict, _ = train_vqvae(cfg)
+    if cfg.train_transformer:
+        raise NotImplementedError("train_transformer=True: the transformer is ROADMAP.md "
+                                  "queue item 4")
+    if cfg.train_bert:
+        raise NotImplementedError("train_bert=True: Audio-BERT training is ROADMAP.md "
+                                  "queue item 5")
+
+    for enabled, step in ((cfg.get("generate", True), generate),
+                          (cfg.get("visualize", True), visualize)):
+        if not enabled:
+            continue
+        try:
+            step(cfg)
+        except CheckpointMismatch as err:
+            log.warning(f"{step.__name__} failed ({err}) — retrain or point paths at the "
+                        "matching artifacts — skipping")
+    return get_metric_value(metric_dict=metric_dict, metric_name=cfg.get("optimized_metric"))
+
+
+def main(argv: list[str] | None = None) -> float | None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "-m" in argv or "--multirun" in argv:
+        raise NotImplementedError("multirun sweeps are ROADMAP.md queue item 7 (the opt-ins: "
+                                  "sweep/)")
+    setup_root(__file__, indicator=".project-root")
+    cfg = compose(CONFIG_DIR, "train", argv)
+    if str(cfg.select("hydra.mode", "")) == "MULTIRUN":
+        raise NotImplementedError("hydra.mode MULTIRUN: sweeps are ROADMAP.md queue item 7 "
+                                  "(the opt-ins: sweep/)")
+    setup_run_dir(cfg)
+    setup_job_logging(cfg, str(cfg.task_name))
+    return run(cfg)

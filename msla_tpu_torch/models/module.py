@@ -8,6 +8,7 @@ the JAX package's names, without the ``params`` argument:
   validation_step/test_step → eval_metrics(batch, mode) -> metrics
   configure_optimizers      → configure_optimizer() -> torch.optim.Optimizer
   on_train_epoch_end        → on_train_epoch_end(trainer)
+  on_validation_batch_end   → on_validation_batch_end(trainer, batch, batch_idx)
 """
 from __future__ import annotations
 
@@ -37,4 +38,7 @@ class TaskModule:
         raise NotImplementedError
 
     def on_train_epoch_end(self, trainer) -> None:
+        pass
+
+    def on_validation_batch_end(self, trainer, batch: torch.Tensor, batch_idx: int) -> None:
         pass

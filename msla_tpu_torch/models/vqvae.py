@@ -3,18 +3,20 @@
 Training loss = embedding_loss + commitment_loss + Σᵢ L1(stemᵢ) (reference:
 vqvae.py:62-66); validation/test return the reference's metric catalog
 (vqvae.py:108-165); Adam(lr) (vqvae.py:168-171); the codebook is written as
-CSV each epoch (vqvae.py:239-243). With ``compute_dtype="bfloat16"`` the
-network runs in bf16 and the loss, metrics, VQ and Adam's parameters stay
-fp32, as in the JAX task. The audio demo of the first validation batch waits
-for the WAV writer (ROADMAP.md queue items 2 and 3).
+CSV each epoch (vqvae.py:239-243); the audio demo of the first validation
+batch is written when the trainer has a logger (vqvae.py:173-237). With
+``compute_dtype="bfloat16"`` the network runs in bf16 and the loss, metrics,
+VQ and Adam's parameters stay fp32, as in the JAX task.
 """
 from __future__ import annotations
 
+import random
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from msla_tpu_torch.models.demo import log_audio_demo
 from msla_tpu_torch.models.module import TaskModule
 from msla_tpu_torch.nn.vqvae_net import QuantizedOutput, VQVAENet
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
@@ -106,6 +108,18 @@ class VQVAETask(TaskModule):
         path.parent.mkdir(parents=True, exist_ok=True)
         header = ",".join(str(i) for i in range(codebook.shape[1]))
         np.savetxt(path, codebook, delimiter=",", header=header, comments="")
+
+    @torch.no_grad()
+    def on_validation_batch_end(self, trainer, batch: torch.Tensor, batch_idx: int) -> None:
+        """The audio demo of one random row of the first validation batch, the
+        raw (B, 4, T) stems on the device (reference: vqvae.py:173-237)."""
+        if batch_idx != 0 or not trainer.loggers:
+            return
+        index = random.randint(0, batch.shape[0] - 1)
+        stems = batch[index:index + 1]
+        decoded = self.net(stems.sum(dim=1, keepdim=True).expand_as(stems)).output[0]
+        log_audio_demo(trainer, self.hparams["checkpoint_dir"], int(self.hparams["sample_rate"]),
+                       stems[0].float().cpu().numpy(), decoded.float().cpu().numpy(), "vqvae")
 
     @torch.no_grad()
     def predict_step(self, batch) -> torch.Tensor:

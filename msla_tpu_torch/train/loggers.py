@@ -4,8 +4,9 @@
 does: a ``step`` column, then each metric's column in the order it first
 appeared; the header is rewritten when a new metric appears, and an existing
 file's header is adopted, so one file can span stages. The same calls give
-the same bytes. ``TensorBoardLogger`` waits: no configuration this port runs
-uses it.
+the same bytes; like the JAX CSVLogger it ignores the audio demo's
+``log_table`` and ``log_audio``. ``TensorBoardLogger`` waits: no
+configuration this port runs uses it.
 """
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ class Logger:
         raise NotImplementedError
 
     def log_hyperparams(self, params: Mapping[str, Any]) -> None:
+        pass
+
+    def log_audio(self, key: str, audio, sample_rate: int, step: int) -> None:
+        pass
+
+    def log_table(self, key: str, columns: list[str], data: list[list[Any]]) -> None:
         pass
 
     def finalize(self, status: str = "success") -> None:

@@ -1,14 +1,16 @@
-"""Training loop (port of msla_tpu/train/trainer.py: fit and validate).
+"""Training loop (port of msla_tpu/train/trainer.py: fit, validate and test).
 
-The constructor takes the JAX Trainer's keywords. What this slice runs:
-``fit`` and ``validate`` (each with ``ckpt_path``), ``save_checkpoint``;
-``max_epochs``, ``min_epochs``, ``limit_train_batches``, ``limit_val_batches``,
-``fast_dev_run``, ``log_every_n_steps``, ``enable_progress_bar``,
-``default_root_dir``, ``callbacks``, ``logger``, ``precision`` and ``seed``;
-epoch metrics as batch-size-weighted means of the per-batch means (Lightning's
-``on_epoch`` reduction), in ``callback_metrics``. A keyword whose feature waits
-for a later slice raises ``NotImplementedError`` naming its ROADMAP.md item
-when it is given anything but its default.
+The constructor takes the JAX Trainer's keywords. What the port runs:
+``fit``, ``validate`` and ``test`` (each with ``ckpt_path``),
+``save_checkpoint``; ``max_epochs``, ``min_epochs``, ``limit_train_batches``,
+``limit_val_batches``, ``limit_test_batches``, ``fast_dev_run``,
+``detect_anomaly``, ``profiler`` ("simple"), ``log_every_n_steps``,
+``enable_progress_bar``, ``default_root_dir``, ``callbacks``, ``logger``,
+``precision`` and ``seed``; epoch metrics as batch-size-weighted means of the
+per-batch means (Lightning's ``on_epoch`` reduction), in ``callback_metrics``.
+A keyword whose feature waits for a later slice raises
+``NotImplementedError`` naming its ROADMAP.md item when it is given anything
+but its default.
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
@@ -26,7 +28,16 @@ callbacks last, so that ``last.ckpt`` holds the others' state: ROADMAP.md §3);
 training stops once a callback asks and ``min_epochs`` are done.
 ``ckpt_path`` is a path, "last" or "best" (resolved through the
 ModelCheckpoint callback) and restores the weights, Adam's state, the epoch,
-the global step, the per-step generator and the callbacks' state.
+the global step, the per-step generator and the callbacks' state. The task's
+``on_validation_batch_end`` runs after each validation batch (the audio demo
+of the first one).
+
+``detect_anomaly=True`` runs ``fit``'s steps under
+``torch.autograd.set_detect_anomaly``, Lightning's meaning: a backward that
+makes a NaN raises (the JAX Trainer sets ``jax_debug_nans``).
+``profiler="simple"`` (or "advanced", as in JAX) times the train steps, the
+evaluation steps and each validation on the host clock and logs the summary
+when ``fit`` ends; on the card a step's time is the time to enqueue it.
 
 ``accelerator="cpu"`` trains on the CPU; any other value on the card, which
 must be present. The task must already live on that device. ``seed`` seeds
@@ -37,6 +48,8 @@ from __future__ import annotations
 
 import logging
 import time
+from collections import defaultdict
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Iterable, Iterator, Mapping
 
@@ -56,6 +69,31 @@ _PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/)"
 def _refuse(name: str, value, default, item: str) -> None:
     if value != default:
         raise NotImplementedError(f"Trainer {name}={value!r} is not ported yet: {item}")
+
+
+class _SimpleProfiler:
+    """Wall-clock section profiler (after msla_tpu/train/trainer.py:47-73;
+    the reference's debug config: profiler: simple)."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextmanager
+    def track(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        if self.enabled:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def summary(self) -> str:
+        lines = ["Profiler report (wall-clock):"]
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"  {name:<24s} total {total:8.3f}s  calls {n:5d}  mean {total / n:8.4f}s")
+        return "\n".join(lines)
 
 
 class Trainer:
@@ -91,12 +129,11 @@ class Trainer:
         off at every value, at least as precise as each TPU mapping ("high"
         and unknown strings as "medium"). ``devices``: -1 or 1, one card.
         ``default_root_dir`` is kept as the JAX Trainer keeps it: only its
-        profiler trace, which waits, would be written there.
-        ``limit_test_batches`` (``test``) and ``pipeline_microbatches`` wait
-        with the features that read them."""
-        _refuse("limit_test_batches", limit_test_batches, 1.0, _REST_OF_TRAINER)
-        _refuse("detect_anomaly", detect_anomaly, False, _REST_OF_TRAINER)
-        _refuse("profiler", profiler, None, _REST_OF_TRAINER)
+        XLA profiler trace (``profiler="jax"``), which the port has not,
+        would be written there. ``pipeline_microbatches`` waits with the
+        feature that reads it."""
+        if profiler not in ("simple", "advanced"):
+            _refuse("profiler", profiler, None, _REST_OF_TRAINER)
         _refuse("accumulate_grad_batches", accumulate_grad_batches, 1, _REST_OF_TRAINER)
         _refuse("remat", remat, False, _REST_OF_TRAINER)
         for name, value, default in (("model_parallel", model_parallel, 1),
@@ -116,6 +153,9 @@ class Trainer:
         self.fast_dev_run = fast_dev_run
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
+        self.limit_test_batches = limit_test_batches
+        self.detect_anomaly = bool(detect_anomaly)
+        self.profiler = _SimpleProfiler(profiler is not None)
         self.seed = seed
         # checkpoint callbacks run last, so last.ckpt holds the others' state
         self.callbacks = sorted(callbacks or [], key=lambda cb: isinstance(cb, ModelCheckpoint))
@@ -271,14 +311,25 @@ class Trainer:
         sums: dict = {}
         rows = 0
         max_batches = self._limit(len(loader), 1 if self.fast_dev_run else limit)
-        for n, raw in self._prefetched(loader, max_batches):
-            metrics = model.eval_metrics(datamodule.on_after_batch_transfer(raw), mode)
+        for batch_idx, (n, raw) in enumerate(self._prefetched(loader, max_batches)):
+            with self.profiler.track(f"{mode}_step"):
+                metrics = model.eval_metrics(datamodule.on_after_batch_transfer(raw), mode)
             self._accumulate(sums, metrics, n)
             rows += n
+            if mode == "validation":
+                model.on_validation_batch_end(self, raw, batch_idx)
         return self._means(sums, rows)
 
     # ---- public API --------------------------------------------------------------
     def fit(self, model, datamodule, ckpt_path: str | None = None) -> None:
+        try:
+            with torch.autograd.set_detect_anomaly(self.detect_anomaly):
+                self._fit(model, datamodule, ckpt_path)
+        finally:
+            if self.profiler.enabled and self.profiler.totals:
+                log.info("%s", self.profiler.summary())
+
+    def _fit(self, model, datamodule, ckpt_path) -> None:
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         if len(train_loader) == 0:
@@ -299,7 +350,8 @@ class Trainer:
                                       1 if self.fast_dev_run else self.limit_train_batches)
             t_epoch = time.perf_counter()
             for n, raw in self._prefetched(train_loader, max_batches):
-                metrics = self._train_step(model, datamodule, raw)
+                with self.profiler.track("train_step"):
+                    metrics = self._train_step(model, datamodule, raw)
                 self.global_step += 1
                 rows += n
                 self._accumulate(sums, metrics, n)
@@ -308,8 +360,9 @@ class Trainer:
             train_epoch = self._means(sums, rows)
             self.callback_metrics.update(train_epoch)
 
-            val_metrics = self._run_eval(model, datamodule, val_loader, "validation",
-                                         self.limit_val_batches)
+            with self.profiler.track("validation"):
+                val_metrics = self._run_eval(model, datamodule, val_loader, "validation",
+                                             self.limit_val_batches)
             self.callback_metrics.update(val_metrics)
             self._log({**train_epoch, **val_metrics}, self.global_step)
             if self.enable_progress_bar:
@@ -342,12 +395,22 @@ class Trainer:
                      {k: round(v, 5) for k, v in host.items()})
 
     def validate(self, model, datamodule, ckpt_path: str | None = None) -> dict[str, float]:
+        return self._eval_entry(model, datamodule, "validation", datamodule.val_dataloader(),
+                                self.limit_val_batches, ckpt_path)
+
+    def test(self, model, datamodule, ckpt_path: str | None = None) -> dict[str, float]:
+        """The test split's metrics (after msla_tpu/train/trainer.py:555-579)."""
+        return self._eval_entry(model, datamodule, getattr(model, "test_mode_name", "test"),
+                                datamodule.test_dataloader(), self.limit_test_batches,
+                                ckpt_path)
+
+    def _eval_entry(self, model, datamodule, mode: str, loader, limit,
+                    ckpt_path) -> dict[str, float]:
         self._setup(model)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
             self._restore(ckpt_path)
-        metrics = self._run_eval(model, datamodule, datamodule.val_dataloader(), "validation",
-                                 self.limit_val_batches)
+        metrics = self._run_eval(model, datamodule, loader, mode, limit)
         self.callback_metrics.update(metrics)
         self._log(metrics, self.global_step)
         return metrics

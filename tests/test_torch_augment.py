@@ -51,11 +51,6 @@ def test_istft_matches_jax_and_inverts_stft():
     np.testing.assert_allclose(got, x, **TOL)
 
 
-def test_only_the_half_overlap_path_is_ported():
-    with pytest.raises(NotImplementedError, match="50 %"):
-        stft(torch.zeros(2, 800), n_fft=400, hop_length=100)
-
-
 def _jax_draws(rng, b):
     """The uniform draws msla_tpu.data.augment._axis_mask makes from rng."""
     r_width, r_start = jax.random.split(rng)
@@ -108,13 +103,6 @@ def test_train_transform_masks_only_when_asked():
     assert SlakhDataModule(**DM_ARGS).train_transform(x, g) is x
     masked = SlakhDataModule(**DM_ARGS, masking=True).train_transform(x, g)
     assert masked.shape == x.shape and not torch.equal(masked, x)
-
-
-@pytest.mark.parametrize("loader", ["train_dataloader", "val_dataloader", "test_dataloader",
-                                    "predict_dataloader"])
-def test_dataloaders_wait_for_the_data_path(loader):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 3"):
-        getattr(SlakhDataModule(**DM_ARGS), loader)()
 
 
 def test_a_quantizer_waits_for_the_second_stages():

@@ -49,7 +49,16 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/utils/jax_compat.py", "msla_tpu_torch/ops/vq_lean.py",
                      "msla_tpu_torch/ops/vq_precision.py",
                      "msla_tpu_torch/tools/bench_vq_lean.py",
-                     "msla_tpu_torch/tools/bench_vq_precision.py", "chip_smoke.py"):
+                     "msla_tpu_torch/tools/bench_vq_precision.py",
+                     "msla_tpu_torch/data/wavio.py", "msla_tpu_torch/data/resample.py",
+                     "msla_tpu_torch/data/native.py", "msla_tpu_torch/data/dataset.py",
+                     "msla_tpu_torch/data/loader.py", "msla_tpu_torch/config/node.py",
+                     "msla_tpu_torch/config/compose.py", "msla_tpu_torch/config/instantiate.py",
+                     "msla_tpu_torch/config/runtime.py", "msla_tpu_torch/utils/pylogger.py",
+                     "msla_tpu_torch/utils/util.py", "msla_tpu_torch/utils/instantiators.py",
+                     "msla_tpu_torch/utils/plotting.py", "msla_tpu_torch/models/demo.py",
+                     "msla_tpu_torch/main.py", "msla_tpu_torch/__main__.py",
+                     "chip_smoke.py"):
         assert expected in names
 
 

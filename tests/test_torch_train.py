@@ -245,11 +245,9 @@ def test_adam_is_optax_adam(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(accumulate_grad_batches=2), dict(remat=True),
-                                dict(detect_anomaly=True), dict(profiler="simple"),
                                 dict(model_parallel=2), dict(pipeline_parallel=2),
                                 dict(zero1=True), dict(fsdp=True), dict(devices=2),
-                                dict(num_nodes=2), dict(limit_test_batches=0.1),
-                                dict(pipeline_microbatches=4)])
+                                dict(num_nodes=2), dict(pipeline_microbatches=4)])
 def test_trainer_keywords_that_wait_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue item"):
         Trainer(accelerator="cpu", **kw)
