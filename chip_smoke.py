@@ -141,7 +141,23 @@ Phases, each of which raises (exit code != 0) when its check fails:
      WAVs and the 15 SVGs must exist and test/loss be finite; fit's
      samples/s and device busy share (a CUDA-only torch.profiler trace of
      fit) printed beside phase 8's;
- 23. one JSON line with every kernel's numbers, then the device line.
+ 23. Audio-BERT training through the command line in phase 22's project:
+     python -m msla_tpu_torch train_bert=True in process (bert-base at full
+     width, batch 64, fp32, 3 epochs of 2 train and 1 validation batch, the
+     frozen teacher from phase 22's best_vqvae.ckpt, a CSV logger), then
+     generate from the port-trained best_bert.ckpt; the launches of fit, test,
+     generate and a step exact (K1 and K3 once a batch, #6 3 and #7 36 times
+     a batch-64 step, 1 and 12 a one-frame demo or predict call); BERT and
+     the codebook bit-unchanged and the head moved; one frozen-*.ckpt and
+     checkpoints of the head plus AdamW's size; a resume from last.ckpt
+     bit-exact for one further step; frame 0's teacher and BERT ids card
+     against CPU (>= 99.9 % equal, each difference a near-tie) and the head's
+     gradient card against CPU on the card's code ids (atol 1e-4, rtol
+     1e-3); Trainer.predict from best_bert.ckpt over the 65 test frames;
+     then the step's device time in parts, samples/s, one save_checkpoint's
+     and the sidecar's seconds and bytes, peak memory, and K1, K3, #6 and #7
+     re-timed on the path's own inputs;
+ 24. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -2997,6 +3013,7 @@ class Phases:
         return out
 
 
+CLI_ROOT = OUT_DIR / "cli"            # phase 22's fixture and project; phase 23 goes on there
 CLI_SR = 44100                        # Slakh's own rate: the cleaning pass resamples to SR
 CLI_TRACK_S = 86                      # 66 s after the 10 s trims: 65 frames of 2 s a track
 CLI_TRACKS = {"train": 2, "validation": 1, "test": 1}  # 130 / 65 / 65 frames: 2 / 1 / 1 batches
@@ -3027,22 +3044,59 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def phase_cli(bert_task, kernels, smi: str, fp32_training: dict) -> dict:
-    """The port's command line in process, from a fixture of WAV files."""
+def staged(name: str, fn, kernels, stages: dict, before=None):
+    """``fn`` wrapped to record, in ``stages[name]``, its host seconds (ending
+    in a synchronize) and the fp32 launches it made; ``fit`` also its steps,
+    samples/s and device busy share (a CUDA-only torch.profiler trace), and
+    ``before(*args)`` runs first when given."""
     import functools
-    import os
-    import shutil
 
     from torch.profiler import ProfilerActivity, profile
+
+    fp32 = {k.__name__: torch.float32 for k in kernels}
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        if before is not None:
+            before(*args)
+        torch.cuda.synchronize()
+        start = launch_counts(kernels, fp32)
+        t0 = time.perf_counter()
+        if name == "fit":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+        else:
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        end = launch_counts(kernels, fp32)
+        stages[name] = dict(s=seconds, launches={k: end[k] - start[k] for k in end
+                                                 if end[k] > start[k]})
+        if name == "fit":
+            trainer = args[0]
+            cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            stages[name].update(steps=trainer.global_step,
+                                samples_per_s=trainer.global_step * BATCH * FRAME / seconds,
+                                device_busy_ms=busy_ms(cuda),
+                                device_busy_share=busy_ms(cuda) / 1e3 / seconds)
+        return out
+    return wrapper
+
+
+def phase_cli(bert_task, kernels, smi: str, fp32_training: dict) -> dict:
+    """The port's command line in process, from a fixture of WAV files, in
+    CLI_ROOT, which phase 23 goes on in."""
+    import os
+    import shutil
 
     from msla_tpu_torch import main as cli
     from msla_tpu_torch.data.dataset import SlakhDataset, make_fixture_dataset
     from msla_tpu_torch.data.loader import DataLoader
-    from msla_tpu_torch.ops._build import launch_count
     from msla_tpu_torch.train.checkpoint import save_checkpoint
     from msla_tpu_torch.train.trainer import Trainer
 
-    root = OUT_DIR / "cli"
+    root = CLI_ROOT
     shutil.rmtree(root, ignore_errors=True)
     slakh, project = root / "slakh", root / "project"
     t0 = time.perf_counter()
@@ -3076,42 +3130,14 @@ def phase_cli(bert_task, kernels, smi: str, fp32_training: dict) -> dict:
     save_checkpoint(best / "best_bert.ckpt", state_dict=bert_task.net.state_dict())
 
     stages: dict[str, dict] = {}
-
-    def staged(name, fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kw):
-            torch.cuda.synchronize()
-            before = launch_counts(kernels, {k.__name__: torch.float32 for k in kernels})
-            t0 = time.perf_counter()
-            if name == "fit":
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    out = fn(*args, **kw)
-                    torch.cuda.synchronize()
-            else:
-                out = fn(*args, **kw)
-                torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            after = launch_counts(kernels, {k.__name__: torch.float32 for k in kernels})
-            stages[name] = dict(s=seconds, launches={k: after[k] - before[k] for k in after
-                                                     if after[k] > before[k]})
-            if name == "fit":
-                trainer = args[0]
-                cuda = [e for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA]
-                stages[name].update(steps=trainer.global_step,
-                                    samples_per_s=trainer.global_step * BATCH * FRAME / seconds,
-                                    device_busy_ms=busy_ms(cuda),
-                                    device_busy_share=busy_ms(cuda) / 1e3 / seconds)
-            return out
-        return wrapper
-
     saved = {"fit": Trainer.fit, "test": Trainer.test, "generate": cli.generate,
              "visualize": cli.visualize}
     env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
     os.environ.update(SLAKH_DIR=str(slakh), PROJECT_ROOT=str(project))
-    Trainer.fit, Trainer.test = staged("fit", saved["fit"]), staged("test", saved["test"])
-    cli.generate, cli.visualize = (staged("generate", saved["generate"]),
-                                   staged("visualize", saved["visualize"]))
+    Trainer.fit, Trainer.test = (staged("fit", saved["fit"], kernels, stages),
+                                 staged("test", saved["test"], kernels, stages))
+    cli.generate, cli.visualize = (staged("generate", saved["generate"], kernels, stages),
+                                   staged("visualize", saved["visualize"], kernels, stages))
     reset_counts(kernels)
     try:
         t0 = time.perf_counter()
@@ -3178,8 +3204,407 @@ def phase_cli(bert_task, kernels, smi: str, fp32_training: dict) -> dict:
           f"{stages['visualize']['s']:.3f} s, generate {stages['generate']['s']:.3f} s; "
           f"main() {cli_s:.3f} s; test/loss {test_loss:.5f}", flush=True)
     print(f"[cli] {json.dumps(result)}", flush=True)
-    shutil.rmtree(root, ignore_errors=True)
     return result
+
+
+#: Audio-BERT training through the CLI (main.py: max_epochs=3): phase 22's
+#: fixture gives 2 train batches and 1 validation batch of 64 frames an epoch
+BERT_EPOCHS, BERT_TRAIN_BATCHES, BERT_VAL_BATCHES = 3, 2, 1
+BERT_PATH_KERNELS = ("conv_stem", "nearest_codes", "mlm_argmax", "flash_attn")
+BERT_TIMED_STEPS = 3
+
+
+def bert_launches(batches: int, demos: int = 0) -> dict:
+    """fp32 launches of ``batches`` batch-64 Audio-BERT steps (train or
+    evaluation) and ``demos`` one-frame forwards: the teacher's K1 and K3
+    once a batch; 11,000 codes are 22 windows of 512, folded 8 a call at
+    batch 64 (512 sequences), so 3 BERT calls with #6 once and #7 12 times
+    each; one frame folds all 22 windows into one call."""
+    return {"conv_stem": batches + demos, "nearest_codes": batches + demos,
+            "mlm_argmax": 3 * batches + demos, "flash_attn": 36 * batches + 12 * demos}
+
+
+def timed_bert_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
+    """One Audio-BERT train step as Trainer._train_step runs it, with CUDA
+    events between its parts: the masking augment and the teacher (K1, K3),
+    the mask, BERT and the
+    argmax (#7, #6) and the rescale, the head's forward and backward (and the
+    loss), AdamW."""
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+    from msla_tpu_torch.ops.metrics import l1_loss
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    ids, stems = dm.on_after_batch_transfer(dm.train_transform(raw, trainer._generator))
+    ev[1].record()
+    trainer._optimizer.zero_grad(set_to_none=True)
+    code_ids = task.bert_code_ids(ids.reshape(ids.shape[0], -1).long(), trainer._generator)
+    ev[2].record()
+    out = task.head_stems(code_ids, ids.shape[0])
+    loss = sum(l1_loss(out[:, i], stems[:, i]) for i in range(4))
+    with fp32_convs():
+        loss.backward()
+    ev[3].record()
+    trainer._optimizer.step()
+    ev[4].record()
+    ev[4].synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+
+def bert_path_kernels(task, dm, raw: torch.Tensor, launches: dict, per_step: dict) -> list[dict]:
+    """K1, K3, #6 and #7 re-timed in this path's call, on its inputs: K1 on the
+    batch's stems with the teacher's weights, K3 on the teacher's latents and
+    codebook, #6 on BERT's MLM hidden states of the first folded call (512
+    sequences of 512) with the tied decoder, #7 at one layer's shapes of that
+    call (q, k, v drawn, the last call's key mask: windows 21-23 padding);
+    each against its plain version, timed beside one library call."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (attention_ref, conv_stem, conv_stem_ref, flash_attn,
+                                    mlm_argmax, mlm_argmax_ref, nearest_codes,
+                                    nearest_codes_ref)
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    net = dm.quantize.net
+    enc = net.encoder
+    g = torch.Generator(device=raw.device).manual_seed(23)
+    report = []
+    with torch.inference_mode():
+        args = (raw, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
+        out = conv_stem(*args)
+        err = check_close("conv_stem (Audio-BERT teacher)", out, conv_stem_ref(*args)[0])
+        with fp32_convs():
+            lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(raw, args[1], args[2], 2, 1)),
+                                                  args[3], args[4], 2, 1)))
+        w = FRAME // 4
+        flops = 2 * BATCH * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4)
+        report.append(dict(
+            name="conv_stem", ms=time_ms(lambda: conv_stem(*args)),
+            plain_ms=time_ms(lambda: conv_stem_ref(*args)), library_ms=lib, max_abs_err=err,
+            route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
+            replaces="msla_tpu/ops/conv_stem.py:48", flop=flops, bytes=nbytes(*args, out),
+            **tf32_bounds(flops, nbytes(*args, out))))
+        del out
+
+        flat = net.encode(raw).reshape(-1, MODEL["embedding_dim"])
+        cb = net.vector_quantizer.codebook.weight
+        idx = nearest_codes(flat, cb)
+        mismatches, gap, _ = near_ties(flat, cb, idx, nearest_codes_ref(flat, cb))
+        e2 = (cb * cb).sum(1)
+        flops = 2 * flat.shape[0] * cb.shape[0] * cb.shape[1]
+        report.append(dict(
+            name="nearest_codes", ms=time_ms(lambda: nearest_codes(flat, cb)),
+            plain_ms=time_ms(lambda: nearest_codes_ref(flat, cb)),
+            library_ms=time_ms(lambda: torch.argmin(e2 - 2.0 * flat @ cb.T, dim=1)),
+            max_abs_err=gap, index_mismatches=mismatches, route="cuda",
+            source="msla_tpu_torch/csrc/nearest_codes.cu",
+            replaces="msla_tpu/ops/vq_pallas.py:40", flop=flops, bytes=nbytes(flat, cb, idx),
+            **tf32_bounds(flops, nbytes(flat, cb, idx))))
+        ids = idx.reshape(BATCH, -1).long()
+        del flat, idx
+
+        tokens, attn, _ = task._fold(ids)
+        emb, bias = task._decoder_weights()
+        h = task.bert(tokens[0], attn[0], return_mlm_hidden=True).reshape(-1, emb.shape[1])
+        vocab = mlm_argmax(h, emb, bias)
+        mismatches, gap = mlm_near_ties(h, emb, bias, vocab, mlm_argmax_ref(h, emb, bias))
+
+        def library():  # addmm + argmax over row chunks
+            for chunk in h.split(4096):
+                torch.addmm(bias, chunk, emb.T).argmax(dim=-1)
+
+        flops = 2 * h.shape[0] * emb.shape[0] * emb.shape[1]
+        report.append(dict(
+            name="mlm_argmax", ms=time_ms(lambda: mlm_argmax(h, emb, bias)),
+            plain_ms=time_ms(lambda: mlm_argmax_ref(h, emb, bias)),
+            library_ms=time_ms(library), max_abs_err=gap, index_mismatches=mismatches,
+            rows_compared=h.shape[0], route="cuda", source="msla_tpu_torch/csrc/mlm_argmax.cu",
+            replaces="msla_tpu/ops/mlm_argmax.py:47", flop=flops, flop_type="tf32",
+            bytes=nbytes(h, emb, bias, vocab)))
+        del h, vocab
+
+        mask = attn[-1].contiguous()
+        shape = (mask.shape[0], 512, 12, 64)
+        q, k, v = (torch.randn(shape, generator=g, device=raw.device) for _ in range(3))
+        out = flash_attn(q, k, v, mask, 0.125)
+        bhsd = [t.transpose(1, 2) for t in (q, k, v)]
+        err = check_close("flash_attn (Audio-BERT training)", out,
+                          attention_ref(*bhsd, mask, 0.125).transpose(1, 2))
+        additive = ((1.0 - mask) * -1e9)[:, None, None, :]
+        flops = 4 * shape[0] * 12 * 512 * 512 * 64
+        report.append(dict(
+            name="flash_attn", ms=time_ms(lambda: flash_attn(q, k, v, mask, 0.125)),
+            plain_ms=time_ms(lambda: attention_ref(*bhsd, mask, 0.125)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *bhsd, attn_mask=additive, scale=0.125)),
+            max_abs_err=err, route="cuda", source="msla_tpu_torch/csrc/flash_attn.cu",
+            replaces="msla_tpu/ops/flash_attn.py:51", flop=flops, flop_type="tf32",
+            bytes=nbytes(q, k, v, out, mask)))
+        del q, k, v, out, bhsd, additive
+    torch.cuda.empty_cache()
+    for k in report:
+        k.update(launches=launches.get(k["name"], 0),
+                 launches_per_step=per_step.get(k["name"], 0), path="audio_bert_training")
+    report = with_bounds(report)
+    for k in report:
+        k["name"] += "@audio_bert_training"
+    return report
+
+
+def bert_card_vs_cpu(task, dm, raw: torch.Tensor) -> dict:
+    """One step's code ids, card against the CPU's plain path on frame 0: the
+    teacher's ids, and BERT's vocab ids on the masked ids the card drew; then
+    the head's gradient on the card and on the CPU, both fed the card's
+    code ids of the whole batch."""
+    from msla_tpu_torch.data.transform import Quantize
+    from msla_tpu_torch.models.bert import AudioBertTask, mask_tokens
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.ops import mlm_argmax
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+    from msla_tpu_torch.ops.metrics import l1_loss
+
+    teacher = dm.quantize.net
+    cpu_vq = VQVAETask(**MODEL, checkpoint_dir=".", codebook_file="codebook.csv", device="cpu")
+    cpu_vq.net.load_state_dict({k: v.cpu() for k, v in teacher.state_dict().items()})
+    cpu_bert = AudioBertTask(**{k: task.hparams[k] for k in (
+        "learning_rate", "checkpoint_dir", "codebook", "sample_rate", "frame_length",
+        "num_embedding")}, device="cpu", seed=0)
+    cpu_bert.net.load_state_dict({k: v.cpu() for k, v in task.net.state_dict().items()})
+    frame = raw[:1].cpu()
+    with torch.inference_mode():
+        ids = dm.on_after_batch_transfer(raw)[0].long()
+        ids_cpu = Quantize(cpu_vq).get_encodings_idx(frame).long()[0]
+        latents = cpu_vq.net.encode(frame).reshape(-1, MODEL["embedding_dim"])
+        teacher_mismatches, _, teacher_gap = near_ties(
+            latents, cpu_vq.net.vector_quantizer.codebook.weight, ids[0].cpu(), ids_cpu)
+        g = torch.Generator(device=raw.device).manual_seed(5)
+        masked = mask_tokens(ids, torch.rand(ids.shape, generator=g, device=raw.device),
+                             task.mask_prob)
+        vocab = task._chunked_argmax(masked, with_conf=False)
+        code_ids = task._code_ids(vocab)
+        tok, am, _ = cpu_bert._fold(masked[:1].cpu())
+        emb, bias = cpu_bert._decoder_weights()
+        h = torch.cat([cpu_bert.bert(t, a, return_mlm_hidden=True) for t, a in zip(tok, am)])
+        h = h.reshape(-1, emb.shape[1])[:ids.shape[1]]
+        vocab_cpu = mlm_argmax(h, emb, bias)
+        vocab_mismatches, vocab_gap = mlm_near_ties(h, emb, bias, vocab[0].cpu(), vocab_cpu)
+    agreement = dict(teacher=(ids[0].cpu() == ids_cpu).double().mean().item(),
+                     bert=(vocab[0].cpu() == vocab_cpu).double().mean().item())
+    for what, share in agreement.items():
+        if share < 0.999:
+            fail(f"Audio-BERT card vs CPU: only {share:.5f} of the {what}'s ids agree")
+
+    stems = raw.float()
+    grads = {}
+    for name, t, c, x in (("card", task, code_ids, stems),
+                          ("cpu", cpu_bert, code_ids.cpu(), stems.cpu())):
+        t.net.head.zero_grad(set_to_none=True)
+        out = t.head_stems(c.clone(), BATCH)
+        loss = sum(l1_loss(out[:, i], x[:, i]) for i in range(4))
+        with fp32_convs():
+            loss.backward()
+        grads[name] = {k: p.grad.detach().cpu() for k, p in t.net.head.named_parameters()}
+        t.net.head.zero_grad(set_to_none=True)
+    grad_err = {k: check_close(f"head gradient {k} card vs CPU", grads["card"][k],
+                               grads["cpu"][k], atol=1e-4, rtol=1e-3) for k in grads["card"]}
+    result = dict(agreement=agreement, teacher_mismatches=teacher_mismatches,
+                  teacher_max_tie_gap=teacher_gap, vocab_mismatches=vocab_mismatches,
+                  vocab_max_tie_gap=vocab_gap, head_grad_max_abs_err=grad_err)
+    print(f"[bert train cpu-vs-card] {json.dumps(result)}", flush=True)
+    return result
+
+
+def bert_resume(trainer, task, dm, raw: torch.Tensor, last: Path) -> dict:
+    """One more step of the trained Trainer, and the same step of a new
+    Trainer restored from last.ckpt (weights, sidecar, AdamW, generator):
+    the same head and AdamW state bit for bit (cuDNN deterministic for both)."""
+    from msla_tpu_torch.train.trainer import Trainer
+
+    head = {k: v.clone() for k, v in task.net.head.state_dict().items()}
+    flags = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    with torch.backends.cudnn.flags(**flags):
+        trainer._train_step(task, dm, raw)
+    want = {k: v.clone() for k, v in task.net.head.state_dict().items()}
+    want_opt = [{k: v.clone() for k, v in s.items()}
+                for s in trainer._optimizer.state_dict()["state"].values()]
+    again = Trainer(seed=0, enable_progress_bar=False)
+    again._setup(task, dm)
+    again._restore(last, training=True)
+    if any(not torch.equal(v, head[k]) for k, v in task.net.head.state_dict().items()):
+        fail("Audio-BERT resume: the restored head is not the saved one")
+    with torch.backends.cudnn.flags(**flags):
+        again._train_step(task, dm, raw)
+    got_opt = list(again._optimizer.state_dict()["state"].values())
+    differ = [k for k, v in task.net.head.state_dict().items() if not torch.equal(v, want[k])]
+    differ += [f"adamw {i} {k}" for i, (a, b) in enumerate(zip(want_opt, got_opt))
+               for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        fail(f"Audio-BERT resume: one further step differs in {differ}")
+    return dict(bit_exact=True, restored_step=again.global_step,
+                restored_epoch=again.current_epoch)
+
+
+def phase_bert_training(kernels, smi: str) -> dict:
+    """``python -m msla_tpu_torch train_bert=True`` in process in phase 22's
+    project: bert-base at full width, batch 64, fp32, over phase 22's
+    best_vqvae.ckpt and codebook CSV, with its ModelCheckpoint, EarlyStopping
+    and a CSV logger; then generate from the port-trained best_bert.ckpt.
+    Checks: fit, test and generate's exact launches (``bert_launches``); BERT
+    and the codebook bit-unchanged by fit and the head moved; one
+    frozen-*.ckpt, versioned files of the head plus AdamW's size; a resume
+    from last.ckpt bit-exact for one further step; card against CPU
+    (``bert_card_vs_cpu``); Trainer.predict from best_bert.ckpt. Prints the
+    step's device time in parts, samples/s through fit, one save_checkpoint's
+    and the sidecar's seconds and bytes, peak memory and the path's kernels
+    re-timed (``bert_path_kernels``)."""
+    import os
+    import shutil
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.train.checkpoint import (FROZEN_SIDECAR, frozen_fingerprint, is_frozen,
+                                                 save_frozen_sidecar)
+    from msla_tpu_torch.train.trainer import Trainer
+
+    project, best = CLI_ROOT / "project", CLI_ROOT / "project" / "logs" / "best_checkpoint"
+    (best / "best_bert.ckpt").unlink()  # phase 22's random-weight file
+    free_gb = shutil.disk_usage(best).free / 1e9
+    print(f"[bert train] {free_gb:.1f} GB free on the checkpoint disk", flush=True)
+
+    stages: dict[str, dict] = {}
+    seen: dict = {}
+
+    def before_fit(trainer, task, dm, *_):
+        seen.update(trainer=trainer, task=task, dm=dm,
+                    start={k: v.clone() for k, v in task.net.state_dict().items()})
+
+    saved = {"fit": Trainer.fit, "test": Trainer.test, "generate": cli.generate}
+    env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(CLI_ROOT / "slakh"), PROJECT_ROOT=str(project))
+    Trainer.fit = staged("fit", saved["fit"], kernels, stages, before=before_fit)
+    Trainer.test = staged("test", saved["test"], kernels, stages)
+    cli.generate = staged("generate", saved["generate"], kernels, stages)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        test_loss = cli.main(["train_bert=True", "logger=csv", "extras.print_config=False",
+                              "+optimized_metric=test/loss", "+visualize=False"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        Trainer.fit, Trainer.test, cli.generate = saved["fit"], saved["test"], saved["generate"]
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = BERT_EPOCHS * BERT_TRAIN_BATCHES
+    want = {"fit": bert_launches(steps + BERT_EPOCHS * BERT_VAL_BATCHES, demos=BERT_EPOCHS),
+            "test": bert_launches(1), "generate": bert_launches(0, demos=1)}
+    for stage, counts in want.items():
+        if stage not in stages:
+            fail(f"bert train: stage {stage} did not run")
+        got = {k: stages[stage]["launches"].get(k, 0) for k in BERT_PATH_KERNELS}
+        if got != counts or set(stages[stage]["launches"]) - set(BERT_PATH_KERNELS):
+            fail(f"bert train {stage}: launches {stages[stage]['launches']}, want {counts}")
+    trainer, task, dm = seen["trainer"], seen["task"], seen["dm"]
+    if trainer.global_step != steps or test_loss is None or not np.isfinite(test_loss):
+        fail(f"bert train: {trainer.global_step} steps, test/loss {test_loss}")
+    end = task.net.state_dict()
+    moved = [k for k in end if not torch.equal(end[k], seen["start"][k])]
+    if sorted(moved) != sorted(k for k in end if k.startswith("head.")):
+        fail(f"bert train: fit changed {moved}: only the head's four tensors may move")
+
+    sidecars = sorted(best.glob("frozen-*.ckpt"))
+    head_bytes = sum(p.numel() * p.element_size() for p in task.net.head.parameters())
+    files = {p.name: p.stat().st_size for p in sorted(best.glob("best_bert*.ckpt"))}
+    files["last.ckpt"] = (best / "last.ckpt").stat().st_size
+    if len(sidecars) != 1 or (best / FROZEN_SIDECAR).exists():
+        fail(f"bert train: sidecars {sidecars}")
+    off = {n: b / (3 * head_bytes) for n, b in files.items() if abs(b / (3 * head_bytes) - 1) > 0.01}
+    if off:
+        fail(f"bert train: checkpoints not the head plus AdamW ({3 * head_bytes} B): {off}")
+
+    raw = torch.from_numpy(next(iter(dm.train_dataloader()))).to(task.device)
+    resume = bert_resume(trainer, task, dm, raw, best / "last.ckpt")
+
+    timed_bert_step(trainer, task, dm, raw)  # warm-up
+    reset_counts(kernels)
+    parts = [timed_bert_step(trainer, task, dm, raw) for _ in range(BERT_TIMED_STEPS)]
+    per_step = {k: n // BERT_TIMED_STEPS for k, n in launch_counts(kernels).items()}
+    if {k: per_step.get(k, 0) for k in BERT_PATH_KERNELS} != bert_launches(1):
+        fail(f"bert train: launches a step {per_step}, want {bert_launches(1)}")
+    names = ("augment_and_teacher", "bert_and_argmax", "head_forward_backward", "adamw")
+    breakdown = {n: statistics.median(p[i] for p in parts) for i, n in enumerate(names)}
+    step_ms = statistics.median(sum(p) for p in parts)
+
+    # one save_checkpoint into a new directory (the sidecar written), then into
+    # the same one (only the fingerprint), and the sidecar's parts alone
+    timing = CLI_ROOT / "timing"
+    frozen = {k: v for k, v in task.net.state_dict().items()
+              if is_frozen(k, task.frozen_param_keys)}
+    saves = {}
+    for name in ("first.ckpt", "second.ckpt"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(timing / name)
+        saves[name] = dict(s=time.perf_counter() - t0, bytes=(timing / name).stat().st_size)
+        (timing / name).unlink()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frozen_fingerprint(frozen)
+    fingerprint_s = time.perf_counter() - t0
+    shutil.rmtree(timing)
+    t0 = time.perf_counter()
+    sidecar = save_frozen_sidecar(timing, frozen)
+    sidecar_s = time.perf_counter() - t0
+    sidecar_bytes = (timing / sidecar).stat().st_size
+    shutil.rmtree(timing)
+
+    kernel_report = bert_path_kernels(task, dm, raw, stages["fit"]["launches"], per_step)
+    cpu = bert_card_vs_cpu(task, dm, raw)
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    outputs = Trainer(seed=0, enable_progress_bar=False).predict(
+        task, dm, ckpt_path=str(best / "best_bert.ckpt"))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    frames = len(dm.predict_dataloader())
+    predict_launches = {k: n for k, n in launch_counts(kernels).items() if n}
+    if len(outputs) != frames or any(o.shape != (1, 4, FRAME) or not torch.isfinite(o).all()
+                                     for o in outputs):
+        fail(f"bert predict: {len(outputs)} outputs for {frames} frames")
+    if predict_launches != bert_launches(0, demos=frames):
+        fail(f"bert predict: launches {predict_launches}, want {bert_launches(0, demos=frames)}")
+
+    fit = stages["fit"]
+    result = dict(
+        free_disk_gb=free_gb, cli_s=cli_s, test_loss=test_loss, stages=stages, peak_mem_gb=peak_gb,
+        steps=steps, step_device_ms=step_ms, breakdown_ms=breakdown,
+        step_samples_per_s=BATCH * FRAME / (step_ms / 1e3), launches_per_step=per_step,
+        checkpoint_files=files, sidecar=sidecars[0].name, save_checkpoint=saves,
+        fingerprint_s=fingerprint_s, sidecar_s=sidecar_s, sidecar_bytes=sidecar_bytes,
+        head_bytes=head_bytes, resume=resume, card_vs_cpu=cpu, predict_s=predict_s,
+        predict_frames=frames, predict_launches=predict_launches)
+    print(f"[bert train] {smi}: fit {fit['steps']} steps in {fit['s']:.3f} s, "
+          f"{fit['samples_per_s']:.4g} samples/s, device busy {fit['device_busy_share']:.4f}; "
+          f"test {stages['test']['s']:.3f} s, generate {stages['generate']['s']:.3f} s, "
+          f"main() {cli_s:.3f} s, test/loss {test_loss:.5f}", flush=True)
+    print(f"[bert train] {smi}: step {step_ms:.2f} ms on the device "
+          f"({BATCH * FRAME / (step_ms / 1e3):.4g} samples/s): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in breakdown.items()), flush=True)
+    print(f"[bert train] {smi}: launches fit {fit['launches']}, a step {per_step}, test "
+          f"{stages['test']['launches']}, generate {stages['generate']['launches']}, predict "
+          f"{predict_launches} ({frames} frames, {predict_s:.3f} s)", flush=True)
+    print(f"[bert train] {smi}: save_checkpoint {saves['first.ckpt']['s']:.3f} s with the "
+          f"sidecar, {saves['second.ckpt']['s']:.3f} s without, "
+          f"{saves['second.ckpt']['bytes']} B; sidecar {sidecar_bytes} B in {sidecar_s:.3f} s, "
+          f"fingerprint {fingerprint_s * 1e3:.2f} ms; peak {peak_gb:.2f} GB", flush=True)
+    print(f"[bert train] {json.dumps(result)}", flush=True)
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    return result, kernel_report
 
 
 def main() -> int:
@@ -3283,6 +3708,9 @@ def main() -> int:
     cli = phase("22 command line", phase_cli, bert_task, KERNELS, smi, training)
     for k in report + train_report + bert_report:
         k["cli_launches"] = cli["launches"].get(k["name"], 0)
+    # 23. Audio-BERT training through the command line, in phase 22's project
+    bert_training, bert_training_report = phase("23 Audio-BERT training", phase_bert_training,
+                                                KERNELS, smi)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -3300,10 +3728,11 @@ def main() -> int:
                       "bf16_audio_bert_serving": bf16_bert,
                       "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu,
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
-                      "cli": cli}),
+                      "cli": cli, "bert_training": bert_training}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
-                      + bf16_report + bf16_bert_report + bf16_train_report}), flush=True)
+                      + bf16_report + bf16_bert_report + bf16_train_report
+                      + bert_training_report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,8 @@ The loaders are the JAX package's: the train split shuffled with
 each builds its ``SlakhDataset`` when called, and yields numpy batches of
 (B, 4, T) stems, which the Trainer copies to the device one step ahead.
 ``train_transform`` (the masking augment) and ``on_after_batch_transfer``
-(the mixture broadcast) run on the batch once it is on the device. One
+(the mixture broadcast, or the frozen teacher's code ids or latents with a
+``quantizer``) run on the batch once it is on the device. One
 process reads all of the data (``process_index`` 0 of 1) until the
 parallel opt-ins (ROADMAP.md queue item 7).
 """
@@ -35,11 +36,11 @@ class SlakhDataModule:
                  quantizer=None,
                  quantized_latents: bool = False,
                  seed: int = 0):
-        """``quantizer`` (the frozen VQ-VAE teacher of the second stages) is not
-        ported yet and must be None."""
-        if quantizer is not None or quantized_latents:
-            raise NotImplementedError("a quantizer feeds the transformer and Audio-BERT "
-                                      "stages, ROADMAP.md queue items 4 and 5")
+        """``quantizer`` is the frozen VQ-VAE teacher of the second stages
+        (``data.transform.Quantize``): with it the model input is its code
+        ids, or its quantized latents with ``quantized_latents``."""
+        self.quantize = quantizer
+        self.quantized_latents = quantized_latents
         self.train_dir = train_dir
         self.val_dir = val_dir
         self.test_dir = test_dir
@@ -92,9 +93,15 @@ class SlakhDataModule:
         return masking_augment(batch, generator)
 
     def on_after_batch_transfer(self, batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(B, 4, T) stems → (model input, target stems). The model input is the
-        mixture (sum over stems) broadcast to the encoder's 4 input channels,
-        the documented intent of the reference's shape-broken einsum
-        (datamodule.py:118-119)."""
+        """(B, 4, T) stems → (model input, target stems). Without a quantizer
+        (the VQ-VAE stage) the model input is the mixture (sum over stems)
+        broadcast to the encoder's 4 input channels, the documented intent of
+        the reference's shape-broken einsum (datamodule.py:118-119); with one,
+        the teacher's (B, W) code ids, or its (B, D, W) quantized latents
+        with ``quantized_latents``."""
+        if self.quantize is not None:
+            if self.quantized_latents:
+                return self.quantize.get_quantized(batch), batch
+            return self.quantize.get_encodings_idx(batch), batch
         mixture = batch.sum(dim=1, keepdim=True)       # (B, 1, T)
         return mixture.expand_as(batch), batch

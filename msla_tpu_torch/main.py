@@ -1,21 +1,26 @@
 """Command line of the port (after main.py; reference: src/main.py:214-241).
 
     python -m msla_tpu_torch train_vqvae=True
+    python -m msla_tpu_torch train_bert=True
     python -m msla_tpu_torch debug=default train_vqvae=True
 
 Composes the repository's configs/train.yaml as it is (``config/``, whose
 ``instantiate`` maps the JAX package's targets to the port's), trains on the
-train_vqvae flag, tests, then generates and visualizes from the checkpoints
-under ``paths.best_checkpoint_dir``, and returns ``optimized_metric``.
+train_vqvae and train_bert flags (Audio-BERT over the frozen
+``best_vqvae.ckpt``, which must exist), tests, then generates and visualizes
+from the checkpoints under ``paths.best_checkpoint_dir``, and returns
+``optimized_metric``.
 
 The device comes from ``trainer.accelerator``: "cpu" runs the plain versions
 on the CPU, any other value the kernels on the card, which must be present.
-Checkpoints are the port's ``torch.save`` files (``train/checkpoint.py``).
+Checkpoints are the port's ``torch.save`` files (``train/checkpoint.py``),
+Audio-BERT's with a ``frozen-<fingerprint>.ckpt`` sidecar; the JAX package's
+msgpack checkpoints are read too.
 ``generate`` and ``visualize`` skip, with a warning, when a checkpoint they
 need is missing, and when a checkpoint does not fit the config (its keys or
 shapes); any other error, a kernel's on the card included, raises (ROADMAP.md
-§3). Transformer and Audio-BERT training and multirun sweeps raise naming
-their ROADMAP.md items.
+§3). Transformer training and multirun sweeps raise naming their ROADMAP.md
+items.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 from msla_tpu_torch.config import (ConfigNode, compose, instantiate, setup_job_logging,
                                    setup_root, setup_run_dir)
 from msla_tpu_torch.data.wavio import write_wav
-from msla_tpu_torch.train.checkpoint import load_checkpoint
+from msla_tpu_torch.data.transform import Quantize
+from msla_tpu_torch.train.checkpoint import restore_params
 from msla_tpu_torch.utils.instantiators import instantiate_callbacks, instantiate_loggers
 from msla_tpu_torch.utils.plotting import (plot_codebook, plot_embeddings_from_quantized,
                                            plot_spectrogram, plot_waveform)
@@ -64,7 +70,7 @@ def restored_task(cfg: ConfigNode, name: str, ckpt: Path):
     """``make_task`` with the weights of ``ckpt``; CheckpointMismatch when they
     do not fit it."""
     task = make_task(cfg, name)
-    state_dict = load_checkpoint(ckpt)["state_dict"]
+    state_dict = restore_params(ckpt, task)
     try:
         task.net.load_state_dict(state_dict)
     except RuntimeError as err:  # load_state_dict's missing, unexpected or resized keys
@@ -93,6 +99,39 @@ def train_vqvae(cfg: ConfigNode):
     train_metrics = dict(trainer.callback_metrics)
     if cfg.test:
         trainer.test(vqvae, data_module, ckpt_path=cfg.get("ckpt_path"))
+    test_metrics = dict(trainer.callback_metrics)
+    return {**train_metrics, **test_metrics}, object_dict
+
+
+def _load_vqvae_teacher(cfg: ConfigNode) -> Quantize:
+    """The frozen best VQ-VAE of the second stages (reference: src/main.py:62-70)."""
+    best_vqvae_file = Path(f"{cfg.paths.best_checkpoint_dir}/best_vqvae.ckpt")
+    if not best_vqvae_file.exists():
+        raise FileNotFoundError(f"missing {best_vqvae_file}: run train_vqvae=True first")
+    return Quantize(restored_task(cfg, "vqvae", best_vqvae_file))
+
+
+@task_wrapper
+def train_bert(cfg: ConfigNode):
+    quantizer = _load_vqvae_teacher(cfg)
+    data_module = instantiate(cfg.data, quantizer=quantizer)  # code ids
+    bert = make_task(cfg, "bert")
+    logger = instantiate_loggers(cfg.get("logger"))
+
+    callbacks = None
+    if cfg.get("callbacks") is not None:
+        callbacks = [instantiate(cfg.callbacks.model_checkpoint, filename="best_bert"),
+                     instantiate(cfg.callbacks.early_stopping)]
+    # reference: main.py:139-143
+    trainer = _make_trainer(cfg, callbacks, logger, max_epochs=3, min_epochs=1)
+
+    object_dict = {"cfg": cfg, "datamodule": data_module, "model": bert,
+                   "callbacks": callbacks, "logger": logger, "trainer": trainer}
+    if cfg.train:
+        trainer.fit(bert, data_module, ckpt_path=cfg.get("ckpt_path"))
+    train_metrics = dict(trainer.callback_metrics)
+    if cfg.test:
+        trainer.test(bert, data_module, ckpt_path=cfg.get("ckpt_path"))
     test_metrics = dict(trainer.callback_metrics)
     return {**train_metrics, **test_metrics}, object_dict
 
@@ -181,8 +220,7 @@ def run(cfg: ConfigNode) -> float | None:
         raise NotImplementedError("train_transformer=True: the transformer is ROADMAP.md "
                                   "queue item 4")
     if cfg.train_bert:
-        raise NotImplementedError("train_bert=True: Audio-BERT training is ROADMAP.md "
-                                  "queue item 5")
+        metric_dict, _ = train_bert(cfg)
 
     for enabled, step in ((cfg.get("generate", True), generate),
                           (cfg.get("visualize", True), visualize)):

@@ -1,4 +1,4 @@
-"""Audio-BERT task, serving half (port of msla_tpu/models/bert.py).
+"""Audio-BERT task (port of msla_tpu/models/bert.py).
 
 BERT masked-LM over VQ code ids: the input is padded to whole 512-token
 windows, the windows are folded into the batch of one BERT call (all of them
@@ -7,14 +7,26 @@ tied-decoder logits (``ops.mlm_argmax``, the fused kernel on the card) is
 rescaled into the codebook's range, mapped through the frozen codebook, and a
 Conv1d(64→4, k4, s2, p1) + Linear(T/8 → T) head gives the 4 stems.
 
-Training (masking, the L1 loss, metrics, AdamW on the head) is ROADMAP.md
-queue item 5; loading pretrained BERT weights is queue item 8. Their
-keywords raise until then.
+Training (msla_tpu/models/bert.py:161-175, 229-358): the ids are masked with
+p = ``mask_prob`` ([MASK] = 103) from the step's generator; BERT, the argmax
+and the rescale run under ``torch.no_grad()`` (the argmax passes no gradient,
+so BERT receives none, as in the reference and the JAX package), the
+codebook gather and the head under grad; the loss is the sum of four L1 stem
+losses, and AdamW trains the head alone. BERT's parameters and the codebook
+buffer are frozen (``requires_grad=False``, outside the optimizer) and go to
+a checkpoint's sidecar (``frozen_param_keys``). BERT runs deterministic, as
+in the JAX task's training.
+
+``pretrained_weights`` names the msgpack file ``tools/convert_hf_bert.py``
+writes, or an HF ``BertForMaskedLM`` state_dict saved with ``torch.save``;
+either loads strictly. A path that does not exist warns and keeps the random
+init, as in the JAX task.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import random
 from pathlib import Path
 
 import numpy as np
@@ -23,16 +35,42 @@ import torch.nn.functional as F
 from torch import nn
 
 from msla_tpu_torch.device import resolve_device
+from msla_tpu_torch.models.demo import log_audio_demo
 from msla_tpu_torch.models.module import TaskModule
 from msla_tpu_torch.nn.bert import BertConfig, BertForMaskedLM
 from msla_tpu_torch.nn.layers import conv1d, linear
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
 from msla_tpu_torch.ops.mlm_argmax import mlm_argmax
+from msla_tpu_torch.train.checkpoint import ZIP_MAGIC
+from msla_tpu_torch.utils import msgpack
+from msla_tpu_torch.utils.jax_compat import (audio_bert_state_dict_from_jax,
+                                             bert_state_dict_from_jax)
 
 log = logging.getLogger(__name__)
 
+INSTRUMENTS = ("bass", "drums", "guitar", "piano")
 MAX_HIDDEN_SIZE = 512  # the BERT window
-_TRAINING = "Audio-BERT training is ROADMAP.md queue item 5"
+
+
+def mask_tokens(x: torch.Tensor, uniform: torch.Tensor, mask_prob: float,
+                mask_token_id: int = 103) -> torch.Tensor:
+    """[MASK] where a uniform draw falls below ``mask_prob`` (the JAX task's
+    ``jax.random.uniform(rng, x.shape) < mask_prob``)."""
+    return torch.where(uniform < mask_prob, mask_token_id, x)
+
+
+def read_bert_weights(path: str | Path) -> dict[str, torch.Tensor]:
+    """A ``BertForMaskedLM`` state_dict from the msgpack params file
+    ``tools/convert_hf_bert.py`` writes, or from a ``torch.save``'d HF
+    ``BertForMaskedLM`` state_dict, told apart by the first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == ZIP_MAGIC:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if msgpack.is_msgpack_map(head):
+        return bert_state_dict_from_jax(msgpack.read(path))
+    raise ValueError(f"{path} is neither a msgpack params file nor a torch.save state_dict")
 
 
 class AudioBertHead(nn.Module):
@@ -67,6 +105,9 @@ class AudioBertNet(nn.Module):
 
 
 class AudioBertTask(TaskModule):
+    # the argmax detaches BERT, and the codebook is a buffer: neither changes
+    frozen_param_keys = ("bert", "codebook")
+
     def __init__(self,
                  learning_rate: float,
                  checkpoint_dir: str,
@@ -92,13 +133,6 @@ class AudioBertTask(TaskModule):
             raise NotImplementedError(
                 "use_pallas=False asks for the plain argmax on the card, which the port "
                 "does not offer (ROADMAP.md §3): pass device='cpu' for the plain version")
-        if pretrained_weights and Path(pretrained_weights).exists():
-            raise NotImplementedError(
-                f"pretrained_weights={pretrained_weights}: loading converted BERT weights "
-                "is ROADMAP.md queue item 8")
-        if pretrained_weights:
-            log.warning("pretrained BERT weights %s not found: using random init",
-                        pretrained_weights)
         self.hparams = dict(learning_rate=learning_rate, checkpoint_dir=str(checkpoint_dir),
                             codebook=str(codebook), sample_rate=sample_rate,
                             frame_length=frame_length, num_embedding=num_embedding,
@@ -106,6 +140,7 @@ class AudioBertTask(TaskModule):
                             chunk_fold=chunk_fold)
         self.config = dataclasses.replace(config or BertConfig(), compute_dtype=compute_dtype,
                                           use_flash=use_flash)
+        self.mask_prob = float(mask_prob)
         self.chunk_fold = chunk_fold  # None → auto (see _fold_for)
 
         dev = resolve_device(device)
@@ -116,6 +151,17 @@ class AudioBertTask(TaskModule):
         head = AudioBertHead(codebook_np.shape[1], output_dim // 8, output_dim,
                              generator=generator, device=dev)
         self.net = AudioBertNet(bert, head, torch.from_numpy(codebook_np).to(dev))
+        if pretrained_weights:
+            self._load_pretrained(Path(pretrained_weights))
+        bert.requires_grad_(False)
+
+    def _load_pretrained(self, path: Path) -> None:
+        if not path.exists():
+            log.warning("pretrained BERT weights %s not found: using random init (run "
+                        "tools/convert_hf_bert.py to convert an offline HF checkpoint)", path)
+            return
+        self.net.bert.load_state_dict(read_bert_weights(path))
+        log.info("loaded pretrained BERT weights from %s", path)
 
     @property
     def bert(self) -> BertForMaskedLM:
@@ -194,16 +240,35 @@ class AudioBertTask(TaskModule):
         k = self.net.codebook.shape[0]
         return torch.round(flat / denom * (k - 1)).to(torch.int64)
 
-    @torch.inference_mode()
-    def forward(self, indices: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, W) code ids → (B, 4, T) stems."""
-        if train:
-            raise NotImplementedError(f"train=True: {_TRAINING}")
+    def forward(self, indices: torch.Tensor, generator: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        """(B, W) code ids → (B, 4, T) stems. ``train`` with a ``generator``
+        masks the ids first; ``train`` runs the head under grad, otherwise
+        all runs under ``torch.inference_mode``."""
+        if not train:
+            with torch.inference_mode():
+                return self._stems(indices, None)
+        return self._stems(indices, generator)
+
+    def _stems(self, indices: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         b = indices.shape[0]
         x = indices.reshape(b, -1).to(device=self.device, dtype=torch.int64)
-        w = x.shape[1]
-        code_ids = self._code_ids(self._chunked_argmax(x, with_conf=False))
-        quantized = self.net.codebook.index_select(0, code_ids).reshape(b, w, -1)
+        return self.head_stems(self.bert_code_ids(x, generator), b)
+
+    @torch.no_grad()  # the argmax passes no gradient: BERT gets none
+    def bert_code_ids(self, x: torch.Tensor,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, W) token ids → (B·W,) code ids: the mask drawn from ``generator``
+        (when given), BERT, the fused argmax and the rescale."""
+        if generator is not None:
+            uniform = torch.rand(x.shape, generator=generator, device=x.device)
+            x = mask_tokens(x, uniform, self.mask_prob, self.config.mask_token_id)
+        return self._code_ids(self._chunked_argmax(x, with_conf=False))
+
+    def head_stems(self, code_ids: torch.Tensor, batch: int) -> torch.Tensor:
+        """(B·W,) code ids → (B, 4, T): the frozen codebook's rows, then the head."""
+        quantized = self.net.codebook.index_select(0, code_ids).reshape(
+            batch, -1, self.net.codebook.shape[1])
         return self.net.head(quantized.transpose(1, 2).contiguous())
 
     @torch.inference_mode()
@@ -222,11 +287,54 @@ class AudioBertTask(TaskModule):
         indices, _ = batch
         return self.forward(indices, train=False)
 
-    def configure_optimizer(self):
-        raise NotImplementedError(f"configure_optimizer: {_TRAINING}")
+    def state_dict_from_jax(self, params) -> dict[str, torch.Tensor]:
+        return audio_bert_state_dict_from_jax(params)
+
+    def configure_optimizer(self) -> torch.optim.Optimizer:
+        """AdamW on the head alone (optax.adamw under ``multi_transform`` with
+        ``set_to_zero`` for BERT and the codebook in the JAX task)."""
+        return torch.optim.AdamW(self.net.head.parameters(), lr=self.hparams["learning_rate"],
+                                 betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
 
     def loss_fn(self, batch, generator=None):
-        raise NotImplementedError(f"loss_fn: {_TRAINING}")
+        indices, instruments = batch
+        output = self.forward(indices, generator, train=True)
+        loss = torch.zeros((), device=output.device)
+        for i in range(4):
+            loss = loss + l1_loss(output[:, i, :], instruments[:, i, :])
+        return loss, {"train/loss": loss}
 
-    def eval_metrics(self, batch, mode: str):
-        raise NotImplementedError(f"eval_metrics: {_TRAINING}")
+    def eval_metrics(self, batch, mode: str) -> dict[str, torch.Tensor]:
+        """Validation/test metric catalog (reference: bert.py:107-167)."""
+        indices, instruments = batch
+        output = self.forward(indices, train=False)
+        mixed_output = output.sum(dim=1)
+        mixed = instruments.sum(dim=1)
+        metrics = {}
+        loss = torch.zeros((), device=output.device)
+        for i, name in enumerate(INSTRUMENTS):
+            pred, target = output[:, i, :], instruments[:, i, :]
+            loss = loss + l1_loss(pred, target)
+            metrics[f"{mode}/l2_{name}_loss"] = mse_loss(pred, target)
+            metrics[f"{mode}/l1_{name}_loss"] = l1_loss(pred, target)
+            metrics[f"{mode}/si_sdr_{name}_measure"] = si_sdr_mean(pred, target)
+        metrics[f"{mode}/si_sdr_full_audio_measure"] = si_sdr_mean(mixed_output, mixed)
+        metrics[f"{mode}/l2_full_audio_loss"] = mse_loss(mixed_output, mixed)
+        metrics[f"{mode}/l1_full_audio_loss"] = l1_loss(mixed_output, mixed)
+        metrics[f"{mode}/loss"] = loss
+        return metrics
+
+    @torch.no_grad()
+    def on_validation_batch_end(self, trainer, batch: torch.Tensor, batch_idx: int) -> None:
+        """The audio demo of one random row of the first validation batch: the
+        datamodule's teacher, then ``forward`` (reference: bert.py:169-232)."""
+        if batch_idx != 0 or not trainer.loggers:
+            return
+        index = random.randint(0, batch.shape[0] - 1)
+        datamodule = getattr(trainer, "datamodule", None)
+        if datamodule is None or getattr(datamodule, "quantize", None) is None:
+            return
+        stems = batch[index:index + 1]
+        decoded = self.forward(datamodule.on_after_batch_transfer(stems)[0])[0]
+        log_audio_demo(trainer, self.hparams["checkpoint_dir"], int(self.hparams["sample_rate"]),
+                       stems[0].float().cpu().numpy(), decoded.float().cpu().numpy(), "bert")

@@ -9,6 +9,11 @@ the JAX package's names, without the ``params`` argument:
   configure_optimizers      → configure_optimizer() -> torch.optim.Optimizer
   on_train_epoch_end        → on_train_epoch_end(trainer)
   on_validation_batch_end   → on_validation_batch_end(trainer, batch, batch_idx)
+
+``frozen_param_keys`` names the top-level parts of ``net``'s state that
+training never changes (checkpoints keep them in a sidecar), and
+``state_dict_from_jax`` maps a JAX checkpoint's flax params to ``net``'s
+state_dict.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from torch import nn
 class TaskModule:
     hparams: dict
     net: nn.Module
+    frozen_param_keys: tuple[str, ...] = ()
 
     @property
     def device(self) -> torch.device:
@@ -28,6 +34,9 @@ class TaskModule:
 
     def configure_optimizer(self) -> torch.optim.Optimizer:
         raise NotImplementedError
+
+    def state_dict_from_jax(self, params: Mapping) -> dict[str, torch.Tensor]:
+        raise NotImplementedError(f"{type(self).__name__} reads no JAX checkpoint")
 
     def loss_fn(self, batch: tuple[torch.Tensor, torch.Tensor], generator: torch.Generator
                 ) -> tuple[torch.Tensor, Mapping[str, torch.Tensor]]:

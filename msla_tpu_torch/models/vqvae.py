@@ -20,6 +20,7 @@ from msla_tpu_torch.models.demo import log_audio_demo
 from msla_tpu_torch.models.module import TaskModule
 from msla_tpu_torch.nn.vqvae_net import QuantizedOutput, VQVAENet
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
+from msla_tpu_torch.utils.jax_compat import vqvae_state_dict_from_jax
 
 INSTRUMENTS = ("bass", "drums", "guitar", "piano")
 
@@ -63,6 +64,9 @@ class VQVAETask(TaskModule):
         # the same update as optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)
         return torch.optim.Adam(self.net.parameters(), lr=self.hparams["learning_rate"],
                                 betas=(0.9, 0.999), eps=1e-8)
+
+    def state_dict_from_jax(self, params) -> dict[str, torch.Tensor]:
+        return vqvae_state_dict_from_jax(params, self.hparams["num_residual_layer"])
 
     def loss_fn(self, batch, generator=None):
         mixed, instruments = batch

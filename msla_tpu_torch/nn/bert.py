@@ -14,8 +14,10 @@ in bf16 (LayerNorm statistics in fp32), attention on bf16 q, k, v with an fp32
 output, and the MLM transform in fp32 on the bf16 stream (it has no dtype in
 the JAX package) before a bf16 ``mlm_norm``. Parameters stay fp32.
 
-Inference only in this slice: dropout is the training path's (ROADMAP.md
-queue item 5) and ``forward(deterministic=False)`` raises.
+Deterministic only: Audio-BERT runs BERT with ``deterministic=True`` in
+training too (the argmax stops every gradient into BERT). Dropout, whose
+attention dropout is the transformer's XLA-chain attention, waits with it
+(ROADMAP.md queue item 4), and ``forward(deterministic=False)`` raises.
 """
 from __future__ import annotations
 
@@ -185,8 +187,9 @@ class BertForMaskedLM(nn.Module):
         transform and norm (bf16 in bf16 mode), for callers that fuse the
         decoder with an argmax (``ops.mlm_argmax``)."""
         if not deterministic:
-            raise NotImplementedError("dropout (deterministic=False) is the training path, "
-                                      "ROADMAP.md queue item 5")
+            raise NotImplementedError("dropout (deterministic=False) waits with the "
+                                      "transformer's attention dropout, ROADMAP.md queue "
+                                      "item 4")
         if attention_mask is None:
             attention_mask = torch.ones(input_ids.shape, device=input_ids.device)
         attention_mask = attention_mask.to(torch.float32).contiguous()

@@ -1,7 +1,7 @@
-"""Training loop (port of msla_tpu/train/trainer.py: fit, validate and test).
+"""Training loop (port of msla_tpu/train/trainer.py: fit, validate, test and predict).
 
 The constructor takes the JAX Trainer's keywords. What the port runs:
-``fit``, ``validate`` and ``test`` (each with ``ckpt_path``),
+``fit``, ``validate``, ``test`` and ``predict`` (each with ``ckpt_path``),
 ``save_checkpoint``; ``max_epochs``, ``min_epochs``, ``limit_train_batches``,
 ``limit_val_batches``, ``limit_test_batches``, ``fast_dev_run``,
 ``detect_anomaly``, ``profiler`` ("simple"), ``log_every_n_steps``,
@@ -14,7 +14,8 @@ but its default.
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
-``datamodule.on_after_batch_transfer`` (the mixture broadcast) →
+``datamodule.on_after_batch_transfer`` (the mixture broadcast, or the frozen
+VQ-VAE teacher's code ids under ``torch.no_grad()`` for Audio-BERT) →
 ``model.loss_fn`` → backward → the optimizer's step. On the card nothing in
 the loop waits for the device: batches are copied one step ahead from pinned
 memory on a side stream, and metrics stay device tensors until the epoch ends
@@ -28,9 +29,19 @@ callbacks last, so that ``last.ckpt`` holds the others' state: ROADMAP.md §3);
 training stops once a callback asks and ``min_epochs`` are done.
 ``ckpt_path`` is a path, "last" or "best" (resolved through the
 ModelCheckpoint callback) and restores the weights, Adam's state, the epoch,
-the global step, the per-step generator and the callbacks' state. The task's
-``on_validation_batch_end`` runs after each validation batch (the audio demo
-of the first one).
+the global step, the per-step generator and the callbacks' state. A JAX
+package's msgpack checkpoint gives ``validate``, ``test`` and ``predict`` its
+weights (the task's ``state_dict_from_jax``); ``fit`` refuses one, since its
+optimizer state is optax's (ROADMAP.md queue item 2). Checkpoints keep the
+task's ``frozen_param_keys`` in a sidecar (``train/checkpoint.py``). The
+task's ``on_validation_batch_end`` runs after each validation batch (the
+audio demo of the first one), with the datamodule as ``trainer.datamodule``.
+
+``predict`` runs ``predict_step`` over the predict loader and returns the
+outputs a batch each; a ragged last batch is padded to the first batch's rows
+by repeating its first row (a batch-global reduction, as Audio-BERT's rescale
+over the batch's largest id, then sees no new value) and the pad rows are
+dropped from its output.
 
 ``detect_anomaly=True`` runs ``fit``'s steps under
 ``torch.autograd.set_detect_anomaly``, Lightning's meaning: a backward that
@@ -53,12 +64,13 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Iterable, Iterator, Mapping
 
+import numpy as np
 import torch
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 from msla_tpu_torch.train.callbacks import ModelCheckpoint
-from msla_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from msla_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, weights_of
 
 log = logging.getLogger(__name__)
 
@@ -169,6 +181,7 @@ class Trainer:
         self.current_epoch = 0
         self.global_step = 0
         self._model = None
+        self.datamodule = None
         self._optimizer: torch.optim.Optimizer | None = None
         self._generator: torch.Generator | None = None
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
@@ -176,9 +189,10 @@ class Trainer:
     # ---- checkpoint plumbing ---------------------------------------------------------
     def save_checkpoint(self, path, weights_only: bool = False) -> None:
         """One .ckpt file (``train/checkpoint.py``) of the task's weights,
-        Adam's state (unless ``weights_only``, Lightning's
+        the optimizer's state (unless ``weights_only``, Lightning's
         ``save_weights_only``), the epoch, the global step, the per-step
-        generator and the callbacks' state."""
+        generator and the callbacks' state; the task's
+        ``frozen_param_keys`` go to the directory's sidecar."""
         if self._model is None:
             raise RuntimeError("save_checkpoint needs a task: call fit or validate first")
         save_checkpoint(path,
@@ -189,7 +203,8 @@ class Trainer:
                         callback_metrics=self.callback_metrics,
                         callbacks_state=[{"class": type(cb).__name__, "state": cb.state_dict()}
                                          for cb in self.callbacks],
-                        generator_state=self._generator.get_state())
+                        generator_state=self._generator.get_state(),
+                        frozen_keys=tuple(self._model.frozen_param_keys))
 
     def _resolve_ckpt_path(self, ckpt_path):
         """Lightning's meaning: "best" and "last" resolve through the
@@ -206,10 +221,15 @@ class Trainer:
         raise RuntimeError(f"ckpt_path='{ckpt_path}' requested but no ModelCheckpoint "
                            "callback has a saved checkpoint")
 
-    def _restore(self, ckpt_path) -> None:
+    def _restore(self, ckpt_path, training: bool = False) -> None:
         payload = load_checkpoint(ckpt_path)
-        self._model.net.load_state_dict(payload["state_dict"])
-        if payload.get("opt_state"):
+        if training and payload.get("format") == "jax":
+            raise NotImplementedError(
+                f"fit(ckpt_path={str(ckpt_path)!r}): a JAX checkpoint's optimizer state is "
+                "optax's; resuming from it is ROADMAP.md queue item 2 (the rest of the "
+                "trainer). validate, test and predict take its weights")
+        self._model.net.load_state_dict(weights_of(self._model, payload))
+        if payload.get("opt_state") and payload.get("format") != "jax":
             self._optimizer.load_state_dict(payload["opt_state"])
         if "generator" in payload:
             self._generator.set_state(payload["generator"])
@@ -235,7 +255,8 @@ class Trainer:
             return max(1, int(n_batches * fraction_or_count))
         return min(n_batches, int(fraction_or_count))
 
-    def _setup(self, model) -> None:
+    def _setup(self, model, datamodule) -> None:
+        self.datamodule = datamodule
         if model.device != self.device:
             raise ValueError(f"the task lives on {model.device} and the Trainer runs on "
                              f"{self.device}: build the task with device={str(self.device)!r}")
@@ -334,10 +355,10 @@ class Trainer:
         val_loader = datamodule.val_dataloader()
         if len(train_loader) == 0:
             raise RuntimeError("empty train dataloader — check data_dir and batch_size")
-        self._setup(model)
+        self._setup(model, datamodule)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
-            self._restore(ckpt_path)
+            self._restore(ckpt_path, training=True)
         for lg in self.loggers:
             lg.log_hyperparams(getattr(model, "hparams", {}))
 
@@ -406,7 +427,7 @@ class Trainer:
 
     def _eval_entry(self, model, datamodule, mode: str, loader, limit,
                     ckpt_path) -> dict[str, float]:
-        self._setup(model)
+        self._setup(model, datamodule)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
             self._restore(ckpt_path)
@@ -414,3 +435,35 @@ class Trainer:
         self.callback_metrics.update(metrics)
         self._log(metrics, self.global_step)
         return metrics
+
+    @torch.no_grad()
+    def predict(self, model, datamodule, ckpt_path: str | None = None) -> list[torch.Tensor]:
+        """``model.predict_step`` on each batch of the predict loader, on the
+        device (after msla_tpu/train/trainer.py:592-690, one process)."""
+        self._setup(model, datamodule)
+        ckpt_path = self._resolve_ckpt_path(ckpt_path)
+        if ckpt_path:
+            self._restore(ckpt_path)
+        loader = datamodule.predict_dataloader()
+        rows: list[int] = []
+        outputs = []
+        for i, (_, batch) in enumerate(self._prefetched(self._padded(loader, rows),
+                                                        len(loader))):
+            out = model.predict_step(datamodule.on_after_batch_transfer(batch))
+            outputs.append(out[:rows[i]])
+        return outputs
+
+    @staticmethod
+    def _padded(loader: Iterable, rows: list[int]) -> Iterator[np.ndarray]:
+        """The loader's batches, a short one padded on the host, before its one
+        copy to the device, to the first batch's rows by repeating its first
+        row; each batch's real rows appended to ``rows``."""
+        bucket = None
+        for raw in loader:
+            arr = np.asarray(raw, dtype=np.float32)
+            rows.append(arr.shape[0])
+            bucket = arr.shape[0] if bucket is None else bucket
+            if arr.shape[0] < bucket:
+                pad = np.broadcast_to(arr[:1], (bucket - arr.shape[0],) + arr.shape[1:])
+                arr = np.concatenate([arr, pad])
+            yield arr

@@ -9,8 +9,10 @@ layouts:
 * flax LayerNorm ``scale``                                   → LayerNorm ``weight``
 
 Reversing the axes is the map for all three kernels. The params come in as a
-nested dict of arrays (numpy, or anything ``np.asarray`` takes); nothing of
-JAX is needed.
+nested dict of arrays (numpy, anything ``np.asarray`` takes, or the
+``torch.bfloat16`` tensors ``utils/msgpack.py`` gives for bf16 leaves);
+nothing of JAX is needed. Every tensor comes out fp32, as the port's
+parameters are.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 def _leaf(tree: Mapping[str, Any], *path: str) -> torch.Tensor:
     for key in path:
         tree = tree[key]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(torch.float32, copy=True)
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 

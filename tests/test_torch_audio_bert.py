@@ -3,7 +3,8 @@ the same weights (``audio_bert_state_dict_from_jax``), with a small BERT
 (vocab 120, hidden 32, 2 layers, 2 heads) and a 16 × 8 codebook:
 ``predict_step`` stems at rtol = atol = 1e-5 and ``code_proposals`` (ids equal,
 confidences at 1e-5) at W = 500 (one 512-token chunk) and W = 1100 (three);
-results that do not depend on ``chunk_fold``; and the keywords that wait."""
+results that do not depend on ``chunk_fold``; the keywords that wait, and the
+training hooks that work now.""" 
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,13 +124,15 @@ def test_head_refuses_a_width_it_was_not_built_for(tmp_path):
 
 
 def test_keywords_that_wait_raise(tmp_path):
+    """use_pallas=False and use_flash=False ask for plain versions on the card
+    and raise; pretrained weights and training work now
+    (tests/test_torch_bert_pretrained.py, tests/test_torch_bert_train.py hold
+    them against JAX)."""
     write_codebook(tmp_path / "codebook.csv")
     args = (2e-4, str(tmp_path), str(tmp_path / "codebook.csv"), 1000, FRAME_S, K_CODES)
     kw = dict(device="cpu", config=BertConfig(**SMALL))
     for bad, match in ((dict(use_pallas=False), "ROADMAP.md §3"),
-                       (dict(use_flash=False), "ROADMAP.md §3"),
-                       (dict(pretrained_weights=str(tmp_path / "codebook.csv")),
-                        "queue item 8")):
+                       (dict(use_flash=False), "ROADMAP.md §3")):
         with pytest.raises(NotImplementedError, match=match):
             AudioBertTask(*args, **bad, **kw)
     # bf16 serves now (tests/test_torch_bf16_bert.py holds it against JAX)
@@ -137,8 +140,9 @@ def test_keywords_that_wait_raise(tmp_path):
     task = AudioBertTask(*args, pretrained_weights=str(tmp_path / "absent.msgpack"), **kw)
     idx = torch.zeros((1, 500), dtype=torch.int64)
     batch = (idx, torch.zeros((1, 4, 2000)))
-    for call in (lambda: task.forward(idx, train=True), lambda: task.loss_fn(batch),
-                 lambda: task.eval_metrics(batch, "validation"),
-                 task.configure_optimizer):
-        with pytest.raises(NotImplementedError, match="queue item 5"):
-            call()
+    out = task.forward(idx, torch.Generator().manual_seed(0), train=True)
+    assert out.shape == (1, 4, 2000) and out.requires_grad
+    loss, metrics = task.loss_fn(batch, torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss) and set(metrics) == {"train/loss"}
+    assert len(task.eval_metrics(batch, "validation")) == 16
+    assert isinstance(task.configure_optimizer(), torch.optim.AdamW)

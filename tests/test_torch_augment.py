@@ -106,5 +106,20 @@ def test_train_transform_masks_only_when_asked():
 
 
 def test_a_quantizer_waits_for_the_second_stages():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue items 4 and 5"):
-        SlakhDataModule(**DM_ARGS, quantizer=object())
+    """The second stages' input: with a quantizer (the frozen teacher) the
+    model input is its code ids, or its latents with quantized_latents, and
+    the target the stems as they came (tests/test_torch_bert_train.py holds a
+    real teacher against JAX's)."""
+    class Teacher:
+        def get_encodings_idx(self, x):
+            return x[:, 0, ::4].long()
+
+        def get_quantized(self, x):
+            return x[:, :2, ::4] * 2
+
+    x = torch.from_numpy(_stems(seed=9))
+    ids, target = SlakhDataModule(**DM_ARGS, quantizer=Teacher()).on_after_batch_transfer(x)
+    assert torch.equal(ids, x[:, 0, ::4].long()) and target is x
+    latents, _ = SlakhDataModule(**DM_ARGS, quantizer=Teacher(),
+                                 quantized_latents=True).on_after_batch_transfer(x)
+    assert torch.equal(latents, x[:, :2, ::4] * 2)

@@ -100,5 +100,5 @@ def test_waiting_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md §3"):
         BertForMaskedLM(BertConfig(**SMALL, use_flash=False), device="cpu")
     net = BertForMaskedLM(BertConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 5"):
+    with pytest.raises(NotImplementedError, match="queue item 4"):  # with the transformer
         net(torch.zeros((1, 4), dtype=torch.int64), deterministic=False)

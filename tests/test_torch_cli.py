@@ -11,6 +11,12 @@
   JAX task's on the same weights (``vqvae_state_dict_from_jax``);
 * ``generate`` corrupts the stem and draws the noise JAX's ``generate`` draws
   after the same ``seed_everything`` (bit for bit), through a small BERT;
+* ``train_bert=True`` after a ``train_vqvae=True`` run trains Audio-BERT (a
+  small BERT) over the frozen ``best_vqvae.ckpt``, tests, writes
+  ``best_bert.ckpt`` (the head and AdamW's state) with one ``frozen-*.ckpt``
+  sidecar (BERT and the codebook, bit-unchanged from their init) and the
+  audio demo, and ``generate`` reads them; without ``best_vqvae.ckpt`` it
+  raises;
 * only a checkpoint that does not fit the config is caught, and the commands
   that wait raise naming their ROADMAP.md items.
 """
@@ -38,7 +44,7 @@ from msla_tpu_torch.data.wavio import read_wav, write_wav
 from msla_tpu_torch.models.bert import AudioBertTask
 from msla_tpu_torch.models.vqvae import VQVAETask
 from msla_tpu_torch.nn.bert import BertConfig
-from msla_tpu_torch.train.checkpoint import save_checkpoint
+from msla_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from msla_tpu_torch.utils.jax_compat import vqvae_state_dict_from_jax
 from msla_tpu_torch.utils.plotting import plot_embeddings_from_quantized
 
@@ -224,8 +230,44 @@ def test_only_a_checkpoint_that_does_not_fit_is_caught(fixture_root, tmp_path, m
         cli.run(cfg)
 
 
+def test_cli_trains_audio_bert_after_the_vqvae(fixture_root, tmp_path, monkeypatch,
+                                               restore_logging):
+    monkeypatch.setenv("SLAKH_DIR", str(fixture_root))
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    monkeypatch.setattr(AudioBertTask, "__init__",
+                        functools.partialmethod(AudioBertTask.__init__, config=SMALL_BERT))
+    common = ["trainer.accelerator=cpu", f"data.target_sample_rate={SR}", "data.batch_size=2",
+              *SMALL_VQ, "extras.print_config=False"]
+    with pytest.raises(FileNotFoundError, match="best_vqvae.ckpt"):
+        cli.main(["train_bert=True", *common])
+    cli.main(["train_vqvae=True", "trainer.max_epochs=1", "+generate=False",
+              "+visualize=False", *common])
+    test_loss = cli.main(["train_bert=True", "logger=csv", "+visualize=False",
+                          "+optimized_metric=test/loss", *common])
+    assert np.isfinite(test_loss)
+
+    best = tmp_path / "logs" / "best_checkpoint"
+    sidecar, = best.glob("frozen-*.ckpt")
+    payload = load_checkpoint(best / "best_bert.ckpt")
+    assert torch.load(best / "best_bert.ckpt", weights_only=True)["frozen_file"] == sidecar.name
+    assert payload["epoch"] >= 1 and payload["opt_state"]["state"]
+    cfg = compose(cli.CONFIG_DIR, "train", ["train_bert=True", *common])
+    init = cli.make_task(cfg, "bert").net.state_dict()
+    for key, value in payload["state_dict"].items():
+        assert torch.equal(value, init[key]) != key.startswith("head."), key
+
+    run_dir = sorted((tmp_path / "logs" / "train" / "runs").glob("*"))[-1]
+    ckpt = run_dir / "checkpoint"
+    for name in ("generated_full_song.wav", "bert_generated_during_evaluation.wav"):
+        audio, rate = read_wav(ckpt / name)
+        assert rate == SR and audio.shape == (1, 2 * SR) and np.isfinite(audio).all(), name
+    header = (run_dir / "csv" / "metrics.csv").read_text().splitlines()[0].split(",")
+    assert "test/si_sdr_full_audio_measure" in header and "train/loss" in header
+
+
 @pytest.mark.parametrize("argv,item", [(["train_transformer=True"], "queue item 4"),
-                                       (["train_bert=True"], "queue item 5"),
+                                       (["train_vqvae=True", "trainer.accelerator=cpu",
+                                         "+trainer.accumulate_grad_batches=2"], "queue item 2"),
                                        (["-m", "train_vqvae=True"], "queue item 7"),
                                        (["--multirun"], "queue item 7"),
                                        (["hparams_search=optuna"], "queue item 7")])
