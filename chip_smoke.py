@@ -156,8 +156,25 @@ Phases, each of which raises (exit code != 0) when its check fails:
      1e-3); Trainer.predict from best_bert.ckpt over the 65 test frames;
      then the step's device time in parts, samples/s, one save_checkpoint's
      and the sidecar's seconds and bytes, peak memory, and K1, K3, #6 and #7
-     re-timed on the path's own inputs;
- 24. one JSON line with every kernel's numbers, then the device line.
+     re-timed on the path's own inputs; its fit writes its checkpoints in
+     the background, and phase 24 prints its seconds and busy share beside
+     the figures PERF.md §5 records from when they were written in the loop;
+ 24. the transformer stage in phase 22's project, over its best_vqvae.ckpt:
+     python -m msla_tpu_torch train_transformer=True, then with
+     experiment=moe_transformer, in process (configs/model/transformer.yaml
+     at full width: 4 layers, 8 heads, hidden 512, fp32, batch 64, T =
+     44,000, W = 11,000; 3 and 2 epochs of the fixture's 2 train and 1
+     validation batch, 1 test batch; a CSV logger): fit's and test's
+     seconds, samples/s and busy share, K1 and K3 launches exact (once a
+     batch and a demo), the checkpoints on disk and each write's seconds in
+     the loop (the snapshot) beside the writer's seconds and its bytes; one
+     batch-64 step in parts (augment and teacher, forward, backward, Adam;
+     CUDA events, median of 5) beside each part's bound, in fp32, bf16 and
+     the MoE preset, with K1 and K3 once a step and the peak memory; the
+     fp32 forward card against CPU on the teacher's latents (atol = rtol =
+     1e-4); K1 and K3 re-timed on the path's inputs; then the project is
+     removed;
+ 25. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -3251,28 +3268,22 @@ def timed_bert_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
 
-def bert_path_kernels(task, dm, raw: torch.Tensor, launches: dict, per_step: dict) -> list[dict]:
-    """K1, K3, #6 and #7 re-timed in this path's call, on its inputs: K1 on the
-    batch's stems with the teacher's weights, K3 on the teacher's latents and
-    codebook, #6 on BERT's MLM hidden states of the first folded call (512
-    sequences of 512) with the tied decoder, #7 at one layer's shapes of that
-    call (q, k, v drawn, the last call's key mask: windows 21-23 padding);
-    each against its plain version, timed beside one library call."""
+def teacher_kernels(net, raw: torch.Tensor) -> tuple[list[dict], torch.Tensor]:
+    """K1 and K3 re-timed on a second stage's inputs: K1 on the batch's stems
+    with the frozen teacher's weights, K3 on the teacher's latents and
+    codebook; each against its plain version, timed beside one library
+    call. Also returns the teacher's (B, W) code ids."""
     import torch.nn.functional as F
 
-    from msla_tpu_torch.ops import (attention_ref, conv_stem, conv_stem_ref, flash_attn,
-                                    mlm_argmax, mlm_argmax_ref, nearest_codes,
-                                    nearest_codes_ref)
+    from msla_tpu_torch.ops import conv_stem, conv_stem_ref, nearest_codes, nearest_codes_ref
     from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 
-    net = dm.quantize.net
     enc = net.encoder
-    g = torch.Generator(device=raw.device).manual_seed(23)
     report = []
     with torch.inference_mode():
         args = (raw, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
         out = conv_stem(*args)
-        err = check_close("conv_stem (Audio-BERT teacher)", out, conv_stem_ref(*args)[0])
+        err = check_close("conv_stem (teacher)", out, conv_stem_ref(*args)[0])
         with fp32_convs():
             lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(raw, args[1], args[2], 2, 1)),
                                                   args[3], args[4], 2, 1)))
@@ -3300,9 +3311,24 @@ def bert_path_kernels(task, dm, raw: torch.Tensor, launches: dict, per_step: dic
             source="msla_tpu_torch/csrc/nearest_codes.cu",
             replaces="msla_tpu/ops/vq_pallas.py:40", flop=flops, bytes=nbytes(flat, cb, idx),
             **tf32_bounds(flops, nbytes(flat, cb, idx))))
-        ids = idx.reshape(BATCH, -1).long()
-        del flat, idx
+        ids = idx.reshape(raw.shape[0], -1).long()
+    return report, ids
 
+
+def bert_path_kernels(task, dm, raw: torch.Tensor, launches: dict, per_step: dict) -> list[dict]:
+    """K1, K3, #6 and #7 re-timed in this path's call, on its inputs: K1 and
+    K3 as ``teacher_kernels`` times them, #6 on BERT's MLM hidden states of
+    the first folded call (512 sequences of 512) with the tied decoder, #7 at
+    one layer's shapes of that call (q, k, v drawn, the last call's key mask:
+    windows 21-23 padding); each against its plain version, timed beside one
+    library call."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import attention_ref, flash_attn, mlm_argmax, mlm_argmax_ref
+
+    g = torch.Generator(device=raw.device).manual_seed(23)
+    report, ids = teacher_kernels(dm.quantize.net, raw)
+    with torch.inference_mode():
         tokens, attn, _ = task._fold(ids)
         emb, bias = task._decoder_weights()
         h = task.bert(tokens[0], attn[0], return_mlm_hidden=True).reshape(-1, emb.shape[1])
@@ -3603,8 +3629,269 @@ def phase_bert_training(kernels, smi: str) -> dict:
           f"{saves['second.ckpt']['bytes']} B; sidecar {sidecar_bytes} B in {sidecar_s:.3f} s, "
           f"fingerprint {fingerprint_s * 1e3:.2f} ms; peak {peak_gb:.2f} GB", flush=True)
     print(f"[bert train] {json.dumps(result)}", flush=True)
-    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    for name in ("best_bert*.ckpt", "last.ckpt", "frozen-*.ckpt"):  # phase 24 goes on here
+        for path in best.glob(name):
+            path.unlink()
     return result, kernel_report
+
+
+#: the transformer through the CLI (configs/model/transformer.yaml at full width):
+#: max_epochs cut from the trainer config's 10 to 3, and to 2 for the MoE run
+TRANSFORMER_EPOCHS = {"transformer": 3, "transformer_inline_writes": 3, "moe_transformer": 2}
+TRANSFORMER = dict(sample_rate=SR, frame_length=FRAME // SR, learning_rate=1e-4, num_layers=4,
+                   num_heads=8, hidden_dim=512, latent_channels=MODEL["embedding_dim"])
+TRANSFORMER_STEPS = {"fp32": {}, "bf16": dict(compute_dtype="bfloat16"),
+                     "moe_transformer": dict(moe_experts=8, moe_selected=2)}
+TRANSFORMER_KERNELS = ("conv_stem", "nearest_codes")
+TRANSFORMER_TIMED_STEPS = 5
+#: phase 23's fit with its writes in the loop, as PERF.md §5 records it
+INLINE_WRITES_FIT = dict(s=54.789, device_busy_share=0.7228)
+
+
+def transformer_launches(batches: int) -> dict:
+    """fp32 launches of ``batches`` batch-64 transformer steps, evaluation
+    batches or demos: the teacher's K1 and K3 once each; the transformer
+    itself runs no kernel of the port (its attention takes a causal mask)."""
+    return {"conv_stem": batches, "nearest_codes": batches}
+
+
+def transformer_work(task, batch: int = BATCH) -> dict:
+    """One train step's FLOP and least bytes: the embedding W → hidden, the
+    layers (q, k, v, out projections, Q·Kᵀ and P·V, the FFN, or the MoE's
+    experts on their E·C slots and its dispatch and combine), and ``fc``;
+    the backward twice the forward but the embedding's (the latents take
+    no gradient); the forward and backward read the weights (and the
+    backward writes their gradients), Adam reads p, g, m, v and writes p,
+    m, v."""
+    hp, net = task.hparams, task.net
+    h, s, w, t = hp["hidden_dim"], TRANSFORMER["latent_channels"], FRAME // 4, FRAME
+    tokens = batch * s
+    attn = 8 * tokens * h * h + 4 * batch * s * s * h
+    if hp["moe_experts"]:
+        e = hp["moe_experts"]
+        c = net.layer0.moe.capacity(s)
+        ffn = 4 * batch * e * c * h * 2048 + 4 * batch * s * e * c * h + 2 * tokens * h * e
+    else:
+        ffn = 4 * tokens * h * 2048
+    embed, fc = 2 * tokens * w * h, 2 * batch * 4 * (s * h // 4) * t
+    body = hp["num_layers"] * (attn + ffn) + fc
+    params = sum(p.numel() for p in net.parameters())
+    return dict(forward=embed + body, backward=embed + 2 * body, params=params,
+                forward_bytes=4 * params, backward_bytes=8 * params, adam_bytes=28 * params)
+
+
+def transformer_step(dm, raw: torch.Tensor, kernels, smi: str, name: str, **kw):
+    """One batch-64 train step of a full-width TransformerTask (seed 0) over
+    the CLI's teacher, as the Trainer runs it (``timed_step``: the augment
+    and teacher, forward, backward, Adam, CUDA events, median of 5 after a
+    warm-up), each part beside its bound, and the step's kernels by kind
+    (``device_parts``); K1 and K3 launches a step (once each) and the peak
+    memory. Returns the figures and the task."""
+    from msla_tpu_torch.models.transformer import TransformerTask
+    from msla_tpu_torch.train.trainer import Trainer
+
+    task = TransformerTask(**TRANSFORMER, checkpoint_dir=str(CLI_ROOT / "steps"), device="cuda",
+                           seed=0, **kw)
+    trainer = Trainer(seed=0, enable_progress_bar=False)
+    trainer._setup(task, dm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed_step(trainer, task, dm, raw)  # warm-up
+    reset_counts(kernels)
+    parts = [timed_step(trainer, task, dm, raw) for _ in range(TRANSFORMER_TIMED_STEPS)]
+    per_step = {k: n / TRANSFORMER_TIMED_STEPS for k, n in launch_counts(kernels).items() if n}
+    if per_step != transformer_launches(1):
+        fail(f"transformer {name}: launches a step {per_step}, want {transformer_launches(1)}")
+    names = ("augment_and_teacher", "forward", "backward", "adam")
+    breakdown = {n: statistics.median(p[i] for p in parts) for i, n in enumerate(names)}
+    kinds = device_parts(lambda: timed_step(trainer, task, dm, raw), passes=1)
+    work = transformer_work(task)
+    peak = PEAK_FLOPS["bf16" if kw.get("compute_dtype") else "fp32"]
+    bounds = {"forward": bound(work["forward"], work["forward_bytes"], peak),
+              "backward": bound(work["backward"], work["backward_bytes"], peak),
+              "adam": bound(0, work["adam_bytes"])}
+    result = dict(step_ms=statistics.median(sum(p) for p in parts), breakdown_ms=breakdown,
+                  bounds_ms={k: v[0] for k, v in bounds.items()},
+                  bound_by={k: v[1] for k, v in bounds.items()},
+                  flop=work["forward"] + work["backward"], params=work["params"],
+                  launches_per_step=per_step, device_parts_ms=kinds,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[transformer step] {smi}: {name} batch {BATCH}: step {result['step_ms']:.2f} ms "
+          f"({BATCH * FRAME / result['step_ms'] * 1e3:.4g} samples/s), {work['params']} "
+          f"parameters, {result['flop']:.3e} FLOP; "
+          + ", ".join(f"{n} {breakdown[n]:.3f} ms" + (
+              f" (bound {bounds[n][0]:.3f}, {bounds[n][1]})" if n in bounds else "")
+              for n in names)
+          + f"; peak {result['peak_mem_gb']:.2f} GB", flush=True)
+    print(f"[transformer step] {smi}: {name} device parts of a step (ms, one traced step): "
+          f"{json.dumps(kinds)}", flush=True)
+    return result, task
+
+
+def transformer_card_vs_cpu(task, dm, raw: torch.Tensor) -> dict:
+    """The full-width fp32 transformer's deterministic forward on one batch of
+    the teacher's latents, card against the port's CPU path on the same
+    weights and latents: atol = rtol = 1e-4 (fp32 sums in another order,
+    ``fc``'s over K = 8,192 and the embedding's over 11,000)."""
+    from msla_tpu_torch.models.transformer import TransformerTask
+
+    cpu = TransformerTask(**TRANSFORMER, checkpoint_dir=str(CLI_ROOT / "steps"), device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in task.net.state_dict().items()})
+    with torch.inference_mode():
+        latents = dm.on_after_batch_transfer(raw)[0]
+        card = task.net(latents)
+        t0 = time.perf_counter()
+        want = cpu.net(latents.cpu())
+        cpu_s = time.perf_counter() - t0
+    err = check_close("transformer card vs CPU", card.cpu(), want, atol=1e-4, rtol=1e-4)
+    result = dict(max_abs_err=err, max_abs_out=want.abs().max().item(), cpu_s=cpu_s,
+                  shape=list(card.shape))
+    print(f"[transformer cpu-vs-card] {json.dumps(result)}", flush=True)
+    return result
+
+
+def phase_transformer(kernels, smi: str, bert_training: dict) -> tuple[dict, list[dict]]:
+    """The transformer stage on the card, in phase 22's project, over its
+    best_vqvae.ckpt:
+    (a) ``python -m msla_tpu_torch train_transformer=True``, again with
+        ModelCheckpoint's writes in the loop (the run before background
+        writes, in the same call), then with ``experiment=moe_transformer``,
+        in process at full width (4 layers,
+        8 heads, hidden 512, fp32, batch 64, T = 44,000, W = 11,000) with the
+        default callbacks and a CSV logger, ``+generate=False
+        +visualize=False``: fit's and test's seconds, fit's samples/s and
+        busy share, exact K1 and K3 launches (once a train, validation and
+        test batch and a demo), and each checkpoint's seconds in the loop
+        (``save_checkpoint``: the snapshot) beside the writer's seconds and
+        its bytes;
+    (b) one batch-64 step in parts for fp32, bf16 and the MoE preset
+        (``transformer_step``);
+    (c) card against CPU (``transformer_card_vs_cpu``);
+    (d) phase 23's fit, now with background writes, beside its figures
+        with the writes in the loop (``INLINE_WRITES_FIT``);
+    then K1 and K3 re-timed on this path's inputs. Prints the free disk
+    first and removes the project at its end."""
+    import os
+    import shutil
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.train.checkpoint import wait_for_pending
+    from msla_tpu_torch.train.trainer import Trainer
+
+    project, best = CLI_ROOT / "project", CLI_ROOT / "project" / "logs" / "best_checkpoint"
+    free_gb = shutil.disk_usage(best).free / 1e9
+    print(f"[transformer] {free_gb:.1f} GB free on the checkpoint disk", flush=True)
+    saved = {"fit": Trainer.fit, "test": Trainer.test, "save": Trainer.save_checkpoint}
+    runs: dict[str, dict] = {}
+    seen: dict = {}
+    env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(CLI_ROOT / "slakh"), PROJECT_ROOT=str(project))
+    try:
+        for run, extra in (("transformer", []), ("transformer_inline_writes", []),
+                           ("moe_transformer", ["experiment=moe_transformer"])):
+            stages: dict[str, dict] = {}
+            writes: list[dict] = []
+
+            def save(trainer, path, *a, _inline=run.endswith("inline_writes"), **kw):
+                if _inline:  # the same run with ModelCheckpoint's writes in the loop
+                    kw["background"] = False
+                # the loop's stream only: a device-wide synchronize would also
+                # wait for the writer's copy on its own stream
+                stream = torch.cuda.current_stream()
+                stream.synchronize()
+                t0 = time.perf_counter()
+                wait_for_pending(path)  # save_checkpoint's own join of a write in flight
+                t1 = time.perf_counter()
+                future = saved["save"](trainer, path, *a, **kw)
+                stream.synchronize()  # the snapshot's clones included
+                t2 = time.perf_counter()
+                writes.append(dict(file=Path(path).name, loop_s=t2 - t0, join_s=t1 - t0,
+                                   snapshot_s=t2 - t1, future=future))
+                if future is None:  # written in the loop: the snapshot is the whole write
+                    writes[-1].update(s=t2 - t1, bytes=Path(path).stat().st_size)
+                return future
+
+            Trainer.fit = staged("fit", saved["fit"], kernels, stages,
+                                 before=lambda trainer, task, dm, *_: seen.update(dm=dm))
+            Trainer.test = staged("test", saved["test"], kernels, stages)
+            Trainer.save_checkpoint = save
+            reset_counts(kernels)
+            epochs = TRANSFORMER_EPOCHS[run]
+            test_loss = cli.main(["train_transformer=True", "logger=csv",
+                                  f"trainer.max_epochs={epochs}", "extras.print_config=False",
+                                  "+optimized_metric=testing/loss", "+generate=False",
+                                  "+visualize=False", *extra])
+            for w in writes:  # fit has joined them all
+                future = w.pop("future")
+                if future is not None:
+                    w.update(future.result())
+                w.pop("path", None)
+            want = {"fit": transformer_launches(epochs * (BERT_TRAIN_BATCHES + 2)),
+                    "test": transformer_launches(1)}
+            for stage, counts in want.items():
+                if stages.get(stage, {}).get("launches") != counts:
+                    fail(f"transformer {run} {stage}: launches "
+                         f"{stages.get(stage, {}).get('launches')}, want {counts}")
+            if test_loss is None or not np.isfinite(test_loss):
+                fail(f"transformer {run}: testing/loss {test_loss}")
+            files = {p.name: p.stat().st_size for p in sorted(best.glob("*transformer*.ckpt"))}
+            if "best_transformer.ckpt" not in files or not (best / "last.ckpt").is_file():
+                fail(f"transformer {run}: checkpoints {files}")
+            runs[run] = dict(epochs=epochs, test_loss=test_loss, stages=stages, writes=writes,
+                             files=files)
+            fit = stages["fit"]
+            print(f"[transformer] {smi}: {run} fit {fit['steps']} steps in {fit['s']:.3f} s, "
+                  f"{fit['samples_per_s']:.4g} samples/s, device busy "
+                  f"{fit['device_busy_share']:.4f}; test {stages['test']['s']:.3f} s; "
+                  f"testing/loss {test_loss:.5f}; launches fit {fit['launches']}", flush=True)
+            for w in writes:
+                print(f"[transformer] {smi}: {run} {w['file']}: {w['loop_s']:.3f} s in the loop "
+                      f"(save_checkpoint: {w['join_s']:.3f} s joining this file's write in "
+                      f"flight, {w['snapshot_s']:.3f} s the snapshot), {w['s']:.3f} s on the "
+                      f"writer, {w['bytes']} B", flush=True)
+    finally:
+        Trainer.fit, Trainer.test = saved["fit"], saved["test"]
+        Trainer.save_checkpoint = saved["save"]
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    dm = seen["dm"]
+    raw = torch.from_numpy(next(iter(dm.train_dataloader()))).to("cuda")
+    steps = {}
+    for name, kw in TRANSFORMER_STEPS.items():
+        steps[name], task = transformer_step(dm, raw, kernels, smi, name, **kw)
+        if name == "fp32":
+            card_vs_cpu = transformer_card_vs_cpu(task, dm, raw)
+        del task
+        torch.cuda.empty_cache()
+
+    fit23 = bert_training["stages"]["fit"]
+    print(f"[transformer] {smi}: phase 23's fit with background writes {fit23['s']:.3f} s, "
+          f"busy {fit23['device_busy_share']:.4f} (writes in the loop, PERF.md §5: "
+          f"{INLINE_WRITES_FIT['s']} s, busy {INLINE_WRITES_FIT['device_busy_share']})",
+          flush=True)
+
+    report, _ = teacher_kernels(dm.quantize.net, raw)
+    fit_launches = runs["transformer"]["stages"]["fit"]["launches"]
+    for k in report:
+        k.update(launches=fit_launches.get(k["name"], 0),
+                 launches_per_step=steps["fp32"]["launches_per_step"].get(k["name"], 0),
+                 path="transformer_training")
+    report = with_bounds(report)
+    for k in report:
+        k["name"] += "@transformer_training"
+    torch.cuda.empty_cache()
+    result = dict(free_disk_gb=free_gb, runs=runs, steps=steps, card_vs_cpu=card_vs_cpu,
+                  bert_fit_with_background_writes=dict(s=fit23["s"],
+                                                       device_busy_share=fit23[
+                                                           "device_busy_share"]),
+                  bert_fit_writes_in_loop=INLINE_WRITES_FIT)
+    print(f"[transformer] {json.dumps(result)}", flush=True)
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    return result, report
 
 
 def main() -> int:
@@ -3711,6 +3998,9 @@ def main() -> int:
     # 23. Audio-BERT training through the command line, in phase 22's project
     bert_training, bert_training_report = phase("23 Audio-BERT training", phase_bert_training,
                                                 KERNELS, smi)
+    # 24. the transformer stage through the command line, in phase 22's project
+    transformer, transformer_report = phase("24 transformer", phase_transformer, KERNELS, smi,
+                                            bert_training)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -3728,11 +4018,12 @@ def main() -> int:
                       "bf16_audio_bert_serving": bf16_bert,
                       "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu,
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
-                      "cli": cli, "bert_training": bert_training}),
+                      "cli": cli, "bert_training": bert_training,
+                      "transformer": transformer}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report
-                      + bert_training_report}), flush=True)
+                      + bert_training_report + transformer_report}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

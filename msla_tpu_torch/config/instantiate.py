@@ -29,9 +29,7 @@ WAITING = {
     "msla_tpu_torch.train.loggers.TensorBoardLogger":
         "ROADMAP.md queue item 2 (the rest of the trainer)",
     "msla_tpu_torch.train.loggers.WandbLogger":
-        "not queued in ROADMAP.md: the wandb package is not installed",
-    "msla_tpu_torch.models.transformer.TransformerTask":
-        "ROADMAP.md queue item 4 (the transformer)",
+        "ROADMAP.md queue item 2 (the rest of the trainer: WandbLogger's offline stub)",
     "msla_tpu_torch.sweep.sweeper.TPESweeper": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
     "msla_tpu_torch.sweep.sampler.TPESampler": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
 }

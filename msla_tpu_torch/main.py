@@ -1,12 +1,15 @@
 """Command line of the port (after main.py; reference: src/main.py:214-241).
 
     python -m msla_tpu_torch train_vqvae=True
+    python -m msla_tpu_torch train_transformer=True
+    python -m msla_tpu_torch experiment=moe_transformer train_transformer=True
     python -m msla_tpu_torch train_bert=True
     python -m msla_tpu_torch debug=default train_vqvae=True
 
 Composes the repository's configs/train.yaml as it is (``config/``, whose
 ``instantiate`` maps the JAX package's targets to the port's), trains on the
-train_vqvae and train_bert flags (Audio-BERT over the frozen
+train_vqvae, train_transformer and train_bert flags (the transformer over
+the quantized latents, Audio-BERT over the code ids, of the frozen
 ``best_vqvae.ckpt``, which must exist), tests, then generates and visualizes
 from the checkpoints under ``paths.best_checkpoint_dir``, and returns
 ``optimized_metric``.
@@ -19,8 +22,7 @@ msgpack checkpoints are read too.
 ``generate`` and ``visualize`` skip, with a warning, when a checkpoint they
 need is missing, and when a checkpoint does not fit the config (its keys or
 shapes); any other error, a kernel's on the card included, raises (ROADMAP.md
-§3). Transformer training and multirun sweeps raise naming their ROADMAP.md
-items.
+§3). Multirun sweeps raise naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -62,8 +64,14 @@ def device_of(cfg: ConfigNode) -> str:
 
 
 def make_task(cfg: ConfigNode, name: str):
-    """``cfg.model.<name>`` on the run's device, its random init seeded by ``cfg.seed``."""
-    return instantiate(cfg.model[name], device=device_of(cfg), seed=int(cfg.get("seed") or 0))
+    """``cfg.model.<name>`` on the run's device, its random init seeded by
+    ``cfg.seed``; the transformer's ``latent_channels`` are the VQ-VAE's
+    embedding_dim."""
+    extra = {}
+    if name == "transformer":
+        extra["latent_channels"] = int(cfg.model.vqvae.embedding_dim)
+    return instantiate(cfg.model[name], device=device_of(cfg), seed=int(cfg.get("seed") or 0),
+                       **extra)
 
 
 def restored_task(cfg: ConfigNode, name: str, ckpt: Path):
@@ -111,29 +119,42 @@ def _load_vqvae_teacher(cfg: ConfigNode) -> Quantize:
     return Quantize(restored_task(cfg, "vqvae", best_vqvae_file))
 
 
-@task_wrapper
-def train_bert(cfg: ConfigNode):
+def _train_second_stage(cfg: ConfigNode, name: str, trainer_overrides: dict, **data_kw):
+    """``cfg.model.<name>`` trained and tested over the frozen teacher, its
+    checkpoints named ``best_<name>`` (main.py:80-156)."""
     quantizer = _load_vqvae_teacher(cfg)
-    data_module = instantiate(cfg.data, quantizer=quantizer)  # code ids
-    bert = make_task(cfg, "bert")
+    data_module = instantiate(cfg.data, quantizer=quantizer, **data_kw)
+    task = make_task(cfg, name)
     logger = instantiate_loggers(cfg.get("logger"))
 
     callbacks = None
     if cfg.get("callbacks") is not None:
-        callbacks = [instantiate(cfg.callbacks.model_checkpoint, filename="best_bert"),
+        callbacks = [instantiate(cfg.callbacks.model_checkpoint, filename=f"best_{name}"),
                      instantiate(cfg.callbacks.early_stopping)]
-    # reference: main.py:139-143
-    trainer = _make_trainer(cfg, callbacks, logger, max_epochs=3, min_epochs=1)
+    trainer = _make_trainer(cfg, callbacks, logger, **trainer_overrides)
 
-    object_dict = {"cfg": cfg, "datamodule": data_module, "model": bert,
+    object_dict = {"cfg": cfg, "datamodule": data_module, "model": task,
                    "callbacks": callbacks, "logger": logger, "trainer": trainer}
     if cfg.train:
-        trainer.fit(bert, data_module, ckpt_path=cfg.get("ckpt_path"))
+        trainer.fit(task, data_module, ckpt_path=cfg.get("ckpt_path"))
     train_metrics = dict(trainer.callback_metrics)
     if cfg.test:
-        trainer.test(bert, data_module, ckpt_path=cfg.get("ckpt_path"))
+        trainer.test(task, data_module, ckpt_path=cfg.get("ckpt_path"))
     test_metrics = dict(trainer.callback_metrics)
     return {**train_metrics, **test_metrics}, object_dict
+
+
+@task_wrapper
+def train_transformer(cfg: ConfigNode):
+    """The transformer over the teacher's quantized latents."""
+    return _train_second_stage(cfg, "transformer", {}, quantized_latents=True)
+
+
+@task_wrapper
+def train_bert(cfg: ConfigNode):
+    """Audio-BERT over the teacher's code ids; the trainer's epochs as
+    main.py:139-143 sets them."""
+    return _train_second_stage(cfg, "bert", dict(max_epochs=3, min_epochs=1))
 
 
 def _first_predict_batch(cfg: ConfigNode) -> np.ndarray:
@@ -217,8 +238,7 @@ def run(cfg: ConfigNode) -> float | None:
     if cfg.train_vqvae:
         metric_dict, _ = train_vqvae(cfg)
     if cfg.train_transformer:
-        raise NotImplementedError("train_transformer=True: the transformer is ROADMAP.md "
-                                  "queue item 4")
+        metric_dict, _ = train_transformer(cfg)
     if cfg.train_bert:
         metric_dict, _ = train_bert(cfg)
 

@@ -14,10 +14,13 @@ in bf16 (LayerNorm statistics in fp32), attention on bf16 q, k, v with an fp32
 output, and the MLM transform in fp32 on the bf16 stream (it has no dtype in
 the JAX package) before a bf16 ``mlm_norm``. Parameters stay fp32.
 
-Deterministic only: Audio-BERT runs BERT with ``deterministic=True`` in
-training too (the argmax stops every gradient into BERT). Dropout, whose
-attention dropout is the transformer's XLA-chain attention, waits with it
-(ROADMAP.md queue item 4), and ``forward(deterministic=False)`` raises.
+``forward(deterministic=False, generator=g)`` runs the JAX module's dropout
+(msla_tpu/nn/bert.py:66, 76, 84): ``hidden_dropout_prob`` on the embeddings'
+output and on the attention and FFN branches before their residual adds,
+each keep mask drawn from ``g``. The JAX BERT's attention has no dropout
+of its own, so attention stays on the flash kernel. Audio-BERT runs BERT
+with ``deterministic=True`` in training too (the argmax stops every
+gradient into BERT), as the JAX task does.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from torch import nn
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.nn.attention import attend
-from msla_tpu_torch.nn.layers import compute, dense, embedding, layer_norm, linear
+from msla_tpu_torch.nn.layers import compute, dense, dropout, embedding, layer_norm, linear
 
 
 @dataclass(frozen=True)
@@ -101,11 +104,11 @@ class BertAttention(nn.Module):
         self.output = BertDense(c.hidden_size, c.hidden_size, c.layer_norm_eps,
                                 generator=generator, device=device)
 
-    def forward(self, x: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv_mask: torch.Tensor, drop=lambda a: a) -> torch.Tensor:
         sa = self.self
         a = attend(sa.query, sa.key, sa.value, self.output.dense, self.num_heads,
                    x, x, x, kv_mask, self.dtype)
-        return layer_norm(self.output.LayerNorm, x + a, self.dtype)
+        return layer_norm(self.output.LayerNorm, x + drop(a), self.dtype)
 
 
 class BertLayer(nn.Module):
@@ -117,11 +120,12 @@ class BertLayer(nn.Module):
         self.intermediate = BertDense(c.hidden_size, c.intermediate_size, None, **kw)
         self.output = BertDense(c.intermediate_size, c.hidden_size, c.layer_norm_eps, **kw)
 
-    def forward(self, x: torch.Tensor, kv_mask: torch.Tensor) -> torch.Tensor:
-        x = self.attention(x, kv_mask)
+    def forward(self, x: torch.Tensor, kv_mask: torch.Tensor, drop=lambda a: a) -> torch.Tensor:
+        """``drop``: the hidden dropout of the attention and FFN branches."""
+        x = self.attention(x, kv_mask, drop)
         h = F.gelu(dense(self.intermediate.dense, x, self.dtype))  # erf-GELU, as HF BERT
-        return layer_norm(self.output.LayerNorm, x + dense(self.output.dense, h, self.dtype),
-                          self.dtype)
+        h = dense(self.output.dense, h, self.dtype)
+        return layer_norm(self.output.LayerNorm, x + drop(h), self.dtype)
 
 
 class BertEncoder(nn.Module):
@@ -181,21 +185,23 @@ class BertForMaskedLM(nn.Module):
         self.cls = BertCLS(config, self.bert.embeddings.word_embeddings, **kw)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
-                deterministic: bool = True, return_mlm_hidden: bool = False) -> torch.Tensor:
+                deterministic: bool = True, return_mlm_hidden: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """(B, S) int ids → (B, S, vocab) MLM logits; with
         ``return_mlm_hidden`` the (B, S, hidden) states after the MLM
         transform and norm (bf16 in bf16 mode), for callers that fuse the
-        decoder with an argmax (``ops.mlm_argmax``)."""
-        if not deterministic:
-            raise NotImplementedError("dropout (deterministic=False) waits with the "
-                                      "transformer's attention dropout, ROADMAP.md queue "
-                                      "item 4")
+        decoder with an argmax (``ops.mlm_argmax``). With ``deterministic``
+        False the hidden dropout draws from ``generator``."""
         if attention_mask is None:
             attention_mask = torch.ones(input_ids.shape, device=input_ids.device)
         attention_mask = attention_mask.to(torch.float32).contiguous()
-        x = self.bert.embeddings(input_ids)
+
+        def drop(a):
+            return dropout(a, self.config.hidden_dropout_prob, generator, deterministic)
+
+        x = drop(self.bert.embeddings(input_ids))
         for layer in self.bert.encoder.layer:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, drop)
         t = self.cls.predictions.transform
         h = layer_norm(t.LayerNorm, F.gelu(t.dense(x.float())), self.dtype)
         if return_mlm_hidden:

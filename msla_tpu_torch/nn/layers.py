@@ -55,6 +55,23 @@ def layer_norm(layer: nn.LayerNorm, x: torch.Tensor,
     return layer(x.float()).to(dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            deterministic: bool = True) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)``: each element kept with probability
+    1 − rate, and a kept one scaled by 1/(1 − rate), in ``x``'s dtype. The
+    keep mask is drawn from ``generator`` (``F.dropout`` takes none), which
+    must live on ``x``'s device."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False draws from a torch.Generator: "
+                         "pass one")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep =torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def uniform_(t: torch.Tensor, limit: float, generator: torch.Generator) -> None:
     with torch.no_grad():
         draw = torch.rand(t.shape, generator=generator, dtype=torch.float32)

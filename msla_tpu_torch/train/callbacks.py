@@ -8,7 +8,12 @@ the best of them (a copy where the file system takes no link), and writes
 ``last.ckpt`` on every validation. EarlyStopping stops on patience, a
 non-finite score or a threshold. Both keep their state in ``state_dict`` so
 that a resume from a checkpoint continues the patience count and the top-k
-heap.
+heap. Every file is written in the background (``train/checkpoint.py``):
+the versioned file and ``last.ckpt`` are copied when the validation ends and
+written by the writer thread, the canonical link is queued behind its
+file's write, a top-k file that is dropped is joined before it is removed,
+and the Trainer's ``fit`` returns once all of them have landed, as the JAX
+ModelCheckpoint does (msla_tpu/train/callbacks.py:106-156).
 
 One departure from the JAX package (ROADMAP.md §3): ``last.ckpt`` is written
 after the top-k update, and the Trainer runs checkpoint callbacks after the
@@ -21,9 +26,10 @@ from __future__ import annotations
 import logging
 import math
 import os
-import shutil
 from pathlib import Path
 from typing import Mapping
+
+from msla_tpu_torch.train.checkpoint import link_after_pending, wait_for_pending
 
 log = logging.getLogger(__name__)
 
@@ -44,15 +50,6 @@ class Callback:
 
     def load_state_dict(self, state: dict) -> None:
         pass
-
-
-def _link_or_copy(src: str, dst: str) -> None:
-    if os.path.exists(dst):
-        os.remove(dst)
-    try:
-        os.link(src, dst)
-    except OSError:  # a file system without hard links
-        shutil.copyfile(src, dst)
 
 
 class ModelCheckpoint(Callback):
@@ -91,7 +88,10 @@ class ModelCheckpoint(Callback):
                 "best_model_score": self.best_model_score}
 
     def load_state_dict(self, state: dict) -> None:
-        # heap entries whose files are gone (a copied checkpoint) are dropped
+        # heap entries whose files are gone (a copied checkpoint) are dropped,
+        # once a write in flight to them has landed
+        for _, path in state.get("best", []):
+            wait_for_pending(str(path))
         self._best = [(float(s), str(p)) for s, p in state.get("best", [])
                       if os.path.exists(str(p))]
         self._version = int(state.get("version", len(self._best)))
@@ -118,24 +118,25 @@ class ModelCheckpoint(Callback):
             self._save_top_k(trainer, score)
         if self.save_last:
             trainer.save_checkpoint(self.dirpath / "last.ckpt",
-                                    weights_only=self.save_weights_only)
+                                    weights_only=self.save_weights_only, background=True)
 
     def _save_top_k(self, trainer, score: float) -> None:
         """A versioned file for this score; the worst beyond k removed; the
         canonical ``<filename>.ckpt`` pointed at the best."""
         path = str(self.dirpath / f"{self.filename}-v{self._version}.ckpt")
         self._version += 1
-        trainer.save_checkpoint(path, weights_only=self.save_weights_only)
+        trainer.save_checkpoint(path, weights_only=self.save_weights_only, background=True)
         self._best.append((score, path))
         self._best.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
         if self.save_top_k > 0:  # negative keeps everything
             while len(self._best) > self.save_top_k:
                 _, drop = self._best.pop()
+                wait_for_pending(drop)  # a write in flight would bring it back
                 if os.path.exists(drop):
                     os.remove(drop)
         canonical = str(self.dirpath / f"{self.filename}.ckpt")
         best_score, best_path = self._best[0]
-        _link_or_copy(best_path, canonical)
+        link_after_pending(best_path, canonical)
         self.best_model_path = canonical
         self.best_model_score = best_score
         if self.verbose:

@@ -39,14 +39,35 @@ tree, with ``format: "jax"`` in the payload: a task's
 ``opt_state`` is optax's, which the port's optimizers do not read. A file
 written with the ``wire`` codecs raises.
 
-Waiting (ROADMAP.md queue item 2): background writes and the ``wire`` codecs.
+**Background writes** (msla_tpu/train/checkpoint.py:24-76, 418-456).
+``save_checkpoint(..., background=True)`` takes its snapshot before it
+returns, since torch's optimizer updates the parameters and moments in
+place: on the card a clone on the device (milliseconds) when the card has
+room for 1.5 copies, else a copy to the host; on the CPU a copy (``.cpu()``
+of a CPU tensor would be the live tensor). One writer thread then copies the
+clone to the host, on a stream of its own, serializes and writes, in the
+order the writes were asked for; each path has its future. A reader
+(``load_checkpoint``) and a second write to a path wait for the write in
+flight to it; ``wait_for_pending`` joins one path's write, or all, and a
+failed write raises there once; ``link_after_pending`` queues a link behind
+the write of its source. A frozen sidecar is written in the same order,
+before the checkpoint that names it. Every file goes to ``<name>.tmp`` and is
+renamed into place, so a crash never leaves half a file.
+
+Waiting (ROADMAP.md queue item 2): the ``wire`` codecs.
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import logging
+import os
+import shutil
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import torch
 
@@ -59,22 +80,165 @@ _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _WEIGHT_PERIOD = 9973
 
 
-def _to_cpu(tree, copies: dict | None = None):
-    """The tree with its tensors on the CPU. Tensors that are one view of one
-    storage (BERT's tied decoder and word embeddings) stay one tensor, so
-    ``torch.save`` writes them once."""
-    copies = {} if copies is None else copies
+log = logging.getLogger(__name__)
+
+# one ordered writer thread; the futures of each path's writes and links
+_executor: ThreadPoolExecutor | None = None
+_pending: dict[str, list[Future]] = {}
+_lock = threading.Lock()
+_streams: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _path_key(path: str | Path) -> str:
+    """One key for every spelling of a file's path."""
+    return str(Path(path).expanduser().resolve())
+
+
+def _submit(job: Callable[[], Any], *paths: str | Path) -> Future:
+    """Queue ``job`` on the writer thread, as pending on each of ``paths``."""
+    global _executor
+    with _lock:
+        if _executor is None:
+            _executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-write")
+        future = _executor.submit(job)
+        for path in paths:
+            _pending.setdefault(_path_key(path), []).append(future)
+    return future
+
+
+def is_pending(path: str | Path) -> bool:
+    with _lock:
+        return _path_key(path) in _pending
+
+
+def wait_for_pending(path: str | Path | None = None) -> None:
+    """Block until the background writes to ``path`` (or every one) have
+    landed. A failed write raises its error here once: its future leaves the
+    registry first, so a later write to the same path starts afresh. With
+    several failures the first raises and the others are logged."""
+    with _lock:
+        if path is None:
+            futures = [f for fs in _pending.values() for f in fs]
+            _pending.clear()
+        else:
+            futures = _pending.pop(_path_key(path), [])
+            for key in [k for k, fs in _pending.items() if any(f in futures for f in fs)]:
+                _pending[key] = [f for f in _pending[key] if f not in futures]
+                if not _pending[key]:
+                    del _pending[key]
+    errors = []
+    for future in dict.fromkeys(futures):  # a link is pending on two paths
+        try:
+            future.result()
+        except Exception as err:  # raised once, after the others have landed
+            errors.append(err)
+    for err in errors[1:]:
+        log.error("background checkpoint write failed: %s", err)
+    if errors:
+        raise errors[0]
+
+
+def _tensor_key(t: torch.Tensor) -> tuple:
+    return (t.device, t.untyped_storage().data_ptr(), t.storage_offset(), tuple(t.shape),
+            t.stride(), t.dtype)
+
+
+def _map_tensors(tree, fn, copies: dict):
+    """``tree`` with ``fn`` applied to each tensor; tensors that are one view
+    of one storage (BERT's tied decoder and word embeddings) stay one tensor,
+    so ``torch.save`` writes them once."""
     if isinstance(tree, torch.Tensor):
-        key = (tree.device, tree.untyped_storage().data_ptr(), tree.storage_offset(),
-               tuple(tree.shape), tree.stride(), tree.dtype)
+        key = _tensor_key(tree)
         if key not in copies:
-            copies[key] = tree.detach().cpu()
+            copies[key] = fn(tree)
         return copies[key]
     if isinstance(tree, dict):
-        return {k: _to_cpu(v, copies) for k, v in tree.items()}
+        return {k: _map_tensors(v, fn, copies) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v, copies) for v in tree)
+        return type(tree)(_map_tensors(v, fn, copies) for v in tree)
     return tree
+
+
+def _to_cpu(tree):
+    """The tree with its tensors copied to the CPU: a copy also of a CPU
+    tensor, which ``.cpu()`` would hand back as it is, live."""
+    return _map_tensors(tree, lambda t: t.detach().to("cpu", copy=True), {})
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _snapshot(tree) -> Callable[[], Any]:
+    """A copy of ``tree`` taken now, and a function that gives it with its
+    tensors on the CPU (run on the writer thread). On the card the copy is a
+    clone on the device when the card has room for 1.5 copies: the writer
+    copies it to the host on a stream of its own, after the clones are done,
+    so neither the loop nor its kernels wait for the transfer. Otherwise, and
+    on the CPU, the copy goes to the host now."""
+    cuda = {t.device for t in _tensors(tree) if t.is_cuda}
+    if len(cuda) == 1:
+        device, = cuda
+        need = sum(t.numel() * t.element_size() for t in _tensors(tree) if t.is_cuda)
+        free, _ = torch.cuda.mem_get_info(device)
+        if free > 1.5 * need:
+            clone = _map_tensors(tree, lambda t: t.detach().clone(), {})
+            cloned = torch.cuda.Event()
+            cloned.record(torch.cuda.current_stream(device))
+
+            def to_host():
+                with _lock:
+                    if device not in _streams:
+                        _streams[device] = torch.cuda.Stream(device)
+                    stream = _streams[device]
+                with torch.cuda.stream(stream):
+                    stream.wait_event(cloned)
+                    host = _to_cpu(clone)
+                    stream.synchronize()
+                return host
+            return to_host
+    host = _to_cpu(tree)
+    return lambda: host
+
+
+def _write_file(path: Path, payload: Callable[[], Any]) -> dict:
+    """``torch.save`` of ``payload()`` to ``<path>.tmp``, renamed into place;
+    the writer's seconds and the file's bytes."""
+    t0 = time.perf_counter()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    torch.save(payload(), tmp)
+    tmp.replace(path)
+    return {"path": str(path), "s": time.perf_counter() - t0, "bytes": path.stat().st_size}
+
+
+def link_or_copy(src: str | Path, dst: str | Path) -> None:
+    """``dst`` made a hard link of ``src`` (a copy where the file system takes
+    no link)."""
+    if os.path.exists(dst):
+        os.remove(dst)
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)
+
+
+def link_after_pending(src: str | Path, dst: str | Path) -> None:
+    """``link_or_copy(src, dst)``, queued behind a write to ``src`` in flight
+    (the writer runs its jobs in order), so ``dst`` never names half a file;
+    the queued link is pending on both paths, so ``src`` is not removed
+    before it is made."""
+    if is_pending(src):
+        _submit(lambda: link_or_copy(src, dst), src, dst)
+    else:
+        wait_for_pending(dst)
+        link_or_copy(src, dst)
 
 
 def is_frozen(key: str, frozen_keys) -> bool:
@@ -101,16 +265,19 @@ def frozen_fingerprint(frozen: Mapping[str, torch.Tensor]) -> str:
     return h.hexdigest()[:10]
 
 
-def save_frozen_sidecar(dirpath: Path, frozen: Mapping[str, torch.Tensor]) -> str:
-    """Write ``frozen-<fingerprint>.ckpt`` unless the directory has it (the
-    name encodes the content); returns the file's name."""
+def save_frozen_sidecar(dirpath: Path, frozen: Mapping[str, torch.Tensor],
+                        background: bool = False) -> str:
+    """Write ``frozen-<fingerprint>.ckpt`` unless the directory has it or it
+    is being written (the name encodes the content); returns the file's
+    name."""
     name = f"frozen-{frozen_fingerprint(frozen)}.ckpt"
-    sidecar = dirpath / name
-    if not sidecar.exists():
-        dirpath.mkdir(parents=True, exist_ok=True)
-        tmp = sidecar.with_suffix(".ckpt.tmp")
-        torch.save({"state_dict": _to_cpu(dict(frozen))}, tmp)
-        tmp.replace(sidecar)
+    sidecar = Path(dirpath) / name
+    if not sidecar.exists() and not is_pending(sidecar):
+        if background:
+            tensors = _snapshot(dict(frozen))
+            _submit(lambda: _write_file(sidecar, lambda: {"state_dict": tensors()}), sidecar)
+        else:
+            _write_file(sidecar, lambda: {"state_dict": _to_cpu(dict(frozen))})
     return name
 
 
@@ -119,21 +286,28 @@ def save_checkpoint(path: str | Path, *, state_dict: Mapping[str, torch.Tensor],
                     hparams: dict | None = None, callback_metrics: dict | None = None,
                     callbacks_state: list | None = None,
                     generator_state: torch.Tensor | None = None,
-                    frozen_keys: tuple = ()) -> None:
+                    frozen_keys: tuple = (), background: bool = False) -> Future | None:
     """Write one checkpoint atomically: a crash never leaves half a file.
-    ``frozen_keys``' parts go to the directory's sidecar."""
+    ``frozen_keys``' parts go to the directory's sidecar. With
+    ``background`` the tensors are copied (``_snapshot``) before this
+    returns and the writer thread writes them; the future it returns gives
+    the writer's seconds and the file's bytes. Without, the write is done
+    when it returns (None). A write in flight to ``path`` is joined first."""
     path = Path(path)
+    wait_for_pending(path)
     state_dict = dict(state_dict)
     frozen_keys = tuple(k for k in frozen_keys if any(is_frozen(s, (k,)) for s in state_dict))
     meta: dict[str, Any] = {}
     if frozen_keys:
         frozen = {k: v for k, v in state_dict.items() if is_frozen(k, frozen_keys)}
         state_dict = {k: v for k, v in state_dict.items() if not is_frozen(k, frozen_keys)}
-        meta["frozen_file"] = save_frozen_sidecar(path.parent, frozen)
+        meta["frozen_file"] = save_frozen_sidecar(path.parent, frozen, background)
         meta["frozen_keys"] = json.dumps(list(frozen_keys))
-    payload: dict[str, Any] = {
-        "state_dict": _to_cpu(state_dict),
-        "opt_state": _to_cpu(opt_state) if opt_state is not None else {},
+    tensors = {"state_dict": state_dict, "opt_state": opt_state if opt_state is not None else {}}
+    if generator_state is not None:
+        tensors["generator"] = generator_state
+    tensors = _snapshot(tensors) if background else _to_cpu(tensors)
+    scalars: dict[str, Any] = {
         "epoch": int(epoch),
         "global_step": int(global_step),
         "hparams": json.dumps(hparams or {}, default=str),
@@ -141,12 +315,10 @@ def save_checkpoint(path: str | Path, *, state_dict: Mapping[str, torch.Tensor],
         "callbacks": json.dumps(callbacks_state or [], default=str),
         **meta,
     }
-    if generator_state is not None:
-        payload["generator"] = generator_state.cpu()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(path.suffix + ".tmp")
-    torch.save(payload, tmp)
-    tmp.replace(path)
+    if not background:
+        _write_file(path, lambda: {**tensors, **scalars})
+        return None
+    return _submit(lambda: _write_file(path, lambda: {**tensors(), **scalars}), path)
 
 
 def is_jax_file(path: str | Path) -> bool:
@@ -169,6 +341,7 @@ def load_checkpoint(path: str | Path) -> dict:
     on the CPU, ``hparams`` and ``callbacks`` decoded from JSON, the frozen
     sidecar's parts put back into ``state_dict``."""
     path = Path(path)
+    wait_for_pending(path)  # a background write in flight to it
     payload = _read(path)
     if payload.get("wire"):
         raise NotImplementedError(f"{path} was written with wire={payload['wire']!r}: "
@@ -179,6 +352,7 @@ def load_checkpoint(path: str | Path) -> dict:
     keys = json.loads(payload.pop("frozen_keys", None) or "[]")
     if frozen_file:
         sidecar = path.parent / str(frozen_file)
+        wait_for_pending(sidecar)
         if not sidecar.exists():
             raise FileNotFoundError(
                 f"checkpoint {path} references frozen sidecar {sidecar} which is missing — "

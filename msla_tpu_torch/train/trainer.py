@@ -33,7 +33,10 @@ the global step, the per-step generator and the callbacks' state. A JAX
 package's msgpack checkpoint gives ``validate``, ``test`` and ``predict`` its
 weights (the task's ``state_dict_from_jax``); ``fit`` refuses one, since its
 optimizer state is optax's (ROADMAP.md queue item 2). Checkpoints keep the
-task's ``frozen_param_keys`` in a sidecar (``train/checkpoint.py``). The
+task's ``frozen_param_keys`` in a sidecar (``train/checkpoint.py``);
+``save_checkpoint(..., background=True)`` (ModelCheckpoint's) copies the
+state and leaves the write to the writer thread, and ``fit``, ``test``,
+``validate`` and ``predict`` return once every write has landed. The
 task's ``on_validation_batch_end`` runs after each validation batch (the
 audio demo of the first one), with the datamodule as ``trainer.datamodule``.
 
@@ -70,7 +73,8 @@ import torch
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 from msla_tpu_torch.train.callbacks import ModelCheckpoint
-from msla_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint, weights_of
+from msla_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint, wait_for_pending,
+                                             weights_of)
 
 log = logging.getLogger(__name__)
 
@@ -81,6 +85,22 @@ _PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/)"
 def _refuse(name: str, value, default, item: str) -> None:
     if value != default:
         raise NotImplementedError(f"Trainer {name}={value!r} is not ported yet: {item}")
+
+
+@contextmanager
+def _joined_writes():
+    """Join every background checkpoint write on the way out: a failed write
+    raises, unless another error is already on its way, which it would
+    mask (that write's error is then logged)."""
+    try:
+        yield
+    except BaseException:
+        try:
+            wait_for_pending()
+        except Exception:
+            log.exception("background checkpoint write failed")
+        raise
+    wait_for_pending()
 
 
 class _SimpleProfiler:
@@ -187,15 +207,17 @@ class Trainer:
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     # ---- checkpoint plumbing ---------------------------------------------------------
-    def save_checkpoint(self, path, weights_only: bool = False) -> None:
+    def save_checkpoint(self, path, weights_only: bool = False, background: bool = False):
         """One .ckpt file (``train/checkpoint.py``) of the task's weights,
         the optimizer's state (unless ``weights_only``, Lightning's
         ``save_weights_only``), the epoch, the global step, the per-step
         generator and the callbacks' state; the task's
-        ``frozen_param_keys`` go to the directory's sidecar."""
+        ``frozen_param_keys`` go to the directory's sidecar. With
+        ``background`` the state is copied now and written by the writer
+        thread, and the write's future is returned."""
         if self._model is None:
             raise RuntimeError("save_checkpoint needs a task: call fit or validate first")
-        save_checkpoint(path,
+        return save_checkpoint(path,
                         state_dict=self._model.net.state_dict(),
                         opt_state=None if weights_only else self._optimizer.state_dict(),
                         epoch=self.current_epoch, global_step=self.global_step,
@@ -204,7 +226,8 @@ class Trainer:
                         callbacks_state=[{"class": type(cb).__name__, "state": cb.state_dict()}
                                          for cb in self.callbacks],
                         generator_state=self._generator.get_state(),
-                        frozen_keys=tuple(self._model.frozen_param_keys))
+                        frozen_keys=tuple(self._model.frozen_param_keys),
+                        background=background)
 
     def _resolve_ckpt_path(self, ckpt_path):
         """Lightning's meaning: "best" and "last" resolve through the
@@ -216,6 +239,7 @@ class Trainer:
                 if ckpt_path == "best" and cb.best_model_path:
                     return cb.best_model_path
                 last = cb.dirpath / "last.ckpt"
+                wait_for_pending(last)  # a background write in flight
                 if ckpt_path == "last" and last.exists():
                     return str(last)
         raise RuntimeError(f"ckpt_path='{ckpt_path}' requested but no ModelCheckpoint "
@@ -343,12 +367,15 @@ class Trainer:
 
     # ---- public API --------------------------------------------------------------
     def fit(self, model, datamodule, ckpt_path: str | None = None) -> None:
-        try:
-            with torch.autograd.set_detect_anomaly(self.detect_anomaly):
-                self._fit(model, datamodule, ckpt_path)
-        finally:
-            if self.profiler.enabled and self.profiler.totals:
-                log.info("%s", self.profiler.summary())
+        """Returns once every background checkpoint write has landed; a
+        failed write fails ``fit``."""
+        with _joined_writes():
+            try:
+                with torch.autograd.set_detect_anomaly(self.detect_anomaly):
+                    self._fit(model, datamodule, ckpt_path)
+            finally:
+                if self.profiler.enabled and self.profiler.totals:
+                    log.info("%s", self.profiler.summary())
 
     def _fit(self, model, datamodule, ckpt_path) -> None:
         train_loader = datamodule.train_dataloader()
@@ -427,6 +454,11 @@ class Trainer:
 
     def _eval_entry(self, model, datamodule, mode: str, loader, limit,
                     ckpt_path) -> dict[str, float]:
+        with _joined_writes():
+            return self._evaluate(model, datamodule, mode, loader, limit, ckpt_path)
+
+    def _evaluate(self, model, datamodule, mode: str, loader, limit,
+                  ckpt_path) -> dict[str, float]:
         self._setup(model, datamodule)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
@@ -436,10 +468,14 @@ class Trainer:
         self._log(metrics, self.global_step)
         return metrics
 
-    @torch.no_grad()
     def predict(self, model, datamodule, ckpt_path: str | None = None) -> list[torch.Tensor]:
         """``model.predict_step`` on each batch of the predict loader, on the
         device (after msla_tpu/train/trainer.py:592-690, one process)."""
+        with _joined_writes():
+            return self._predict(model, datamodule, ckpt_path)
+
+    @torch.no_grad()
+    def _predict(self, model, datamodule, ckpt_path) -> list[torch.Tensor]:
         self._setup(model, datamodule)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:

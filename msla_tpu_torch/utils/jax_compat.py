@@ -1,7 +1,9 @@
-"""JAX params → the port's state_dicts (VQ-VAE, BERT, Audio-BERT).
+"""JAX params → the port's state_dicts (VQ-VAE, BERT, Audio-BERT, the
+transformer).
 
-The port keeps the reference torch models' key names (HF's for BERT). Weight
-layouts:
+The port keeps the reference torch models' key names (HF's for BERT), and
+the flax tree's for the transformer, whose ``zero_memory`` cross-attention
+the reference's packed ``in_proj`` names cannot hold. Weight layouts:
 
 * flax Conv kernel (k, in, out)                              → Conv1d (out, in, k)
 * flax ConvTranspose (transpose_kernel=True) kernel (k, out, in) → ConvTranspose1d (in, out, k)
@@ -105,4 +107,34 @@ def audio_bert_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch
     _conv(sd, "head.conv", params["head"]["conv"])
     _dense(sd, "head.linear", params["head"]["linear"]["dense"])
     sd["codebook"] = _leaf(params, "codebook")
+    return sd
+
+
+def transformer_state_dict_from_jax(params: Mapping[str, Any],
+                                    num_layers: int) -> dict[str, torch.Tensor]:
+    """JAX ``TransformerQuantizerNet`` params →
+    ``msla_tpu_torch.nn.transformer_net.TransformerQuantizerNet`` state_dict
+    (CPU). The port's names are the flax tree's: ``embedding``, ``fc`` and
+    ``layer{i}`` with ``self_attn``, ``cross_attn_out_bias`` (or
+    ``cross_attn``), ``norm1``..``norm3`` and ``linear1``/``linear2`` or
+    ``moe``, whose stacked expert tensors keep their layout."""
+    sd: dict[str, torch.Tensor] = {}
+    _dense(sd, "embedding", params["embedding"])
+    _dense(sd, "fc", params["fc"])
+    for i in range(num_layers):
+        p, key = params[f"layer{i}"], f"layer{i}"
+        for attn in ("self_attn", "cross_attn"):
+            if attn in p:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    _dense(sd, f"{key}.{attn}.{proj}", p[attn][proj])
+        if "cross_attn_out_bias" in p:
+            sd[f"{key}.cross_attn_out_bias"] = _leaf(p, "cross_attn_out_bias")
+        for norm in ("norm1", "norm2", "norm3"):
+            _layer_norm(sd, f"{key}.{norm}", p[norm])
+        if "moe" in p:
+            for name in ("router", "w1", "b1", "w2", "b2"):
+                sd[f"{key}.moe.{name}"] = _leaf(p, "moe", name)
+        else:
+            _dense(sd, f"{key}.linear1", p["linear1"])
+            _dense(sd, f"{key}.linear2", p["linear2"])
     return sd

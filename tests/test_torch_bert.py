@@ -99,6 +99,52 @@ def test_waiting_options_raise():
         torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP.md §3"):
         BertForMaskedLM(BertConfig(**SMALL, use_flash=False), device="cpu")
+    # dropout runs now (test_dropout_is_the_jax_hidden_dropout)
     net = BertForMaskedLM(BertConfig(**SMALL), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 4"):  # with the transformer
-        net(torch.zeros((1, 4), dtype=torch.int64), deterministic=False)
+    ids = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        net(ids, deterministic=False)
+    assert torch.isfinite(net(ids, deterministic=False,
+                              generator=torch.Generator().manual_seed(0))).all()
+
+
+def test_dropout_is_the_jax_hidden_dropout(pair, monkeypatch):
+    """deterministic=True is unchanged (JAX's forward); with it False the
+    JAX module's three hidden dropouts a layer (msla_tpu/nn/bert.py:66, 76,
+    84: embeddings, attention branch, FFN branch) draw from the generator:
+    the same seed gives the same masks, another seed others, the kept share
+    is 1 − p within 5 binomial σ and the kept values are scaled by 1/(1 − p);
+    attention keeps the flash path."""
+    from msla_tpu_torch.nn import bert as port_bert
+    from msla_tpu_torch.nn.layers import dropout
+
+    jax_net, params, net = pair
+    ids, am = _inputs()
+    want = np.asarray(jax_net.apply({"params": params}, jnp.asarray(ids), jnp.asarray(am)))
+    got = net(torch.from_numpy(ids), torch.from_numpy(am), deterministic=True)
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+
+    calls = []
+
+    def record(a, rate, generator, deterministic=True):
+        out = dropout(a, rate, generator, deterministic)
+        calls.append((a.detach(), out.detach()))
+        return out
+
+    monkeypatch.setattr(port_bert, "dropout", record)
+    p = SMALL.get("hidden_dropout_prob", 0.1)
+    runs = []
+    for seed in (1, 1, 2):
+        calls.clear()
+        net(torch.from_numpy(ids), torch.from_numpy(am), deterministic=False,
+            generator=torch.Generator().manual_seed(seed))
+        runs.append(list(calls))
+    assert len(runs[0]) == 1 + 2 * SMALL["num_hidden_layers"]
+    kept_n = live_n = 0
+    for (a, out), (a2, out2), (_, out3) in zip(*runs):
+        assert torch.equal(out, out2) and not torch.equal(out != 0, out3 != 0)
+        kept = out != 0
+        assert torch.equal(out[kept], a[kept] / (1 - p)) and not out[~kept].any()
+        kept_n, live_n = kept_n + kept.sum().item(), live_n + (a != 0).sum().item()
+    sigma = (p * (1 - p) / live_n) ** 0.5
+    assert abs(kept_n / live_n - (1 - p)) < 5 * sigma

@@ -11,6 +11,11 @@
   JAX task's on the same weights (``vqvae_state_dict_from_jax``);
 * ``generate`` corrupts the stem and draws the noise JAX's ``generate`` draws
   after the same ``seed_everything`` (bit for bit), through a small BERT;
+* ``train_transformer=True``, then with ``experiment=moe_transformer``,
+  after a ``train_vqvae=True`` run trains the transformer (2 layers, hidden
+  32) over the frozen teacher's quantized latents, tests, and writes
+  ``best_transformer.ckpt`` (the MoE run's with its 8 experts) beside the
+  ``last.ckpt`` of the same run, no write left pending;
 * ``train_bert=True`` after a ``train_vqvae=True`` run trains Audio-BERT (a
   small BERT) over the frozen ``best_vqvae.ckpt``, tests, writes
   ``best_bert.ckpt`` (the head and AdamW's state) with one ``frozen-*.ckpt``
@@ -265,8 +270,39 @@ def test_cli_trains_audio_bert_after_the_vqvae(fixture_root, tmp_path, monkeypat
     assert "test/si_sdr_full_audio_measure" in header and "train/loss" in header
 
 
-@pytest.mark.parametrize("argv,item", [(["train_transformer=True"], "queue item 4"),
-                                       (["train_vqvae=True", "trainer.accelerator=cpu",
+def test_cli_trains_the_transformer_after_the_vqvae(fixture_root, tmp_path, monkeypatch,
+                                                   restore_logging):
+    from msla_tpu_torch.train import checkpoint
+
+    monkeypatch.setenv("SLAKH_DIR", str(fixture_root))
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    common = ["trainer.accelerator=cpu", f"data.target_sample_rate={SR}", "data.batch_size=2",
+              *SMALL_VQ, "model.transformer.num_layers=2", "model.transformer.num_heads=4",
+              "model.transformer.hidden_dim=32", "+generate=False", "+visualize=False",
+              "extras.print_config=False"]
+    with pytest.raises(FileNotFoundError, match="best_vqvae.ckpt"):
+        cli.main(["train_transformer=True", *common])
+    cli.main(["train_vqvae=True", "trainer.max_epochs=1", *common])
+    best = tmp_path / "logs" / "best_checkpoint"
+    for extra, experts in (([], 0), (["experiment=moe_transformer"], 8)):
+        test_loss = cli.main(["train_transformer=True", "trainer.max_epochs=1", "logger=csv",
+                              "+optimized_metric=testing/loss", *extra, *common])
+        assert np.isfinite(test_loss) and not checkpoint._pending
+        payload = load_checkpoint(best / "best_transformer.ckpt")
+        assert payload["epoch"] == 1 and payload["opt_state"]["state"]
+        assert payload["hparams"]["moe_experts"] == experts
+        assert ("layer0.moe.w1" in payload["state_dict"]) == bool(experts)
+        assert payload["state_dict"]["fc.weight"].shape == (2 * SR, 8 * 32 // 4)
+        task_name = "moe_transformer" if experts else "train"
+        run_dir = sorted((tmp_path / "logs" / task_name / "runs").glob("*"))[-1]
+        header = (run_dir / "csv" / "metrics.csv").read_text().splitlines()[0].split(",")
+        assert "testing/si_sdr_full_audio_measure" in header and "train/loss" in header
+        assert ("train/moe_aux" in header) == bool(experts)
+        audio, rate = read_wav(run_dir / "checkpoint" / "generated_full_song.wav")
+        assert rate == SR and audio.shape == (1, 2 * SR) and np.isfinite(audio).all()
+
+
+@pytest.mark.parametrize("argv,item", [(["train_vqvae=True", "trainer.accelerator=cpu",
                                          "+trainer.accumulate_grad_batches=2"], "queue item 2"),
                                        (["-m", "train_vqvae=True"], "queue item 7"),
                                        (["--multirun"], "queue item 7"),

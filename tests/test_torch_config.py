@@ -114,8 +114,7 @@ def test_instantiate_retargets_to_the_port(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("target,item", [
     ("msla_tpu.train.loggers.TensorBoardLogger", "queue item 2"),
-    ("msla_tpu.train.loggers.WandbLogger", "not queued"),
-    ("msla_tpu.models.transformer.TransformerTask", "queue item 4"),
+    ("msla_tpu.train.loggers.WandbLogger", "queue item 2 .* offline stub"),
     ("msla_tpu.sweep.sweeper.TPESweeper", "queue item 7"),
     ("msla_tpu.sweep.sampler.TPESampler", "queue item 7"),
 ])
@@ -123,6 +122,26 @@ def test_a_target_without_a_counterpart_names_its_item(target, item):
     assert retarget(target) in WAITING
     with pytest.raises(config.InstantiationError, match=item):
         config.instantiate({"_target_": target})
+
+
+def test_the_transformer_target_instantiates(tmp_path, monkeypatch):
+    """configs/model/transformer.yaml's target, which waited for the
+    transformer, builds the port's TransformerTask, and the MoE preset its
+    experts."""
+    from msla_tpu_torch.models.transformer import TransformerTask
+
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    cfg = config.compose(CONFIG_DIR, "train", ["experiment=moe_transformer",
+                                               "data.target_sample_rate=64",
+                                               "model.transformer.hidden_dim=16",
+                                               "model.transformer.num_heads=2",
+                                               "model.transformer.num_layers=1"])
+    config.setup_run_dir(cfg)
+    assert retarget(cfg.model.transformer._target_) not in WAITING
+    task = config.instantiate(cfg.model.transformer, device="cpu", seed=0, latent_channels=8)
+    assert type(task) is TransformerTask and task.hparams["moe_experts"] == 8
+    assert tuple(task.net.layer0.moe.w1.shape) == (8, 16, 2048)
+    assert tuple(task.net.fc.weight.shape) == (128, 8 * 16 // 4)
 
 
 @pytest.mark.parametrize("target", ["jax.numpy.zeros", "flax.linen.Dense",

@@ -2,7 +2,8 @@
 package: ``attention_ref``/``scaled_attention`` against JAX ``scaled_attention``
 (whose CPU dispatch is the XLA chain) on every row, padded query rows and a
 sequence whose keys are all padding included, and ``MultiHeadAttention`` with
-a key-padding mask against JAX's on the same weights. fp32 at atol 1e-5:
+a key-padding mask against JAX's on the same weights, and the transformer's
+additive causal mask and attention dropout. fp32 at atol 1e-5:
 sums over 64 to 128 products in another order. Then the fp32 kernel's 3xTF32
 products, emulated (``attention_3xtf32_ref``), against the JAX XLA chain at
 the kernel's tolerance, and chip_smoke.py's fp64 accumulation bound for that
@@ -104,13 +105,43 @@ def test_multi_head_attention_kv_mask_matches_jax():
 
 
 def test_transformer_paths_wait():
-    g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        MultiHeadAttention(8, 2, dropout=0.1, generator=g, device="cpu")
-    mha = MultiHeadAttention(8, 2, generator=g, device="cpu")
-    x = torch.zeros((1, 4, 8))
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        mha(x, x, x, mask=torch.zeros((1, 1, 4, 4)))
+    """The transformer's paths, which raised before the transformer was
+    ported, now run: the additive causal mask (with and without a
+    key-padding mask) agrees with JAX's within 1e-5, and with attention
+    dropout the deterministic forward agrees with JAX's while a live one
+    draws its masks from the generator (the same seed, the same output)."""
+    from msla_tpu.nn.attention import causal_mask as jax_causal_mask
+    from msla_tpu_torch.nn.attention import causal_mask
+
+    e, heads, s = 16, 2, 12
+    x = np.random.default_rng(4).standard_normal((2, s, e)).astype(np.float32)
+    am = np.ones((2, s), np.float32)
+    am[1, 7:] = 0.0
+    jax_mha = JaxMultiHeadAttention(e, heads, dropout=0.3)
+    xj = jnp.asarray(x)
+    params = jax_mha.init(jax.random.PRNGKey(1), xj, xj, xj)["params"]
+    mha = MultiHeadAttention(e, heads, dropout=0.3, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    mha.load_state_dict({f"{n}.{w}": torch.tensor(np.asarray(params[n][
+        "kernel" if w == "weight" else "bias"]).T if w == "weight" else np.asarray(
+            params[n]["bias"])) for n in ("q_proj", "k_proj", "v_proj", "out_proj")
+        for w in ("weight", "bias")})
+    xt = torch.from_numpy(x)
+    for kv in (None, am):
+        want = np.asarray(jax_mha.apply({"params": params}, xj, xj, xj, mask=jax_causal_mask(s),
+                                        kv_mask=None if kv is None else jnp.asarray(kv)))
+        got = mha(xt, xt, xt, mask=causal_mask(s),
+                  kv_mask=None if kv is None else torch.from_numpy(kv))
+        np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    want = np.asarray(jax_mha.apply({"params": params}, xj, xj, xj))
+    quiet = mha(xt, xt, xt)
+    np.testing.assert_allclose(quiet.detach().numpy(), want, **TOL)
+    live = [mha(xt, xt, xt, deterministic=False, generator=torch.Generator().manual_seed(n))
+            for n in (5, 5, 6)]
+    jax_live = np.asarray(jax_mha.apply({"params": params}, xj, xj, xj, deterministic=False,
+                                        rngs={"dropout": jax.random.PRNGKey(5)}))
+    assert torch.equal(live[0], live[1]) and not torch.equal(live[0], live[2])
+    assert not torch.allclose(live[0], quiet) and not np.allclose(jax_live, want)
 
 
 def _ragged(seed, b=3, s=130, d=64):

@@ -58,6 +58,9 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/utils/util.py", "msla_tpu_torch/utils/instantiators.py",
                      "msla_tpu_torch/utils/plotting.py", "msla_tpu_torch/models/demo.py",
                      "msla_tpu_torch/main.py", "msla_tpu_torch/__main__.py",
+                     "msla_tpu_torch/nn/positional.py", "msla_tpu_torch/nn/moe.py",
+                     "msla_tpu_torch/nn/transformer_net.py",
+                     "msla_tpu_torch/models/transformer.py",
                      "chip_smoke.py"):
         assert expected in names
 
