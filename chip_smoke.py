@@ -172,9 +172,36 @@ Phases, each of which raises (exit code != 0) when its check fails:
      CUDA events, median of 5) beside each part's bound, in fp32, bf16 and
      the MoE preset, with K1 and K3 once a step and the peak memory; the
      fp32 forward card against CPU on the teacher's latents (atol = rtol =
-     1e-4); K1 and K3 re-timed on the path's inputs; then the project is
-     removed;
- 25. one JSON line with every kernel's numbers, then the device line.
+     1e-4); one batch-64 step with remat=True at dropout 0.1 against one
+     without from the same weights and generator state (the gradients equal,
+     bit for bit where the card's sums repeat, within 1e-5 of each tensor's
+     largest in any case, and a step on another generator state different),
+     each step's ms and peak, and the stepped state's save_checkpoint exact
+     and with wire="q8" (seconds and bytes); K1 and K3 re-timed on the
+     path's inputs; then the project is removed, the fixture kept;
+ 25. the rest of the trainer at full width on phase 22's fixture: (a)
+     python -m msla_tpu_torch experiment=vqvae_slakh in process
+     (trainer.max_epochs cut from 10 to 2; its tensorboard logger; fit,
+     test, visualize and generate timed and counted as in phase 22), the
+     event files read back by read_events with every record's two CRCs
+     checked, each scalar's tag, step and value those the Trainer logged,
+     in order, and the hparams text; (b) one optimizer step of
+     accumulate_grad_batches=2 at batch 32 and one step at batch 64 on the
+     same 64 examples from the same weights (masking off): the mean
+     gradients within atol 1e-4 of each tensor's largest and rtol 1e-3, the
+     updated parameters within atol = rtol = 1e-4 where the gradient is
+     clear of 0, K1b, K2b, #4 and #5 launched exactly 2 times a step (1 at
+     batch 64), each step's ms and peak, and the four kernels re-timed on a
+     batch-32 microbatch; (c) one epoch with profiler="jax" after the same
+     epoch untraced: the trace must hold the stem, fused-VQ and segment-sum
+     kernels among its device events, its five costliest device ops
+     printed; (d) last.ckpt written exact, bf16 and q8 (bytes, seconds),
+     every decoded tensor within its codec's bound, and fit resumed one step
+     from the q8 file; (e) the same state as a JAX msgpack checkpoint
+     written by the script (msgpack_pack, jax_checkpoint: the card has no
+     flax or msgpack), fit resumed one step from it and from the port's file
+     of the same state, the two bit for bit; then the fixture is removed;
+ 26. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -198,6 +225,7 @@ import collections
 import json
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -796,6 +824,7 @@ def kernel_part(name: str) -> str:
 
 
 TRACE_TRIES = 3
+TRACE_TAKES = 8  # traces a measurement may take in all, the discarded ones included
 
 
 def device_parts(fn, passes: int = 3) -> dict:
@@ -808,7 +837,7 @@ def device_parts(fn, passes: int = 3) -> dict:
     (a trace started at the call drops its first kernels), and must hold as
     many of the port's kernels as the wrappers counted launches in the call:
     a trace that drops one (CUPTI did, once in 15 launches, on an H100) is
-    discarded and taken again, at most ``TRACE_TRIES`` times a pass, and
+    discarded and taken again, at most ``TRACE_TAKES`` times a pass, and
     each discarded trace is printed."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -817,7 +846,7 @@ def device_parts(fn, passes: int = 3) -> dict:
     ours = {part for part, _ in PORT_PARTS}
     runs, top = collections.defaultdict(list), collections.Counter()
     for _ in range(passes):
-        for _ in range(TRACE_TRIES):
+        for _ in range(TRACE_TAKES):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
                 for _ in range(2):  # the warm-up step, then the traced one
@@ -837,7 +866,7 @@ def device_parts(fn, passes: int = 3) -> dict:
             print(f"[device_parts] a trace dropped kernels: it holds {dict(traced)}, the "
                   f"wrappers counted {launched}; tracing again", flush=True)
         else:
-            fail(f"device_parts: {TRACE_TRIES} traces each dropped some of the port's kernels")
+            fail(f"device_parts: {TRACE_TAKES} traces each dropped some of the port's kernels")
         sums = collections.defaultdict(float)
         for e in kernels:
             sums[kernel_part(e.name)] += e.device_time / 1e3
@@ -1017,28 +1046,47 @@ def check_segment_sum(name: str, fn, grad, ids, k: int, split2: bool) -> dict:
 SEGMENT_SUM_KERNELS = ("segment_sum_kernel", "segment_sum_finish")  # csrc/segment_sum.cuh
 
 
+FOOTPRINT_LEAD = 4  # one-element adds that open each of its steps
+
+
 def call_footprint(fn, kernel_names) -> tuple[int, int]:
     """(CUDA launches, scratch bytes) of one fn() call, both measured: the
     kernels whose names hold one of ``kernel_names`` in a torch.profiler trace
     of one call, after an untraced warm-up step as in device_parts, the most
     of TRACE_TRIES traces (a trace may drop a kernel, never add one); and the
     peak of allocated device memory over one call, less what was allocated
-    before it and the output it returns."""
+    before it and the output it returns. Each step opens with FOOTPRINT_LEAD
+    one-element adds, so that kernels a trace drops at its start are those and
+    not fn's (CUPTI dropped both of a segment sum's kernels in three traces in
+    a row on an H100); a trace that holds none of fn's kernels is printed and
+    taken again, at most TRACE_TAKES traces in all."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    lead = torch.zeros(1, device="cuda")
     traced = []
-    for _ in range(TRACE_TRIES):
+    for _ in range(TRACE_TAKES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):  # the warm-up step, then the traced one
+                for _ in range(FOOTPRINT_LEAD):
+                    lead.add_(1)
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        traced.append(sum(1 for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and any(w in e.name for w in kernel_names)))
-    if max(traced) < 1:
-        fail(f"call_footprint: no kernel named {kernel_names} in {TRACE_TRIES} traces")
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
+        ours = sum(1 for name in kernels if any(w in name for w in kernel_names))
+        if ours:
+            traced.append(ours)
+            if len(traced) == TRACE_TRIES:
+                break
+        else:
+            print(f"[call_footprint] a trace holds none of {kernel_names} among its "
+                  f"{len(kernels)} CUDA kernels {sorted(set(n[:40] for n in kernels))}; "
+                  f"tracing again", flush=True)
+    if not traced:
+        fail(f"call_footprint: no kernel named {kernel_names} in {TRACE_TAKES} traces")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1448,13 +1496,13 @@ def measure_steps(trainer, task, dm, kernels) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     names = ("augment_and_mixture", "forward", "backward", "adam")
     breakdown = {n: statistics.median(p[i] for p in parts) for i, n in enumerate(names)}
-    step_ms = time_ms(lambda: trainer._train_step(task, dm, raw), reps=10, warmup=2)
+    step_ms = time_ms(lambda: trainer._train_step(task, dm, [raw]), reps=10, warmup=2)
     host_s = []
     for _ in range(2):
         t0 = time.perf_counter()
         steps = 0
         for _, batch in trainer._prefetched(loader, len(loader)):
-            trainer._train_step(task, dm, batch)
+            trainer._train_step(task, dm, [batch])
             steps += 1
         torch.cuda.synchronize()
         host_s.append((time.perf_counter() - t0) / steps)
@@ -3449,17 +3497,17 @@ def bert_resume(trainer, task, dm, raw: torch.Tensor, last: Path) -> dict:
     head = {k: v.clone() for k, v in task.net.head.state_dict().items()}
     flags = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
     with torch.backends.cudnn.flags(**flags):
-        trainer._train_step(task, dm, raw)
+        trainer._train_step(task, dm, [raw])
     want = {k: v.clone() for k, v in task.net.head.state_dict().items()}
     want_opt = [{k: v.clone() for k, v in s.items()}
                 for s in trainer._optimizer.state_dict()["state"].values()]
     again = Trainer(seed=0, enable_progress_bar=False)
     again._setup(task, dm)
-    again._restore(last, training=True)
+    again._restore(last)
     if any(not torch.equal(v, head[k]) for k, v in task.net.head.state_dict().items()):
         fail("Audio-BERT resume: the restored head is not the saved one")
     with torch.backends.cudnn.flags(**flags):
-        again._train_step(task, dm, raw)
+        again._train_step(task, dm, [raw])
     got_opt = list(again._optimizer.state_dict()["state"].values())
     differ = [k for k, v in task.net.head.state_dict().items() if not torch.equal(v, want[k])]
     differ += [f"adamw {i} {k}" for i, (a, b) in enumerate(zip(want_opt, got_opt))
@@ -3750,6 +3798,90 @@ def transformer_card_vs_cpu(task, dm, raw: torch.Tensor) -> dict:
     return result
 
 
+def peak_step(fn) -> dict:
+    """``fn()`` once after a synchronize: the device memory resident before it,
+    the peak during it and the peak's excess over the resident, in GB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return dict(resident_gb=resident / 1e9, peak_gb=peak / 1e9,
+                step_gb=(peak - resident) / 1e9)
+
+
+def transformer_remat_and_wire(dm, raw: torch.Tensor, smi: str, ckpt_dir: Path) -> dict:
+    """The full-width transformer at dropout 0.1 (the task's default), one
+    batch-64 step with ``remat=True`` and one without, each from seed 0 and
+    the Trainer's generator at seed 0: the gradients the two steps took must
+    agree (bit for bit where the card's kernels repeat their sums; within
+    1e-5 of each tensor's largest in any case), which holds only if the
+    recomputed forward drew the forward's dropout masks; a step on another
+    generator state must differ. Each step's ms (CUDA events, median of 5)
+    and peak. Then ``save_checkpoint`` of the stepped state (weights and
+    Adam, 4.54 GB), exact and ``wire="q8"``, in the loop: seconds and bytes."""
+    from msla_tpu_torch.models.transformer import TransformerTask
+    from msla_tpu_torch.train.trainer import Trainer
+
+    def setup(remat: bool, seed: int = 0):
+        task = TransformerTask(**TRANSFORMER, checkpoint_dir=str(CLI_ROOT / "steps"),
+                               device="cuda", seed=0)
+        trainer = Trainer(seed=seed, enable_progress_bar=False, remat=remat)
+        trainer._setup(task, dm)
+        return task, trainer
+
+    grads, figures = {}, {}
+    for name, remat in (("plain", False), ("remat", True)):
+        task, trainer = setup(remat)
+        figures[name] = peak_step(lambda: trainer._train_step(task, dm, [raw]))
+        grads[name] = {k: p.grad.clone() for k, p in task.net.named_parameters()}
+        figures[name]["step_ms"] = time_ms(lambda: trainer._train_step(task, dm, [raw]),
+                                           reps=5, warmup=1)
+        if name == "plain":
+            del task, trainer
+            torch.cuda.empty_cache()
+    worst, equal, tensors = 0.0, 0, len(grads["plain"])
+    for key, g in grads["plain"].items():
+        other = grads["remat"][key]
+        equal += int(torch.equal(g, other))
+        worst = max(worst, ((other - g).abs().max() / g.abs().max().clamp_min(1e-30)).item())
+    if worst > 1e-5:
+        fail(f"transformer remat: gradients off the plain step's by {worst:.3e} of a "
+             "tensor's largest: the recomputed forward drew other dropout masks")
+    del grads["remat"]
+    other_task, other_trainer = setup(False, seed=7)
+    other_trainer._train_step(other_task, dm, [raw])
+    if torch.equal(other_task.net.fc.weight.grad, grads["plain"]["fc.weight"]):
+        fail("transformer remat: another generator state gave the same gradients")
+    del other_task, other_trainer, grads
+    torch.cuda.empty_cache()
+
+    writes = {}
+    for wire in ("off", "q8"):
+        path = ckpt_dir / f"wire_{wire}.ckpt"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(path, wire=wire)
+        writes[wire] = dict(s=time.perf_counter() - t0, bytes=path.stat().st_size)
+        path.unlink()
+    del task, trainer
+    torch.cuda.empty_cache()
+    result = dict(figures, tensors_bit_equal=equal, tensors=tensors, max_rel_diff=worst,
+                  writes=writes)
+    print(f"[transformer remat] {smi}: step {figures['plain']['step_ms']:.2f} ms, peak "
+          f"{figures['plain']['peak_gb']:.2f} GB ({figures['plain']['step_gb']:.2f} over the "
+          f"resident); remat=True {figures['remat']['step_ms']:.2f} ms, peak "
+          f"{figures['remat']['peak_gb']:.2f} GB ({figures['remat']['step_gb']:.2f} over the "
+          f"resident); gradients bit-equal in {equal} of "
+          f"{tensors} tensors, the largest difference {worst:.3e} of its tensor's largest",
+          flush=True)
+    print(f"[transformer wire] {smi}: save_checkpoint exact {writes['off']['s']:.3f} s "
+          f"{writes['off']['bytes']} B, q8 {writes['q8']['s']:.3f} s {writes['q8']['bytes']} B",
+          flush=True)
+    return result
+
+
 def phase_transformer(kernels, smi: str, bert_training: dict) -> tuple[dict, list[dict]]:
     """The transformer stage on the card, in phase 22's project, over its
     best_vqvae.ckpt:
@@ -3769,8 +3901,10 @@ def phase_transformer(kernels, smi: str, bert_training: dict) -> tuple[dict, lis
     (c) card against CPU (``transformer_card_vs_cpu``);
     (d) phase 23's fit, now with background writes, beside its figures
         with the writes in the loop (``INLINE_WRITES_FIT``);
+    (e) one step with ``remat=True`` against one without, and the exact
+        and q8 writes of the stepped state (``transformer_remat_and_wire``);
     then K1 and K3 re-timed on this path's inputs. Prints the free disk
-    first and removes the project at its end."""
+    first and removes the project (not the fixture) at its end."""
     import os
     import shutil
 
@@ -3868,6 +4002,10 @@ def phase_transformer(kernels, smi: str, bert_training: dict) -> tuple[dict, lis
         del task
         torch.cuda.empty_cache()
 
+    for path in [*best.glob("*transformer*.ckpt"), best / "last.ckpt"]:  # room on the disk
+        path.unlink(missing_ok=True)
+    remat_and_wire = transformer_remat_and_wire(dm, raw, smi, best)
+
     fit23 = bert_training["stages"]["fit"]
     print(f"[transformer] {smi}: phase 23's fit with background writes {fit23['s']:.3f} s, "
           f"busy {fit23['device_busy_share']:.4f} (writes in the loop, PERF.md §5: "
@@ -3885,11 +4023,656 @@ def phase_transformer(kernels, smi: str, bert_training: dict) -> tuple[dict, lis
         k["name"] += "@transformer_training"
     torch.cuda.empty_cache()
     result = dict(free_disk_gb=free_gb, runs=runs, steps=steps, card_vs_cpu=card_vs_cpu,
-                  bert_fit_with_background_writes=dict(s=fit23["s"],
+                  remat_and_wire=remat_and_wire, bert_fit_with_background_writes=dict(s=fit23["s"],
                                                        device_busy_share=fit23[
                                                            "device_busy_share"]),
                   bert_fit_writes_in_loop=INLINE_WRITES_FIT)
     print(f"[transformer] {json.dumps(result)}", flush=True)
+    shutil.rmtree(project, ignore_errors=True)  # phase 25 goes on from the fixture
+    return result, report
+
+
+# ---- phase 25: the rest of the trainer --------------------------------------------------
+
+#: configs/experiment/vqvae_slakh.yaml's trainer.max_epochs (10), cut to 2
+EXPERIMENT_EPOCHS = 2
+ACC_BATCH = BATCH // 2                 # (b): 2 microbatches of 32 against one batch of 64
+ACC_KERNELS = ("conv_stem_save_hidden", "deconv_stem_save_hidden", "vq_fused_fwd",
+               "vq_codebook_grad")
+#: (c): the port's kernels that a traced epoch must hold, by the kernel's own name
+TRACE_KERNELS = {"stems": ("conv_stem_3xtf32_kernel", "deconv_stem_3xtf32_kernel"),
+                 "fused VQ": ("vq_fused_fwd_kernel",), "segment sum": ("segment_sum_kernel",)}
+Q8_BLOCK, WIRE_FLOOR = 1024, 16384     # train/checkpoint.py's codec constants
+
+
+def masked_crc32c(data: bytes) -> int:
+    """TFRecord's masked CRC-32C, computed bit by bit (apart from the port's
+    table-driven one)."""
+    crc = 0xFFFFFFFF
+    for byte in data:
+        crc ^= byte
+        for _ in range(8):
+            crc = (crc >> 1) ^ (0x82F63B78 & -(crc & 1))
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def proto_fields(buf: bytes) -> dict:
+    """A protobuf message's fields by number: varints as ints, fixed64 and
+    fixed32 as their bytes, length-delimited fields as bytes."""
+    out, pos = collections.defaultdict(list), 0
+
+    def varint():
+        nonlocal pos
+        value = shift = 0
+        while True:
+            byte = buf[pos]
+            pos += 1
+            value |= (byte & 0x7F) << shift
+            shift += 7
+            if byte < 0x80:
+                return value
+
+    while pos < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            out[field].append(varint())
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            out[field].append(buf[pos:pos + n])
+            pos += n
+        elif wire == 2:
+            n = varint()
+            out[field].append(buf[pos:pos + n])
+            pos += n
+        else:
+            fail(f"event file: wire type {wire} in a message")
+    return out
+
+
+def read_events(path: Path) -> list[dict]:
+    """Every record of a TFRecord event file, both CRCs of each checked, as
+    {step, file_version, scalars: [(tag, value)], texts: [(tag, plugin, text)]}."""
+    data, pos, events = path.read_bytes(), 0, []
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack("<Q", header)
+        body = data[pos + 12:pos + 12 + n]
+        crcs = struct.unpack("<II", data[pos + 8:pos + 12] + data[pos + 12 + n:pos + 16 + n])
+        if crcs != (masked_crc32c(header), masked_crc32c(body)):
+            fail(f"{path.name}: a record at byte {pos} fails its CRC")
+        pos += 16 + n
+        f = proto_fields(body)
+        event = dict(step=f[2][0] if f[2] else 0,
+                     file_version=f[3][0].decode() if f[3] else None, scalars=[], texts=[])
+        for summary in f[5]:
+            for value in proto_fields(summary)[1]:
+                v = proto_fields(value)
+                tag = v[1][0].decode()
+                if v[2]:
+                    event["scalars"].append((tag, struct.unpack("<f", v[2][0])[0]))
+                if v[8]:
+                    plugin = proto_fields(proto_fields(v[9][0])[1][0])[1][0].decode()
+                    text = b"".join(proto_fields(v[8][0])[8]).decode()
+                    event["texts"].append((tag, plugin, text))
+        events.append(event)
+    return events
+
+
+def experiment_run(kernels, smi: str, bert_task) -> dict:
+    """(a) ``python -m msla_tpu_torch experiment=vqvae_slakh`` in process on
+    phase 22's fixture, in a project of its own: the full-width VQ-VAE at
+    batch 64 with the experiment's tensorboard logger, trainer.max_epochs
+    cut from 10 to 2; fit, test, visualize and generate (phase 10's bert-base
+    weights as best_bert.ckpt), each timed and counted as in phase 22. The
+    event files, read back by ``read_events`` (every CRC checked), must hold
+    every scalar the Trainer logged, with its tag and step, in order, and the
+    hparams as text."""
+    import os
+    import shutil
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.train.checkpoint import save_checkpoint
+    from msla_tpu_torch.train.loggers import TensorBoardLogger
+    from msla_tpu_torch.train.trainer import Trainer
+
+    project = CLI_ROOT / "project25"
+    best = project / "logs" / "best_checkpoint"
+    save_checkpoint(best / "best_bert.ckpt", state_dict=bert_task.net.state_dict())
+    stages: dict[str, dict] = {}
+    logged: list[tuple] = []
+    saved = {"fit": Trainer.fit, "test": Trainer.test, "generate": cli.generate,
+             "visualize": cli.visualize, "log": TensorBoardLogger.log_metrics}
+
+    def log_metrics(self, metrics, step):
+        logged.extend((self._prefix + k, step, float(v)) for k, v in metrics.items())
+        return saved["log"](self, metrics, step)
+
+    env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(CLI_ROOT / "slakh"), PROJECT_ROOT=str(project))
+    Trainer.fit, Trainer.test = (staged("fit", saved["fit"], kernels, stages),
+                                 staged("test", saved["test"], kernels, stages))
+    cli.generate, cli.visualize = (staged("generate", saved["generate"], kernels, stages),
+                                   staged("visualize", saved["visualize"], kernels, stages))
+    TensorBoardLogger.log_metrics = log_metrics
+    reset_counts(kernels)
+    try:
+        t0 = time.perf_counter()
+        test_loss = cli.main(["experiment=vqvae_slakh", f"trainer.max_epochs={EXPERIMENT_EPOCHS}",
+                              "extras.print_config=False", "+optimized_metric=test/loss"])
+        cli_s = time.perf_counter() - t0
+    finally:
+        Trainer.fit, Trainer.test = saved["fit"], saved["test"]
+        cli.generate, cli.visualize = saved["generate"], saved["visualize"]
+        TensorBoardLogger.log_metrics = saved["log"]
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    for stage, names in CLI_STAGE_KERNELS.items():
+        absent = [n for n in names if not stages.get(stage, {}).get("launches", {}).get(n)]
+        if absent:
+            fail(f"experiment {stage}: fp32 kernels that never launched: {absent}")
+    if test_loss is None or not np.isfinite(test_loss):
+        fail(f"experiment: test/loss {test_loss}")
+    if stages["fit"]["steps"] != EXPERIMENT_EPOCHS * BERT_TRAIN_BATCHES:
+        fail(f"experiment: fit took {stages['fit']['steps']} steps")
+    run_dir, = (project / "logs" / "vqvae_slakh" / "runs").glob("*")
+    files = sorted((run_dir / "tensorboard").glob("events.out.tfevents.*"))
+    events = [e for path in files for e in read_events(path)]
+    scalars = [(tag, e["step"], value) for e in events for tag, value in e["scalars"]]
+    want = [(tag, step, float(np.float32(value))) for tag, step, value in logged]
+    if [s[:2] for s in scalars] != [w[:2] for w in want] or not all(
+            a[2] == b[2] or (np.isnan(a[2]) and np.isnan(b[2])) for a, b in zip(scalars, want)):
+        fail(f"experiment: the event files hold {len(scalars)} scalars, the Trainer logged "
+             f"{len(want)}, or they part in tag, step or value")
+    texts = [t for e in events for t in e["texts"]]
+    if len(texts) != 1 or texts[0][:2] != ("hparams/text_summary", "text") or \
+            json.loads(texts[0][2]).get("num_embedding") != MODEL["num_embedding"]:
+        fail(f"experiment: the hparams text {texts}")
+    if not files or any(read_events(path)[0]["file_version"] != "brain.Event:2"
+                        for path in files):
+        fail("experiment: an event file does not open with its version record")
+    written = [best / "best_vqvae.ckpt", best / "codebook.csv",
+               run_dir / "checkpoint" / "bert_generated_during_evaluation.wav"]
+    if not all(p.is_file() for p in written):
+        fail(f"experiment: files not written: {[str(p) for p in written if not p.is_file()]}")
+    fit = stages["fit"]
+    result = dict(epochs=EXPERIMENT_EPOCHS, cli_s=cli_s, test_loss=test_loss, stages=stages,
+                  event_files=len(files), events=len(events), scalars=len(scalars),
+                  event_bytes=sum(p.stat().st_size for p in files))
+    print(f"[experiment] {smi}: vqvae_slakh fit {fit['steps']} steps in {fit['s']:.3f} s "
+          f"({fit['samples_per_s']:.4g} samples/s, busy {fit['device_busy_share']:.4f}), test "
+          f"{stages['test']['s']:.3f} s, visualize {stages['visualize']['s']:.3f} s, generate "
+          f"{stages['generate']['s']:.3f} s, main() {cli_s:.3f} s; {len(scalars)} scalars in "
+          f"{len(files)} event files, every CRC checked; launches fit {fit['launches']}",
+          flush=True)
+    shutil.rmtree(project, ignore_errors=True)
+    return result
+
+
+def microbatch_kernels(net, dm, raw: torch.Tensor) -> list[dict]:
+    """K1b, K2b, #4 and #5 re-timed on one batch-32 microbatch of (b): K1b on
+    its model input, #4 on its pre-VQ latents and the codebook, K2b on the
+    decoder's stem input for those codes, #5 on a gradient of the latents'
+    shape summed by those codes; each against its plain version, timed
+    beside one library call as in phase 6."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (conv_stem_ref, conv_stem_save_hidden, deconv_stem_ref,
+                                    deconv_stem_save_hidden, vq_codebook_grad,
+                                    vq_codebook_grad_ref, vq_fused_fwd, vq_fused_fwd_ref)
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    enc, dec = net.encoder, net.decoder
+    b, w, k_codes = raw.shape[0], FRAME // 4, MODEL["num_embedding"]
+    report = []
+    with torch.no_grad():
+        x = dm.on_after_batch_transfer(raw)[0].contiguous()
+        args = (x, enc.conv1.weight, enc.conv1.bias, enc.conv2.weight, enc.conv2.bias)
+        out, h = conv_stem_save_hidden(*args)
+        want_out, want_h = conv_stem_ref(*args)
+        err = max(check_close("conv_stem_save_hidden (microbatch) out", out, want_out),
+                  check_close("conv_stem_save_hidden (microbatch) hidden", h, want_h))
+        with fp32_convs():
+            lib = time_ms(lambda: F.relu(F.conv1d(F.relu(F.conv1d(x, args[1], args[2], 2, 1)),
+                                                  args[3], args[4], 2, 1)))
+        flops = 2 * b * (FRAME // 2 * 64 * 4 * 4 + w * 128 * 64 * 4)
+        report.append(dict(
+            name="conv_stem_save_hidden", route="cuda", source="msla_tpu_torch/csrc/conv_stem.cu",
+            replaces="msla_tpu/ops/conv_stem.py:132", max_abs_err=err,
+            ms=time_ms(lambda: conv_stem_save_hidden(*args)),
+            plain_ms=time_ms(lambda: conv_stem_ref(*args)), library_ms=lib, flop=flops,
+            bytes=nbytes(*args, out, h), **tf32_bounds(flops, nbytes(*args, out, h))))
+        del out, h, want_out, want_h
+
+        flat = net.encode(x).reshape(-1, MODEL["embedding_dim"])
+        cb = net.vector_quantizer.codebook.weight.detach()
+        q, idx, counts, sq, (mismatches, gap, rel_gap), sq_rel = check_fused(flat, cb)
+        e2 = (cb * cb).sum(1)
+
+        def composite():
+            i = torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1)
+            qq = cb.index_select(0, i)
+            return torch.bincount(i, minlength=k_codes), ((qq - flat) ** 2).sum()
+
+        flops = 2 * flat.shape[0] * k_codes * 64
+        report.append(dict(
+            name="vq_fused_fwd", route="cuda", source="msla_tpu_torch/csrc/vq_fused.cu",
+            replaces="msla_tpu/ops/vq_fused.py:42", max_abs_err=gap, index_mismatches=mismatches,
+            max_tie_gap=rel_gap, sq_rel_err=sq_rel, ms=time_ms(lambda: vq_fused_fwd(flat, cb)),
+            plain_ms=time_ms(lambda: vq_fused_fwd_ref(flat, cb)), library_ms=time_ms(composite),
+            flop=flops, bytes=nbytes(flat, cb, q, idx, counts, sq),
+            **tf32_bounds(flops, nbytes(flat, cb, q, idx, counts, sq))))
+
+        with fp32_convs():
+            stem_in = dec.residual_stack(dec.conv1(q.reshape(b, w, -1).transpose(1, 2)))
+        args = (stem_in.contiguous(), dec.conv1_transpose.weight, dec.conv1_transpose.bias,
+                dec.conv2_transpose.weight, dec.conv2_transpose.bias)
+        out, h = deconv_stem_save_hidden(*args)
+        want_out, want_h = deconv_stem_ref(*args)
+        err = max(check_close("deconv_stem_save_hidden (microbatch) out", out, want_out),
+                  check_close("deconv_stem_save_hidden (microbatch) hidden", h, want_h))
+        with fp32_convs():
+            lib = time_ms(lambda: F.conv_transpose1d(
+                F.relu(F.conv_transpose1d(args[0], args[1], args[2], 2, 1)), args[3], args[4],
+                2, 1))
+        flops = 2 * b * (2 * w * 64 * 128 * 2 + 4 * w * 4 * 64 * 2)
+        report.append(dict(
+            name="deconv_stem_save_hidden", route="cuda",
+            source="msla_tpu_torch/csrc/deconv_stem.cu",
+            replaces="msla_tpu/ops/deconv_stem.py:132", max_abs_err=err,
+            ms=time_ms(lambda: deconv_stem_save_hidden(*args)),
+            plain_ms=time_ms(lambda: deconv_stem_ref(*args)), library_ms=lib, flop=flops,
+            bytes=nbytes(*args, out, h), **tf32_bounds(flops, nbytes(*args, out, h))))
+        del out, h, want_out, want_h
+
+        g = torch.Generator(device=flat.device).manual_seed(25)
+        grad = torch.randn(flat.shape, generator=g, device=flat.device)
+        want = torch.zeros((k_codes, 64), dtype=torch.float64, device=flat.device).index_add_(
+            0, idx.long(), grad.double())
+        err = check_close("vq_codebook_grad (microbatch)",
+                          vq_codebook_grad(grad, idx, k_codes).double(), want)
+        ids_long, zeros = idx.long(), torch.zeros((k_codes, 64), device=flat.device)
+        report.append(dict(
+            name="vq_codebook_grad", route="cuda", source="msla_tpu_torch/csrc/segment_sum.cuh",
+            replaces="msla_tpu/ops/vq_fused.py:81", max_abs_err=err,
+            ms=time_ms(lambda: vq_codebook_grad(grad, idx, k_codes)),
+            plain_ms=time_ms(lambda: vq_codebook_grad_ref(grad, idx, k_codes)),
+            library_ms=time_ms(lambda: zeros.index_add_(0, ids_long, grad)),
+            library_call="index_add_", flop=flat.shape[0] * 64,
+            bytes=nbytes(grad, idx) + k_codes * 64 * 4))
+    return report
+
+
+def vq_task(seed: int = 0):
+    """A full-width VQVAETask on the card."""
+    from msla_tpu_torch.models.vqvae import VQVAETask
+
+    return VQVAETask(**MODEL, checkpoint_dir=str(CLI_ROOT / "steps"),
+                     codebook_file=str(CLI_ROOT / "steps" / "codebook.csv"), device="cuda",
+                     seed=seed)
+
+
+def vq_trainer(dm, seed: int = 0, **kw):
+    """A full-width VQVAETask and a Trainer (seed 0) set up on it."""
+    from msla_tpu_torch.train.trainer import Trainer
+
+    task = vq_task(seed)
+    trainer = Trainer(seed=0, enable_progress_bar=False, **kw)
+    trainer._setup(task, dm)
+    return task, trainer
+
+
+def accumulation(kernels, smi: str):
+    """(b) One optimizer step of ``accumulate_grad_batches=2`` at batch 32 and
+    one step at batch 64, on the same 64 examples (masking off) from the same
+    weights: the mean gradients within atol 1e-4 of each tensor's largest,
+    rtol 1e-3, and the updated parameters within atol = rtol = 1e-4 wherever
+    the batch-64 gradient is clear of 0 (above 1e-3 of its tensor's largest:
+    Adam's first step moves a parameter by ±lr whatever the size of its
+    gradient, so an entry at rounding's size may step either way; those are
+    counted). Launches per optimizer step exactly 2 of K1b, K2b, #4 and #5
+    (1 at batch 64); each step's ms (CUDA events, median of 5) and peak.
+    Returns the figures, the re-timed kernels and the batch-64 trainer."""
+    full = synthetic_stems(1, seed=25)[0]
+    dm = in_memory_datamodule([full], synthetic_stems(1, seed=26), masking=False)
+    dev_full = torch.from_numpy(full).to("cuda")
+    halves = [dev_full[:ACC_BATCH].contiguous(), dev_full[ACC_BATCH:].contiguous()]
+    steps, tasks = {}, {}
+    for name, k, group in (("accumulate_2x32", 2, halves), ("batch_64", 1, [dev_full])):
+        task, trainer = vq_trainer(dm, accumulate_grad_batches=k)
+        reset_counts(kernels)
+        steps[name] = peak_step(lambda: trainer._train_step(task, dm, group))
+        per_step = {n: c for n, c in launch_counts(kernels).items() if c}
+        if per_step != {n: k for n in ACC_KERNELS}:
+            fail(f"accumulation {name}: launches an optimizer step {per_step}")
+        steps[name].update(launches_per_step=per_step)
+        tasks[name] = (task, trainer, group,
+                       {n: p.grad.clone() for n, p in task.net.named_parameters()},
+                       {n: p.detach().clone() for n, p in task.net.named_parameters()})
+    (acc, _, halves, acc_grads, acc_params), (one, one_trainer, _, grads, params) = (
+        tasks["accumulate_2x32"], tasks["batch_64"])
+    unclear, worst = 0, 0.0
+    for key, g in grads.items():
+        err = (acc_grads[key] - g).abs()
+        if (err > 1e-4 * g.abs().max() + 1e-3 * g.abs()).any():
+            fail(f"accumulation: {key}'s mean gradient off the batch-64 one by "
+                 f"{err.max().item():.3e}")
+        clear = g.abs() > 1e-3 * g.abs().max()
+        off = (acc_params[key] - params[key]).abs() > 1e-4 + 1e-4 * params[key].abs()
+        if (off & clear).any():
+            fail(f"accumulation: {key} updated off the batch-64 step where its gradient is "
+                 f"clear of 0 ({(off & clear).sum().item()} entries)")
+        unclear += int(off.sum().item())
+        worst = max(worst, (acc_params[key] - params[key]).abs().max().item())
+    for name, (task, trainer, group, *_) in tasks.items():
+        steps[name]["step_ms"] = time_ms(lambda: trainer._train_step(task, dm, group), reps=5,
+                                         warmup=1)
+    report = microbatch_kernels(acc.net, dm, halves[0])
+    del tasks["accumulate_2x32"], acc
+    torch.cuda.empty_cache()
+    result = dict(steps=steps, max_param_diff=worst, params_off_where_unclear=unclear)
+    print(f"[accumulate] {smi}: accumulate_grad_batches=2 at batch {ACC_BATCH}: "
+          f"{steps['accumulate_2x32']['step_ms']:.2f} ms an optimizer step, peak "
+          f"{steps['accumulate_2x32']['step_gb']:.2f} GB over the resident; batch 64: "
+          f"{steps['batch_64']['step_ms']:.2f} ms, {steps['batch_64']['step_gb']:.2f} GB over "
+          f"the resident; the updated parameters part by "
+          f"at most {worst:.3e}, {unclear} entries beyond 1e-4 where the gradient is not "
+          f"clear of 0; launches an optimizer step {steps['accumulate_2x32']['launches_per_step']}",
+          flush=True)
+    return result, report, (one, one_trainer, dm)
+
+
+def profiled_epoch(smi: str) -> dict:
+    """(c) One epoch of ``fit`` with ``profiler="jax"`` (2 train and 1
+    validation batch of 64, masking on), after the same epoch untraced: the
+    trace under default_root_dir/jax_trace must hold, among its device
+    events, the stem, fused-VQ and segment-sum kernels by name; both fits'
+    host seconds and the five costliest device ops."""
+    import shutil
+
+    from msla_tpu_torch.train.trainer import Trainer
+
+    root = CLI_ROOT / "trace"
+    dm = in_memory_datamodule(synthetic_stems(2, seed=27), synthetic_stems(1, seed=28))
+    task = vq_task()
+    seconds = {}
+    for profiler in (None, "jax"):  # the same epoch untraced first (also a warm-up)
+        trainer = Trainer(default_root_dir=str(root), max_epochs=1, seed=0,
+                          enable_progress_bar=False, profiler=profiler)
+        t0 = time.perf_counter()
+        trainer.fit(task, dm)
+        torch.cuda.synchronize()
+        seconds[profiler or "untraced"] = time.perf_counter() - t0
+    fit_s = seconds["jax"]
+    traces = sorted((root / "jax_trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"profiler: traces written {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    found = {part: sum(1 for e in device if e.get("cat") == "kernel"
+                       and any(w in e.get("name", "") for w in words))
+             for part, words in TRACE_KERNELS.items()}
+    if not all(found.values()):
+        fail(f"profiler: the trace's device events lack the port's kernels: {found}")
+    costs = collections.Counter()
+    for e in device:
+        costs[e["name"][:80]] += e.get("dur", 0) / 1e3
+    top = dict(costs.most_common(5))
+    result = dict(fit_s=fit_s, untraced_fit_s=seconds["untraced"],
+                  trace_bytes=traces[0].stat().st_size, events=len(events),
+                  device_events=len(device), port_kernels=found, top5_device_ms=top)
+    print(f"[profiler] {smi}: profiler=\"jax\" fit of {trainer.global_step} steps in "
+          f"{fit_s:.3f} s (untraced {seconds['untraced']:.3f} s), trace "
+          f"{result['trace_bytes']} B with {len(device)} device events; "
+          f"the port's kernels {found}; the five costliest device ops (ms) {json.dumps(top)}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def wire_error_ok(codec: str, exact: torch.Tensor, got: torch.Tensor) -> bool:
+    """Whether a decoded tensor lies within its codec's bound of the exact one:
+    bf16 half an ulp (2⁻⁸ of |x|), q8 half a step of its block's max (and
+    fp32's rounding of the scale and product); a tensor the codec leaves (not
+    floating, or under 16,384 elements) bit-equal."""
+    if not exact.is_floating_point() or exact.numel() < WIRE_FLOOR:
+        return torch.equal(exact, got)
+    err = (got.double() - exact.double()).abs().reshape(-1)
+    if codec == "bf16":
+        return bool((err <= exact.double().abs().reshape(-1) * 2.0 ** -8).all())
+    flat = exact.double().abs().reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % Q8_BLOCK)).view(-1, Q8_BLOCK)
+    bound = (flat.amax(1) * (0.5 / 127 + 2.0 ** -22)).repeat_interleave(Q8_BLOCK)
+    return bool((err <= bound[:err.numel()]).all())
+
+
+def leaves(tree, prefix="") -> dict:
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in leaves(sub, f"{prefix}/{key}").items()}
+    return {}
+
+
+def wire_writes(trainer, task, dm, smi: str) -> dict:
+    """(d) ``save_checkpoint`` of the batch-64 step's state exact, ``bf16`` and
+    ``q8`` (in the loop): each file's bytes and seconds; every decoded tensor
+    within its codec's bound (``wire_error_ok``: weights bf16 under both, the
+    moments bf16 or q8); then ``fit`` resumes one step from the q8 file, on
+    its decoded weights and moments."""
+    from msla_tpu_torch.train.checkpoint import load_checkpoint
+    from msla_tpu_torch.train.trainer import Trainer
+
+    d = CLI_ROOT / "wire"
+    writes = {}
+    for wire in ("off", "bf16", "q8"):
+        path = d / f"last_{wire}.ckpt"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(path, wire=wire)
+        writes[wire] = dict(s=time.perf_counter() - t0, bytes=path.stat().st_size)
+    exact = load_checkpoint(d / "last_off.ckpt")
+    for wire, opt_codec in (("bf16", "bf16"), ("q8", "q8")):
+        got = load_checkpoint(d / f"last_{wire}.ckpt")
+        for part, codec in (("state_dict", "bf16"), ("opt_state", opt_codec)):
+            want, have = leaves(exact[part]), leaves(got[part])
+            if want.keys() != have.keys():
+                fail(f"wire {wire}: the decoded {part} has other tensors")
+            bad = [k for k in want if have[k].shape != want[k].shape
+                   or have[k].dtype != want[k].dtype or not wire_error_ok(codec, want[k],
+                                                                          have[k])]
+            if bad:
+                fail(f"wire {wire}: {part} tensors beyond the {codec} bound: {bad[:5]}")
+    q8 = d / "last_q8.ckpt"
+    resumed_task = vq_task(seed=1)
+    resumed = Trainer(seed=0, enable_progress_bar=False, max_epochs=1, limit_train_batches=1,
+                      limit_val_batches=1)
+    resumed._setup(resumed_task, dm)
+    resumed._restore(q8)
+    decoded = load_checkpoint(q8)
+    if any(not torch.equal(v.cpu(), decoded["state_dict"][k])
+           for k, v in resumed_task.net.state_dict().items()):
+        fail("wire q8: fit restored other weights than the file's")
+    resumed.fit(resumed_task, dm, ckpt_path=str(q8))
+    if resumed.global_step != trainer.global_step + 1 or not np.isfinite(
+            resumed.callback_metrics["train/loss"]):
+        fail(f"wire q8: the resumed fit ended at step {resumed.global_step}")
+    result = dict(writes=writes, q8_resumed_step=resumed.global_step,
+                  q8_resumed_loss=resumed.callback_metrics["train/loss"])
+    print(f"[wire] {smi}: the VQ-VAE's weights and Adam: exact {writes['off']['bytes']} B in "
+          f"{writes['off']['s']:.3f} s, bf16 {writes['bf16']['bytes']} B in "
+          f"{writes['bf16']['s']:.3f} s, q8 {writes['q8']['bytes']} B in {writes['q8']['s']:.3f}"
+          f" s; every decoded tensor within its codec's bound; fit resumed one step from q8",
+          flush=True)
+    return result
+
+
+def msgpack_pack(obj) -> bytes:
+    """msgpack as flax's ``msgpack_serialize`` writes a checkpoint: dicts as
+    maps in key order, str, int, float (f64), bytes as bin, lists as arrays,
+    numpy arrays as ext type 1 holding (shape, dtype name, bytes), each in
+    its smallest form."""
+    def head(n: int, small: int, small_max: int, codes: tuple) -> bytes:
+        if n <= small_max:
+            return bytes([small | n])
+        for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+            if code is not None and n <= top:
+                return bytes([code]) + struct.pack(fmt, n)
+        fail(f"msgpack: {n} items")
+
+    if isinstance(obj, dict):
+        return head(len(obj), 0x80, 15, (None, 0xDE, 0xDF)) + b"".join(
+            msgpack_pack(k) + msgpack_pack(v) for k, v in sorted(obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return head(len(obj), 0x90, 15, (None, 0xDC, 0xDD)) + b"".join(map(msgpack_pack, obj))
+    if isinstance(obj, str):
+        data = obj.encode()
+        return head(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + data
+    if isinstance(obj, bytes):
+        return head(len(obj), 0, -1, (0xC4, 0xC5, 0xC6)) + obj
+    if obj is None or isinstance(obj, bool):
+        return bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[obj]])
+    if isinstance(obj, int):
+        if 0 <= obj < 128 or -32 <= obj < 0:
+            return struct.pack(">b" if obj < 0 else ">B", obj)
+        for code, fmt, lo, hi in ((0xCC, ">B", 0, 2**8), (0xCD, ">H", 0, 2**16),
+                                  (0xCE, ">I", 0, 2**32), (0xCF, ">Q", 0, 2**64),
+                                  (0xD0, ">b", -2**7, 0), (0xD1, ">h", -2**15, 0),
+                                  (0xD2, ">i", -2**31, 0), (0xD3, ">q", -2**63, 0)):
+            if lo <= obj < hi:
+                return bytes([code]) + struct.pack(fmt, obj)
+    if isinstance(obj, float):
+        return b"\xcb" + struct.pack(">d", obj)
+    if isinstance(obj, np.ndarray):
+        data = msgpack_pack([list(obj.shape), obj.dtype.name, obj.tobytes()])
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixed:
+            return bytes([fixed[len(data)], 1]) + data
+        return head(len(data), 0, -1, (0xC7, 0xC8, 0xC9)) + b"\x01" + data
+    fail(f"msgpack: cannot pack {type(obj)}")
+
+
+def vqvae_jax_tree(sd: dict, num_residual_layer: int = MODEL["num_residual_layer"]) -> dict:
+    """The port's VQ-VAE state_dict (or a tree of its layout: Adam's moments)
+    as the JAX ``VQVAENet``'s params: the inverse of
+    ``utils/jax_compat.vqvae_state_dict_from_jax``, each kernel's axes
+    reversed, as fp32 numpy arrays."""
+    def arr(t):
+        return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+    def conv(key):
+        node = {"kernel": arr(sd[f"{key}.weight"].permute(2, 1, 0))}
+        if f"{key}.bias" in sd:
+            node["bias"] = arr(sd[f"{key}.bias"])
+        return {"conv": node}
+
+    def stack(prefix):
+        out = {}
+        for i in range(num_residual_layer):
+            out[f"block{i}_conv3"] = conv(f"{prefix}.residual_layers.{i}.1")
+            out[f"block{i}_conv1"] = conv(f"{prefix}.residual_layers.{i}.3")
+        return out
+
+    return {"encoder": {"conv1": conv("encoder.conv1"), "conv2": conv("encoder.conv2"),
+                        "conv3": conv("encoder.conv3"),
+                        "residual_stack": stack("encoder.residual_stack")},
+            "pre_vq_conv": conv("conv"),
+            "vector_quantizer": {"codebook": arr(sd["vector_quantizer.codebook.weight"])},
+            "decoder": {"conv1": conv("decoder.conv1"),
+                        "residual_stack": stack("decoder.residual_stack"),
+                        "conv1_transpose": conv("decoder.conv1_transpose"),
+                        "conv2_transpose": conv("decoder.conv2_transpose")}}
+
+
+def jax_checkpoint(trainer, task) -> dict:
+    """The Trainer's VQ-VAE state as the JAX package's ``save_checkpoint``
+    lays it out: the flax params, optax.adam's state ({"0": count, mu, nu;
+    "1": {}}) and the meta fields."""
+    names = {id(p): n for n, p in task.net.named_parameters()}
+    mu, nu, count = {}, {}, None
+    for p, state in trainer._optimizer.state.items():
+        mu[names[id(p)]], nu[names[id(p)]] = state["exp_avg"], state["exp_avg_sq"]
+        count = int(state["step"].item())
+    return {"state_dict": vqvae_jax_tree(task.net.state_dict()),
+            "opt_state": {"0": {"count": np.array(count, dtype=np.int32),
+                                "mu": vqvae_jax_tree(mu), "nu": vqvae_jax_tree(nu)},
+                          "1": {}},
+            "epoch": trainer.current_epoch, "global_step": trainer.global_step,
+            "hparams": json.dumps(task.hparams, default=str), "callback_metrics": {},
+            "callbacks": "[]"}
+
+
+def jax_resume(trainer, task, dm, smi: str) -> dict:
+    """(e) The batch-64 step's state written twice: as a port checkpoint and,
+    by ``jax_checkpoint`` and ``msgpack_pack``, as a JAX msgpack file (the
+    card has neither flax nor msgpack). ``fit`` resumes one step from each,
+    on new tasks of another seed, with cuDNN deterministic: the two end with
+    the same weights and Adam state bit for bit."""
+    from msla_tpu_torch.train.checkpoint import is_jax_file
+    from msla_tpu_torch.train.trainer import Trainer
+
+    d = CLI_ROOT / "jax_resume"
+    d.mkdir(parents=True, exist_ok=True)
+    trainer.save_checkpoint(d / "port.ckpt")
+    t0 = time.perf_counter()
+    (d / "jax.ckpt").write_bytes(msgpack_pack(jax_checkpoint(trainer, task)))
+    jax_write_s = time.perf_counter() - t0
+    if not is_jax_file(d / "jax.ckpt"):
+        fail("jax resume: the msgpack file does not read as a JAX checkpoint")
+    ends = {}
+    flags = dict(enabled=True, benchmark=False, deterministic=True, allow_tf32=False)
+    for name in ("port", "jax"):
+        resumed_task = vq_task(seed=1)
+        resumed = Trainer(seed=0, enable_progress_bar=False, max_epochs=1,
+                          limit_train_batches=1, limit_val_batches=1)
+        with torch.backends.cudnn.flags(**flags):
+            resumed.fit(resumed_task, dm, ckpt_path=str(d / f"{name}.ckpt"))
+        ends[name] = (resumed.global_step, resumed_task.net.state_dict(),
+                      resumed._optimizer.state_dict()["state"])
+    (step_p, sd_p, opt_p), (step_j, sd_j, opt_j) = ends["port"], ends["jax"]
+    differ = [k for k, v in sd_p.items() if not torch.equal(v, sd_j[k])]
+    differ += [f"adam {i} {k}" for i, s in opt_p.items() for k, v in s.items()
+               if not torch.equal(v, opt_j[i][k])]
+    if step_p != step_j or step_p != trainer.global_step + 1 or differ:
+        fail(f"jax resume: steps {step_p} / {step_j}, differing {differ[:5]}")
+    result = dict(bit_exact=True, step=step_j, jax_file_bytes=(d / "jax.ckpt").stat().st_size,
+                  jax_write_s=jax_write_s)
+    print(f"[jax resume] {smi}: fit resumed one step from a JAX msgpack file "
+          f"({result['jax_file_bytes']} B) and from the port's file of the same state: the "
+          f"same weights and Adam state bit for bit", flush=True)
+    return result
+
+
+def phase_rest_of_trainer(kernels, smi: str, bert_task) -> tuple[dict, list[dict]]:
+    """The rest of the trainer on the card, at full width (hidden 128, K =
+    512, D = 64): (a) ``experiment_run``, (b) ``accumulation``, (c)
+    ``profiled_epoch``, (d) ``wire_writes``, (e) ``jax_resume``; then phase
+    22's fixture is removed. Returns the figures and (b)'s re-timed kernels."""
+    import shutil
+
+    experiment = experiment_run(kernels, smi, bert_task)
+    acc, report, (task, trainer, dm) = accumulation(kernels, smi)
+    profile = profiled_epoch(smi)
+    wire = wire_writes(trainer, task, dm, smi)
+    resume = jax_resume(trainer, task, dm, smi)
+    fit_launches = experiment["stages"]["fit"]["launches"]
+    for k in report:
+        k.update(launches=fit_launches.get(k["name"], 0),
+                 launches_per_optimizer_step=acc["steps"]["accumulate_2x32"][
+                     "launches_per_step"][k["name"]], path="accumulate_grad_batches")
+    report = with_bounds(report)
+    for k in report:
+        k["name"] += "@accumulate_grad_batches"
+    del task, trainer
+    torch.cuda.empty_cache()
+    result = dict(experiment=experiment, accumulation=acc, profiler=profile, wire=wire,
+                  jax_resume=resume)
+    print(f"[rest of trainer] {json.dumps(result)}", flush=True)
     shutil.rmtree(CLI_ROOT, ignore_errors=True)
     return result, report
 
@@ -4001,6 +4784,10 @@ def main() -> int:
     # 24. the transformer stage through the command line, in phase 22's project
     transformer, transformer_report = phase("24 transformer", phase_transformer, KERNELS, smi,
                                             bert_training)
+    # 25. the rest of the trainer: experiment=vqvae_slakh on phase 22's fixture,
+    # accumulation, the profiler, the wire codecs, a resume from a JAX file
+    rest, rest_report = phase("25 rest of the trainer", phase_rest_of_trainer, KERNELS, smi,
+                              bert_task)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -4019,11 +4806,12 @@ def main() -> int:
                       "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu,
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
                       "cli": cli, "bert_training": bert_training,
-                      "transformer": transformer}),
+                      "transformer": transformer, "rest_of_trainer": rest}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report
-                      + bert_training_report + transformer_report}), flush=True)
+                      + bert_training_report + transformer_report + rest_report}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -26,10 +26,6 @@ class InstantiationError(RuntimeError):
 
 #: targets of configs/ without a counterpart in the port, and why
 WAITING = {
-    "msla_tpu_torch.train.loggers.TensorBoardLogger":
-        "ROADMAP.md queue item 2 (the rest of the trainer)",
-    "msla_tpu_torch.train.loggers.WandbLogger":
-        "ROADMAP.md queue item 2 (the rest of the trainer: WandbLogger's offline stub)",
     "msla_tpu_torch.sweep.sweeper.TPESweeper": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
     "msla_tpu_torch.sweep.sampler.TPESampler": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
 }

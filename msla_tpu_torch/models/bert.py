@@ -44,7 +44,9 @@ from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
 from msla_tpu_torch.ops.mlm_argmax import mlm_argmax
 from msla_tpu_torch.train.checkpoint import ZIP_MAGIC
 from msla_tpu_torch.utils import msgpack
-from msla_tpu_torch.utils.jax_compat import (audio_bert_state_dict_from_jax,
+from msla_tpu_torch.utils.jax_compat import (adam_state_from_jax,
+                                             audio_bert_head_state_dict_from_jax,
+                                             audio_bert_state_dict_from_jax,
                                              bert_state_dict_from_jax)
 
 log = logging.getLogger(__name__)
@@ -289,6 +291,15 @@ class AudioBertTask(TaskModule):
 
     def state_dict_from_jax(self, params) -> dict[str, torch.Tensor]:
         return audio_bert_state_dict_from_jax(params)
+
+    def optimizer_state_from_jax(self, optimizer, opt_state) -> dict:
+        """``optax.multi_transform``'s state: the "train" label's
+        ``adamw`` (``ScaleByAdamState`` first in its chain) holds the head's
+        moments; the frozen parts' are masked, with no state, as torch's
+        AdamW over the head has none for them."""
+        adam = opt_state["inner_states"]["train"]["inner_state"]["0"]
+        return adam_state_from_jax(optimizer, self.net, adam,
+                                   lambda tree: audio_bert_head_state_dict_from_jax(tree["head"]))
 
     def configure_optimizer(self) -> torch.optim.Optimizer:
         """AdamW on the head alone (optax.adamw under ``multi_transform`` with

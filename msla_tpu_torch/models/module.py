@@ -11,9 +11,10 @@ the JAX package's names, without the ``params`` argument:
   on_validation_batch_end   → on_validation_batch_end(trainer, batch, batch_idx)
 
 ``frozen_param_keys`` names the top-level parts of ``net``'s state that
-training never changes (checkpoints keep them in a sidecar), and
+training never changes (checkpoints keep them in a sidecar),
 ``state_dict_from_jax`` maps a JAX checkpoint's flax params to ``net``'s
-state_dict.
+state_dict, and ``optimizer_state_from_jax`` its optax state to the torch
+optimizer's.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from typing import Mapping
 
 import torch
 from torch import nn
+
+from msla_tpu_torch.utils.jax_compat import adam_state_from_jax
 
 
 class TaskModule:
@@ -37,6 +40,13 @@ class TaskModule:
 
     def state_dict_from_jax(self, params: Mapping) -> dict[str, torch.Tensor]:
         raise NotImplementedError(f"{type(self).__name__} reads no JAX checkpoint")
+
+    def optimizer_state_from_jax(self, optimizer: torch.optim.Optimizer,
+                                 opt_state: Mapping) -> dict:
+        """The state_dict for ``optimizer`` of a JAX checkpoint's
+        ``opt_state``: ``optax.adam``'s, a chain whose first entry ("0") is
+        ``ScaleByAdamState``."""
+        return adam_state_from_jax(optimizer, self.net, opt_state["0"], self.state_dict_from_jax)
 
     def loss_fn(self, batch: tuple[torch.Tensor, torch.Tensor], generator: torch.Generator
                 ) -> tuple[torch.Tensor, Mapping[str, torch.Tensor]]:

@@ -8,7 +8,9 @@ the best of them (a copy where the file system takes no link), and writes
 ``last.ckpt`` on every validation. EarlyStopping stops on patience, a
 non-finite score or a threshold. Both keep their state in ``state_dict`` so
 that a resume from a checkpoint continues the patience count and the top-k
-heap. Every file is written in the background (``train/checkpoint.py``):
+heap. ``wire`` writes ``last.ckpt`` in a smaller, approximate form (and the
+versioned files too with ``wire_best``), as the JAX ModelCheckpoint does.
+Every file is written in the background (``train/checkpoint.py``):
 the versioned file and ``last.ckpt`` are copied when the validation ends and
 written by the writer thread, the canonical link is queued behind its
 file's write, a top-k file that is dropped is joined before it is removed,
@@ -62,12 +64,13 @@ class ModelCheckpoint(Callback):
                  wire_best: bool = False):
         """``auto_insert_metric_name``, ``every_n_*``, ``train_time_interval``
         and ``save_on_train_epoch_end`` are accepted at any value and read by
-        nothing, as in the JAX package. ``wire`` and ``wire_best`` (the JAX
-        package's compressed checkpoints) wait."""
-        if wire or wire_best:
-            raise NotImplementedError(f"ModelCheckpoint wire={wire!r}, wire_best={wire_best!r} "
-                                      "is not ported yet: ROADMAP.md queue item 2 (the rest "
-                                      "of the trainer)")
+        nothing, as in the JAX package. ``wire`` ("bf16", "q8", …:
+        ``train/checkpoint.py``) encodes ``last.ckpt``; the versioned files
+        and the canonical best stay exact (wire "off", whatever
+        ``MSLA_CKPT_WIRE`` says) unless ``wire_best``, since the later stages
+        and exports read them."""
+        self.wire = wire
+        self.wire_best = wire_best
         self.dirpath = Path(dirpath)
         self.filename = filename
         self.monitor = monitor
@@ -118,14 +121,16 @@ class ModelCheckpoint(Callback):
             self._save_top_k(trainer, score)
         if self.save_last:
             trainer.save_checkpoint(self.dirpath / "last.ckpt",
-                                    weights_only=self.save_weights_only, background=True)
+                                    weights_only=self.save_weights_only, background=True,
+                                    wire=self.wire)
 
     def _save_top_k(self, trainer, score: float) -> None:
         """A versioned file for this score; the worst beyond k removed; the
         canonical ``<filename>.ckpt`` pointed at the best."""
         path = str(self.dirpath / f"{self.filename}-v{self._version}.ckpt")
         self._version += 1
-        trainer.save_checkpoint(path, weights_only=self.save_weights_only, background=True)
+        trainer.save_checkpoint(path, weights_only=self.save_weights_only, background=True,
+                                wire=self.wire if self.wire_best else "off")
         self._best.append((score, path))
         self._best.sort(key=lambda t: t[0], reverse=(self.mode == "max"))
         if self.save_top_k > 0:  # negative keeps everything

@@ -36,8 +36,24 @@ msla_tpu/train/checkpoint.py:282-290). ``load_checkpoint`` reassembles them.
 port's own decoder (``utils/msgpack.py``). Its ``state_dict`` stays the flax
 tree, with ``format: "jax"`` in the payload: a task's
 ``state_dict_from_jax`` maps it to the port's names (``weights_of``). Its
-``opt_state`` is optax's, which the port's optimizers do not read. A file
-written with the ``wire`` codecs raises.
+``opt_state`` is optax's, which a task's ``optimizer_state_from_jax`` maps
+onto its torch optimizer's state for ``fit``.
+
+**Wire codecs** (msla_tpu/train/checkpoint.py:114-277). ``wire`` makes a
+smaller file of an approximate state, for ``last.ckpt``: "bf16" writes the
+weights and the optimizer's moments in bf16; "q8" the weights in bf16 and
+the moments as int8 with one fp32 scale a block of 1,024 elements (max|x| /
+127 a block, round half to even); "params=…,opt=…" picks each side's codec
+("bf16", "q8" or "off"); "off" or "exact" pins a file exact. A tensor is
+encoded only if it is floating, has 16,384 elements or more, and (for bf16)
+is not bf16 already; the rest stays exact, and the frozen sidecar always
+does. The encoding runs where the tensors are, on the card before the copy
+to the host, so the copy and the file carry the small form. An encoded
+tensor is a dict ``{"__wire__": codec, "dtype", "shape", "v"}`` (bf16) or
+``{..., "q": int8 (blocks, 1024), "s": fp32 (blocks,)}`` (q8), the JAX
+file's nodes; the file's ``wire`` entry names the spec. ``wire=None`` takes
+the environment's ``MSLA_CKPT_WIRE``. ``load_checkpoint`` decodes the port's
+wired files and the JAX package's, to the original dtype and shape.
 
 **Background writes** (msla_tpu/train/checkpoint.py:24-76, 418-456).
 ``save_checkpoint(..., background=True)`` takes its snapshot before it
@@ -53,8 +69,6 @@ failed write raises there once; ``link_after_pending`` queues a link behind
 the write of its source. A frozen sidecar is written in the same order,
 before the checkpoint that names it. Every file goes to ``<name>.tmp`` and is
 renamed into place, so a crash never leaves half a file.
-
-Waiting (ROADMAP.md queue item 2): the ``wire`` codecs.
 """
 from __future__ import annotations
 
@@ -69,13 +83,16 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Callable, Mapping
 
+import numpy as np
 import torch
 
 from msla_tpu_torch.utils import msgpack
 
 FROZEN_SIDECAR = "frozen.ckpt"  # the JAX package's legacy name, honoured on load
 ZIP_MAGIC = b"PK\x03\x04"       # torch.save's format
-_WIRE = "ROADMAP.md queue item 2 (the rest of the trainer: the wire codecs)"
+WIRE_KEY = "__wire__"
+Q8_BLOCK = 1024
+WIRE_MIN_ELEMS = 16384           # below ~64 KB the savings do not cover the overhead
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _WEIGHT_PERIOD = 9973
 
@@ -241,6 +258,94 @@ def link_after_pending(src: str | Path, dst: str | Path) -> None:
         link_or_copy(src, dst)
 
 
+def parse_wire(spec: str | None) -> tuple[str | None, str | None]:
+    """The (weights, optimizer) codecs of a spec: "bf16" both bf16; "q8" the
+    weights bf16 and the moments q8; "params=…,opt=…" each side's ("off"
+    leaves a side exact); "off" and "exact" none (msla_tpu/train/checkpoint.py
+    ``_parse_wire``, with its errors)."""
+    if not spec:
+        return None, None
+    spec = spec.strip()
+    aliases = {"bf16": ("bf16", "bf16"), "bfloat16": ("bf16", "bf16"), "q8": ("bf16", "q8"),
+               "off": (None, None), "exact": (None, None)}
+    if "=" not in spec:
+        if spec not in aliases:
+            raise ValueError(f"unknown checkpoint wire spec {spec!r} — use "
+                             "'bf16', 'q8', or 'params=...,opt=...'")
+        return aliases[spec]
+    out: dict[str, str | None] = {"params": None, "opt": None}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        k, v = k.strip(), v.strip()
+        if k not in out or v not in ("bf16", "q8", "off"):
+            raise ValueError(f"bad wire spec component {part!r}")
+        out[k] = None if v == "off" else v
+    return out["params"], out["opt"]
+
+
+def q8_encode(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 codes (blocks, 1,024) and fp32 scales (blocks,): the flat tensor
+    padded with zeros to whole blocks, scale = max|x| / 127 a block, codes
+    x / scale rounded half to even (``_q8_encode_jnp``'s function)."""
+    flat = x.detach().to(torch.float32).reshape(-1)
+    blocks = torch.nn.functional.pad(flat, (0, (-flat.numel()) % Q8_BLOCK)).view(-1, Q8_BLOCK)
+    scale = blocks.abs().amax(dim=1) / 127.0
+    q = torch.round(blocks / torch.clamp(scale, min=1e-30)[:, None]).to(torch.int8)
+    return q, scale
+
+
+def _encodable(t, codec: str) -> bool:
+    return (isinstance(t, torch.Tensor) and t.is_floating_point()
+            and t.numel() >= WIRE_MIN_ELEMS and not (codec == "bf16" and t.dtype == torch.bfloat16))
+
+
+def wire_encode(tree, codec: str | None):
+    """``tree`` with each encodable tensor replaced by its codec's node,
+    computed on the tensor's device."""
+    if codec is None:
+        return tree
+
+    def encode(t):
+        meta = {WIRE_KEY: codec, "dtype": str(t.dtype).removeprefix("torch."),
+                "shape": list(t.shape)}
+        if codec == "bf16":
+            return {**meta, "v": t.detach().to(torch.bfloat16)}
+        q, s = q8_encode(t)
+        return {**meta, "q": q, "s": s}
+
+    if isinstance(tree, torch.Tensor):
+        return encode(tree) if _encodable(tree, codec) else tree
+    if isinstance(tree, dict):
+        return {k: wire_encode(v, codec) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(wire_encode(v, codec) for v in tree)
+    return tree
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+
+def wire_decode(node):
+    """A tree with each codec node decoded to a tensor of its dtype and shape
+    (bf16 through fp32; q8 as codes × scale in fp32), the port's nodes and
+    the JAX files' alike."""
+    if isinstance(node, dict):
+        if node.get(WIRE_KEY) in ("bf16", "q8"):
+            dtype = getattr(torch, str(node["dtype"]))
+            shape = tuple(int(d) for d in node["shape"])
+            if node[WIRE_KEY] == "bf16":
+                return _as_tensor(node["v"]).to(torch.float32).to(dtype).reshape(shape)
+            q = _as_tensor(node["q"]).to(torch.float32)
+            s = _as_tensor(node["s"]).to(torch.float32)
+            n = int(np.prod(shape, dtype=np.int64))
+            return (q * s[:, None]).reshape(-1)[:n].reshape(shape).to(dtype)
+        return {k: wire_decode(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [wire_decode(v) for v in node]
+    return node
+
+
 def is_frozen(key: str, frozen_keys) -> bool:
     """Whether a state_dict key lies in one of the named top-level parts."""
     return any(key == k or key.startswith(k + ".") for k in frozen_keys)
@@ -286,15 +391,20 @@ def save_checkpoint(path: str | Path, *, state_dict: Mapping[str, torch.Tensor],
                     hparams: dict | None = None, callback_metrics: dict | None = None,
                     callbacks_state: list | None = None,
                     generator_state: torch.Tensor | None = None,
-                    frozen_keys: tuple = (), background: bool = False) -> Future | None:
+                    frozen_keys: tuple = (), background: bool = False,
+                    wire: str | None = None) -> Future | None:
     """Write one checkpoint atomically: a crash never leaves half a file.
-    ``frozen_keys``' parts go to the directory's sidecar. With
+    ``frozen_keys``' parts go to the directory's sidecar. ``wire`` encodes
+    the rest (``parse_wire``; None takes ``MSLA_CKPT_WIRE``). With
     ``background`` the tensors are copied (``_snapshot``) before this
     returns and the writer thread writes them; the future it returns gives
     the writer's seconds and the file's bytes. Without, the write is done
     when it returns (None). A write in flight to ``path`` is joined first."""
     path = Path(path)
     wait_for_pending(path)
+    if wire is None:
+        wire = os.environ.get("MSLA_CKPT_WIRE") or None
+    wire_params, wire_opt = parse_wire(wire)
     state_dict = dict(state_dict)
     frozen_keys = tuple(k for k in frozen_keys if any(is_frozen(s, (k,)) for s in state_dict))
     meta: dict[str, Any] = {}
@@ -303,6 +413,10 @@ def save_checkpoint(path: str | Path, *, state_dict: Mapping[str, torch.Tensor],
         state_dict = {k: v for k, v in state_dict.items() if not is_frozen(k, frozen_keys)}
         meta["frozen_file"] = save_frozen_sidecar(path.parent, frozen, background)
         meta["frozen_keys"] = json.dumps(list(frozen_keys))
+    if wire_params or wire_opt:  # after the frozen split: the sidecar stays exact
+        meta["wire"] = wire
+        state_dict = wire_encode(state_dict, wire_params)
+        opt_state = wire_encode(opt_state, wire_opt)
     tensors = {"state_dict": state_dict, "opt_state": opt_state if opt_state is not None else {}}
     if generator_state is not None:
         tensors["generator"] = generator_state
@@ -338,14 +452,14 @@ def _read(path: Path) -> dict:
 
 def load_checkpoint(path: str | Path) -> dict:
     """The payload of ``save_checkpoint`` (or of the JAX package's), tensors
-    on the CPU, ``hparams`` and ``callbacks`` decoded from JSON, the frozen
-    sidecar's parts put back into ``state_dict``."""
+    on the CPU, wired tensors decoded, ``hparams`` and ``callbacks`` decoded
+    from JSON, the frozen sidecar's parts put back into ``state_dict``."""
     path = Path(path)
     wait_for_pending(path)  # a background write in flight to it
     payload = _read(path)
-    if payload.get("wire"):
-        raise NotImplementedError(f"{path} was written with wire={payload['wire']!r}: "
-                                  f"reading it is {_WIRE}")
+    if payload.pop("wire", None):
+        payload["state_dict"] = wire_decode(payload["state_dict"])
+        payload["opt_state"] = wire_decode(payload.get("opt_state") or {})
     payload["hparams"] = json.loads(payload.get("hparams") or "{}")
     payload["callbacks"] = json.loads(payload.get("callbacks") or "[]")
     frozen_file = payload.pop("frozen_file", None)

@@ -4,13 +4,14 @@ The constructor takes the JAX Trainer's keywords. What the port runs:
 ``fit``, ``validate``, ``test`` and ``predict`` (each with ``ckpt_path``),
 ``save_checkpoint``; ``max_epochs``, ``min_epochs``, ``limit_train_batches``,
 ``limit_val_batches``, ``limit_test_batches``, ``fast_dev_run``,
-``detect_anomaly``, ``profiler`` ("simple"), ``log_every_n_steps``,
+``detect_anomaly``, ``profiler`` ("simple", "jax"), ``log_every_n_steps``,
 ``enable_progress_bar``, ``default_root_dir``, ``callbacks``, ``logger``,
-``precision`` and ``seed``; epoch metrics as batch-size-weighted means of the
-per-batch means (Lightning's ``on_epoch`` reduction), in ``callback_metrics``.
-A keyword whose feature waits for a later slice raises
-``NotImplementedError`` naming its ROADMAP.md item when it is given anything
-but its default.
+``accumulate_grad_batches``, ``remat``, ``precision`` and ``seed``; epoch
+metrics as batch-size-weighted means of the per-batch means (Lightning's
+``on_epoch`` reduction), in ``callback_metrics``. The parallel keywords
+(``devices`` > 1, ``num_nodes``, ``model_parallel``, ``pipeline_*``,
+``zero1``, ``fsdp``) wait for ROADMAP.md queue item 7 and raise
+``NotImplementedError`` naming it when given anything but their default.
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
@@ -21,6 +22,25 @@ the loop waits for the device: batches are copied one step ahead from pinned
 memory on a side stream, and metrics stay device tensors until the epoch ends
 (or until a logged step, ``log_every_n_steps``, reads them).
 
+``accumulate_grad_batches=k`` groups k loader batches into one optimizer
+step on the mean of their gradients (msla_tpu/train/trainer.py:132-137,
+270-307, 372-395): each microbatch's backward adds its gradient, in turn,
+and the sum is divided by k, the same math as a k× batch for the
+mean-reduced losses of every task. A batch of another shape (a ragged last
+one) or a short tail flushes as a smaller group; ``global_step`` counts
+optimizer steps; a step's metrics are the mean over its microbatches, and an
+epoch's are weighted by the group's examples. The microbatches draw from the
+step generator in turn (JAX folds each one's index into the step key).
+
+``remat=True`` runs the whole loss under ``torch.utils.checkpoint``
+(non-reentrant), as ``jax.checkpoint`` wraps the JAX step's loss: the
+backward recomputes the forward instead of keeping its activations. The
+recomputation draws from the step generator's state as the forward found
+it, and leaves the generator where the forward left it, so the masks of
+dropout and BERT's [MASK] are the forward's and the gradients equal
+``remat=False``'s bit for bit. The kernels of the forward launch twice a
+step (K1b and K2b: their saved hidden is recomputed too).
+
 Around the epochs, as the JAX Trainer (msla_tpu/train/trainer.py:448-577):
 the loggers get the task's hparams once per ``fit``, each logged step's
 metrics and, after each validation, the epoch's; then ``current_epoch``
@@ -29,10 +49,13 @@ callbacks last, so that ``last.ckpt`` holds the others' state: ROADMAP.md §3);
 training stops once a callback asks and ``min_epochs`` are done.
 ``ckpt_path`` is a path, "last" or "best" (resolved through the
 ModelCheckpoint callback) and restores the weights, Adam's state, the epoch,
-the global step, the per-step generator and the callbacks' state. A JAX
-package's msgpack checkpoint gives ``validate``, ``test`` and ``predict`` its
-weights (the task's ``state_dict_from_jax``); ``fit`` refuses one, since its
-optimizer state is optax's (ROADMAP.md queue item 2). Checkpoints keep the
+the global step, the per-step generator and the callbacks' state (by class
+name, the n-th callback of a class taking the n-th saved state of that
+class). A JAX package's msgpack checkpoint gives every entry its weights (the
+task's ``state_dict_from_jax``) and ``fit`` its optimizer state too (the
+task's ``optimizer_state_from_jax``: optax's moments and count as torch's);
+it holds no generator, so the step generator starts from ``seed`` + 1, as a
+new ``fit``'s (ROADMAP.md §3). Checkpoints keep the
 task's ``frozen_param_keys`` in a sidecar (``train/checkpoint.py``);
 ``save_checkpoint(..., background=True)`` (ModelCheckpoint's) copies the
 state and leaves the write to the writer thread, and ``fit``, ``test``,
@@ -52,6 +75,11 @@ makes a NaN raises (the JAX Trainer sets ``jax_debug_nans``).
 ``profiler="simple"`` (or "advanced", as in JAX) times the train steps, the
 evaluation steps and each validation on the host clock and logs the summary
 when ``fit`` ends; on the card a step's time is the time to enqueue it.
+``profiler="jax"`` writes a ``torch.profiler`` trace of ``fit`` (CPU and, on
+the card, CUDA activities) into ``default_root_dir/jax_trace``, the
+directory of the JAX Trainer's XLA trace, as ``<host>_<pid>.<ns>.pt.trace.json``
+(Chrome trace format, ROADMAP.md §3); any other string turns profiling off,
+as in JAX.
 
 ``accelerator="cpu"`` trains on the CPU; any other value on the card, which
 must be present. The task must already live on that device. ``seed`` seeds
@@ -69,6 +97,7 @@ from typing import Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
@@ -78,7 +107,6 @@ from msla_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint, w
 
 log = logging.getLogger(__name__)
 
-_REST_OF_TRAINER = "ROADMAP.md queue item 2 (the rest of the trainer)"
 _PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/)"
 
 
@@ -160,14 +188,9 @@ class Trainer:
         comes from the task's ``compute_dtype``: the port runs fp32 with TF32
         off at every value, at least as precise as each TPU mapping ("high"
         and unknown strings as "medium"). ``devices``: -1 or 1, one card.
-        ``default_root_dir`` is kept as the JAX Trainer keeps it: only its
-        XLA profiler trace (``profiler="jax"``), which the port has not,
-        would be written there. ``pipeline_microbatches`` waits with the
-        feature that reads it."""
-        if profiler not in ("simple", "advanced"):
-            _refuse("profiler", profiler, None, _REST_OF_TRAINER)
-        _refuse("accumulate_grad_batches", accumulate_grad_batches, 1, _REST_OF_TRAINER)
-        _refuse("remat", remat, False, _REST_OF_TRAINER)
+        ``default_root_dir`` holds only the ``profiler="jax"`` trace, as in
+        the JAX Trainer. ``pipeline_microbatches`` waits with the feature
+        that reads it."""
         for name, value, default in (("model_parallel", model_parallel, 1),
                                      ("pipeline_parallel", pipeline_parallel, 1),
                                      ("pipeline_microbatches", pipeline_microbatches, 2),
@@ -187,7 +210,10 @@ class Trainer:
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
         self.detect_anomaly = bool(detect_anomaly)
-        self.profiler = _SimpleProfiler(profiler is not None)
+        self.profiler = _SimpleProfiler(profiler in ("simple", "advanced"))
+        self._trace = profiler == "jax"
+        self.accumulate_grad_batches = max(1, int(accumulate_grad_batches))
+        self.remat = bool(remat)
         self.seed = seed
         # checkpoint callbacks run last, so last.ckpt holds the others' state
         self.callbacks = sorted(callbacks or [], key=lambda cb: isinstance(cb, ModelCheckpoint))
@@ -207,14 +233,16 @@ class Trainer:
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     # ---- checkpoint plumbing ---------------------------------------------------------
-    def save_checkpoint(self, path, weights_only: bool = False, background: bool = False):
+    def save_checkpoint(self, path, weights_only: bool = False, background: bool = False,
+                        wire: str | None = None):
         """One .ckpt file (``train/checkpoint.py``) of the task's weights,
         the optimizer's state (unless ``weights_only``, Lightning's
         ``save_weights_only``), the epoch, the global step, the per-step
         generator and the callbacks' state; the task's
         ``frozen_param_keys`` go to the directory's sidecar. With
         ``background`` the state is copied now and written by the writer
-        thread, and the write's future is returned."""
+        thread, and the write's future is returned. ``wire`` encodes it on
+        the device first (``train/checkpoint.py``'s codecs)."""
         if self._model is None:
             raise RuntimeError("save_checkpoint needs a task: call fit or validate first")
         return save_checkpoint(path,
@@ -227,7 +255,7 @@ class Trainer:
                                          for cb in self.callbacks],
                         generator_state=self._generator.get_state(),
                         frozen_keys=tuple(self._model.frozen_param_keys),
-                        background=background)
+                        background=background, wire=wire)
 
     def _resolve_ckpt_path(self, ckpt_path):
         """Lightning's meaning: "best" and "last" resolve through the
@@ -245,24 +273,29 @@ class Trainer:
         raise RuntimeError(f"ckpt_path='{ckpt_path}' requested but no ModelCheckpoint "
                            "callback has a saved checkpoint")
 
-    def _restore(self, ckpt_path, training: bool = False) -> None:
+    def _restore(self, ckpt_path) -> None:
         payload = load_checkpoint(ckpt_path)
-        if training and payload.get("format") == "jax":
-            raise NotImplementedError(
-                f"fit(ckpt_path={str(ckpt_path)!r}): a JAX checkpoint's optimizer state is "
-                "optax's; resuming from it is ROADMAP.md queue item 2 (the rest of the "
-                "trainer). validate, test and predict take its weights")
+        jax_file = payload.get("format") == "jax"
         self._model.net.load_state_dict(weights_of(self._model, payload))
-        if payload.get("opt_state") and payload.get("format") != "jax":
-            self._optimizer.load_state_dict(payload["opt_state"])
+        if payload.get("opt_state"):
+            self._optimizer.load_state_dict(
+                self._model.optimizer_state_from_jax(self._optimizer, payload["opt_state"])
+                if jax_file else payload["opt_state"])
         if "generator" in payload:
             self._generator.set_state(payload["generator"])
+        elif jax_file:  # JAX folds its draws from the step count: no state to carry
+            self._generator.manual_seed(self.seed + 1)
         self.current_epoch = int(payload.get("epoch", 0))
         self.global_step = int(payload.get("global_step", 0))
-        # callbacks by position, guarded by class name, as the JAX Trainer
-        for cb, entry in zip(self.callbacks, payload.get("callbacks") or []):
-            if type(cb).__name__ == entry.get("class"):
-                cb.load_state_dict(entry.get("state", {}))
+        # by class name, in order of occurrence: the JAX Trainer keeps the
+        # config's order and the port sorts ModelCheckpoint last
+        saved: dict[str, list] = defaultdict(list)
+        for entry in payload.get("callbacks") or []:
+            saved[entry.get("class")].append(entry.get("state", {}))
+        for cb in self.callbacks:
+            states = saved[type(cb).__name__]
+            if states:
+                cb.load_state_dict(states.pop(0))
         log.info("Restored checkpoint %s (epoch %d, step %d)", ckpt_path, self.current_epoch,
                  self.global_step)
 
@@ -324,17 +357,68 @@ class Trainer:
             batch.record_stream(stream)  # allocated on the copy stream, used here
         return batch.shape[0], batch
 
-    def _train_step(self, model, datamodule, raw: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _groups(self, loader: Iterable, max_batches: int) -> Iterator[tuple[int, list]]:
+        """(examples, device batches) of each optimizer step: k loader
+        batches, fewer where a batch of another shape or the epoch's end
+        flushes the group (msla_tpu/train/trainer.py:270-307)."""
+        k = self.accumulate_grad_batches
+        group: list[torch.Tensor] = []
+        for _, batch in self._prefetched(loader, max_batches):
+            if group and batch.shape != group[0].shape:
+                yield sum(len(b) for b in group), group
+                group = []
+            group.append(batch)
+            if len(group) == k:
+                yield sum(len(b) for b in group), group
+                group = []
+        if group:
+            yield sum(len(b) for b in group), group
+
+    def _loss(self, model, batch):
+        """``model.loss_fn`` on the step generator; under ``remat`` inside
+        ``torch.utils.checkpoint``, whose recomputation replays the
+        generator: torch's ``preserve_rng_state`` restores only the global
+        generators."""
+        generator = self._generator
+        if not self.remat:
+            return model.loss_fn(batch, generator)
+        start = generator.get_state()
+        forward_done = []
+
+        def loss_fn():
+            if not forward_done:
+                forward_done.append(True)
+                return model.loss_fn(batch, generator)
+            after = generator.get_state()
+            generator.set_state(start)
+            try:  # the recomputation may stop early, by an exception
+                return model.loss_fn(batch, generator)
+            finally:
+                generator.set_state(after)
+
+        return checkpoint(loss_fn, use_reentrant=False)
+
+    def _train_step(self, model, datamodule, group: list[torch.Tensor]
+                    ) -> dict[str, torch.Tensor]:
+        """One optimizer step on the mean gradient of ``group``'s batches."""
         transform = getattr(datamodule, "train_transform", None)
-        if transform is not None:
-            raw = transform(raw, self._generator)
-        batch = datamodule.on_after_batch_transfer(raw)
         self._optimizer.zero_grad(set_to_none=True)
-        loss, metrics = model.loss_fn(batch, self._generator)
-        with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
-            loss.backward()
+        sums: dict[str, torch.Tensor] = {}
+        for raw in group:
+            if transform is not None:
+                raw = transform(raw, self._generator)
+            loss, metrics = self._loss(model, datamodule.on_after_batch_transfer(raw))
+            with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
+                loss.backward()
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        if len(group) > 1:
+            for p in model.net.parameters():
+                if p.grad is not None:
+                    p.grad /= len(group)
+            sums = {k: v / len(group) for k, v in sums.items()}
         self._optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return sums
 
     @staticmethod
     def _accumulate(sums: dict, metrics: Mapping[str, torch.Tensor], rows: int) -> None:
@@ -371,11 +455,29 @@ class Trainer:
         failed write fails ``fit``."""
         with _joined_writes():
             try:
-                with torch.autograd.set_detect_anomaly(self.detect_anomaly):
+                with torch.autograd.set_detect_anomaly(self.detect_anomaly), self._traced():
                     self._fit(model, datamodule, ckpt_path)
             finally:
                 if self.profiler.enabled and self.profiler.totals:
                     log.info("%s", self.profiler.summary())
+
+    @contextmanager
+    def _traced(self):
+        """``profiler="jax"``: a torch.profiler trace of what runs inside,
+        written to ``default_root_dir/jax_trace`` when it ends."""
+        if not self._trace:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        trace_dir = self.default_root_dir / "jax_trace"
+        log.info("Writing the torch profiler trace to %s", trace_dir)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(
+                str(trace_dir))):
+            yield
 
     def _fit(self, model, datamodule, ckpt_path) -> None:
         train_loader = datamodule.train_dataloader()
@@ -385,7 +487,7 @@ class Trainer:
         self._setup(model, datamodule)
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
-            self._restore(ckpt_path, training=True)
+            self._restore(ckpt_path)
         for lg in self.loggers:
             lg.log_hyperparams(getattr(model, "hparams", {}))
 
@@ -397,9 +499,9 @@ class Trainer:
             max_batches = self._limit(len(train_loader),
                                       1 if self.fast_dev_run else self.limit_train_batches)
             t_epoch = time.perf_counter()
-            for n, raw in self._prefetched(train_loader, max_batches):
+            for n, group in self._groups(train_loader, max_batches):
                 with self.profiler.track("train_step"):
-                    metrics = self._train_step(model, datamodule, raw)
+                    metrics = self._train_step(model, datamodule, group)
                 self.global_step += 1
                 rows += n
                 self._accumulate(sums, metrics, n)

@@ -1,5 +1,5 @@
 """JAX params → the port's state_dicts (VQ-VAE, BERT, Audio-BERT, the
-transformer).
+transformer), and optax's Adam state → torch's (``adam_state_from_jax``).
 
 The port keeps the reference torch models' key names (HF's for BERT), and
 the flax tree's for the transformer, whose ``zero_memory`` cross-attention
@@ -100,14 +100,44 @@ def bert_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tenso
     return sd
 
 
+def audio_bert_head_state_dict_from_jax(head: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``AudioBertTask``'s ``head`` subtree → ``head.*`` of its net."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, "head.conv", head["conv"])
+    _dense(sd, "head.linear", head["linear"]["dense"])
+    return sd
+
+
 def audio_bert_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``AudioBertTask`` params ``{"bert", "head", "codebook"}`` →
     ``AudioBertTask.net`` state_dict (CPU)."""
     sd = {f"bert.{k}": v for k, v in bert_state_dict_from_jax(params["bert"]).items()}
-    _conv(sd, "head.conv", params["head"]["conv"])
-    _dense(sd, "head.linear", params["head"]["linear"]["dense"])
+    sd.update(audio_bert_head_state_dict_from_jax(params["head"]))
     sd["codebook"] = _leaf(params, "codebook")
     return sd
+
+
+def adam_state_from_jax(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
+                        adam: Mapping[str, Any], to_port) -> dict:
+    """optax's ``ScaleByAdamState`` as flax's ``to_state_dict`` stores it
+    (``count``, ``mu`` and ``nu`` trees shaped as the params) → the state_dict
+    of torch's ``Adam``/``AdamW`` over ``net``'s parameters: each parameter's
+    ``step`` (the count), ``exp_avg`` (mu) and ``exp_avg_sq`` (nu). ``to_port``
+    maps a tree of the params' shape to ``net``'s names and layouts (the
+    conv kernels' transposes and the like), as it maps the params; it sees
+    the moment trees, so it covers the optimized parameters only. The
+    optimizer's own ``param_groups`` are kept."""
+    mu, nu = to_port(adam["mu"]), to_port(adam["nu"])
+    step = float(np.asarray(adam["count"]))
+    names = {id(p): n for n, p in net.named_parameters()}
+    current = optimizer.state_dict()
+    state = {}
+    for group, saved in zip(optimizer.param_groups, current["param_groups"]):
+        for p, index in zip(group["params"], saved["params"]):
+            name = names[id(p)]
+            state[index] = {"step": torch.tensor(step), "exp_avg": mu[name],
+                            "exp_avg_sq": nu[name]}
+    return {"state": state, "param_groups": current["param_groups"]}
 
 
 def transformer_state_dict_from_jax(params: Mapping[str, Any],

@@ -11,7 +11,9 @@
   header and steps, the values within rtol 1e-3 (3 fp32 steps summed in
   another order, as tests/test_torch_train.py holds them).
 * CSVLogger's files byte for byte against the JAX CSVLogger's for the same
-  calls.
+  calls; the TensorBoardLogger's scalars through both Trainers.
+* ModelCheckpoint's ``wire`` and ``wire_best``: the files ask for the JAX
+  callback's codecs.
 """
 import math
 import os
@@ -32,14 +34,14 @@ from test_torch_train import CFG, TRAIN, VAL, JaxDM, PortDM, _port_task
 
 class StandIn:
     """What the callbacks need of a Trainer: save_checkpoint, here a small
-    file naming the epoch that wrote it."""
+    file naming the epoch that wrote it and the wire it was asked for."""
 
     def __init__(self):
         self.current_epoch = 0
 
     def save_checkpoint(self, path, weights_only=False, background=False, wire=None):
         with open(path, "w") as f:
-            f.write(f"epoch {self.current_epoch} weights_only {weights_only}")
+            f.write(f"epoch {self.current_epoch} weights_only {weights_only} wire {wire}")
 
 
 def _files(d) -> dict:
@@ -103,13 +105,29 @@ def test_model_checkpoint_matches_jax(tmp_path, kw):
         step(score)
 
 
-def test_model_checkpoint_ignores_a_missing_monitor_and_refuses_wire(tmp_path):
+def test_model_checkpoint_ignores_a_missing_monitor(tmp_path):
     cb = callbacks.ModelCheckpoint(dirpath=tmp_path)
     cb.on_validation_end(StandIn(), {"train/loss": 1.0})
     assert not tmp_path.joinpath("last.ckpt").exists()
-    for kw in (dict(wire="bf16"), dict(wire_best=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 2"):
-            callbacks.ModelCheckpoint(dirpath=tmp_path, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(wire="q8"), dict(wire="bf16", wire_best=True),
+                                dict(wire_best=True)])
+def test_model_checkpoint_asks_for_the_jax_wires(tmp_path, kw):
+    """``last.ckpt`` takes ``wire``; the versioned files and the canonical
+    best take "off" unless ``wire_best``: the JAX callback's requests."""
+    ours = callbacks.ModelCheckpoint(dirpath=tmp_path / "port", **kw)
+    theirs = jax_callbacks.ModelCheckpoint(dirpath=str(tmp_path / "jax"), **kw)
+    trainer = StandIn()
+    for score in SCORES[:4]:
+        trainer.current_epoch += 1
+        for cb in (ours, theirs):
+            cb.on_validation_end(trainer, {"validation/loss": score})
+        assert _files(ours.dirpath) == _files(theirs.dirpath)
+    files = _files(ours.dirpath)
+    assert files["last.ckpt"].endswith(f"wire {kw.get('wire')}")
+    best = kw.get("wire") if kw.get("wire_best") else "off"
+    assert files["best.ckpt"].endswith(f"wire {best}")
 
 
 NAN, INF = float("nan"), float("inf")
@@ -223,6 +241,33 @@ def test_csv_logger_writes_the_jax_bytes(tmp_path, name, prefix):
     assert ours.startswith(b"step,")
 
 
-def test_tensorboard_logger_waits(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 2"):
-        loggers.TensorBoardLogger(str(tmp_path))
+def test_tensorboard_logger_holds_the_jax_trainers_steps(jax_params, tmp_path):
+    """Both Trainers with a TensorBoardLogger (the JAX one's tensorboardX):
+    the event files hold the same tags at the same steps, in the same order,
+    the values within rtol 1e-3 (3 fp32 steps summed in another order)."""
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    kw = dict(max_epochs=2, accelerator="cpu", enable_progress_bar=False, log_every_n_steps=2,
+              seed=0)
+    jax_task = JaxVQVAETask(**CFG, checkpoint_dir=str(tmp_path),
+                            codebook_file=str(tmp_path / "cb.csv"))
+    jax_logger = jax_loggers.TensorBoardLogger(str(tmp_path / "jax"))
+    JaxTrainer(default_root_dir=str(tmp_path), logger=[jax_logger], **kw).fit(
+        jax_task, JaxDM(TRAIN, VAL))
+    jax_logger.finalize()  # the JAX Trainer leaves its writer open
+    Trainer(default_root_dir=str(tmp_path), logger=loggers.TensorBoardLogger(
+        str(tmp_path / "port")), **kw).fit(_port_task(jax_params, tmp_path / "task"),
+                                           PortDM(TRAIN, VAL))
+
+    def scalars(d):
+        out = []
+        for path in sorted(d.glob("events.out.tfevents.*")):
+            for event in EventFileLoader(str(path)).Load():
+                out += [(v.tag, event.step, v.tensor.float_val[0]) for v in event.summary.value
+                        if v.metadata.plugin_data.plugin_name == "scalars"]
+        return out
+
+    ours, theirs = scalars(tmp_path / "port"), scalars(tmp_path / "jax")
+    assert [(t, s) for t, s, _ in ours] == [(t, s) for t, s, _ in theirs]
+    assert len(ours) == 3 * 2 + 2 * 21  # steps 2, 4 and 6; each epoch's 21 metrics
+    np.testing.assert_allclose([v for *_, v in ours], [v for *_, v in theirs], rtol=1e-3)

@@ -6,10 +6,10 @@
   ``*_state_dict_from_jax`` of the saved params, the meta fields equal to what
   the JAX ``load_checkpoint`` returns; the JAX legacy ``frozen.ckpt`` name is
   honoured; a missing sidecar raises ``FileNotFoundError`` with JAX's message;
-  a ``wire`` file raises naming ROADMAP.md item 2.
+  a ``wire`` file decodes as the JAX ``load_checkpoint`` decodes it.
 * The Trainer: ``validate``, ``test`` and ``predict`` take a JAX file's
-  weights; ``fit(ckpt_path=<JAX file>)`` raises (its optimizer state is
-  optax's).
+  weights; ``fit(ckpt_path=<JAX file>)`` takes optax's Adam state too
+  (tests/test_torch_resume_jax.py holds a resumed step against JAX's).
 * The port's sidecars: the versioned files hold no ``bert.*`` or ``codebook``
   key; a second save of the same frozen content writes no second sidecar; a
   one-ulp change of one frozen element gives a new name; reassembly is exact,
@@ -96,10 +96,24 @@ def test_a_jax_audio_bert_checkpoint_with_its_sidecar(tmp_path):
         load_checkpoint(path)
 
 
-def test_a_wire_file_raises(tmp_path):
-    _, _, path = _jax_bert_checkpoint(tmp_path, wire="bf16")
-    with pytest.raises(NotImplementedError, match="wire='bf16'.*queue item 2"):
-        load_checkpoint(path)
+def test_a_wire_file_reads_as_jax_reads_it(tmp_path):
+    """A wired Audio-BERT file with its (exact) sidecar: the weights the
+    JAX ``load_checkpoint`` decodes, bit for bit, through the task."""
+    params, task, path = _jax_bert_checkpoint(tmp_path, wire="bf16")
+    raw = serialization.msgpack_restore(path.read_bytes())
+    assert raw["wire"] == "bf16" and raw["state_dict"]["head"]["linear"]["dense"]["kernel"][
+        "__wire__"] == "bf16"
+    want = jax_load_checkpoint(path)
+    payload = load_checkpoint(path)
+    _same_meta(payload, want)
+    assert "wire" not in payload
+    _equal_state(restore_params(path, task), audio_bert_state_dict_from_jax(want["state_dict"]))
+    exact = audio_bert_state_dict_from_jax(jax.device_get(params))
+    got = restore_params(path, task)
+    assert torch.equal(got["bert.bert.embeddings.word_embeddings.weight"],
+                       exact["bert.bert.embeddings.word_embeddings.weight"])  # the sidecar
+    assert torch.equal(got["head.linear.weight"],
+                       exact["head.linear.weight"].to(torch.bfloat16).float())
 
 
 class EvalDM(PortDM):
@@ -110,10 +124,17 @@ class EvalDM(PortDM):
         return [b[:1] for b in self.val]
 
 
-def test_the_trainer_takes_a_jax_files_weights_but_not_to_resume(jax_side, tmp_path):
+def test_the_trainer_takes_a_jax_files_weights_and_adam_state(jax_side, tmp_path):
+    """validate, test and predict take the weights; fit takes optax's Adam
+    too: each parameter's mu and nu in the port's layout, its count as the
+    step, and goes on from the file's step."""
     _, params = jax_side
     path = tmp_path / "vqvae.ckpt"
-    jax_save_checkpoint(path, params=params, opt_state=optax.adam(1e-4).init(params), **META)
+    tx = optax.adam(1e-4)
+    rng = np.random.default_rng(5)
+    grads = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+    _, opt_state = tx.update(grads, tx.init(params), params)
+    jax_save_checkpoint(path, params=params, opt_state=opt_state, **META)
     want = vqvae_state_dict_from_jax(jax.device_get(params), CFG["num_residual_layer"])
     dm = EvalDM(VAL, VAL)
     for entry in ("validate", "test", "predict"):
@@ -124,9 +145,22 @@ def test_the_trainer_takes_a_jax_files_weights_but_not_to_resume(jax_side, tmp_p
         out = getattr(trainer, entry)(task, dm, ckpt_path=str(path))
         _equal_state(task.net.state_dict(), want)
         assert trainer.global_step == META["global_step"] and out, entry
-    with pytest.raises(NotImplementedError, match="optax's.*queue item 2"):
-        Trainer(accelerator="cpu", enable_progress_bar=False).fit(
-            _port_task(params, tmp_path), dm, ckpt_path=str(path))
+    trainer = Trainer(accelerator="cpu", enable_progress_bar=False, max_epochs=3)
+    task = _port_task(params, tmp_path)
+    trainer._setup(task, dm)
+    trainer._restore(path)
+    mu, nu = (vqvae_state_dict_from_jax(jax.device_get(getattr(opt_state[0], k)),
+                                        CFG["num_residual_layer"]) for k in ("mu", "nu"))
+    names = [name for name, _ in task.net.named_parameters()]
+    state = trainer._optimizer.state_dict()["state"]
+    assert sorted(state) == list(range(len(names)))
+    for i, name in enumerate(names):
+        assert state[i]["step"].item() == 1
+        assert torch.equal(state[i]["exp_avg"], mu[name]), name
+        assert torch.equal(state[i]["exp_avg_sq"], nu[name]), name
+    trainer.fit(task, dm, ckpt_path=str(path))
+    assert (trainer.global_step, trainer.current_epoch) == (META["global_step"] + 2, 3)
+    assert trainer._optimizer.state_dict()["state"][0]["step"].item() == 3
 
 
 def _sidecars(d):

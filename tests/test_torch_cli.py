@@ -22,6 +22,8 @@
   sidecar (BERT and the codebook, bit-unchanged from their init) and the
   audio demo, and ``generate`` reads them; without ``best_vqvae.ckpt`` it
   raises;
+* ``experiment=vqvae_slakh`` runs with its TensorBoard logger, whose event
+  files hold every scalar the Trainer logged, at its step;
 * only a checkpoint that does not fit the config is caught, and the commands
   that wait raise naming their ROADMAP.md items.
 """
@@ -270,6 +272,41 @@ def test_cli_trains_audio_bert_after_the_vqvae(fixture_root, tmp_path, monkeypat
     assert "test/si_sdr_full_audio_measure" in header and "train/loss" in header
 
 
+def test_experiment_vqvae_slakh_logs_to_tensorboard(fixture_root, tmp_path, monkeypatch,
+                                                    restore_logging):
+    """``experiment=vqvae_slakh`` (its tensorboard logger) at small widths:
+    the event files, read with tensorboard's loader, hold the hparams and
+    every scalar the Trainer logged, at its step: each epoch's train and
+    validation metrics, then the test's (in a second file: ``fit`` closes
+    the logger, as the JAX Trainer's ``finalize`` would)."""
+    from tensorboard.backend.event_processing.event_file_loader import EventFileLoader
+
+    monkeypatch.setenv("SLAKH_DIR", str(fixture_root))
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    logged = []
+    from msla_tpu_torch.train.loggers import TensorBoardLogger
+    real = TensorBoardLogger.log_metrics
+    monkeypatch.setattr(TensorBoardLogger, "log_metrics", lambda self, m, step: (
+        logged.extend((k, step) for k in m), real(self, m, step)))
+    test_loss = cli.main(["experiment=vqvae_slakh", "trainer.accelerator=cpu",
+                          "trainer.max_epochs=2", f"data.target_sample_rate={SR}",
+                          "data.batch_size=2", *SMALL_VQ, "model.vqvae.num_residual_hidden=8",
+                          "+generate=False", "+visualize=False", "extras.print_config=False",
+                          "+optimized_metric=test/loss"])
+    assert np.isfinite(test_loss)
+    run_dir, = (tmp_path / "logs" / "vqvae_slakh" / "runs").glob("*")
+    files = sorted((run_dir / "tensorboard").glob("events.out.tfevents.*"))
+    assert files
+    events = [e for f in files for e in EventFileLoader(str(f)).Load()]
+    scalars = [(v.tag, e.step) for e in events for v in e.summary.value
+               if v.metadata.plugin_data.plugin_name == "scalars"]
+    assert scalars == logged and ("test/loss", logged[-1][1]) in scalars
+    assert {"train/loss", "validation/loss"} <= {tag for tag, _ in scalars}
+    assert sorted({step for _, step in scalars}) == [5, 10]  # 5 batches an epoch
+    text, = [v for e in events for v in e.summary.value if v.tag == "hparams/text_summary"]
+    assert '"num_embedding": 16' in text.tensor.string_val[0].decode()
+
+
 def test_cli_trains_the_transformer_after_the_vqvae(fixture_root, tmp_path, monkeypatch,
                                                    restore_logging):
     from msla_tpu_torch.train import checkpoint
@@ -303,7 +340,7 @@ def test_cli_trains_the_transformer_after_the_vqvae(fixture_root, tmp_path, monk
 
 
 @pytest.mark.parametrize("argv,item", [(["train_vqvae=True", "trainer.accelerator=cpu",
-                                         "+trainer.accumulate_grad_batches=2"], "queue item 2"),
+                                         "+trainer.model_parallel=2"], "queue item 7"),
                                        (["-m", "train_vqvae=True"], "queue item 7"),
                                        (["--multirun"], "queue item 7"),
                                        (["hparams_search=optuna"], "queue item 7")])

@@ -7,7 +7,8 @@ interpolations, ``@package _global_``, CLI overrides, additions and deletions,
 and the run directory behave alike. ``instantiate`` maps each ``msla_tpu.``
 target to ``msla_tpu_torch.`` and builds the port's objects; a target the port
 has no counterpart for raises naming its ROADMAP.md item, and a target that
-would import JAX or the JAX package raises.
+would import JAX or the JAX package raises. The loggers of configs/logger/
+and ``experiment=vqvae_slakh`` instantiate on the port.
 """
 from datetime import datetime
 from pathlib import Path
@@ -113,8 +114,6 @@ def test_instantiate_retargets_to_the_port(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("target,item", [
-    ("msla_tpu.train.loggers.TensorBoardLogger", "queue item 2"),
-    ("msla_tpu.train.loggers.WandbLogger", "queue item 2 .* offline stub"),
     ("msla_tpu.sweep.sweeper.TPESweeper", "queue item 7"),
     ("msla_tpu.sweep.sampler.TPESampler", "queue item 7"),
 ])
@@ -122,6 +121,60 @@ def test_a_target_without_a_counterpart_names_its_item(target, item):
     assert retarget(target) in WAITING
     with pytest.raises(config.InstantiationError, match=item):
         config.instantiate({"_target_": target})
+
+
+@pytest.mark.parametrize("logger,cls", [("tensorboard", "TensorBoardLogger"),
+                                        ("wandb", "WandbLogger")])
+def test_the_logger_targets_instantiate_and_write(tmp_path, monkeypatch, logger, cls):
+    """configs/logger/{tensorboard,wandb}.yaml, which waited, build the
+    port's loggers, which write into the run directory."""
+    from msla_tpu_torch.train import loggers
+    from msla_tpu_torch.utils.instantiators import instantiate_loggers
+
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    cfg = config.compose(CONFIG_DIR, "train", [f"logger={logger}"])
+    config.setup_run_dir(cfg)
+    assert retarget(cfg.logger[logger]._target_) not in WAITING
+    lg, = instantiate_loggers(cfg.logger)
+    assert type(lg) is getattr(loggers, cls)
+    lg.log_metrics({"train/loss": 0.5}, 1)
+    lg.finalize()
+    out = Path(cfg.paths.output_dir)
+    written = sorted(p.name for p in out.rglob("*") if p.is_file())
+    want = "events.out.tfevents." if logger == "tensorboard" else "wandb_stub.jsonl"
+    assert any(name.startswith(want) for name in written), written
+
+
+def test_experiment_vqvae_slakh_composes_and_instantiates(tmp_path, monkeypatch):
+    """The repository's example experiment: the full-width VQ-VAE at batch
+    64 with the tensorboard logger, and the Trainer's keywords that waited."""
+    from msla_tpu_torch.data.datamodule import SlakhDataModule
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.train.loggers import TensorBoardLogger
+    from msla_tpu_torch.train.trainer import Trainer
+    from msla_tpu_torch.utils.instantiators import instantiate_callbacks, instantiate_loggers
+
+    monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
+    overrides = ["experiment=vqvae_slakh", "trainer.accelerator=cpu",
+                 "+trainer.accumulate_grad_batches=2", "+trainer.remat=True",
+                 "+trainer.profiler=jax"]
+    cfg, want = _both(overrides)
+    assert cfg.to_container(resolve=False) == want.to_container(resolve=False)
+    config.setup_run_dir(cfg)
+    assert cfg.task_name == "vqvae_slakh" and cfg.train_vqvae
+    lg, = instantiate_loggers(cfg.get("logger"))
+    assert type(lg) is TensorBoardLogger
+    trainer = config.instantiate(cfg.trainer, callbacks=instantiate_callbacks(cfg.callbacks),
+                                 logger=[lg])
+    assert type(trainer) is Trainer and trainer.max_epochs == 10
+    assert trainer.accumulate_grad_batches == 2 and trainer.remat and trainer._trace
+    assert not trainer.profiler.enabled
+    dm = config.instantiate(cfg.data)
+    assert type(dm) is SlakhDataModule and cfg.data.batch_size == 64
+    task = config.instantiate(cfg.model.vqvae, device="cpu", seed=0)
+    assert type(task) is VQVAETask
+    assert (task.hparams["num_hidden"], task.hparams["num_embedding"],
+            task.hparams["embedding_dim"]) == (128, 512, 64)
 
 
 def test_the_transformer_target_instantiates(tmp_path, monkeypatch):

@@ -1,6 +1,6 @@
 """The port stands alone: no module of msla_tpu_torch/, and not chip_smoke.py,
-imports JAX, flax, optax, msgpack (the card's machine has none) or the JAX
-package, and no kernel wrapper catches an exception (a failed launch must
+imports JAX, flax, optax, msgpack, tensorboardX, tensorboard or wandb (the
+card's machine has none) or the JAX package, and no kernel wrapper catches an exception (a failed launch must
 raise, never fall back to the plain version)."""
 import ast
 from pathlib import Path
@@ -8,7 +8,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "msla_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "msla_tpu", "tensorboardX",
+             "tensorboard", "wandb"}
 FILES = sorted((ROOT / "msla_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -61,6 +62,7 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/nn/positional.py", "msla_tpu_torch/nn/moe.py",
                      "msla_tpu_torch/nn/transformer_net.py",
                      "msla_tpu_torch/models/transformer.py",
+                     "msla_tpu_torch/utils/tfevents.py", "msla_tpu_torch/utils/msgpack.py",
                      "chip_smoke.py"):
         assert expected in names
 

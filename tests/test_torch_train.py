@@ -244,8 +244,7 @@ def test_adam_is_optax_adam(jax_side, tmp_path):
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("kw", [dict(accumulate_grad_batches=2), dict(remat=True),
-                                dict(model_parallel=2), dict(pipeline_parallel=2),
+@pytest.mark.parametrize("kw", [dict(model_parallel=2), dict(pipeline_parallel=2),
                                 dict(zero1=True), dict(fsdp=True), dict(devices=2),
                                 dict(num_nodes=2), dict(pipeline_microbatches=4)])
 def test_trainer_keywords_that_wait_raise(kw):
