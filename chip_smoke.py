@@ -201,7 +201,30 @@ Phases, each of which raises (exit code != 0) when its check fails:
      written by the script (msgpack_pack, jax_checkpoint: the card has no
      flax or msgpack), fit resumed one step from it and from the port's file
      of the same state, the two bit for bit; then the fixture is removed;
- 26. one JSON line with every kernel's numbers, then the device line.
+ 26. the kernels at every width configs/hparams_search/optuna.yaml samples,
+     at batch 32 and full length (T = 44,000, W = 11,000): K1, K1b, K2 and
+     K2b at num_hidden 64, 128 and 256 (the 3xTF32 kernels at 64 and 128,
+     the fp32 FMA ones at 256) against their plain versions (atol = rtol =
+     1e-4), against fp64 within their accumulation bound (fp32 FMA or
+     3xTF32) on 4 items, output and hidden, and at ragged T and W; K3, #4
+     and #5 at each (K, D) of {128, 256, 512} x {64, 128, 256} (the codebook
+     streamed at D = 128 and 256, #5 over D / 64 column slices) at N =
+     352,000: ids equal to the plain version's or near-ties, planted ties
+     and close pairs and ragged N at each D, #4's fields as in phase 6, #5
+     bit-equal to codebook_grad_order_ref at the card's grid of each slice,
+     within segment_sum_bound, the same bits twice; each timed (median of 5)
+     beside its plain version and a library call, with ptxas's registers
+     and its shared memory;
+ 27. the sweep through the command line: python -m msla_tpu_torch -m
+     hparams_search=optuna, then hparams_search=optuna_smoke, in process on
+     a 22 kHz fixture of 4 tracks a split (260 frames: one batch of 256),
+     with train_vqvae=True, one epoch of one train, validation and test
+     batch, and each trial's checkpoints in its run directory, nothing swept
+     overridden (10 trials of seed 1234, batch 32 to 256, and 2): every trial
+     must complete, its trial_result.json finite, and its launches by
+     instantiation meet the prediction (TRIAL_LAUNCHES), each trial's
+     seconds and peak memory printed;
+ 28. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -258,9 +281,10 @@ def fail(msg: str) -> None:
 
 
 def reset_counts(kernels) -> None:
-    """Every wrapper's launch counts to 0."""
+    """Every wrapper's launch counts to 0, by operand type and by widths."""
     for k in kernels:
         k.launches.clear()
+        getattr(k, "widths", {}).clear()
 
 
 def launch_counts(kernels, dtypes: dict | None = None) -> dict:
@@ -373,7 +397,7 @@ def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
     return errs
 
 
-def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
+def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool, fma: bool = False):
     """The exact stem of fp32 operands in fp64 (K1's conv pair with both
     ReLUs, or with ``transposed`` K2's, ReLU after the first layer), and an
     upper bound, per value of its output and of its hidden, on how far the
@@ -396,29 +420,43 @@ def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
       order), plus its own (3·256/8 + 8)·u·A2 + 2u·|b2|, A2 = Σ|w2|·h.
     The fp32 plain version sums in another order, rounding each add to
     nearest, and stays well inside it; single-pass TF32 products, ~2^-11 of
-    each term off, do not (tests/test_torch_fp32_stems_3xtf32.py)."""
+    each term off, do not (tests/test_torch_fp32_stems_3xtf32.py).
+
+    With ``fma`` the model is the fp32 FMA kernels' (the sweep's other
+    widths): a value summed over K terms by K FMAs from zero, each rounding to
+    nearest once, within u·(partial sum so far) <= u·A, u = 2^-24, and the
+    bias add once more: K·u·A + u·(A + |b|), i.e. (K + 1)·u·A + u·|b|, the
+    second layer's own on top of the first's carried through its weights."""
     import torch.nn.functional as F
 
     conv = F.conv_transpose1d if transposed else F.conv1d
-    u = 2.0 ** -23
     xd, w1d, b1d, w2d, b2d = (t.double() for t in (x, w1, b1, w2, b2))
     k1 = 2 * x.shape[1] if transposed else 4 * x.shape[1]   # taps x channels a value sums
-    k2 = 4 * w2.shape[0 if transposed else 1]
+    k2 = (2 if transposed and fma else 4) * w2.shape[0 if transposed else 1]
+    if fma:
+        u = 2.0 ** -24
+        own = lambda k: (k + 1) * u
+        bias_u = u
+    else:
+        u = 2.0 ** -23
+        own = lambda k: (3 * k / 8 + 8) * u
+        bias_u = 2 * u
     h = torch.relu(conv(xd, w1d, b1d, 2, 1))
-    e1 = (3 * k1 / 8 + 8) * u * conv(xd.abs(), w1d.abs(), None, 2, 1) + 2 * u * b1d.abs()[:, None]
+    e1 = own(k1) * conv(xd.abs(), w1d.abs(), None, 2, 1) + bias_u * b1d.abs()[:, None]
     out = conv(h, w2d, b2d, 2, 1)
     if not transposed:
         out = torch.relu(out)
-    e2 = (conv(e1, w2d.abs(), None, 2, 1) + (3 * k2 / 8 + 8) * u * conv(h, w2d.abs(), None, 2, 1)
-          + 2 * u * b2d.abs()[:, None])
+    e2 = (conv(e1, w2d.abs(), None, 2, 1) + own(k2) * conv(h, w2d.abs(), None, 2, 1)
+          + bias_u * b2d.abs()[:, None])
     return out, e2, h, e1
 
 
-def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None) -> float:
+def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None,
+                    model: str = "3xTF32") -> float:
     """A fp32 stem's largest error against fp64, output and (if given) hidden,
-    as a share of ``stem_accumulation_bound``'s ``bounds``; fails above 1.
-    With ``plain`` (the plain version's (out, hidden)) prints its share
-    beside it."""
+    as a share of ``stem_accumulation_bound``'s ``bounds`` (of the kernel's
+    ``model``, "3xTF32" or "fp32 FMA"); fails above 1. With ``plain`` (the
+    plain version's (out, hidden)) prints its share beside it."""
     exact, limit, exact_h, limit_h = bounds
 
     def share(got, got_h):
@@ -430,10 +468,10 @@ def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None) -> float:
     got = share(out, hidden)
     beside = "" if plain is None else \
         f", the plain fp32 version's {share(plain[0], None if hidden is None else plain[1]):.3f}"
-    print(f"[stem] {name}: against fp64, {got:.3f} of the 3xTF32 accumulation bound{beside}",
+    print(f"[stem] {name}: against fp64, {got:.3f} of the {model} accumulation bound{beside}",
           flush=True)
     if got > 1:
-        fail(f"{name}: off fp64 by {got:.2f}x what its 3xTF32 accumulation may lose")
+        fail(f"{name}: off fp64 by {got:.2f}x what its {model} accumulation may lose")
     return got
 
 
@@ -536,12 +574,13 @@ def vq_planted(cb, close: bool, g, n: int = VQ_PLANTED_ROWS):
     return x, e, want
 
 
-def vq_planted_picks(what: str, search, dev, g) -> dict:
+def vq_planted_picks(what: str, search, dev, g, d: int = 64) -> dict:
     """K3 or #4 (``search`` gives the ids of (x, codebook)) and the plain
-    version on vq_planted's ties and close pairs: every id as planted."""
+    version on vq_planted's ties and close pairs, 512 codes of width d:
+    every id as planted."""
     from msla_tpu_torch.ops import nearest_codes_ref
 
-    cb = torch.randn((512, 64), generator=g, device=dev)
+    cb = torch.randn((512, d), generator=g, device=dev)
     for close in (False, True):
         x, e, want = vq_planted(cb, close, g)
         for label, ids in (("kernel", search(x, e)), ("plain version", nearest_codes_ref(x, e))):
@@ -557,16 +596,16 @@ def vq_planted_picks(what: str, search, dev, g) -> dict:
 RAGGED_N = (1, 7, 129, 704_001)
 
 
-def ragged_rows(search, dev, g, ns=RAGGED_N) -> dict:
+def ragged_rows(search, dev, g, ns=RAGGED_N, d: int = 64) -> dict:
     """K3 or #4 (``search`` gives the ids) at N rows no multiple of its tile,
-    against 512 codes: each id equal to the plain version's or a near-tie.
-    Returns the mismatches at each N."""
+    against 512 codes of width d: each id equal to the plain version's or a
+    near-tie. Returns the mismatches at each N."""
     from msla_tpu_torch.ops import nearest_codes_ref
 
-    cb = torch.randn((512, 64), generator=g, device=dev)
+    cb = torch.randn((512, d), generator=g, device=dev)
     out = {}
     for n in ns:
-        x = torch.randn((n, 64), generator=g, device=dev)
+        x = torch.randn((n, d), generator=g, device=dev)
         ids = search(x, cb)
         torch.cuda.synchronize()
         if ids.shape != (n,):
@@ -1023,12 +1062,12 @@ def check_segment_sum(name: str, fn, grad, ids, k: int, split2: bool) -> dict:
     from msla_tpu_torch.ops import segment_sum as ss
 
     symbol = "vq_precision_bwd_split2" if split2 else "vq_codebook_grad"
-    n = grad.shape[0]
-    clusters, rows = ss.launch_layout(symbol, n, k, grad.device, split2)
+    n, d = grad.shape
+    clusters, rows = ss.launch_layout(symbol, n, k, grad.device, split2, slices=d // ss.SLICE)
     blocks = clusters * ss.CLUSTER
     got = fn(grad, ids)
     torch.cuda.synchronize()
-    if got.shape != (k, 64) or not torch.isfinite(got).all():
+    if got.shape != (k, d) or not torch.isfinite(got).all():
         fail(f"{name}: an output of shape {tuple(got.shape)}, or non-finite values")
     if not torch.equal(got, ss.codebook_grad_order_ref(grad, ids, k, blocks, split2=split2)):
         fail(f"{name}: differs from codebook_grad_order_ref at the card's {blocks} blocks")
@@ -4677,6 +4716,375 @@ def phase_rest_of_trainer(kernels, smi: str, bert_task) -> tuple[dict, list[dict
     return result, report
 
 
+#: phase 26: the sweep's widths at full length, batch 32 (T = 44,000, W = 11,000)
+SWEEP_BATCH = 32
+SWEEP_HIDDEN = (64, 128, 256)          # configs/hparams_search/optuna.yaml's num_hidden
+SWEEP_CODES = tuple((k, d) for k in (128, 256, 512) for d in (64, 128, 256))
+SWEEP_REPS = 5                         # timed runs a figure (the median), after one warm-up
+SWEEP_FP64_ITEMS = 4                   # batch items the stems' fp64 bound is computed on
+SWEEP_RAGGED_T = (7, 1_030, 44_003)    # K1/K1b lengths not divisible by 4, batch 2
+SWEEP_RAGGED_W = (1, 63, 64, 1_001)    # K2/K2b widths around the FMA kernel's 63-position tile
+
+
+def width_label(name: str, widths: tuple) -> str:
+    """A kernel instantiation's name in the kernels line: 'conv_stem[32x64]'
+    (the stems' channels), 'nearest_codes[D=256,K=512]' (the VQ kernels')."""
+    if name.startswith(("conv", "deconv")):
+        return f"{name}[{'x'.join(str(w) for w in widths)}]"
+    return f"{name}[D={widths[0]},K={widths[1]}]"
+
+
+def kernel_smem(symbol: str, *widths: int) -> int:
+    """Dynamic shared memory of a block of a kernel at its widths, as its
+    source reports it (``conv_stem_smem_bytes``, ``deconv_stem_smem_bytes``)."""
+    from msla_tpu_torch.ops._build import kernel
+
+    smem = kernel(symbol)(*widths)
+    if smem < 0:
+        fail(f"{symbol}: not compiled for widths {widths}")
+    return smem
+
+
+def ptxas_of(ptxas: dict, source: str, kernel: str) -> dict:
+    """What ptxas reported (registers, spills) of ``kernel`` (with its
+    template arguments) in ``source``'s build."""
+    return ptxas.get(f"{source}/{kernel}", {})
+
+
+def sweep_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
+    """K1/K1b (or K2/K2b) at each of the sweep's stem widths: the kernel
+    against its plain version at batch 32 and full length (atol = rtol =
+    1e-4), against fp64 within its accumulation bound (fp32 FMA at the new
+    widths, 3xTF32 at the default) on SWEEP_FP64_ITEMS items, output and
+    hidden, at ragged lengths, and timed beside the plain version and the
+    cuDNN pair."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (conv_stem, conv_stem_ref, conv_stem_save_hidden,
+                                    deconv_stem, deconv_stem_ref, deconv_stem_save_hidden)
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    b, w = SWEEP_BATCH, FRAME // 4
+    rows = []
+    for hidden in SWEEP_HIDDEN:
+        half = hidden // 2
+        if transposed:
+            names, ref, fns = ("deconv_stem", "deconv_stem_save_hidden"), deconv_stem_ref, (
+                deconv_stem, deconv_stem_save_hidden)
+            widths = (hidden, half)
+            x = torch.rand((b, hidden, w), generator=g, device=dev)
+            w1 = torch.randn((hidden, half, 4), generator=g, device=dev) / (2 * hidden) ** 0.5
+            w2 = torch.randn((half, 4, 4), generator=g, device=dev) / (2 * half) ** 0.5
+            b2 = torch.randn((4,), generator=g, device=dev) * 0.1
+            conv, replaces = F.conv_transpose1d, ("msla_tpu/ops/deconv_stem.py:35",
+                                                  "msla_tpu/ops/deconv_stem.py:132")
+            flop = 2 * b * (2 * w * half * hidden * 2 + 4 * w * 4 * half * 2)
+        else:
+            names, ref, fns = ("conv_stem", "conv_stem_save_hidden"), conv_stem_ref, (
+                conv_stem, conv_stem_save_hidden)
+            widths = (half, hidden)
+            x = torch.randn((b, 4, FRAME), generator=g, device=dev) * 0.3
+            w1 = torch.randn((half, 4, 4), generator=g, device=dev) / 4.0
+            w2 = torch.randn((hidden, half, 4), generator=g, device=dev) / (4 * half) ** 0.5
+            b2 = torch.randn((hidden,), generator=g, device=dev) * 0.1
+            conv, replaces = F.conv1d, ("msla_tpu/ops/conv_stem.py:48",
+                                        "msla_tpu/ops/conv_stem.py:132")
+            flop = 2 * b * (FRAME // 2 * half * 16 + w * hidden * 4 * half)
+        b1 = torch.randn((half,), generator=g, device=dev) * 0.1
+        args = (x, w1, b1, w2, b2)
+        fma = hidden == SWEEP_HIDDEN[-1]  # W2' (K1) or W1' (K2) outgrows shared memory
+        model = "fp32 FMA" if fma else "3xTF32"
+        source = "deconv_stem" if transposed else "conv_stem"
+        kernel = f"{source}_{'fma' if fma else '3xtf32'}_kernel<{widths[0]},{widths[1]}>"
+        with fp32_convs():
+            lib = time_ms(lambda: conv(F.relu(conv(x, w1, b1, 2, 1)), w2, b2, 2, 1),
+                          SWEEP_REPS, 1)
+        for name, fn, rep in zip(names, fns, replaces):
+            hidden_out = name.endswith("save_hidden")
+            got = fn(*args)
+            out, h = got if hidden_out else (got, None)
+            torch.cuda.synchronize()
+            want, want_h = ref(*args)
+            label = width_label(name, widths)
+            err = max(check_close(label, out, want),
+                      check_close(label + " hidden", h, want_h) if hidden_out else 0.0)
+            del want, want_h
+            few = tuple(a[:SWEEP_FP64_ITEMS] if i == 0 else a for i, a in enumerate(args))
+            share = stem_fp64_share(label, stem_accumulation_bound(
+                *few, transposed=transposed, fma=fma), out[:SWEEP_FP64_ITEMS],
+                None if h is None else h[:SWEEP_FP64_ITEMS], model=model)
+            ragged = {}
+            for n in SWEEP_RAGGED_W if transposed else SWEEP_RAGGED_T:
+                small = ((torch.rand if transposed else torch.randn)(
+                    (2, x.shape[1], n), generator=g, device=dev),) + args[1:]
+                got = fn(*small)
+                got, got_h = got if hidden_out else (got, None)
+                want, want_h = ref(*small)
+                ragged[n] = max(check_close(f"{label} at {n}", got, want),
+                                check_close(f"{label} hidden at {n}", got_h, want_h)
+                                if hidden_out else 0.0)
+            moved = nbytes(*args, out) + (nbytes(h) if hidden_out else 0)
+            row = dict(
+                name=label, route="cuda", source=f"msla_tpu_torch/csrc/{source}.cu",
+                replaces=rep, widths=list(widths), design=model, max_abs_err=err,
+                fp64_share_of_bound=share, ragged_max_abs_err=ragged,
+                ms=time_ms(lambda: fn(*args), SWEEP_REPS, 1),
+                plain_ms=time_ms(lambda: ref(*args), SWEEP_REPS, 1), library_ms=lib,
+                flop=flop, bytes=moved, registers=ptxas_of(ptxas, source, kernel),
+                smem_bytes=kernel_smem(f"{source}_smem_bytes", *widths))
+            if not fma:
+                row.update(tf32_bounds(flop, moved))
+            rows.append(row)
+            del out, h
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
+    """K3, #4 and #5 at each (K, D) of the sweep at batch 32's N = 352,000
+    rows: K3's and #4's ids each equal to the plain version's or a near-tie
+    (planted ties and close pairs and ragged N at K = 512, each D), #4's q
+    the codebook rows bit for bit, counts a bincount, sq within 1e-5 of fp64
+    and the same bits twice; #5 on #4's ids and on uniform ids bit-equal to
+    codebook_grad_order_ref at the card's grid of each column slice, within
+    segment_sum_bound and the same bits twice; each timed beside its plain
+    version and a library call."""
+    from msla_tpu_torch.ops import (nearest_codes, nearest_codes_ref, vq_codebook_grad,
+                                    vq_codebook_grad_ref, vq_fused_fwd, vq_fused_fwd_ref)
+    from msla_tpu_torch.ops.nearest_codes import search_smem_bytes
+    from msla_tpu_torch.ops.vq_fused import grad_smem_bytes
+
+    n = SWEEP_BATCH * FRAME // 4
+    rows = []
+    for d in (64, 128, 256):
+        planted = {w: vq_planted_picks(f"{w}[D={d}]", s, dev, g, d) for w, s in (
+            ("nearest_codes", nearest_codes), ("vq_fused_fwd", lambda x, e: check_fused(x, e)[1]))}
+        ragged = {w: ragged_rows(s, dev, g, (1, 7, 129, 4_097), d) for w, s in (
+            ("nearest_codes", nearest_codes), ("vq_fused_fwd", lambda x, e: check_fused(x, e)[1]))}
+        search = f"nearest_codes_{'kernel' if d == 64 else 'stream_kernel'}<{d}>"
+        fused = f"vq_fused_{'fwd_kernel' if d == 64 else 'stream_kernel'}<{d}>"
+        for k in (128, 256, 512):
+            flat = torch.randn((n, d), generator=g, device=dev)
+            cb = torch.randn((k, d), generator=g, device=dev)
+            e2 = (cb * cb).sum(1)
+            flop = 2 * n * k * d
+            idx = nearest_codes(flat, cb)
+            torch.cuda.synchronize()
+            mismatches, gap, rel = near_ties(flat, cb, idx, nearest_codes_ref(flat, cb))
+            moved = nbytes(flat, cb, idx)
+            rows.append(dict(
+                name=width_label("nearest_codes", (d, k)), route="cuda",
+                source="msla_tpu_torch/csrc/nearest_codes.cu",
+                replaces="msla_tpu/ops/vq_pallas.py:40", widths=[d, k],
+                design="codebook in shared memory" if d == 64 else "codebook streamed",
+                max_abs_err=gap, index_mismatches=mismatches, max_tie_gap=rel,
+                **planted["nearest_codes"], ragged_n_mismatches=ragged["nearest_codes"],
+                ms=time_ms(lambda: nearest_codes(flat, cb), SWEEP_REPS, 1),
+                plain_ms=time_ms(lambda: nearest_codes_ref(flat, cb), SWEEP_REPS, 1),
+                library_ms=time_ms(lambda: torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T),
+                                                        dim=1), SWEEP_REPS, 1),
+                flop=flop, bytes=moved, registers=ptxas_of(ptxas, "nearest_codes", search),
+                smem_bytes=search_smem_bytes(k, False, d), **tf32_bounds(flop, moved)))
+
+            q, idx, counts, sq, (mismatches, gap, rel), sq_rel = check_fused(flat, cb)
+
+            def composite():  # matmul, argmin, gather, bincount, sum
+                i = torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1)
+                return torch.bincount(i, minlength=k), ((cb.index_select(0, i) - flat) ** 2).sum()
+
+            moved = nbytes(flat, cb, q, idx, counts, sq)
+            rows.append(dict(
+                name=width_label("vq_fused_fwd", (d, k)), route="cuda",
+                source="msla_tpu_torch/csrc/vq_fused.cu", replaces="msla_tpu/ops/vq_fused.py:42",
+                widths=[d, k], max_abs_err=gap, index_mismatches=mismatches, max_tie_gap=rel,
+                sq_rel_err=sq_rel, **planted["vq_fused_fwd"],
+                ragged_n_mismatches=ragged["vq_fused_fwd"],
+                ms=time_ms(lambda: vq_fused_fwd(flat, cb), SWEEP_REPS, 1),
+                plain_ms=time_ms(lambda: vq_fused_fwd_ref(flat, cb), SWEEP_REPS, 1),
+                library_ms=time_ms(composite, SWEEP_REPS, 1),
+                library_call="composite: matmul + argmin + index_select + bincount + sum",
+                flop=flop, bytes=moved, registers=ptxas_of(ptxas, "vq_fused", fused),
+                smem_bytes=search_smem_bytes(k, True, d), **tf32_bounds(flop, moved)))
+            del q, flat
+
+            grad = torch.randn((n, d), generator=g, device=dev)
+            fn = lambda x, i: vq_codebook_grad(x, i, k)
+            checks = {kind: check_segment_sum(f"vq_codebook_grad[D={d},K={k}] ({kind} ids)",
+                                              fn, grad, ids, k, False)
+                      for kind, ids in (("model", idx), ("uniform", segment_ids(
+                          "uniform", n, k, g)))}
+            ids_long = idx.long()
+            zeros = torch.zeros((k, d), device=dev)
+            rows.append(dict(
+                name=width_label("vq_codebook_grad", (d, k)), route="cuda",
+                source="msla_tpu_torch/csrc/segment_sum.cuh",
+                replaces="msla_tpu/ops/vq_fused.py:81", widths=[d, k],
+                max_abs_err=checks["model"]["max_abs_err"],
+                fp64_share_of_bound=max(c["fp64_share_of_bound"] for c in checks.values()),
+                blocks=checks["model"]["blocks"], column_slices=d // 64,
+                ms=time_ms(lambda: fn(grad, idx), SWEEP_REPS, 1),
+                plain_ms=time_ms(lambda: vq_codebook_grad_ref(grad, idx, k), SWEEP_REPS, 1),
+                library_ms=time_ms(lambda: zeros.index_add_(0, ids_long, grad), SWEEP_REPS, 1),
+                library_call="index_add_", flop=n * d, bytes=nbytes(grad, idx) + k * d * 4,
+                registers=ptxas_of(ptxas, "vq_fused", "segment_sum_kernel<false>"),
+                smem_bytes=grad_smem_bytes(k)))
+            del grad, idx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sweep_kernels(dev, ptxas: dict) -> list[dict]:
+    g = torch.Generator(device=dev).manual_seed(26)
+    with torch.no_grad():
+        rows = (sweep_stem_rows(dev, g, ptxas, False) + sweep_stem_rows(dev, g, ptxas, True)
+                + sweep_vq_rows(dev, g, ptxas))
+    return with_bounds(rows)
+
+
+#: phase 27: the sweeps through the CLI, on a fixture of their own
+SWEEP_ROOT = OUT_DIR / "sweep"
+SWEEP_TRACKS = {"train": 4, "validation": 4, "test": 4}  # 260 frames each: a batch of 256
+SWEEP_TRIALS = {"optuna": 10, "optuna_smoke": 2}          # hydra.sweeper.n_trials of each
+#: the overrides of every trial, none of them swept: one epoch of one train,
+#: one validation and one test batch, each trial's checkpoints in its own
+#: run directory (its widths are its own, so visualize reads its own model)
+SWEEP_ARGS = ["train_vqvae=True", "trainer.max_epochs=1", "+trainer.limit_train_batches=1",
+              "+trainer.limit_val_batches=1", "+trainer.limit_test_batches=1",
+              "paths.best_checkpoint_dir=${paths.output_dir}/best_checkpoint",
+              "extras.print_config=False"]
+#: fp32 launches of one trial, by wrapper, at the trial's widths (the
+#: prediction, PERF.md §6): a train step (K1b, K2b, #4, #5), one validation
+#: and one test batch (K1, #4, K2 each), visualize's 4 instruments (K1, K3);
+#: generate skips (no best_bert.ckpt), no logger writes an audio demo
+TRIAL_LAUNCHES = {"conv_stem_save_hidden": 1, "deconv_stem_save_hidden": 1, "vq_fused_fwd": 3,
+                  "vq_codebook_grad": 1, "conv_stem": 6, "deconv_stem": 2, "nearest_codes": 4}
+WIDTH_KERNELS = tuple(TRIAL_LAUNCHES)
+
+
+def widths_of_trial(vq: dict) -> dict:
+    """Each wrapper's widths key at a trial's model config."""
+    h, d, k = int(vq["num_hidden"]), int(vq["embedding_dim"]), int(vq["num_embedding"])
+    stems = {"conv_stem": (h // 2, h), "conv_stem_save_hidden": (h // 2, h),
+             "deconv_stem": (h, h // 2), "deconv_stem_save_hidden": (h, h // 2)}
+    return {name: stems.get(name, (d, k)) for name in WIDTH_KERNELS}
+
+
+def width_counts(kernels) -> collections.Counter:
+    """Launches by (wrapper, widths), fp32."""
+    out = collections.Counter()
+    for k in kernels:
+        for (dtype, widths), n in getattr(k, "widths", {}).items():
+            if dtype == torch.float32:
+                out[k.__name__, widths] += n
+    return out
+
+
+def phase_sweep(kernels, smi: str) -> dict:
+    """``python -m msla_tpu_torch -m hparams_search=optuna`` and then
+    ``hparams_search=optuna_smoke``, in process, on a 22 kHz fixture of 4
+    tracks a split (260 frames each), with SWEEP_ARGS and nothing swept
+    overridden: each trial's seconds, peak memory and launches by widths;
+    every trial must complete (optimization_results.yaml's n_completed, a
+    finite trial_result.json each), and every launch count meet
+    TRIAL_LAUNCHES at the trial's widths, trial by trial and summed."""
+    import os
+    import shutil
+
+    import yaml
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.data.dataset import make_fixture_dataset
+
+    shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    slakh, project = SWEEP_ROOT / "slakh", SWEEP_ROOT / "project"
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(SWEEP_TRACKS.items()):
+        make_fixture_dataset(slakh / split, n_tracks=n, seconds=CLI_TRACK_S, sr=SR, seed=30 + i)
+    fixture_s = time.perf_counter() - t0
+
+    trials: list[dict] = []
+    saved_run = cli.run
+
+    def run(cfg):  # one trial, timed and counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = width_counts(kernels)
+        t = time.perf_counter()
+        try:
+            return saved_run(cfg)
+        finally:
+            torch.cuda.synchronize()
+            after = width_counts(kernels)
+            vq = cfg.model.vqvae
+            trials.append(dict(
+                params={k: vq[k] for k in ("num_hidden", "embedding_dim", "num_embedding",
+                                           "num_residual_layer", "num_residual_hidden")}
+                | dict(batch_size=int(cfg.data.batch_size)),
+                s=time.perf_counter() - t, peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches={f"{name}{list(w)}": after[name, w] - before[name, w]
+                          for name, w in after if after[name, w] > before[name, w]}))
+
+    env = {k: os.environ.get(k) for k in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(slakh), PROJECT_ROOT=str(project))
+    cli.run = run
+    sweeps = {}
+    try:
+        for name, n_trials in SWEEP_TRIALS.items():
+            reset_counts(kernels)
+            first = len(trials)
+            t0 = time.perf_counter()
+            best = cli.main(["-m", f"hparams_search={name}", *SWEEP_ARGS])
+            sweeps[name] = dict(s=time.perf_counter() - t0, best_value=best,
+                                counts=width_counts(kernels), trials=trials[first:])
+    finally:
+        cli.run = saved_run
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    result = dict(fixture_write_s=fixture_s, sweeps={})
+    dirs = sorted((project / "logs" / "train" / "multiruns").glob("*"))
+    if len(dirs) != len(SWEEP_TRIALS):
+        fail(f"sweep: multirun directories {dirs}")
+    for (name, n_trials), sweep_dir in zip(SWEEP_TRIALS.items(), dirs):
+        sweep = sweeps[name]
+        res = yaml.safe_load((sweep_dir / "optimization_results.yaml").read_text())
+        if res["n_completed"] != n_trials or len(sweep["trials"]) != n_trials:
+            fail(f"sweep {name}: {res['n_completed']} of {n_trials} trials completed")
+        values = []
+        for i in range(n_trials):
+            rec = json.loads((sweep_dir / str(i) / "trial_result.json").read_text())
+            if rec["trial"] != i or not np.isfinite(rec["value"]):
+                fail(f"sweep {name}: trial {i}'s result {rec}")
+            values.append(rec["value"])
+        want = collections.Counter()
+        for i, trial in enumerate(sweep["trials"]):
+            expect = collections.Counter()
+            for wrapper, widths in widths_of_trial(trial["params"]).items():
+                expect[wrapper, widths] += TRIAL_LAUNCHES[wrapper]
+            got = {f"{k}{list(w)}": n for (k, w), n in expect.items()}
+            if trial["launches"] != got:
+                fail(f"sweep {name} trial {i}: launches {trial['launches']}, predicted {got}")
+            want += expect
+        if sweep["counts"] != want:
+            fail(f"sweep {name}: launches {dict(sweep['counts'])}, predicted {dict(want)}")
+        for i, trial in enumerate(sweep["trials"]):
+            print(f"[sweep] {smi}: {name} trial {i} {trial['params']}: {trial['s']:.3f} s, "
+                  f"peak {trial['peak_gb']:.3f} GiB, value {values[i]:.5f}", flush=True)
+        result["sweeps"][name] = dict(
+            s=sweep["s"], best_value=sweep["best_value"], values=values,
+            trials=sweep["trials"],
+            launches={width_label(k, w): n for (k, w), n in sorted(sweep["counts"].items())})
+        print(f"[sweep] {smi}: {name} {n_trials} trials completed in {sweep['s']:.3f} s, best "
+              f"{res['best_value']:.5f} (trial {res['best_trial']}); launches by instantiation "
+              f"as predicted: {result['sweeps'][name]['launches']}", flush=True)
+    shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -4788,6 +5196,13 @@ def main() -> int:
     # accumulation, the profiler, the wire codecs, a resume from a JAX file
     rest, rest_report = phase("25 rest of the trainer", phase_rest_of_trainer, KERNELS, smi,
                               bert_task)
+    # 26. K1/K1b, K2/K2b, K3, #4 and #5 at every width the sweep samples;
+    # 27. the sweep through the command line
+    sweep_report = phase("26 sweep widths", phase_sweep_kernels, dev, ptxas)
+    sweep = phase("27 sweep", phase_sweep, KERNELS, smi)
+    for k in sweep_report:
+        k.update(path="sweep", launches=sweep["sweeps"]["optuna"]["launches"].get(k["name"], 0),
+                 launches_smoke=sweep["sweeps"]["optuna_smoke"]["launches"].get(k["name"], 0))
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -4806,11 +5221,13 @@ def main() -> int:
                       "bf16_audio_bert_cpu_vs_card": bf16_bert_cpu,
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
                       "cli": cli, "bert_training": bert_training,
-                      "transformer": transformer, "rest_of_trainer": rest}),
+                      "transformer": transformer, "rest_of_trainer": rest,
+                      "sweep": sweep}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report
-                      + bert_training_report + transformer_report + rest_report}),
+                      + bert_training_report + transformer_report + rest_report
+                      + sweep_report}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,8 @@ of nested ``_target_`` mappings, ``_partial_``, and keyword overrides.
 
 configs/ names the JAX package's classes. Every target that starts with
 ``msla_tpu.`` is mapped to ``msla_tpu_torch.`` before anything is imported,
-always; a target the port has no counterpart for raises naming the ROADMAP.md
-item that ports it, and a target that would still import JAX or the JAX
-package raises.
+always, and a target that would still import JAX or the JAX package
+raises.
 """
 from __future__ import annotations
 
@@ -24,11 +23,6 @@ class InstantiationError(RuntimeError):
     pass
 
 
-#: targets of configs/ without a counterpart in the port, and why
-WAITING = {
-    "msla_tpu_torch.sweep.sweeper.TPESweeper": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
-    "msla_tpu_torch.sweep.sampler.TPESampler": "ROADMAP.md queue item 7 (the opt-ins: sweep/)",
-}
 _FOREIGN = ("msla_tpu", "jax", "jaxlib", "flax", "optax")
 
 
@@ -39,8 +33,6 @@ def retarget(path: str) -> str:
 
 def get_class(path: str) -> Any:
     path = retarget(path)
-    if path in WAITING:
-        raise InstantiationError(f"'{path}' is not ported yet: {WAITING[path]}")
     if path.split(".")[0] in _FOREIGN:
         raise InstantiationError(f"'{path}' would import JAX or the JAX package")
     module_name, _, attr = path.rpartition(".")

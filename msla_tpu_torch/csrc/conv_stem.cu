@@ -12,7 +12,8 @@
 // and h1 floor(T/2); when T/2 is odd, h1's last row 2*(T/4) is a real row that
 // conv2's last column reads, not padding, and the last tile writes it in K1b.
 // Each h1 row is written once, coalesced along W; halo and pad rows never.
-// Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4), hidden (B, 64, T/2).
+// Layouts (NCW, as torch): x (B, 4, T), out (B, 128, T/4), hidden (B, 64, T/2)
+// (C2 and C1 at the other widths).
 // Weights arrive pre-transposed by the wrapper: w1t (4*4, 64) indexed
 // [c0*4+tap][c1], w2t (64*4, 128) indexed [c1*4+tap][c2].
 //
@@ -85,6 +86,26 @@
 // 255 registers a thread (ptxas) hold one block of 8 warps an SM: TILE = 128
 // at one block an SM is the shape measured; two blocks an SM would need half
 // the registers.
+//
+// fp32 at the sweep's other widths, num_hidden 64 and 256 of
+// configs/hparams_search/optuna.yaml: (C1, C2) = (32, 64) is the 3xTF32
+// kernel above at those widths (conv_stem_3xtf32_kernel<32, 64>: W2' 33.8
+// KB; 8 warps of 64 channels x 16 positions in conv2). It holds W2' whole in
+// shared memory, C2 (4 C1 + 4) 4 B, 528 KB at (128, 256), so that width runs
+// conv_stem_fma_kernel<128, 256>: a plain fp32 kernel on the FMA units (each
+// product and add exact fp32 FMA, no tensor core), one
+// block a tile of TP = 64 output positions: conv1 into hE / hO (all C1
+// channels of the tile's h1 rows and both halo rows, zero outside [0, T/2))
+// from the tile's x window, then conv2 over output-channel chunks of 64,
+// each chunk's slice of W2' (C1 x 4 x 64 floats, 128 KB at C1 = 128) copied
+// into shared memory in turn, so W2' streams through the block. In conv2 a
+// warp takes 8 channels, a lane 2 positions (16 accumulators; the weights a
+// broadcast, h1 conflict-free along positions), summing c1 in ascending
+// order, taps 0 to 3, from zero, then + b2 and ReLU. Bound at batch 32, T =
+// 44,000, (128, 256): 9.52e10 FLOP, 1.42 ms on the FMA units (67 TFLOP/s),
+// against 22.5 MB in + 360.4 MB out (+ 360.4 MB of h1): 0.114 ms; so bound by
+// the FMA units (3xTF32 on the tensor cores: 0.58 ms for its three products).
+// K1b writes h1 from hE / hO as the kernels above do.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,34 +142,49 @@ constexpr int XW = 4 * TILE + 16;     // x window: samples 4 q0 - 8 .. 4 q0 + 4 
 constexpr int KROWS = 2 * TILE + 2;   // conv1 rows k: h1[2 q0 - 1 + k]
 constexpr int MT1 = (KROWS + 15) / 16;  // conv1's m16 tiles (the last one partly unused)
 constexpr int W1_LD = 16 + 4;         // floats a row of W1 [c1][c0*4 + tap]: B loads on 32 banks
-constexpr int W2_LD = K2D + 4;        // floats a row of W2' (1,040 B: ldmatrix rows on 32 banks)
-constexpr int H_LD = C1 + 4;          // floats a row of hE / hO (272 B)
 constexpr int H_ROWS = TILE + 8;      // conv2 reads rows 0 .. TILE
 
-// shared memory, in bytes from the start
-constexpr int W2S = 0;
-constexpr int XS = W2S + C2 * W2_LD * 4;          // two x windows [C0][XW]
-constexpr int HSE = XS + 2 * C0 * XW * 4;         // hE[i] = h1[2 (q0 + i)]
-constexpr int HSO = HSE + H_ROWS * H_LD * 4;      // hO[i] = h1[2 (q0 + i) - 1]
-constexpr int W1S = HSO + H_ROWS * H_LD * 4;      // [C1][W1_LD]
-constexpr int B1S = W1S + C1 * W1_LD * 4;
-constexpr int B2S = B1S + C1 * 4;
-constexpr int SMEM_BYTES = B2S + C2 * 4;          // 229,888
+// The widths' layout: 4 -> NC1 -> NC2, instantiated at the default (64, 128)
+// and at (32, 64), where W2' is a quarter the size.
+template <int NC1, int NC2>
+struct Layout {
+  static constexpr int K2D = 4 * NC1;   // conv2 depth: hO[i], hE[i], hO[i+1], hE[i+1]
+  static constexpr int W2_LD = K2D + 4; // floats a row of W2' (1,040 B at the default:
+                                        // ldmatrix rows on 32 banks)
+  static constexpr int H_LD = NC1 + 4;  // floats a row of hE / hO (272 B at the default)
+  // conv2's warps: WM rows of 64 channels by WN columns of PW positions
+  static constexpr int WM = NC2 / 64, WN = (THREADS / 32) / WM, PW = TILE / WN, NP = PW / 16;
+  static constexpr int WN_LOG2 = WN == 8 ? 3 : WN == 4 ? 2 : WN == 2 ? 1 : 0;
+  // shared memory, in bytes from the start
+  static constexpr int W2S = 0;
+  static constexpr int XS = W2S + NC2 * W2_LD * 4;          // two x windows [C0][XW]
+  static constexpr int HSE = XS + 2 * C0 * XW * 4;          // hE[i] = h1[2 (q0 + i)]
+  static constexpr int HSO = HSE + H_ROWS * H_LD * 4;       // hO[i] = h1[2 (q0 + i) - 1]
+  static constexpr int W1S = HSO + H_ROWS * H_LD * 4;       // [NC1][W1_LD]
+  static constexpr int B1S = W1S + NC1 * W1_LD * 4;
+  static constexpr int B2S = B1S + NC1 * 4;
+  static constexpr int SMEM_BYTES = B2S + NC2 * 4;          // 229,888 at the default
+  static_assert(NC2 % 64 == 0 && NC1 % 8 == 0 && PW % 16 == 0 && (1 << WN_LOG2) == WN,
+                "conv2's warp tiles");
+};
 
+template <int NC1, int NC2>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_stem_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
                         const float* __restrict__ b1, const float* __restrict__ w2t,
                         const float* __restrict__ b2, float* __restrict__ out,
                         float* __restrict__ hidden, int batch, int t_len) {
+  using L = Layout<NC1, NC2>;
+  constexpr int C1 = NC1, C2 = NC2, K2D = L::K2D, W2_LD = L::W2_LD, H_LD = L::H_LD;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  float* w2s = reinterpret_cast<float*>(smem + W2S);
-  float* xbuf = reinterpret_cast<float*>(smem + XS);
-  float* hse = reinterpret_cast<float*>(smem + HSE);
-  float* hso = reinterpret_cast<float*>(smem + HSO);
-  float* w1s = reinterpret_cast<float*>(smem + W1S);
-  float* b1s = reinterpret_cast<float*>(smem + B1S);
-  float* b2s = reinterpret_cast<float*>(smem + B2S);
+  float* w2s = reinterpret_cast<float*>(smem + L::W2S);
+  float* xbuf = reinterpret_cast<float*>(smem + L::XS);
+  float* hse = reinterpret_cast<float*>(smem + L::HSE);
+  float* hso = reinterpret_cast<float*>(smem + L::HSO);
+  float* w1s = reinterpret_cast<float*>(smem + L::W1S);
+  float* b1s = reinterpret_cast<float*>(smem + L::B1S);
+  float* b2s = reinterpret_cast<float*>(smem + L::B2S);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -279,10 +315,12 @@ conv_stem_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w
         hidden[((size_t)b * C1 + tid) * w1_len + w1_len - 1] = hse[n_valid * H_LD + tid];
     }
 
-    // conv2: warp (wm, wn) takes channels 64 wm .. and positions 32 wn ..
+    // conv2: warp (wm, wn) takes channels 64 wm .. and positions PW wn ..
+    // (PW = 32 at the default widths, 16 at (32, 64))
     {
-      const int wm = warp >> 2, wn = warp & 3;
-      float acc[4][4][4] = {};
+      constexpr int PW = L::PW, NP = L::NP;
+      const int wm = warp >> L::WN_LOG2, wn = warp & (L::WN - 1);
+      float acc[4][2 * NP][4] = {};
 #pragma unroll 2
       for (int k0 = 0; k0 < K2D; k0 += 8) {
         // tap k0 / 64: 0 hO[i], 1 hE[i], 2 hO[i + 1], 3 hE[i + 1]
@@ -299,9 +337,9 @@ conv_stem_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w
           for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
         }
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
+        for (int np = 0; np < NP; ++np) {
           uint32_t r[4], bh[4], bl[4];
-          ldsm_x4(r, hs + (32 * wn + 16 * np + (lane >> 4) * 8 + (lane & 7) + (tap >> 1)) *
+          ldsm_x4(r, hs + (PW * wn + 16 * np + (lane >> 4) * 8 + (lane & 7) + (tap >> 1)) *
                               H_LD + k0 % C1 + ((lane >> 3) & 1) * 4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) split(r[e], bh[e], bl[e]);
@@ -319,11 +357,11 @@ conv_stem_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < 2 * NP; ++ni)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int c2 = 64 * wm + 16 * mi + g + 8 * r;
-            const int i = 32 * wn + 8 * ni + 2 * t;
+            const int i = PW * wn + 8 * ni + 2 * t;
             const float v0 = fmaxf(acc[mi][ni][2 * r] + b2s[c2], 0.f);
             const float v1 = fmaxf(acc[mi][ni][2 * r + 1] + b2s[c2], 0.f);
             float* dst = ob + (size_t)c2 * w2_len + i;
@@ -605,6 +643,140 @@ conv_stem_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
 
 }  // namespace bf16_mma
 
+// ---- fp32 on the FMA units, at the sweep's other widths ----------------------
+
+namespace fp32_fma {
+
+constexpr int TP = 64;                // output positions a tile
+constexpr int XW = 4 * TP + 8;        // x window: samples 4 q0 - 4 .. 4 q0 + 4 TP + 3
+constexpr int H_LD = TP + 4;          // floats a channel of hE / hO (rows 0 .. TP)
+constexpr int CC2 = 64;               // output channels a conv2 chunk: 8 warps x 8
+
+template <int NC1, int NC2>
+constexpr int smem_bytes() {
+  return (C0 * XW + NC1 * 16 + NC1 + NC2 + 2 * NC1 * H_LD + NC1 * 4 * CC2) * 4;
+}
+
+template <int NC1, int NC2>
+__global__ void __launch_bounds__(THREADS)
+conv_stem_fma_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                     const float* __restrict__ b1, const float* __restrict__ w2t,
+                     const float* __restrict__ b2, float* __restrict__ out,
+                     float* __restrict__ hidden, int batch, int t_len) {
+  static_assert(NC2 % CC2 == 0, "conv2 runs in chunks of 64 output channels");
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [C0][XW]: x[c0][4 q0 - 4 + u]
+  float* w1s = xs + C0 * XW;                    // [NC1][16]: w1[c1][c0][tap]
+  float* b1s = w1s + NC1 * 16;
+  float* b2s = b1s + NC1;
+  float* hse = b2s + NC2;                       // [NC1][H_LD]: hE[i] = h1[2 (q0 + i)]
+  float* hso = hse + NC1 * H_LD;                // hO[i] = h1[2 (q0 + i) - 1]
+  float* w2s = hso + NC1 * H_LD;                // [NC1 * 4][CC2]: a chunk of W2'
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int w1_len = t_len / 2, w2_len = t_len / 4;
+  const int tiles_per_row = (w2_len + TP - 1) / TP;
+  const int b = blockIdx.x / tiles_per_row, q0 = (blockIdx.x % tiles_per_row) * TP;
+  const int n_valid = min(TP, w2_len - q0);
+  const float* xb = x + (size_t)b * C0 * t_len;
+
+  for (int i = tid; i < C0 * XW; i += THREADS) {
+    const int c = i / XW, s = 4 * q0 - 4 + i % XW;
+    xs[i] = s >= 0 && s < t_len ? xb[(size_t)c * t_len + s] : 0.f;
+  }
+  for (int i = tid; i < NC1 * 16; i += THREADS) w1s[i] = w1t[(i % 16) * NC1 + i / 16];
+  for (int i = tid; i < NC1; i += THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < NC2; i += THREADS) b2s[i] = b2[i];
+  __syncthreads();
+
+  // conv1: hE[i] sums x at u = 4i + 3 + tap, hO[i] at u = 4i + 1 + tap
+  for (int e = tid; e < 2 * NC1 * (TP + 1); e += THREADS) {
+    const int odd = e / (NC1 * (TP + 1)), c1 = e / (TP + 1) % NC1, i = e % (TP + 1);
+    const int j = 2 * (q0 + i) - odd, u = 4 * i + 3 - 2 * odd;
+    float acc = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < C0; ++c0)
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap)
+        acc = fmaf(w1s[c1 * 16 + c0 * 4 + tap], xs[c0 * XW + u + tap], acc);
+    (odd ? hso : hse)[c1 * H_LD + i] = j >= 0 && j < w1_len ? fmaxf(acc + b1s[c1], 0.f) : 0.f;
+  }
+
+  for (int c2b = 0; c2b < NC2; c2b += CC2) {
+    __syncthreads();  // h1 is in; the previous chunk's readers of w2s are done
+    for (int e = tid; e < NC1 * 4 * CC2; e += THREADS)
+      w2s[e] = w2t[(size_t)(e / CC2) * NC2 + c2b + e % CC2];
+    __syncthreads();
+    // out[c2][q0 + i] = relu(b2 + sum over c1, taps of W2'[c2][tap][c1] x
+    // (hO[i], hE[i], hO[i + 1], hE[i + 1])[tap])
+    float acc[8][2] = {};
+#pragma unroll 2
+    for (int c1 = 0; c1 < NC1; ++c1) {
+      float hv[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = lane + 32 * r;
+        hv[r][0] = hso[c1 * H_LD + i];
+        hv[r][1] = hse[c1 * H_LD + i];
+        hv[r][2] = hso[c1 * H_LD + i + 1];
+        hv[r][3] = hse[c1 * H_LD + i + 1];
+      }
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) {
+        const float4* wr = reinterpret_cast<const float4*>(w2s + (c1 * 4 + tap) * CC2 + 8 * warp);
+        const float4 wa = wr[0], wb = wr[1];
+        const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) acc[k][r] = fmaf(w[k], hv[r][tap], acc[k][r]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c2 = c2b + 8 * warp + k;
+      float* ob = out + ((size_t)b * NC2 + c2) * w2_len + q0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = lane + 32 * r;
+        if (i < n_valid) ob[i] = fmaxf(acc[k][r] + b2s[c2], 0.f);
+      }
+    }
+  }
+
+  if (hidden != nullptr) {  // K1b: h1[2 (q0 + i)] = hE[i], h1[2 (q0 + i) + 1] = hO[i + 1]
+    for (int e = tid; e < NC1 * TP; e += THREADS) {
+      const int c1 = e / TP, i = e % TP;
+      if (i < n_valid) {
+        float* dst = hidden + ((size_t)b * NC1 + c1) * w1_len + 2 * (q0 + i);
+        dst[0] = hse[c1 * H_LD + i];
+        dst[1] = hso[c1 * H_LD + i + 1];
+      }
+    }
+    // where T/2 is odd, the row's last tile also writes h1[T/2 - 1] = hE[n_valid]
+    if (w1_len % 2 == 1 && q0 + TP >= w2_len)
+      for (int c1 = tid; c1 < NC1; c1 += THREADS)
+        hidden[((size_t)b * NC1 + c1) * w1_len + w1_len - 1] = hse[c1 * H_LD + n_valid];
+  }
+}
+
+// One block a tile.
+template <int NC1, int NC2>
+int launch(const float* x, const float* w1t, const float* b1, const float* w2t, const float* b2,
+           float* out, float* hidden, int batch, int t_len, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<NC1, NC2>();
+  cudaError_t err = cudaFuncSetAttribute(conv_stem_fma_kernel<NC1, NC2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)batch * ((t_len / 4 + TP - 1) / TP);
+  if (tiles == 0) return 0;
+  conv_stem_fma_kernel<NC1, NC2><<<(unsigned)tiles, THREADS, smem, stream>>>(
+      x, w1t, b1, w2t, b2, out, hidden, batch, t_len);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fp32_fma
+
 // One persistent block an SM (at most one a tile).
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const float*, const T*, const float*, T*, T*, int,
@@ -630,12 +802,33 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 
 }  // namespace
 
-// fp32: hidden may be null (K1); otherwise it receives h1 (K1b).
+// fp32 at the sweep's widths 4 -> c1 -> c2: the default (64, 128) and
+// (32, 64) on the tensor cores (3xTF32), (128, 256) on the FMA units; hidden
+// may be null (K1); otherwise it receives h1 (K1b).
 extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                              const float* w2t, const float* b2, float* out,
-                             float* hidden, int batch, int t_len, void* stream) {
-  return launch<float>(tf32_mma::conv_stem_3xtf32_kernel, tf32_mma::SMEM_BYTES, THREADS,
-                       tf32_mma::TILE, x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
+                             float* hidden, int batch, int t_len, int c1, int c2, void* stream) {
+  if (c1 == C1 && c2 == C2)
+    return launch<float>(tf32_mma::conv_stem_3xtf32_kernel<C1, C2>,
+                         tf32_mma::Layout<C1, C2>::SMEM_BYTES, THREADS, tf32_mma::TILE, x, w1t,
+                         b1, w2t, b2, out, hidden, batch, t_len, stream);
+  if (c1 == 32 && c2 == 64)
+    return launch<float>(tf32_mma::conv_stem_3xtf32_kernel<32, 64>,
+                         tf32_mma::Layout<32, 64>::SMEM_BYTES, THREADS, tf32_mma::TILE, x,
+                         w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
+  if (c1 == 128 && c2 == 256)
+    return fp32_fma::launch<128, 256>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len,
+                                      (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a block of conv_stem_fwd at (c1, c2), or -1
+// where it is not compiled for them.
+extern "C" int conv_stem_smem_bytes(int c1, int c2) {
+  if (c1 == C1 && c2 == C2) return tf32_mma::Layout<C1, C2>::SMEM_BYTES;
+  if (c1 == 32 && c2 == 64) return tf32_mma::Layout<32, 64>::SMEM_BYTES;
+  if (c1 == 128 && c2 == 256) return fp32_fma::smem_bytes<128, 256>();
+  return -1;
 }
 
 // bf16 x, w1t, w2t and out, fp32 biases: hidden may be null (K1 in bf16);

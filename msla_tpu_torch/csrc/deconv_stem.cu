@@ -96,7 +96,29 @@
 // zero, and the two halves add in fp32, as the plain version adds its two
 // taps' products.
 //
-// Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W).
+// fp32 at the sweep's other widths, num_hidden 64 and 256 of
+// configs/hparams_search/optuna.yaml: (C, C1) = (64, 32) is the 3xTF32
+// kernel above at those widths (deconv_stem_3xtf32_kernel<64, 32>: W1' 33.8
+// KB; layer 1's 8 warps of 32 rows x 16 columns). It holds W1' whole in
+// shared memory, 528 KB at C = 256, so that width runs
+// deconv_stem_fma_kernel<256, 128>: a plain fp32 kernel on the FMA units
+// (each product and add exact fp32 FMA, no tensor core), one block a tile of
+// TM =
+// 63 positions of q: layer 1 into hsE[a] = h[2(m0 + a)] and hsO[a] = h[2(m0 +
+// a) - 1], a = 0 .. 63 (the tile's h and both halo rows, zero outside [0,
+// 2W)), from the tile's q window (C x 65 floats), streaming w1 through
+// shared memory in chunks of 32 input channels (C1 x 4 floats each: 64 KB at
+// C1 = 128); a warp takes C1 / 8 channels, a lane 2 positions, both phases
+// (each sums c in ascending order, two FMAs a channel, from zero; + b1,
+// ReLU). Layer 2 (the 4 output channels, 16 products of 2 C1 terms a
+// position) takes a thread an (o, position), out[o][4m .. 4m + 3] one 16-byte
+// store. Bound at batch 32, W = 11,000, (256, 128): 9.37e10 FLOP, 1.40 ms on
+// the FMA units, against 360.4 MB in + 22.5 MB out (+ 360.4 MB of h): 0.114
+// ms; bound by the FMA units (3xTF32 on the tensor cores: 0.57 ms for its
+// three products). K2b writes h from hsE / hsO.
+//
+// Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W)
+// (C and C1 at the other widths).
 // Weights in torch's ConvTranspose1d layout (in, out, k): w1 (128, 64, 4),
 // w2 (64, 4, 4).
 #include <cuda_bf16.h>
@@ -147,39 +169,57 @@ namespace tf32_mma {
 constexpr int TILE = 60;              // positions per tile (a multiple of 4: 16-byte q rows)
 constexpr int N1 = 64;                // layer-1 columns r = m0 .. m0 + 63 (TILE + 1 used)
 constexpr int NQ = N1 + 8;            // q positions m0 - 4 .. m0 + 67 (B loads on 32 banks)
-constexpr int HALF = CI / 2;          // q's channels a cp.async group carries
-constexpr int W1_LD = K1 + 4;         // floats a row of W1' (1,040 B: ldmatrix rows on 32 banks)
-constexpr int H_LD = C1 + 4;          // floats a row of hsE / hsO (272 B)
 constexpr int H_ROWS = N1 + 8;        // layer 2 reads rows up to N1; the last 8 stay zero
-constexpr int W2_LD = K2 + 4;         // floats a row of W2' (B loads on 32 banks)
 constexpr int P_LD = M2 + 8;          // floats a row of the second chain's partial sums
 
-// shared memory, in bytes from the start
-constexpr int W1S = 0;
-constexpr int QS = W1S + M1 * W1_LD * 4;          // q's tile [CI][NQ]
-constexpr int HSE = QS + CI * NQ * 4;             // hsE[i] = h[2(m0 + i)]
-constexpr int HSO = HSE + H_ROWS * H_LD * 4;      // hsO[i] = h[2(m0 + i) - 1]
-constexpr int W2S = HSO + H_ROWS * H_LD * 4;      // [M2][W2_LD]
-constexpr int PS = W2S + M2 * W2_LD * 4;          // [N1][P_LD]
-constexpr int B1S = PS + N1 * P_LD * 4;
-constexpr int B2S = B1S + C1 * 4;
-constexpr int SMEM_BYTES = B2S + CO * 4;          // 232,208
+// The widths' layout: NC -> NC1 -> 4, instantiated at the default (128, 64)
+// and at (64, 32), where W1' is a quarter the size.
+template <int NC, int NC1>
+struct Layout {
+  static constexpr int M1 = 2 * NC1;    // layer-1 rows: he channels, then ho channels
+  static constexpr int K1 = 2 * NC;     // layer-1 depth: q[r-1], then q[r]
+  static constexpr int K2 = 4 * NC1;    // layer-2 depth: h[2l], h[2l-1], h[2l+1], h[2l+2]
+  static constexpr int HALF = NC / 2;   // q's channels a cp.async group carries
+  static constexpr int W1_LD = K1 + 4;  // floats a row of W1' (1,040 B at the default:
+                                        // ldmatrix rows on 32 banks)
+  static constexpr int H_LD = NC1 + 4;  // floats a row of hsE / hsO (272 B at the default)
+  static constexpr int W2_LD = K2 + 4;  // floats a row of W2' (B loads on 32 banks)
+  // layer 1's warps: WM rows of 32 (of M1) by WN columns of CW (of N1)
+  static constexpr int WM = M1 / 32, WN = (THREADS / 32) / WM, CW = N1 / WN;
+  static constexpr int WN_LOG2 = WN == 8 ? 3 : WN == 4 ? 2 : WN == 2 ? 1 : 0;
+  // shared memory, in bytes from the start
+  static constexpr int W1S = 0;
+  static constexpr int QS = W1S + M1 * W1_LD * 4;           // q's tile [NC][NQ]
+  static constexpr int HSE = QS + NC * NQ * 4;              // hsE[i] = h[2(m0 + i)]
+  static constexpr int HSO = HSE + H_ROWS * H_LD * 4;       // hsO[i] = h[2(m0 + i) - 1]
+  static constexpr int W2S = HSO + H_ROWS * H_LD * 4;       // [M2][W2_LD]
+  static constexpr int PS = W2S + M2 * W2_LD * 4;           // [N1][P_LD]
+  static constexpr int B1S = PS + N1 * P_LD * 4;
+  static constexpr int B2S = B1S + NC1 * 4;
+  static constexpr int SMEM_BYTES = B2S + CO * 4;           // 232,208 at the default
+  static_assert(M1 % 32 == 0 && CW % 8 == 0 && HALF % 8 == 0 && (1 << WN_LOG2) == WN,
+                "layer 1's warp tiles");
+};
 
+template <int NC, int NC1>
 __global__ void __launch_bounds__(THREADS, 1)
 deconv_stem_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ w1,
                           const float* __restrict__ b1, const float* __restrict__ w2,
                           const float* __restrict__ b2, float* __restrict__ out,
                           float* __restrict__ hidden, int batch, int width) {
+  using L = Layout<NC, NC1>;
+  constexpr int CI = NC, C1 = NC1, M1 = L::M1, K1 = L::K1, K2 = L::K2, HALF = L::HALF;
+  constexpr int W1_LD = L::W1_LD, H_LD = L::H_LD, W2_LD = L::W2_LD, CW = L::CW;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  float* w1s = reinterpret_cast<float*>(smem + W1S);
-  float* qs = reinterpret_cast<float*>(smem + QS);
-  float* hse = reinterpret_cast<float*>(smem + HSE);
-  float* hso = reinterpret_cast<float*>(smem + HSO);
-  float* w2s = reinterpret_cast<float*>(smem + W2S);
-  float* ps = reinterpret_cast<float*>(smem + PS);
-  float* b1s = reinterpret_cast<float*>(smem + B1S);
-  float* b2s = reinterpret_cast<float*>(smem + B2S);
+  float* w1s = reinterpret_cast<float*>(smem + L::W1S);
+  float* qs = reinterpret_cast<float*>(smem + L::QS);
+  float* hse = reinterpret_cast<float*>(smem + L::HSE);
+  float* hso = reinterpret_cast<float*>(smem + L::HSO);
+  float* w2s = reinterpret_cast<float*>(smem + L::W2S);
+  float* ps = reinterpret_cast<float*>(smem + L::PS);
+  float* b1s = reinterpret_cast<float*>(smem + L::B1S);
+  float* b2s = reinterpret_cast<float*>(smem + L::B2S);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -241,11 +281,12 @@ deconv_stem_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__
     const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
     const long long next = tile + gridDim.x;
 
-    // layer 1: warp (wm, wn) takes rows 32 wm .. (he for wm < 2, ho after) x
-    // columns 32 wn ..; k8 steps over q's channels 0-63 at r-1 and at r, then
-    // 64-127 at r-1 and at r
-    const int wm = warp >> 1, wn = warp & 1;
-    float acc[2][4][4] = {};
+    // layer 1: warp (wm, wn) takes rows 32 wm .. (he for 32 wm < C1, ho
+    // after) x columns CW wn .. (CW = 32 at the default widths, 16 at (64,
+    // 32)); k8 steps over q's channels 0-63 at r-1 and at r, then 64-127 at
+    // r-1 and at r (the halves of C)
+    const int wm = warp >> L::WN_LOG2, wn = warp & (L::WN - 1);
+    float acc[2][CW / 8][4] = {};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       // half 0: its channels are in, and the previous tile's readers of hsE,
@@ -268,9 +309,9 @@ deconv_stem_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__
           for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
         }
         // column r = m0 + lambda reads q[r - 1] at u = lambda + 3, q[r] at lambda + 4
-        const float* col = qs + (ch0 + t) * NQ + 32 * wn + g + 3 + later;
+        const float* col = qs + (ch0 + t) * NQ + CW * wn + g + 3 + later;
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
+        for (int ni = 0; ni < CW / 8; ++ni) {
           uint32_t bh0, bl0, bh1, bl1;
           split(__float_as_uint(col[8 * ni]), bh0, bl0);
           split(__float_as_uint(col[8 * ni + 4 * NQ]), bh1, bl1);
@@ -285,16 +326,17 @@ deconv_stem_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__
 
     // + b1, ReLU, zero outside [0, 2W) (he[r]: r < W; ho[r-1]: 1 <= r <= W)
     {
-      float* hs = wm < 2 ? hse : hso;
+      const bool he = 32 * wm < C1;
+      float* hs = he ? hse : hso;
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < CW / 8; ++ni)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int c = (32 * wm + 16 * mi + g + 8 * (i >> 1)) % C1;
-            const int lam = 32 * wn + 8 * ni + 2 * t + (i & 1), r = m0 + lam;
-            const bool inside = wm < 2 ? r < width : (r >= 1 && r <= width);
+            const int lam = CW * wn + 8 * ni + 2 * t + (i & 1), r = m0 + lam;
+            const bool inside = he ? r < width : (r >= 1 && r <= width);
             hs[lam * H_LD + c] = inside ? fmaxf(acc[mi][ni][i] + b1s[c], 0.f) : 0.f;
           }
     }
@@ -594,6 +636,140 @@ deconv_stem_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ w1,
 
 }  // namespace bf16_mma
 
+// ---- fp32 on the FMA units, at the sweep's other widths ----------------------
+
+namespace fp32_fma {
+
+constexpr int TM = 63;                // positions of q a tile
+constexpr int NA = TM + 1;            // rows a of hsE / hsO: the tile's h and both halo rows
+constexpr int Q_LD = TM + 2 + 3;      // floats a channel of q's window: q[m0 - 1 .. m0 + TM]
+constexpr int H_LD = NA + 4;
+constexpr int CCH = 32;               // input channels a chunk of w1
+
+template <int NC, int NC1>
+constexpr int smem_bytes() {
+  return (NC * Q_LD + 2 * NC1 * H_LD + CCH * NC1 * 4 + NC1 * CO * 4 + NC1 + CO) * 4;
+}
+
+template <int NC, int NC1>
+__global__ void __launch_bounds__(THREADS)
+deconv_stem_fma_kernel(const float* __restrict__ q, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ w2,
+                       const float* __restrict__ b2, float* __restrict__ out,
+                       float* __restrict__ hidden, int batch, int width) {
+  static_assert(NC % CCH == 0 && NC1 % 8 == 0, "chunks of 32 input channels, 8 warps");
+  constexpr int RC = NC1 / 8;         // layer-1 channels a warp
+  extern __shared__ float4 smem4[];
+  float* w1s = reinterpret_cast<float*>(smem4);  // [CCH][NC1][4]: a chunk of w1
+  float* w2s = w1s + CCH * NC1 * 4;             // [NC1][CO][4]: w2
+  float* qs = w2s + NC1 * CO * 4;               // [NC][Q_LD]: q[c][m0 - 1 + u]
+  float* hse = qs + NC * Q_LD;                  // [NC1][H_LD]: hsE[a] = h[2(m0 + a)]
+  float* hso = hse + NC1 * H_LD;                // hsO[a] = h[2(m0 + a) - 1]
+  float* b1s = hso + NC1 * H_LD;
+  float* b2s = b1s + NC1;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_per_row = (width + TM - 1) / TM;
+  const int b = blockIdx.x / tiles_per_row, m0 = (blockIdx.x % tiles_per_row) * TM;
+  const float* qb = q + (size_t)b * NC * width;
+
+  for (int i = tid; i < NC * (TM + 2); i += THREADS) {
+    const int c = i / (TM + 2), u = i % (TM + 2), m = m0 - 1 + u;
+    qs[c * Q_LD + u] = m >= 0 && m < width ? qb[(size_t)c * width + m] : 0.f;
+  }
+  for (int i = tid; i < NC1 * CO * 4; i += THREADS) w2s[i] = w2[i];
+  for (int i = tid; i < NC1; i += THREADS) b1s[i] = b1[i];
+  if (tid < CO) b2s[tid] = b2[tid];
+
+  // layer 1: hsE[a] = q[m0 + a] W1[1] + q[m0 + a - 1] W1[3] (u = a + 1, a),
+  // hsO[a] = q[m0 + a - 1] W1[2] + q[m0 + a] W1[0], summed over c
+  float ev[RC][2] = {}, od[RC][2] = {};
+  for (int cb = 0; cb < NC; cb += CCH) {
+    __syncthreads();  // the previous chunk's readers are done (the first time: q is in)
+    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)cb * NC1 * 4);
+    for (int i = tid; i < CCH * NC1; i += THREADS) reinterpret_cast<float4*>(w1s)[i] = src[i];
+    __syncthreads();
+#pragma unroll 2
+    for (int cc = 0; cc < CCH; ++cc) {
+      const float* qc = qs + (cb + cc) * Q_LD;
+      float qa[2], qn[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        qa[r] = qc[lane + 32 * r];      // q[m0 + a - 1]
+        qn[r] = qc[lane + 32 * r + 1];  // q[m0 + a]
+      }
+#pragma unroll
+      for (int k = 0; k < RC; ++k) {
+        const float4 w = reinterpret_cast<const float4*>(w1s)[cc * NC1 + warp * RC + k];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          ev[k][r] = fmaf(qa[r], w.w, fmaf(qn[r], w.y, ev[k][r]));
+          od[k][r] = fmaf(qn[r], w.x, fmaf(qa[r], w.z, od[k][r]));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RC; ++k) {
+    const int c1 = warp * RC + k;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int a = lane + 32 * r, m = m0 + a;
+      hse[c1 * H_LD + a] = m < width ? fmaxf(ev[k][r] + b1s[c1], 0.f) : 0.f;
+      hso[c1 * H_LD + a] = m >= 1 && m <= width ? fmaxf(od[k][r] + b1s[c1], 0.f) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // layer 2: out[4m + j] of channel o from hsE[a], hsO[a], hsO[a + 1], hsE[a + 1]
+  {
+    const int o = tid / 64, a = tid % 64, m = m0 + a;
+    if (a < TM && m < width) {
+      float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
+      for (int c1 = 0; c1 < NC1; ++c1) {
+        const float4 w = reinterpret_cast<const float4*>(w2s)[c1 * CO + o];
+        const float e0 = hse[c1 * H_LD + a], e1 = hse[c1 * H_LD + a + 1];
+        const float d0 = hso[c1 * H_LD + a], d1 = hso[c1 * H_LD + a + 1];
+        y0 = fmaf(d0, w.w, fmaf(e0, w.y, y0));
+        y1 = fmaf(d1, w.x, fmaf(e0, w.z, y1));
+        y2 = fmaf(e0, w.w, fmaf(d1, w.y, y2));
+        y3 = fmaf(e1, w.x, fmaf(d1, w.z, y3));
+      }
+      const float bo = b2s[o];
+      reinterpret_cast<float4*>(out + ((size_t)b * CO + o) * 4 * width)[m] =
+          make_float4(y0 + bo, y1 + bo, y2 + bo, y3 + bo);
+    }
+  }
+
+  if (hidden != nullptr) {  // K2b: h[2m] = hsE[a], h[2m + 1] = hsO[a + 1]
+    for (int e = tid; e < NC1 * TM; e += THREADS) {
+      const int c1 = e / TM, a = e % TM, m = m0 + a;
+      if (m < width) {
+        float* dst = hidden + ((size_t)b * NC1 + c1) * 2 * width + 2 * m;
+        dst[0] = hse[c1 * H_LD + a];
+        dst[1] = hso[c1 * H_LD + a + 1];
+      }
+    }
+  }
+}
+
+// One block a tile.
+template <int NC, int NC1>
+int launch(const float* q, const float* w1, const float* b1, const float* w2, const float* b2,
+           float* out, float* hidden, int batch, int width, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<NC, NC1>();
+  cudaError_t err = cudaFuncSetAttribute(deconv_stem_fma_kernel<NC, NC1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)batch * ((width + TM - 1) / TM);
+  if (tiles == 0) return 0;
+  deconv_stem_fma_kernel<NC, NC1><<<(unsigned)tiles, THREADS, smem, stream>>>(
+      q, w1, b1, w2, b2, out, hidden, batch, width);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fp32_fma
+
 // One persistent block an SM (at most one a tile).
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const float*, const T*, const float*, T*, T*, int,
@@ -619,12 +795,34 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 
 }  // namespace
 
-// fp32: hidden may be null (K2); otherwise it receives h (K2b).
+// fp32 at the sweep's widths c -> c1 -> 4: the default (128, 64) and
+// (64, 32) on the tensor cores (3xTF32), (256, 128) on the FMA units; hidden
+// may be null (K2); otherwise it receives h (K2b).
 extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* out,
-                               float* hidden, int batch, int width, void* stream) {
-  return launch<float>(tf32_mma::deconv_stem_3xtf32_kernel, tf32_mma::SMEM_BYTES, THREADS,
-                       tf32_mma::TILE, q, w1, b1, w2, b2, out, hidden, batch, width, stream);
+                               float* hidden, int batch, int width, int c, int c1,
+                               void* stream) {
+  if (c == CI && c1 == C1)
+    return launch<float>(tf32_mma::deconv_stem_3xtf32_kernel<CI, C1>,
+                         tf32_mma::Layout<CI, C1>::SMEM_BYTES, THREADS, tf32_mma::TILE, q, w1,
+                         b1, w2, b2, out, hidden, batch, width, stream);
+  if (c == 64 && c1 == 32)
+    return launch<float>(tf32_mma::deconv_stem_3xtf32_kernel<64, 32>,
+                         tf32_mma::Layout<64, 32>::SMEM_BYTES, THREADS, tf32_mma::TILE, q, w1,
+                         b1, w2, b2, out, hidden, batch, width, stream);
+  if (c == 256 && c1 == 128)
+    return fp32_fma::launch<256, 128>(q, w1, b1, w2, b2, out, hidden, batch, width,
+                                      (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a block of deconv_stem_fwd at (c, c1), or -1
+// where it is not compiled for them.
+extern "C" int deconv_stem_smem_bytes(int c, int c1) {
+  if (c == CI && c1 == C1) return tf32_mma::Layout<CI, C1>::SMEM_BYTES;
+  if (c == 64 && c1 == 32) return tf32_mma::Layout<64, 32>::SMEM_BYTES;
+  if (c == 256 && c1 == 128) return fp32_fma::smem_bytes<256, 128>();
+  return -1;
 }
 
 // bf16 q, w1, w2 and out, fp32 biases: hidden may be null (K2 in bf16);

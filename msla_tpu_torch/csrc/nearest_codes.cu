@@ -14,6 +14,12 @@
 // exists. A warp splits its 32-row tile's A fragments into registers, starts
 // the copy of its next tile into the freed x tile, then searches the codes and
 // writes its 32 ids as one 128-byte store.
+//
+// D = 128 and 256 (the sweep's widths; vq_search.cuh's note): the codebook
+// streamed through shared memory in groups of 32 codes, every warp of the
+// block on each group (nearest_codes_stream_kernel). Bound at N = 352,000
+// (batch 32), K = 512, D = 256: 9.23e10 FLOP, 0.186 ms at the TF32 peak
+// (0.559 ms for the three products), and 360.4 MB in: 0.108 ms.
 #include "vq_search.cuh"
 
 namespace {
@@ -60,27 +66,77 @@ nearest_codes_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   }
 }
 
-constexpr int D = 64;
+// D >= 128: a block tile of kStreamWarps x 32 rows at a time, the codebook
+// streamed (search_streamed).
+template <int D>
+__global__ void __launch_bounds__(32 * kStreamWarps<D>, 1)
+nearest_codes_stream_kernel(const float* __restrict__ x, const float* __restrict__ cb,
+                            const float* __restrict__ e2, int* __restrict__ idx, long long n,
+                            int k_codes) {
+  constexpr int W = kStreamWarps<D>, T = 32 * W;
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);     // [STAGES][GROUP][D], swizzled
+  float* e2s = stages + STAGES * GROUP * D;            // [kpad]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* xs = e2s + padded_codes(k_codes) + warp * ROWS * D;  // this warp's [ROWS][D]
 
-}  // namespace
+  load_norms<T>(e2s, e2, k_codes);
+  const long long tiles = (n + W * ROWS - 1) / (W * ROWS);
+  for (long long bt = blockIdx.x; bt < tiles; bt += gridDim.x) {
+    const long long row0 = (bt * W + warp) * ROWS;
+    load_tile<D>(xs, x, row0, n, lane);
+    int arg[MT][2];
+    search_streamed<D, T>(xs, stages, cb, e2s, k_codes, lane, arg);
+    const int code = code_of_lane(arg, lane);
+    if (row0 + lane < n) idx[row0 + lane] = code;
+  }
+}
 
-// k_codes must be even; the wrapper checks it and that smem_bytes<64>(K)
-// fit.
-extern "C" int nearest_codes_fwd(const float* x, const float* cb, const float* e2,
-                                 int* idx, long long n, int k_codes, void* stream) {
-  const size_t smem = smem_bytes<D>(k_codes, false);
-  cudaError_t err = cudaFuncSetAttribute(
-      nearest_codes_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// One persistent block an SM, at most one a tile of `rows` rows.
+template <typename Kernel>
+int launch(Kernel kernel, size_t smem, int threads, int rows, const float* x, const float* cb,
+           const float* e2, int* idx, long long n, int k_codes, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
       cudaSuccess)
     return (int)err;
-  const long long blocks = ((n + ROWS - 1) / ROWS + WARPS - 1) / WARPS;
+  const long long blocks = (n + rows - 1) / rows;
   const int grid = (int)(blocks < sms ? blocks : sms);
   if (grid == 0) return 0;
-  nearest_codes_kernel<D><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, cb, e2, idx, n, k_codes);
+  kernel<<<grid, threads, smem, stream>>>(x, cb, e2, idx, n, k_codes);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_streamed(const float* x, const float* cb, const float* e2, int* idx, long long n,
+                    int k_codes, cudaStream_t stream) {
+  return launch(nearest_codes_stream_kernel<D>, stream_smem_bytes<D>(k_codes, false),
+                32 * kStreamWarps<D>, kStreamWarps<D> * ROWS, x, cb, e2, idx, n, k_codes,
+                stream);
+}
+
+}  // namespace
+
+// x (n, d) and the codebook (K, d), d 64 (the codebook held in shared
+// memory), 128 or 256 (the codebook streamed); k_codes must be even; the
+// wrapper checks it and that the search's shared memory at (K, d) fits
+// (ops/nearest_codes.py search_smem_bytes).
+extern "C" int nearest_codes_fwd(const float* x, const float* cb, const float* e2,
+                                 int* idx, long long n, int k_codes, int d, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64:
+      return launch(nearest_codes_kernel<64>, smem_bytes<64>(k_codes, false), THREADS,
+                    WARPS * ROWS, x, cb, e2, idx, n, k_codes, s);
+    case 128:
+      return launch_streamed<128>(x, cb, e2, idx, n, k_codes, s);
+    case 256:
+      return launch_streamed<256>(x, cb, e2, idx, n, k_codes, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -54,6 +54,14 @@
 //    partial per cluster and column half: 3.9 MB (#5) and 7.9 MB (#9) at
 //    K = 512 on an H100 SXM, which runs 30 such clusters at once, against
 //    17.3 MB before.
+// 4. Wider rows (#5 at D = 128 and 256, the sweep's embedding widths): the
+//    same blocks run over D / 64 column slices of 64, as the grid's second
+//    dimension. The (K + 1, 64) accumulator is what fits beside the ring, and
+//    a column's sum never reads another column, so each slice is the D = 64
+//    kernel on its columns: every column keeps its row order, and the result
+//    stays bit-equal to the same order's plain version. The wrapper gives
+//    each slice 1 / (D / 64) of the clusters that run at once, so that all
+//    slices run in one wave; their partials sit slice by slice.
 // ops/segment_sum.py codebook_grad_order_ref repeats this order on the plain
 // ops: the kernels' results equal it bit for bit at the card's grid.
 #pragma once
@@ -66,7 +74,7 @@
 namespace segsum {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int D = 64;                   // columns of g
+constexpr int D = 64;                   // columns of g a slice (a block's grid row)
 constexpr int ACC_COLS = 64;            // floats per code in a block's accumulator
 constexpr int CLUSTER = 4;              // blocks a cluster
 constexpr int TURNS = 8;                // turn mbarriers: 2 column sets x at most 4 warps
@@ -306,8 +314,9 @@ __device__ __forceinline__ void add_group(unsigned char* acc_lane, const int (&a
 
 // ---- the kernels ----------------------------------------------------------------
 
-// Block b takes the rows [part * rows_per_part, ...) of part b / HALVES and
-// the columns of half b % HALVES; partials is [clusters][HALVES][K][64].
+// Block (b, y) takes the rows [part * rows_per_part, ...) of part b / HALVES
+// and the columns of half b % HALVES of column slice y (64 y .. 64 y + 63);
+// partials is [slices][clusters][HALVES][K][64].
 template <bool SPLIT2>
 __global__ void __launch_bounds__(Layout<SPLIT2>::THREADS, 1)
 segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
@@ -359,7 +368,7 @@ segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
                      :: "r"(full + 8 * s), "r"(L::SLOT_BYTES) : "memory");
         const uint32_t slot = smem_addr(ring + (size_t)s * L::SLOT_BYTES);
         const int row0 = (int)(begin + (long long)i * V::STAGE_ROWS);
-        tma_load_2d(slot, &map_g, half * V::COLS, row0, full + 8 * s);
+        tma_load_2d(slot, &map_g, (int)blockIdx.y * D + half * V::COLS, row0, full + 8 * s);
         tma_load_1d(slot + L::G_BYTES, &map_ids, row0, full + 8 * s);
         if (++s == stages) { s = 0; phase ^= 1; }
       }
@@ -415,8 +424,8 @@ segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
   const uint32_t rank = cluster_rank();
   const int h = rank % V::HALVES, slice = rank / V::HALVES;
   const int e4 = k_codes * ACC_COLS / 4;  // the spare row is left out
-  float4* out = reinterpret_cast<float4*>(partials) +
-                ((size_t)cluster_id() * V::HALVES + h) * e4;
+  const size_t cluster = (size_t)blockIdx.y * (gridDim.x / CLUSTER) + cluster_id();
+  float4* out = reinterpret_cast<float4*>(partials) + (cluster * V::HALVES + h) * e4;
   const uint32_t acc_addr = smem_addr(acc);
   for (int i = e4 * slice / PER + tid; i < e4 * (slice + 1) / PER; i += THREADS) {
     float4 sum = ld_cluster(acc_addr + 16 * i, h);
@@ -433,17 +442,19 @@ segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
   cluster_sync();  // no block leaves while another may still read its accumulator
 }
 
-// dcb[k][c] from the clusters' partials, summed in cluster order; split2: the
-// hi sum plus the lo sum.
+// dcb[k][c] (K, d) from the clusters' partials, summed in cluster order;
+// split2 (d = 64): the hi sum plus the lo sum.
 template <int HALVES>
 __global__ void segment_sum_finish(const float* __restrict__ partials, int clusters, int k_codes,
-                                   float* __restrict__ dcb) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // k * 64 + c
+                                   int d, float* __restrict__ dcb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // k * d + c
   const int e = k_codes * ACC_COLS;
-  if (i >= e) return;
+  if (i >= k_codes * d) return;
   if (HALVES == 1) {
-    float s = partials[i];
-    for (int c = 1; c < clusters; ++c) s += partials[(size_t)c * e + i];
+    const int k = i / d, c = i % d;  // column c % 64 of slice c / 64
+    const float* p = partials + (size_t)(c / D) * clusters * e + (size_t)k * ACC_COLS + c % D;
+    float s = p[0];
+    for (int cl = 1; cl < clusters; ++cl) s += p[(size_t)cl * e];
     dcb[i] = s;
   } else {
     const int k = i / D, c = i % D, h = c / 32;
@@ -489,9 +500,9 @@ inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const vo
 
 template <bool SPLIT2>
 inline cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int clusters, int k_codes,
-                                        cudaStream_t s) {
+                                        cudaStream_t s, int slices = 1) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(clusters * CLUSTER), 1, 1);
+  cfg.gridDim = dim3((unsigned)(clusters * CLUSTER), (unsigned)slices, 1);
   cfg.blockDim = dim3(Layout<SPLIT2>::THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes<SPLIT2>(k_codes, stages_for<SPLIT2>(k_codes));
   cfg.stream = s;
@@ -523,21 +534,24 @@ inline int max_clusters(int k_codes, int* clusters) {
                                              &cfg);
 }
 
-// g (n, 64) fp32 and idx (n,) int32, both 16-byte aligned; dcb (K, 64) the
-// output; partials (clusters, HALVES, K, 64) scratch. Two launches: the
+// g (n, d) fp32, d a multiple of 64 (64 for split2), and idx (n,) int32,
+// both 16-byte aligned; dcb (K, d) the output; partials (d / 64, clusters,
+// HALVES, K, 64) scratch; `clusters` a column slice. Two launches: the
 // segment sum, then the clusters' partials summed into dcb.
 template <bool SPLIT2>
 inline int launch(const float* g, const int* idx, float* dcb, float* partials, int clusters,
-                  long long rows_per_part, long long n, int k_codes, cudaStream_t s) {
+                  long long rows_per_part, long long n, int k_codes, cudaStream_t s,
+                  int d = D) {
   using V = Variant<SPLIT2>;
-  if (n <= 0) return (int)cudaMemsetAsync(dcb, 0, (size_t)k_codes * D * sizeof(float), s);
+  if (n <= 0) return (int)cudaMemsetAsync(dcb, 0, (size_t)k_codes * d * sizeof(float), s);
   if (clusters < 1 || rows_per_part % V::STAGE_ROWS ||
-      rows_per_part * clusters * (CLUSTER / V::HALVES) < n)
+      rows_per_part * clusters * (CLUSTER / V::HALVES) < n || d < D || d % D ||
+      (SPLIT2 && d != D))
     return (int)cudaErrorInvalidValue;
   if (int e = allow_smem<SPLIT2>(k_codes)) return e;
   CUtensorMap map_g, map_ids;  // g's pointer changes from call to call: encoded each call
-  const cuuint64_t g_dims[2] = {(cuuint64_t)D, (cuuint64_t)n};
-  const cuuint64_t g_strides[1] = {(cuuint64_t)D * sizeof(float)};
+  const cuuint64_t g_dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t g_strides[1] = {(cuuint64_t)d * sizeof(float)};
   const cuuint32_t g_box[2] = {(cuuint32_t)V::COLS, (cuuint32_t)V::STAGE_ROWS};
   const cuuint64_t id_dims[1] = {(cuuint64_t)n};
   const cuuint32_t id_box[1] = {(cuuint32_t)V::STAGE_ROWS};
@@ -546,12 +560,13 @@ inline int launch(const float* g, const int* idx, float* dcb, float* partials, i
     status = encode(&map_ids, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, idx, id_dims, g_strides, id_box);
   if (status != 0) return status;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<SPLIT2>(&attr, clusters, k_codes, s);
+  const cudaLaunchConfig_t cfg = launch_config<SPLIT2>(&attr, clusters, k_codes, s, d / D);
   cudaError_t err = cudaLaunchKernelEx(&cfg, segment_sum_kernel<SPLIT2>, map_g, map_ids, partials,
                                        n, k_codes, rows_per_part, stages_for<SPLIT2>(k_codes));
   if (err != cudaSuccess) return (int)err;
-  const int e = k_codes * D;
-  segment_sum_finish<V::HALVES><<<(e + 255) / 256, 256, 0, s>>>(partials, clusters, k_codes, dcb);
+  const int e = k_codes * d;
+  segment_sum_finish<V::HALVES><<<(e + 255) / 256, 256, 0, s>>>(partials, clusters, k_codes, d,
+                                                                dcb);
   return (int)cudaGetLastError();
 }
 

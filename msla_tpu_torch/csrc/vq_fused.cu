@@ -34,8 +34,17 @@
 // The x tile holds the exact x until that sum is taken, so the copy of the
 // warp's next tile starts after it, not under the search as in K3.
 //
+// D = 128 and 256 (the sweep's widths): the forward streams the codebook
+// (vq_search.cuh's search_streamed, vq_fused_stream_kernel), so q is the
+// chosen row read from the codebook in device memory (L2), not shared
+// memory; the rest as above, a block tile of kStreamWarps x 32 rows at a
+// time. Bound at N = 352,000 (batch 32), K = 512, D = 256: 9.23e10 FLOP,
+// 0.186 ms at the TF32 peak (0.559 ms for three products), and 360.4 MB in +
+// 360.4 MB out: 0.216 ms.
+//
 // Codebook gradient: segment_sum.cuh (the design shared with #9's split2
-// gradient: TMA-fed, sorted per 32-row group, one fixed order, no atomics).
+// gradient: TMA-fed, sorted per 32-row group, one fixed order, no atomics),
+// over D / 64 column slices where D > 64.
 #include "segment_sum.cuh"
 #include "vq_common.cuh"
 #include "vq_search.cuh"
@@ -44,13 +53,13 @@ namespace {
 
 using vq_common::FULL;
 
-constexpr int D = 64;
-
 // ---- forward ------------------------------------------------------------------
 
 // The warp's rows row0 .. row0 + 31 (row r's code in lane r) take their codes'
-// codebook rows; returns the lane's share of sum (q - x)^2 over those rows.
-template <int DD>
+// codebook rows, from the codebook in shared memory (`es`, swizzled) or, with
+// GLOBAL, in device memory (`es` the (K, DD) codebook); returns the lane's
+// share of sum (q - x)^2 over those rows.
+template <int DD, bool GLOBAL = false>
 __device__ __forceinline__ double store_rows(float* __restrict__ q, const float* es,
                                              const float* xs, long long row0, long long n,
                                              int code, int lane) {
@@ -67,7 +76,9 @@ __device__ __forceinline__ double store_rows(float* __restrict__ q, const float*
 #pragma unroll
     for (int i = 0; i < DD / 64; ++i) {
       const int ch = 16 * i + (lane & 15);
-      const float4 e = chunk(es, c, ch, DD), v = chunk(xs, r, ch, DD);
+      const float4 e = GLOBAL ? reinterpret_cast<const float4*>(es)[c * (DD / 4) + ch]
+                              : chunk(es, c, ch, DD);
+      const float4 v = chunk(xs, r, ch, DD);
       if (row < n) q4[row * (DD / 4) + ch] = e;
       const float dx = e.x - v.x, dy = e.y - v.y, dz = e.z - v.z, dw = e.w - v.w;
       part = fmaf(dx, dx, part);
@@ -126,28 +137,87 @@ vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
 }
 
-}  // namespace
+// D >= 128: a block tile of kStreamWarps x 32 rows at a time, the codebook
+// streamed (search_streamed), q from the codebook in device memory.
+template <int DD>
+__global__ void __launch_bounds__(32 * vq_search::kStreamWarps<DD>, 1)
+vq_fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ cb,
+                       const float* __restrict__ e2, float* __restrict__ q,
+                       int* __restrict__ idx, int* __restrict__ counts_i,
+                       double* __restrict__ sq_part, long long n, int k_codes) {
+  using namespace vq_search;
+  constexpr int W = kStreamWarps<DD>, T = 32 * W;
+  extern __shared__ float4 stream_smem4[];
+  const int kpad = padded_codes(k_codes);
+  float* stages = reinterpret_cast<float*>(stream_smem4);  // [STAGES][GROUP][DD], swizzled
+  float* e2s = stages + STAGES * GROUP * DD;               // [kpad]
+  int* hist = reinterpret_cast<int*>(e2s + kpad);          // [kpad]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* xs = reinterpret_cast<float*>(hist + kpad) + warp * ROWS * DD;  // [ROWS][DD]
 
-// q (n, D), idx (n,), counts (K,) and sq () are the outputs; counts_i (K,) int
-// and sq_part (max_parts,) double are scratch. k_codes must be even; the
-// wrapper checks it and that vq_search::smem_bytes<64>(K, true) fit.
-extern "C" int vq_fused_fwd(const float* x, const float* cb, const float* e2, float* q,
-                            int* idx, float* counts, float* sq, int* counts_i,
-                            double* sq_part, int max_parts, long long n, int k_codes,
-                            void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  using vq_search::ROWS;
-  using vq_search::WARPS;
-  const size_t smem = vq_search::smem_bytes<D>(k_codes, true);
-  const long long blocks = ((n + ROWS - 1) / ROWS + WARPS - 1) / WARPS;
+  load_norms<T>(e2s, e2, k_codes);
+  for (int i = tid; i < k_codes; i += T) hist[i] = 0;
+  double acc = 0.0;
+  const long long tiles = (n + W * ROWS - 1) / (W * ROWS);
+  for (long long bt = blockIdx.x; bt < tiles; bt += gridDim.x) {
+    const long long row0 = (bt * W + warp) * ROWS;
+    load_tile<DD>(xs, x, row0, n, lane);
+    int arg[MT][2];
+    search_streamed<DD, T>(xs, stages, cb, e2s, k_codes, lane, arg);
+    const int code = code_of_lane(arg, lane);
+    const bool valid = row0 + lane < n;
+    if (valid) idx[row0 + lane] = code;
+    vq_common::count(hist, code, valid, lane);
+    acc += store_rows<DD, true>(q, cb, xs, row0, n, code, lane);
+    __syncwarp();  // the tile's reads are done before the next tile's copy
+  }
+
+  vq_common::flush_block<T>(acc, hist, counts_i, sq_part, k_codes);
+}
+
+template <typename Kernel>
+int fused_fwd(Kernel kernel, size_t smem, int threads, int rows, const float* x, const float* cb,
+              const float* e2, float* q, int* idx, float* counts, float* sq, int* counts_i,
+              double* sq_part, int max_parts, long long n, int k_codes, cudaStream_t s) {
+  const long long blocks = (n + rows - 1) / rows;
   int grid = 0;
-  if (int e = vq_common::fwd_begin(vq_fused_fwd_kernel<D>, smem, counts_i, k_codes, blocks,
-                                   max_parts, s, &grid))
+  if (int e = vq_common::fwd_begin(kernel, smem, counts_i, k_codes, blocks, max_parts, s, &grid))
     return e;
   if (grid > 0)
-    vq_fused_fwd_kernel<D><<<grid, vq_search::THREADS, smem, s>>>(x, cb, e2, q, idx, counts_i,
-                                                                   sq_part, n, k_codes);
+    kernel<<<grid, threads, smem, s>>>(x, cb, e2, q, idx, counts_i, sq_part, n, k_codes);
   return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
+}
+
+}  // namespace
+
+// x, the codebook and q are (., d), d 64 (the codebook held in shared
+// memory), 128 or 256 (the codebook streamed, q read from it in device
+// memory); q (n, d), idx (n,), counts (K,) and sq () are the outputs;
+// counts_i (K,) int and sq_part (max_parts,) double are scratch. k_codes must
+// be even; the wrapper checks it and that the search's shared memory at
+// (K, d) with the histogram fits (ops/nearest_codes.py search_smem_bytes).
+extern "C" int vq_fused_fwd(const float* x, const float* cb, const float* e2, float* q,
+                            int* idx, float* counts, float* sq, int* counts_i,
+                            double* sq_part, int max_parts, long long n, int k_codes, int d,
+                            void* stream) {
+  using namespace vq_search;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64:
+      return fused_fwd(vq_fused_fwd_kernel<64>, smem_bytes<64>(k_codes, true), THREADS,
+                       WARPS * ROWS, x, cb, e2, q, idx, counts, sq, counts_i, sq_part,
+                       max_parts, n, k_codes, s);
+    case 128:
+      return fused_fwd(vq_fused_stream_kernel<128>, stream_smem_bytes<128>(k_codes, true),
+                       32 * kStreamWarps<128>, kStreamWarps<128> * ROWS, x, cb, e2, q, idx,
+                       counts, sq, counts_i, sq_part, max_parts, n, k_codes, s);
+    case 256:
+      return fused_fwd(vq_fused_stream_kernel<256>, stream_smem_bytes<256>(k_codes, true),
+                       32 * kStreamWarps<256>, kStreamWarps<256> * ROWS, x, cb, e2, q, idx,
+                       counts, sq, counts_i, sq_part, max_parts, n, k_codes, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The most clusters of the codebook-gradient kernel at K codes that run at once.
@@ -155,13 +225,15 @@ extern "C" int vq_codebook_grad_clusters(int k_codes, int* clusters) {
   return segsum::max_clusters<false>(k_codes, clusters);
 }
 
-// g (n, D) fp32 and idx (n,) int32, both 16-byte aligned; dcb (K, D) is the
-// output; partials (clusters, K, D) is scratch; part p of the clusters * 4
-// blocks takes the rows [p * rows_per_part, ...), a multiple of 64. The
-// wrapper checks that ops/vq_fused.py grad_smem_bytes(K) fit (K <= 701).
+// g (n, d) fp32, d a multiple of 64, and idx (n,) int32, both 16-byte
+// aligned; dcb (K, d) is the output; partials (d / 64, clusters, K, 64) is
+// scratch: d / 64 column slices of `clusters` clusters each; part p of a
+// slice's clusters * 4 blocks takes the rows [p * rows_per_part, ...), a
+// multiple of 64. The wrapper checks that ops/vq_fused.py grad_smem_bytes(K)
+// fit (K <= 701).
 extern "C" int vq_codebook_grad(const float* g, const int* idx, float* dcb, float* partials,
                                 int clusters, long long rows_per_part, long long n, int k_codes,
-                                void* stream) {
+                                int d, void* stream) {
   return segsum::launch<false>(g, idx, dcb, partials, clusters, rows_per_part, n, k_codes,
-                               (cudaStream_t)stream);
+                               (cudaStream_t)stream, d);
 }

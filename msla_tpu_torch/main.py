@@ -5,6 +5,7 @@
     python -m msla_tpu_torch experiment=moe_transformer train_transformer=True
     python -m msla_tpu_torch train_bert=True
     python -m msla_tpu_torch debug=default train_vqvae=True
+    python -m msla_tpu_torch -m hparams_search=optuna train_vqvae=True
 
 Composes the repository's configs/train.yaml as it is (``config/``, whose
 ``instantiate`` maps the JAX package's targets to the port's), trains on the
@@ -22,7 +23,11 @@ msgpack checkpoints are read too.
 ``generate`` and ``visualize`` skip, with a warning, when a checkpoint they
 need is missing, and when a checkpoint does not fit the config (its keys or
 shapes); any other error, a kernel's on the card included, raises (ROADMAP.md
-§3). Multirun sweeps raise naming their ROADMAP.md item.
+§3).
+
+``-m`` (``--multirun``), or a config whose ``hydra.mode`` is MULTIRUN (as
+``hparams_search=optuna`` sets it), runs the TPE sweep of ``sweep/`` over
+``run``: one composed run a trial, each in its own multirun directory.
 """
 from __future__ import annotations
 
@@ -256,14 +261,17 @@ def run(cfg: ConfigNode) -> float | None:
 
 def main(argv: list[str] | None = None) -> float | None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "-m" in argv or "--multirun" in argv:
-        raise NotImplementedError("multirun sweeps are ROADMAP.md queue item 7 (the opt-ins: "
-                                  "sweep/)")
+    multirun = False
+    for flag in ("-m", "--multirun"):
+        if flag in argv:
+            multirun = True
+            argv.remove(flag)
     setup_root(__file__, indicator=".project-root")
     cfg = compose(CONFIG_DIR, "train", argv)
-    if str(cfg.select("hydra.mode", "")) == "MULTIRUN":
-        raise NotImplementedError("hydra.mode MULTIRUN: sweeps are ROADMAP.md queue item 7 "
-                                  "(the opt-ins: sweep/)")
+    if multirun or str(cfg.select("hydra.mode", "")) == "MULTIRUN":
+        from msla_tpu_torch.sweep.sweeper import run_sweep
+
+        return run_sweep(CONFIG_DIR, "train", argv, run)
     setup_run_dir(cfg)
     setup_job_logging(cfg, str(cfg.task_name))
     return run(cfg)

@@ -40,13 +40,15 @@ F32 = ctypes.c_float
 #: each C entry point: the source that exports it and its argument types
 #: (pointers and the stream as c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "conv_stem_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "conv_stem_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
+    "conv_stem_smem_bytes": ("conv_stem", [I32, I32]),
     "conv_stem_bf16_fwd": ("conv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
-    "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
+    "deconv_stem_smem_bytes": ("deconv_stem", [I32, I32]),
     "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
-    "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, P]),
-    "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, P]),
-    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, P]),
+    "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, I32, P]),
+    "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, I32, P]),
+    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, I32, P]),
     "vq_codebook_grad_clusters": ("vq_fused", [I32, P]),
     "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
@@ -179,11 +181,30 @@ def require(name: str, t: torch.Tensor, what: str, shape: tuple,
                          f"contiguous={t.is_contiguous()}")
 
 
-def count_launch(wrapper, key) -> None:
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes, as a
+    TMA copy or a kernel's 16-byte loads need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def count_launch(wrapper, key, widths: tuple | None = None) -> None:
     """One launch of a wrapper's kernel. Each wrapper's ``.launches`` is a
     Counter of its launches by operand type (by "dist/quant" mode for
-    ``vq_precision_fwd``); ``launch_count`` reads it."""
+    ``vq_precision_fwd``); ``launch_count`` reads it. A wrapper compiled for
+    several widths also counts the launch in ``.widths``, a Counter by
+    (operand type, widths): the stems' (C1, C2) or (C, C1), the VQ
+    kernels' (D, K)."""
     wrapper.launches[key] += 1
+    if widths is not None:
+        wrapper.widths[key, widths] += 1
+
+
+def refuse_widths(name: str, widths: tuple, compiled) -> None:
+    """Raise ``ValueError`` naming ``widths`` unless the kernel behind
+    ``name`` is compiled for them."""
+    if widths not in compiled:
+        raise ValueError(f"{name}: the kernel is compiled for widths {sorted(compiled)}, "
+                         f"got {widths}")
 
 
 def launch_count(wrapper, key=None) -> int:

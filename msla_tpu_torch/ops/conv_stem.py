@@ -33,6 +33,14 @@ and 1, with operands their prologues pack from w1 and w2. ``stem_operands``
 is the same packing in plain PyTorch, and ``conv_stem_phase_ref`` and
 ``conv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
 kernel compute it, for the tests (no wrapper calls them).
+
+Widths: the kernels take 4 → C1 → C2 for (C1, C2) in ``FP32_WIDTHS`` in fp32,
+those of the num_hidden values configs/hparams_search/optuna.yaml samples
+(C2 = num_hidden, C1 = C2 / 2): (64, 128), the default config's, and
+(32, 64) run the 3xTF32 kernel, (128, 256), whose W2′ does not fit in
+shared memory, an fp32 FMA kernel (``csrc/conv_stem.cu``). bf16 takes
+(64, 128). Other widths raise ``ValueError`` on a CUDA tensor; the
+plain version takes any.
 """
 from __future__ import annotations
 
@@ -41,13 +49,15 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, require,
-                                       runs_plain, stream_of)
+from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, refuse_widths,
+                                       require, runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
-#: the widths the CUDA kernel is compiled for (the full-width model's)
+#: the default widths (the full-width model's): the 3xTF32 and bf16 kernels'
 C0, C1, C2 = 4, 64, 128
+#: the (C1, C2) the fp32 kernels are compiled for
+FP32_WIDTHS = ((32, 64), (C1, C2), (128, 256))
 
 
 def _conv_k4s2p1_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,23 +127,33 @@ def conv_stem_3xtf32_ref(x, w1, b1, w2, b2):
                            lambda a, w: product_3xtf32(w, a.transpose(1, 2)).transpose(1, 2))
 
 
+def widths_of(w1: torch.Tensor, w2: torch.Tensor) -> tuple[int, int]:
+    """(C1, C2) of torch-layout weights w1 (C1, C0, 4) and w2 (C2, C1, 4)."""
+    return w1.shape[0], w2.shape[0]
+
+
 def _launch(x, w1, b1, w2, b2, save_hidden: bool):
     """K1 (no hidden) or K1b on CUDA tensors; returns (out, h1 or None)."""
     b, _, t = x.shape
     dt = x.dtype
     bf16 = dt == torch.bfloat16
+    c1, c2 = widths = widths_of(w1, w2)
+    refuse_widths("conv_stem", widths, ((C1, C2),) if bf16 else FP32_WIDTHS)
     require("conv_stem", x, "x", (b, C0, t), dtype=torch.bfloat16 if bf16 else torch.float32)
-    require("conv_stem", w1, "w1", (C1, C0, 4), dtype=dt)
-    require("conv_stem", b1, "b1", (C1,))
-    require("conv_stem", w2, "w2", (C2, C1, 4), dtype=dt)
-    require("conv_stem", b2, "b2", (C2,))
+    require("conv_stem", w1, "w1", (c1, C0, 4), dtype=dt)
+    require("conv_stem", b1, "b1", (c1,))
+    require("conv_stem", w2, "w2", (c2, c1, 4), dtype=dt)
+    require("conv_stem", b2, "b2", (c2,))
     w1t = w1.permute(1, 2, 0).contiguous()  # [c0*4+tap][c1]
     w2t = w2.permute(1, 2, 0).contiguous()  # [c1*4+tap][c2]
-    out = torch.empty((b, C2, t // 4), dtype=dt, device=x.device)
-    h1 = torch.empty((b, C1, t // 2), dtype=dt, device=x.device) if save_hidden else None
-    check("conv_stem", kernel("conv_stem_bf16_fwd" if bf16 else "conv_stem_fwd")(
-        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), None if h1 is None else h1.data_ptr(), b, t, stream_of(x)))
+    out = torch.empty((b, c2, t // 4), dtype=dt, device=x.device)
+    h1 = torch.empty((b, c1, t // 2), dtype=dt, device=x.device) if save_hidden else None
+    args = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), None if h1 is None else h1.data_ptr(), b, t)
+    if bf16:
+        check("conv_stem", kernel("conv_stem_bf16_fwd")(*args, stream_of(x)))
+    else:
+        check("conv_stem", kernel("conv_stem_fwd")(*args, c1, c2, stream_of(x)))
     return out, h1
 
 
@@ -148,7 +168,7 @@ def conv_stem_save_hidden(x, w1, b1, w2, b2):
     if runs_plain("conv_stem", x, w1, b1, w2, b2):
         return conv_stem_ref(x, w1, b1, w2, b2)
     out = _launch(x, w1, b1, w2, b2, save_hidden=True)
-    count_launch(conv_stem_save_hidden, x.dtype)
+    count_launch(conv_stem_save_hidden, x.dtype, widths_of(w1, w2))
     return out
 
 
@@ -179,9 +199,9 @@ def conv_stem(x, w1, b1, w2, b2):
     if runs_plain("conv_stem", x, w1, b1, w2, b2):
         return conv_stem_ref(x, w1, b1, w2, b2)[0]
     out, _ = _launch(x, w1, b1, w2, b2, save_hidden=False)
-    count_launch(conv_stem, x.dtype)
+    count_launch(conv_stem, x.dtype, widths_of(w1, w2))
     return out
 
 
-conv_stem.launches = collections.Counter()
-conv_stem_save_hidden.launches = collections.Counter()
+for _wrapper in (conv_stem, conv_stem_save_hidden):
+    _wrapper.launches, _wrapper.widths = collections.Counter(), collections.Counter()

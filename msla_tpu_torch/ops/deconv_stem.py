@@ -31,6 +31,14 @@ operands that their prologues pack from w1 and w2; ``phase_operands`` is the
 same packing in plain PyTorch, and ``deconv_stem_phase_ref`` and
 ``deconv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
 kernel compute it, for the tests (no wrapper calls them).
+
+Widths: the kernels take C → C1 → 4 for (C, C1) in ``FP32_WIDTHS`` in fp32,
+those of the num_hidden values configs/hparams_search/optuna.yaml samples
+(C = num_hidden, C1 = C / 2): (128, 64), the default config's, and
+(64, 32) run the 3xTF32 kernel, (256, 128), whose W1′ does not fit in
+shared memory, an fp32 FMA kernel (``csrc/deconv_stem.cu``). bf16 takes
+(128, 64). Other widths raise ``ValueError`` on a CUDA tensor; the
+plain version takes any.
 """
 from __future__ import annotations
 
@@ -39,13 +47,15 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, require,
-                                       runs_plain, stream_of)
+from msla_tpu_torch.ops._build import (aligned, check, count_launch, kernel, needs_grad,
+                                       refuse_widths, require, runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
-#: the widths the CUDA kernel is compiled for (the full-width model's)
+#: the default widths (the full-width model's): the 3xTF32 and bf16 kernels'
 C, C1, C_OUT = 128, 64, 4
+#: the (C, C1) the fp32 kernels are compiled for
+FP32_WIDTHS = ((64, 32), (C, C1), (256, 128))
 
 
 def _convt_k4s2p1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -148,21 +158,32 @@ def deconv_stem_3xtf32_ref(q, w1, b1, w2, b2):
     return _deconv_by_phases(q, w1, b1, w2, b2, layer1, layer2)
 
 
+def widths_of(w1: torch.Tensor) -> tuple[int, int]:
+    """(C, C1) of a torch-layout ConvTranspose1d weight w1 (C, C1, 4)."""
+    return w1.shape[0], w1.shape[1]
+
+
 def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     """K2 (no hidden) or K2b on CUDA tensors; returns (out, h or None)."""
     b, _, w = q.shape
     dt = q.dtype
     bf16 = dt == torch.bfloat16
-    require("deconv_stem", q, "q", (b, C, w), dtype=torch.bfloat16 if bf16 else torch.float32)
-    require("deconv_stem", w1, "w1", (C, C1, 4), dtype=dt)
-    require("deconv_stem", b1, "b1", (C1,))
-    require("deconv_stem", w2, "w2", (C1, C_OUT, 4), dtype=dt)
+    c, c1 = widths = widths_of(w1)
+    refuse_widths("deconv_stem", widths, ((C, C1),) if bf16 else FP32_WIDTHS)
+    require("deconv_stem", q, "q", (b, c, w), dtype=torch.bfloat16 if bf16 else torch.float32)
+    require("deconv_stem", w1, "w1", (c, c1, 4), dtype=dt)
+    require("deconv_stem", b1, "b1", (c1,))
+    require("deconv_stem", w2, "w2", (c1, C_OUT, 4), dtype=dt)
     require("deconv_stem", b2, "b2", (C_OUT,))
+    w1 = aligned(w1)  # the FMA kernel reads it 16 bytes at a time
     out = torch.empty((b, C_OUT, 4 * w), dtype=dt, device=q.device)
-    h = torch.empty((b, C1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
-    check("deconv_stem", kernel("deconv_stem_bf16_fwd" if bf16 else "deconv_stem_fwd")(
-        q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), None if h is None else h.data_ptr(), b, w, stream_of(q)))
+    h = torch.empty((b, c1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
+    args = (q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), None if h is None else h.data_ptr(), b, w)
+    if bf16:
+        check("deconv_stem", kernel("deconv_stem_bf16_fwd")(*args, stream_of(q)))
+    else:
+        check("deconv_stem", kernel("deconv_stem_fwd")(*args, c, c1, stream_of(q)))
     return out, h
 
 
@@ -177,7 +198,7 @@ def deconv_stem_save_hidden(q, w1, b1, w2, b2):
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)
     out = _launch(q, w1, b1, w2, b2, save_hidden=True)
-    count_launch(deconv_stem_save_hidden, q.dtype)
+    count_launch(deconv_stem_save_hidden, q.dtype, widths_of(w1))
     return out
 
 
@@ -207,9 +228,9 @@ def deconv_stem(q, w1, b1, w2, b2):
     if runs_plain("deconv_stem", q, w1, b1, w2, b2):
         return deconv_stem_ref(q, w1, b1, w2, b2)[0]
     out, _ = _launch(q, w1, b1, w2, b2, save_hidden=False)
-    count_launch(deconv_stem, q.dtype)
+    count_launch(deconv_stem, q.dtype, widths_of(w1))
     return out
 
 
-deconv_stem.launches = collections.Counter()
-deconv_stem_save_hidden.launches = collections.Counter()
+for _wrapper in (deconv_stem, deconv_stem_save_hidden):
+    _wrapper.launches, _wrapper.widths = collections.Counter(), collections.Counter()

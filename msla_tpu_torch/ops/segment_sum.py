@@ -12,7 +12,10 @@ ascending row order; each group's sums are added into its part's (K, 64)
 accumulator in group order; a cluster's parts are summed in part order and
 the clusters in cluster order. Split2 takes the sum of bf16(g) and the sum of
 bf16(g − bf16(g)) (round to nearest even) apart that way and adds them at the
-end. Ids outside [0, K) add nothing.
+end. Ids outside [0, K) add nothing. Rows wider than 64 (#5 at D = 128 and
+256) run as D / 64 column slices of 64, each on its share of the clusters
+that run at once and in this order; a column's sum reads no other column, so
+the order holds for every column at the slice's grid.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import functools
 import torch
 
 CLUSTER = 4                           # blocks a cluster
+SLICE = 64                            # columns a block's accumulator holds
 MIN_STAGES = 3                        # TMA stages a block needs at the least
 STAGE_ROWS = {False: 64, True: 128}   # rows a stage, by split2
 HALVES = {False: 1, True: 2}          # blocks that share a part, one a column half
@@ -77,11 +81,12 @@ def _max_clusters(symbol: str, k: int, device_index: int) -> int:
 
 
 def launch_layout(symbol: str, n: int, k: int, device: torch.device,
-                  split2: bool) -> tuple[int, int]:
-    """(clusters, rows_per_part) the kernel behind ``symbol`` launches with on
-    ``device``: as many clusters as the card runs at once (asked of CUDA once)."""
+                  split2: bool, slices: int = 1) -> tuple[int, int]:
+    """(clusters, rows_per_part) of each column slice of the kernel behind
+    ``symbol`` on ``device``: the clusters the card runs at once (asked of
+    CUDA once), shared by the ``slices`` slices."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return layout(n, _max_clusters(symbol, k, index), split2)
+    return layout(n, max(1, _max_clusters(symbol, k, index) // slices), split2)
 
 
 def split_terms(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,6 +12,10 @@ The CUDA sums are deterministic and not taken in the TPU kernel's order:
 Σ‖q − x‖² from per-block partials reduced in block order, dcb in the order of
 ``ops/segment_sum.py`` (``codebook_grad_order_ref``), the kernel of
 ``csrc/segment_sum.cuh``.
+
+Widths: D in ``nearest_codes.WIDTHS`` (64, 128, 256), as the search takes
+them; the codebook gradient runs its D = 64 kernel over D / 64 column
+slices. Other widths raise ``ValueError`` on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -20,9 +24,10 @@ import collections
 import torch
 
 from msla_tpu_torch.ops import segment_sum
-from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
-                                       runs_plain, sm_count, stream_of)
-from msla_tpu_torch.ops.nearest_codes import D, code_norms, nearest_codes_ref, search_smem_bytes
+from msla_tpu_torch.ops._build import (SMEM_BYTES, aligned, check, count_launch, kernel,
+                                       refuse_widths, require, runs_plain, sm_count, stream_of)
+from msla_tpu_torch.ops.nearest_codes import (WIDTHS, check_codes, code_norms,
+                                              nearest_codes_ref)
 
 
 def grad_smem_bytes(k: int) -> int:
@@ -30,12 +35,6 @@ def grad_smem_bytes(k: int) -> int:
     (``csrc/segment_sum.cuh``): the (K + 1, 64) fp32 accumulator and three
     TMA stages of 64 rows; K up to 701 fits."""
     return segment_sum.smem_bytes(k, split2=False)
-
-
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t``, or a copy of it where its data does not start on 16 bytes, as a
-    TMA copy needs."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def count_outputs(k: int, dev: torch.device):
@@ -64,22 +63,21 @@ def vq_fused_fwd(flat_x: torch.Tensor, codebook: torch.Tensor):
     if runs_plain("vq_fused_fwd", flat_x, codebook):
         return vq_fused_fwd_ref(flat_x, codebook)
 
-    n, k = flat_x.shape[0], codebook.shape[0]
-    require("vq_fused_fwd", flat_x, "flat_x", (n, D))
-    require("vq_fused_fwd", codebook, "codebook", (k, D))
-    if k % 2 or search_smem_bytes(k, with_hist=True) > SMEM_BYTES:
-        raise ValueError(f"vq_fused_fwd: the kernel takes an even number of codes "
-                         f"up to 608 (the codebook in shared memory), got K={k}")
+    n = flat_x.shape[0]
+    k, d = codebook.shape
+    check_codes("vq_fused_fwd", k, d, with_hist=True)
+    require("vq_fused_fwd", flat_x, "flat_x", (n, d))
+    require("vq_fused_fwd", codebook, "codebook", (k, d))
     dev = flat_x.device
-    q = torch.empty((n, D), dtype=torch.float32, device=dev)
+    q = torch.empty((n, d), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     counts, sq, counts_i, sq_part, parts = count_outputs(k, dev)
     e2 = code_norms(codebook)
     check("vq_fused_fwd", kernel("vq_fused_fwd")(
         flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), q.data_ptr(), idx.data_ptr(),
-        counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts,
-        n, k, stream_of(flat_x)))
-    count_launch(vq_fused_fwd, torch.float32)
+        counts.data_ptr(), sq.data_ptr(), counts_i.data_ptr(), sq_part.data_ptr(), parts, n, k,
+        d, stream_of(flat_x)))
+    count_launch(vq_fused_fwd, torch.float32, (d, k))
     return q, idx, counts, sq
 
 
@@ -94,23 +92,27 @@ def vq_codebook_grad(g: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor
     if runs_plain("vq_codebook_grad", g, idx):
         return vq_codebook_grad_ref(g, idx, k)
 
-    n = g.shape[0]
-    require("vq_codebook_grad", g, "g", (n, D))
+    n, d = g.shape
+    refuse_widths("vq_codebook_grad", (d,), [(w,) for w in WIDTHS])
+    require("vq_codebook_grad", g, "g", (n, d))
     require("vq_codebook_grad", idx, "idx", (n,), torch.int32)
     if k < 1 or grad_smem_bytes(k) > SMEM_BYTES:
         raise ValueError(f"vq_codebook_grad: K={k} codes do not fit in shared memory "
                          f"(grad_smem_bytes)")
     dev = g.device
     g, idx = aligned(g), aligned(idx)
-    clusters, rows = segment_sum.launch_layout("vq_codebook_grad", n, k, dev, split2=False)
-    dcb = torch.empty((k, D), dtype=torch.float32, device=dev)
-    partials = torch.empty((clusters, k, D), dtype=torch.float32, device=dev)  # scratch
+    slices = d // segment_sum.SLICE
+    clusters, rows = segment_sum.launch_layout("vq_codebook_grad", n, k, dev, split2=False,
+                                               slices=slices)
+    dcb = torch.empty((k, d), dtype=torch.float32, device=dev)
+    partials = torch.empty((slices, clusters, k, segment_sum.SLICE), dtype=torch.float32,
+                           device=dev)  # scratch
     check("vq_codebook_grad", kernel("vq_codebook_grad")(
-        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), clusters, rows, n,
-        k, stream_of(g)))
-    count_launch(vq_codebook_grad, torch.float32)
+        g.data_ptr(), idx.data_ptr(), dcb.data_ptr(), partials.data_ptr(), clusters, rows, n, k,
+        d, stream_of(g)))
+    count_launch(vq_codebook_grad, torch.float32, (d, k))
     return dcb
 
 
-vq_fused_fwd.launches = collections.Counter()
-vq_codebook_grad.launches = collections.Counter()
+for _wrapper in (vq_fused_fwd, vq_codebook_grad):
+    _wrapper.launches, _wrapper.widths = collections.Counter(), collections.Counter()

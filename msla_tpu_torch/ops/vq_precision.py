@@ -27,7 +27,8 @@ from msla_tpu_torch.ops import segment_sum
 from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
                                        runs_plain, stream_of)
 from msla_tpu_torch.ops.nearest_codes import _REF_ROWS, D, code_norms
-from msla_tpu_torch.ops.vq_fused import (aligned, count_outputs, vq_codebook_grad,
+from msla_tpu_torch.ops._build import aligned
+from msla_tpu_torch.ops.vq_fused import (count_outputs, vq_codebook_grad,
                                          vq_codebook_grad_ref, vq_fused_fwd)
 
 DIST_MODES = ("f32", "bf16", "split3")

@@ -36,7 +36,10 @@ or another layout, and of another commit's sources:
   ``msla_tpu_torch/csrc``, such as the parent's unpacked by ``git archive``):
   that commit's sources, checked as "kernel" is against the plain versions
   (the segment sums within 1e-5 of the largest |entry| of fp64's; "kernel"'s
-  bit for bit against ``codebook_grad_order_ref`` at the card's grid).
+  bit for bit against ``codebook_grad_order_ref`` at the card's grid). Its
+  entry points must take the widths as these do (the fp32 stems' channels,
+  the VQ kernels' D): a tree whose ``conv_stem.cu`` does not export
+  ``conv_stem_smem_bytes`` is older and is refused.
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
 nvcc each, in parallel, under build/bench_stems/. Its entry points run on the
 same operands (the stems' weights as torch initialises the model's convs,
@@ -77,6 +80,8 @@ STEMS = ("conv_stem", "deconv_stem")
 SEARCH = ("nearest_codes", "vq_fused", "vq_lean")
 TF32 = STEMS + SEARCH           # the 3xTF32 sources, which the TF32 probes edit
 SOURCES = TF32 + ("vq_precision",)
+#: the fp32 stems' widths their entry points take: (C1, C2) and (C, C1)
+WIDTHS = {"conv_stem": (64, 128), "deconv_stem": (128, 64)}
 ENTRY = {"conv_stem": "conv_stem_fwd", "deconv_stem": "deconv_stem_fwd",
          "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd",
          "vq_lean": "vq_lean_fwd", "vq_precision": "vq_precision_fwd"}
@@ -151,35 +156,24 @@ def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes.CDLL]:
     return libs
 
 
-def entry(lib: ctypes.CDLL, symbol: str, argtypes=None) -> ctypes._CFuncPtr:
+def entry(lib: ctypes.CDLL, symbol: str) -> ctypes._CFuncPtr:
     fn = getattr(lib, symbol)
-    fn.argtypes = argtypes or _build.SIGNATURES[symbol][1]
+    fn.argtypes = _build.SIGNATURES[symbol][1]
     fn.restype = ctypes.c_int
     return fn
 
 
 def segment_sum_cases(name: str, lib: ctypes.CDLL, source: str, g: torch.Tensor, ids: dict):
     """(kernel label, launch, check) of a build's segment sum on each kind of
-    ids: the port's entry point, or that of a commit from before
-    ``csrc/segment_sum.cuh`` (no ``*_clusters`` entry: one (K, 64) partial per
-    SM, or per half of the SMs for split2). The second branch serves only the
-    comparison with the kernels that header replaced: delete it once every
-    ``--previous`` tree holds the header."""
+    ids, through its entry point (#5's at D = 64)."""
     label, symbol, split2 = SEGMENT_SUMS[source]
     dev, n = g.device, g.shape[0]
     dcb = torch.empty((K, 64), device=dev)
     fp64 = {kind: segment_sum.segment_sum_fp64(g, i, K, split2) for kind, i in ids.items()}
-    if hasattr(lib, f"{symbol}_clusters"):
-        fn = entry(lib, symbol)
-        clusters, rows = segment_sum.launch_layout(symbol, n, K, dev, split2)
-        partials = torch.empty((clusters, 1 + split2, K, 64), device=dev)
-        args = (clusters, rows, n, K)
-    else:
-        P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn = entry(lib, symbol, [P, P, P, P, I32, I64, I32, P])
-        parts = _build.sm_count(dev)
-        partials = torch.empty((2, parts, K, 64), device=dev)
-        args = (parts if not split2 else max(1, parts // 2), n, K)
+    fn = entry(lib, symbol)
+    clusters, rows = segment_sum.launch_layout(symbol, n, K, dev, split2)
+    partials = torch.empty((clusters, 1 + split2, K, 64), device=dev)
+    args = (clusters, rows, n, K) if split2 else (clusters, rows, n, K, 64)
     wrapper = vq_codebook_grad if not split2 else (
         lambda g, i, k: vq_precision_bwd(g, i, "split2", k))
     for kind, i in ids.items():
@@ -253,6 +247,9 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
     if previous is not None:
         builds["previous"] = _sources("previous", Path(previous))
     libs = build(builds)
+    if previous is not None and not hasattr(libs["previous", "conv_stem"], "conv_stem_smem_bytes"):
+        raise ValueError(f"bench_stems: {previous} holds kernels whose entry points do not take "
+                         f"the widths (no conv_stem_smem_bytes); compare with a later tree")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     k1, k2, (flat, cb) = operands(dev)
@@ -297,7 +294,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                 def run(fn=fn, a=a, out=out, h=h):
                     check(name, fn(*(t.data_ptr() for t in a), out.data_ptr(),
                                    None if h is None else h.data_ptr(), BATCH, a[0].shape[-1],
-                                   stream_of(a[0])))
+                                   *WIDTHS[source], stream_of(a[0])))
 
                 def verify(out=out, source=source):
                     if name == "kernel" and not torch.equal(out, wrapper[source]):
@@ -313,7 +310,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
 
             def run(fn=fn):
                 check(name, fn(flat.data_ptr(), cb.data_ptr(), e2.data_ptr(), ids.data_ptr(), N,
-                               K, stream_of(flat)))
+                               K, 64, stream_of(flat)))
 
             def verify():
                 if name == "kernel" and not torch.equal(ids, wrapper_ids):
@@ -366,7 +363,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
             def run(fn=fn):
                 check(name, fn(flat.data_ptr(), cb.data_ptr(), e2.data_ptr(), q.data_ptr(),
                                ids.data_ptr(), counts.data_ptr(), sq.data_ptr(),
-                               counts_i.data_ptr(), sq_part.data_ptr(), parts, N, K,
+                               counts_i.data_ptr(), sq_part.data_ptr(), parts, N, K, 64,
                                stream_of(flat)))
 
             def verify():

@@ -5,10 +5,10 @@ Every option of every config group composes to the JAX package's tree, raw
 (interpolations unresolved) and resolved under one run directory; the
 interpolations, ``@package _global_``, CLI overrides, additions and deletions,
 and the run directory behave alike. ``instantiate`` maps each ``msla_tpu.``
-target to ``msla_tpu_torch.`` and builds the port's objects; a target the port
-has no counterpart for raises naming its ROADMAP.md item, and a target that
-would import JAX or the JAX package raises. The loggers of configs/logger/
-and ``experiment=vqvae_slakh`` instantiate on the port.
+target to ``msla_tpu_torch.`` and builds the port's objects (every target of
+configs/, the sweep's included, has a counterpart), and a target that would
+import JAX or the JAX package raises. The loggers of configs/logger/ and
+``experiment=vqvae_slakh`` instantiate on the port.
 """
 from datetime import datetime
 from pathlib import Path
@@ -17,7 +17,7 @@ import pytest
 
 from msla_tpu import config as jax_config
 from msla_tpu_torch import config
-from msla_tpu_torch.config.instantiate import WAITING, retarget
+from msla_tpu_torch.config.instantiate import retarget
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 OPTIONS = [f"{group.name}={option.stem}" for group in sorted(CONFIG_DIR.iterdir())
@@ -113,16 +113,6 @@ def test_instantiate_retargets_to_the_port(tmp_path, monkeypatch):
     assert retarget("collections.OrderedDict") == "collections.OrderedDict"
 
 
-@pytest.mark.parametrize("target,item", [
-    ("msla_tpu.sweep.sweeper.TPESweeper", "queue item 7"),
-    ("msla_tpu.sweep.sampler.TPESampler", "queue item 7"),
-])
-def test_a_target_without_a_counterpart_names_its_item(target, item):
-    assert retarget(target) in WAITING
-    with pytest.raises(config.InstantiationError, match=item):
-        config.instantiate({"_target_": target})
-
-
 @pytest.mark.parametrize("logger,cls", [("tensorboard", "TensorBoardLogger"),
                                         ("wandb", "WandbLogger")])
 def test_the_logger_targets_instantiate_and_write(tmp_path, monkeypatch, logger, cls):
@@ -134,7 +124,6 @@ def test_the_logger_targets_instantiate_and_write(tmp_path, monkeypatch, logger,
     monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
     cfg = config.compose(CONFIG_DIR, "train", [f"logger={logger}"])
     config.setup_run_dir(cfg)
-    assert retarget(cfg.logger[logger]._target_) not in WAITING
     lg, = instantiate_loggers(cfg.logger)
     assert type(lg) is getattr(loggers, cls)
     lg.log_metrics({"train/loss": 0.5}, 1)
@@ -190,7 +179,6 @@ def test_the_transformer_target_instantiates(tmp_path, monkeypatch):
                                                "model.transformer.num_heads=2",
                                                "model.transformer.num_layers=1"])
     config.setup_run_dir(cfg)
-    assert retarget(cfg.model.transformer._target_) not in WAITING
     task = config.instantiate(cfg.model.transformer, device="cpu", seed=0, latent_channels=8)
     assert type(task) is TransformerTask and task.hparams["moe_experts"] == 8
     assert tuple(task.net.layer0.moe.w1.shape) == (8, 16, 2048)
@@ -208,13 +196,12 @@ def test_a_target_outside_the_port_never_imports_jax(target):
 
 
 def test_every_configs_target_resolves_in_the_port():
-    """Every ``_target_`` in configs/ is a class of the port or a waiting one."""
+    """Every ``_target_`` in configs/ is a class of the port, the sweep's
+    included."""
     import re
 
     targets = {m for f in CONFIG_DIR.rglob("*.yaml")
                for m in re.findall(r"_target_:\s*(\S+)", f.read_text())}
     assert len(targets) >= 12
     for target in sorted(targets):
-        if retarget(target) in WAITING:
-            continue
         assert config.get_class(target).__module__.startswith("msla_tpu_torch."), target

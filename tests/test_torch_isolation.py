@@ -63,7 +63,8 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/nn/transformer_net.py",
                      "msla_tpu_torch/models/transformer.py",
                      "msla_tpu_torch/utils/tfevents.py", "msla_tpu_torch/utils/msgpack.py",
-                     "chip_smoke.py"):
+                     "msla_tpu_torch/sweep/space.py", "msla_tpu_torch/sweep/sampler.py",
+                     "msla_tpu_torch/sweep/sweeper.py", "chip_smoke.py"):
         assert expected in names
 
 

@@ -28,9 +28,18 @@ def _rand(m, k, v, seed=0):
             rng.standard_normal((v,)).astype(np.float32))
 
 
+def _conf_fp64(h, emb, bias):
+    """exp(max − logsumexp) of each row's logits, in fp64."""
+    logits = h.astype(np.float64) @ emb.T.astype(np.float64) + bias
+    top = logits.max(1)
+    return np.exp(top - (np.log(np.exp(logits - top[:, None]).sum(1)) + top))
+
+
 @pytest.mark.parametrize("m,k,v", [(50, 16, 300), (24, 8, 130), (64, 32, 1000)])
 @pytest.mark.parametrize("with_conf", [False, True])
 def test_plain_matches_jax_pallas_interpret(m, k, v, with_conf):
+    """With the confidences, each side is first held to fp64 at CONF_TOL, so
+    that a failure names the side that moved."""
     h, emb, bias = _rand(m, k, v, seed=m)
     want = mlm_argmax_pallas(jnp.asarray(h), jnp.asarray(emb), jnp.asarray(bias),
                              with_conf=with_conf, tile_m=16, tile_v=128, interpret=True)
@@ -38,6 +47,11 @@ def test_plain_matches_jax_pallas_interpret(m, k, v, with_conf):
                          with_conf=with_conf)
     if with_conf:
         (want, want_conf), (got, got_conf) = want, got
+        exact = _conf_fp64(h, emb, bias)
+        for side, conf in (("the port's plain version", got_conf.numpy()),
+                           ("the JAX Pallas kernel", np.asarray(want_conf))):
+            np.testing.assert_allclose(conf, exact, **CONF_TOL,
+                                       err_msg=f"{side}'s conf against fp64")
         np.testing.assert_allclose(got_conf.numpy(), np.asarray(want_conf), **CONF_TOL)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
