@@ -203,10 +203,11 @@ Phases, each of which raises (exit code != 0) when its check fails:
      of the same state, the two bit for bit; then the fixture is removed;
  26. the kernels at every width configs/hparams_search/optuna.yaml samples,
      at batch 32 and full length (T = 44,000, W = 11,000): K1, K1b, K2 and
-     K2b at num_hidden 64, 128 and 256 (the 3xTF32 kernels at 64 and 128,
-     the fp32 FMA ones at 256) against their plain versions (atol = rtol =
-     1e-4), against fp64 within their accumulation bound (fp32 FMA or
-     3xTF32) on 4 items, output and hidden, and at ragged T and W; K3, #4
+     K2b at num_hidden 64, 128 and 256 (all 3xTF32; at 256 W2′ in groups and
+     h's channels over a cluster) against their plain versions (atol = rtol
+     = 1e-4), against fp64 within their 3xTF32 accumulation bound on 4
+     items, output and hidden, at ragged T and W around their tiles, the
+     same bits twice, each printed beside the cuDNN pair; K3, #4
      and #5 at each (K, D) of {128, 256, 512} x {64, 128, 256} (the codebook
      streamed at D = 128 and 256, #5 over D / 64 column slices) at N =
      352,000: ids equal to the plain version's or near-ties, planted ties
@@ -397,7 +398,7 @@ def ragged_stem(enc, dev, g, dtype=torch.float32, save_hidden=False) -> dict:
     return errs
 
 
-def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool, fma: bool = False):
+def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
     """The exact stem of fp32 operands in fp64 (K1's conv pair with both
     ReLUs, or with ``transposed`` K2's, ReLU after the first layer), and an
     upper bound, per value of its output and of its hidden, on how far the
@@ -408,55 +409,53 @@ def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool, fma: bool = Fal
     into the tensor cores' fp32 accumulator is off by less than one fp32 ulp
     of the sum of its terms' magnitudes so far, ulp(x) <= u·x with u = 2^-23.
     A layer of depth K runs 3 products in each of its K/8 k8 steps, 3K/8
-    accumulations of at most u·A each, A = Σ|w|·|a| its terms' magnitudes;
-    the split drops lo·lo and the parts' remainders, at most 3·2^-22·A =
-    6u·A; the bias add rounds once, and K2's second layer adds its two
-    chains' partial sums once more, within 2u·(A + |b|). So a layer's own
-    error is at most (3K/8 + 8)·u·A + 2u·|b|, and a ReLU passes on no more
-    than it gets:
-    - hidden (K1's conv1, K = 16; K2's first layer, K = 256): e1 = (3K/8 +
-      8)·u·A1 + 2u·|b1|; the pad rows are 0 in both;
+    accumulations of at most u·A each, A = Σ|w|·|a| its terms' magnitudes,
+    however the depth is cut into chains; the split drops lo·lo and the
+    parts' remainders, at most 3·2^-22·A = 6u·A; the n - 1 adds of a
+    layer's n chains (its partial sums, added in fp32) and the bias add
+    round once each, within u·(A + |b|): a layer's own error is at most
+    (3K/8 + 6 + a)·u·A + a·u·|b|, a = max(2, n), and a ReLU passes on no
+    more than it gets:
+    - hidden (K1's conv1, K = 16, one chain; K2's first layer, K = 2·C, one
+      chain, two on a cluster): e1 = (3K/8 + 8)·u·A1 + 2u·|b1|; the pad rows
+      are 0 in both;
     - output: e1 carried through the second layer's weights, Σ|w2|·e1 (first
-      order), plus its own (3·256/8 + 8)·u·A2 + 2u·|b2|, A2 = Σ|w2|·h.
+      order), plus its own (K = 4·C1) with A2 = Σ|w2|·h and n the kernel's
+      chains: K1's ``conv2_chains`` (one a tap at (128, 256)), K2's two row
+      sets times its ``cluster_blocks`` (4 at (256, 128)).
     The fp32 plain version sums in another order, rounding each add to
     nearest, and stays well inside it; single-pass TF32 products, ~2^-11 of
-    each term off, do not (tests/test_torch_fp32_stems_3xtf32.py).
-
-    With ``fma`` the model is the fp32 FMA kernels' (the sweep's other
-    widths): a value summed over K terms by K FMAs from zero, each rounding to
-    nearest once, within u·(partial sum so far) <= u·A, u = 2^-24, and the
-    bias add once more: K·u·A + u·(A + |b|), i.e. (K + 1)·u·A + u·|b|, the
-    second layer's own on top of the first's carried through its weights."""
+    each term off, do not (tests/test_torch_fp32_stems_3xtf32.py,
+    tests/test_torch_widths.py)."""
     import torch.nn.functional as F
+
+    from msla_tpu_torch.ops.conv_stem import conv2_chains
+    from msla_tpu_torch.ops.deconv_stem import cluster_blocks
 
     conv = F.conv_transpose1d if transposed else F.conv1d
     xd, w1d, b1d, w2d, b2d = (t.double() for t in (x, w1, b1, w2, b2))
     k1 = 2 * x.shape[1] if transposed else 4 * x.shape[1]   # taps x channels a value sums
-    k2 = (2 if transposed and fma else 4) * w2.shape[0 if transposed else 1]
-    if fma:
-        u = 2.0 ** -24
-        own = lambda k: (k + 1) * u
-        bias_u = u
-    else:
-        u = 2.0 ** -23
-        own = lambda k: (3 * k / 8 + 8) * u
-        bias_u = 2 * u
+    k2 = 4 * w2.shape[0 if transposed else 1]
+    chains = 2 * cluster_blocks(*w1.shape[:2]) if transposed else conv2_chains(w1.shape[0],
+                                                                               w2.shape[0])
+    u = 2.0 ** -23
+    adds = lambda n: max(2, n)
+    own = lambda k, n: (3 * k / 8 + 6 + adds(n)) * u
     h = torch.relu(conv(xd, w1d, b1d, 2, 1))
-    e1 = own(k1) * conv(xd.abs(), w1d.abs(), None, 2, 1) + bias_u * b1d.abs()[:, None]
+    e1 = own(k1, 1) * conv(xd.abs(), w1d.abs(), None, 2, 1) + adds(1) * u * b1d.abs()[:, None]
     out = conv(h, w2d, b2d, 2, 1)
     if not transposed:
         out = torch.relu(out)
-    e2 = (conv(e1, w2d.abs(), None, 2, 1) + own(k2) * conv(h, w2d.abs(), None, 2, 1)
-          + bias_u * b2d.abs()[:, None])
+    e2 = (conv(e1, w2d.abs(), None, 2, 1) + own(k2, chains) * conv(h, w2d.abs(), None, 2, 1)
+          + adds(chains) * u * b2d.abs()[:, None])
     return out, e2, h, e1
 
 
-def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None,
-                    model: str = "3xTF32") -> float:
+def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None) -> float:
     """A fp32 stem's largest error against fp64, output and (if given) hidden,
-    as a share of ``stem_accumulation_bound``'s ``bounds`` (of the kernel's
-    ``model``, "3xTF32" or "fp32 FMA"); fails above 1. With ``plain`` (the
-    plain version's (out, hidden)) prints its share beside it."""
+    as a share of ``stem_accumulation_bound``'s ``bounds``; fails above 1.
+    With ``plain`` (the plain version's (out, hidden)) prints its share beside
+    it."""
     exact, limit, exact_h, limit_h = bounds
 
     def share(got, got_h):
@@ -468,10 +467,10 @@ def stem_fp64_share(name: str, bounds, out, hidden=None, plain=None,
     got = share(out, hidden)
     beside = "" if plain is None else \
         f", the plain fp32 version's {share(plain[0], None if hidden is None else plain[1]):.3f}"
-    print(f"[stem] {name}: against fp64, {got:.3f} of the {model} accumulation bound{beside}",
+    print(f"[stem] {name}: against fp64, {got:.3f} of the 3xTF32 accumulation bound{beside}",
           flush=True)
     if got > 1:
-        fail(f"{name}: off fp64 by {got:.2f}x what its {model} accumulation may lose")
+        fail(f"{name}: off fp64 by {got:.2f}x what its 3xTF32 accumulation may lose")
     return got
 
 
@@ -734,7 +733,9 @@ REDESIGNED = ("flash_attn", "flash_attn[bf16]", "deconv_stem", "deconv_stem_save
               "conv_stem_save_hidden", "conv_stem[bf16]", "conv_stem_save_hidden[bf16]",
               "mlm_argmax[bf16]", "mlm_argmax_conf[bf16]", "nearest_codes", "vq_fused_fwd",
               "vq_lean_fwd", "vq_precision_fwd[bf16/split2]", "vq_precision_fwd[bf16/f32]",
-              "vq_precision_fwd[split3/split2]", "vq_codebook_grad", "vq_precision_bwd[split2]")
+              "vq_precision_fwd[split3/split2]", "vq_codebook_grad", "vq_precision_bwd[split2]",
+              "conv_stem[128x256]", "conv_stem_save_hidden[128x256]", "deconv_stem[256x128]",
+              "deconv_stem_save_hidden[256x128]")
 
 
 def with_bounds(report: list[dict]) -> list[dict]:
@@ -4722,8 +4723,12 @@ SWEEP_HIDDEN = (64, 128, 256)          # configs/hparams_search/optuna.yaml's nu
 SWEEP_CODES = tuple((k, d) for k in (128, 256, 512) for d in (64, 128, 256))
 SWEEP_REPS = 5                         # timed runs a figure (the median), after one warm-up
 SWEEP_FP64_ITEMS = 4                   # batch items the stems' fp64 bound is computed on
-SWEEP_RAGGED_T = (7, 1_030, 44_003)    # K1/K1b lengths not divisible by 4, batch 2
-SWEEP_RAGGED_W = (1, 63, 64, 1_001)    # K2/K2b widths around the FMA kernel's 63-position tile
+#: K1/K1b lengths at batch 2, around the 64-position tile of num_hidden 256's
+#: kernel (T = 256) and the default's 128 (T = 512), most not divisible by 4
+SWEEP_RAGGED_T = (7, 255, 257, 260, 511, 513, 1_030, 44_003)
+#: K2/K2b widths at batch 2 around the 60-position tile of the 3xTF32 kernels,
+#: most not divisible by 4
+SWEEP_RAGGED_W = (1, 59, 60, 61, 63, 64, 119, 121, 1_001)
 
 
 def width_label(name: str, widths: tuple) -> str:
@@ -4754,10 +4759,10 @@ def ptxas_of(ptxas: dict, source: str, kernel: str) -> dict:
 def sweep_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
     """K1/K1b (or K2/K2b) at each of the sweep's stem widths: the kernel
     against its plain version at batch 32 and full length (atol = rtol =
-    1e-4), against fp64 within its accumulation bound (fp32 FMA at the new
-    widths, 3xTF32 at the default) on SWEEP_FP64_ITEMS items, output and
-    hidden, at ragged lengths, and timed beside the plain version and the
-    cuDNN pair."""
+    1e-4), against fp64 within its 3xTF32 accumulation bound on
+    SWEEP_FP64_ITEMS items, output and hidden, at ragged lengths, the same
+    bits on a second call, and timed beside the plain version and the cuDNN
+    pair."""
     import torch.nn.functional as F
 
     from msla_tpu_torch.ops import (conv_stem, conv_stem_ref, conv_stem_save_hidden,
@@ -4792,10 +4797,10 @@ def sweep_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
             flop = 2 * b * (FRAME // 2 * half * 16 + w * hidden * 4 * half)
         b1 = torch.randn((half,), generator=g, device=dev) * 0.1
         args = (x, w1, b1, w2, b2)
-        fma = hidden == SWEEP_HIDDEN[-1]  # W2' (K1) or W1' (K2) outgrows shared memory
-        model = "fp32 FMA" if fma else "3xTF32"
         source = "deconv_stem" if transposed else "conv_stem"
-        kernel = f"{source}_{'fma' if fma else '3xtf32'}_kernel<{widths[0]},{widths[1]}>"
+        # W2' (K1) or W1' (K2) outgrows a block at 256: in groups, over a cluster
+        design = "" if hidden < SWEEP_HIDDEN[-1] else "_cluster" if transposed else "_groups"
+        kernel = f"{source}_3xtf32{design}_kernel<{widths[0]},{widths[1]}>"
         with fp32_convs():
             lib = time_ms(lambda: conv(F.relu(conv(x, w1, b1, 2, 1)), w2, b2, 2, 1),
                           SWEEP_REPS, 1)
@@ -4811,8 +4816,10 @@ def sweep_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
             del want, want_h
             few = tuple(a[:SWEEP_FP64_ITEMS] if i == 0 else a for i, a in enumerate(args))
             share = stem_fp64_share(label, stem_accumulation_bound(
-                *few, transposed=transposed, fma=fma), out[:SWEEP_FP64_ITEMS],
-                None if h is None else h[:SWEEP_FP64_ITEMS], model=model)
+                *few, transposed=transposed), out[:SWEEP_FP64_ITEMS],
+                None if h is None else h[:SWEEP_FP64_ITEMS])
+            same_bits(label, got if hidden_out else (got,), fn(*args) if hidden_out
+                      else (fn(*args),))
             ragged = {}
             for n in SWEEP_RAGGED_W if transposed else SWEEP_RAGGED_T:
                 small = ((torch.rand if transposed else torch.randn)(
@@ -4824,17 +4831,17 @@ def sweep_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
                                 check_close(f"{label} hidden at {n}", got_h, want_h)
                                 if hidden_out else 0.0)
             moved = nbytes(*args, out) + (nbytes(h) if hidden_out else 0)
-            row = dict(
+            ms = time_ms(lambda: fn(*args), SWEEP_REPS, 1)
+            print(f"[stem] {label}: {ms:.4f} ms, the cuDNN pair {lib:.4f} ms in this run "
+                  f"({ms / lib:.3f}x)", flush=True)
+            rows.append(dict(
                 name=label, route="cuda", source=f"msla_tpu_torch/csrc/{source}.cu",
-                replaces=rep, widths=list(widths), design=model, max_abs_err=err,
-                fp64_share_of_bound=share, ragged_max_abs_err=ragged,
-                ms=time_ms(lambda: fn(*args), SWEEP_REPS, 1),
+                replaces=rep, widths=list(widths), design="3xTF32" + design, max_abs_err=err,
+                fp64_share_of_bound=share, ragged_max_abs_err=ragged, ms=ms,
                 plain_ms=time_ms(lambda: ref(*args), SWEEP_REPS, 1), library_ms=lib,
                 flop=flop, bytes=moved, registers=ptxas_of(ptxas, source, kernel),
-                smem_bytes=kernel_smem(f"{source}_smem_bytes", *widths))
-            if not fma:
-                row.update(tf32_bounds(flop, moved))
-            rows.append(row)
+                smem_bytes=kernel_smem(f"{source}_smem_bytes", *widths),
+                **tf32_bounds(flop, moved)))
             del out, h
         del x
     torch.cuda.empty_cache()

@@ -90,22 +90,31 @@
 // fp32 at the sweep's other widths, num_hidden 64 and 256 of
 // configs/hparams_search/optuna.yaml: (C1, C2) = (32, 64) is the 3xTF32
 // kernel above at those widths (conv_stem_3xtf32_kernel<32, 64>: W2' 33.8
-// KB; 8 warps of 64 channels x 16 positions in conv2). It holds W2' whole in
-// shared memory, C2 (4 C1 + 4) 4 B, 528 KB at (128, 256), so that width runs
-// conv_stem_fma_kernel<128, 256>: a plain fp32 kernel on the FMA units (each
-// product and add exact fp32 FMA, no tensor core), one
-// block a tile of TP = 64 output positions: conv1 into hE / hO (all C1
-// channels of the tile's h1 rows and both halo rows, zero outside [0, T/2))
-// from the tile's x window, then conv2 over output-channel chunks of 64,
-// each chunk's slice of W2' (C1 x 4 x 64 floats, 128 KB at C1 = 128) copied
-// into shared memory in turn, so W2' streams through the block. In conv2 a
-// warp takes 8 channels, a lane 2 positions (16 accumulators; the weights a
-// broadcast, h1 conflict-free along positions), summing c1 in ascending
-// order, taps 0 to 3, from zero, then + b2 and ReLU. Bound at batch 32, T =
-// 44,000, (128, 256): 9.52e10 FLOP, 1.42 ms on the FMA units (67 TFLOP/s),
-// against 22.5 MB in + 360.4 MB out (+ 360.4 MB of h1): 0.114 ms; so bound by
-// the FMA units (3xTF32 on the tensor cores: 0.58 ms for its three products).
-// K1b writes h1 from hE / hO as the kernels above do.
+// KB; 8 warps of 64 channels x 16 positions in conv2). That kernel holds W2'
+// whole in shared memory, C2 (4 C1 + 4) 4 B: 528 KB at (128, 256), against
+// the 232.4 KB a block may have. Bound at batch 32, T = 44,000, (128, 256):
+// 9.52e10 FLOP, 0.192 ms at the TF32 peak (0.58 ms for 3xTF32's three
+// products; 1.42 ms on the FMA units), against 22.5 MB in + 360.4 MB out
+// (+ 360.4 MB of h1 for K1b): 0.114 ms (0.222 ms); bound by the products.
+// conv_stem_3xtf32_groups_kernel<128, 256> runs both convs in 3xTF32 on
+// mma.sync as the kernel above does, with W2' cut into groups of CG = 64
+// output channels:
+// - a persistent block (one an SM; blocks i, i + 4, ... take group i % 4)
+//   keeps its group's rows of W2' (132 KB) in shared memory for its lifetime
+//   and walks the tiles of TILE = 64 positions. It recomputes conv1 for its
+//   tile: all C1 channels of the tile's h1 rows, 12.5 % more FLOP than the
+//   stem's own, also on the tensor cores; a warp takes 16 channels of every
+//   row tile, with W1's B fragments split once a block and held in registers.
+// - Conv2 runs one chain a tap: warp (tap, wn) takes the group's 64
+//   channels x 32 positions over the tap's C1 rows of the depth, the warp
+//   tile of the kernel above (24 splits a k8 step for 48 products), so the
+//   64 x 64 tile costs no more splits a product than the default's 128 x 128.
+//   The four taps' sums go to shared memory (over hE and hO, which conv2 is
+//   then done with), are added in tap order, + b2, ReLU, and stored 16 B a
+//   thread along positions.
+// - K1b: the blocks of group i write h1's channels i C1 / 4 .. (i + 1) C1 / 4.
+// Shared memory: W2''s group 132 KB, two x windows 8.7 KB, hE and hO 76 KB
+// (the partial sums 74 KB over them), biases: 217.6 KB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -643,147 +652,281 @@ conv_stem_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1t,
 
 }  // namespace bf16_mma
 
-// ---- fp32 on the FMA units, at the sweep's other widths ----------------------
+// ---- fp32 in 3xTF32 at (128, 256): W2' in groups of 64 output channels -------
 
-namespace fp32_fma {
+namespace tf32_groups {
 
-constexpr int TP = 64;                // output positions a tile
-constexpr int XW = 4 * TP + 8;        // x window: samples 4 q0 - 4 .. 4 q0 + 4 TP + 3
-constexpr int H_LD = TP + 4;          // floats a channel of hE / hO (rows 0 .. TP)
-constexpr int CC2 = 64;               // output channels a conv2 chunk: 8 warps x 8
+constexpr int TILE = 64;              // conv2 output positions per tile
+constexpr int CG = 64;                // output channels a block: its group of W2''s rows
+constexpr int XW = 4 * TILE + 16;     // x window: samples 4 q0 - 8 .. 4 q0 + 4 TILE + 7
+constexpr int KROWS = 2 * TILE + 2;   // conv1 rows k: h1[2 q0 - 1 + k]
+constexpr int MT1 = (KROWS + 15) / 16;  // conv1's m16 tiles (the last one partly unused)
+constexpr int H_ROWS = TILE + 8;      // conv2 reads rows 0 .. TILE
+constexpr int P_LD = TILE + 8;        // floats a row of a tap's partial sums [c][i]: float2
+                                      // stores and float4 loads on 32 banks
 
 template <int NC1, int NC2>
-constexpr int smem_bytes() {
-  return (C0 * XW + NC1 * 16 + NC1 + NC2 + 2 * NC1 * H_LD + NC1 * 4 * CC2) * 4;
-}
+struct Layout {
+  static constexpr int GROUPS = NC2 / CG;
+  static constexpr int GC1 = NC1 / GROUPS;  // h1 channels a group's blocks write (K1b)
+  static constexpr int NW = NC1 / 64;   // conv1's n8 tiles a warp: channels 8 NW warp ..
+  static constexpr int K2D = 4 * NC1;   // conv2 depth: hO[i], hE[i], hO[i+1], hE[i+1]
+  static constexpr int W2_LD = K2D + 4; // floats a row of W2' (ldmatrix rows on 32 banks)
+  static constexpr int H_LD = NC1 + 4;  // floats a row of hE / hO
+  // shared memory, in bytes from the start
+  static constexpr int W2S = 0;                             // [CG][W2_LD]: the group's rows
+  static constexpr int XS = W2S + CG * W2_LD * 4;           // two x windows [C0][XW]
+  static constexpr int HSE = XS + 2 * C0 * XW * 4;          // hE[i] = h1[2 (q0 + i)]
+  static constexpr int HSO = HSE + H_ROWS * H_LD * 4;       // hO[i] = h1[2 (q0 + i) - 1]
+  static constexpr int PS = HSE;                            // [4][CG][P_LD]: the taps' sums
+  static constexpr int B1S = HSO + H_ROWS * H_LD * 4;
+  static constexpr int B2S = B1S + NC1 * 4;                 // the group's b2
+  static constexpr int SMEM_BYTES = B2S + CG * 4;           // 217,600 at (128, 256)
+  static_assert(NC2 % CG == 0 && NC1 % 64 == 0 && GC1 % 4 == 0, "conv1's and K1b's warps");
+  static_assert(4 * CG * P_LD <= 2 * H_ROWS * H_LD, "the partial sums fit over hE and hO");
+};
 
 template <int NC1, int NC2>
-__global__ void __launch_bounds__(THREADS)
-conv_stem_fma_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
-                     const float* __restrict__ b1, const float* __restrict__ w2t,
-                     const float* __restrict__ b2, float* __restrict__ out,
-                     float* __restrict__ hidden, int batch, int t_len) {
-  static_assert(NC2 % CC2 == 0, "conv2 runs in chunks of 64 output channels");
+__global__ void __launch_bounds__(THREADS, 1)
+conv_stem_3xtf32_groups_kernel(const float* __restrict__ x, const float* __restrict__ w1t,
+                               const float* __restrict__ b1, const float* __restrict__ w2t,
+                               const float* __restrict__ b2, float* __restrict__ out,
+                               float* __restrict__ hidden, int batch, int t_len) {
+  using L = Layout<NC1, NC2>;
+  constexpr int C1 = NC1, C2 = NC2, K2D = L::K2D, W2_LD = L::W2_LD, H_LD = L::H_LD;
+  constexpr int NW = L::NW, GC1 = L::GC1;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [C0][XW]: x[c0][4 q0 - 4 + u]
-  float* w1s = xs + C0 * XW;                    // [NC1][16]: w1[c1][c0][tap]
-  float* b1s = w1s + NC1 * 16;
-  float* b2s = b1s + NC1;
-  float* hse = b2s + NC2;                       // [NC1][H_LD]: hE[i] = h1[2 (q0 + i)]
-  float* hso = hse + NC1 * H_LD;                // hO[i] = h1[2 (q0 + i) - 1]
-  float* w2s = hso + NC1 * H_LD;                // [NC1 * 4][CC2]: a chunk of W2'
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* w2s = reinterpret_cast<float*>(smem + L::W2S);
+  float* xbuf = reinterpret_cast<float*>(smem + L::XS);
+  float* hse = reinterpret_cast<float*>(smem + L::HSE);
+  float* hso = reinterpret_cast<float*>(smem + L::HSO);
+  float* ps = reinterpret_cast<float*>(smem + L::PS);
+  float* b1s = reinterpret_cast<float*>(smem + L::B1S);
+  float* b2s = reinterpret_cast<float*>(smem + L::B2S);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int w1_len = t_len / 2, w2_len = t_len / 4;
-  const int tiles_per_row = (w2_len + TP - 1) / TP;
-  const int b = blockIdx.x / tiles_per_row, q0 = (blockIdx.x % tiles_per_row) * TP;
-  const int n_valid = min(TP, w2_len - q0);
-  const float* xb = x + (size_t)b * C0 * t_len;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = blockIdx.x % L::GROUPS, c2_0 = CG * group;  // this block's channels
 
-  for (int i = tid; i < C0 * XW; i += THREADS) {
-    const int c = i / XW, s = 4 * q0 - 4 + i % XW;
-    xs[i] = s >= 0 && s < t_len ? xb[(size_t)c * t_len + s] : 0.f;
+  // W2'[c][tap*C1 + c1] = w2t[c1*4 + tap][c2_0 + c], the group's CG rows
+  for (int i = tid; i < CG * K2D; i += THREADS) {
+    const int c = i % CG, k = i / CG, tap = k / C1, c1 = k % C1;
+    w2s[c * W2_LD + k] = w2t[(c1 * 4 + tap) * C2 + c2_0 + c];
   }
-  for (int i = tid; i < NC1 * 16; i += THREADS) w1s[i] = w1t[(i % 16) * NC1 + i / 16];
-  for (int i = tid; i < NC1; i += THREADS) b1s[i] = b1[i];
-  for (int i = tid; i < NC2; i += THREADS) b2s[i] = b2[i];
-  __syncthreads();
-
-  // conv1: hE[i] sums x at u = 4i + 3 + tap, hO[i] at u = 4i + 1 + tap
-  for (int e = tid; e < 2 * NC1 * (TP + 1); e += THREADS) {
-    const int odd = e / (NC1 * (TP + 1)), c1 = e / (TP + 1) % NC1, i = e % (TP + 1);
-    const int j = 2 * (q0 + i) - odd, u = 4 * i + 3 - 2 * odd;
-    float acc = 0.f;
+  for (int i = tid; i < C1; i += THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < CG; i += THREADS) b2s[i] = b2[c2_0 + i];
+  // W1's B fragments of the warp's channels ch = 8 (NW warp + ni) + g, split
+  // once: b0 = W1[ch][8 s + t], b1 = W1[ch][8 s + t + 4], W1[c1][c0*4 + tap] =
+  // w1t[c0*4 + tap][c1]
+  uint32_t wh[NW][2][2], wl[NW][2][2];
 #pragma unroll
-    for (int c0 = 0; c0 < C0; ++c0)
+  for (int ni = 0; ni < NW; ++ni)
 #pragma unroll
-      for (int tap = 0; tap < 4; ++tap)
-        acc = fmaf(w1s[c1 * 16 + c0 * 4 + tap], xs[c0 * XW + u + tap], acc);
-    (odd ? hso : hse)[c1 * H_LD + i] = j >= 0 && j < w1_len ? fmaxf(acc + b1s[c1], 0.f) : 0.f;
-  }
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        split(__float_as_uint(w1t[(8 * s + 4 * e + t) * C1 + 8 * (NW * warp + ni) + g]),
+              wh[ni][s][e], wl[ni][s][e]);
 
-  for (int c2b = 0; c2b < NC2; c2b += CC2) {
-    __syncthreads();  // h1 is in; the previous chunk's readers of w2s are done
-    for (int e = tid; e < NC1 * 4 * CC2; e += THREADS)
-      w2s[e] = w2t[(size_t)(e / CC2) * NC2 + c2b + e % CC2];
+  const int w1_len = t_len / 2;       // h1 rows
+  const int w2_len = t_len / 4;       // output columns
+  const int tiles_per_row = (w2_len + TILE - 1) / TILE;
+  const long long total = (long long)batch * tiles_per_row;
+  const int stride = gridDim.x / L::GROUPS;  // the group's blocks
+
+  // xs[c0][u] = x[c0][4 q0 - 8 + u], zero outside [0, T)
+  const bool aligned = t_len % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  auto load_x = [&](long long tile, float* xs) {
+    const int b = (int)(tile / tiles_per_row), s0 = 4 * ((int)(tile % tiles_per_row) * TILE) - 8;
+    const float* xb = x + (size_t)b * C0 * t_len;
+    if (aligned) {  // whole 16-byte chunks, each inside [0, T) or outside it
+      for (int i = tid; i < C0 * (XW / 4); i += THREADS) {
+        const int c = i / (XW / 4), u = 4 * (i % (XW / 4)), s = s0 + u;
+        const bool valid = s >= 0 && s < t_len;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(xs + c * XW + u)),
+                     "l"(xb + (size_t)c * t_len + (valid ? s : 0)), "r"(valid ? 16 : 0));
+      }
+    } else {  // channel rows not 16-byte aligned: 4-byte copies
+      for (int i = tid; i < C0 * XW; i += THREADS) {
+        const int c = i / XW, u = i % XW, s = s0 + u;
+        const bool valid = s >= 0 && s < t_len;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_addr(xs + c * XW + u)),
+                     "l"(xb + (size_t)c * t_len + (valid ? s : 0)), "r"(valid ? 4 : 0));
+      }
+    }
+  };
+
+  long long tile = blockIdx.x / L::GROUPS;
+  if (tile < total) load_x(tile, xbuf);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int it = 0; tile < total; tile += stride, ++it) {
+    const int b = (int)(tile / tiles_per_row), q0 = (int)(tile % tiles_per_row) * TILE;
+    const int n_valid = min(TILE, w2_len - q0);
+    const float* xs = xbuf + (it & 1) * C0 * XW;
+    if (tile + stride < total) load_x(tile + stride, xbuf + ((it + 1) & 1) * C0 * XW);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's x is in
+    // for every thread; the weights too, on the first tile; and the previous
+    // tile's readers of the partial sums (over hE and hO) are done
     __syncthreads();
-    // out[c2][q0 + i] = relu(b2 + sum over c1, taps of W2'[c2][tap][c1] x
-    // (hO[i], hE[i], hO[i + 1], hE[i + 1])[tap])
-    float acc[8][2] = {};
+
+    // conv1: warp w takes channels 8 NW w .. of every m16 row tile; row k's A
+    // row is x[c0][4 q0 - 3 + 2k + tap] at u = 5 + 2k + tap (rows past KROWS
+    // repeat the last and are not stored). k8 step s holds c0 = 2s (columns
+    // t) and 2s + 1 (columns t + 4).
+    for (int mt = 0; mt < MT1; ++mt) {
+      const int ka = 16 * mt + g, kb = ka + 8;
+      const int ua = 5 + 2 * min(ka, KROWS - 1) + t, ub = 5 + 2 * min(kb, KROWS - 1) + t;
+      float c[NW][4] = {};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t ah[4], al[4];
+        split(__float_as_uint(xs[2 * s * XW + ua]), ah[0], al[0]);
+        split(__float_as_uint(xs[2 * s * XW + ub]), ah[1], al[1]);
+        split(__float_as_uint(xs[(2 * s + 1) * XW + ua]), ah[2], al[2]);
+        split(__float_as_uint(xs[(2 * s + 1) * XW + ub]), ah[3], al[3]);
+#pragma unroll
+        for (int ni = 0; ni < NW; ++ni)
+          mma_3xtf32(c[ni], ah, al, wh[ni][s][0], wh[ni][s][1], wl[ni][s][0], wl[ni][s][1]);
+      }
+      // rows ka and kb have g's parity: both go to hO (even k) or hE (odd k)
+      float* hs = (g & 1) ? hse : hso;
+#pragma unroll
+      for (int ni = 0; ni < NW; ++ni) {
+        const int ch = 8 * (NW * warp + ni) + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int k = r ? kb : ka, j = 2 * q0 - 1 + k;
+          if (k < KROWS) {
+            const bool inside = j >= 0 && j < w1_len;
+            *reinterpret_cast<float2*>(hs + (k >> 1) * H_LD + ch) =
+                make_float2(inside ? fmaxf(c[ni][2 * r] + b1s[ch], 0.f) : 0.f,
+                            inside ? fmaxf(c[ni][2 * r + 1] + b1s[ch + 1], 0.f) : 0.f);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (hidden != nullptr) {  // K1b, the group's channels: h1[2 (q0 + i)] = hE[i],
+                              // h1[2 (q0 + i) + 1] = hO[i + 1]
+      const bool pairs = w1_len % 2 == 0;  // channel rows 8-byte aligned
+      for (int blk = warp; blk < (TILE / 8) * (GC1 / 4); blk += THREADS / 32) {
+        const int i = 8 * (blk / (GC1 / 4)) + (lane & 7);
+        const int c = GC1 * group + 4 * (blk % (GC1 / 4)) + (lane >> 3);
+        if (i < n_valid) {
+          const float e = hse[i * H_LD + c], d = hso[(i + 1) * H_LD + c];
+          float* dst = hidden + ((size_t)b * C1 + c) * w1_len + 2 * (q0 + i);
+          if (pairs) {
+            *reinterpret_cast<float2*>(dst) = make_float2(e, d);
+          } else {
+            dst[0] = e;
+            dst[1] = d;
+          }
+        }
+      }
+      // where T/2 is odd, the row's last tile also writes h1[T/2 - 1] = hE[n_valid]
+      if (w1_len % 2 == 1 && q0 + TILE >= w2_len && tid < GC1) {
+        const int c = GC1 * group + tid;
+        hidden[((size_t)b * C1 + c) * w1_len + w1_len - 1] = hse[n_valid * H_LD + c];
+      }
+    }
+
+    // conv2: warp (tap, wn) takes the group's CG channels x positions 32
+    // wn .. over the depth's C1 rows of the tap: 0 hO[i], 1 hE[i], 2 hO[i +
+    // 1], 3 hE[i + 1]
+    const int tap = warp >> 1, wn = warp & 1;
+    float acc[4][4][4] = {};
+    {
+      const float* hs = (tap & 1) ? hse : hso;
 #pragma unroll 2
-    for (int c1 = 0; c1 < NC1; ++c1) {
-      float hv[2][4];
+      for (int kc = 0; kc < C1; kc += 8) {
+        // A: W2' rows 16 mi + (g, g + 8), columns tap C1 + kc + (t, t + 4), as
+        // 8x4 fp32 tiles read as 8x8 b16 ones; B likewise from hE / hO's rows
+        uint32_t ah[4][4], al[4][4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = lane + 32 * r;
-        hv[r][0] = hso[c1 * H_LD + i];
-        hv[r][1] = hse[c1 * H_LD + i];
-        hv[r][2] = hso[c1 * H_LD + i + 1];
-        hv[r][3] = hse[c1 * H_LD + i + 1];
-      }
+        for (int mi = 0; mi < 4; ++mi) {
+          uint32_t r[4];
+          ldsm_x4(r, w2s + (16 * mi + (lane & 15)) * W2_LD + tap * C1 + kc + (lane >> 4) * 4);
 #pragma unroll
-      for (int tap = 0; tap < 4; ++tap) {
-        const float4* wr = reinterpret_cast<const float4*>(w2s + (c1 * 4 + tap) * CC2 + 8 * warp);
-        const float4 wa = wr[0], wb = wr[1];
-        const float w[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+          for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
+        }
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
+        for (int np = 0; np < 2; ++np) {
+          uint32_t r[4], bh[4], bl[4];
+          ldsm_x4(r, hs + (32 * wn + 16 * np + (lane >> 4) * 8 + (lane & 7) + (tap >> 1)) *
+                              H_LD + kc + ((lane >> 3) & 1) * 4);
 #pragma unroll
-          for (int r = 0; r < 2; ++r) acc[k][r] = fmaf(w[k], hv[r][tap], acc[k][r]);
+          for (int e = 0; e < 4; ++e) split(r[e], bh[e], bl[e]);
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            mma_3xtf32(acc[mi][2 * np], ah[mi], al[mi], bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(acc[mi][2 * np + 1], ah[mi], al[mi], bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
       }
     }
+    __syncthreads();  // every warp is done with hE and hO, which the sums overwrite
+    {
+      float* pt = ps + tap * CG * P_LD;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c2 = c2b + 8 * warp + k;
-      float* ob = out + ((size_t)b * NC2 + c2) * w2_len + q0;
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = lane + 32 * r;
-        if (i < n_valid) ob[i] = fmaxf(acc[k][r] + b2s[c2], 0.f);
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(pt + (16 * mi + g + 8 * r) * P_LD + 32 * wn + 8 * ni +
+                                       2 * t) = make_float2(acc[mi][ni][2 * r],
+                                                            acc[mi][ni][2 * r + 1]);
+    }
+    __syncthreads();
+
+    // out[b][c2_0 + c][q0 + i] = relu(((P0 + P1) + P2) + P3 + b2), four
+    // positions a thread (4-byte stores where T/4 % 4 != 0, which leaves the
+    // channel rows unaligned)
+    {
+      float* ob = out + ((size_t)b * C2 + c2_0) * w2_len + q0;
+      const bool vec = w2_len % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+      for (int u = tid; u < CG * (TILE / 4); u += THREADS) {
+        const int c = u / (TILE / 4), i = 4 * (u % (TILE / 4));
+        if (i >= n_valid) continue;
+        float4 s = *reinterpret_cast<const float4*>(ps + c * P_LD + i);
+#pragma unroll
+        for (int tp = 1; tp < 4; ++tp) {
+          const float4 p = *reinterpret_cast<const float4*>(ps + (tp * CG + c) * P_LD + i);
+          s.x += p.x;
+          s.y += p.y;
+          s.z += p.z;
+          s.w += p.w;
+        }
+        const float bias = b2s[c];
+        const float v[4] = {fmaxf(s.x + bias, 0.f), fmaxf(s.y + bias, 0.f),
+                            fmaxf(s.z + bias, 0.f), fmaxf(s.w + bias, 0.f)};
+        float* dst = ob + (size_t)c * w2_len + i;
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+          for (int e = 0; e < 4 && i + e < n_valid; ++e) dst[e] = v[e];
+        }
       }
     }
   }
-
-  if (hidden != nullptr) {  // K1b: h1[2 (q0 + i)] = hE[i], h1[2 (q0 + i) + 1] = hO[i + 1]
-    for (int e = tid; e < NC1 * TP; e += THREADS) {
-      const int c1 = e / TP, i = e % TP;
-      if (i < n_valid) {
-        float* dst = hidden + ((size_t)b * NC1 + c1) * w1_len + 2 * (q0 + i);
-        dst[0] = hse[c1 * H_LD + i];
-        dst[1] = hso[c1 * H_LD + i + 1];
-      }
-    }
-    // where T/2 is odd, the row's last tile also writes h1[T/2 - 1] = hE[n_valid]
-    if (w1_len % 2 == 1 && q0 + TP >= w2_len)
-      for (int c1 = tid; c1 < NC1; c1 += THREADS)
-        hidden[((size_t)b * NC1 + c1) * w1_len + w1_len - 1] = hse[c1 * H_LD + n_valid];
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One block a tile.
-template <int NC1, int NC2>
-int launch(const float* x, const float* w1t, const float* b1, const float* w2t, const float* b2,
-           float* out, float* hidden, int batch, int t_len, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<NC1, NC2>();
-  cudaError_t err = cudaFuncSetAttribute(conv_stem_fma_kernel<NC1, NC2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)batch * ((t_len / 4 + TP - 1) / TP);
-  if (tiles == 0) return 0;
-  conv_stem_fma_kernel<NC1, NC2><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      x, w1t, b1, w2t, b2, out, hidden, batch, t_len);
-  return (int)cudaGetLastError();
-}
+}  // namespace tf32_groups
 
-}  // namespace fp32_fma
-
-// One persistent block an SM (at most one a tile).
+// One persistent block an SM (at most one a tile); with `groups`, as many
+// blocks a group of W2''s rows, each group's blocks at most one a tile.
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const float*, const T*, const float*, T*, T*, int,
                           int),
            int smem, int threads, int tile, const T* x, const T* w1t, const float* b1,
            const T* w2t, const float* b2, T* out, T* hidden, int batch, int t_len,
-           void* stream) {
+           void* stream, int groups = 1) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -793,7 +936,8 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
       cudaSuccess)
     return (int)err;
   const long long tiles = (long long)batch * ((t_len / 4 + tile - 1) / tile);
-  const int grid = (int)(tiles < sms ? tiles : sms);
+  const int per_group = sms / groups;
+  const int grid = (int)(tiles < per_group ? tiles : per_group) * groups;
   if (grid == 0) return 0;
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, w1t, b1, w2t, b2, out, hidden, batch,
                                                        t_len);
@@ -802,9 +946,10 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 
 }  // namespace
 
-// fp32 at the sweep's widths 4 -> c1 -> c2: the default (64, 128) and
-// (32, 64) on the tensor cores (3xTF32), (128, 256) on the FMA units; hidden
-// may be null (K1); otherwise it receives h1 (K1b).
+// fp32 at the sweep's widths 4 -> c1 -> c2, all on the tensor cores (3xTF32):
+// the default (64, 128) and (32, 64) with W2' whole in a block, (128, 256) in
+// groups of 64 output channels; hidden may be null (K1); otherwise it
+// receives h1 (K1b).
 extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                              const float* w2t, const float* b2, float* out,
                              float* hidden, int batch, int t_len, int c1, int c2, void* stream) {
@@ -817,8 +962,10 @@ extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
                          tf32_mma::Layout<32, 64>::SMEM_BYTES, THREADS, tf32_mma::TILE, x,
                          w1t, b1, w2t, b2, out, hidden, batch, t_len, stream);
   if (c1 == 128 && c2 == 256)
-    return fp32_fma::launch<128, 256>(x, w1t, b1, w2t, b2, out, hidden, batch, t_len,
-                                      (cudaStream_t)stream);
+    return launch<float>(tf32_groups::conv_stem_3xtf32_groups_kernel<128, 256>,
+                         tf32_groups::Layout<128, 256>::SMEM_BYTES, THREADS, tf32_groups::TILE,
+                         x, w1t, b1, w2t, b2, out, hidden, batch, t_len, stream,
+                         tf32_groups::Layout<128, 256>::GROUPS);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -827,7 +974,7 @@ extern "C" int conv_stem_fwd(const float* x, const float* w1t, const float* b1,
 extern "C" int conv_stem_smem_bytes(int c1, int c2) {
   if (c1 == C1 && c2 == C2) return tf32_mma::Layout<C1, C2>::SMEM_BYTES;
   if (c1 == 32 && c2 == 64) return tf32_mma::Layout<32, 64>::SMEM_BYTES;
-  if (c1 == 128 && c2 == 256) return fp32_fma::smem_bytes<128, 256>();
+  if (c1 == 128 && c2 == 256) return tf32_groups::Layout<128, 256>::SMEM_BYTES;
   return -1;
 }
 

@@ -99,23 +99,42 @@
 // fp32 at the sweep's other widths, num_hidden 64 and 256 of
 // configs/hparams_search/optuna.yaml: (C, C1) = (64, 32) is the 3xTF32
 // kernel above at those widths (deconv_stem_3xtf32_kernel<64, 32>: W1' 33.8
-// KB; layer 1's 8 warps of 32 rows x 16 columns). It holds W1' whole in
-// shared memory, 528 KB at C = 256, so that width runs
-// deconv_stem_fma_kernel<256, 128>: a plain fp32 kernel on the FMA units
-// (each product and add exact fp32 FMA, no tensor core), one block a tile of
-// TM =
-// 63 positions of q: layer 1 into hsE[a] = h[2(m0 + a)] and hsO[a] = h[2(m0 +
-// a) - 1], a = 0 .. 63 (the tile's h and both halo rows, zero outside [0,
-// 2W)), from the tile's q window (C x 65 floats), streaming w1 through
-// shared memory in chunks of 32 input channels (C1 x 4 floats each: 64 KB at
-// C1 = 128); a warp takes C1 / 8 channels, a lane 2 positions, both phases
-// (each sums c in ascending order, two FMAs a channel, from zero; + b1,
-// ReLU). Layer 2 (the 4 output channels, 16 products of 2 C1 terms a
-// position) takes a thread an (o, position), out[o][4m .. 4m + 3] one 16-byte
-// store. Bound at batch 32, W = 11,000, (256, 128): 9.37e10 FLOP, 1.40 ms on
-// the FMA units, against 360.4 MB in + 22.5 MB out (+ 360.4 MB of h): 0.114
-// ms; bound by the FMA units (3xTF32 on the tensor cores: 0.57 ms for its
-// three products). K2b writes h from hsE / hsO.
+// KB; layer 1's 8 warps of 32 rows x 16 columns). That kernel holds W1'
+// whole in shared memory: 528 KB at C = 256, against the 232.4 KB a block
+// may have. Bound at batch 32, W = 11,000, (256, 128): 9.52e10 FLOP, 0.192
+// ms at the TF32 peak (0.58 ms for 3xTF32's three products; 1.42 ms on the
+// FMA units), against 360.4 MB in + 22.5 MB out (+ 360.4 MB of h for K2b):
+// 0.114 ms (0.222 ms); bound by the products.
+// deconv_stem_3xtf32_cluster_kernel<256, 128> runs both layers in 3xTF32 on
+// mma.sync as the kernel above does, with h's channels cut into quarters
+// across a cluster of CLUSTER = 4 blocks:
+// - block r of a cluster keeps the rows of W1' of h channels 32 r .. 32 r +
+//   31, both phases (132 KB), in shared memory for its lifetime, and layer
+//   2's W2' columns of those channels as split B fragments in registers. The
+//   clusters are persistent (as many as the card runs at once) and the four
+//   blocks of a cluster walk the same tiles of TILE = 60 positions.
+// - Each block loads the whole q tile (all C channels, the depth of layer 1:
+//   the other three blocks' copies come from L2) in two halves of its
+//   channels, by cp.async, each half streaming in for the next tile as soon
+//   as every warp is done with it, as above; computes its 32 channels of h
+//   (the quarter's 64 rows of W1' by 64 columns) as two chains, W1''s q[r-1]
+//   columns and its q[r] ones (the plain version's two taps a phase), 4
+//   warps each of 32 rows x 32 columns: 16 splits a k8 step for 24 products,
+//   where one chain of 8 warps of 32 x 16 would split once a product. The
+//   second chain's sums reach the first's warps through shared memory (over
+//   hsE and hsO), which add them, + b1, ReLU. Then layer 2's 16-row partial
+//   output over those channels, as two chains (row sets h[2l], h[2l-1] and
+//   h[2l+1], h[2l+2]) added in fp32.
+// - The four blocks' partials are summed through distributed shared memory:
+//   block r reads positions 16 r .. 16 r + 15 of each block's partial
+//   (ld.shared::cluster) and adds them in block order, + b2, then stores
+//   out[o][4l .. 4l + 3] 16 B a thread. A fixed order: a call gives the same
+//   bits every run, and no atomics. Cluster barriers (arrive.release /
+//   wait.acquire) order a block's partial before its readers, and its
+//   readers before the next tile's partial.
+// - K2b: each block writes its own channels of h.
+// Shared memory: W1''s quarter 132 KB, q's tile 74 KB, hsE and hsO (65 rows)
+// 18.7 KB, the partial 6 KB, biases: 230.8 KB.
 //
 // Layouts (NCW, as torch): q (B, 128, W), out (B, 4, 4W), hidden (B, 64, 2W)
 // (C and C1 at the other widths).
@@ -636,139 +655,364 @@ deconv_stem_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ w1,
 
 }  // namespace bf16_mma
 
-// ---- fp32 on the FMA units, at the sweep's other widths ----------------------
+// ---- fp32 in 3xTF32 at (256, 128): h's channels in quarters across a cluster -
 
-namespace fp32_fma {
+namespace tf32_cluster {
 
-constexpr int TM = 63;                // positions of q a tile
-constexpr int NA = TM + 1;            // rows a of hsE / hsO: the tile's h and both halo rows
-constexpr int Q_LD = TM + 2 + 3;      // floats a channel of q's window: q[m0 - 1 .. m0 + TM]
-constexpr int H_LD = NA + 4;
-constexpr int CCH = 32;               // input channels a chunk of w1
+constexpr int CLUSTER = 4;            // blocks a cluster, each a quarter of h's channels
+constexpr int TILE = 60;              // positions per tile (a multiple of 4: 16-byte q rows)
+constexpr int N1 = 64;                // layer-1 columns r = m0 .. m0 + 63 (TILE + 1 used)
+constexpr int NQ = N1 + 8;            // q positions m0 - 4 .. m0 + 67 (B loads on 32 banks)
+constexpr int H_ROWS = N1 + 1;        // layer 2 reads rows up to N1; row N1 stays zero
+constexpr int X_LD = N1 + 8;          // floats a row of layer 1's second chain's sums (float2
+                                      // stores and loads on 32 banks)
+constexpr int P_LD = M2 + 8;          // floats a row of a block's partial output
 
-template <int NC, int NC1>
-constexpr int smem_bytes() {
-  return (NC * Q_LD + 2 * NC1 * H_LD + CCH * NC1 * 4 + NC1 * CO * 4 + NC1 + CO) * 4;
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of block `cta`'s shared memory at the local address `addr`.
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr, uint32_t cta) {
+  float4 v;
+  asm volatile("{\n.reg .b32 r;\nmapa.shared::cluster.u32 r, %4, %5;\n"
+               "ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [r];\n}\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr), "r"(cta) : "memory");
+  return v;
 }
 
 template <int NC, int NC1>
-__global__ void __launch_bounds__(THREADS)
-deconv_stem_fma_kernel(const float* __restrict__ q, const float* __restrict__ w1,
-                       const float* __restrict__ b1, const float* __restrict__ w2,
-                       const float* __restrict__ b2, float* __restrict__ out,
-                       float* __restrict__ hidden, int batch, int width) {
-  static_assert(NC % CCH == 0 && NC1 % 8 == 0, "chunks of 32 input channels, 8 warps");
-  constexpr int RC = NC1 / 8;         // layer-1 channels a warp
+struct Layout {
+  static constexpr int QC1 = NC1 / CLUSTER;  // h channels a block
+  static constexpr int M1 = 2 * QC1;    // layer-1 rows: its he channels, then its ho channels
+  static constexpr int K1 = 2 * NC;     // layer-1 depth: q[r-1], then q[r]
+  static constexpr int K2 = 4 * QC1;    // layer-2 depth a block: its channels of the 4 row sets
+  static constexpr int HALF = NC / 2;   // q's channels a cp.async group carries
+  static constexpr int W1_LD = K1 + 4;  // floats a row of W1' (ldmatrix rows on 32 banks)
+  static constexpr int H_LD = QC1 + 4;  // floats a row of hsE / hsO (144 B at QC1 = 32)
+  static constexpr int KS2 = K2 / 16;   // layer 2's k8 steps a warp (half the depth)
+  // shared memory, in bytes from the start
+  static constexpr int W1S = 0;                             // [M1][W1_LD]: the quarter's rows
+  static constexpr int QS = W1S + M1 * W1_LD * 4;           // q's tile [NC][NQ]
+  static constexpr int HSE = QS + NC * NQ * 4;              // hsE[i] = h[2(m0 + i)]
+  static constexpr int HSO = HSE + H_ROWS * H_LD * 4;       // hsO[i] = h[2(m0 + i) - 1]
+  static constexpr int PS = HSO + H_ROWS * H_LD * 4;        // [N1][P_LD]: the partial output
+  static constexpr int B1S = PS + N1 * P_LD * 4;            // the quarter's b1
+  static constexpr int B2S = B1S + QC1 * 4;
+  static constexpr int XS = HSE;                            // [M1][X_LD]: over hsE and hsO
+  static constexpr int SMEM_BYTES = B2S + CO * 4;           // 230,832 at (256, 128)
+  static_assert(M1 == 64 && HALF % 8 == 0 && QC1 % 8 == 0 && PS % 16 == 0,
+                "layer 1's warp tiles, the partial's 16-byte loads");
+  static_assert(CLUSTER * 16 == N1 && THREADS / 32 == 8, "layer 2: 4 x 16 positions x 2 chains");
+  static_assert(M1 * X_LD <= 2 * H_ROWS * H_LD, "layer 1's second chain fits over hsE and hsO");
+};
+
+template <int NC, int NC1>
+__global__ void __launch_bounds__(THREADS, 1)
+deconv_stem_3xtf32_cluster_kernel(const float* __restrict__ q, const float* __restrict__ w1,
+                                  const float* __restrict__ b1, const float* __restrict__ w2,
+                                  const float* __restrict__ b2, float* __restrict__ out,
+                                  float* __restrict__ hidden, int batch, int width) {
+  using L = Layout<NC, NC1>;
+  constexpr int CI = NC, C1 = NC1, QC1 = L::QC1, HALF = L::HALF;
+  constexpr int W1_LD = L::W1_LD, H_LD = L::H_LD, KS2 = L::KS2;
   extern __shared__ float4 smem4[];
-  float* w1s = reinterpret_cast<float*>(smem4);  // [CCH][NC1][4]: a chunk of w1
-  float* w2s = w1s + CCH * NC1 * 4;             // [NC1][CO][4]: w2
-  float* qs = w2s + NC1 * CO * 4;               // [NC][Q_LD]: q[c][m0 - 1 + u]
-  float* hse = qs + NC * Q_LD;                  // [NC1][H_LD]: hsE[a] = h[2(m0 + a)]
-  float* hso = hse + NC1 * H_LD;                // hsO[a] = h[2(m0 + a) - 1]
-  float* b1s = hso + NC1 * H_LD;
-  float* b2s = b1s + NC1;
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* w1s = reinterpret_cast<float*>(smem + L::W1S);
+  float* qs = reinterpret_cast<float*>(smem + L::QS);
+  float* hse = reinterpret_cast<float*>(smem + L::HSE);
+  float* hso = reinterpret_cast<float*>(smem + L::HSO);
+  float* xs = reinterpret_cast<float*>(smem + L::XS);
+  float* ps = reinterpret_cast<float*>(smem + L::PS);
+  float* b1s = reinterpret_cast<float*>(smem + L::B1S);
+  float* b2s = reinterpret_cast<float*>(smem + L::B2S);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tiles_per_row = (width + TM - 1) / TM;
-  const int b = blockIdx.x / tiles_per_row, m0 = (blockIdx.x % tiles_per_row) * TM;
-  const float* qb = q + (size_t)b * NC * width;
+  const int g = lane >> 2, t = lane & 3;
+  const int rank = (int)cluster_rank(), h0 = QC1 * rank;  // this block's h channels
 
-  for (int i = tid; i < NC * (TM + 2); i += THREADS) {
-    const int c = i / (TM + 2), u = i % (TM + 2), m = m0 - 1 + u;
-    qs[c * Q_LD + u] = m >= 0 && m < width ? qb[(size_t)c * width + m] : 0.f;
+  // W1'[n][k] of the quarter: row n < QC1 is he channel h0 + n, row QC1 + n
+  // ho channel h0 + n; column k < C multiplies q[r-1] channel k, column C + c
+  // q[r] channel c: he[r] = q[r-1] W3 + q[r] W1, ho[r-1] = q[r-1] W2 + q[r]
+  // W0. Read along w1's rows: w1[c][h0 .. h0 + QC1 - 1][0 .. 3] is one run.
+  for (int i = tid; i < CI * QC1 * 4; i += THREADS) {
+    const int c = i / (QC1 * 4), o = (i / 4) % QC1, tap = i % 4;
+    const int n = (tap & 1) ? o : QC1 + o, k = tap < 2 ? CI + c : c;
+    w1s[n * W1_LD + k] = w1[((size_t)c * C1 + h0 + o) * 4 + tap];
   }
-  for (int i = tid; i < NC1 * CO * 4; i += THREADS) w2s[i] = w2[i];
-  for (int i = tid; i < NC1; i += THREADS) b1s[i] = b1[i];
-  if (tid < CO) b2s[tid] = b2[tid];
+  for (int i = tid; i < H_LD; i += THREADS) hso[N1 * H_LD + i] = 0.f;  // hsE's: each tile
+  for (int i = tid; i < QC1; i += THREADS) b1s[i] = b1[h0 + i];
+  for (int i = tid; i < CO; i += THREADS) b2s[i] = b2[i];
 
-  // layer 1: hsE[a] = q[m0 + a] W1[1] + q[m0 + a - 1] W1[3] (u = a + 1, a),
-  // hsO[a] = q[m0 + a - 1] W1[2] + q[m0 + a] W1[0], summed over c
-  float ev[RC][2] = {}, od[RC][2] = {};
-  for (int cb = 0; cb < NC; cb += CCH) {
-    __syncthreads();  // the previous chunk's readers are done (the first time: q is in)
-    const float4* src = reinterpret_cast<const float4*>(w1 + (size_t)cb * NC1 * 4);
-    for (int i = tid; i < CCH * NC1; i += THREADS) reinterpret_cast<float4*>(w1s)[i] = src[i];
-    __syncthreads();
-#pragma unroll 2
-    for (int cc = 0; cc < CCH; ++cc) {
-      const float* qc = qs + (cb + cc) * Q_LD;
-      float qa[2], qn[2];
+  // layer 2: warp w takes positions l0 = 16 (w % 4) .. and the row sets 2 kh,
+  // 2 kh + 1 (kh = w / 4) of the quarter's channels. Its B fragments, W2'
+  // rows 8 ni + g at the block's depth k = kh K2/2 + 8 s + t (+ 4): row set k /
+  // QC1, channel h0 + k % QC1, split once and held.
+  const int l0 = 16 * (warp & 3), kh = warp >> 2;
+  uint32_t w2h[KS2][2][2], w2l[KS2][2][2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        qa[r] = qc[lane + 32 * r];      // q[m0 + a - 1]
-        qn[r] = qc[lane + 32 * r + 1];  // q[m0 + a]
+  for (int s = 0; s < KS2; ++s)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = kh * (L::K2 / 2) + 8 * s + t + 4 * e, n = 8 * ni + g;
+        const int tap = w2_tap(k / QC1, n % 4);
+        const float v = tap < 0 ? 0.f : w2[((h0 + k % QC1) * CO + n / 4) * 4 + tap];
+        split(__float_as_uint(v), w2h[s][ni][e], w2l[s][ni][e]);
       }
-#pragma unroll
-      for (int k = 0; k < RC; ++k) {
-        const float4 w = reinterpret_cast<const float4*>(w1s)[cc * NC1 + warp * RC + k];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          ev[k][r] = fmaf(qa[r], w.w, fmaf(qn[r], w.y, ev[k][r]));
-          od[k][r] = fmaf(qn[r], w.x, fmaf(qa[r], w.z, od[k][r]));
+
+  const int tiles_per_row = (width + TILE - 1) / TILE;
+  const long long total = (long long)batch * tiles_per_row;
+  const int stride = gridDim.x / CLUSTER;  // the clusters
+  // qs[ch][u] holds position m0 - 4 + u of channel ch, zero outside [0, W);
+  // one cp.async group a half of the channels
+  const bool aligned = width % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  auto load_q = [&](long long tile, int half) {
+    if (tile < total) {
+      const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+      const float* qb = q + ((size_t)b * CI + half * HALF) * width;
+      float* dst = qs + half * HALF * NQ;
+      if (aligned) {  // whole 16-byte chunks, each inside [0, W) or outside it
+        for (int i = tid; i < HALF * (NQ / 4); i += THREADS) {
+          const int ch = i / (NQ / 4), u = 4 * (i % (NQ / 4)), m = m0 - 4 + u;
+          const bool valid = m >= 0 && m < width;
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                           smem_addr(dst + ch * NQ + u)),
+                       "l"(qb + (size_t)ch * width + (valid ? m : 0)), "r"(valid ? 16 : 0));
+        }
+      } else {  // rows not 16-byte aligned: 4-byte copies
+        for (int i = tid; i < HALF * NQ; i += THREADS) {
+          const int ch = i / NQ, u = i % NQ, m = m0 - 4 + u;
+          const bool valid = m >= 0 && m < width;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                           smem_addr(dst + ch * NQ + u)),
+                       "l"(qb + (size_t)ch * width + (valid ? m : 0)), "r"(valid ? 4 : 0));
         }
       }
     }
-  }
-#pragma unroll
-  for (int k = 0; k < RC; ++k) {
-    const int c1 = warp * RC + k;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int a = lane + 32 * r, m = m0 + a;
-      hse[c1 * H_LD + a] = m < width ? fmaxf(ev[k][r] + b1s[c1], 0.f) : 0.f;
-      hso[c1 * H_LD + a] = m >= 1 && m <= width ? fmaxf(od[k][r] + b1s[c1], 0.f) : 0.f;
-    }
-  }
-  __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
 
-  // layer 2: out[4m + j] of channel o from hsE[a], hsO[a], hsO[a + 1], hsE[a + 1]
-  {
-    const int o = tid / 64, a = tid % 64, m = m0 + a;
-    if (a < TM && m < width) {
-      float y0 = 0.f, y1 = 0.f, y2 = 0.f, y3 = 0.f;
-      for (int c1 = 0; c1 < NC1; ++c1) {
-        const float4 w = reinterpret_cast<const float4*>(w2s)[c1 * CO + o];
-        const float e0 = hse[c1 * H_LD + a], e1 = hse[c1 * H_LD + a + 1];
-        const float d0 = hso[c1 * H_LD + a], d1 = hso[c1 * H_LD + a + 1];
-        y0 = fmaf(d0, w.w, fmaf(e0, w.y, y0));
-        y1 = fmaf(d1, w.x, fmaf(e0, w.z, y1));
-        y2 = fmaf(e0, w.w, fmaf(d1, w.y, y2));
-        y3 = fmaf(e1, w.x, fmaf(d1, w.z, y3));
-      }
-      const float bo = b2s[o];
-      reinterpret_cast<float4*>(out + ((size_t)b * CO + o) * 4 * width)[m] =
-          make_float4(y0 + bo, y1 + bo, y2 + bo, y3 + bo);
-    }
-  }
+  long long tile = blockIdx.x / CLUSTER;
+  load_q(tile, 0);
+  load_q(tile, 1);
+  cluster_arrive();  // (no block reads another's partial yet)
+  for (; tile < total; tile += stride) {
+    const int b = (int)(tile / tiles_per_row), m0 = (int)(tile % tiles_per_row) * TILE;
+    const long long next = tile + stride;
 
-  if (hidden != nullptr) {  // K2b: h[2m] = hsE[a], h[2m + 1] = hsO[a + 1]
-    for (int e = tid; e < NC1 * TM; e += THREADS) {
-      const int c1 = e / TM, a = e % TM, m = m0 + a;
-      if (m < width) {
-        float* dst = hidden + ((size_t)b * NC1 + c1) * 2 * width + 2 * m;
-        dst[0] = hse[c1 * H_LD + a];
-        dst[1] = hso[c1 * H_LD + a + 1];
+    // layer 1 as two chains: warp (kg, wm, wn) takes rows 32 wm .. (the
+    // quarter's he channels for wm = 0, its ho channels for wm = 1) x columns
+    // 32 wn .. over W1''s q[r-1] columns (kg = 0) or its q[r] ones (kg = 1);
+    // k8 steps over q's channels 0 .. C/2 - 1, then C/2 .. C - 1 (the halves
+    // of C, as the kernel above)
+    const int kg = warp >> 2, wm = (warp >> 1) & 1, wn = warp & 1;
+    float acc[2][4][4] = {};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // half 0: its channels are in, and the previous tile's readers of hsE
+      // and hsO are done; half 1: its channels are in, and every warp is done
+      // with half 0, whose buffer the next tile then fills
+      if (half == 0) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      else asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (half == 1) load_q(next, 0);
+#pragma unroll 4
+      for (int s = 0; s < HALF / 8; ++s) {
+        const int ch0 = half * HALF + 8 * s, k0 = kg * CI + ch0;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          uint32_t r[4];
+          ldsm_x4(r, w1s + (32 * wm + 16 * mi + (lane & 15)) * W1_LD + k0 + (lane >> 4) * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split(r[e], ah[mi][e], al[mi][e]);
+        }
+        // column r = m0 + lambda reads q[r - 1] at u = lambda + 3, q[r] at lambda + 4
+        const float* col = qs + (ch0 + t) * NQ + 32 * wn + g + 3 + kg;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split(__float_as_uint(col[8 * ni]), bh0, bl0);
+          split(__float_as_uint(col[8 * ni + 4 * NQ]), bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
+        }
       }
     }
+    __syncthreads();  // every warp is done with q
+    load_q(next, 1);
+
+    // he[r] = (q[r-1] W3 + q[r] W1) + b1, ho[r-1] = (q[r-1] W2 + q[r] W0) + b1:
+    // the q[r] chain's sums reach the q[r-1] chain's warps through xs
+    if (kg == 1) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2)
+            *reinterpret_cast<float2*>(xs + (32 * wm + 16 * mi + g + 8 * r2) * X_LD + 32 * wn +
+                                       8 * ni + 2 * t) =
+                make_float2(acc[mi][ni][2 * r2], acc[mi][ni][2 * r2 + 1]);
+    }
+    __syncthreads();
+    if (kg == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                xs + (32 * wm + 16 * mi + g + 8 * r2) * X_LD + 32 * wn + 8 * ni + 2 * t);
+            acc[mi][ni][2 * r2] += x.x;
+            acc[mi][ni][2 * r2 + 1] += x.y;
+          }
+    }
+    __syncthreads();  // xs is read: hsE and hsO take h
+    // + b1, ReLU, zero outside [0, 2W) (he[r]: r < W; ho[r-1]: 1 <= r <= W)
+    if (kg == 0) {
+      const bool he = wm == 0;
+      float* hs = he ? hse : hso;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = 16 * mi + g + 8 * (i >> 1);
+            const int lam = 32 * wn + 8 * ni + 2 * t + (i & 1), r = m0 + lam;
+            const bool inside = he ? r < width : (r >= 1 && r <= width);
+            hs[lam * H_LD + c] = inside ? fmaxf(acc[mi][ni][i] + b1s[c], 0.f) : 0.f;
+          }
+    } else if (tid - THREADS / 2 < H_LD) {
+      hse[N1 * H_LD + tid - THREADS / 2] = 0.f;  // xs reached over hsE's last row
+    }
+    __syncthreads();
+
+    if (hidden != nullptr) {  // K2b: h[2(m0 + i)], h[2(m0 + i) + 1] of channel h0 + c
+      for (int blk = warp; blk < (N1 / 8) * (QC1 / 4); blk += THREADS / 32) {
+        const int i = 8 * (blk / (QC1 / 4)) + (lane & 7);
+        const int c = 4 * (blk % (QC1 / 4)) + (lane >> 3);
+        if (i < TILE && m0 + i < width)
+          *reinterpret_cast<float2*>(hidden + ((size_t)b * C1 + h0 + c) * 2 * width +
+                                     2 * (m0 + i)) =
+              make_float2(hse[i * H_LD + c], hso[(i + 1) * H_LD + c]);
+      }
+    }
+
+    // layer 2: out^T (positions x 16) over the quarter's channels =
+    // [h[2l]; h[2l-1]; h[2l+1]; h[2l+2]]^T . W2'^T, the row sets 2 kh, 2 kh + 1
+    float acc2[2][4] = {};
+#pragma unroll
+    for (int s = 0; s < KS2; ++s) {
+      // row set 0: h[2l] = hsE[l], 1: h[2l-1] = hsO[l], 2: hsO[l+1], 3: hsE[l+1]
+      const int k0 = kh * (L::K2 / 2) + 8 * s, set = k0 / QC1;
+      const float* hs = (set == 0 || set == 3) ? hse : hso;
+      uint32_t r[4], ah[4], al[4];
+      ldsm_x4(r, hs + (l0 + (lane & 15) + (set >= 2)) * H_LD + k0 % QC1 + (lane >> 4) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(r[e], ah[e], al[e]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        mma_3xtf32(acc2[ni], ah, al, w2h[s][ni][0], w2h[s][ni][1], w2l[s][ni][0],
+                   w2l[s][ni][1]);
+    }
+    // the block's partial = the first chain + the second, in ps[l][4o + j]
+    cluster_wait();  // every block is done reading the previous tile's partial
+    if (kh == 1) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2)
+          *reinterpret_cast<float2*>(ps + (l0 + g + 8 * r2) * P_LD + 8 * ni + 2 * t) =
+              make_float2(acc2[ni][2 * r2], acc2[ni][2 * r2 + 1]);
+    }
+    __syncthreads();
+    if (kh == 0) {
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int r2 = 0; r2 < 2; ++r2) {
+          float2* p = reinterpret_cast<float2*>(ps + (l0 + g + 8 * r2) * P_LD + 8 * ni + 2 * t);
+          *p = make_float2(acc2[ni][2 * r2] + p->x, acc2[ni][2 * r2 + 1] + p->y);
+        }
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's partial is in
+
+    // out[o][4l .. 4l + 3], l = 16 rank .. 16 rank + 15: the blocks' partials
+    // in block order, + b2
+    if (tid < 64) {
+      const int l = 16 * rank + (tid >> 2), o = tid & 3;
+      if (l < TILE && m0 + l < width) {
+        const uint32_t at = smem_addr(ps + l * P_LD + 4 * o);
+        float4 v = ld_cluster(at, 0);
+#pragma unroll
+        for (int cta = 1; cta < CLUSTER; ++cta) {
+          const float4 p = ld_cluster(at, cta);
+          v.x += p.x;
+          v.y += p.y;
+          v.z += p.z;
+          v.w += p.w;
+        }
+        const float bo = b2s[o];
+        *reinterpret_cast<float4*>(out + ((size_t)b * CO + o) * 4 * width + 4 * (m0 + l)) =
+            make_float4(v.x + bo, v.y + bo, v.z + bo, v.w + bo);
+      }
+    }
+    cluster_arrive();  // done reading the cluster's partials
   }
+  cluster_wait();  // no block leaves while another may read its partial
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One block a tile.
+// Persistent clusters, as many as the card runs at once (at most one a tile).
 template <int NC, int NC1>
 int launch(const float* q, const float* w1, const float* b1, const float* w2, const float* b2,
            float* out, float* hidden, int batch, int width, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<NC, NC1>();
-  cudaError_t err = cudaFuncSetAttribute(deconv_stem_fma_kernel<NC, NC1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = Layout<NC, NC1>::SMEM_BYTES;
+  auto kernel = deconv_stem_3xtf32_cluster_kernel<NC, NC1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)batch * ((width + TM - 1) / TM);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg)) !=
+      cudaSuccess)
+    return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)batch * ((width + TILE - 1) / TILE);
   if (tiles == 0) return 0;
-  deconv_stem_fma_kernel<NC, NC1><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      q, w1, b1, w2, b2, out, hidden, batch, width);
-  return (int)cudaGetLastError();
+  cfg.gridDim = dim3((unsigned)((tiles < clusters ? tiles : clusters) * CLUSTER), 1, 1);
+  err = cudaLaunchKernelEx(&cfg, kernel, q, w1, b1, w2, b2, out, hidden, batch, width);
+  return (int)err;
 }
 
-}  // namespace fp32_fma
+}  // namespace tf32_cluster
 
 // One persistent block an SM (at most one a tile).
 template <typename T>
@@ -795,9 +1039,10 @@ int launch(void (*kernel)(const T*, const T*, const float*, const T*, const floa
 
 }  // namespace
 
-// fp32 at the sweep's widths c -> c1 -> 4: the default (128, 64) and
-// (64, 32) on the tensor cores (3xTF32), (256, 128) on the FMA units; hidden
-// may be null (K2); otherwise it receives h (K2b).
+// fp32 at the sweep's widths c -> c1 -> 4, all on the tensor cores (3xTF32):
+// the default (128, 64) and (64, 32) with W1' whole in a block, (256, 128) in
+// quarters across a cluster; hidden may be null (K2); otherwise it receives h
+// (K2b).
 extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                                const float* w2, const float* b2, float* out,
                                float* hidden, int batch, int width, int c, int c1,
@@ -811,8 +1056,8 @@ extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
                          tf32_mma::Layout<64, 32>::SMEM_BYTES, THREADS, tf32_mma::TILE, q, w1,
                          b1, w2, b2, out, hidden, batch, width, stream);
   if (c == 256 && c1 == 128)
-    return fp32_fma::launch<256, 128>(q, w1, b1, w2, b2, out, hidden, batch, width,
-                                      (cudaStream_t)stream);
+    return tf32_cluster::launch<256, 128>(q, w1, b1, w2, b2, out, hidden, batch, width,
+                                          (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -821,7 +1066,7 @@ extern "C" int deconv_stem_fwd(const float* q, const float* w1, const float* b1,
 extern "C" int deconv_stem_smem_bytes(int c, int c1) {
   if (c == CI && c1 == C1) return tf32_mma::Layout<CI, C1>::SMEM_BYTES;
   if (c == 64 && c1 == 32) return tf32_mma::Layout<64, 32>::SMEM_BYTES;
-  if (c == 256 && c1 == 128) return fp32_fma::smem_bytes<256, 128>();
+  if (c == 256 && c1 == 128) return tf32_cluster::Layout<256, 128>::SMEM_BYTES;
   return -1;
 }
 

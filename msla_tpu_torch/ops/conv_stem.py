@@ -36,11 +36,12 @@ kernel compute it, for the tests (no wrapper calls them).
 
 Widths: the kernels take 4 → C1 → C2 for (C1, C2) in ``FP32_WIDTHS`` in fp32,
 those of the num_hidden values configs/hparams_search/optuna.yaml samples
-(C2 = num_hidden, C1 = C2 / 2): (64, 128), the default config's, and
-(32, 64) run the 3xTF32 kernel, (128, 256), whose W2′ does not fit in
-shared memory, an fp32 FMA kernel (``csrc/conv_stem.cu``). bf16 takes
-(64, 128). Other widths raise ``ValueError`` on a CUDA tensor; the
-plain version takes any.
+(C2 = num_hidden, C1 = C2 / 2), all in 3xTF32: (64, 128), the default
+config's, and (32, 64) with W2′ whole in a block; (128, 256), whose W2′
+does not fit in a block, with W2′ cut into groups of 64 output channels and
+conv2 run as one partial sum a tap (``conv2_chains``; ``csrc/conv_stem.cu``).
+bf16 takes (64, 128). Other widths raise ``ValueError`` on a CUDA tensor;
+the plain version takes any.
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ from msla_tpu_torch.ops.tf32 import product_3xtf32
 C0, C1, C2 = 4, 64, 128
 #: the (C1, C2) the fp32 kernels are compiled for
 FP32_WIDTHS = ((32, 64), (C1, C2), (128, 256))
+
+
+def conv2_chains(c1: int, c2: int) -> int:
+    """The partial sums the fp32 kernel runs conv2's depth as, added in
+    order: one a tap at (128, 256), where a block holds a group of W2′'s rows
+    and its warps take the taps; one elsewhere."""
+    return 4 if (c1, c2) == (128, 256) else 1
 
 
 def _conv_k4s2p1_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -120,11 +128,20 @@ def conv_stem_phase_ref(x, w1, b1, w2, b2):
 def conv_stem_3xtf32_ref(x, w1, b1, w2, b2):
     """The stem as the fp32 kernel computes it (``_stem_by_phases`` on fp32
     x): both convs in 3xTF32 (``product_3xtf32``) with the kernel's operands,
-    conv1 the windows by W1 over its 16 packed columns, conv2 W2' by the rows
-    over its 256, in their order, one accumulator each. Returns (out, h1) as
-    ``conv_stem_ref``."""
-    return _stem_by_phases(x, w1, b1, w2, b2, lambda p, w: product_3xtf32(p, w.T),
-                           lambda a, w: product_3xtf32(w, a.transpose(1, 2)).transpose(1, 2))
+    conv1 the windows by W1 over its 16 packed columns, one accumulator;
+    conv2 W2' by the rows over its 4·C1 in their order, as ``conv2_chains``
+    accumulators over equal runs of the depth (the taps at (128, 256)),
+    added in order. Returns (out, h1) as ``conv_stem_ref``."""
+    chains = conv2_chains(*widths_of(w1, w2))
+
+    def conv2(a, w):
+        k = w.shape[1] // chains
+        parts = [product_3xtf32(w[:, i * k:(i + 1) * k],
+                                a[..., i * k:(i + 1) * k].transpose(1, 2)).transpose(1, 2)
+                 for i in range(chains)]
+        return sum(parts[1:], parts[0])
+
+    return _stem_by_phases(x, w1, b1, w2, b2, lambda p, w: product_3xtf32(p, w.T), conv2)
 
 
 def widths_of(w1: torch.Tensor, w2: torch.Tensor) -> tuple[int, int]:

@@ -34,11 +34,12 @@ kernel compute it, for the tests (no wrapper calls them).
 
 Widths: the kernels take C → C1 → 4 for (C, C1) in ``FP32_WIDTHS`` in fp32,
 those of the num_hidden values configs/hparams_search/optuna.yaml samples
-(C = num_hidden, C1 = C / 2): (128, 64), the default config's, and
-(64, 32) run the 3xTF32 kernel, (256, 128), whose W1′ does not fit in
-shared memory, an fp32 FMA kernel (``csrc/deconv_stem.cu``). bf16 takes
-(128, 64). Other widths raise ``ValueError`` on a CUDA tensor; the
-plain version takes any.
+(C = num_hidden, C1 = C / 2), all in 3xTF32: (128, 64), the default
+config's, and (64, 32) with W1′ whole in a block; (256, 128), whose W1′
+does not fit in a block, with h's channels cut into quarters over a cluster
+of 4 blocks, whose partial outputs are added in block order
+(``cluster_blocks``; ``csrc/deconv_stem.cu``). bf16 takes (128, 64). Other
+widths raise ``ValueError`` on a CUDA tensor; the plain version takes any.
 """
 from __future__ import annotations
 
@@ -47,8 +48,8 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (aligned, check, count_launch, kernel, needs_grad,
-                                       refuse_widths, require, runs_plain, stream_of)
+from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, refuse_widths,
+                                       require, runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
@@ -131,6 +132,15 @@ def deconv_stem_phase_ref(q, w1, b1, w2, b2):
     return _deconv_by_phases(q, w1, b1, w2, b2, mm, mm)
 
 
+def cluster_blocks(c: int, c1: int) -> int:
+    """The blocks the fp32 kernel cuts h's channels over: 4, a cluster, at
+    (256, 128), where the first layer runs as two chains (W1′'s q[r-1]
+    columns, then its q[r] ones, each over q's channels in order) and each
+    block's partial output of the second layer is added in block order; one
+    elsewhere."""
+    return 4 if (c, c1) == (256, 128) else 1
+
+
 def _layer1_order(c: int) -> torch.Tensor:
     """W1''s columns in the order the fp32 kernel's first layer takes them: q's
     channels [0, c/2) at r-1 and at r, then [c/2, c) at r-1 and at r (the two
@@ -142,18 +152,33 @@ def _layer1_order(c: int) -> torch.Tensor:
 def deconv_stem_3xtf32_ref(q, w1, b1, w2, b2):
     """The stem as the fp32 kernel computes it (``_deconv_by_phases`` on fp32
     q), both layers in 3xTF32 (``product_3xtf32``) with the kernel's operands:
-    the first W1' by the columns over its 256 in ``_layer1_order``, one
-    accumulator; the second the rows by W2'ᵀ, as two accumulators over the
-    row sets h[2l], h[2l-1] and h[2l+1], h[2l+2], added in fp32 before b2.
-    Returns (out, h) as ``deconv_stem_ref``."""
+    the first W1' by the columns over its 2·C in ``_layer1_order``, one
+    accumulator (on a cluster, ``cluster_blocks``: the q[r-1] columns and the
+    q[r] ones as two, added in fp32); the second the rows by W2'ᵀ for each
+    block's group of h's channels, as two accumulators over the row sets
+    h[2l], h[2l-1] and h[2l+1], h[2l+2] of the group's channels, added in
+    fp32; the groups' sums added in order before b2. Returns (out, h) as
+    ``deconv_stem_ref``."""
+    groups = cluster_blocks(*widths_of(w1))
+
     def layer1(w, cols):
+        if groups > 1:
+            c = cols.shape[1] // 2
+            return product_3xtf32(w[:, :c], cols[:, :c]) + product_3xtf32(w[:, c:], cols[:, c:])
         order = _layer1_order(cols.shape[1] // 2).to(cols.device)
         return product_3xtf32(w[:, order], cols[:, order])
 
     def layer2(w, rows):
-        k = rows.shape[1] // 2
-        half = lambda s: product_3xtf32(rows[:, s].transpose(1, 2), w[:, s].T)
-        return (half(slice(0, k)) + half(slice(k, None))).transpose(1, 2)
+        c1 = rows.shape[1] // 4
+        n = c1 // groups
+
+        def chain(group, sets):  # the group's channels of each row set, in order
+            k = torch.cat([torch.arange(s * c1 + group * n, s * c1 + (group + 1) * n)
+                           for s in sets]).to(rows.device)
+            return product_3xtf32(rows[:, k].transpose(1, 2), w[:, k].T)
+
+        parts = [chain(group, (0, 1)) + chain(group, (2, 3)) for group in range(groups)]
+        return sum(parts[1:], parts[0]).transpose(1, 2)
 
     return _deconv_by_phases(q, w1, b1, w2, b2, layer1, layer2)
 
@@ -175,7 +200,6 @@ def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     require("deconv_stem", b1, "b1", (c1,))
     require("deconv_stem", w2, "w2", (c1, C_OUT, 4), dtype=dt)
     require("deconv_stem", b2, "b2", (C_OUT,))
-    w1 = aligned(w1)  # the FMA kernel reads it 16 bytes at a time
     out = torch.empty((b, C_OUT, 4 * w), dtype=dt, device=q.device)
     h = torch.empty((b, c1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
     args = (q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

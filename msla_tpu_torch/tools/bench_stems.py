@@ -1,5 +1,6 @@
 """Where the hand-written kernels' time goes: the fp32 stems (K1/K1b
-``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``), the VQ search (K3
+``csrc/conv_stem.cu``, K2/K2b ``csrc/deconv_stem.cu``, at the default widths
+and at num_hidden 256's), the VQ search (K3
 ``csrc/nearest_codes.cu``, #4 ``csrc/vq_fused.cu``'s forward and #8
 ``csrc/vq_lean.cu``, all on ``csrc/vq_search.cuh``), in 3xTF32, #9's
 forwards (``csrc/vq_precision.cu``: bf16/split2, bf16/f32 and split3/split2
@@ -15,7 +16,8 @@ or another layout, and of another commit's sources:
 - "kernel": the sources as they are, the wrappers' kernels (checked equal to
   the wrappers' outputs bit for bit, and to the plain versions: the stems at
   atol = rtol = 1e-4, each id of K3, #4, #8 and #9 equal or a near-tie on its
-  own distance, #4's q equal to codebook[id]);
+  own distance, #4's q equal to codebook[id]; the stems also the same bits on
+  a second launch);
 - "no split": ``tf32_split.cuh``'s split() without its arithmetic (hi = lo =
   x), the same products on unsplit operands: the split's ALU work is the
   difference (its sums are wrong and not checked); not for #9, which has no
@@ -36,7 +38,8 @@ or another layout, and of another commit's sources:
   ``msla_tpu_torch/csrc``, such as the parent's unpacked by ``git archive``):
   that commit's sources, checked as "kernel" is against the plain versions
   (the segment sums within 1e-5 of the largest |entry| of fp64's; "kernel"'s
-  bit for bit against ``codebook_grad_order_ref`` at the card's grid). Its
+  bit for bit against ``codebook_grad_order_ref`` at the card's grid), its
+  stems' bit-equality with this tree's printed. Its
   entry points must take the widths as these do (the fp32 stems' channels,
   the VQ kernels' D): a tree whose ``conv_stem.cu`` does not export
   ``conv_stem_smem_bytes`` is older and is refused.
@@ -80,8 +83,9 @@ STEMS = ("conv_stem", "deconv_stem")
 SEARCH = ("nearest_codes", "vq_fused", "vq_lean")
 TF32 = STEMS + SEARCH           # the 3xTF32 sources, which the TF32 probes edit
 SOURCES = TF32 + ("vq_precision",)
-#: the fp32 stems' widths their entry points take: (C1, C2) and (C, C1)
-WIDTHS = {"conv_stem": (64, 128), "deconv_stem": (128, 64)}
+#: the fp32 stems' widths timed, (C1, C2) and (C, C1): the default's and
+#: num_hidden 256's, the first labelled K1 / K2, the second e.g. "K1 [128x256]"
+WIDTHS = {"conv_stem": ((64, 128), (128, 256)), "deconv_stem": ((128, 64), (256, 128))}
 ENTRY = {"conv_stem": "conv_stem_fwd", "deconv_stem": "deconv_stem_fwd",
          "nearest_codes": "nearest_codes_fwd", "vq_fused": "vq_fused_fwd",
          "vq_lean": "vq_lean_fwd", "vq_precision": "vq_precision_fwd"}
@@ -197,20 +201,26 @@ def segment_sum_cases(name: str, lib: ctypes.CDLL, source: str, g: torch.Tensor,
 
 
 def operands(dev: torch.device):
-    """K1's (x, w1, b1, w2, b2), K2's (q, ...), fp32, seed 0; and the search's
-    (x, codebook)."""
+    """The stems' (x or q, w1, b1, w2, b2) by (source, widths), fp32, seed 0;
+    and the search's (x, codebook)."""
     torch.manual_seed(0)
-    enc = (torch.nn.Conv1d(4, 64, 4, device=dev), torch.nn.Conv1d(64, 128, 4, device=dev))
-    dec = (torch.nn.ConvTranspose1d(128, 64, 4, device=dev),
-           torch.nn.ConvTranspose1d(64, 4, 4, device=dev))
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((BATCH, 4, T), generator=g, device=dev) * 0.3
-    q = torch.rand((BATCH, 128, T // 4), generator=g, device=dev)
-    flat = torch.randn((N, 64), generator=g, device=dev)
-    cb = torch.randn((K, 64), generator=g, device=dev)
     weights = lambda convs: (convs[0].weight.detach(), convs[0].bias.detach(),
                              convs[1].weight.detach(), convs[1].bias.detach())
-    return (x, *weights(enc)), (q, *weights(dec)), (flat, cb)
+    convs = {}
+    for c1, c2 in WIDTHS["conv_stem"]:
+        convs["conv_stem", (c1, c2)] = weights((torch.nn.Conv1d(4, c1, 4, device=dev),
+                                                torch.nn.Conv1d(c1, c2, 4, device=dev)))
+    for c, c1 in WIDTHS["deconv_stem"]:
+        convs["deconv_stem", (c, c1)] = weights((torch.nn.ConvTranspose1d(c, c1, 4, device=dev),
+                                                 torch.nn.ConvTranspose1d(c1, 4, 4, device=dev)))
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((BATCH, 4, T), generator=g, device=dev) * 0.3
+    stems = {key: (x if key[0] == "conv_stem" else
+                   torch.rand((BATCH, key[1][0], T // 4), generator=g, device=dev), *w)
+             for key, w in convs.items()}
+    flat = torch.randn((N, 64), generator=g, device=dev)
+    cb = torch.randn((K, 64), generator=g, device=dev)
+    return stems, (flat, cb)
 
 
 def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb,
@@ -252,10 +262,12 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                          f"the widths (no conv_stem_smem_bytes); compare with a later tree")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    k1, k2, (flat, cb) = operands(dev)
+    stems, (flat, cb) = operands(dev)
     with torch.no_grad():
-        plain = {"conv_stem": conv_stem_ref(*k1)[0], "deconv_stem": deconv_stem_ref(*k2)[0]}
-        wrapper = {"conv_stem": conv_stem(*k1), "deconv_stem": deconv_stem(*k2)}
+        plain = {key: (conv_stem_ref if key[0] == "conv_stem" else deconv_stem_ref)(*a)[0]
+                 for key, a in stems.items()}
+        wrapper = {key: (conv_stem if key[0] == "conv_stem" else deconv_stem)(*a)
+                   for key, a in stems.items()}
         plain_ids = nearest_codes_ref(flat, cb)
         wrapper_ids = nearest_codes(flat, cb)
         wrapper_fused = vq_fused_fwd(flat, cb)
@@ -263,11 +275,10 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
         modes = [(f"{d}/{q}", d, q) for d, q in COMPILED]
         wrapper_prec = {m: vq_precision_fwd(flat, cb, d, q) for m, d, q in modes}
         plain_prec = {m: vq_precision_fwd_ref(flat, cb, d, q)[1] for m, d, q in modes}
-    x, w1, b1, w2, b2 = k1
-    args = {"conv_stem": (x, w1.permute(1, 2, 0).contiguous(), b1,  # the wrapper's layout
-                          w2.permute(1, 2, 0).contiguous(), b2),
-            "deconv_stem": k2}
-    hidden = {"conv_stem": (BATCH, 64, T // 2), "deconv_stem": (BATCH, 64, T // 2)}
+    args = {key: a if key[0] == "deconv_stem" else  # K1's weights in the wrapper's layout
+            (a[0], a[1].permute(1, 2, 0).contiguous(), a[2], a[3].permute(1, 2, 0).contiguous(),
+             a[4])
+            for key, a in stems.items()}
     e2 = code_norms(cb)
     counts, sq, counts_i, sq_part, parts = count_outputs(K, dev)
     hi, lo = split_bf16(cb)
@@ -286,25 +297,38 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
             return
         fn = entry(libs[name, source], ENTRY[source])
         if source in STEMS:
-            for with_hidden in (False, True):
-                a = args[source]
-                out = torch.empty(plain[source].shape, device=dev)  # contiguous
-                h = torch.empty(hidden[source], device=dev) if with_hidden else None
+            for widths in WIDTHS[source]:
+                for with_hidden in (False, True):
+                    key = source, widths
+                    a = args[key]
+                    out = torch.empty(plain[key].shape, device=dev)  # contiguous
+                    c1 = widths[0] if source == "conv_stem" else widths[1]  # the hidden's channels
+                    h = torch.empty((BATCH, c1, T // 2), device=dev) if with_hidden else None
 
-                def run(fn=fn, a=a, out=out, h=h):
-                    check(name, fn(*(t.data_ptr() for t in a), out.data_ptr(),
-                                   None if h is None else h.data_ptr(), BATCH, a[0].shape[-1],
-                                   *WIDTHS[source], stream_of(a[0])))
+                    def run(fn=fn, a=a, out=out, h=h, widths=widths):
+                        check(name, fn(*(t.data_ptr() for t in a), out.data_ptr(),
+                                       None if h is None else h.data_ptr(), BATCH, a[0].shape[-1],
+                                       *widths, stream_of(a[0])))
 
-                def verify(out=out, source=source):
-                    if name == "kernel" and not torch.equal(out, wrapper[source]):
-                        raise RuntimeError(f"bench_stems: the {source} build differs from "
-                                           f"the wrapper's kernel")
-                    torch.testing.assert_close(out, plain[source], atol=1e-4, rtol=1e-4)
+                    label = {"conv_stem": "K1", "deconv_stem": "K2"}[source] + \
+                        ("b" if with_hidden else "") + \
+                        ("" if widths == WIDTHS[source][0] else f" [{widths[0]}x{widths[1]}]")
 
-                label = {"conv_stem": "K1", "deconv_stem": "K2"}[source] + \
-                    ("b" if with_hidden else "")
-                yield label, run, verify
+                    def verify(out=out, key=key, run=run, label=label):
+                        first = out.clone()
+                        run()
+                        if not torch.equal(out, first):
+                            raise RuntimeError(f"bench_stems: {name} {label}: a second launch gave "
+                                               f"other bits")
+                        if name == "kernel" and not torch.equal(out, wrapper[key]):
+                            raise RuntimeError(f"bench_stems: the {key[0]} build differs from "
+                                               f"the wrapper's kernel")
+                        if name == "previous":
+                            print(f"[bench_stems] previous {label}: the wrapper's bits: "
+                                  f"{torch.equal(out, wrapper[key])}", flush=True)
+                        torch.testing.assert_close(out, plain[key], atol=1e-4, rtol=1e-4)
+
+                    yield label, run, verify
         elif source == "nearest_codes":
             ids = torch.empty((N,), dtype=torch.int32, device=dev)
 

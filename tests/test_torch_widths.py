@@ -3,15 +3,17 @@ samples, on the CPU, against the JAX package.
 
 * the plain stems (K1/K1b, K2/K2b) at num_hidden 64, 128 and 256 against the
   Pallas stems in interpret mode, output and hidden, atol = rtol = 1e-5, and
-  the 3xTF32 emulations where the 3xTF32 kernels run (64 and 128);
+  the 3xTF32 emulations, as the kernels sum at each width (at 256 conv2 as
+  one partial sum a tap, K2's second layer as a cluster's four partials);
 * the plain VQ search and fused forward fields (K3, #4) and the codebook
   gradient (#5) at each (K, D) of {128, 256, 512} x {64, 128, 256} against
   the Pallas kernels in interpret mode: ids and q bit-equal, counts equal,
   sq and the gradient at 1e-5;
 * the kernels' arithmetic emulated at the new widths against fp64: the
-  stems within chip_smoke.py's accumulation bound of the kernel that runs
-  them (3xTF32 at num_hidden 64, fp32 FMA at 256; single-pass TF32 products
-  outside both); the 3xTF32 search (``nearest_codes_3xtf32_ref``)
+  plain stems and the 3xTF32 emulations within chip_smoke.py's 3xTF32
+  accumulation bound at num_hidden 64 and 256 (single-pass TF32 products
+  outside it); the chains' order of the emulations at 256; the 3xTF32 search
+  (``nearest_codes_3xtf32_ref``)
   every id the fp64 pick or a near-tie; the codebook gradient's order
   (``codebook_grad_order_ref`` over D / 64 column slices) bit-equal to a
   plain loop over the rows and within ``segment_sum_bound``;
@@ -40,13 +42,13 @@ from msla_tpu.ops.deconv_stem import deconv_stem_pallas
 from msla_tpu.ops.vq_pallas import nearest_codes_pallas
 from msla_tpu_torch.ops import segment_sum
 from msla_tpu_torch.ops.conv_stem import (C1, C2, FP32_WIDTHS as CONV_WIDTHS,
-                                          conv_stem_3xtf32_ref, conv_stem_ref)
+                                          conv_stem_3xtf32_ref, conv_stem_ref, stem_operands)
 from msla_tpu_torch.ops.deconv_stem import (FP32_WIDTHS as DECONV_WIDTHS, deconv_stem_3xtf32_ref,
-                                            deconv_stem_ref)
+                                            deconv_stem_ref, phase_operands)
 from msla_tpu_torch.ops._build import CSRC, SIGNATURES, SMEM_BYTES, refuse_widths
 from msla_tpu_torch.ops.nearest_codes import (WIDTHS, check_codes, nearest_codes_3xtf32_ref,
                                               nearest_codes_ref, search_smem_bytes)
-from msla_tpu_torch.ops.tf32 import tf32_round_ref
+from msla_tpu_torch.ops.tf32 import product_3xtf32, tf32_round_ref
 from msla_tpu_torch.ops.vq_fused import grad_smem_bytes, vq_codebook_grad_ref, vq_fused_fwd_ref
 
 REPO = Path(__file__).resolve().parents[1]
@@ -61,7 +63,6 @@ def _choices(name: str) -> list[int]:
 
 
 HIDDEN = _choices("num_hidden")                  # 64, 128, 256
-FMA_HIDDEN = 256                                 # the stems' FMA kernels' width; 3xTF32 below
 CODES = [(k, d) for k in _choices("num_embedding") for d in _choices("embedding_dim")]
 
 
@@ -102,10 +103,9 @@ def test_encoder_stem_matches_jax_pallas_at_sweep_width(hidden):
     assert got.shape == (2, hidden, 24) and h1.shape == (2, hidden // 2, 48)
     np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
     np.testing.assert_allclose(h1.numpy(), ncw(want_h).numpy(), **TOL)
-    if hidden != FMA_HIDDEN:
-        got, h1 = conv_stem_3xtf32_ref(*_port(*args))
-        np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
-        np.testing.assert_allclose(h1.numpy(), ncw(want_h).numpy(), **TOL)
+    got, h1 = conv_stem_3xtf32_ref(*_port(*args))
+    np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
+    np.testing.assert_allclose(h1.numpy(), ncw(want_h).numpy(), **TOL)
 
 
 @pytest.mark.parametrize("hidden", HIDDEN)
@@ -116,10 +116,9 @@ def test_decoder_stem_matches_jax_pallas_at_sweep_width(hidden):
     assert got.shape == (2, 4, 96) and h.shape == (2, hidden // 2, 48)
     np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
     np.testing.assert_allclose(h.numpy(), ncw(want_h).numpy(), **TOL)
-    if hidden != FMA_HIDDEN:
-        got, h = deconv_stem_3xtf32_ref(*_port(*args))
-        np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
-        np.testing.assert_allclose(h.numpy(), ncw(want_h).numpy(), **TOL)
+    got, h = deconv_stem_3xtf32_ref(*_port(*args))
+    np.testing.assert_allclose(got.numpy(), ncw(want).numpy(), **TOL)
+    np.testing.assert_allclose(h.numpy(), ncw(want_h).numpy(), **TOL)
 
 
 @pytest.mark.parametrize("k,d", CODES)
@@ -154,28 +153,88 @@ def _one_pass(x, w1, b1, w2, b2, transposed):
     return (out if transposed else torch.relu(out)), h
 
 
-@pytest.mark.parametrize("hidden", [64, FMA_HIDDEN])
+@pytest.mark.parametrize("hidden", [64, 256])
 @pytest.mark.parametrize("transposed", [False, True], ids=["K1", "K2"])
 def test_stem_bound_holds_at_the_new_widths(hidden, transposed):
-    """num_hidden 64 runs the 3xTF32 kernels at (32, 64) and (64, 32): the
-    plain fp32 stem and the 3xTF32 emulation, output and hidden, sit inside
-    chip_smoke.py's 3xTF32 accumulation bound; 256 runs the fp32 FMA kernels:
-    the plain stem sits inside the fp32 FMA bound. Single-pass TF32 products
-    do not, and ``stem_fp64_share`` fails on them."""
+    """num_hidden 64 and 256 run the 3xTF32 kernels at (32, 64) and (64, 32),
+    (128, 256) and (256, 128): the plain fp32 stem and the 3xTF32 emulation,
+    output and hidden, sit inside chip_smoke.py's 3xTF32 accumulation bound
+    (at 256 with the constant of the kernels' extra partial sums);
+    single-pass TF32 products do not, and ``stem_fp64_share`` fails on
+    them."""
     cs = _chip_smoke()
-    fma = hidden == FMA_HIDDEN
-    model = "fp32 FMA" if fma else "3xTF32"
     if transposed:
         args = _port(*_deconv_inputs(64, hidden, hidden // 2, seed=7))
-        stems = [deconv_stem_ref(*args)] + ([] if fma else [deconv_stem_3xtf32_ref(*args)])
+        stems = [deconv_stem_ref(*args), deconv_stem_3xtf32_ref(*args)]
     else:
         args = _port(*_stem_inputs(256, hidden // 2, hidden, seed=8))
-        stems = [conv_stem_ref(*args)] + ([] if fma else [conv_stem_3xtf32_ref(*args)])
-    bounds = cs.stem_accumulation_bound(*args, transposed=transposed, fma=fma)
+        stems = [conv_stem_ref(*args), conv_stem_3xtf32_ref(*args)]
+    bounds = cs.stem_accumulation_bound(*args, transposed=transposed)
     for stem in stems:
-        assert cs.stem_fp64_share("fp32", bounds, *stem, model=model) < 1
-    with pytest.raises(RuntimeError, match=f"{model} accumulation"):
-        cs.stem_fp64_share("one pass", bounds, *_one_pass(*args, transposed), model=model)
+        assert cs.stem_fp64_share("fp32", bounds, *stem) < 1
+    with pytest.raises(RuntimeError, match="3xTF32 accumulation"):
+        cs.stem_fp64_share("one pass", bounds, *_one_pass(*args, transposed))
+
+
+@pytest.mark.parametrize("transposed", [False, True], ids=["K1", "K2"])
+def test_3xtf32_emulation_sums_in_the_kernels_order_at_256(transposed):
+    """At num_hidden 256 the emulation's layers are the kernels' partial sums
+    added in order, rebuilt here from its own hidden: K1's conv2 one 3xTF32
+    chain a tap over 128 rows of the depth, relu((((P0 + P1) + P2) + P3) +
+    b2); K2's first layer a chain over W1''s q[r-1] columns plus one over
+    its q[r] columns, + b1, and its second layer, for each of the cluster's 4
+    blocks, a chain over its 32 channels of row sets 0-1 plus one over row
+    sets 2-3, the blocks' partials added in block order, + b2. One chain over
+    the whole depth gives other bits."""
+    if transposed:
+        q, w1, b1, w2, b2 = _port(*_deconv_inputs(24, 256, 128, seed=9))
+        out, h = deconv_stem_3xtf32_ref(q, w1, b1, w2, b2)
+        zero = h.new_zeros((2, 128, 1))
+        he = torch.cat([h[..., 0::2], zero], 2)          # he[r] = h[2r], r = 0 .. W
+        ho = torch.cat([zero, h[..., 1::2]], 2)          # ho[r] = h[2r - 1]
+        rows = torch.cat([he[..., :-1], ho[..., :-1], ho[..., 1:], he[..., 1:]], 1)
+        w1p, w2p = phase_operands(w1, w2)
+        qp = F.pad(q, (1, 1))                            # q[-1] .. q[W]
+        cols = torch.cat([qp[..., :-1], qp[..., 1:]], 1)  # [q[r-1]; q[r]], r = 0 .. W
+        pre = product_3xtf32(w1p[:, :256], cols[:, :256]) + product_3xtf32(w1p[:, 256:],
+                                                                           cols[:, 256:])
+        hr = torch.relu(pre + b1.repeat(2)[:, None])     # [he[r]; ho[r - 1]]
+        assert torch.equal(h[..., 0::2], hr[:, :128, :24])
+        assert torch.equal(h[..., 1::2], hr[:, 128:, 1:])
+        assert not torch.equal(pre, product_3xtf32(w1p, cols))
+
+        def chain(k):
+            return product_3xtf32(rows[:, k].transpose(1, 2), w2p[:, k].T)
+
+        def group(r, sets):
+            return chain(torch.cat([torch.arange(128 * s + 32 * r, 128 * s + 32 * r + 32)
+                                    for s in sets]))
+
+        def packed(sums):
+            y = sums.transpose(1, 2) + b2.repeat_interleave(4)[:, None]
+            return y.view(2, 4, 4, 24).transpose(2, 3).flatten(2)
+
+        parts = [group(r, (0, 1)) + group(r, (2, 3)) for r in range(4)]
+        want = packed(((parts[0] + parts[1]) + parts[2]) + parts[3])
+        whole = packed(chain(torch.arange(512)))
+    else:
+        x, w1, b1, w2, b2 = _port(*_stem_inputs(96, 128, 256, seed=10))
+        out, h1 = conv_stem_3xtf32_ref(x, w1, b1, w2, b2)
+        h = h1.transpose(1, 2)                           # (B, T/2, C1)
+        zero = h.new_zeros((2, 1, 128))
+        h_e = torch.cat([h[:, 0::2], zero], 1)           # hE[i] = h1[2i], i = 0 .. T/4
+        h_o = torch.cat([zero, h[:, 1::2]], 1)           # hO[i] = h1[2i - 1]
+        taps = torch.cat([h_o[:, :-1], h_e[:, :-1], h_o[:, 1:], h_e[:, 1:]], 2)
+        w2p = stem_operands(w1, w2)[1]
+
+        def chain(s):
+            return product_3xtf32(w2p[:, s], taps[..., s].transpose(1, 2)).transpose(1, 2)
+
+        parts = [chain(slice(128 * tap, 128 * (tap + 1))) for tap in range(4)]
+        want = torch.relu(((parts[0] + parts[1]) + parts[2]) + parts[3] + b2).transpose(1, 2)
+        whole = torch.relu(chain(slice(0, 512)) + b2).transpose(1, 2)
+    assert torch.equal(out, want)
+    assert not torch.equal(out, whole)
 
 
 @pytest.mark.parametrize("d", [128, 256])
