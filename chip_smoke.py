@@ -209,13 +209,15 @@ Phases, each of which raises (exit code != 0) when its check fails:
      items, output and hidden, at ragged T and W around their tiles, the
      same bits twice, each printed beside the cuDNN pair; K3, #4
      and #5 at each (K, D) of {128, 256, 512} x {64, 128, 256} (the codebook
-     streamed at D = 128 and 256, #5 over D / 64 column slices) at N =
-     352,000: ids equal to the plain version's or near-ties, planted ties
+     through a TMA ring at D = 128 and 256, #5 over D / 64 column slices) at
+     N = 352,000: ids equal to the plain version's or near-ties, planted ties
      and close pairs and ragged N at each D, #4's fields as in phase 6, #5
      bit-equal to codebook_grad_order_ref at the card's grid of each slice,
      within segment_sum_bound, the same bits twice; each timed (median of 5)
      beside its plain version and a library call, with ptxas's registers
-     and its shared memory;
+     (the ring kernels must not spill) and its shared memory (K3's and #4's
+     as csrc/nearest_codes.cu reports it, which must equal what the
+     wrappers admit K by);
  27. the sweep through the command line: python -m msla_tpu_torch -m
      hparams_search=optuna, then hparams_search=optuna_smoke, in process on
      a 22 kHz fixture of 4 tracks a split (260 frames: one batch of 256),
@@ -4740,14 +4742,28 @@ def width_label(name: str, widths: tuple) -> str:
 
 
 def kernel_smem(symbol: str, *widths: int) -> int:
-    """Dynamic shared memory of a block of a kernel at its widths, as its
-    source reports it (``conv_stem_smem_bytes``, ``deconv_stem_smem_bytes``)."""
+    """Shared memory of a block of a kernel at its widths, as its source
+    reports it (``conv_stem_smem_bytes``, ``deconv_stem_smem_bytes``:
+    dynamic; ``vq_search_smem_bytes``: dynamic and static)."""
     from msla_tpu_torch.ops._build import kernel
 
     smem = kernel(symbol)(*widths)
     if smem < 0:
         fail(f"{symbol}: not compiled for widths {widths}")
     return smem
+
+
+def search_smem(k: int, d: int, with_hist: bool) -> int:
+    """K3's (or, ``with_hist``, #4's) shared memory at (K, D) as
+    csrc/nearest_codes.cu reports it; fails unless the wrappers admit K by
+    the same figure (``search_smem_bytes``)."""
+    from msla_tpu_torch.ops.nearest_codes import search_smem_bytes
+
+    got = kernel_smem("vq_search_smem_bytes", k, d, int(with_hist))
+    if got != search_smem_bytes(k, with_hist, d):
+        fail(f"vq_search_smem_bytes({k}, {d}, {int(with_hist)}) = {got}, the wrappers' "
+             f"search_smem_bytes {search_smem_bytes(k, with_hist, d)}")
+    return got
 
 
 def ptxas_of(ptxas: dict, source: str, kernel: str) -> dict:
@@ -4859,7 +4875,6 @@ def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
     version and a library call."""
     from msla_tpu_torch.ops import (nearest_codes, nearest_codes_ref, vq_codebook_grad,
                                     vq_codebook_grad_ref, vq_fused_fwd, vq_fused_fwd_ref)
-    from msla_tpu_torch.ops.nearest_codes import search_smem_bytes
     from msla_tpu_torch.ops.vq_fused import grad_smem_bytes
 
     n = SWEEP_BATCH * FRAME // 4
@@ -4869,8 +4884,13 @@ def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
             ("nearest_codes", nearest_codes), ("vq_fused_fwd", lambda x, e: check_fused(x, e)[1]))}
         ragged = {w: ragged_rows(s, dev, g, (1, 7, 129, 4_097), d) for w, s in (
             ("nearest_codes", nearest_codes), ("vq_fused_fwd", lambda x, e: check_fused(x, e)[1]))}
-        search = f"nearest_codes_{'kernel' if d == 64 else 'stream_kernel'}<{d}>"
-        fused = f"vq_fused_{'fwd_kernel' if d == 64 else 'stream_kernel'}<{d}>"
+        search = f"nearest_codes_{'kernel' if d == 64 else 'ring_kernel'}<{d}>"
+        fused = f"vq_fused_{'fwd_kernel' if d == 64 else 'ring_kernel'}<{d}>"
+        for source, name in (("nearest_codes", search), ("vq_fused", fused)):
+            regs = ptxas_of(ptxas, source, name)
+            if d > 64 and (not regs or regs.get("spill_stores", 0) or regs.get("spill_loads", 0)):
+                fail(f"{source}/{name}: ptxas reports {regs or 'no such kernel'}: the ring "
+                     f"kernels must not spill")
         for k in (128, 256, 512):
             flat = torch.randn((n, d), generator=g, device=dev)
             cb = torch.randn((k, d), generator=g, device=dev)
@@ -4884,7 +4904,8 @@ def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
                 name=width_label("nearest_codes", (d, k)), route="cuda",
                 source="msla_tpu_torch/csrc/nearest_codes.cu",
                 replaces="msla_tpu/ops/vq_pallas.py:40", widths=[d, k],
-                design="codebook in shared memory" if d == 64 else "codebook streamed",
+                design=("codebook in shared memory" if d == 64
+                        else "codebook through a TMA ring"),
                 max_abs_err=gap, index_mismatches=mismatches, max_tie_gap=rel,
                 **planted["nearest_codes"], ragged_n_mismatches=ragged["nearest_codes"],
                 ms=time_ms(lambda: nearest_codes(flat, cb), SWEEP_REPS, 1),
@@ -4892,7 +4913,7 @@ def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
                 library_ms=time_ms(lambda: torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T),
                                                         dim=1), SWEEP_REPS, 1),
                 flop=flop, bytes=moved, registers=ptxas_of(ptxas, "nearest_codes", search),
-                smem_bytes=search_smem_bytes(k, False, d), **tf32_bounds(flop, moved)))
+                smem_bytes=search_smem(k, d, False), **tf32_bounds(flop, moved)))
 
             q, idx, counts, sq, (mismatches, gap, rel), sq_rel = check_fused(flat, cb)
 
@@ -4912,7 +4933,7 @@ def sweep_vq_rows(dev, g, ptxas: dict) -> list[dict]:
                 library_ms=time_ms(composite, SWEEP_REPS, 1),
                 library_call="composite: matmul + argmin + index_select + bincount + sum",
                 flop=flop, bytes=moved, registers=ptxas_of(ptxas, "vq_fused", fused),
-                smem_bytes=search_smem_bytes(k, True, d), **tf32_bounds(flop, moved)))
+                smem_bytes=search_smem(k, d, True), **tf32_bounds(flop, moved)))
             del q, flat
 
             grad = torch.randn((n, d), generator=g, device=dev)

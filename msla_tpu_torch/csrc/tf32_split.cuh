@@ -4,7 +4,7 @@
 // hi.lo, then hi.hi added into one fp32 accumulator; lo.lo (~2^-22 of the
 // product) is dropped. ops/tf32.py emulates it in plain PyTorch.
 // Used by flash_attn.cu, mlm_argmax.cu, conv_stem.cu, deconv_stem.cu and
-// vq_search.cuh (nearest_codes.cu, vq_fused.cu, vq_lean.cu).
+// vq_search.cuh and vq_stream.cuh (nearest_codes.cu, vq_fused.cu, vq_lean.cu).
 #pragma once
 
 #include <stdint.h>

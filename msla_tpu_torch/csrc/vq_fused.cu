@@ -34,13 +34,15 @@
 // The x tile holds the exact x until that sum is taken, so the copy of the
 // warp's next tile starts after it, not under the search as in K3.
 //
-// D = 128 and 256 (the sweep's widths): the forward streams the codebook
-// (vq_search.cuh's search_streamed, vq_fused_stream_kernel), so q is the
-// chosen row read from the codebook in device memory (L2), not shared
-// memory; the rest as above, a block tile of kStreamWarps x 32 rows at a
-// time. Bound at N = 352,000 (batch 32), K = 512, D = 256: 9.23e10 FLOP,
-// 0.186 ms at the TF32 peak (0.559 ms for three products), and 360.4 MB in +
-// 360.4 MB out: 0.216 ms.
+// D = 128 and 256 (the sweep's widths): K3's ring (vq_stream.cuh: the
+// codebook through 4 TMA stages split once a block tile, mbarriers, the next
+// tile's x copied under the search; vq_fused_ring_kernel). The x slices are
+// refilled before a tile's search ends, so q (the chosen row) and the exact x
+// of the squared error are read from device memory (L2) after it, the rows
+// of a slab shared between its warps; the rest as above. Bound at N =
+// 352,000 (batch 32), K = 512, D = 256: 9.23e10 FLOP, 0.186 ms at the TF32
+// peak (0.559 ms for three products), and 360.4 MB in + 360.4 MB out: 0.216
+// ms.
 //
 // Codebook gradient: segment_sum.cuh (the design shared with #9's split2
 // gradient: TMA-fed, sorted per 32-row group, one fixed order, no atomics),
@@ -48,6 +50,7 @@
 #include "segment_sum.cuh"
 #include "vq_common.cuh"
 #include "vq_search.cuh"
+#include "vq_stream.cuh"
 
 namespace {
 
@@ -56,10 +59,9 @@ using vq_common::FULL;
 // ---- forward ------------------------------------------------------------------
 
 // The warp's rows row0 .. row0 + 31 (row r's code in lane r) take their codes'
-// codebook rows, from the codebook in shared memory (`es`, swizzled) or, with
-// GLOBAL, in device memory (`es` the (K, DD) codebook); returns the lane's
-// share of sum (q - x)^2 over those rows.
-template <int DD, bool GLOBAL = false>
+// codebook rows, from the codebook in shared memory (`es`, swizzled); returns
+// the lane's share of sum (q - x)^2 over those rows.
+template <int DD>
 __device__ __forceinline__ double store_rows(float* __restrict__ q, const float* es,
                                              const float* xs, long long row0, long long n,
                                              int code, int lane) {
@@ -76,8 +78,7 @@ __device__ __forceinline__ double store_rows(float* __restrict__ q, const float*
 #pragma unroll
     for (int i = 0; i < DD / 64; ++i) {
       const int ch = 16 * i + (lane & 15);
-      const float4 e = GLOBAL ? reinterpret_cast<const float4*>(es)[c * (DD / 4) + ch]
-                              : chunk(es, c, ch, DD);
+      const float4 e = chunk(es, c, ch, DD);
       const float4 v = chunk(xs, r, ch, DD);
       if (row < n) q4[row * (DD / 4) + ch] = e;
       const float dx = e.x - v.x, dy = e.y - v.y, dz = e.z - v.z, dw = e.w - v.w;
@@ -137,42 +138,130 @@ vq_fused_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   vq_common::flush_block<THREADS>(acc, hist, counts_i, sq_part, k_codes);
 }
 
-// D >= 128: a block tile of kStreamWarps x 32 rows at a time, the codebook
-// streamed (search_streamed), q from the codebook in device memory.
+// Rows row0 + first .. row0 + first + count - 1 of a slab (row r's code in
+// lane r) take their codes' rows of the (K, DD) codebook in device memory;
+// returns the lane's share of sum (q - x)^2 over them, x read from device
+// memory, in store_rows' order.
 template <int DD>
-__global__ void __launch_bounds__(32 * vq_search::kStreamWarps<DD>, 1)
-vq_fused_stream_kernel(const float* __restrict__ x, const float* __restrict__ cb,
-                       const float* __restrict__ e2, float* __restrict__ q,
-                       int* __restrict__ idx, int* __restrict__ counts_i,
-                       double* __restrict__ sq_part, long long n, int k_codes) {
-  using namespace vq_search;
-  constexpr int W = kStreamWarps<DD>, T = 32 * W;
-  extern __shared__ float4 stream_smem4[];
-  const int kpad = padded_codes(k_codes);
-  float* stages = reinterpret_cast<float*>(stream_smem4);  // [STAGES][GROUP][DD], swizzled
-  float* e2s = stages + STAGES * GROUP * DD;               // [kpad]
-  int* hist = reinterpret_cast<int*>(e2s + kpad);          // [kpad]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* xs = reinterpret_cast<float*>(hist + kpad) + warp * ROWS * DD;  // [ROWS][DD]
-
-  load_norms<T>(e2s, e2, k_codes);
-  for (int i = tid; i < k_codes; i += T) hist[i] = 0;
+__device__ __forceinline__ double store_rows_global(float* __restrict__ q,
+                                                    const float* __restrict__ cb,
+                                                    const float* __restrict__ x, long long row0,
+                                                    long long n, int code, int lane, int first,
+                                                    int count) {
+  static_assert(DD % 64 == 0, "16 lanes take a row's 16-byte chunks");
+  const float4* cb4 = reinterpret_cast<const float4*>(cb);
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* q4 = reinterpret_cast<float4*>(q);
   double acc = 0.0;
-  const long long tiles = (n + W * ROWS - 1) / (W * ROWS);
-  for (long long bt = blockIdx.x; bt < tiles; bt += gridDim.x) {
-    const long long row0 = (bt * W + warp) * ROWS;
-    load_tile<DD>(xs, x, row0, n, lane);
-    int arg[MT][2];
-    search_streamed<DD, T>(xs, stages, cb, e2s, k_codes, lane, arg);
-    const int code = code_of_lane(arg, lane);
-    const bool valid = row0 + lane < n;
-    if (valid) idx[row0 + lane] = code;
-    vq_common::count(hist, code, valid, lane);
-    acc += store_rows<DD, true>(q, cb, xs, row0, n, code, lane);
-    __syncwarp();  // the tile's reads are done before the next tile's copy
+#pragma unroll
+  for (int s = 0; s < count / 2; ++s) {
+    const int r = first + 2 * s + (lane >> 4);
+    const int c = __shfl_sync(FULL, code, r);
+    const long long row = row0 + r;
+    float part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < DD / 64; ++i) {
+      const int ch = 16 * i + (lane & 15);
+      const float4 e = cb4[(size_t)c * (DD / 4) + ch];
+      const float4 v = row < n ? x4[row * (DD / 4) + ch] : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < n) q4[row * (DD / 4) + ch] = e;
+      const float dx = e.x - v.x, dy = e.y - v.y, dz = e.z - v.z, dw = e.w - v.w;
+      part = fmaf(dx, dx, part);
+      part = fmaf(dy, dy, part);
+      part = fmaf(dz, dz, part);
+      part = fmaf(dw, dw, part);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
+    if ((lane & 15) == 0 && row < n) acc += (double)part;
   }
+  return acc;
+}
 
-  vq_common::flush_block<T>(acc, hist, counts_i, sq_part, k_codes);
+// vq_common::flush_block for the ring's consumer warps alone (the producer
+// warpgroup has left): their fp64 sums into sq_part[blockIdx.x] in warp
+// order, and the histogram into the global integer counts. Every consumer
+// thread calls it once.
+__device__ __forceinline__ void flush_consumers(double acc, const int* hist, int* counts_i,
+                                                double* sq_part, int k_codes) {
+  using vq_stream::CONSUMERS;
+  using vq_stream::CTHREADS;
+  __shared__ double warp_sq[CONSUMERS];
+  const int tid = vq_stream::consumer_tid(), lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(FULL, acc, off);
+  if (lane == 0) warp_sq[warp] = acc;
+  // also: every consumer's histogram adds are done (bar 0 is the block's, 1-4 the slabs')
+  asm volatile("bar.sync 5, %0;\n" :: "n"(CTHREADS) : "memory");
+  if (tid == 0) {
+    double s = 0.0;
+    for (int w = 0; w < CONSUMERS; ++w) s += warp_sq[w];
+    sq_part[blockIdx.x] = s;
+  }
+  for (int k = tid; k < k_codes; k += CTHREADS)
+    if (hist[k]) atomicAdd(&counts_i[k], hist[k]);
+}
+
+// D >= 128: block tiles of 128 rows, the codebook through the
+// ring (vq_stream.cuh). A slab's first warp writes and counts its 32 ids; its
+// two warps take 16 of its rows' q each.
+template <int DD>
+__global__ void __launch_bounds__(vq_stream::THREADS, 1)
+vq_fused_ring_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_cb, const float* __restrict__ x,
+                     const float* __restrict__ cb, const float* __restrict__ e2,
+                     float* __restrict__ q, int* __restrict__ idx, int* __restrict__ counts_i,
+                     double* __restrict__ sq_part, long long n, int k_codes) {
+  using namespace vq_stream;
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  const Smem<DD> sm(ring_smem);
+  init_barriers(sm);
+  for (int i = threadIdx.x; i < k_codes; i += THREADS) sm.hist[i] = 0;
+  __syncthreads();
+  if (threadIdx.x < 32 * PRODUCERS) {
+    producer_warpgroup(sm, &map_x, &map_cb, n, k_codes);
+    return;
+  }
+  consumer_registers();
+  const long long tiles = block_tiles(n, TILE_ROWS);
+  const int lane = threadIdx.x & 31, warp = consumer_warp();
+  const int rw = warp % SLABS, cw = warp / SLABS;
+  double acc = 0.0;
+  long long j = 0;
+  for (long long t = 0; t < tiles; ++t) {
+    int arg[MT][2];
+    search_tile(sm, e2, k_codes, t, tiles, j, arg);
+    const int code = vq_search::code_of_lane(arg, lane);
+    const long long row0 = (blockIdx.x + t * gridDim.x) * TILE_ROWS + 32 * rw;
+    if (cw == 0) {
+      const bool valid = row0 + lane < n;
+      if (valid) idx[row0 + lane] = code;
+      vq_common::count(sm.hist, code, valid, lane);
+    }
+    acc += store_rows_global<DD>(q, cb, x, row0, n, code, lane, 32 / HALVES * cw, 32 / HALVES);
+    // every block has a tile (the grid is at most the tiles); flushed from inside the
+    // loop, as ptxas then gives the consumers setmaxnreg's registers (after it: 168, spills)
+    if (t + 1 == tiles) flush_consumers(acc, sm.hist, counts_i, sq_part, k_codes);
+  }
+}
+
+template <int DD>
+int fused_ring(const float* x, const float* cb, const float* e2, float* q, int* idx,
+               float* counts, float* sq, int* counts_i, double* sq_part, int max_parts,
+               long long n, int k_codes, cudaStream_t s) {
+  using vq_stream::TILE_ROWS;
+  const size_t smem = vq_stream::smem_bytes<DD>(k_codes, true);
+  int grid = 0;
+  if (int e = vq_common::fwd_begin(vq_fused_ring_kernel<DD>, smem, counts_i, k_codes,
+                                   (n + TILE_ROWS - 1) / TILE_ROWS, max_parts, s, &grid))
+    return e;
+  if (grid > 0) {
+    CUtensorMap map_x, map_cb;  // x's and the codebook's pointers change from call to call
+    if (int e = vq_stream::maps<DD>(x, cb, n, k_codes, &map_x, &map_cb)) return e;
+    vq_fused_ring_kernel<DD><<<grid, vq_stream::THREADS, smem, s>>>(
+        map_x, map_cb, x, cb, e2, q, idx, counts_i, sq_part, n, k_codes);
+  }
+  return vq_common::fwd_end(grid, counts_i, sq_part, counts, sq, k_codes, s);
 }
 
 template <typename Kernel>
@@ -190,9 +279,9 @@ int fused_fwd(Kernel kernel, size_t smem, int threads, int rows, const float* x,
 
 }  // namespace
 
-// x, the codebook and q are (., d), d 64 (the codebook held in shared
-// memory), 128 or 256 (the codebook streamed, q read from it in device
-// memory); q (n, d), idx (n,), counts (K,) and sq () are the outputs;
+// x, the codebook and q are (., d), 16-byte aligned, d 64 (the codebook held
+// in shared memory), 128 or 256 (the codebook streamed, q read from it in
+// device memory); q (n, d), idx (n,), counts (K,) and sq () are the outputs;
 // counts_i (K,) int and sq_part (max_parts,) double are scratch. k_codes must
 // be even; the wrapper checks it and that the search's shared memory at
 // (K, d) with the histogram fits (ops/nearest_codes.py search_smem_bytes).
@@ -208,13 +297,11 @@ extern "C" int vq_fused_fwd(const float* x, const float* cb, const float* e2, fl
                        WARPS * ROWS, x, cb, e2, q, idx, counts, sq, counts_i, sq_part,
                        max_parts, n, k_codes, s);
     case 128:
-      return fused_fwd(vq_fused_stream_kernel<128>, stream_smem_bytes<128>(k_codes, true),
-                       32 * kStreamWarps<128>, kStreamWarps<128> * ROWS, x, cb, e2, q, idx,
-                       counts, sq, counts_i, sq_part, max_parts, n, k_codes, s);
+      return fused_ring<128>(x, cb, e2, q, idx, counts, sq, counts_i, sq_part, max_parts, n,
+                             k_codes, s);
     case 256:
-      return fused_fwd(vq_fused_stream_kernel<256>, stream_smem_bytes<256>(k_codes, true),
-                       32 * kStreamWarps<256>, kStreamWarps<256> * ROWS, x, cb, e2, q, idx,
-                       counts, sq, counts_i, sq_part, max_parts, n, k_codes, s);
+      return fused_ring<256>(x, cb, e2, q, idx, counts, sq, counts_i, sq_part, max_parts, n,
+                             k_codes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

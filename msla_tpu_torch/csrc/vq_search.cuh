@@ -42,8 +42,9 @@
 //   Held A frees the x tile as soon as it is split, so the next tile's
 //   cp.async runs under the whole search. kHoldA<D> = false streams the A
 //   fragments from the x tile instead, split again for each group of 4
-//   n-tiles: what D >= 128 needs (2 m-tiles would hold 256+ registers), and
-//   at D = 64 the alternative measured (tools/bench_stems.py, "A streamed";
+//   n-tiles (at D >= 128, where 2 m-tiles would hold 256+ registers,
+//   vq_stream.cuh streams them for each 64 codes), and at D = 64 the
+//   alternative measured (tools/bench_stems.py, "A streamed";
 //   PERF.md): it splits twice as much and takes K3 and #4 about a tenth
 //   longer, so D = 64 holds A. ptxas: 239 registers for K3, 218 for #4, no
 //   spills (#8's in PERF.md); one block of 8 warps an SM (the codebook fills
@@ -58,27 +59,10 @@
 // - dist = |e|^2 - 2 acc in fp32, as the plain version and the TPU kernel
 //   write it (|e|^2 from the wrapper's code_norms).
 // D is a compile-time parameter (a multiple of 32). The design above is
-// built at D = 64, the default embedding width.
-//
-// D = 128 and 256 (the sweep's embedding widths, configs/hparams_search/
-// optuna.yaml) stream the codebook. At D = 256 the 8 warps' x tiles alone
-// would take 256 KB, and at K = 512 the codebook another 512 KB, against the
-// 227 KB a block may have. So (search_streamed's kernels):
-// - a block has kStreamWarps<D> warps (8 at D = 128, 4 at 256) and takes
-//   block tiles of kStreamWarps x 32 rows in turn (persistent, one block an
-//   SM), a warp its own 32-row x tile, as above;
-// - the codebook passes through shared memory in groups of 32 codes, two
-//   stages that cp.async fills, the next group under the current one's
-//   products; each group is searched by every warp between two
-//   __syncthreads, with the same fragments, 3xTF32 products and strict-<
-//   fold as above, the best (dist, index) kept in registers across groups,
-//   then merged over the quad: the same ids, ties to the lowest index;
-// - A fragments are streamed from the x tile (kHoldA is false at D >= 128);
-// - |e|^2 (and #4's histogram) stay in shared memory for the block's life.
-// Shared memory: 2 stages of 32 codes (32 / 64 KB), the x tiles (128 KB
-// both) and |e|^2, so any K up to some 4,000 codes fits at both widths.
-// Each block tile reads the whole codebook from L2 (0.5 MB at K = 512, D =
-// 256, for 128 rows): 4x x's own bytes there.
+// built at D = 64, the default embedding width. At D = 128 and 256 (the
+// sweep's embedding widths) the codebook does not fit beside the x tiles:
+// vq_stream.cuh streams it through a ring of stages, with this file's k8
+// steps, 3xTF32 products, fold rule and quad merge.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -298,75 +282,6 @@ __device__ __forceinline__ void search(const RowFrags<D, HOLD>& a, const float* 
 #pragma unroll 1
   for (int n0 = 0; n0 < kpad; n0 += GROUP)
     search_group(a, xs, es + (size_t)n0 * D, e2s + n0, n0, lane, best, arg);
-  search_merge(best, arg);
-}
-
-// ---- D >= 128: the codebook streamed through shared memory ----------------
-
-template <int D>
-constexpr int kStreamWarps = D <= 128 ? 8 : 4;
-constexpr int STAGES = 2;  // codebook groups in shared memory
-
-// shared memory: STAGES groups [GROUP][D], |e|^2 [kpad], then (#4) a
-// histogram [kpad] int, then the x tiles [kStreamWarps][ROWS][D]
-template <int D>
-__host__ __device__ constexpr size_t stream_smem_bytes(int k_codes, bool with_hist) {
-  return ((size_t)STAGES * GROUP * D + (size_t)padded_codes(k_codes) * (1 + (with_hist ? 1 : 0)) +
-          (size_t)kStreamWarps<D> * ROWS * D) * sizeof(float);
-}
-
-// Start the copy of codes n0 .. n0 + 31 into a stage (zero rows past K) and
-// commit it. Every thread of the block calls it.
-template <int D, int THREADS_>
-__device__ __forceinline__ void load_group(float* stage, const float* __restrict__ cb, int n0,
-                                           int k_codes) {
-  constexpr int CHUNKS = D / 4;
-  for (int i = threadIdx.x; i < GROUP * CHUNKS; i += THREADS_) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool valid = n0 + r < k_codes;
-    const float* src = cb + (valid ? (size_t)(n0 + r) * D + 4 * c : 0);
-    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(stage + r * D + 4 * swz(r, c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(valid ? 16 : 0));
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// |e|^2 into shared memory, +inf past K. Every thread calls it; a
-// __syncthreads must follow before it is read.
-template <int THREADS_>
-__device__ __forceinline__ void load_norms(float* e2s, const float* __restrict__ e2, int k_codes) {
-  for (int i = threadIdx.x; i < padded_codes(k_codes); i += THREADS_)
-    e2s[i] = i < k_codes ? e2[i] : CUDART_INF_F;
-}
-
-// The nearest code of each row of every warp's 32-row tile `xs` (its copy
-// started and committed by the warp), the codebook streamed group by group
-// through `stages`. Every thread of the block calls it, on one block tile;
-// it leaves every stage free (ends on a __syncthreads).
-template <int D, int THREADS_>
-__device__ __forceinline__ void search_streamed(const float* xs, float* stages,
-                                                const float* __restrict__ cb, const float* e2s,
-                                                int k_codes, int lane, int (&arg)[MT][2]) {
-  const int groups = padded_codes(k_codes) / GROUP;
-  float best[MT][2];
-  search_init(best, arg);
-  RowFrags<D, false> a;
-  load_group<D, THREADS_>(stages, cb, 0, k_codes);
-#pragma unroll 1
-  for (int gi = 0; gi < groups; ++gi) {
-    if (gi + 1 < groups) {
-      load_group<D, THREADS_>(stages + ((gi + 1) % STAGES) * GROUP * D, cb, (gi + 1) * GROUP,
-                              k_codes);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();  // group gi (and, the first time, the x tiles) in for every warp
-    search_group(a, xs, stages + (gi % STAGES) * GROUP * D, e2s + gi * GROUP, gi * GROUP, lane,
-                 best, arg);
-    __syncthreads();  // every warp is done with the stage the next copy fills
-  }
   search_merge(best, arg);
 }
 

@@ -47,6 +47,7 @@ SIGNATURES = {
     "deconv_stem_smem_bytes": ("deconv_stem", [I32, I32]),
     "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, I32, P]),
+    "vq_search_smem_bytes": ("nearest_codes", [I32, I32, I32]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, I32, P]),
     "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, I32, P]),
     "vq_codebook_grad_clusters": ("vq_fused", [I32, P]),

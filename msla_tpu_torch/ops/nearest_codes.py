@@ -12,8 +12,9 @@ row and dropped) and pick the lowest index on ties.
 Widths: the kernels take D in ``WIDTHS``, the embedding widths of
 configs/hparams_search/optuna.yaml: D = 64 (the default) with the codebook
 held in shared memory, an even K up to 640; D = 128 and 256 with the
-codebook streamed through it in groups of 32 codes, an even K up to some
-4,000 (``search_smem_bytes``). Other widths raise ``ValueError`` on a CUDA
+codebook streamed through a ring of stages (``csrc/vq_stream.cuh``), any even
+K (#4's forward, whose histogram stays in shared memory: up to 24,744 and
+8,344; ``search_smem_bytes``). Other widths raise ``ValueError`` on a CUDA
 tensor; the plain versions take any.
 """
 from __future__ import annotations
@@ -31,27 +32,30 @@ D = 64
 #: the row widths the CUDA kernels are compiled for
 WIDTHS = (D, 128, 256)
 _REF_ROWS = 1 << 16    # rows per chunk of the plain version: a 128 MB block at K=512
-_GROUP = 32            # the search's codes a group: K is padded to a multiple
-_STAGES = 2            # codebook groups in shared memory where D > 64
-
-
-def stream_warps(d: int) -> int:
-    """Warps of a block of the streamed search (``vq_search::kStreamWarps``)."""
-    return 8 if d <= 128 else 4
+_GROUP = 32            # the search's codes a group: K is padded to a multiple at D = 64
+# the streamed search (csrc/vq_stream.cuh): columns a stage (DS), its stages
+# (STAGES), a block tile's rows (TILE_ROWS: 4 slabs of 32) and a stage's
+# codes (STAGE_CODES: 2 warps a slab, 64 codes each)
+_SLICE, _RING, _TILE_ROWS, _STAGE_CODES = 16, 4, 128, 128
 
 
 def search_smem_bytes(k: int, with_hist: bool = False, d: int = D) -> int:
-    """Shared memory of the search at K codes of width d. At D = 64
+    """Shared memory of a block of the search at K codes of width d, as
+    ``csrc/nearest_codes.cu``'s ``vq_search_smem_bytes`` reports it. At D = 64
     (``vq_search::smem_bytes``): the codebook and ‖e‖² padded to a multiple
-    of 32 codes and 8 warps' x tiles; wider (``stream_smem_bytes``): two
-    groups of 32 codes, ‖e‖² and ``stream_warps`` x tiles. For #4 also its
-    histogram (``with_hist``, with ``flush_block``'s 64 static bytes)."""
-    kpad = -(-k // _GROUP) * _GROUP
+    of 32 codes and 8 warps' x tiles; wider (``vq_stream::smem_bytes``): 128
+    bytes to align, the block tile's x, the ring's hi and lo planes, the
+    merge of a slab's two warps (8 warps x 32 rows x 8 bytes), 3 mbarriers a
+    stage and one an x slice, with no ‖e‖² and no codebook, so K3 takes any
+    K. For #4 also its histogram (``with_hist``) and an fp64 partial for
+    each of its 8 searching warps (64 static bytes)."""
     if d == D:
-        floats = kpad * (d + 1 + with_hist) + 8 * 32 * d
-    else:
-        floats = _STAGES * _GROUP * d + kpad * (1 + with_hist) + stream_warps(d) * 32 * d
-    return 4 * floats + 64 * with_hist
+        kpad = -(-k // _GROUP) * _GROUP
+        return 4 * (kpad * (d + 1 + with_hist) + 8 * 32 * d) + 64 * with_hist
+    slices = d // _SLICE
+    fixed = (128 + slices * _TILE_ROWS * _SLICE * 4 + _RING * 2 * _STAGE_CODES * _SLICE * 4
+             + 8 * 32 * 8 + (3 * _RING + slices) * 8)
+    return fixed + (4 * k + 64) * with_hist
 
 
 def check_codes(name: str, k: int, d: int, with_hist: bool) -> None:

@@ -8,28 +8,37 @@ on bf16 ``wgmma``) and the two segment sums (#5 ``csrc/vq_fused.cu``'s
 codebook gradient and #9's split2 gradient, both ``csrc/segment_sum.cuh``, on
 uniform ids and on one code for every row), timed on the card at a batch-64
 call's shapes (the stems; N = 704,000 rows against 512 codes for the VQ
-kernels), beside builds of the same sources with part of the work taken out,
-or another layout, and of another commit's sources:
+kernels; K3 and #4 also at the streamed widths, D = 128 and 256 against K =
+128, 256 and 512 codes, at a batch-32 call's N = 352,000 rows, as
+``chip_smoke.py`` phase 26 runs them), beside builds of the same sources with
+part of the work taken out, or another layout, and of another commit's
+sources:
 
-    python -m msla_tpu_torch.tools.bench_stems [--previous DIR]     # on the card
+    python -m msla_tpu_torch.tools.bench_stems [--previous DIR] [--csrc DIR]
+        [--sources NAME ...]                                        # on the card
 
 - "kernel": the sources as they are, the wrappers' kernels (checked equal to
   the wrappers' outputs bit for bit, and to the plain versions: the stems at
   atol = rtol = 1e-4, each id of K3, #4, #8 and #9 equal or a near-tie on its
   own distance, #4's q equal to codebook[id]; the stems also the same bits on
-  a second launch);
+  a second launch); with ``--csrc DIR`` the sources of DIR instead of the
+  package's (such as the parent's, to take its parts apart with the probes
+  below), checked against the plain versions only;
 - "no split": ``tf32_split.cuh``'s split() without its arithmetic (hi = lo =
-  x), the same products on unsplit operands: the split's ALU work is the
-  difference (its sums are wrong and not checked); not for #9, which has no
-  TF32 split;
+  x), the same products on unsplit operands (its sums are wrong and not
+  checked; the VQ kernels run slower this way at every width, so for them it
+  prices nothing); not for #9, which has no TF32 split;
 - "one product": ``mma_3xtf32`` as hi·hi alone, one-pass TF32: what the
   second and third products cost (not checked either; not for #9);
-- "A streamed" (K3, #4, #8): ``vq_search.cuh`` with ``kHoldA`` false, the A
-  fragments loaded and split from the x tile for each group of codes instead
-  of held in registers for the tile (checked as "kernel");
+- "A streamed" (K3, #4, #8 at D = 64): ``vq_search.cuh`` with ``kHoldA``
+  false, the A fragments loaded and split from the x tile for each group of
+  codes instead of held in registers for the tile (checked as "kernel");
 - "no fold" (#9): the products without the fold of their distances into the
   running minimum (the ids are wrong and not checked);
 - "no q" (#9): everything but the stores of q (not checked);
+- "ring only" (K3, #4 at the streamed widths): ``vq_stream.cuh`` without
+  the products: the ring's copies, splits and mbarriers, the folds and #4's
+  stores, without a stage's loads of A and B and its mma.sync (not checked);
 - "stream only" (#5, #9 split2): ``segment_sum.cuh`` without the calls of
   ``sort_stage``, ``walk`` and ``add_group``: the TMA ring of rows and ids
   with its barriers and turns, the clusters' sums and the last kernel, but
@@ -39,10 +48,12 @@ or another layout, and of another commit's sources:
   that commit's sources, checked as "kernel" is against the plain versions
   (the segment sums within 1e-5 of the largest |entry| of fp64's; "kernel"'s
   bit for bit against ``codebook_grad_order_ref`` at the card's grid), its
-  stems' bit-equality with this tree's printed. Its
+  stems' and VQ kernels' bit-equality with this tree's printed. Its
   entry points must take the widths as these do (the fp32 stems' channels,
   the VQ kernels' D): a tree whose ``conv_stem.cu`` does not export
   ``conv_stem_smem_bytes`` is older and is refused.
+``--sources`` builds and times only the named sources (e.g. ``nearest_codes
+vq_fused``); a probe of a header that ``--csrc``'s tree lacks is left out.
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
 nvcc each, in parallel, under build/bench_stems/. Its entry points run on the
 same operands (the stems' weights as torch initialises the model's convs,
@@ -77,6 +88,9 @@ from msla_tpu_torch.tools import loop_ms
 
 BATCH, T = 64, 44_000          # a batch-64 separation or train step: 2 s frames at 22 kHz
 N, K = BATCH * T // 4, 512     # the latent rows of such a batch, and the codes
+SWEEP_N = 32 * T // 4          # a batch-32 sweep trial's rows (chip_smoke.py phase 26)
+#: the streamed search's (D, K): the sweep's embedding widths past 64 and its codebook sizes
+STREAMED = tuple((d, k) for d in (128, 256) for k in (128, 256, 512))
 ITERS = 20
 OUT_DIR = _build.BUILD_DIR.parent / "bench_stems"
 STEMS = ("conv_stem", "deconv_stem")
@@ -106,6 +120,9 @@ PROBES = {
                 ("vq_precision",)),
     "no q": ("vq_precision.cu", (("    if (row < n) q4[row * (D / 4) + l] = e;\n", ""),),
              ("vq_precision",)),
+    "ring only": ("vq_stream.cuh",
+                  (("      stage_products(sm.x", "      if (0) stage_products(sm.x"),),
+                  ("nearest_codes", "vq_fused")),
     "stream only": ("segment_sum.cuh",
                     (("      sort_stage<SPLIT2>(", "      if (0) sort_stage<SPLIT2>("),
                      ("        walk<SPLIT2>(", "        if (0) walk<SPLIT2>("),
@@ -138,11 +155,16 @@ def _sources(name: str, csrc: Path) -> Path:
     return dst
 
 
-def build(builds: dict[str, Path]) -> dict[tuple[str, str], ctypes.CDLL]:
+def build_sources(name: str, picked=SOURCES) -> tuple[str, ...]:
+    """The sources a build compiles and times: a probe's, or all, of ``picked``."""
+    return tuple(s for s in (PROBES[name][2] if name in PROBES else SOURCES) if s in picked)
+
+
+def build(builds: dict[str, Path], picked=SOURCES) -> dict[tuple[str, str], ctypes.CDLL]:
     """Each build's libraries of its sources, all compiled at once."""
     jobs = {}
     for name, src in builds.items():
-        for source in PROBES[name][2] if name in PROBES else SOURCES:
+        for source in build_sources(name, picked):
             lib = src / f"{source}.so"
             jobs[name, source] = lib, subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src / f"{source}.cu")],
@@ -202,7 +224,8 @@ def segment_sum_cases(name: str, lib: ctypes.CDLL, source: str, g: torch.Tensor,
 
 def operands(dev: torch.device):
     """The stems' (x or q, w1, b1, w2, b2) by (source, widths), fp32, seed 0;
-    and the search's (x, codebook)."""
+    the search's (x, codebook); and the streamed search's by (D, K): x
+    (SWEEP_N, D), one a width, and a codebook (K, D)."""
     torch.manual_seed(0)
     weights = lambda convs: (convs[0].weight.detach(), convs[0].bias.detach(),
                              convs[1].weight.detach(), convs[1].bias.detach())
@@ -220,7 +243,10 @@ def operands(dev: torch.device):
              for key, w in convs.items()}
     flat = torch.randn((N, 64), generator=g, device=dev)
     cb = torch.randn((K, 64), generator=g, device=dev)
-    return stems, (flat, cb)
+    wide = {d: torch.randn((SWEEP_N, d), generator=g, device=dev) for d, _ in STREAMED}
+    streamed = {(d, k): (wide[d], torch.randn((k, d), generator=g, device=dev))
+                for d, k in STREAMED}
+    return stems, (flat, cb), streamed
 
 
 def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb,
@@ -248,21 +274,29 @@ def check_ids(what: str, ids: torch.Tensor, want: torch.Tensor, flat, cb,
                                f"near-tie")
 
 
-def main(previous: str | None = None, device: str | torch.device | None = None) -> dict:
+def main(previous: str | None = None, device: str | torch.device | None = None,
+         csrc: str | None = None, sources=None) -> dict:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("bench_stems times CUDA builds: it needs the card")
-    csrc = _build.CSRC
-    builds = {name: _sources(name, csrc) for name in ("kernel", *PROBES)}
+    picked = SOURCES if sources is None else tuple(sources)
+    if not set(picked) <= set(SOURCES):
+        raise ValueError(f"bench_stems: --sources takes some of {SOURCES}, got {picked}")
+    own = csrc is None  # "kernel" is the wrappers' kernel
+    tree = _build.CSRC if own else Path(csrc)
+    builds = {name: _sources(name, tree) for name in ("kernel", *PROBES)
+              if build_sources(name, picked) and (name not in PROBES
+                                                  or (tree / PROBES[name][0]).exists())}
     if previous is not None:
         builds["previous"] = _sources("previous", Path(previous))
-    libs = build(builds)
-    if previous is not None and not hasattr(libs["previous", "conv_stem"], "conv_stem_smem_bytes"):
+    libs = build(builds, picked)
+    if previous is not None and "conv_stem" in picked and not hasattr(
+            libs["previous", "conv_stem"], "conv_stem_smem_bytes"):
         raise ValueError(f"bench_stems: {previous} holds kernels whose entry points do not take "
                          f"the widths (no conv_stem_smem_bytes); compare with a later tree")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    stems, (flat, cb) = operands(dev)
+    stems, (flat, cb), streamed = operands(dev)
     with torch.no_grad():
         plain = {key: (conv_stem_ref if key[0] == "conv_stem" else deconv_stem_ref)(*a)[0]
                  for key, a in stems.items()}
@@ -271,6 +305,10 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
         plain_ids = nearest_codes_ref(flat, cb)
         wrapper_ids = nearest_codes(flat, cb)
         wrapper_fused = vq_fused_fwd(flat, cb)
+        wide_plain = {key: nearest_codes_ref(*a) for key, a in streamed.items()}
+        wide_wrapper = {("nearest_codes", *key): (nearest_codes(*a),)
+                        for key, a in streamed.items()}
+        wide_wrapper.update({("vq_fused", *key): vq_fused_fwd(*a) for key, a in streamed.items()})
         wrapper_lean = vq_lean_fwd(flat, cb)
         modes = [(f"{d}/{q}", d, q) for d, q in COMPILED]
         wrapper_prec = {m: vq_precision_fwd(flat, cb, d, q) for m, d, q in modes}
@@ -289,6 +327,47 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
         device=dev).manual_seed(2), device=dev, dtype=torch.int32),
         "one code": torch.full((N,), 7, device=dev, dtype=torch.int32)}
 
+    def streamed_cases(name: str, fn, source: str):
+        """K3 (``source`` nearest_codes) or #4 at each (D, K) of STREAMED:
+        checked as at D = 64, and against the wrapper's bits (all four of #4's
+        outputs), printed for "previous"; not for "A streamed", which only
+        changes D = 64."""
+        if name == "A streamed":
+            return
+        label = {"nearest_codes": "K3", "vq_fused": "#4"}[source]
+        for (d, k), (x, e) in streamed.items():
+            e2k = code_norms(e)
+            ids = torch.empty((SWEEP_N,), dtype=torch.int32, device=dev)
+            if source == "nearest_codes":
+                outs = (ids,)
+                args = (x, e, e2k, ids, SWEEP_N, k, d)
+            else:
+                q = torch.empty((SWEEP_N, d), device=dev)
+                counts_k, sq_k, counts_ik, sq_part_k, parts_k = count_outputs(k, dev)
+                outs = (q, ids, counts_k, sq_k)
+                args = (x, e, e2k, q, ids, counts_k, sq_k, counts_ik, sq_part_k, parts_k,
+                        SWEEP_N, k, d)
+
+            def run(fn=fn, args=args):
+                check(name, fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                                 for a in args), stream_of(x)))
+
+            what = f"{label} D={d} K={k}"
+
+            def verify(outs=outs, ids=ids, x=x, e=e, key=(source, d, k), what=what):
+                same = all(torch.equal(a, b) for a, b in zip(outs, wide_wrapper[key]))
+                if name == "kernel" and own and not same:
+                    raise RuntimeError(f"bench_stems: the {source} build differs from the "
+                                       f"wrapper's kernel at {what}")
+                if name == "previous":
+                    print(f"[bench_stems] previous {what}: the wrapper's bits: {same}",
+                          flush=True)
+                if source == "vq_fused" and not torch.equal(outs[0], e[ids.long()]):
+                    raise RuntimeError(f"bench_stems: {name} {what}: q is not codebook[id]")
+                check_ids(f"{name} {what}", ids, wide_plain[key[1:]], x, e)
+
+            yield what, run, verify
+
     def cases(name: str, source: str):
         """(kernel label, launch, check after the first launch) of a build's source."""
         if name in SEGMENT_BUILDS and source in SEGMENT_SUMS:
@@ -296,6 +375,9 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
         if name == "stream only":
             return
         fn = entry(libs[name, source], ENTRY[source])
+        if name == "ring only":  # the probe changes the streamed widths alone
+            yield from streamed_cases(name, fn, source)
+            return
         if source in STEMS:
             for widths in WIDTHS[source]:
                 for with_hidden in (False, True):
@@ -320,7 +402,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                         if not torch.equal(out, first):
                             raise RuntimeError(f"bench_stems: {name} {label}: a second launch gave "
                                                f"other bits")
-                        if name == "kernel" and not torch.equal(out, wrapper[key]):
+                        if name == "kernel" and own and not torch.equal(out, wrapper[key]):
                             raise RuntimeError(f"bench_stems: the {key[0]} build differs from "
                                                f"the wrapper's kernel")
                         if name == "previous":
@@ -337,12 +419,16 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                                K, 64, stream_of(flat)))
 
             def verify():
-                if name == "kernel" and not torch.equal(ids, wrapper_ids):
+                same = torch.equal(ids, wrapper_ids)
+                if name == "kernel" and own and not same:
                     raise RuntimeError("bench_stems: the nearest_codes build differs from the "
                                        "wrapper's kernel")
+                if name == "previous":
+                    print(f"[bench_stems] previous K3: the wrapper's bits: {same}", flush=True)
                 check_ids(f"{name} K3", ids, plain_ids, flat, cb)
 
             yield "K3", run, verify
+            yield from streamed_cases(name, fn, source)
         elif source == "vq_lean":
             ids = torch.empty((N,), dtype=torch.int32, device=dev)
 
@@ -352,10 +438,12 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                                sq_part.data_ptr(), parts, N, K, stream_of(flat)))
 
             def verify():
-                if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
-                        (ids, counts, sq), wrapper_lean[1:])):
+                same = all(torch.equal(a, b) for a, b in zip((ids, counts, sq), wrapper_lean[1:]))
+                if name == "kernel" and own and not same:
                     raise RuntimeError("bench_stems: the vq_lean build differs from the "
                                        "wrapper's kernel")
+                if name == "previous":
+                    print(f"[bench_stems] previous #8: the wrapper's bits: {same}", flush=True)
                 check_ids(f"{name} #8", ids, plain_ids, flat, cb)
 
             yield "#8", run, verify
@@ -373,7 +461,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
 
                 def verify(q=q, ids=ids, mode=mode, dist_mode=dist_mode):
                     got = (q, ids[:, None], counts[None], sq.reshape(1, 1))
-                    if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
+                    if name == "kernel" and own and not all(torch.equal(a, b) for a, b in zip(
                             got, wrapper_prec[mode])):
                         raise RuntimeError(f"bench_stems: the vq_precision build differs from "
                                            f"the wrapper's kernel in {mode}")
@@ -391,20 +479,23 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                                stream_of(flat)))
 
             def verify():
-                if name == "kernel" and not all(torch.equal(a, b) for a, b in zip(
-                        (q, ids, counts, sq), wrapper_fused)):
+                same = all(torch.equal(a, b) for a, b in zip((q, ids, counts, sq), wrapper_fused))
+                if name == "kernel" and own and not same:
                     raise RuntimeError("bench_stems: the vq_fused build differs from the "
                                        "wrapper's kernel")
+                if name == "previous":
+                    print(f"[bench_stems] previous #4: the wrapper's bits: {same}", flush=True)
                 if not torch.equal(q, cb[ids.long()]):
                     raise RuntimeError(f"bench_stems: {name} #4: q is not codebook[id]")
                 check_ids(f"{name} #4", ids, plain_ids, flat, cb)
 
             yield "#4", run, verify
+            yield from streamed_cases(name, fn, source)
 
     times: dict[str, dict[str, list[float]]] = {}
     for rnd, order in enumerate((list(builds), list(builds)[::-1])):
         for name in order:
-            for source in PROBES[name][2] if name in PROBES else SOURCES:
+            for source in build_sources(name, picked):
                 for kernel, run, verify in cases(name, source):
                     run()
                     torch.cuda.synchronize()
@@ -412,7 +503,7 @@ def main(previous: str | None = None, device: str | torch.device | None = None) 
                         verify()
                     ms = loop_ms(run, dev, ITERS)
                     times.setdefault(name, {}).setdefault(kernel, []).append(ms)
-                    print(f"[bench_stems] round {rnd} {name:<12s} {kernel:<16s} {ms:.4f} ms",
+                    print(f"[bench_stems] round {rnd} {name:<12s} {kernel:<18s} {ms:.4f} ms",
                           flush=True)
     return times
 
@@ -421,4 +512,9 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--previous", metavar="DIR",
                         help="another commit's msla_tpu_torch/csrc, timed beside these")
-    print(main(parser.parse_args().previous))
+    parser.add_argument("--csrc", metavar="DIR",
+                        help="build 'kernel' and the probes from DIR instead of the package's")
+    parser.add_argument("--sources", nargs="+", metavar="NAME", choices=SOURCES,
+                        help="only these sources (default: all)")
+    args = parser.parse_args()
+    print(main(args.previous, csrc=args.csrc, sources=args.sources))

@@ -315,8 +315,8 @@ def test_every_sweep_width_is_admitted_and_others_refused():
         refuse_widths("conv_stem", (32, 64), ((C1, C2),))
     with pytest.raises(ValueError, match=r"\(96,\)"):
         check_codes("nearest_codes", 512, 96, False)
-    with pytest.raises(ValueError, match="K=4500"):
-        check_codes("vq_fused_fwd", 4500, 256, True)
+    with pytest.raises(ValueError, match="K=8346"):  # the ring's histogram: #4 up to 8,344
+        check_codes("vq_fused_fwd", 8346, 256, True)
     with pytest.raises(ValueError, match="K=513"):
         check_codes("nearest_codes", 513, 128, False)
     assert search_smem_bytes(512, True) == 200_768   # the D = 64 design's, unchanged
@@ -348,6 +348,6 @@ def test_entry_points_match_signatures_and_width_tables():
         pairs = re.findall(rf"if \({names[0]} == (\w+) && {names[1]} == (\w+)\)",
                            found[symbol][2])
         assert sorted(tuple(int(default.get(v, v)) for v in p) for p in pairs) == sorted(table)
-    for symbol in ("nearest_codes_fwd", "vq_fused_fwd"):
+    for symbol in ("nearest_codes_fwd", "vq_fused_fwd", "vq_search_smem_bytes"):
         cases = re.findall(r"case (\d+):", found[symbol][2])
         assert tuple(sorted(int(c) for c in cases)) == WIDTHS
