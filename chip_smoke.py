@@ -227,7 +227,28 @@ Phases, each of which raises (exit code != 0) when its check fails:
      must complete, its trial_result.json finite, and its launches by
      instantiation meet the prediction (TRIAL_LAUNCHES), each trial's
      seconds and peak memory printed;
- 28. one JSON line with every kernel's numbers, then the device line.
+ 28. data parallelism at world size 1, the one card's most (NCCL takes one
+     rank a device; the checks with several ranks are the CPU tests'): (a)
+     in process, RANK=0 WORLD_SIZE=1 and a MASTER_ADDR/PORT, then
+     setup_distributed(), which must give NCCL at world size 1; phase 8's
+     Trainer.fit (full width, batch 64, masking on, seed 0, from phase 8's
+     starting weights) once without a group and once under it, cuDNN
+     deterministic for both: the parameters must be bit-equal (the flat
+     all-reduce and the division by 1 change nothing; the distance from
+     phase 8's own fit, cuDNN not deterministic, printed), the metrics
+     within 1e-6, and K1b, K2b, #4 and #5 must launch DP_LAUNCHES times
+     exactly under the group; a step's device time with the
+     gradient's all-reduce and without it, in turns, and the all-reduce's
+     bytes and ms (the Trainer's whole reduction between CUDA events, and
+     queued behind a spin kernel, which hides the host's launches; NCCL's
+     call alone);
+     destroy_process_group(); (b) through the user's entry point, python -m
+     msla_tpu_torch.parallel.launch --nproc 1 -- -m msla_tpu_torch
+     train_vqvae=True on phase 22's fixture in a project of its own: exit 0,
+     every line of its output prefixed [rank 0], a process group of NCCL at
+     world size 1 reported, last.ckpt (at its global step) and the codebook
+     CSV written and read back; then phase 22's fixture is removed;
+ 29. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -1486,6 +1507,11 @@ def timed_step(trainer, task, dm, raw: torch.Tensor) -> list[float]:
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
 
+#: phase 8's fit as it ended (its weights, metrics and launches), which phase
+#: 28 runs again under a process group
+PHASE8_FIT: dict = {}
+
+
 def phase_training(task, dm, kernels) -> dict:
     from msla_tpu_torch.train.trainer import Trainer
 
@@ -1516,6 +1542,8 @@ def phase_training(task, dm, kernels) -> dict:
     print(f"[train] fit: {trainer.global_step} steps in {fit_s:.2f} s, launches {counts}, "
           f"train/loss {cm['train/loss']:.5f}, validation/loss {cm['validation/loss']:.5f}",
           flush=True)
+    PHASE8_FIT.update(start=before, callback_metrics=dict(cm), launches=counts,
+                      state={k: v.detach().clone() for k, v in task.net.state_dict().items()})
     result = dict(fit_steps=trainer.global_step, fit_s=fit_s, launches=counts,
                   callback_metrics=cm, **measure_steps(trainer, task, dm, kernels))
     print(f"[train] {result}", flush=True)
@@ -4693,8 +4721,9 @@ def jax_resume(trainer, task, dm, smi: str) -> dict:
 def phase_rest_of_trainer(kernels, smi: str, bert_task) -> tuple[dict, list[dict]]:
     """The rest of the trainer on the card, at full width (hidden 128, K =
     512, D = 64): (a) ``experiment_run``, (b) ``accumulation``, (c)
-    ``profiled_epoch``, (d) ``wire_writes``, (e) ``jax_resume``; then phase
-    22's fixture is removed. Returns the figures and (b)'s re-timed kernels."""
+    ``profiled_epoch``, (d) ``wire_writes``, (e) ``jax_resume``; then all of
+    CLI_ROOT but phase 22's fixture, which phase 28 reads, is removed.
+    Returns the figures and (b)'s re-timed kernels."""
     import shutil
 
     experiment = experiment_run(kernels, smi, bert_task)
@@ -4715,7 +4744,9 @@ def phase_rest_of_trainer(kernels, smi: str, bert_task) -> tuple[dict, list[dict
     result = dict(experiment=experiment, accumulation=acc, profiler=profile, wire=wire,
                   jax_resume=resume)
     print(f"[rest of trainer] {json.dumps(result)}", flush=True)
-    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    for path in CLI_ROOT.iterdir():
+        if path.name != "slakh":
+            shutil.rmtree(path, ignore_errors=True) if path.is_dir() else path.unlink()
     return result, report
 
 
@@ -5113,6 +5144,212 @@ def phase_sweep(kernels, smi: str) -> dict:
     return result
 
 
+#: phase 28: the fit of phase 8 (6 train and 2 validation batches of 64, no
+#: logger): K1b, K2b and #5 once a train step, #4 once a train and a
+#: validation batch, whatever the process group
+DP_LAUNCHES = {"conv_stem_save_hidden": TRAIN_BATCHES, "deconv_stem_save_hidden": TRAIN_BATCHES,
+               "vq_fused_fwd": TRAIN_BATCHES + VAL_BATCHES, "vq_codebook_grad": TRAIN_BATCHES}
+DP_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK", "MSLA_PLATFORM")
+DP_ROUNDS = 2                         # turns of the step with and without the all-reduce
+DP_CLI_TIMEOUT_S = 300
+QUEUE_SPIN_CYCLES = 20_000_000        # ~10 ms of the card's clock: time to enqueue a call
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Median device ms of fn() with its launches queued behind a spin
+    kernel: the host enqueues them while the card spins, so the events time
+    the kernels back to back and not the host's launches (fn must not wait
+    for the device)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dp_fit(dm, kernels, dp: bool):
+    """Phase 8's fit from phase 8's starting weights, with cuDNN deterministic
+    (its convs' backward then gives the same bits run after run); under the
+    process group when ``dp``. Returns the task, the Trainer, its seconds and
+    launches."""
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.train.trainer import Trainer
+
+    out = OUT_DIR / ("dp" if dp else "dp_reference")
+    task = VQVAETask(**MODEL, checkpoint_dir=str(out), codebook_file=str(out / "codebook.csv"),
+                     device="cuda", seed=0)
+    task.net.load_state_dict(PHASE8_FIT["start"])
+    trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_BATCHES,
+                      limit_val_batches=VAL_BATCHES, seed=0, enable_progress_bar=False)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        trainer.fit(task, dm)
+    torch.cuda.synchronize()
+    return task, trainer, time.perf_counter() - t0, launch_counts(kernels)
+
+
+def dp_in_process(kernels, smi: str, dm, fp32_training: dict) -> dict:
+    """(a) NCCL at world size 1 in this process: the fit against the same fit
+    without a group, bit for bit; its launches; the all-reduce's cost."""
+    import os
+
+    import torch.distributed as dist
+
+    import msla_tpu_torch.train.trainer as trainer_module
+    from msla_tpu_torch.parallel import distributed as pdist
+    from msla_tpu_torch.parallel import mesh
+
+    ref_task, ref_trainer, ref_s, _ = dp_fit(dm, kernels, dp=False)
+    saved = {k: os.environ.get(k) for k in DP_ENV}
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    os.environ.pop("MSLA_PLATFORM", None)
+    try:
+        if not pdist.setup_distributed():
+            fail("data parallel: setup_distributed() did not join a group")
+        backend, world = dist.get_backend(), dist.get_world_size()
+        if backend != "nccl" or world != 1 or mesh.process_info() != (0, 1):
+            fail(f"data parallel: a group of {backend} at world size {world}")
+        task, trainer, fit_s, counts = dp_fit(dm, kernels, dp=True)
+        wrong = {k: (counts[k], n) for k, n in DP_LAUNCHES.items() if counts[k] != n}
+        if wrong:
+            fail(f"data parallel: launches (got, predicted) {wrong}; all: {counts}")
+        differ = [k for k, v in task.net.state_dict().items()
+                  if not torch.equal(v, ref_task.net.state_dict()[k])]
+        if differ:
+            fail(f"data parallel: parameters not bit-equal to the fit without a group: {differ}")
+        cm, ref_cm = trainer.callback_metrics, ref_trainer.callback_metrics
+        metric_rel = max(abs(cm[k] - v) / max(abs(v), 1e-30) for k, v in ref_cm.items())
+        if set(cm) != set(ref_cm) or metric_rel > 1e-6:
+            fail(f"data parallel: metrics {cm} against {ref_cm}")
+        phase8_diff = max((v - PHASE8_FIT["state"][k]).abs().max().item()
+                          for k, v in ref_task.net.state_dict().items())
+
+        raw = torch.from_numpy(dm.train_dataloader()[0]).to("cuda")
+        grads = [p.grad for p in task.net.parameters() if p.grad is not None]
+        grad_bytes = nbytes(*grads)
+        step = lambda: trainer._train_step(task, dm, [raw])  # noqa: E731
+        with_ms, without_ms = [], []
+        for _ in range(DP_ROUNDS):
+            with_ms.append(time_ms(step, reps=10, warmup=2))
+            trainer_module.mean_gradients = lambda params: None
+            try:
+                without_ms.append(time_ms(step, reps=10, warmup=2))
+            finally:
+                trainer_module.mean_gradients = mesh.mean_gradients
+        reduce_ms = time_ms(lambda: mesh.mean_gradients(task.net.parameters()))
+        reduce_queued = queued_ms(lambda: mesh.mean_gradients(task.net.parameters()))
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        nccl_ms = time_ms(lambda: dist.all_reduce(flat))
+        pdist.teardown_distributed()
+        if mesh.group_up():
+            fail("data parallel: the group outlived destroy_process_group()")
+    finally:
+        pdist.teardown_distributed()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    result = dict(backend=backend, world_size=world, fit_s=fit_s, fit_s_without_group=ref_s,
+                  launches=counts, bit_equal=True, metrics_max_rel=metric_rel,
+                  params_max_abs_vs_phase8=phase8_diff,
+                  step_ms_with_allreduce=statistics.median(with_ms),
+                  step_ms_without_allreduce=statistics.median(without_ms),
+                  step_ms_rounds=dict(with_allreduce=with_ms, without=without_ms),
+                  phase8_step_ms=fp32_training["step_device_ms"], grad_bytes=grad_bytes,
+                  grad_tensors=len(grads), mean_gradients_ms=reduce_ms,
+                  mean_gradients_queued_ms=reduce_queued, nccl_allreduce_ms=nccl_ms,
+                  nccl_bus_gb_per_s=grad_bytes / (nccl_ms / 1e3) / 1e9)
+    print(f"[data parallel] {smi}: NCCL, world size 1: fit {fit_s:.3f} s ({ref_s:.3f} s "
+          f"without a group), parameters bit-equal; launches {dict((k, counts[k]) for k in DP_LAUNCHES)} "
+          f"as predicted; phase 8's own fit (cuDNN not deterministic) within "
+          f"{phase8_diff:.3g}", flush=True)
+    print(f"[data parallel] {smi}: a batch-64 step {result['step_ms_with_allreduce']:.3f} ms "
+          f"with the gradient's all-reduce, {result['step_ms_without_allreduce']:.3f} ms "
+          f"without (rounds {with_ms} / {without_ms}; phase 8 "
+          f"{fp32_training['step_device_ms']:.3f}); the all-reduce of {grad_bytes} B in "
+          f"{len(grads)} tensors: mean_gradients {reduce_ms:.4f} ms between events, "
+          f"{reduce_queued:.4f} ms queued behind a spin (the device's own), NCCL's call "
+          f"{nccl_ms:.4f} ms", flush=True)
+    return result
+
+
+def dp_launched(smi: str) -> dict:
+    """(b) python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m msla_tpu_torch
+    train_vqvae=True on phase 22's fixture, in a project of its own."""
+    import os
+
+    from msla_tpu_torch.train.checkpoint import load_checkpoint
+
+    repo = Path(__file__).resolve().parent
+    project = CLI_ROOT / "dp_project"
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env.update(SLAKH_DIR=str(CLI_ROOT / "slakh"), PROJECT_ROOT=str(project),
+               PYTHONPATH=os.pathsep.join([str(repo), env.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "msla_tpu_torch.parallel.launch", "--nproc", "1", "--",
+           "-m", "msla_tpu_torch", "train_vqvae=True", "trainer.max_epochs=1", "logger=csv",
+           "extras.print_config=False"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_CLI_TIMEOUT_S,
+                          env=env, cwd=repo)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        fail(f"data parallel: the launched CLI exited {proc.returncode}: "
+             f"{chr(10).join(lines[-40:])} {proc.stderr[-2000:]}")
+    bare = [line for line in lines if not line.startswith("[rank 0] ")]
+    if bare or not lines:
+        fail(f"data parallel: {len(bare)} of {len(lines)} output lines without [rank 0]: "
+             f"{bare[:5]}")
+    if not any("Data parallel: rank 0 of 1, nccl" in line for line in lines):
+        fail("data parallel: the launched CLI reported no NCCL group of one rank")
+    best = project / "logs" / "best_checkpoint"
+    last = load_checkpoint(best / "last.ckpt")
+    if int(last["global_step"]) != 2 or not last["state_dict"]:
+        fail(f"data parallel: last.ckpt at step {last.get('global_step')}")
+    codebook = np.loadtxt(best / "codebook.csv", delimiter=",", skiprows=1)
+    if codebook.shape != (MODEL["num_embedding"], MODEL["embedding_dim"]):
+        fail(f"data parallel: codebook CSV of shape {codebook.shape}")
+    result = dict(s=seconds, lines=len(lines), last_global_step=int(last["global_step"]))
+    print(f"[data parallel] {smi}: python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m "
+          f"msla_tpu_torch train_vqvae=True: exit 0 in {seconds:.3f} s, {len(lines)} lines all "
+          f"[rank 0], last.ckpt at step 2 and the codebook CSV read back", flush=True)
+    return result
+
+
+def phase_data_parallel(kernels, smi: str, dm, fp32_training: dict) -> dict:
+    """Data parallelism on one card, world size 1: (a) ``dp_in_process``, (b)
+    ``dp_launched``; then phase 22's fixture is removed."""
+    import shutil
+
+    try:
+        result = dict(in_process=dp_in_process(kernels, smi, dm, fp32_training),
+                      launched=dp_launched(smi))
+    finally:
+        shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    result["launches"] = result["in_process"]["launches"]
+    print(f"[data parallel] {json.dumps(result)}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -5231,6 +5468,10 @@ def main() -> int:
     for k in sweep_report:
         k.update(path="sweep", launches=sweep["sweeps"]["optuna"]["launches"].get(k["name"], 0),
                  launches_smoke=sweep["sweeps"]["optuna_smoke"]["launches"].get(k["name"], 0))
+    # 28. data parallelism at world size 1: NCCL in process, then the launcher
+    data_parallel = phase("28 data parallel", phase_data_parallel, KERNELS, smi, dm, training)
+    for k in train_report:
+        k["launches_data_parallel"] = data_parallel["launches"][k["name"]]
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -5250,7 +5491,7 @@ def main() -> int:
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
                       "cli": cli, "bert_training": bert_training,
                       "transformer": transformer, "rest_of_trainer": rest,
-                      "sweep": sweep}),
+                      "sweep": sweep, "data_parallel": data_parallel}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report

@@ -11,6 +11,10 @@ ToComplex → InverseSpectrogram, on the whole batch at once:
 
 The draws (``torch.rand`` from a ``torch.Generator``) are kept apart from the
 masks built from them (``axis_mask``), so a test can feed in JAX's draws.
+Under data parallelism (``shard`` = (rank r, world size N)) the draws are made
+for the global batch of N·B rows from a generator every rank holds in the
+same state, and the rank takes the columns of the rows it holds: r, r + N, …,
+the loader's interleave.
 """
 from __future__ import annotations
 
@@ -44,11 +48,14 @@ def masked_reconstruction(batch: torch.Tensor, time_keep: torch.Tensor,
 def masking_augment(batch: torch.Tensor, generator: torch.Generator,
                     time_mask_param: int = TIME_MASK_PARAM,
                     freq_mask_param: int = FREQ_MASK_PARAM,
-                    n_fft: int = 400) -> torch.Tensor:
+                    n_fft: int = 400, shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """(B, 4, T) stems → masked lossy-reconstructed stems, same shape."""
     b, t = batch.shape[0], batch.shape[-1]
     n_frames, f_bins = t // (n_fft // 2) + 1, n_fft // 2 + 1   # center=True framing
-    u = torch.rand((4, b), generator=generator, device=batch.device)
+    rank, world = shard
+    u = torch.rand((4, b * world), generator=generator, device=batch.device)
+    if world > 1:
+        u = u[:, rank::world]
     time_keep = axis_mask(u[0], u[1], n_frames, time_mask_param)
     freq_keep = axis_mask(u[2], u[3], f_bins, freq_mask_param)
     return masked_reconstruction(batch, time_keep, freq_keep)

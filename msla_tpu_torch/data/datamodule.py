@@ -7,9 +7,11 @@ each builds its ``SlakhDataset`` when called, and yields numpy batches of
 (B, 4, T) stems, which the Trainer copies to the device one step ahead.
 ``train_transform`` (the masking augment) and ``on_after_batch_transfer``
 (the mixture broadcast, or the frozen teacher's code ids or latents with a
-``quantizer``) run on the batch once it is on the device. One
-process reads all of the data (``process_index`` 0 of 1) until the
-parallel opt-ins (ROADMAP.md queue item 7).
+``quantizer``) run on the batch once it is on the device. In a
+data-parallel run each rank's loaders read its interleave of the data
+(``process_index`` r of N: ``parallel.mesh.process_info``), the
+DistributedSampler's role, as the JAX package's do
+(msla_tpu/data/datamodule.py:71-80).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from msla_tpu_torch.data.dataset import SlakhDataset
 from msla_tpu_torch.data.loader import DataLoader
+from msla_tpu_torch.parallel.mesh import process_info
 
 
 class SlakhDataModule:
@@ -64,8 +67,9 @@ class SlakhDataModule:
                             masking=masking)
 
     def _loader(self, dataset: SlakhDataset, **kw) -> DataLoader:
+        rank, count = process_info()
         return DataLoader(dataset, num_workers=self.num_workers, seed=self.seed,
-                          process_index=0, process_count=1, **kw)
+                          process_index=rank, process_count=count, **kw)
 
     def train_dataloader(self) -> DataLoader:
         return self._loader(self.create_dataset(self.train_dir, masking=self.masking),
@@ -85,12 +89,15 @@ class SlakhDataModule:
 
     def train_transform(self, batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         """Train-only masking augmentation, on the device (the reference applies
-        it per item on the CPU, dataset.py:42-49)."""
+        it per item on the CPU, dataset.py:42-49). In a data-parallel run the
+        masks are drawn for the global batch and this rank takes its rows'
+        (``masking_augment``'s ``shard``), so N ranks mask as one process
+        does at N times the batch."""
         if not self.masking:
             return batch
         from msla_tpu_torch.data.augment import masking_augment
 
-        return masking_augment(batch, generator)
+        return masking_augment(batch, generator, shard=process_info())
 
     def on_after_batch_transfer(self, batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, 4, T) stems → (model input, target stems). Without a quantizer

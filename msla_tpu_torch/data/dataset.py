@@ -26,6 +26,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -94,7 +95,8 @@ class SlakhDataset:
                 continue
 
             kept_paths.append(self.file_paths[idx])
-            np.save(f"{self.data_dir}/tensor_{idx}.npy", stems)
+            with _replaced(f"{self.data_dir}/tensor_{idx}.npy") as f:
+                np.save(f, stems)
 
             # non-silent, complete 1s-hop windows (native scan when built)
             for frame_start in frame_index(stems, sr, frame_len, self.max_duration):
@@ -103,7 +105,7 @@ class SlakhDataset:
                                   "frame_end": int(frame_start) + frame_len})
 
         self.file_paths = kept_paths
-        with open(self.save_file, "w") as f:
+        with _replaced(self.save_file, "w") as f:
             json.dump(data_list, f)
         log.info("Finished dataset cleaning: %s", self.data_dir)
 
@@ -146,6 +148,17 @@ class SlakhDataset:
         elem = self.data_list[idx]
         track = self.data_dict[elem["file_path_idx"]]
         return track[:, elem["frame_start"]: elem["frame_end"]]
+
+
+@contextmanager
+def _replaced(path: str, mode: str = "wb"):
+    """A file written whole under another name, then renamed onto ``path``:
+    the ranks of a data-parallel run clean a split at once, and each reads
+    the cache only once it is complete."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, mode) as f:
+        yield f
+    os.replace(tmp, path)
 
 
 def make_fixture_dataset(root: str | Path, n_tracks: int, seconds: float, sr: int,

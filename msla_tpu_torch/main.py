@@ -28,6 +28,14 @@ shapes); any other error, a kernel's on the card included, raises (ROADMAP.md
 ``-m`` (``--multirun``), or a config whose ``hydra.mode`` is MULTIRUN (as
 ``hparams_search=optuna`` sets it), runs the TPE sweep of ``sweep/`` over
 ``run``: one composed run a trial, each in its own multirun directory.
+
+Under the launcher (``python -m msla_tpu_torch.parallel.launch --nproc N --
+-m msla_tpu_torch ...``) ``main`` joins the process group first
+(``parallel.distributed.setup_distributed``, as main.py:304-306 does), every
+rank trains its share of each stage, a barrier lets rank 0's checkpoints and
+codebook land before the next stage reads them, and generate and visualize
+run on rank 0 alone (main.py:272-275). The sweep does not run under the
+launcher yet (ROADMAP.md queue item 7.2).
 """
 from __future__ import annotations
 
@@ -42,7 +50,9 @@ from msla_tpu_torch.config import (ConfigNode, compose, instantiate, setup_job_l
                                    setup_root, setup_run_dir)
 from msla_tpu_torch.data.wavio import write_wav
 from msla_tpu_torch.data.transform import Quantize
-from msla_tpu_torch.train.checkpoint import restore_params
+from msla_tpu_torch.parallel.distributed import setup_distributed, teardown_distributed
+from msla_tpu_torch.parallel.mesh import group_up, is_main_process, process_info
+from msla_tpu_torch.train.checkpoint import files_landed, restore_params
 from msla_tpu_torch.utils.instantiators import instantiate_callbacks, instantiate_loggers
 from msla_tpu_torch.utils.plotting import (plot_codebook, plot_embeddings_from_quantized,
                                            plot_spectrogram, plot_waveform)
@@ -242,11 +252,14 @@ def run(cfg: ConfigNode) -> float | None:
     metric_dict: dict = {}
     if cfg.train_vqvae:
         metric_dict, _ = train_vqvae(cfg)
-    if cfg.train_transformer:
-        metric_dict, _ = train_transformer(cfg)
-    if cfg.train_bert:
-        metric_dict, _ = train_bert(cfg)
+    for flag, stage in (("train_transformer", train_transformer), ("train_bert", train_bert)):
+        if cfg[flag]:
+            files_landed()  # the teacher rank 0 wrote, before any rank reads it
+            metric_dict, _ = stage(cfg)
 
+    if not is_main_process():  # single-device analyses that write fixed paths
+        return get_metric_value(metric_dict=metric_dict,
+                                metric_name=cfg.get("optimized_metric"))
     for enabled, step in ((cfg.get("generate", True), generate),
                           (cfg.get("visualize", True), visualize)):
         if not enabled:
@@ -260,6 +273,17 @@ def run(cfg: ConfigNode) -> float | None:
 
 
 def main(argv: list[str] | None = None) -> float | None:
+    """The command line; a rank of a launched run joins its process group
+    first, and leaves it when ``main`` returns."""
+    joined = setup_distributed()  # no-op on one process
+    result = _main(argv)
+    if joined:  # a rank that fails leaves without a barrier: the launcher stops the rest
+        files_landed()
+        teardown_distributed()
+    return result
+
+
+def _main(argv: list[str] | None) -> float | None:
     argv = list(sys.argv[1:] if argv is None else argv)
     multirun = False
     for flag in ("-m", "--multirun"):
@@ -269,9 +293,15 @@ def main(argv: list[str] | None = None) -> float | None:
     setup_root(__file__, indicator=".project-root")
     cfg = compose(CONFIG_DIR, "train", argv)
     if multirun or str(cfg.select("hydra.mode", "")) == "MULTIRUN":
+        if process_info()[1] > 1:
+            raise NotImplementedError("the sweep under the launcher is not ported yet: "
+                                      "ROADMAP.md queue item 7.2")
         from msla_tpu_torch.sweep.sweeper import run_sweep
 
         return run_sweep(CONFIG_DIR, "train", argv, run)
     setup_run_dir(cfg)
     setup_job_logging(cfg, str(cfg.task_name))
+    if group_up():
+        rank, world = process_info()
+        log.info(f"Data parallel: rank {rank} of {world}, {torch.distributed.get_backend()}")
     return run(cfg)

@@ -42,6 +42,7 @@ from msla_tpu_torch.nn.layers import conv1d, linear
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
 from msla_tpu_torch.ops.mlm_argmax import mlm_argmax
+from msla_tpu_torch.parallel.mesh import all_max
 from msla_tpu_torch.train.checkpoint import ZIP_MAGIC
 from msla_tpu_torch.utils import msgpack
 from msla_tpu_torch.utils.jax_compat import (adam_state_from_jax,
@@ -236,9 +237,11 @@ class AudioBertTask(TaskModule):
 
     def _code_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """Vocab ids → code ids: round(ids / max(max(ids), 1) · (K − 1)) in
-        fp32, over the whole batch, in the JAX package's operation order."""
+        fp32, over the whole batch, in the JAX package's operation order. In
+        a data-parallel step the largest id is the global batch's, as JAX's
+        ``flat.max()`` over the global array is (an all-reduce, MAX)."""
         flat = ids.reshape(-1).to(torch.float32)
-        denom = torch.clamp(flat.max(), min=1.0)
+        denom = torch.clamp(all_max(flat.max()), min=1.0)
         k = self.net.codebook.shape[0]
         return torch.round(flat / denom * (k - 1)).to(torch.int64)
 

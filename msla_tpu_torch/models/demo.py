@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 
 from msla_tpu_torch.data.wavio import write_wav
+from msla_tpu_torch.parallel.mesh import is_main_process
 
 log = logging.getLogger(__name__)
 
@@ -26,7 +27,11 @@ DEMO_COLUMNS = ["bass vs D(bass)", "drums vs D(drums)", "guitar vs D(guitar)",
 def log_audio_demo(trainer, checkpoint_dir: str, sample_rate: int, original: np.ndarray,
                    decoded: np.ndarray, task_name: str) -> None:
     """Write original/generated WAVs of one sample, (4, T) stems each, into
-    ``checkpoint_dir`` and log the demo table to each of the trainer's loggers."""
+    ``checkpoint_dir`` and log the demo table to each of the trainer's loggers;
+    on rank 0 alone, the rank that writes the run's files
+    (msla_tpu/models/demo.py:31-33)."""
+    if not is_main_process():
+        return
     try:
         ckpt_dir = Path(checkpoint_dir)
         ckpt_dir.mkdir(parents=True, exist_ok=True)

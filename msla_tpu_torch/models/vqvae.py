@@ -20,6 +20,7 @@ from msla_tpu_torch.models.demo import log_audio_demo
 from msla_tpu_torch.models.module import TaskModule
 from msla_tpu_torch.nn.vqvae_net import QuantizedOutput, VQVAENet
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
+from msla_tpu_torch.parallel.mesh import is_main_process
 from msla_tpu_torch.utils.jax_compat import vqvae_state_dict_from_jax
 
 INSTRUMENTS = ("bass", "drums", "guitar", "piano")
@@ -106,7 +107,10 @@ class VQVAETask(TaskModule):
     def on_train_epoch_end(self, trainer) -> None:
         """Write the codebook as CSV with an integer header row, as the JAX
         package does (msla_tpu/models/vqvae.py:114-132: the readers skip one
-        header row)."""
+        header row). Rank 0 alone writes it: every rank holds the same
+        codebook (msla_tpu/models/vqvae.py:124-126)."""
+        if not is_main_process():
+            return
         codebook = self.net.vector_quantizer.codebook.weight.detach().cpu().numpy()
         path = Path(self.hparams["codebook_file"])
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -15,8 +15,11 @@ products (``einsum``), with TF32 off in fp32.
 The Switch load-balance loss E·Σₑ fₑ·Pₑ (fₑ the share of tokens whose first
 choice is e, Pₑ the mean router probability of e) is the JAX module's
 ``sow("losses", "moe_aux", ...)``; here ``forward`` returns it beside the
-output. Parameters keep the JAX layout: ``router`` (M, E), ``w1`` (E, M, F),
-``b1`` (E, F), ``w2`` (E, F, M), ``b2`` (E, M).
+output. In a data-parallel step (``parallel.mesh.data_axis``) both means are
+the global batch's, as in the JAX step on the global array; capacity is a
+group's (a row's), so dispatch needs no collective. Parameters keep the JAX
+layout: ``router`` (M, E), ``w1`` (E, M, F), ``b1`` (E, F), ``w2`` (E, F, M),
+``b2`` (E, M).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from msla_tpu_torch.nn.layers import dropout as drop, uniform_
+from msla_tpu_torch.parallel.mesh import all_sum_autograd, sharded
 
 
 def route(probs: torch.Tensor, k: int, c: int) -> tuple[torch.Tensor, torch.Tensor,
@@ -99,5 +103,15 @@ class MoEFFN(nn.Module):
         out = torch.einsum("egcf,efm->egcm", h, self.w2.to(cdt)) \
             + self.b2[:, None, None, :].to(cdt)
         y = torch.einsum("gsec,egcm->gsm", combine.to(cdt), out)
-        aux = self.num_experts * (first.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
-        return y.float(), aux
+        e = self.num_experts
+        if sharded():
+            # fₑ and Pₑ are means over the global batch: their numerators and
+            # the token count are summed over the ranks (with autograd)
+            # before the product, which is not linear in them
+            sums = all_sum_autograd(torch.cat([
+                first.sum(dim=(0, 1)), probs.sum(dim=(0, 1)),
+                probs.new_full((1,), first.shape[0] * first.shape[1])]))
+            frac, mean_prob = sums[:e] / sums[-1], sums[e:2 * e] / sums[-1]
+        else:
+            frac, mean_prob = first.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+        return y.float(), e * (frac * mean_prob).sum()

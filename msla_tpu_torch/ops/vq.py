@@ -9,6 +9,12 @@ swapped names, and code-usage perplexity. Two paths, as in the JAX package:
   gives dx in closed form and dcb through the ``vq_codebook_grad`` kernel;
 * the lookup path (``use_pallas=False``, and inference): the ``nearest_codes``
   kernel, then ``index_select`` and the losses by autograd.
+
+The perplexity is that of the global batch's code usage, as the JAX package's
+jitted step computes it on the global array: in a data-parallel step
+(``parallel.mesh.data_axis``) the counts and the row count are summed over
+the ranks first, one (K + 1)-long all-reduce on the stream. Perplexity is not
+linear in the batch, so the mean of the ranks' own would not be JAX's value.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 
 from msla_tpu_torch.ops.nearest_codes import nearest_codes
 from msla_tpu_torch.ops.vq_fused import vq_codebook_grad, vq_fused_fwd
+from msla_tpu_torch.parallel.mesh import all_sum, sharded
 
 
 class VQResult(NamedTuple):
@@ -30,6 +37,10 @@ class VQResult(NamedTuple):
 
 
 def _perplexity(counts: torch.Tensor, n: int) -> torch.Tensor:
+    """From a rank's (K,) code counts of its ``n`` rows, the global batch's."""
+    if sharded():
+        total = all_sum(torch.cat([counts, counts.new_full((1,), n)]))
+        counts, n = total[:-1], total[-1]
     avg_probs = counts / n
     return torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
 

@@ -17,6 +17,12 @@ file's write, a top-k file that is dropped is joined before it is removed,
 and the Trainer's ``fit`` returns once all of them have landed, as the JAX
 ModelCheckpoint does (msla_tpu/train/callbacks.py:106-156).
 
+In a data-parallel run every rank keeps the same bookkeeping (the heap, the
+version, the patience count: the Trainer's ``callback_metrics`` are reduced
+over the ranks, so each rank decides alike, and EarlyStopping stops them all
+at one epoch), and rank 0 alone makes the directory and writes, links and
+removes files (msla_tpu/train/callbacks.py:107-117).
+
 One departure from the JAX package (ROADMAP.md §3): ``last.ckpt`` is written
 after the top-k update, and the Trainer runs checkpoint callbacks after the
 others, as Lightning orders them, so ``last.ckpt`` holds every callback's
@@ -31,6 +37,7 @@ import os
 from pathlib import Path
 from typing import Mapping
 
+from msla_tpu_torch.parallel.mesh import is_main_process
 from msla_tpu_torch.train.checkpoint import link_after_pending, wait_for_pending
 
 log = logging.getLogger(__name__)
@@ -116,7 +123,8 @@ class ModelCheckpoint(Callback):
         if self.monitor not in metrics:
             return
         score = float(metrics[self.monitor])
-        self.dirpath.mkdir(parents=True, exist_ok=True)
+        if is_main_process():
+            self.dirpath.mkdir(parents=True, exist_ok=True)
         if not math.isnan(score) and self._qualifies(score):
             self._save_top_k(trainer, score)
         if self.save_last:
@@ -126,7 +134,9 @@ class ModelCheckpoint(Callback):
 
     def _save_top_k(self, trainer, score: float) -> None:
         """A versioned file for this score; the worst beyond k removed; the
-        canonical ``<filename>.ckpt`` pointed at the best."""
+        canonical ``<filename>.ckpt`` pointed at the best. The files on rank 0
+        alone (``Trainer.save_checkpoint`` writes nothing on the others)."""
+        main = is_main_process()
         path = str(self.dirpath / f"{self.filename}-v{self._version}.ckpt")
         self._version += 1
         trainer.save_checkpoint(path, weights_only=self.save_weights_only, background=True,
@@ -136,15 +146,17 @@ class ModelCheckpoint(Callback):
         if self.save_top_k > 0:  # negative keeps everything
             while len(self._best) > self.save_top_k:
                 _, drop = self._best.pop()
-                wait_for_pending(drop)  # a write in flight would bring it back
-                if os.path.exists(drop):
-                    os.remove(drop)
+                if main:
+                    wait_for_pending(drop)  # a write in flight would bring it back
+                    if os.path.exists(drop):
+                        os.remove(drop)
         canonical = str(self.dirpath / f"{self.filename}.ckpt")
         best_score, best_path = self._best[0]
-        link_after_pending(best_path, canonical)
+        if main:
+            link_after_pending(best_path, canonical)
         self.best_model_path = canonical
         self.best_model_score = best_score
-        if self.verbose:
+        if self.verbose and main:
             log.info("Saved checkpoint %s (score %.6f)", path, score)
 
 

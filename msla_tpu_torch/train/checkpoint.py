@@ -86,6 +86,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from msla_tpu_torch.parallel.mesh import barrier
 from msla_tpu_torch.utils import msgpack
 
 FROZEN_SIDECAR = "frozen.ckpt"  # the JAX package's legacy name, honoured on load
@@ -153,6 +154,14 @@ def wait_for_pending(path: str | Path | None = None) -> None:
         log.error("background checkpoint write failed: %s", err)
     if errors:
         raise errors[0]
+
+
+def files_landed() -> None:
+    """Every write this process has in flight joined, then a barrier of the
+    process group: after it, any rank may read a file rank 0 wrote (a
+    ``last.ckpt``, the first stage's best checkpoint and codebook)."""
+    wait_for_pending()
+    barrier()
 
 
 def _tensor_key(t: torch.Tensor) -> tuple:

@@ -6,12 +6,13 @@ The constructor takes the JAX Trainer's keywords. What the port runs:
 ``limit_val_batches``, ``limit_test_batches``, ``fast_dev_run``,
 ``detect_anomaly``, ``profiler`` ("simple", "jax"), ``log_every_n_steps``,
 ``enable_progress_bar``, ``default_root_dir``, ``callbacks``, ``logger``,
-``accumulate_grad_batches``, ``remat``, ``precision`` and ``seed``; epoch
-metrics as batch-size-weighted means of the per-batch means (Lightning's
-``on_epoch`` reduction), in ``callback_metrics``. The parallel keywords
-(``devices`` > 1, ``num_nodes``, ``model_parallel``, ``pipeline_*``,
-``zero1``, ``fsdp``) wait for ROADMAP.md queue item 7 and raise
-``NotImplementedError`` naming it when given anything but their default.
+``accumulate_grad_batches``, ``remat``, ``precision``, ``seed``, and
+``devices`` and ``num_nodes`` as data parallelism over ``torch.distributed``
+(below); epoch metrics as batch-size-weighted means of the per-batch means
+(Lightning's ``on_epoch`` reduction), in ``callback_metrics``. The model
+axis's keywords (``model_parallel``, ``pipeline_*``, ``zero1``, ``fsdp``)
+wait for ROADMAP.md queue item 7 and raise ``NotImplementedError`` naming it
+when given anything but their default.
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
@@ -85,6 +86,35 @@ as in JAX.
 must be present. The task must already live on that device. ``seed`` seeds
 the generator of the per-step random draws (the augment's masks); the
 weights' init is seeded where the task is built.
+
+Data parallelism (after msla_tpu/train/trainer.py:188-193, 247, 614-688 under
+``jax.distributed``): started by ``python -m msla_tpu_torch.parallel.launch``
+and joined by ``parallel.distributed.setup_distributed``, each rank drives one
+device (``cuda:LOCAL_RANK``, or the CPU under gloo) and its loaders read its
+interleave of the data. ``devices`` counts the ranks of a node and
+``devices`` × ``num_nodes`` must be the world size (-1: any); otherwise
+``ValueError`` names the launcher. An N-rank run computes what one process
+computes on the global batch, the ranks' batches side by side:
+
+* each step runs inside ``parallel.mesh.data_axis()``, where the tasks'
+  reductions over the batch are global (the VQ's code counts, Audio-BERT's
+  largest id, the MoE's load-balance means); after the backward (the last
+  microbatch's, the recomputed one under ``remat``) the gradient is
+  all-reduced as one flat buffer and divided by the world size, so every rank
+  takes the same optimizer step (no ``DistributedDataParallel`` wrapper,
+  whose ``module.`` prefix would rename every key of a checkpoint);
+* metrics stay on each rank until a logged step or the epoch's end, where
+  the batch-weighted sums and the row counts are all-reduced: every rank
+  holds the same ``callback_metrics``, so the callbacks decide alike;
+* the augment's masks are drawn for the global batch from the step generator,
+  which every rank holds in the same state, each rank taking its rows'; the
+  task's own draws (dropout, Audio-BERT's [MASK]) come from a stream of each
+  rank's own, reseeded every step from (``seed``, rank, step) (ROADMAP.md §3);
+* rank 0 alone writes checkpoints, logs, the profiler's trace and summary;
+  a checkpoint that rank 0 wrote is read by the others after its write has
+  landed and a barrier;
+* ``predict`` gathers every rank's outputs and returns them in loader order
+  on every rank.
 """
 from __future__ import annotations
 
@@ -99,15 +129,17 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from msla_tpu_torch.device import resolve_device
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+from msla_tpu_torch.parallel.mesh import (all_sum, data_axis, gather_rows, group_up,
+                                          is_main_process, mean_gradients, process_info,
+                                          resolve_devices)
 from msla_tpu_torch.train.callbacks import ModelCheckpoint
-from msla_tpu_torch.train.checkpoint import (load_checkpoint, save_checkpoint, wait_for_pending,
-                                             weights_of)
+from msla_tpu_torch.train.checkpoint import (files_landed, load_checkpoint, save_checkpoint,
+                                             wait_for_pending, weights_of)
 
 log = logging.getLogger(__name__)
 
-_PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/)"
+_PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/, the model axis)"
 
 
 def _refuse(name: str, value, default, item: str) -> None:
@@ -187,18 +219,17 @@ class Trainer:
         XLA passes (msla_tpu/train/trainer.py:120-125), and bf16 training
         comes from the task's ``compute_dtype``: the port runs fp32 with TF32
         off at every value, at least as precise as each TPU mapping ("high"
-        and unknown strings as "medium"). ``devices``: -1 or 1, one card.
+        and unknown strings as "medium"). ``devices``: the ranks of a node,
+        one device each (-1: any number); with ``num_nodes``, checked against
+        the process group (``parallel.mesh.resolve_devices``).
         ``default_root_dir`` holds only the ``profiler="jax"`` trace, as in
         the JAX Trainer. ``pipeline_microbatches`` waits with the feature
         that reads it."""
         for name, value, default in (("model_parallel", model_parallel, 1),
                                      ("pipeline_parallel", pipeline_parallel, 1),
                                      ("pipeline_microbatches", pipeline_microbatches, 2),
-                                     ("zero1", zero1, False), ("fsdp", fsdp, False),
-                                     ("num_nodes", num_nodes, 1)):
+                                     ("zero1", zero1, False), ("fsdp", fsdp, False)):
             _refuse(name, value, default, _PARALLEL)
-        if devices not in (-1, 1, None):
-            _refuse("devices", devices, 1, _PARALLEL)
 
         self.default_root_dir = Path(default_root_dir)
         self.min_epochs = int(min_epochs or 0)
@@ -219,9 +250,9 @@ class Trainer:
         self.callbacks = sorted(callbacks or [], key=lambda cb: isinstance(cb, ModelCheckpoint))
         self.loggers = list(logger) if isinstance(logger, (list, tuple)) else \
             ([logger] if logger else [])
-        self.device = resolve_device("cpu" if accelerator == "cpu" else "cuda")
-        if self.device.type == "cuda":  # as a task's parameters report it
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_devices(accelerator, devices, num_nodes)
+        self.rank, self.world_size = process_info()
+        self.is_main = is_main_process()
 
         self.callback_metrics: dict[str, float] = {}
         self.current_epoch = 0
@@ -230,6 +261,7 @@ class Trainer:
         self.datamodule = None
         self._optimizer: torch.optim.Optimizer | None = None
         self._generator: torch.Generator | None = None
+        self._rank_generator: torch.Generator | None = None
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     # ---- checkpoint plumbing ---------------------------------------------------------
@@ -242,9 +274,13 @@ class Trainer:
         ``frozen_param_keys`` go to the directory's sidecar. With
         ``background`` the state is copied now and written by the writer
         thread, and the write's future is returned. ``wire`` encodes it on
-        the device first (``train/checkpoint.py``'s codecs)."""
+        the device first (``train/checkpoint.py``'s codecs). Rank 0 alone
+        writes: every rank holds the same state, so nothing is gathered, and
+        the others return None."""
         if self._model is None:
             raise RuntimeError("save_checkpoint needs a task: call fit or validate first")
+        if not self.is_main:
+            return None
         return save_checkpoint(path,
                         state_dict=self._model.net.state_dict(),
                         opt_state=None if weights_only else self._optimizer.state_dict(),
@@ -259,7 +295,10 @@ class Trainer:
 
     def _resolve_ckpt_path(self, ckpt_path):
         """Lightning's meaning: "best" and "last" resolve through the
-        ModelCheckpoint callback; None keeps the current weights."""
+        ModelCheckpoint callback; None keeps the current weights. Every file
+        rank 0 has in flight lands before any rank reads one."""
+        if ckpt_path and self.world_size > 1:
+            files_landed()
         if ckpt_path not in ("best", "last"):
             return ckpt_path
         for cb in self.callbacks:
@@ -299,8 +338,13 @@ class Trainer:
         log.info("Restored checkpoint %s (epoch %d, step %d)", ckpt_path, self.current_epoch,
                  self.global_step)
 
+    @property
+    def _writing_loggers(self) -> list:
+        """The loggers, on rank 0; none on the others."""
+        return self.loggers if self.is_main else []
+
     def _log(self, metrics: Mapping[str, float], step: int) -> None:
-        for lg in self.loggers:
+        for lg in self._writing_loggers:
             lg.log_metrics(metrics, step)
 
     # ---- loop helpers --------------------------------------------------------------
@@ -321,6 +365,8 @@ class Trainer:
             self._model = model
             self._optimizer = model.configure_optimizer()
             self._generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+            if self.world_size > 1:
+                self._rank_generator = torch.Generator(device=self.device)
 
     def _prefetched(self, loader: Iterable, max_batches: int) -> Iterator[tuple[int, torch.Tensor]]:
         """Yield (rows, device batch), the next batch's copy in flight meanwhile.
@@ -374,12 +420,20 @@ class Trainer:
         if group:
             yield sum(len(b) for b in group), group
 
-    def _loss(self, model, batch):
-        """``model.loss_fn`` on the step generator; under ``remat`` inside
+    def _task_generator(self) -> torch.Generator:
+        """The generator of the task's own draws this step: the step
+        generator on one rank; on N, the rank's stream, reseeded from (seed,
+        rank, step) so that ranks draw apart and a resume draws alike."""
+        if self._rank_generator is None:
+            return self._generator
+        seed = ((self.seed + 1) * 1_000_003 + self.rank) * 1_000_003 + self.global_step
+        return self._rank_generator.manual_seed(seed % (1 << 63))
+
+    def _loss(self, model, batch, generator: torch.Generator):
+        """``model.loss_fn`` on ``generator``; under ``remat`` inside
         ``torch.utils.checkpoint``, whose recomputation replays the
         generator: torch's ``preserve_rng_state`` restores only the global
         generators."""
-        generator = self._generator
         if not self.remat:
             return model.loss_fn(batch, generator)
         start = generator.get_state()
@@ -400,23 +454,28 @@ class Trainer:
 
     def _train_step(self, model, datamodule, group: list[torch.Tensor]
                     ) -> dict[str, torch.Tensor]:
-        """One optimizer step on the mean gradient of ``group``'s batches."""
+        """One optimizer step on the mean gradient of ``group``'s batches
+        (and, in a data-parallel run, of the ranks')."""
         transform = getattr(datamodule, "train_transform", None)
         self._optimizer.zero_grad(set_to_none=True)
+        generator = self._task_generator()
         sums: dict[str, torch.Tensor] = {}
-        for raw in group:
-            if transform is not None:
-                raw = transform(raw, self._generator)
-            loss, metrics = self._loss(model, datamodule.on_after_batch_transfer(raw))
-            with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
-                loss.backward()
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+        with data_axis():
+            for raw in group:
+                if transform is not None:
+                    raw = transform(raw, self._generator)
+                loss, metrics = self._loss(model, datamodule.on_after_batch_transfer(raw),
+                                           generator)
+                with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
+                    loss.backward()
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v.detach() if k in sums else v.detach()
         if len(group) > 1:
             for p in model.net.parameters():
                 if p.grad is not None:
                     p.grad /= len(group)
             sums = {k: v / len(group) for k, v in sums.items()}
+        mean_gradients(model.net.parameters())
         self._optimizer.step()
         return sums
 
@@ -425,15 +484,19 @@ class Trainer:
         for k, v in metrics.items():  # device tensors: no wait for the device here
             sums[k] = sums[k] + v * rows if k in sums else v * rows
 
-    @staticmethod
-    def _means(sums: dict, rows: int) -> dict[str, float]:
+    def _means(self, sums: dict, rows: int) -> dict[str, float]:
         """Epoch means as host floats, in one transfer, in sorted key order as
-        the JAX Trainer's jitted steps return them (so logged columns match)."""
+        the JAX Trainer's jitted steps return them (so logged columns match);
+        in a data-parallel run the sums and rows of every rank."""
         if not sums:
             return {}
         keys = sorted(sums)
-        values = torch.stack([sums[k].float() for k in keys]).tolist()
-        return {k: v / max(rows, 1) for k, v in zip(keys, values)}
+        values = torch.stack([sums[k].float() for k in keys])
+        if group_up():
+            with data_axis():
+                total = all_sum(torch.cat([values, values.new_full((1,), rows)]))
+            values, rows = total[:-1], total[-1].item()
+        return {k: v / max(rows, 1) for k, v in zip(keys, values.tolist())}
 
     @torch.no_grad()
     def _run_eval(self, model, datamodule, loader, mode: str, limit) -> dict[str, float]:
@@ -441,7 +504,7 @@ class Trainer:
         rows = 0
         max_batches = self._limit(len(loader), 1 if self.fast_dev_run else limit)
         for batch_idx, (n, raw) in enumerate(self._prefetched(loader, max_batches)):
-            with self.profiler.track(f"{mode}_step"):
+            with self.profiler.track(f"{mode}_step"), data_axis():
                 metrics = model.eval_metrics(datamodule.on_after_batch_transfer(raw), mode)
             self._accumulate(sums, metrics, n)
             rows += n
@@ -458,14 +521,14 @@ class Trainer:
                 with torch.autograd.set_detect_anomaly(self.detect_anomaly), self._traced():
                     self._fit(model, datamodule, ckpt_path)
             finally:
-                if self.profiler.enabled and self.profiler.totals:
+                if self.profiler.enabled and self.profiler.totals and self.is_main:
                     log.info("%s", self.profiler.summary())
 
     @contextmanager
     def _traced(self):
         """``profiler="jax"``: a torch.profiler trace of what runs inside,
-        written to ``default_root_dir/jax_trace`` when it ends."""
-        if not self._trace:
+        written to ``default_root_dir/jax_trace`` when it ends; rank 0's."""
+        if not (self._trace and self.is_main):
             yield
             return
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
@@ -488,7 +551,7 @@ class Trainer:
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
             self._restore(ckpt_path)
-        for lg in self.loggers:
+        for lg in self._writing_loggers:
             lg.log_hyperparams(getattr(model, "hparams", {}))
 
         max_epochs = 1 if self.fast_dev_run else self.max_epochs
@@ -506,7 +569,7 @@ class Trainer:
                 rows += n
                 self._accumulate(sums, metrics, n)
                 if self.log_every_n_steps and self.global_step % self.log_every_n_steps == 0:
-                    self._log_step(metrics)
+                    self._log_step(metrics, n)
             train_epoch = self._means(sums, rows)
             self.callback_metrics.update(train_epoch)
 
@@ -530,15 +593,19 @@ class Trainer:
                     cb.stop_training for cb in self.callbacks)
         for cb in self.callbacks:
             cb.on_train_end(self)
-        for lg in self.loggers:
+        for lg in self._writing_loggers:
             lg.finalize()
 
-    def _log_step(self, metrics: Mapping[str, torch.Tensor]) -> None:
-        """A logged step's metrics, to the loggers and the progress log: the
+    def _log_step(self, metrics: Mapping[str, torch.Tensor], rows: int) -> None:
+        """A logged step's metrics (of the global batch: the ranks' means
+        weighted by their ``rows``), to the loggers and the progress log: the
         one place inside an epoch where the loop waits for the device."""
         if not (self.loggers or self.enable_progress_bar):
             return
-        host = {k: float(metrics[k]) for k in sorted(metrics)}
+        if self.world_size > 1:
+            host = self._means({k: v * rows for k, v in metrics.items()}, rows)
+        else:
+            host = {k: float(metrics[k]) for k in sorted(metrics)}
         self._log(host, self.global_step)
         if self.enable_progress_bar:
             log.info("epoch %d step %d: %s", self.current_epoch, self.global_step,
@@ -572,7 +639,10 @@ class Trainer:
 
     def predict(self, model, datamodule, ckpt_path: str | None = None) -> list[torch.Tensor]:
         """``model.predict_step`` on each batch of the predict loader, on the
-        device (after msla_tpu/train/trainer.py:592-690, one process)."""
+        device (after msla_tpu/train/trainer.py:592-690). In a data-parallel
+        run every rank returns every rank's rows, in loader order: rank r's
+        j-th row of a batch is loader position j·N + r, the wrap-padded
+        duplicates of the loader's last rows included, as JAX returns them."""
         with _joined_writes():
             return self._predict(model, datamodule, ckpt_path)
 
@@ -585,10 +655,17 @@ class Trainer:
         loader = datamodule.predict_dataloader()
         rows: list[int] = []
         outputs = []
-        for i, (_, batch) in enumerate(self._prefetched(self._padded(loader, rows),
-                                                        len(loader))):
-            out = model.predict_step(datamodule.on_after_batch_transfer(batch))
-            outputs.append(out[:rows[i]])
+        world = self.world_size
+        for i, (bucket, batch) in enumerate(self._prefetched(self._padded(loader, rows),
+                                                             len(loader))):
+            with data_axis():
+                out = model.predict_step(datamodule.on_after_batch_transfer(batch))
+            if world == 1:
+                outputs.append(out[:rows[i]])
+                continue
+            order = torch.tensor([p * bucket + j for j in range(rows[i]) for p in range(world)],
+                                 device=self.device)
+            outputs.append(gather_rows(out).index_select(0, order))
         return outputs
 
     @staticmethod

@@ -1,16 +1,16 @@
 """Rank-aware console logger (the port's copy of msla_tpu/utils/pylogger.py;
 reference: src/utils/pylogger.py:9-51).
 
-The port runs one process, rank 0, until the parallel opt-ins (ROADMAP.md
-queue item 7), so no rank is looked up: messages carry ``[rank: 0]`` as the
-reference's do.
+Messages carry ``[rank: N]``, the process's rank in the data-parallel run
+(``parallel.mesh.process_info``: the process group's once it is up, else 0),
+as the reference's do.
 """
 from __future__ import annotations
 
 import logging
 from typing import Mapping, Optional
 
-RANK = 0
+from msla_tpu_torch.parallel.mesh import process_info
 
 
 class RankedLogger(logging.LoggerAdapter):
@@ -26,9 +26,10 @@ class RankedLogger(logging.LoggerAdapter):
         if not self.isEnabledFor(level):
             return
         msg, kwargs = self.process(msg, kwargs)
-        msg = f"[rank: {RANK}] {msg}"
+        current_rank = process_info()[0]
+        msg = f"[rank: {current_rank}] {msg}"
         if self.rank_zero_only:
-            if RANK == 0:
+            if current_rank == 0:
                 self.logger.log(level, msg, *args, **kwargs)
-        elif rank is None or RANK == rank:
+        elif rank is None or current_rank == rank:
             self.logger.log(level, msg, *args, **kwargs)

@@ -287,6 +287,34 @@ def test_loader_abandoned_iterator_stops_producer(fixture_root):
     assert threading.active_count() <= baseline
 
 
+@pytest.mark.parametrize("count", [2, 3, 4])
+@pytest.mark.parametrize("loader", ["train_dataloader", "predict_dataloader"])
+def test_rank_shards_bit_equal_to_jax(fixture_root, monkeypatch, loader, count):
+    """Rank r of N (the port's ``process_info``, JAX's ``process_info``)
+    reads the JAX DataLoader's shard r of N bit for bit; unshuffled, the N
+    shards cover the split."""
+    import msla_tpu.parallel.mesh as jax_mesh
+    import msla_tpu_torch.parallel.mesh as mesh
+
+    seen = []
+    for r in range(count):
+        for module in (jax_mesh, mesh):
+            monkeypatch.setattr(module, "_recorded_rank", r)
+            monkeypatch.setattr(module, "_recorded_count", count)
+        got = getattr(SlakhDataModule(**_dm_kw(fixture_root)), loader)()
+        want = getattr(JaxSlakhDataModule(**_dm_kw(fixture_root)), loader)()
+        assert (got.process_index, got.process_count) == (want.process_index,
+                                                          want.process_count) == (r, count)
+        got_b, want_b = list(got), list(want)
+        assert len(got_b) == len(want_b) == len(got) > 0
+        for a, b in zip(got_b, want_b):
+            np.testing.assert_array_equal(a, b)
+        seen.append(np.concatenate(got_b)[:, 0, :8])
+    if loader == "predict_dataloader":   # unshuffled, nothing dropped: every frame read
+        every = {got.dataset[i][0, :8].tobytes() for i in range(len(got.dataset))}
+        assert {row.tobytes() for shard in seen for row in shard} == every
+
+
 def _dm_kw(root):
     return dict(train_dir=str(root / "train"), val_dir=str(root / "validation"),
                 test_dir=str(root / "test"), target_sample_rate=SR,

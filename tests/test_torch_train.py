@@ -245,10 +245,18 @@ def test_adam_is_optax_adam(jax_side, tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(model_parallel=2), dict(pipeline_parallel=2),
-                                dict(zero1=True), dict(fsdp=True), dict(devices=2),
-                                dict(num_nodes=2), dict(pipeline_microbatches=4)])
+                                dict(zero1=True), dict(fsdp=True),
+                                dict(pipeline_microbatches=4)])
 def test_trainer_keywords_that_wait_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 7"):
+        Trainer(accelerator="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(devices=2), dict(num_nodes=2)])
+def test_trainer_devices_without_a_matching_group_raise(kw):
+    """Data parallelism needs one process a device, which the launcher
+    starts: a lone process asked for two devices or two nodes names it."""
+    with pytest.raises(ValueError, match="msla_tpu_torch.parallel.launch"):
         Trainer(accelerator="cpu", **kw)
 
 
