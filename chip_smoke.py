@@ -247,8 +247,27 @@ Phases, each of which raises (exit code != 0) when its check fails:
      train_vqvae=True on phase 22's fixture in a project of its own: exit 0,
      every line of its output prefixed [rank 0], a process group of NCCL at
      world size 1 reported, last.ckpt (at its global step) and the codebook
-     CSV written and read back; then phase 22's fixture is removed;
- 29. one JSON line with every kernel's numbers, then the device line.
+     CSV written and read back;
+ 29. the model axis at world size 1 (sharded state over groups of one rank;
+     model_parallel > 1 is the CPU tests'): (a) phase 8's fit again (phase
+     28's inputs and cuDNN flags) in a rank started by python -m
+     msla_tpu_torch.parallel.launch --nproc 1 -- chip_smoke.py --model-axis
+     <dir>, under NCCL, with zero1=True, then with fsdp=True: each fit's
+     parameters and metrics bit-equal to phase 28's fit under the group, K1b,
+     K2b, #4 and #5 launched DP_LAUNCHES times (the kernels line's
+     launches_model_axis), every leaf on the sharded path (its layout over
+     "data", its block and moments the whole leaf's shape); a batch-64
+     step's device ms with the sharded optimizer (fsdp: the gathers, the
+     slices, Adam on the blocks) and without (the plain group), in turns,
+     and queued behind a spin;
+     the gathers' bytes and ms between CUDA events and queued behind a spin
+     (queued_ms); Trainer(model_parallel=2) raising JAX's ValueError before
+     any step; (b) python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m
+     msla_tpu_torch train_vqvae=True trainer.fsdp=True (generate and visualize
+     off: phase 28 ran them) on phase 22's fixture: exit 0, every line
+     [rank 0], its seconds, last.ckpt of whole tensors;
+     then phase 22's fixture is removed;
+ 30. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -270,6 +289,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import re
 import statistics
 import struct
@@ -280,6 +300,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+T_IMPORT = time.perf_counter()        # once torch is imported (phase 29's rank reports from it)
 
 PEAK_FLOPS = {"fp32": 67e12,     # H100 SXM, fp32 outside the tensor cores (data sheet)
               "tf32": 495e12,    # H100 SXM, TF32 dense on the tensor cores (data sheet)
@@ -5205,6 +5227,11 @@ def dp_fit(dm, kernels, dp: bool):
     return task, trainer, time.perf_counter() - t0, launch_counts(kernels)
 
 
+#: phase 28's fit under the group as it ended, which phase 29's sharded fits
+#: must give bit for bit
+PHASE28_FIT: dict = {}
+
+
 def dp_in_process(kernels, smi: str, dm, fp32_training: dict) -> dict:
     """(a) NCCL at world size 1 in this process: the fit against the same fit
     without a group, bit for bit; its launches; the all-reduce's cost."""
@@ -5236,6 +5263,8 @@ def dp_in_process(kernels, smi: str, dm, fp32_training: dict) -> dict:
         if differ:
             fail(f"data parallel: parameters not bit-equal to the fit without a group: {differ}")
         cm, ref_cm = trainer.callback_metrics, ref_trainer.callback_metrics
+        PHASE28_FIT.update(callback_metrics=dict(cm), state={
+            k: v.detach().cpu().clone() for k, v in task.net.state_dict().items()})
         metric_rel = max(abs(cm[k] - v) / max(abs(v), 1e-30) for k, v in ref_cm.items())
         if set(cm) != set(ref_cm) or metric_rel > 1e-6:
             fail(f"data parallel: metrics {cm} against {ref_cm}")
@@ -5337,16 +5366,257 @@ def dp_launched(smi: str) -> dict:
 
 def phase_data_parallel(kernels, smi: str, dm, fp32_training: dict) -> dict:
     """Data parallelism on one card, world size 1: (a) ``dp_in_process``, (b)
-    ``dp_launched``; then phase 22's fixture is removed."""
+    ``dp_launched``. Phase 22's fixture stays for phase 29."""
+    result = dict(in_process=dp_in_process(kernels, smi, dm, fp32_training),
+                  launched=dp_launched(smi))
+    result["launches"] = result["in_process"]["launches"]
+    print(f"[data parallel] {json.dumps(result)}", flush=True)
+    return result
+
+
+MODEL_AXIS_FLAG = "--model-axis"      # chip_smoke.py --model-axis <dir>: phase 29's rank
+MODEL_AXIS_TIMEOUT_S = 300
+
+
+class HeldShapes:
+    """A callback (the Trainer's protocol): after each validation, whether the
+    Trainer's sharded state runs, and each leaf's layout, held block and
+    moments' shapes against its whole shape."""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    stop_training = False
+
+    def on_validation_end(self, trainer, metrics) -> None:
+        shards, opt = trainer._shards, trainer._optimizer
+        self.seen = dict(active=bool(shards is not None and shards.active), leaves={
+            name: dict(spec=list(leaf.spec), opt=list(leaf.opt), whole=list(leaf.shape),
+                       held=list(leaf.p.shape),
+                       moment=list(opt.state[leaf.p]["exp_avg"].shape)
+                       if leaf.p in opt.state else None)
+            for name, leaf in (shards.leaves.items() if shards is not None else [])})
+
+    def on_train_end(self, trainer) -> None:
+        pass
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        pass
+
+
+def model_axis_rank(out: Path) -> int:
+    """Phase 29 (a)'s rank, started by the launcher under NCCL at world size
+    1: phase 8's fit with zero1=True, then fsdp=True; the step with and
+    without the sharded optimizer; the gathers; model_parallel=2's
+    ValueError. Writes ``<out>/result.json`` and each fit's parameters."""
+    import torch.distributed as dist
+
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.ops import KERNELS
+    from msla_tpu_torch.parallel.distributed import setup_distributed, teardown_distributed
+    from msla_tpu_torch.parallel.mesh import on_grid
+    from msla_tpu_torch.train.trainer import Trainer
+
+    marks = {"imported": time.perf_counter() - T_IMPORT}
+    if not setup_distributed():
+        fail("model axis: setup_distributed() did not join a group")
+    marks["group"] = time.perf_counter() - T_IMPORT
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"model axis: a group of {dist.get_backend()} at {dist.get_world_size()}")
+    start = torch.load(out / "start.pt")
+    train, val = synthetic_stems(TRAIN_BATCHES, seed=10), synthetic_stems(VAL_BATCHES, seed=11)
+    dm = in_memory_datamodule(train, val)
+
+    def task_of(name: str):
+        task = VQVAETask(**MODEL, checkpoint_dir=str(out / name),
+                         codebook_file=str(out / name / "codebook.csv"), device="cuda", seed=0)
+        task.net.load_state_dict(start)
+        return task
+
+    result: dict = {}
+    for mode in ("zero1", "fsdp"):
+        task, held = task_of(mode), HeldShapes()
+        trainer = Trainer(max_epochs=1, limit_train_batches=TRAIN_BATCHES,
+                          limit_val_batches=VAL_BATCHES, seed=0, enable_progress_bar=False,
+                          callbacks=[held], **{mode: True})
+        reset_counts(KERNELS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            trainer.fit(task, dm)
+        torch.cuda.synchronize()
+        result[mode] = dict(fit_s=time.perf_counter() - t0, launches=launch_counts(KERNELS),
+                            callback_metrics=dict(trainer.callback_metrics), **held.seen)
+        torch.save({k: v.cpu() for k, v in task.net.state_dict().items()}, out / f"{mode}.pt")
+        marks[mode] = time.perf_counter() - T_IMPORT
+
+    raw = torch.from_numpy(train[0]).to("cuda")
+    plain_task, sharded_task = task_of("plain"), task_of("sharded")
+    plain, sharded = Trainer(seed=0, enable_progress_bar=False), \
+        Trainer(seed=0, enable_progress_bar=False, fsdp=True)
+    plain._setup(plain_task, dm)
+    sharded._setup(sharded_task, dm)
+    shards = sharded._shards
+
+    def gather():
+        with shards.use():
+            pass
+
+    with on_grid(sharded.grid):   # cuDNN as phases 8 and 28 time their steps
+        shards.shard()
+        with_ms, without_ms = [], []
+        for _ in range(DP_ROUNDS):
+            with_ms.append(time_ms(lambda: sharded._train_step(sharded_task, dm, [raw]),
+                                   reps=10, warmup=2))
+            without_ms.append(time_ms(lambda: plain._train_step(plain_task, dm, [raw]),
+                                      reps=10, warmup=2))
+        queued = dict(sharded=queued_ms(lambda: sharded._train_step(sharded_task, dm, [raw]),
+                                        reps=10),
+                      plain=queued_ms(lambda: plain._train_step(plain_task, dm, [raw]), reps=10))
+        gathered = [leaf for leaf in shards.leaves.values() if any(leaf.spec)]
+        gather_bytes = sum(math.prod(leaf.shape) * leaf.p.element_size() for leaf in gathered)
+        gather_ms, gather_queued = time_ms(gather), queued_ms(gather)
+        shards.unshard()
+    marks["timed"] = time.perf_counter() - T_IMPORT
+    try:
+        Trainer(seed=0, enable_progress_bar=False, model_parallel=2)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    result.update(step_ms_sharded=statistics.median(with_ms),
+                  step_ms_plain=statistics.median(without_ms),
+                  step_ms_rounds=dict(sharded=with_ms, plain=without_ms),
+                  step_queued_ms=queued,
+                  gather_bytes=gather_bytes, gather_tensors=len(gathered), gather_ms=gather_ms,
+                  gather_queued_ms=gather_queued, model_parallel_2=refused,
+                  seconds_since_import=marks)
+    (out / "result.json").write_text(json.dumps(result))
+    teardown_distributed()
+    print(f"model axis rank done: {sorted(result)}", flush=True)
+    return 0
+
+
+def model_axis_launched(smi: str) -> dict:
+    """(a): the rank through python -m msla_tpu_torch.parallel.launch --nproc 1,
+    its fits against phase 28's under the group."""
+    import os
+    import shutil
+
+    repo = Path(__file__).resolve().parent
+    out = OUT_DIR / "model_axis"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.save({k: v.detach().cpu() for k, v in PHASE8_FIT["start"].items()}, out / "start.pt")
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env["PYTHONPATH"] = os.pathsep.join([str(repo), env.get("PYTHONPATH", "")])
+    cmd = [sys.executable, "-m", "msla_tpu_torch.parallel.launch", "--nproc", "1", "--",
+           str(repo / "chip_smoke.py"), MODEL_AXIS_FLAG, str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MODEL_AXIS_TIMEOUT_S,
+                          env=env, cwd=repo)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        fail(f"model axis: the launched rank exited {proc.returncode}: "
+             f"{chr(10).join(lines[-40:])} {proc.stderr[-3000:]}")
+    if any(not line.startswith("[rank 0] ") for line in lines):
+        fail(f"model axis: output lines without [rank 0]: {lines[:5]}")
+    res = json.loads((out / "result.json").read_text())
+    for mode in ("zero1", "fsdp"):
+        fit = res[mode]
+        state = torch.load(out / f"{mode}.pt")
+        differ = [k for k, v in PHASE28_FIT["state"].items() if not torch.equal(state[k], v)]
+        if differ:
+            fail(f"model axis: {mode}'s parameters not bit-equal to phase 28's: {differ}")
+        if fit["callback_metrics"] != PHASE28_FIT["callback_metrics"]:
+            fail(f"model axis: {mode}'s metrics {fit['callback_metrics']} against "
+                 f"{PHASE28_FIT['callback_metrics']}")
+        wrong = {k: (fit["launches"][k], n) for k, n in DP_LAUNCHES.items()
+                 if fit["launches"][k] != n}
+        if wrong:
+            fail(f"model axis: {mode}'s launches (got, predicted) {wrong}")
+        leaves = fit["leaves"]
+        off = [n for n, leaf in leaves.items()
+               if "data" not in (leaf["spec"] if mode == "fsdp" else leaf["opt"])
+               or leaf["held"] != leaf["whole"] or leaf["moment"] != leaf["whole"]]
+        if not fit["active"] or len(leaves) != len(state) or off:
+            fail(f"model axis: {mode} not on the sharded path over a group of one: {off}")
+    if not (res["model_parallel_2"] or "").startswith("1 devices not divisible by the "
+                                                      "model-axis size 2"):
+        fail(f"model axis: Trainer(model_parallel=2) at world size 1: {res['model_parallel_2']}")
+    result = dict(s=seconds, **res)
+    print(f"[model axis] {smi}: python -m msla_tpu_torch.parallel.launch --nproc 1 -- "
+          f"chip_smoke.py {MODEL_AXIS_FLAG}: NCCL at world size 1, zero1 fit "
+          f"{res['zero1']['fit_s']:.3f} s, fsdp fit {res['fsdp']['fit_s']:.3f} s, both "
+          f"bit-equal to phase 28's fit under the group, launches "
+          f"{dict((k, res['fsdp']['launches'][k]) for k in DP_LAUNCHES)} as predicted; "
+          f"model_parallel=2 refused: {res['model_parallel_2']}", flush=True)
+    print(f"[model axis] {smi}: a batch-64 step {res['step_ms_sharded']:.3f} ms with the "
+          f"sharded optimizer (fsdp), {res['step_ms_plain']:.3f} ms without (rounds "
+          f"{res['step_ms_rounds']}; queued behind a spin, which hides the host's head start "
+          f"of each timed step, {res['step_queued_ms']}); the gathers of "
+          f"{res['gather_bytes']} B in {res['gather_tensors']} tensors {res['gather_ms']:.4f} ms between events, "
+          f"{res['gather_queued_ms']:.4f} ms queued behind a spin; the rank's command "
+          f"{seconds:.3f} s (its seconds since chip_smoke.py's imports: "
+          f"{res['seconds_since_import']})", flush=True)
+    return result
+
+
+def model_axis_cli(smi: str) -> dict:
+    """(b): python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m msla_tpu_torch
+    train_vqvae=True trainer.fsdp=True on phase 22's fixture."""
+    import os
+
+    from msla_tpu_torch.train.checkpoint import load_checkpoint
+
+    repo = Path(__file__).resolve().parent
+    project = CLI_ROOT / "model_axis_project"
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env.update(SLAKH_DIR=str(CLI_ROOT / "slakh"), PROJECT_ROOT=str(project),
+               PYTHONPATH=os.pathsep.join([str(repo), env.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "msla_tpu_torch.parallel.launch", "--nproc", "1", "--",
+           "-m", "msla_tpu_torch", "train_vqvae=True", "trainer.max_epochs=1", "logger=csv",
+           "trainer.fsdp=True", "extras.print_config=False", "+visualize=False",
+           "+generate=False"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_CLI_TIMEOUT_S,
+                          env=env, cwd=repo)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        fail(f"model axis: the launched CLI exited {proc.returncode}: "
+             f"{chr(10).join(lines[-40:])} {proc.stderr[-2000:]}")
+    if any(not line.startswith("[rank 0] ") for line in lines) or not lines:
+        fail(f"model axis: CLI output lines without [rank 0]: {lines[:5]}")
+    last = load_checkpoint(project / "logs" / "best_checkpoint" / "last.ckpt")
+    shapes = {k: tuple(v.shape) for k, v in PHASE8_FIT["start"].items()}
+    if int(last["global_step"]) != 2 or {k: tuple(v.shape) for k, v in
+                                          last["state_dict"].items()} != shapes:
+        fail(f"model axis: the CLI's last.ckpt at step {last.get('global_step')} or not whole")
+    moments = [tuple(e["exp_avg"].shape) for e in last["opt_state"]["state"].values()]
+    if sorted(moments) != sorted(shapes.values()):
+        fail("model axis: the CLI's last.ckpt holds moments that are not whole")
+    print(f"[model axis] {smi}: python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m "
+          f"msla_tpu_torch train_vqvae=True trainer.fsdp=True: exit 0 in {seconds:.3f} s, "
+          f"{len(lines)} lines all [rank 0], last.ckpt whole at step 2", flush=True)
+    return dict(s=seconds, lines=len(lines))
+
+
+def phase_model_axis(smi: str) -> dict:
+    """The model axis on one card, world size 1: (a) ``model_axis_launched``,
+    (b) ``model_axis_cli``; then phase 22's fixture is removed."""
     import shutil
 
     try:
-        result = dict(in_process=dp_in_process(kernels, smi, dm, fp32_training),
-                      launched=dp_launched(smi))
+        result = dict(launched=model_axis_launched(smi), cli=model_axis_cli(smi))
     finally:
         shutil.rmtree(CLI_ROOT, ignore_errors=True)
-    result["launches"] = result["in_process"]["launches"]
-    print(f"[data parallel] {json.dumps(result)}", flush=True)
+    result["launches"] = result["launched"]["fsdp"]["launches"]
+    print(f"[model axis] {json.dumps(result)}", flush=True)
     return result
 
 
@@ -5472,6 +5742,10 @@ def main() -> int:
     data_parallel = phase("28 data parallel", phase_data_parallel, KERNELS, smi, dm, training)
     for k in train_report:
         k["launches_data_parallel"] = data_parallel["launches"][k["name"]]
+    # 29. the model axis at world size 1: sharded state over groups of one, the launcher
+    model_axis = phase("29 model axis", phase_model_axis, smi)
+    for k in train_report:
+        k["launches_model_axis"] = model_axis["launches"][k["name"]]
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -5491,7 +5765,8 @@ def main() -> int:
                       "bf16_gradients": bf16_gradients, "bf16_training": bf16_training,
                       "cli": cli, "bert_training": bert_training,
                       "transformer": transformer, "rest_of_trainer": rest,
-                      "sweep": sweep, "data_parallel": data_parallel}),
+                      "sweep": sweep, "data_parallel": data_parallel,
+                      "model_axis": model_axis}),
           flush=True)
     print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
                       + bf16_report + bf16_bert_report + bf16_train_report
@@ -5505,4 +5780,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == MODEL_AXIS_FLAG:
+        sys.exit(model_axis_rank(Path(sys.argv[2])))
     sys.exit(main())

@@ -9,7 +9,8 @@ each builds its ``SlakhDataset`` when called, and yields numpy batches of
 (the mixture broadcast, or the frozen teacher's code ids or latents with a
 ``quantizer``) run on the batch once it is on the device. In a
 data-parallel run each rank's loaders read its interleave of the data
-(``process_index`` r of N: ``parallel.mesh.process_info``), the
+(``process_index`` r of N: ``parallel.mesh.data_info``, the data index and
+size, so model peers read the same rows), the
 DistributedSampler's role, as the JAX package's do
 (msla_tpu/data/datamodule.py:71-80).
 """
@@ -19,7 +20,7 @@ import torch
 
 from msla_tpu_torch.data.dataset import SlakhDataset
 from msla_tpu_torch.data.loader import DataLoader
-from msla_tpu_torch.parallel.mesh import process_info
+from msla_tpu_torch.parallel.mesh import data_info
 
 
 class SlakhDataModule:
@@ -67,7 +68,7 @@ class SlakhDataModule:
                             masking=masking)
 
     def _loader(self, dataset: SlakhDataset, **kw) -> DataLoader:
-        rank, count = process_info()
+        rank, count = data_info()
         return DataLoader(dataset, num_workers=self.num_workers, seed=self.seed,
                           process_index=rank, process_count=count, **kw)
 
@@ -91,13 +92,13 @@ class SlakhDataModule:
         """Train-only masking augmentation, on the device (the reference applies
         it per item on the CPU, dataset.py:42-49). In a data-parallel run the
         masks are drawn for the global batch and this rank takes its rows'
-        (``masking_augment``'s ``shard``), so N ranks mask as one process
-        does at N times the batch."""
+        (``masking_augment``'s ``shard``, the data index and size), so N data
+        ranks mask as one process does at N times the batch."""
         if not self.masking:
             return batch
         from msla_tpu_torch.data.augment import masking_augment
 
-        return masking_augment(batch, generator, shard=process_info())
+        return masking_augment(batch, generator, shard=data_info())
 
     def on_after_batch_transfer(self, batch: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(B, 4, T) stems → (model input, target stems). Without a quantizer

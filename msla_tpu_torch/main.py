@@ -34,8 +34,10 @@ Under the launcher (``python -m msla_tpu_torch.parallel.launch --nproc N --
 (``parallel.distributed.setup_distributed``, as main.py:304-306 does), every
 rank trains its share of each stage, a barrier lets rank 0's checkpoints and
 codebook land before the next stage reads them, and generate and visualize
-run on rank 0 alone (main.py:272-275). The sweep does not run under the
-launcher yet (ROADMAP.md queue item 7.2).
+run on rank 0 alone (main.py:272-275). ``trainer.model_parallel``,
+``trainer.zero1`` and ``trainer.fsdp`` shard the state over the ranks
+(``train/trainer.py``). The sweep does not run under the launcher yet
+(ROADMAP.md queue item 7.2b).
 """
 from __future__ import annotations
 
@@ -295,7 +297,7 @@ def _main(argv: list[str] | None) -> float | None:
     if multirun or str(cfg.select("hydra.mode", "")) == "MULTIRUN":
         if process_info()[1] > 1:
             raise NotImplementedError("the sweep under the launcher is not ported yet: "
-                                      "ROADMAP.md queue item 7.2")
+                                      "ROADMAP.md queue item 7.2b")
         from msla_tpu_torch.sweep.sweeper import run_sweep
 
         return run_sweep(CONFIG_DIR, "train", argv, run)

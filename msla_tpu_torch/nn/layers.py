@@ -56,11 +56,14 @@ def layer_norm(layer: nn.LayerNorm, x: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            deterministic: bool = True) -> torch.Tensor:
+            deterministic: bool = True, shard: tuple[int, int, int] | None = None
+            ) -> torch.Tensor:
     """flax's ``nn.Dropout(rate)``: each element kept with probability
     1 − rate, and a kept one scaled by 1/(1 − rate), in ``x``'s dtype. The
     keep mask is drawn from ``generator`` (``F.dropout`` takes none), which
-    must live on ``x``'s device."""
+    must live on ``x``'s device. ``shard`` = (dim, index, parts): ``x`` is
+    block ``index`` of ``parts`` along ``dim`` of the whole tensor, whose mask
+    is drawn and cut, so the shards drop as the whole does."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -68,7 +71,13 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
                          "pass one")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep =torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    shape = list(x.shape)
+    if shard is not None:
+        dim, index, parts = shard
+        shape[dim] *= parts
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if shard is not None:
+        keep = keep.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -20,6 +20,17 @@ the global batch's, as in the JAX step on the global array; capacity is a
 group's (a row's), so dispatch needs no collective. Parameters keep the JAX
 layout: ``router`` (M, E), ``w1`` (E, M, F), ``b1`` (E, F), ``w2`` (E, F, M),
 ``b2`` (E, M).
+
+Expert parallelism (msla_tpu/parallel/mesh.py:96-98, msla_tpu/nn/moe.py:
+68-102): with a ``model_axis`` (``parallel/sharding.py`` sets it) this rank
+holds E/mp experts' ``w1``, ``b1``, ``w2`` and ``b2``, the block of its model
+index. The router is whole on every model peer, and every peer routes the
+same tokens, so capacity and the drop order come from the full token set
+alike on each; each computes its experts' part of the combine, and the model
+group sums the parts in one all-reduce (``ModelAxis.reduce``). No
+all_to_all is needed, where the JAX module's comments expect XLA to lower
+the dispatch and combine to one (msla_tpu/nn/moe.py:10, 95): model peers
+hold the same tokens, so no token has to move to its expert's rank.
 """
 from __future__ import annotations
 
@@ -61,6 +72,9 @@ def route(probs: torch.Tensor, k: int, c: int) -> tuple[torch.Tensor, torch.Tens
 
 
 class MoEFFN(nn.Module):
+    model_axis = None   # a ModelAxis: this rank's experts only
+    model_sharded = ("w1", "b1", "w2", "b2")
+
     def __init__(self, d_model: int, d_ff: int, num_experts: int, num_selected: int = 2,
                  capacity_factor: float = 1.25, dropout: float = 0.0,
                  dtype: torch.dtype | None = None, *, generator: torch.Generator, device):
@@ -96,13 +110,21 @@ class MoEFFN(nn.Module):
         """(G, S, M) → ((G, S, M) fp32, the aux loss, a scalar)."""
         dispatch, combine, probs, first = self.routing(x)
         cdt = x.dtype if self.dtype is None else self.dtype
-        xin = torch.einsum("gsec,gsm->egcm", dispatch.to(cdt), x.to(cdt))
+        ax, xe, shard = self.model_axis, x, {}
+        if ax is not None:   # this rank's experts: their slots of dispatch and combine
+            local = self.w1.shape[0]
+            dispatch = dispatch.narrow(2, ax.index * local, local)
+            combine = ax.enter(combine).narrow(2, ax.index * local, local)
+            xe, shard = ax.enter(x), dict(shard=(0, ax.index, ax.size))
+        xin = torch.einsum("gsec,gsm->egcm", dispatch.to(cdt), xe.to(cdt))
         h = torch.relu(torch.einsum("egcm,emf->egcf", xin, self.w1.to(cdt))
                        + self.b1[:, None, None, :].to(cdt))
-        h = drop(h, self.dropout, generator, deterministic)
+        h = drop(h, self.dropout, generator, deterministic, **shard)
         out = torch.einsum("egcf,efm->egcm", h, self.w2.to(cdt)) \
             + self.b2[:, None, None, :].to(cdt)
         y = torch.einsum("gsec,egcm->gsm", combine.to(cdt), out)
+        if ax is not None:
+            y = ax.reduce(y.float())
         e = self.num_experts
         if sharded():
             # fₑ and Pₑ are means over the global batch: their numerators and

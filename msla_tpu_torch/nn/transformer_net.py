@@ -19,10 +19,19 @@ fp32 and the stream between layers stays fp32. Parameters stay fp32.
 
 Dropout (attention, FFN, the three residual branches and the MoE experts')
 is live when ``deterministic`` is False and draws from the ``generator``.
+
+Tensor parallelism (msla_tpu/nn/transformer_net.py:66-72, sharded by
+``tp_param_spec``): with a ``model_axis`` (``parallel/sharding.py`` sets it)
+a layer holds its model peers' block of the FFN, ``linear1``'s output rows
+(column parallel, with its block of ``linear1``'s bias) and ``linear2``'s
+input columns (row parallel), and sums the peers' partial outputs in one
+all-reduce (``ModelAxis.reduce``) before ``linear2``'s bias, added once. The
+FFN's dropout mask is drawn whole and cut, as the whole layer draws it.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from msla_tpu_torch.device import resolve_device
@@ -35,6 +44,8 @@ from msla_tpu_torch.nn.positional import PositionalEncoding
 class DecoderLayer(nn.Module):
     """torch.nn.TransformerDecoderLayer's function (post-norm, ReLU FFN) under
     the JAX module's parameter names."""
+
+    model_axis = None   # a ModelAxis: the FFN computed on this rank's shards
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, zero_memory: bool = True,
@@ -57,6 +68,7 @@ class DecoderLayer(nn.Module):
         else:
             self.linear1 = linear(d_model, dim_feedforward, **kw)
             self.linear2 = linear(dim_feedforward, d_model, **kw)
+            self.model_sharded = ("linear1.weight", "linear2.weight")
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor | None, mask: torch.Tensor,
@@ -79,10 +91,24 @@ class DecoderLayer(nn.Module):
         aux = None
         if hasattr(self, "moe"):
             h, aux = self.moe(x, deterministic, generator)
-        else:
+        elif self.model_axis is None:
             h = dropout(torch.relu(dense(self.linear1, x, self.dtype)))
             h = dense(self.linear2, h, self.dtype).float()
+        else:
+            h = self._sharded_ffn(x, deterministic, generator)
         return self.norm3(x + dropout(h)), aux
+
+    def _sharded_ffn(self, x: torch.Tensor, deterministic: bool,
+                     generator: torch.Generator | None) -> torch.Tensor:
+        """The FFN on this rank's blocks: ``linear1.weight`` (F/mp, M),
+        ``linear2.weight`` (M, F/mp), the biases whole."""
+        ax, dt = self.model_axis, self.dtype or x.dtype
+        part = self.linear1.weight.shape[0]
+        b1 = ax.enter(self.linear1.bias).narrow(0, ax.index * part, part)
+        h = torch.relu(F.linear(ax.enter(x).to(dt), self.linear1.weight.to(dt)) + b1.to(dt))
+        h = drop(h, self.dropout, generator, deterministic, shard=(-1, ax.index, ax.size))
+        out = ax.reduce(F.linear(h, self.linear2.weight.to(dt)).float())
+        return out + self.linear2.bias.to(dt).float()
 
 
 class TransformerQuantizerNet(nn.Module):

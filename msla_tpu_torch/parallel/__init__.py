@@ -1,9 +1,11 @@
-"""Data parallelism over ``torch.distributed`` (port of msla_tpu/parallel/: the
-data axis of ``mesh.py``, ``distributed.py`` and ``launch.py``).
+"""Data parallelism and the model axis's sharded state over
+``torch.distributed`` (port of msla_tpu/parallel/: ``mesh.py``,
+``distributed.py`` and ``launch.py``).
 
-One process a card, the rank's share of the global batch on it; the Trainer
-averages the gradients over the ranks. ``launch`` starts the ranks,
-``distributed.setup_distributed`` joins them into a process group (NCCL on
-the card, gloo on the CPU) and ``mesh`` answers who is who and holds the
-collectives the Trainer and the tasks need.
+One process a card, the rank's share of the global batch on it. ``launch``
+starts the ranks, ``distributed.setup_distributed`` joins them into a
+process group (NCCL on the card, gloo on the CPU), ``mesh`` lays them out on
+a (data, model) grid and holds the collectives the Trainer and the tasks
+need, and ``sharding`` keeps each rank's blocks of the parameters and of the
+Adam moments under ``model_parallel``, ``zero1`` and ``fsdp``.
 """

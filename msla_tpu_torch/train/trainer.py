@@ -7,12 +7,13 @@ The constructor takes the JAX Trainer's keywords. What the port runs:
 ``detect_anomaly``, ``profiler`` ("simple", "jax"), ``log_every_n_steps``,
 ``enable_progress_bar``, ``default_root_dir``, ``callbacks``, ``logger``,
 ``accumulate_grad_batches``, ``remat``, ``precision``, ``seed``, and
-``devices`` and ``num_nodes`` as data parallelism over ``torch.distributed``
-(below); epoch metrics as batch-size-weighted means of the per-batch means
-(Lightning's ``on_epoch`` reduction), in ``callback_metrics``. The model
-axis's keywords (``model_parallel``, ``pipeline_*``, ``zero1``, ``fsdp``)
-wait for ROADMAP.md queue item 7 and raise ``NotImplementedError`` naming it
-when given anything but their default.
+``devices`` and ``num_nodes`` as data parallelism over ``torch.distributed``,
+``model_parallel``, ``zero1`` and ``fsdp`` as sharded state over a (data,
+model) grid of its ranks (below); epoch metrics as batch-size-weighted means
+of the per-batch means (Lightning's ``on_epoch`` reduction), in
+``callback_metrics``. The pipeline's keywords (``pipeline_parallel``,
+``pipeline_microbatches``) wait for ROADMAP.md queue item 7.2b and raise
+``NotImplementedError`` naming it when given anything but their default.
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
@@ -115,13 +116,31 @@ computes on the global batch, the ranks' batches side by side:
   landed and a barrier;
 * ``predict`` gathers every rank's outputs and returns them in loader order
   on every rank.
+
+The model axis (after msla_tpu/train/trainer.py:127-160, 173-235, 309-341,
+396-418): ``model_parallel`` = mp folds the world into dp × mp ranks
+(``parallel.mesh.make_grid``; a world it does not divide raises JAX's
+``ValueError``), rank r data index r // mp and model index r % mp. Model
+peers hold the same rows, so the loaders, the augment, the tasks' batch
+reductions, the gradient's mean, the metrics and predict's gather all run
+over the data group; the task's own draws are seeded from the data index, so
+model peers draw alike. Under ``model_parallel`` > 1, ``zero1`` or ``fsdp``
+each rank holds only its blocks of the sharded parameters and Adam moments
+while a loop runs (``parallel/sharding.py``: JAX's layout rules, gathered
+before use, the FFN and the MoE's experts computed on their shards, Adam on
+the blocks); when ``fit``, ``validate``, ``test`` or ``predict`` returns, the
+task's net holds whole tensors again. Checkpoints hold whole tensors, gathered
+by every rank before rank 0 writes, and resume under any layout. Without a
+process group these keywords change nothing (one process: its one device
+holds everything, as JAX's one-device mesh); with one, the sharded path runs
+over groups of any size, one rank's included.
 """
 from __future__ import annotations
 
 import logging
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import Iterable, Iterator, Mapping
 
@@ -131,15 +150,16 @@ from torch.utils.checkpoint import checkpoint
 
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 from msla_tpu_torch.parallel.mesh import (all_sum, data_axis, gather_rows, group_up,
-                                          is_main_process, mean_gradients, process_info,
-                                          resolve_devices)
+                                          is_main_process, make_grid, mean_gradients, on_grid,
+                                          process_info, resolve_devices)
+from msla_tpu_torch.parallel.sharding import ShardedState
 from msla_tpu_torch.train.callbacks import ModelCheckpoint
 from msla_tpu_torch.train.checkpoint import (files_landed, load_checkpoint, save_checkpoint,
                                              wait_for_pending, weights_of)
 
 log = logging.getLogger(__name__)
 
-_PARALLEL = "ROADMAP.md queue item 7 (the opt-ins: parallel/, the model axis)"
+_PIPELINE = "ROADMAP.md queue item 7.2b (parallel/, the model axis: the pipeline)"
 
 
 def _refuse(name: str, value, default, item: str) -> None:
@@ -223,13 +243,22 @@ class Trainer:
         one device each (-1: any number); with ``num_nodes``, checked against
         the process group (``parallel.mesh.resolve_devices``).
         ``default_root_dir`` holds only the ``profiler="jax"`` trace, as in
-        the JAX Trainer. ``pipeline_microbatches`` waits with the feature
-        that reads it."""
-        for name, value, default in (("model_parallel", model_parallel, 1),
-                                     ("pipeline_parallel", pipeline_parallel, 1),
-                                     ("pipeline_microbatches", pipeline_microbatches, 2),
-                                     ("zero1", zero1, False), ("fsdp", fsdp, False)):
-            _refuse(name, value, default, _PARALLEL)
+        the JAX Trainer. ``model_parallel``, ``zero1``, ``fsdp``: the model
+        axis (the module docstring). ``pipeline_microbatches`` waits with the
+        feature that reads it; the pairings JAX forbids raise its
+        ``ValueError`` first (msla_tpu/train/trainer.py:145-156)."""
+        if int(pipeline_microbatches) < 1:
+            raise ValueError(f"pipeline_microbatches={pipeline_microbatches} must be >= 1")
+        if model_parallel > 1 and pipeline_parallel > 1:
+            raise ValueError("model_parallel and pipeline_parallel both use the `model` mesh "
+                             "axis — pick one")
+        if fsdp and pipeline_parallel > 1:
+            raise ValueError("fsdp shards parameters over `data` but pipeline parallelism "
+                             "builds its own stage-stacked layout — pick one (zero1 composes "
+                             "with pp)")
+        for name, value, default in (("pipeline_parallel", pipeline_parallel, 1),
+                                     ("pipeline_microbatches", pipeline_microbatches, 2)):
+            _refuse(name, value, default, _PIPELINE)
 
         self.default_root_dir = Path(default_root_dir)
         self.min_epochs = int(min_epochs or 0)
@@ -253,6 +282,12 @@ class Trainer:
         self.device = resolve_devices(accelerator, devices, num_nodes)
         self.rank, self.world_size = process_info()
         self.is_main = is_main_process()
+        self.grid = make_grid(model_parallel)
+        self.data_index, self.dp = ((self.grid.data_index, self.grid.dp) if self.grid
+                                    else (self.rank, self.world_size))
+        self.zero1, self.fsdp = bool(zero1), bool(fsdp)
+        self._sharding = self.grid is not None and (self.grid.mp > 1 or self.zero1 or self.fsdp)
+        self._shards: ShardedState | None = None
 
         self.callback_metrics: dict[str, float] = {}
         self.current_epoch = 0
@@ -275,15 +310,21 @@ class Trainer:
         ``background`` the state is copied now and written by the writer
         thread, and the write's future is returned. ``wire`` encodes it on
         the device first (``train/checkpoint.py``'s codecs). Rank 0 alone
-        writes: every rank holds the same state, so nothing is gathered, and
-        the others return None."""
+        writes, and the others return None; sharded state is first gathered
+        to whole tensors by every rank (a collective, so before that gate)."""
         if self._model is None:
             raise RuntimeError("save_checkpoint needs a task: call fit or validate first")
+        optimizer = None if weights_only else self._optimizer
+        if self._shards is not None:
+            state_dict, opt_state = self._shards.whole_state(optimizer)
+        else:
+            state_dict = self._model.net.state_dict()
+            opt_state = None if optimizer is None else optimizer.state_dict()
         if not self.is_main:
             return None
         return save_checkpoint(path,
-                        state_dict=self._model.net.state_dict(),
-                        opt_state=None if weights_only else self._optimizer.state_dict(),
+                        state_dict=state_dict,
+                        opt_state=opt_state,
                         epoch=self.current_epoch, global_step=self.global_step,
                         hparams=getattr(self._model, "hparams", {}),
                         callback_metrics=self.callback_metrics,
@@ -313,13 +354,20 @@ class Trainer:
                            "callback has a saved checkpoint")
 
     def _restore(self, ckpt_path) -> None:
+        """A file's whole tensors, any layout's, onto this run's (sliced onto
+        its blocks when sharded)."""
         payload = load_checkpoint(ckpt_path)
         jax_file = payload.get("format") == "jax"
-        self._model.net.load_state_dict(weights_of(self._model, payload))
+        weights, opt_state = weights_of(self._model, payload), None
         if payload.get("opt_state"):
-            self._optimizer.load_state_dict(
-                self._model.optimizer_state_from_jax(self._optimizer, payload["opt_state"])
-                if jax_file else payload["opt_state"])
+            opt_state = (self._model.optimizer_state_from_jax(self._optimizer, payload["opt_state"])
+                         if jax_file else payload["opt_state"])
+        if self._shards is not None:
+            self._shards.load_whole(weights, self._optimizer, opt_state)
+        else:
+            self._model.net.load_state_dict(weights)
+            if opt_state:
+                self._optimizer.load_state_dict(opt_state)
         if "generator" in payload:
             self._generator.set_state(payload["generator"])
         elif jax_file:  # JAX folds its draws from the step count: no state to carry
@@ -365,8 +413,30 @@ class Trainer:
             self._model = model
             self._optimizer = model.configure_optimizer()
             self._generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
-            if self.world_size > 1:
+            if self.dp > 1:
                 self._rank_generator = torch.Generator(device=self.device)
+            self._shards = (ShardedState(model.net, self.grid, self.zero1, self.fsdp)
+                            if self._sharding else None)
+
+    @contextmanager
+    def _sharded(self):
+        """The task's net on this rank's blocks while a loop runs, whole again
+        after it (not after an error: the gather would wait for ranks that
+        failed)."""
+        if self._shards is None:
+            yield
+            return
+        self._shards.shard()
+        yield
+        self._shards.unshard()
+
+    def _in_use(self):
+        """The sharded parameters in their use form (gathered) inside."""
+        return self._shards.use() if self._shards is not None else nullcontext()
+
+    def _whole(self):
+        """Whole parameters inside, for a task's hook."""
+        return self._shards.whole() if self._shards is not None else nullcontext()
 
     def _prefetched(self, loader: Iterable, max_batches: int) -> Iterator[tuple[int, torch.Tensor]]:
         """Yield (rows, device batch), the next batch's copy in flight meanwhile.
@@ -422,11 +492,12 @@ class Trainer:
 
     def _task_generator(self) -> torch.Generator:
         """The generator of the task's own draws this step: the step
-        generator on one rank; on N, the rank's stream, reseeded from (seed,
-        rank, step) so that ranks draw apart and a resume draws alike."""
+        generator at one data index; at N, the data index's stream, reseeded
+        from (seed, data index, step) so that data ranks draw apart, model
+        peers alike, and a resume draws alike."""
         if self._rank_generator is None:
             return self._generator
-        seed = ((self.seed + 1) * 1_000_003 + self.rank) * 1_000_003 + self.global_step
+        seed = ((self.seed + 1) * 1_000_003 + self.data_index) * 1_000_003 + self.global_step
         return self._rank_generator.manual_seed(seed % (1 << 63))
 
     def _loss(self, model, batch, generator: torch.Generator):
@@ -455,28 +526,33 @@ class Trainer:
     def _train_step(self, model, datamodule, group: list[torch.Tensor]
                     ) -> dict[str, torch.Tensor]:
         """One optimizer step on the mean gradient of ``group``'s batches
-        (and, in a data-parallel run, of the ranks')."""
+        (and, in a data-parallel run, of the data group's); sharded, on this
+        rank's blocks."""
         transform = getattr(datamodule, "train_transform", None)
         self._optimizer.zero_grad(set_to_none=True)
         generator = self._task_generator()
         sums: dict[str, torch.Tensor] = {}
-        with data_axis():
-            for raw in group:
-                if transform is not None:
-                    raw = transform(raw, self._generator)
-                loss, metrics = self._loss(model, datamodule.on_after_batch_transfer(raw),
-                                           generator)
-                with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
-                    loss.backward()
-                for k, v in metrics.items():
-                    sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-        if len(group) > 1:
-            for p in model.net.parameters():
-                if p.grad is not None:
-                    p.grad /= len(group)
-            sums = {k: v / len(group) for k, v in sums.items()}
-        mean_gradients(model.net.parameters())
-        self._optimizer.step()
+        with self._in_use():
+            with data_axis():
+                for raw in group:
+                    if transform is not None:
+                        raw = transform(raw, self._generator)
+                    loss, metrics = self._loss(model, datamodule.on_after_batch_transfer(raw),
+                                               generator)
+                    with fp32_convs():  # the convs' adjoints run here, outside the forward's scope
+                        loss.backward()
+                    for k, v in metrics.items():
+                        sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+            if len(group) > 1:
+                for p in model.net.parameters():
+                    if p.grad is not None:
+                        p.grad /= len(group)
+                sums = {k: v / len(group) for k, v in sums.items()}
+            mean_gradients(model.net.parameters())
+            if self._shards is None:
+                self._optimizer.step()
+            else:
+                self._shards.step(self._optimizer)
         return sums
 
     @staticmethod
@@ -503,13 +579,14 @@ class Trainer:
         sums: dict = {}
         rows = 0
         max_batches = self._limit(len(loader), 1 if self.fast_dev_run else limit)
-        for batch_idx, (n, raw) in enumerate(self._prefetched(loader, max_batches)):
-            with self.profiler.track(f"{mode}_step"), data_axis():
-                metrics = model.eval_metrics(datamodule.on_after_batch_transfer(raw), mode)
-            self._accumulate(sums, metrics, n)
-            rows += n
-            if mode == "validation":
-                model.on_validation_batch_end(self, raw, batch_idx)
+        with self._in_use():
+            for batch_idx, (n, raw) in enumerate(self._prefetched(loader, max_batches)):
+                with self.profiler.track(f"{mode}_step"), data_axis():
+                    metrics = model.eval_metrics(datamodule.on_after_batch_transfer(raw), mode)
+                self._accumulate(sums, metrics, n)
+                rows += n
+                if mode == "validation":
+                    model.on_validation_batch_end(self, raw, batch_idx)
         return self._means(sums, rows)
 
     # ---- public API --------------------------------------------------------------
@@ -518,7 +595,8 @@ class Trainer:
         failed write fails ``fit``."""
         with _joined_writes():
             try:
-                with torch.autograd.set_detect_anomaly(self.detect_anomaly), self._traced():
+                with torch.autograd.set_detect_anomaly(self.detect_anomaly), self._traced(), \
+                        on_grid(self.grid):
                     self._fit(model, datamodule, ckpt_path)
             finally:
                 if self.profiler.enabled and self.profiler.totals and self.is_main:
@@ -548,6 +626,10 @@ class Trainer:
         if len(train_loader) == 0:
             raise RuntimeError("empty train dataloader — check data_dir and batch_size")
         self._setup(model, datamodule)
+        with self._sharded():
+            self._fit_loop(model, datamodule, train_loader, val_loader, ckpt_path)
+
+    def _fit_loop(self, model, datamodule, train_loader, val_loader, ckpt_path) -> None:
         ckpt_path = self._resolve_ckpt_path(ckpt_path)
         if ckpt_path:
             self._restore(ckpt_path)
@@ -582,7 +664,8 @@ class Trainer:
                 log.info("epoch %d done in %.1fs: validation/loss=%s", self.current_epoch,
                          time.perf_counter() - t_epoch,
                          round(val_metrics.get("validation/loss", float("nan")), 5))
-            model.on_train_epoch_end(self)
+            with self._whole():
+                model.on_train_epoch_end(self)
             # counted before the callbacks run, so a checkpoint records the
             # completed epochs and a resume starts the next one
             self.current_epoch += 1
@@ -612,27 +695,28 @@ class Trainer:
                      {k: round(v, 5) for k, v in host.items()})
 
     def validate(self, model, datamodule, ckpt_path: str | None = None) -> dict[str, float]:
-        return self._eval_entry(model, datamodule, "validation", datamodule.val_dataloader(),
+        return self._eval_entry(model, datamodule, "validation", datamodule.val_dataloader,
                                 self.limit_val_batches, ckpt_path)
 
     def test(self, model, datamodule, ckpt_path: str | None = None) -> dict[str, float]:
         """The test split's metrics (after msla_tpu/train/trainer.py:555-579)."""
         return self._eval_entry(model, datamodule, getattr(model, "test_mode_name", "test"),
-                                datamodule.test_dataloader(), self.limit_test_batches,
+                                datamodule.test_dataloader, self.limit_test_batches,
                                 ckpt_path)
 
     def _eval_entry(self, model, datamodule, mode: str, loader, limit,
                     ckpt_path) -> dict[str, float]:
-        with _joined_writes():
-            return self._evaluate(model, datamodule, mode, loader, limit, ckpt_path)
+        with _joined_writes(), on_grid(self.grid):
+            return self._evaluate(model, datamodule, mode, loader(), limit, ckpt_path)
 
     def _evaluate(self, model, datamodule, mode: str, loader, limit,
                   ckpt_path) -> dict[str, float]:
         self._setup(model, datamodule)
-        ckpt_path = self._resolve_ckpt_path(ckpt_path)
-        if ckpt_path:
-            self._restore(ckpt_path)
-        metrics = self._run_eval(model, datamodule, loader, mode, limit)
+        with self._sharded():
+            ckpt_path = self._resolve_ckpt_path(ckpt_path)
+            if ckpt_path:
+                self._restore(ckpt_path)
+            metrics = self._run_eval(model, datamodule, loader, mode, limit)
         self.callback_metrics.update(metrics)
         self._log(metrics, self.global_step)
         return metrics
@@ -640,32 +724,35 @@ class Trainer:
     def predict(self, model, datamodule, ckpt_path: str | None = None) -> list[torch.Tensor]:
         """``model.predict_step`` on each batch of the predict loader, on the
         device (after msla_tpu/train/trainer.py:592-690). In a data-parallel
-        run every rank returns every rank's rows, in loader order: rank r's
-        j-th row of a batch is loader position j·N + r, the wrap-padded
-        duplicates of the loader's last rows included, as JAX returns them."""
-        with _joined_writes():
+        run every rank returns every data index's rows, in loader order: data
+        index r's j-th row of a batch is loader position j·N + r (N the data
+        size), the wrap-padded duplicates of the loader's last rows included,
+        as JAX returns them."""
+        with _joined_writes(), on_grid(self.grid):
             return self._predict(model, datamodule, ckpt_path)
 
     @torch.no_grad()
     def _predict(self, model, datamodule, ckpt_path) -> list[torch.Tensor]:
         self._setup(model, datamodule)
-        ckpt_path = self._resolve_ckpt_path(ckpt_path)
-        if ckpt_path:
-            self._restore(ckpt_path)
-        loader = datamodule.predict_dataloader()
-        rows: list[int] = []
-        outputs = []
-        world = self.world_size
-        for i, (bucket, batch) in enumerate(self._prefetched(self._padded(loader, rows),
-                                                             len(loader))):
-            with data_axis():
-                out = model.predict_step(datamodule.on_after_batch_transfer(batch))
-            if world == 1:
-                outputs.append(out[:rows[i]])
-                continue
-            order = torch.tensor([p * bucket + j for j in range(rows[i]) for p in range(world)],
-                                 device=self.device)
-            outputs.append(gather_rows(out).index_select(0, order))
+        with self._sharded():
+            ckpt_path = self._resolve_ckpt_path(ckpt_path)
+            if ckpt_path:
+                self._restore(ckpt_path)
+            loader = datamodule.predict_dataloader()
+            rows: list[int] = []
+            outputs = []
+            world = self.dp
+            with self._in_use():
+                for i, (bucket, batch) in enumerate(self._prefetched(self._padded(loader, rows),
+                                                                     len(loader))):
+                    with data_axis():
+                        out = model.predict_step(datamodule.on_after_batch_transfer(batch))
+                    if world == 1:
+                        outputs.append(out[:rows[i]])
+                        continue
+                    order = torch.tensor([p * bucket + j for j in range(rows[i])
+                                          for p in range(world)], device=self.device)
+                    outputs.append(gather_rows(out).index_select(0, order))
         return outputs
 
     @staticmethod

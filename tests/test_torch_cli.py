@@ -340,7 +340,7 @@ def test_cli_trains_the_transformer_after_the_vqvae(fixture_root, tmp_path, monk
 
 
 @pytest.mark.parametrize("argv,item", [(["train_vqvae=True", "trainer.accelerator=cpu",
-                                         "+trainer.model_parallel=2"], "queue item 7")])
+                                         "+trainer.pipeline_parallel=2"], "queue item 7")])
 def test_commands_that_wait_raise(tmp_path, monkeypatch, restore_logging, argv, item):
     monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
     with pytest.raises(NotImplementedError, match=item):
