@@ -226,7 +226,7 @@ Phases, each of which raises (exit code != 0) when its check fails:
      overridden (10 trials of seed 1234, batch 32 to 256, and 2): every trial
      must complete, its trial_result.json finite, and its launches by
      instantiation meet the prediction (TRIAL_LAUNCHES), each trial's
-     seconds and peak memory printed;
+     seconds and peak memory printed; the fixture stays for phase 30;
  28. data parallelism at world size 1, the one card's most (NCCL takes one
      rank a device; the checks with several ranks are the CPU tests'): (a)
      in process, RANK=0 WORLD_SIZE=1 and a MASTER_ADDR/PORT, then
@@ -267,7 +267,25 @@ Phases, each of which raises (exit code != 0) when its check fails:
      off: phase 28 ran them) on phase 22's fixture: exit 0, every line
      [rank 0], its seconds, last.ckpt of whole tensors;
      then phase 22's fixture is removed;
- 30. one JSON line with every kernel's numbers, then the device line.
+ 30. pipeline parallelism at one stage (a model axis of 1; pp >= 2 is the CPU
+     tests'): (a) in a rank started by python -m
+     msla_tpu_torch.parallel.launch --nproc 1 -- chip_smoke.py --pipeline
+     <dir>, under NCCL, the batch-16 Audio-BERT call's one group of 352
+     sequences (bert-base, fp32, seed 0) through pipelined_bert_apply at
+     n_micro 1, 2 and 4 against the unpipelined BERT call: #6's ids equal or
+     near-ties, #7 launched 12 x n_micro times and #6 once (the kernels line's
+     launches_pipeline), the hidden states' largest difference, each forward's
+     ms; (b) AudioBertTask.pipeline_loss_fn (n_micro 2) against loss_fn on
+     the batch-16 ids and one [MASK] draw: with equal vocab ids the loss and
+     the head's gradient bit-equal; (c) one batch-64 step of
+     configs/model/transformer.yaml's net (seed 0, dropout 0) through
+     pipeline_loss_fn at n_micro 2 and 4 against loss_fn: loss and gradients
+     within 1e-5 relative, each step's ms between events and queued behind a
+     spin, and its peak memory; (d) python -m msla_tpu_torch.parallel.launch
+     --nproc 1 -- -m msla_tpu_torch -m hparams_search=optuna_smoke on phase
+     27's fixture (generate and visualize off): exit 0, both trials with
+     phase 27's sampled overrides; then the fixture is removed;
+ 31. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -5158,11 +5176,13 @@ def phase_sweep(kernels, smi: str) -> dict:
         result["sweeps"][name] = dict(
             s=sweep["s"], best_value=sweep["best_value"], values=values,
             trials=sweep["trials"],
+            params=[json.loads((sweep_dir / str(i) / "trial_result.json").read_text())["params"]
+                    for i in range(n_trials)],
             launches={width_label(k, w): n for (k, w), n in sorted(sweep["counts"].items())})
         print(f"[sweep] {smi}: {name} {n_trials} trials completed in {sweep['s']:.3f} s, best "
               f"{res['best_value']:.5f} (trial {res['best_trial']}); launches by instantiation "
               f"as predicted: {result['sweeps'][name]['launches']}", flush=True)
-    shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    shutil.rmtree(project, ignore_errors=True)   # the fixture stays for phase 30
     return result
 
 
@@ -5185,16 +5205,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def queued_ms(fn, reps: int = 20) -> float:
+def queued_ms(fn, reps: int = 20, spin: int = QUEUE_SPIN_CYCLES) -> float:
     """Median device ms of fn() with its launches queued behind a spin
-    kernel: the host enqueues them while the card spins, so the events time
-    the kernels back to back and not the host's launches (fn must not wait
-    for the device)."""
+    kernel of ``spin`` cycles: the host enqueues them while the card spins,
+    so the events time the kernels back to back and not the host's launches
+    (fn must not wait for the device, and must enqueue within the spin)."""
     fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -5620,6 +5640,298 @@ def phase_model_axis(smi: str) -> dict:
     return result
 
 
+PIPELINE_FLAG = "--pipeline"          # chip_smoke.py --pipeline <dir>: phase 30's rank
+PIPELINE_TIMEOUT_S = 400
+PIPELINE_MICRO = (1, 2, 4)            # n_micro of the pipelined batch-16 BERT call
+PIPELINE_STEP_MICRO = (2, 4)          # n_micro of the pipelined transformer step
+PIPELINE_REPS = 3                     # timed runs a figure (the median), after one warm-up
+PIPELINE_KERNELS = ("flash_attn", "mlm_argmax")   # fp32: the pipelined BERT group's kernels
+PIPELINE_SPIN_CYCLES = 400_000_000    # ~200 ms of the card's clock: a step's host enqueue
+
+
+def fp32_counts(names=PIPELINE_KERNELS) -> dict:
+    from msla_tpu_torch.ops import KERNELS
+
+    return {k: n for k, n in launch_counts(KERNELS, {name: torch.float32 for name in names}
+                                           ).items() if n}
+
+
+def pipelined_bert_call(task, grid, tok, am, emb, bias) -> dict:
+    """(a) the batch-16 call's one group (352 sequences) through
+    pipelined_bert_apply at each n_micro against the unpipelined BERT call:
+    #6's ids equal or near-ties, #7 launched 12 x n_micro times and #6 once,
+    the hidden states' largest difference, each forward's ms."""
+    from msla_tpu_torch.ops import KERNELS, mlm_argmax
+    from msla_tpu_torch.parallel.pipeline import pipelined_bert_apply
+
+    def plain():
+        return task.bert(tok, am, return_mlm_hidden=True)
+
+    def piped(nm):
+        return pipelined_bert_apply(task.bert, tok, grid, n_micro=nm, attention_mask=am,
+                                    return_mlm_hidden=True)
+
+    hidden = emb.shape[1]
+    with torch.inference_mode():
+        plain_h = plain()
+        plain_ids = mlm_argmax(plain_h, emb, bias)
+        reset_counts(KERNELS)
+        runs = {}
+        for nm in PIPELINE_MICRO:
+            before = fp32_counts()
+            h = piped(nm)
+            ids = mlm_argmax(h, emb, bias)
+            torch.cuda.synchronize()
+            after = fp32_counts()
+            got = {k: after.get(k, 0) - before.get(k, 0) for k in PIPELINE_KERNELS}
+            want = {"flash_attn": 12 * nm, "mlm_argmax": 1}
+            if got != want:
+                fail(f"pipeline: n_micro {nm}: launches {got}, want {want}")
+            flips, gap = mlm_near_ties(plain_h.reshape(-1, hidden), emb, bias,
+                                       plain_ids.reshape(-1), ids.reshape(-1))
+            runs[nm] = dict(launches=got, hidden_max_abs=(h - plain_h).abs().max().item(),
+                            ids_differing=flips, largest_relative_gap=gap)
+        launches = fp32_counts()
+        for nm in PIPELINE_MICRO:
+            runs[nm]["ms"] = time_ms(lambda nm=nm: piped(nm), reps=PIPELINE_REPS, warmup=1)
+        plain_ms = time_ms(plain, reps=PIPELINE_REPS, warmup=1)
+    return dict(runs=runs, plain_ms=plain_ms, launches=launches)
+
+
+def pipelined_audio_bert_loss(task, grid, ids, instruments) -> dict:
+    """(b) AudioBertTask.pipeline_loss_fn (n_micro 2) against loss_fn on the
+    batch-16 ids and one [MASK] draw: equal vocab ids give the same loss and
+    head gradient bit for bit; ids that differ must be near-ties."""
+    from msla_tpu_torch.models.bert import mask_tokens
+    from msla_tpu_torch.parallel.mesh import data_axis, on_grid
+
+    def draw():
+        return torch.Generator(device="cuda").manual_seed(7)
+
+    def loss_and_grads(fn):
+        task.net.zero_grad(set_to_none=True)
+        loss, _ = fn(draw())
+        loss.backward()
+        return loss.detach(), {n: p.grad.clone() for n, p in task.net.head.named_parameters()}
+
+    batch = (ids, instruments)
+    with on_grid(grid), data_axis():
+        loss, grads = loss_and_grads(lambda g: task.loss_fn(batch, g))
+        pp_loss, pp_grads = loss_and_grads(lambda g: task.pipeline_loss_fn(batch, g, grid, 2))
+        with torch.no_grad():
+            x = mask_tokens(ids, torch.rand(ids.shape, generator=draw(), device="cuda"),
+                            task.mask_prob, task.config.mask_token_id)
+            vocab = task._chunked_argmax(x, with_conf=False)
+            pp_vocab = task._chunked_argmax(x, with_conf=False, pipeline=(grid, 2))
+    differing = int((vocab != pp_vocab).sum())
+    grad_diff = max((pp_grads[n] - g).abs().max().item() for n, g in grads.items())
+    if differing == 0 and (not torch.equal(loss, pp_loss) or grad_diff != 0.0):
+        fail(f"pipeline: pipeline_loss_fn {pp_loss.item()} against loss_fn {loss.item()} on "
+             f"equal ids, head gradients apart by {grad_diff}")
+    if differing:   # only near-ties may part
+        tokens, attn, _ = task._fold(x)
+        emb, bias = task._decoder_weights()
+        with torch.no_grad():
+            h = torch.cat([task.bert(t, a, return_mlm_hidden=True) for t, a in zip(tokens, attn)])
+        order = task._fold(vocab)[0].reshape(-1), task._fold(pp_vocab)[0].reshape(-1)
+        mlm_near_ties(h.reshape(-1, emb.shape[1]), emb, bias, *order)
+    return dict(loss=loss.item(), pipeline_loss=pp_loss.item(), ids_differing=differing,
+                head_grad_max_abs=grad_diff, bit_equal=differing == 0)
+
+
+def pipelined_transformer_step(out: Path) -> dict:
+    """(c) one batch-64 step (forward and backward) of transformer.yaml's net
+    (seed 0, dropout 0) through pipeline_loss_fn at each n_micro against
+    loss_fn: the loss and every gradient within 1e-5 of the plain step's
+    (relative; a gradient relative to its tensor's largest, the attention's
+    key biases left out: their gradient is 0 in exact arithmetic), each
+    step's ms between CUDA events and queued behind a spin (the device's
+    own), and the peak memory of each."""
+    from msla_tpu_torch.models.transformer import TransformerTask
+
+    task = TransformerTask(**TRANSFORMER, dropout=0.0, checkpoint_dir=str(out / "transformer"),
+                           device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    batch = (torch.randn((BATCH, MODEL["embedding_dim"], FRAME // 4), generator=g,
+                         device="cuda"),
+             0.3 * torch.randn((BATCH, 4, FRAME), generator=g, device="cuda"))
+
+    def step(nm=None):
+        task.net.zero_grad(set_to_none=True)
+        loss = (task.loss_fn(batch, None) if nm is None else
+                task.pipeline_loss_fn(batch, None, None, nm))[0]
+        loss.backward()
+        return loss
+
+    def peak_gb(nm=None) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(nm)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    loss = step().item()
+    grads = {n: p.grad.clone() for n, p in task.net.named_parameters()}
+    result = dict(loss=loss, plain_ms=time_ms(step, reps=PIPELINE_REPS, warmup=1),
+                  plain_queued_ms=queued_ms(step, reps=PIPELINE_REPS, spin=PIPELINE_SPIN_CYCLES),
+                  plain_peak_gb=peak_gb())
+    for nm in PIPELINE_STEP_MICRO:
+        pp_loss = step(nm).item()
+        worst = max(((p.grad - grads[n]).abs().max() / grads[n].abs().max()).item()
+                    for n, p in task.net.named_parameters() if not n.endswith("k_proj.bias"))
+        rel = abs(pp_loss - loss) / abs(loss)
+        if rel > 1e-5 or worst > 1e-5:
+            fail(f"pipeline: the transformer step at n_micro {nm}: loss {pp_loss} against "
+                 f"{loss} (relative {rel:.3g}), gradients apart by {worst:.3g} of their largest")
+        result[nm] = dict(loss=pp_loss, loss_rel=rel, grad_rel=worst,
+                          ms=time_ms(lambda nm=nm: step(nm), reps=PIPELINE_REPS, warmup=1),
+                          queued_ms=queued_ms(lambda nm=nm: step(nm), reps=PIPELINE_REPS,
+                                              spin=PIPELINE_SPIN_CYCLES),
+                          peak_gb=peak_gb(nm))
+    del task, grads
+    torch.cuda.empty_cache()
+    return result
+
+
+def pipeline_rank(out: Path) -> int:
+    """Phase 30's rank, started by the launcher under NCCL at world size 1
+    (one stage, the schedule without sends): (a) pipelined_bert_call, (b)
+    pipelined_audio_bert_loss, (c) pipelined_transformer_step. Writes
+    ``<out>/result.json``."""
+    import torch.distributed as dist
+
+    from msla_tpu_torch.models.bert import AudioBertTask
+    from msla_tpu_torch.parallel.distributed import setup_distributed, teardown_distributed
+    from msla_tpu_torch.parallel.mesh import make_grid
+
+    if not setup_distributed():
+        fail("pipeline: setup_distributed() did not join a group")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"pipeline: a group of {dist.get_backend()} at {dist.get_world_size()}")
+    free, total = torch.cuda.mem_get_info()   # what the parent process leaves the rank
+    grid = make_grid(1)
+    task = AudioBertTask(**bert_task_args(), device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(30)
+    ids = torch.randint(0, MODEL["num_embedding"], (BERT_BATCH, FRAME // 4), generator=g,
+                        device="cuda")
+    tokens, attn, _ = task._fold(ids)
+    if tokens.shape[:2] != (1, BERT_SEQS):
+        fail(f"pipeline: the batch-16 call folds into {tuple(tokens.shape[:2])}")
+    emb, bias = task._decoder_weights()
+    result = dict(bert=pipelined_bert_call(task, grid, tokens[0], attn[0], emb, bias))
+    instruments = 0.3 * torch.randn((BERT_BATCH, 4, FRAME), generator=g, device="cuda")
+    result["audio_bert_loss"] = pipelined_audio_bert_loss(task, grid, ids, instruments)
+    del task
+    torch.cuda.empty_cache()
+    result["transformer"] = pipelined_transformer_step(out)
+    result["card_free_gb_at_start"], result["card_total_gb"] = free / 1e9, total / 1e9
+    (out / "result.json").write_text(json.dumps(result))
+    teardown_distributed()
+    print(f"pipeline rank done: {sorted(result)}", flush=True)
+    return 0
+
+
+def pipeline_launched(smi: str) -> dict:
+    """(a)-(c): the rank through python -m msla_tpu_torch.parallel.launch --nproc 1."""
+    import os
+    import shutil
+
+    repo = Path(__file__).resolve().parent
+    out = OUT_DIR / "pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env["PYTHONPATH"] = os.pathsep.join([str(repo), env.get("PYTHONPATH", "")])
+    cmd = [sys.executable, "-m", "msla_tpu_torch.parallel.launch", "--nproc", "1", "--",
+           str(repo / "chip_smoke.py"), PIPELINE_FLAG, str(out)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=PIPELINE_TIMEOUT_S,
+                          env=env, cwd=repo)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0:
+        fail(f"pipeline: the launched rank exited {proc.returncode}: "
+             f"{chr(10).join(lines[-40:])} {proc.stderr[-3000:]}")
+    if any(not line.startswith("[rank 0] ") for line in lines):
+        fail(f"pipeline: output lines without [rank 0]: {lines[:5]}")
+    res = json.loads((out / "result.json").read_text())
+    bert, loss, step = res["bert"], res["audio_bert_loss"], res["transformer"]
+    for nm, run in bert["runs"].items():
+        print(f"[pipeline] {smi}: pipelined_bert_apply, batch 16 (352 sequences), n_micro {nm}: "
+              f"{run['ms']:.3f} ms (unpipelined {bert['plain_ms']:.3f}), launches {run['launches']}, "
+              f"hidden within {run['hidden_max_abs']:.3g}, {run['ids_differing']} of "
+              f"{BERT_ROWS} ids apart (near-ties, largest gap {run['largest_relative_gap']:.3g})",
+              flush=True)
+    print(f"[pipeline] {smi}: AudioBertTask.pipeline_loss_fn {loss['pipeline_loss']!r} against "
+          f"loss_fn {loss['loss']!r}, {loss['ids_differing']} vocab ids apart, head gradients "
+          f"apart by {loss['head_grad_max_abs']}", flush=True)
+    for nm in PIPELINE_STEP_MICRO:
+        r = step[str(nm)]
+        print(f"[pipeline] {smi}: transformer batch-64 step at n_micro {nm}: {r['ms']:.3f} ms "
+              f"between events, {r['queued_ms']:.3f} queued behind a spin, peak "
+              f"{r['peak_gb']:.3f} GB (loss_fn's {step['plain_ms']:.3f} / "
+              f"{step['plain_queued_ms']:.3f} ms, {step['plain_peak_gb']:.3f} GB), loss within "
+              f"{r['loss_rel']:.3g}, gradients within {r['grad_rel']:.3g} of their largest; the "
+              f"card had {res['card_free_gb_at_start']:.1f} of {res['card_total_gb']:.1f} GB "
+              "free at the rank's start", flush=True)
+    return dict(s=seconds, **res)
+
+
+def pipeline_sweep(smi: str, smoke: dict) -> dict:
+    """(d) python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m msla_tpu_torch -m
+    hparams_search=optuna_smoke on phase 27's fixture: both trials complete
+    with phase 27's sampled overrides; then the fixture is removed."""
+    import os
+    import shutil
+
+    import yaml
+
+    repo = Path(__file__).resolve().parent
+    project = SWEEP_ROOT / "launched"
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    env.update(SLAKH_DIR=str(SWEEP_ROOT / "slakh"), PROJECT_ROOT=str(project),
+               PYTHONPATH=os.pathsep.join([str(repo), env.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "msla_tpu_torch.parallel.launch", "--nproc", "1", "--",
+           "-m", "msla_tpu_torch", "-m", "hparams_search=optuna_smoke", *SWEEP_ARGS,
+           "+visualize=False", "+generate=False"]   # phase 27 ran them at these widths
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DP_CLI_TIMEOUT_S,
+                              env=env, cwd=repo)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        if proc.returncode != 0:
+            fail(f"pipeline: the launched sweep exited {proc.returncode}: "
+                 f"{chr(10).join(lines[-40:])} {proc.stderr[-2000:]}")
+        sweep_dir, = (project / "logs" / "train" / "multiruns").iterdir()
+        res = yaml.safe_load((sweep_dir / "optimization_results.yaml").read_text())
+        trials = [json.loads((sweep_dir / str(i) / "trial_result.json").read_text())
+                  for i in range(SWEEP_TRIALS["optuna_smoke"])]
+    finally:
+        shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    params = [t["params"] for t in trials]
+    if res["n_completed"] != len(trials) or params != smoke["params"]:
+        fail(f"pipeline: the launched sweep's trials {params} ({res['n_completed']} completed) "
+             f"against phase 27's {smoke['params']}")
+    values = [t["value"] for t in trials]
+    print(f"[pipeline] {smi}: python -m msla_tpu_torch.parallel.launch --nproc 1 -- -m "
+          f"msla_tpu_torch -m hparams_search=optuna_smoke: exit 0 in {seconds:.3f} s, trials "
+          f"{params} as phase 27's, values {values} (phase 27's {smoke['values']})", flush=True)
+    return dict(s=seconds, params=params, values=values, phase27_values=smoke["values"])
+
+
+def phase_pipeline(smi: str, sweep: dict) -> dict:
+    """Pipeline parallelism at one stage (a model axis of 1 under NCCL at world
+    size 1; pp >= 2 is the CPU tests'): (a)-(c) ``pipeline_launched``, (d)
+    ``pipeline_sweep``."""
+    result = dict(launched=pipeline_launched(smi),
+                  sweep=pipeline_sweep(smi, sweep["sweeps"]["optuna_smoke"]))
+    result["launches"] = result["launched"]["bert"]["launches"]
+    print(f"[pipeline] {json.dumps(result)}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -5746,6 +6058,8 @@ def main() -> int:
     model_axis = phase("29 model axis", phase_model_axis, smi)
     for k in train_report:
         k["launches_model_axis"] = model_axis["launches"][k["name"]]
+    # 30. the pipeline at one stage, the launcher; the sweep under the launcher
+    pipeline = phase("30 pipeline", phase_pipeline, smi, sweep)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -5766,13 +6080,14 @@ def main() -> int:
                       "cli": cli, "bert_training": bert_training,
                       "transformer": transformer, "rest_of_trainer": rest,
                       "sweep": sweep, "data_parallel": data_parallel,
-                      "model_axis": model_axis}),
+                      "model_axis": model_axis, "pipeline": pipeline}),
           flush=True)
-    print(json.dumps({"kernels": report + train_report + bert_report + vq_tools_report
-                      + bf16_report + bf16_bert_report + bf16_train_report
-                      + bert_training_report + transformer_report + rest_report
-                      + sweep_report}),
-          flush=True)
+    kernels_line = (report + train_report + bert_report + vq_tools_report + bf16_report
+                    + bf16_bert_report + bf16_train_report + bert_training_report
+                    + transformer_report + rest_report + sweep_report)
+    for k in kernels_line:   # phase 30's fp32 launches: the pipelined BERT group's
+        k["launches_pipeline"] = pipeline["launches"].get(k["name"], 0)
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -5782,4 +6097,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == MODEL_AXIS_FLAG:
         sys.exit(model_axis_rank(Path(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == PIPELINE_FLAG:
+        sys.exit(pipeline_rank(Path(sys.argv[2])))
     sys.exit(main())

@@ -55,11 +55,12 @@ def setup_run_dir(cfg: ConfigNode, job_num: int | None = None) -> Path:
     return run_dir
 
 
-def setup_job_logging(cfg: ConfigNode, task_name: str) -> None:
-    """File + console logging per run, standing in for hydra job_logging."""
+def setup_job_logging(cfg: ConfigNode, task_name: str, to_file: bool = True) -> None:
+    """File + console logging per run, standing in for hydra job_logging;
+    the file only ``to_file`` (one rank's, where ranks share the run dir)."""
     output_dir = cfg.select("hydra.runtime.output_dir")
     handlers: list[logging.Handler] = [logging.StreamHandler()]
-    if output_dir:
+    if output_dir and to_file:
         handlers.append(logging.FileHandler(Path(str(output_dir)) / f"{task_name}.log"))
     level_name = cfg.select("hydra.job_logging.root.level", "INFO")
     logging.basicConfig(

@@ -36,8 +36,11 @@ rank trains its share of each stage, a barrier lets rank 0's checkpoints and
 codebook land before the next stage reads them, and generate and visualize
 run on rank 0 alone (main.py:272-275). ``trainer.model_parallel``,
 ``trainer.zero1`` and ``trainer.fsdp`` shard the state over the ranks
-(``train/trainer.py``). The sweep does not run under the launcher yet
-(ROADMAP.md queue item 7.2b).
+(``train/trainer.py``), and ``trainer.pipeline_parallel`` with
+``trainer.pipeline_microbatches`` pipelines the transformer's or
+Audio-BERT's layers over them. Every rank runs a sweep, its trials trained
+over all the ranks (``sweep/sweeper.py``: rank 0's directory, overrides and
+values; rank 0's writes).
 """
 from __future__ import annotations
 
@@ -295,9 +298,6 @@ def _main(argv: list[str] | None) -> float | None:
     setup_root(__file__, indicator=".project-root")
     cfg = compose(CONFIG_DIR, "train", argv)
     if multirun or str(cfg.select("hydra.mode", "")) == "MULTIRUN":
-        if process_info()[1] > 1:
-            raise NotImplementedError("the sweep under the launcher is not ported yet: "
-                                      "ROADMAP.md queue item 7.2b")
         from msla_tpu_torch.sweep.sweeper import run_sweep
 
         return run_sweep(CONFIG_DIR, "train", argv, run)

@@ -15,7 +15,10 @@ codebook gather and the head under grad; the loss is the sum of four L1 stem
 losses, and AdamW trains the head alone. BERT's parameters and the codebook
 buffer are frozen (``requires_grad=False``, outside the optimizer) and go to
 a checkpoint's sidecar (``frozen_param_keys``). BERT runs deterministic, as
-in the JAX task's training.
+in the JAX task's training. ``pipeline_loss_fn`` runs each group's BERT call
+with the encoder layers pipelined over the rank grid's model groups
+(``parallel/pipeline.py``), then #6 on every peer, as the JAX task's runs on
+the replicated output; the rescale's largest id stays the data group's.
 
 ``pretrained_weights`` names the msgpack file ``tools/convert_hf_bert.py``
 writes, or an HF ``BertForMaskedLM`` state_dict saved with ``torch.save``;
@@ -43,6 +46,7 @@ from msla_tpu_torch.ops.conv_adjoints import fp32_convs
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
 from msla_tpu_torch.ops.mlm_argmax import mlm_argmax
 from msla_tpu_torch.parallel.mesh import all_max
+from msla_tpu_torch.parallel.pipeline import pipelined_bert_apply
 from msla_tpu_torch.train.checkpoint import ZIP_MAGIC
 from msla_tpu_torch.utils import msgpack
 from msla_tpu_torch.utils.jax_compat import (adam_state_from_jax,
@@ -223,13 +227,21 @@ class AudioBertTask(TaskModule):
 
         return fold_rows(tokens), fold_rows(attn), unfold
 
-    def _chunked_argmax(self, x: torch.Tensor, *, with_conf: bool):
+    def _chunked_argmax(self, x: torch.Tensor, *, with_conf: bool, pipeline=None):
         """(B, W) token ids → (B, W) argmax vocab ids [+ (B, W) confidences],
-        one BERT call per group of ``_fold``."""
+        one BERT call per group of ``_fold``; ``pipeline`` = (grid, n_micro)
+        runs each call through ``pipelined_bert_apply``."""
         tokens, attn, unfold = self._fold(x)
         emb, bias = self._decoder_weights()
-        outs = [mlm_argmax(self.bert(tok, am, return_mlm_hidden=True).to(emb.dtype), emb,
-                           bias, with_conf=with_conf)
+
+        def hidden(tok, am):
+            if pipeline is None:
+                return self.bert(tok, am, return_mlm_hidden=True)
+            grid, n_micro = pipeline
+            return pipelined_bert_apply(self.bert, tok, grid, n_micro=n_micro,
+                                        attention_mask=am, return_mlm_hidden=True)
+
+        outs = [mlm_argmax(hidden(tok, am).to(emb.dtype), emb, bias, with_conf=with_conf)
                 for tok, am in zip(tokens, attn)]
         if with_conf:
             return tuple(unfold(torch.stack(o)) for o in zip(*outs))
@@ -246,29 +258,31 @@ class AudioBertTask(TaskModule):
         return torch.round(flat / denom * (k - 1)).to(torch.int64)
 
     def forward(self, indices: torch.Tensor, generator: torch.Generator | None = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, pipeline=None) -> torch.Tensor:
         """(B, W) code ids → (B, 4, T) stems. ``train`` with a ``generator``
         masks the ids first; ``train`` runs the head under grad, otherwise
-        all runs under ``torch.inference_mode``."""
+        all runs under ``torch.inference_mode``. ``pipeline``: as
+        ``_chunked_argmax``'s."""
         if not train:
             with torch.inference_mode():
-                return self._stems(indices, None)
-        return self._stems(indices, generator)
+                return self._stems(indices, None, pipeline)
+        return self._stems(indices, generator, pipeline)
 
-    def _stems(self, indices: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    def _stems(self, indices: torch.Tensor, generator: torch.Generator | None,
+               pipeline=None) -> torch.Tensor:
         b = indices.shape[0]
         x = indices.reshape(b, -1).to(device=self.device, dtype=torch.int64)
-        return self.head_stems(self.bert_code_ids(x, generator), b)
+        return self.head_stems(self.bert_code_ids(x, generator, pipeline), b)
 
     @torch.no_grad()  # the argmax passes no gradient: BERT gets none
-    def bert_code_ids(self, x: torch.Tensor,
-                      generator: torch.Generator | None = None) -> torch.Tensor:
+    def bert_code_ids(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                      pipeline=None) -> torch.Tensor:
         """(B, W) token ids → (B·W,) code ids: the mask drawn from ``generator``
         (when given), BERT, the fused argmax and the rescale."""
         if generator is not None:
             uniform = torch.rand(x.shape, generator=generator, device=x.device)
             x = mask_tokens(x, uniform, self.mask_prob, self.config.mask_token_id)
-        return self._code_ids(self._chunked_argmax(x, with_conf=False))
+        return self._code_ids(self._chunked_argmax(x, with_conf=False, pipeline=pipeline))
 
     def head_stems(self, code_ids: torch.Tensor, batch: int) -> torch.Tensor:
         """(B·W,) code ids → (B, 4, T): the frozen codebook's rows, then the head."""
@@ -313,6 +327,25 @@ class AudioBertTask(TaskModule):
     def loss_fn(self, batch, generator=None):
         indices, instruments = batch
         output = self.forward(indices, generator, train=True)
+        loss = torch.zeros((), device=output.device)
+        for i in range(4):
+            loss = loss + l1_loss(output[:, i, :], instruments[:, i, :])
+        return loss, {"train/loss": loss}
+
+    supports_pipeline = True
+
+    def pipeline_layers(self) -> list:
+        return list(self.bert.bert.encoder.layer)
+
+    def pipeline_loss_fn(self, batch, generator, grid, n_micro: int):
+        """``loss_fn`` with the frozen BERT's encoder layers pipelined over
+        ``grid``'s model groups (msla_tpu/models/bert.py:296-310): BERT is
+        deterministic in both, so the losses are equal; the argmax still
+        stops every gradient, so no backward runs through the schedule. The
+        folded group batch (chunk_fold·B) must divide by ``n_micro`` and the
+        microbatch by the data axis."""
+        indices, instruments = batch
+        output = self.forward(indices, generator, train=True, pipeline=(grid, n_micro))
         loss = torch.zeros((), device=output.device)
         for i in range(4):
             loss = loss + l1_loss(output[:, i, :], instruments[:, i, :])

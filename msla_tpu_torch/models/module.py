@@ -10,6 +10,10 @@ the JAX package's names, without the ``params`` argument:
   on_train_epoch_end        → on_train_epoch_end(trainer)
   on_validation_batch_end   → on_validation_batch_end(trainer, batch, batch_idx)
 
+``supports_pipeline`` and ``pipeline_loss_fn(batch, generator, grid,
+n_micro)`` are the loss with the task's layer stack pipelined over the rank
+grid's model groups (``parallel/pipeline.py``; the Trainer's
+``pipeline_parallel``), ``pipeline_layers`` that stack.
 ``frozen_param_keys`` names the top-level parts of ``net``'s state that
 training never changes (checkpoints keep them in a sidecar),
 ``state_dict_from_jax`` maps a JAX checkpoint's flax params to ``net``'s
@@ -55,6 +59,20 @@ class TaskModule:
     def eval_metrics(self, batch: tuple[torch.Tensor, torch.Tensor],
                      mode: str) -> Mapping[str, torch.Tensor]:
         raise NotImplementedError
+
+    #: True (with pipeline_loss_fn and pipeline_layers) on tasks whose layer
+    #: stack trains pipeline-parallel (msla_tpu/models/module.py:42-51)
+    supports_pipeline: bool = False
+
+    def pipeline_loss_fn(self, batch, generator: torch.Generator | None, grid, n_micro: int
+                         ) -> tuple[torch.Tensor, Mapping[str, torch.Tensor]]:
+        """``loss_fn`` with the layer stack pipelined over ``grid``'s model
+        groups (``parallel/pipeline.py``), ``n_micro`` microbatches."""
+        raise NotImplementedError(f"{type(self).__name__} has no pipeline-parallel path")
+
+    def pipeline_layers(self) -> list[nn.Module]:
+        """The pipelined layer stack, in order: stage s holds its L/pp."""
+        raise NotImplementedError(f"{type(self).__name__} has no pipeline-parallel path")
 
     def on_train_epoch_end(self, trainer) -> None:
         pass

@@ -8,6 +8,8 @@ summed over the layers when ``moe_experts`` > 0; dropout is live, drawn
 from the step's generator. Validation and test return the reference's
 metric catalog (test under the prefix "testing", ``test_mode_name``,
 transformer.py:56); Adam(lr); the audio demo of the first validation batch.
+``pipeline_loss_fn`` is the same loss with the decoder layers pipelined
+(``parallel/pipeline.py``), dropout live on the pipeline's generators.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from msla_tpu_torch.models.demo import log_audio_demo
 from msla_tpu_torch.models.module import TaskModule
 from msla_tpu_torch.nn.transformer_net import TransformerQuantizerNet
 from msla_tpu_torch.ops.metrics import l1_loss, mse_loss, si_sdr_mean
+from msla_tpu_torch.parallel.pipeline import pipelined_transformer_apply
 from msla_tpu_torch.utils.jax_compat import transformer_state_dict_from_jax
 
 INSTRUMENTS = ("bass", "drums", "guitar", "piano")
@@ -82,6 +85,28 @@ class TransformerTask(TaskModule):
             metrics["train/moe_aux"] = aux
             loss = loss + self.hparams["moe_aux_weight"] * aux
         return loss, metrics
+
+    supports_pipeline = True
+
+    def pipeline_layers(self) -> list:
+        return [getattr(self.net, f"layer{i}") for i in range(self.net.num_layers)]
+
+    def pipeline_loss_fn(self, batch, generator, grid, n_micro: int):
+        """``loss_fn``'s stem MSEs with the decoder layers pipelined over
+        ``grid``'s model groups (msla_tpu/models/transformer.py:92-113).
+        Dropout is live, each (layer, microbatch) on a generator of its own
+        seeded from ``generator``: another stream than ``loss_fn``'s, so the
+        two agree only at dropout 0."""
+        if self.hparams["moe_experts"] > 0:
+            raise ValueError("pipeline_parallel and moe_experts both occupy the mesh `model` "
+                             "axis — shard the experts instead (model_parallel with MoE, see "
+                             "docs/PARALLELISM.md)")
+        quantized, instruments = batch
+        live = generator if self.hparams["dropout"] > 0 else None
+        output = pipelined_transformer_apply(self.net, quantized, grid, n_micro=n_micro,
+                                             generator=live)
+        loss = sum(mse_loss(output[:, i, :], instruments[:, i, :]) for i in range(4))
+        return loss, {"train/loss": loss}
 
     def eval_metrics(self, batch, mode: str) -> dict[str, torch.Tensor]:
         """The metric catalog (reference: transformer.py:84-141)."""

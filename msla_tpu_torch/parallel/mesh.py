@@ -12,6 +12,10 @@ interleave), and the collectives are explicit.
 **The rank grid** (``make_grid``, after ``make_mesh``, mesh.py:60-69): the
 world is dp × mp ranks, rank r the data index r // mp and the model index
 r % mp, as ``np.asarray(devs).reshape(n // mp, mp)`` lays the devices out.
+The model axis is ``model_parallel`` wide, or ``pipeline_parallel`` wide
+when that is the one set (msla_tpu/train/trainer.py:158-161); under the
+pipeline a rank's model index is its stage, and its model group holds the
+stages in order (``RankGrid.model_peer``, ``parallel/pipeline.py``).
 The ranks of one data index (model peers) hold the same batch rows; the
 ranks of one model index form a data group. ``Trainer`` runs its loops
 ``on_grid(grid)``, and there the data axis below means the data group:
@@ -25,7 +29,9 @@ ranks of one model index form a data group. ``Trainer`` runs its loops
   plots, a serving call on rank 0 alone) the batch is the process's own;
 * ``gather_rows``: every data index's rows of a predict batch, data-major;
 * ``data_info``: (data index, dp), by which the loaders interleave the data
-  and the augment takes its rows' masks.
+  and the augment takes its rows' masks;
+* ``broadcast_object``: rank 0's value on every rank (the sweep's directory,
+  widths and values under the launcher).
 
 Outside a grid the data axis is the world, as data parallelism alone has it; at
 model_parallel 1 the grid's data group is the world itself. Each collective
@@ -162,6 +168,12 @@ class RankGrid:
             return self.data_group, self.data_index, self.dp
         return self.model_group, self.model_index, self.mp
 
+    def model_peer(self, index: int) -> int:
+        """The global rank of this rank's model peer at model index ``index``:
+        under ``pipeline_parallel`` the model index is the stage, so
+        ``model_peer(model_index ∓ 1)`` are the previous and the next stage."""
+        return self.data_index * self.mp + index
+
 
 def make_grid(model_parallel: int = 1) -> RankGrid | None:
     """The (data, model) grid of the process group, None without one (the
@@ -291,6 +303,16 @@ def gather_rows(out: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(out) for _ in range(size)]
     dist.all_gather(parts, out.contiguous(), group=group)
     return torch.cat(parts)
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    """Rank ``src``'s ``obj`` on every rank (a picklable value); ``obj`` itself
+    without a process group."""
+    if not group_up():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def barrier() -> None:

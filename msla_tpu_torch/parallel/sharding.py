@@ -23,6 +23,11 @@ codebook, the MoE's stacks, biases and norms keep their layout. So:
   Adam moments; under ``fsdp`` the moments mirror the parameters and are not
   split twice.
 
+Under ``pipeline_parallel`` the model axis holds the pipeline's stages and
+the tp rules stay off it (``ShardedState(tensor_parallel=False)``): every
+parameter is whole, as JAX replicates them under pp, and only ``zero1``
+splits the moments over the data group.
+
 JAX applies ``split_over_data`` only where the data axis is wider than one
 device (mesh.py:146-147, 184). The port applies it at any width: a group of
 one rank holds a leaf in one part, which places it as the whole does, and
@@ -147,13 +152,19 @@ class ShardedState:
     """A net's parameters on ``grid``: their layouts, and the forms the step
     swaps them through (the module docstring)."""
 
-    def __init__(self, net: nn.Module, grid: RankGrid, zero1: bool = False, fsdp: bool = False):
+    def __init__(self, net: nn.Module, grid: RankGrid, zero1: bool = False, fsdp: bool = False,
+                 tensor_parallel: bool = True):
+        """``tensor_parallel`` False keeps the tp rules off the model axis,
+        which the pipeline's stages hold (every leaf whole there, as JAX
+        replicates the params under pp; ``zero1`` still splits the moments
+        over the data group)."""
         self.net, self.grid = net, grid
         kernels = kernel_names(net)
+        mp = grid.mp if tensor_parallel else 1
         self.leaves: dict[str, _Leaf] = {}
         for name, p in net.named_parameters():
             shape, kernel = tuple(p.shape), name in kernels
-            spec = param_spec(name, shape, kernel, grid.mp, grid.dp, fsdp)
+            spec = param_spec(name, shape, kernel, mp, grid.dp, fsdp)
             self.leaves[name] = _Leaf(p, shape, spec, opt_spec(spec, shape, kernel, grid.dp, zero1))
         self.by_id = {id(leaf.p): leaf for leaf in self.leaves.values()}
         self.modules: list[nn.Module] = []

@@ -5,10 +5,20 @@ hparams_search=optuna``).
 Runs ``n_trials`` composed-config jobs, each in its own multirun
 subdirectory, with overrides drawn from the search space by the TPESampler,
 and minimises or maximises what the run returns (``optimized_metric``).
-Trials run one after another on the one card: ``n_jobs`` is kept for the
-config's sake and acts as 1. A trial that raises is logged and skipped, as
-in the JAX sweeper; ``n_completed`` in ``optimization_results.yaml`` counts
-the trials that gave a value.
+Trials run one after another: ``n_jobs`` is kept for the config's sake and
+acts as 1. A trial that raises is logged and skipped, as in the JAX sweeper;
+``n_completed`` in ``optimization_results.yaml`` counts the trials that gave
+a value.
+
+Under the launcher every rank runs the sweep, as every JAX process does
+(main.py:303-321), and each trial trains over all the ranks. The ranks take
+rank 0's sweep directory (each ``compose`` resolves ``${now:...}`` on its
+own clock), rank 0's sampled overrides and rank 0's value of each trial
+(``parallel.mesh.broadcast_object``); rank 0 alone reads the journal and
+writes it, ``trial_result.json``, ``optimization_results.yaml`` and the
+trials' log files. A trial that raises on any rank ends the sweep with that
+error there, and the launcher stops the others: a rank that skipped ahead
+while its peers wait in the trial's collectives would hang (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Callable
 import yaml
 
 from msla_tpu_torch.config import compose, instantiate, setup_job_logging, setup_run_dir
+from msla_tpu_torch.parallel.mesh import broadcast_object, is_main_process, process_info
 from msla_tpu_torch.sweep.sampler import TPESampler
 from msla_tpu_torch.sweep.space import parse_space
 
@@ -78,9 +89,10 @@ class TPESweeper:
 
     def optimize(self, config_dir, config_name: str, base_overrides: list[str],
                  run_fn: Callable) -> dict:
+        main, launched = is_main_process(), process_info()[1] > 1
         best = {"value": math.inf, "params": None, "trial": None}
         sweep_dir = None
-        resumed = self._load_journal()
+        resumed = broadcast_object(self._load_journal() if main else None)
         for rec in resumed:  # journal trials seed TPE and count towards n_trials
             signed = self._signed(float(rec["value"]))
             self.observations.append((rec["params"], signed))
@@ -90,22 +102,28 @@ class TPESweeper:
             log.info("Resumed %d completed trial(s) from %s (study=%s)",
                      len(resumed), self.storage, self.study_name or "sweep")
         for trial in range(len(resumed), self.n_trials):
-            sampled = self.sampler.sample(self.space, self.observations)
+            sampled = broadcast_object(self.sampler.sample(self.space, self.observations))
             trial_overrides = [f"{k}={v}" for k, v in sampled.items()]
             cfg = compose(config_dir, config_name, base_overrides + trial_overrides)
+            if sweep_dir is None and launched:   # rank 0's clock names the directory
+                sweep_dir = broadcast_object(
+                    str(setup_run_dir(cfg, job_num=trial).parent) if main else None)
             if sweep_dir is not None:
                 # every trial in the first trial's sweep dir: each compose
                 # resolves ${now:...} anew
                 cfg.update_dotted("hydra.sweep.dir", str(sweep_dir))
             run_dir = setup_run_dir(cfg, job_num=trial)
             sweep_dir = run_dir.parent
-            setup_job_logging(cfg, str(cfg.task_name))
+            setup_job_logging(cfg, str(cfg.task_name), to_file=main)
             log.info("Trial %d/%d: %s", trial + 1, self.n_trials, sampled)
             try:
                 value = run_fn(cfg)
             except Exception as err:
+                if launched:   # its peers may wait in a collective: end here
+                    raise
                 log.exception("Trial %d failed: %s", trial, err)
                 continue
+            value = broadcast_object(value)
             if value is None:
                 log.warning("Trial %d returned no objective (optimized_metric unset?)", trial)
                 continue
@@ -113,9 +131,10 @@ class TPESweeper:
             self.observations.append((sampled, signed))
             if signed < best["value"]:
                 best = {"value": signed, "params": sampled, "trial": trial}
-            with open(run_dir / "trial_result.json", "w") as f:
-                json.dump({"trial": trial, "params": sampled, "value": float(value)}, f)
-            self._append_journal(trial, sampled, float(value))
+            if main:
+                with open(run_dir / "trial_result.json", "w") as f:
+                    json.dump({"trial": trial, "params": sampled, "value": float(value)}, f)
+                self._append_journal(trial, sampled, float(value))
 
         found = best["params"] is not None
         result = {
@@ -127,7 +146,7 @@ class TPESweeper:
             "best_params": best["params"],
             "n_completed": len(self.observations),
         }
-        if sweep_dir is not None:
+        if sweep_dir is not None and main:
             with open(sweep_dir / "optimization_results.yaml", "w") as f:
                 yaml.safe_dump(result, f)
         log.info("Sweep finished: %s", result)

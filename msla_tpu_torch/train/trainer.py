@@ -11,9 +11,8 @@ The constructor takes the JAX Trainer's keywords. What the port runs:
 ``model_parallel``, ``zero1`` and ``fsdp`` as sharded state over a (data,
 model) grid of its ranks (below); epoch metrics as batch-size-weighted means
 of the per-batch means (Lightning's ``on_epoch`` reduction), in
-``callback_metrics``. The pipeline's keywords (``pipeline_parallel``,
-``pipeline_microbatches``) wait for ROADMAP.md queue item 7.2b and raise
-``NotImplementedError`` naming it when given anything but their default.
+``callback_metrics``, and ``pipeline_parallel`` / ``pipeline_microbatches``
+as GPipe over the grid's model groups (below).
 
 One train step, in the order of the JAX step (msla_tpu/train/trainer.py:
 354-406): ``datamodule.train_transform`` (the masking augment) →
@@ -134,6 +133,23 @@ by every rank before rank 0 writes, and resume under any layout. Without a
 process group these keywords change nothing (one process: its one device
 holds everything, as JAX's one-device mesh); with one, the sharded path runs
 over groups of any size, one rank's included.
+
+The pipeline (after msla_tpu/train/trainer.py:145-161, 315-328, 348-361):
+``pipeline_parallel`` = pp is the model axis's width when ``model_parallel``
+is 1 (the two, and pp with ``fsdp``, raise JAX's ``ValueError``); rank r is
+stage r % pp of its model group. Each step runs the task's
+``pipeline_loss_fn`` with ``pipeline_microbatches`` microbatches
+(``parallel/pipeline.py``); a task without one raises JAX's ``ValueError``
+before any step. Every rank holds every weight whole (``zero1`` still
+splits the Adam moments over the data group). After the backward each
+layer's gradient is summed over the model group, where its stage alone
+computed it, a gradient every peer computed (the embedding's on stage 0,
+the head's) is counted once, and the mean is taken over the data group, in
+one flat all-reduce (``pipeline.mean_gradients``). ``remat`` recomputes the
+whole loss, the schedule and its generators included, on every rank.
+Validation, test and predict run the task's plain forward on the whole
+weights, as the JAX eval step does; every peer computes the same metrics,
+and rank 0, stage 0, logs them.
 """
 from __future__ import annotations
 
@@ -146,9 +162,10 @@ from typing import Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+from msla_tpu_torch.parallel import pipeline
 from msla_tpu_torch.parallel.mesh import (all_sum, data_axis, gather_rows, group_up,
                                           is_main_process, make_grid, mean_gradients, on_grid,
                                           process_info, resolve_devices)
@@ -158,14 +175,6 @@ from msla_tpu_torch.train.checkpoint import (files_landed, load_checkpoint, save
                                              wait_for_pending, weights_of)
 
 log = logging.getLogger(__name__)
-
-_PIPELINE = "ROADMAP.md queue item 7.2b (parallel/, the model axis: the pipeline)"
-
-
-def _refuse(name: str, value, default, item: str) -> None:
-    if value != default:
-        raise NotImplementedError(f"Trainer {name}={value!r} is not ported yet: {item}")
-
 
 @contextmanager
 def _joined_writes():
@@ -243,10 +252,10 @@ class Trainer:
         one device each (-1: any number); with ``num_nodes``, checked against
         the process group (``parallel.mesh.resolve_devices``).
         ``default_root_dir`` holds only the ``profiler="jax"`` trace, as in
-        the JAX Trainer. ``model_parallel``, ``zero1``, ``fsdp``: the model
-        axis (the module docstring). ``pipeline_microbatches`` waits with the
-        feature that reads it; the pairings JAX forbids raise its
-        ``ValueError`` first (msla_tpu/train/trainer.py:145-156)."""
+        the JAX Trainer. ``model_parallel``, ``zero1``, ``fsdp``,
+        ``pipeline_parallel``, ``pipeline_microbatches``: the model axis (the
+        module docstring); the pairings JAX forbids raise its ``ValueError``
+        (msla_tpu/train/trainer.py:145-156)."""
         if int(pipeline_microbatches) < 1:
             raise ValueError(f"pipeline_microbatches={pipeline_microbatches} must be >= 1")
         if model_parallel > 1 and pipeline_parallel > 1:
@@ -256,9 +265,8 @@ class Trainer:
             raise ValueError("fsdp shards parameters over `data` but pipeline parallelism "
                              "builds its own stage-stacked layout — pick one (zero1 composes "
                              "with pp)")
-        for name, value, default in (("pipeline_parallel", pipeline_parallel, 1),
-                                     ("pipeline_microbatches", pipeline_microbatches, 2)):
-            _refuse(name, value, default, _PIPELINE)
+        self.pipeline_parallel = max(1, int(pipeline_parallel))
+        self.pipeline_microbatches = int(pipeline_microbatches)
 
         self.default_root_dir = Path(default_root_dir)
         self.min_epochs = int(min_epochs or 0)
@@ -282,11 +290,13 @@ class Trainer:
         self.device = resolve_devices(accelerator, devices, num_nodes)
         self.rank, self.world_size = process_info()
         self.is_main = is_main_process()
-        self.grid = make_grid(model_parallel)
+        self.grid = make_grid(model_parallel if model_parallel > 1 else self.pipeline_parallel)
         self.data_index, self.dp = ((self.grid.data_index, self.grid.dp) if self.grid
                                     else (self.rank, self.world_size))
         self.zero1, self.fsdp = bool(zero1), bool(fsdp)
-        self._sharding = self.grid is not None and (self.grid.mp > 1 or self.zero1 or self.fsdp)
+        self._tensor_parallel = model_parallel > 1
+        self._sharding = self.grid is not None and (self._tensor_parallel or self.zero1
+                                                    or self.fsdp)
         self._shards: ShardedState | None = None
 
         self.callback_metrics: dict[str, float] = {}
@@ -415,7 +425,8 @@ class Trainer:
             self._generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
             if self.dp > 1:
                 self._rank_generator = torch.Generator(device=self.device)
-            self._shards = (ShardedState(model.net, self.grid, self.zero1, self.fsdp)
+            self._shards = (ShardedState(model.net, self.grid, self.zero1, self.fsdp,
+                                         tensor_parallel=self._tensor_parallel)
                             if self._sharding else None)
 
     @contextmanager
@@ -500,28 +511,41 @@ class Trainer:
         seed = ((self.seed + 1) * 1_000_003 + self.data_index) * 1_000_003 + self.global_step
         return self._rank_generator.manual_seed(seed % (1 << 63))
 
+    @property
+    def _pipelined(self) -> bool:
+        return self.pipeline_parallel > 1
+
+    def _loss_of(self, model, batch, generator: torch.Generator):
+        if self._pipelined:
+            return model.pipeline_loss_fn(batch, generator, self.grid,
+                                          self.pipeline_microbatches)
+        return model.loss_fn(batch, generator)
+
     def _loss(self, model, batch, generator: torch.Generator):
-        """``model.loss_fn`` on ``generator``; under ``remat`` inside
-        ``torch.utils.checkpoint``, whose recomputation replays the
-        generator: torch's ``preserve_rng_state`` restores only the global
-        generators."""
+        """``model.loss_fn`` (``pipeline_loss_fn`` under the pipeline) on
+        ``generator``; under ``remat`` inside ``torch.utils.checkpoint``,
+        whose recomputation replays the generator: torch's
+        ``preserve_rng_state`` restores only the global generators. Under
+        the pipeline the recomputation runs to the loss's end on every rank
+        (no early stop), so every rank replays the whole schedule."""
         if not self.remat:
-            return model.loss_fn(batch, generator)
+            return self._loss_of(model, batch, generator)
         start = generator.get_state()
         forward_done = []
 
         def loss_fn():
             if not forward_done:
                 forward_done.append(True)
-                return model.loss_fn(batch, generator)
+                return self._loss_of(model, batch, generator)
             after = generator.get_state()
             generator.set_state(start)
             try:  # the recomputation may stop early, by an exception
-                return model.loss_fn(batch, generator)
+                return self._loss_of(model, batch, generator)
             finally:
                 generator.set_state(after)
 
-        return checkpoint(loss_fn, use_reentrant=False)
+        with set_checkpoint_early_stop(not self._pipelined):
+            return checkpoint(loss_fn, use_reentrant=False)
 
     def _train_step(self, model, datamodule, group: list[torch.Tensor]
                     ) -> dict[str, torch.Tensor]:
@@ -548,7 +572,11 @@ class Trainer:
                     if p.grad is not None:
                         p.grad /= len(group)
                 sums = {k: v / len(group) for k, v in sums.items()}
-            mean_gradients(model.net.parameters())
+            if self._pipelined:
+                pipeline.mean_gradients(model.net.parameters(), model.pipeline_layers(),
+                                        self.grid)
+            else:
+                mean_gradients(model.net.parameters())
             if self._shards is None:
                 self._optimizer.step()
             else:
@@ -621,6 +649,10 @@ class Trainer:
             yield
 
     def _fit(self, model, datamodule, ckpt_path) -> None:
+        if self._pipelined and not getattr(model, "supports_pipeline", False):
+            raise ValueError(f"pipeline_parallel={self.pipeline_parallel} but "
+                             f"{type(model).__name__} has no pipeline-parallel path "
+                             "(supports_pipeline is False)")
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader()
         if len(train_loader) == 0:

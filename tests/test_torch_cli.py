@@ -24,8 +24,8 @@
   raises;
 * ``experiment=vqvae_slakh`` runs with its TensorBoard logger, whose event
   files hold every scalar the Trainer logged, at its step;
-* only a checkpoint that does not fit the config is caught, and the commands
-  that wait raise naming their ROADMAP.md items.
+* only a checkpoint that does not fit the config is caught, and two pipeline
+  stages in one process raise JAX's ValueError.
 """
 import functools
 import logging
@@ -340,10 +340,13 @@ def test_cli_trains_the_transformer_after_the_vqvae(fixture_root, tmp_path, monk
 
 
 @pytest.mark.parametrize("argv,item", [(["train_vqvae=True", "trainer.accelerator=cpu",
-                                         "+trainer.pipeline_parallel=2"], "queue item 7")])
+                                         "+trainer.pipeline_parallel=2"],
+                                        "1 devices not divisible by the model-axis size 2")])
 def test_commands_that_wait_raise(tmp_path, monkeypatch, restore_logging, argv, item):
+    """The pipeline is ported: in one process (a world of one) two stages
+    raise JAX's ValueError for a world the model axis does not divide."""
     monkeypatch.setenv("PROJECT_ROOT", str(tmp_path))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         cli.main(argv + ["+generate=False", "+visualize=False", "extras.print_config=False"])
 
 

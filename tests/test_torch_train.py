@@ -244,14 +244,9 @@ def test_adam_is_optax_adam(jax_side, tmp_path):
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp), rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("kw", [dict(pipeline_parallel=2), dict(pipeline_microbatches=4)])
-def test_trainer_keywords_that_wait_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item 7.2b"):
-        Trainer(accelerator="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(model_parallel=2), "1 devices not divisible by the model-axis size 2"),
+    (dict(pipeline_parallel=2), "1 devices not divisible by the model-axis size 2"),
     (dict(model_parallel=3, zero1=True), "1 devices not divisible by the model-axis size 3"),
     (dict(model_parallel=2, pipeline_parallel=2), "both use the `model` mesh axis"),
     (dict(fsdp=True, pipeline_parallel=2), "fsdp shards parameters over `data`"),
@@ -259,8 +254,8 @@ def test_trainer_keywords_that_wait_raise(kw):
 def test_trainer_keywords_jax_refuses_raise_its_value_error(kw, match):
     """The JAX Trainer's ValueErrors, worded as JAX words them
     (msla_tpu/train/trainer.py:145-156, msla_tpu/parallel/mesh.py:65-67): a
-    world that model_parallel does not divide (one process is a world of
-    one) and the pairings it forbids, before any step."""
+    world that model_parallel or pipeline_parallel does not divide (one
+    process is a world of one) and the pairings it forbids, before any step."""
     with pytest.raises(ValueError, match=match):
         Trainer(accelerator="cpu", **kw)
 
@@ -271,6 +266,21 @@ def test_sharded_state_keywords_change_nothing_in_one_process(kw, tmp_path):
     fit ends bit-equal to the fit without them."""
     states = []
     for extra in ({}, kw):
+        task = VQVAETask(**CFG, checkpoint_dir=str(tmp_path), codebook_file=str(tmp_path / "c"),
+                         device="cpu", seed=0)
+        Trainer(max_epochs=1, accelerator="cpu", enable_progress_bar=False, log_every_n_steps=0,
+                seed=0, **extra).fit(task, PortDM(TRAIN, VAL))
+        states.append(task.net.state_dict())
+    for key, value in states[0].items():
+        assert torch.equal(states[1][key], value), key
+
+
+def test_pipeline_microbatches_change_nothing_at_pp_1(tmp_path):
+    """At pipeline_parallel 1 the steps run loss_fn, as the JAX Trainer's do
+    (msla_tpu/train/trainer.py:340-361): pipeline_microbatches is read by
+    the pipeline alone, and a fit ends bit-equal to the default's."""
+    states = []
+    for extra in ({}, dict(pipeline_microbatches=4)):
         task = VQVAETask(**CFG, checkpoint_dir=str(tmp_path), codebook_file=str(tmp_path / "c"),
                          device="cpu", seed=0)
         Trainer(max_epochs=1, accelerator="cpu", enable_progress_bar=False, log_every_n_steps=0,
