@@ -285,7 +285,27 @@ Phases, each of which raises (exit code != 0) when its check fails:
      --nproc 1 -- -m msla_tpu_torch -m hparams_search=optuna_smoke on phase
      27's fixture (generate and visualize off): exit 0, both trials with
      phase 27's sampled overrides; then the fixture is removed;
- 31. one JSON line with every kernel's numbers, then the device line.
+ 31. the perceptual loss (msla_tpu_torch.nn.PerceptualLoss, random VGG16
+     weights of seed 0) at the config's data: x the trained VQ-VAE's
+     separated stems of phase 8's first batch, the target its stems (batch
+     64 x 4 stems x 44,000 samples at 22 kHz: 256 + 256 mel images of 64 x
+     276); (a) one sample's 4 stems: the card's loss against the port's CPU
+     path in fp64 (within 1e-5 relative) and dL/dx against fp64 on the
+     card's own ReLU masks and pool argmaxes (fp64_on_pieces; within 2e-4
+     of its largest: where fp32 and fp64 take other pieces near a tie, the
+     gradient jumps), and plain F.conv2d in TF32, forward and backward,
+     written here, outside that tolerance; (b) backward() called outside any scope
+     with torch.backends.cudnn.allow_tf32 = True set globally: within (a)'s
+     tolerance, and within 1e-5 of the backward run inside fp32_convs() on
+     the same forward (as plain F.conv2d's fp32 backward is), which a TF32
+     backward alone misses; (c) loss(x, x) == 0, no VGG weight with a
+     gradient, no launch of the port's kernels; (d) forward and forward +
+     backward ms (median of 10, CUDA events) beside their bound at 67
+     TFLOP/s, the peak memory, the cuDNN share of a trace's kernels
+     (device_parts), the host's share and the mel filterbank's build on the
+     host and copy (two a loss call), and forward + backward's ms and peak
+     with cudnn.benchmark = True;
+ 32. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -916,7 +936,8 @@ PORT_PARTS = (("K2 deconv_stem", ("deconv_stem_3xtf32_kernel", "deconv_stem_bf16
               ("#7 flash_attn", ("flash_attn_kernel",)),
               ("#6 mlm_argmax", ("mlm_argmax",)))
 #: ... then the libraries' kernels by the words in theirs
-LIBRARY_PARTS = (("cuDNN convs", ("conv", "fprop", "cudnn", "nhwc", "Nhwc")),
+LIBRARY_PARTS = (("cuDNN convs", ("conv", "fprop", "cudnn", "nhwc", "Nhwc", "DSE::",
+                                  "pointwise_mult_and_sum_complex")),   # cuDNN's FFT convs
                  ("cuBLAS GEMMs", ("gemm", "nvjet", "gemv", "splitK")))
 
 
@@ -5932,6 +5953,336 @@ def phase_pipeline(smi: str, sweep: dict) -> dict:
     return result
 
 
+PERCEPTUAL_LOSS_RTOL = 1e-5   # (a) the loss against fp64, relative
+PERCEPTUAL_GRAD_TOL = 2e-4    # (a) dL/dx against fp64 on the same linear piece, of its largest
+PERCEPTUAL_SCOPE_TOL = 1e-5   # (b) dL/dx against the same forward's fp32-scoped backward
+PERCEPTUAL_REPS = 10
+PERCEPTUAL_HOST_REPS = 5
+
+
+def vgg_flop(h: int, w: int) -> int:
+    """FLOP of one (3, h, w) image through VGG16's convs; the input adjoint of
+    each conv (3×3, stride 1, padding 1) costs the same."""
+    from msla_tpu_torch.nn.vgg import VGG16_PLAN
+
+    flop, cin = 0, 3
+    for spec in VGG16_PLAN:
+        if spec == "M":
+            h, w = h // 2, w // 2
+            continue
+        flop += 2 * 9 * cin * spec * h * w
+        cin = spec
+    return flop
+
+
+def cudnn_tf32(on: bool):
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=on)
+
+
+def mel_images(wave: torch.Tensor) -> torch.Tensor:
+    """(..., T) waveforms → (N, 3, 64, frames): PerceptualLoss's images."""
+    from msla_tpu_torch.ops.stft import mel_spectrogram
+
+    mel = mel_spectrogram(wave, SR, n_fft=400, hop_length=160, n_mels=64)
+    return mel.unsqueeze(-3).expand(*mel.shape[:-2], 3, *mel.shape[-2:]).reshape(
+        -1, 3, *mel.shape[-2:])
+
+
+def vgg_plain(img: torch.Tensor, params, pieces: tuple | None = None):
+    """VGG16's features with plain F.conv2d and torch's autograd. Without
+    ``pieces``: (features, masks, argmaxes), each ReLU's mask and each pool's
+    argmax, which fix the linear piece of the stack that ``img`` lies in.
+    With ``pieces`` = (masks, argmaxes): the features of that piece's linear
+    map, each conv's output times its mask and each pool a gather at its
+    argmax, whatever ``img``'s own masks would be."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.nn.vgg import VGG16_PLAN
+
+    ps = iter(params)
+    masks, argmaxes = ([], []) if pieces is None else (iter(pieces[0]), iter(pieces[1]))
+    h = img
+    for spec in VGG16_PLAN:
+        if spec == "M":
+            if pieces is None:
+                h, argmax = F.max_pool2d(h, 2, 2, return_indices=True)
+                argmaxes.append(argmax)
+            else:
+                argmax = next(argmaxes).to(h.device)
+                h = h.flatten(2).gather(2, argmax.flatten(2)).view(argmax.shape)
+            continue
+        h = F.conv2d(h, next(ps), next(ps), padding=1)
+        if pieces is None:
+            h = torch.relu(h)
+            masks.append(h > 0)
+        else:
+            h = h * next(masks).to(h.device)
+    return h if pieces is not None else (h, masks, argmaxes)
+
+
+def plain_perceptual(pl, x, target, fwd_tf32: bool, bwd_tf32: bool):
+    """(loss, dL/dx) of the perceptual loss with plain F.conv2d and torch's
+    autograd, the forward and the backward each under cuDNN's TF32 or not:
+    the planted gaps of (a) (both TF32) and (b) (the backward alone)."""
+    params = list(pl.net.parameters())
+    x = x.detach().requires_grad_(True)
+    with cudnn_tf32(fwd_tf32):
+        loss = torch.mean((vgg_plain(mel_images(x), params)[0]
+                           - vgg_plain(mel_images(target), params)[0]) ** 2)
+    with cudnn_tf32(bwd_tf32):
+        loss.backward()
+    return loss.detach(), x.grad
+
+
+def fp64_on_pieces(pl, x, target):
+    """(loss, dL/dx) in fp64 on the CPU on the linear pieces that the card's
+    fp32 forward lies in (its masks and argmaxes): what fp32 arithmetic alone
+    is held to. A pre-activation or a pool's pair within fp32's rounding of a
+    tie can take another piece in fp64, and the gradient, piecewise constant
+    in the masks, then jumps (on the CPU at 22 kHz one argmax of ~10^6 moved
+    dL/dx by 3 % of its largest). Also (masks, argmaxes) flipped against the
+    fp64 forward's own."""
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    params = list(pl.net.parameters())
+    p64 = [p.detach().cpu().double() for p in params]
+    x64 = x.detach().cpu().double().requires_grad_(True)
+    t64 = target.detach().cpu().double()
+    with fp32_convs(), torch.no_grad():
+        pieces = [vgg_plain(mel_images(w), params)[1:] for w in (x, target)]
+    with torch.no_grad():
+        own = vgg_plain(mel_images(x64), p64)[1:]
+    flips = tuple(sum(int((a.cpu() != b).sum()) for a, b in zip(mine, theirs))
+                  for mine, theirs in zip(pieces[0], own))
+    loss = torch.mean((vgg_plain(mel_images(x64), p64, pieces[0])
+                       - vgg_plain(mel_images(t64), p64, pieces[1])) ** 2)
+    loss.backward()
+    return loss.detach(), x64.grad, flips
+
+
+def perceptual_grads(pl, x, target, scoped: bool):
+    """(loss, dL/dx) through the port, backward() called inside fp32_convs()
+    or outside any scope."""
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    x = x.detach().requires_grad_(True)
+    loss = pl(x, target)
+    if scoped:
+        with fp32_convs():
+            loss.backward()
+    else:
+        loss.backward()
+    return loss.detach(), x.grad
+
+
+def against(name: str, loss, grad, ref_loss, ref_grad) -> dict:
+    loss_rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    g, ref = grad.double().cpu(), ref_grad.double().cpu()
+    grad_rel = ((g - ref).abs().max() / ref.abs().max()).item()
+    if not (math.isfinite(loss.item()) and torch.isfinite(g).all()):
+        fail(f"perceptual: {name}: a non-finite loss or gradient")
+    return dict(loss=loss.item(), loss_rel=loss_rel, grad_rel=grad_rel,
+                grad_rel_l2=((g - ref).norm() / ref.norm()).item())
+
+
+def phase_perceptual(task, raw: np.ndarray, kernels, smi: str) -> dict:
+    """PerceptualLoss (seed 0) at the config's data: x the trained VQ-VAE's
+    separated stems of phase 8's first batch (SourceSeparator.separate at
+    batch 64), the target that batch's stems, (64, 4, 44,000) each at 22 kHz.
+    (a) one sample's 4 stems: the card's loss against the port's CPU path in
+    fp64 (within PERCEPTUAL_LOSS_RTOL) and its dL/dx against fp64 on the
+    same linear pieces (fp64_on_pieces, within PERCEPTUAL_GRAD_TOL of its
+    largest; the distance from the fp64 path's own and the pieces that
+    differ printed), and plain F.conv2d in TF32, forward and backward,
+    outside them; (b) with cudnn.allow_tf32 = True set globally, backward()
+    outside any scope: within (a)'s tolerance, and within
+    PERCEPTUAL_SCOPE_TOL of the backward run inside fp32_convs() on the same
+    forward, as plain F.conv2d's fp32 backward is and a TF32 backward alone
+    (plain F.conv2d, the forward in fp32) is not; (c) loss(x, x) == 0, no
+    weight with a .grad, no launch of the port's kernels; (d) forward and
+    forward + backward ms (median of PERCEPTUAL_REPS, CUDA events), the peak
+    memory, the FLOP and bound, the cuDNN share of a trace's kernels, the
+    host's share and the mel filterbank's host build and copy, and forward +
+    backward's ms and peak with cudnn.benchmark = True (the autotuner's
+    algorithms in place of the heuristics')."""
+    from msla_tpu_torch.inference import SourceSeparator
+
+    sep = SourceSeparator(task, frame_samples=FRAME, batch_size=BATCH)
+    stems = sep.separate(raw.sum(axis=1).reshape(-1))             # (4, 64 x 44,000)
+    x = torch.from_numpy(np.ascontiguousarray(
+        stems.reshape(4, BATCH, FRAME).transpose(1, 0, 2))).cuda()
+    return perceptual_checks(x, torch.from_numpy(raw).cuda(), kernels, smi)
+
+
+def perceptual_checks(x: torch.Tensor, target: torch.Tensor, kernels, smi: str) -> dict:
+    """Phase 31's (a)-(d) on the card's (B, 4, T) waveforms x and target."""
+    from msla_tpu_torch.nn import PerceptualLoss
+    from msla_tpu_torch.ops.stft import mel_filterbank
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = launch_counts(kernels)
+
+    pl = PerceptualLoss(SR, generator=torch.Generator().manual_seed(0))
+    cpu = PerceptualLoss(SR, state_dict={k: v.cpu() for k, v in pl.net.state_dict().items()},
+                         device="cpu")
+    cpu.net.double()
+    x1, t1 = x[:1], target[:1]
+    fp64 = perceptual_grads(cpu, x1.cpu().double(), t1.cpu().double(), scoped=False)
+    *piece, flips = fp64_on_pieces(pl, x1, t1)
+
+    def held(name: str, loss, grad) -> dict:
+        """Against fp64: the loss against the fp64 path's, dL/dx against
+        fp64 on the card's pieces (and, printed, against the fp64 path's)."""
+        on_pieces = against(name, loss, grad, *piece)
+        own = against(name, loss, grad, *fp64)
+        return dict(loss=loss.item(), loss_rel=own["loss_rel"], grad_rel=on_pieces["grad_rel"],
+                    grad_rel_l2=on_pieces["grad_rel_l2"], grad_rel_fp64_path=own["grad_rel"])
+
+    def within(r: dict) -> bool:
+        return r["loss_rel"] <= PERCEPTUAL_LOSS_RTOL and r["grad_rel"] <= PERCEPTUAL_GRAD_TOL
+
+    # (a) fp32 against fp64, and the TF32 stack outside the tolerance
+    scoped = perceptual_grads(pl, x1, t1, scoped=True)
+    a = held("fp32", *scoped)
+    tf32 = held("TF32", *plain_perceptual(pl, x1, t1, True, True))
+    if not within(a):
+        fail(f"perceptual (a): the card's fp32 against fp64: {a}")
+    if within(tf32):
+        fail(f"perceptual (a): the TF32 stack passes the fp64 tolerance: {tf32}")
+
+    # (b) backward() outside any scope with cuDNN's TF32 on globally
+    cudnn = torch.backends.cudnn
+    was = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        free = perceptual_grads(pl, x1, t1, scoped=False)
+        tf32_bwd = plain_perceptual(pl, x1, t1, False, True)
+    finally:
+        cudnn.allow_tf32 = was
+    b = held("outside any scope", *free)
+    b_scope = against("outside any scope", *free, *scoped)
+    bwd_gap = against("TF32 backward", *tf32_bwd, *scoped)
+    plain = against("plain fp32", *plain_perceptual(pl, x1, t1, False, False), *scoped)
+    if not within(b):
+        fail(f"perceptual (b): the backward outside any scope against fp64: {b}")
+    if b_scope["grad_rel"] > PERCEPTUAL_SCOPE_TOL:
+        fail(f"perceptual (b): the backward outside any scope against fp32_convs(): {b_scope}")
+    if plain["grad_rel"] > PERCEPTUAL_SCOPE_TOL:
+        fail(f"perceptual (b): plain F.conv2d's fp32 backward against the port's: {plain}")
+    if bwd_gap["grad_rel"] <= PERCEPTUAL_SCOPE_TOL:
+        fail(f"perceptual (b): a TF32 backward passes the scope tolerance: {bwd_gap}")
+
+    # (c) at the full batch: loss(x, x) == 0, the gradient, no weight's
+    xg = x.detach().requires_grad_(True)
+    loss = pl(xg, target)
+    loss.backward()
+    same = pl(x, x).item()
+    if same != 0.0 or not torch.isfinite(xg.grad).all() or loss.shape != ():
+        fail(f"perceptual (c): loss(x, x) = {same}, loss shape {tuple(loss.shape)}, or a "
+             "non-finite dL/dx")
+    if any(p.grad is not None or p.requires_grad for p in pl.net.parameters()):
+        fail("perceptual (c): a VGG weight requires or holds a gradient")
+
+    # (d) times, memory, FLOP and bound, parts
+    def forward():
+        return pl(x.detach().requires_grad_(True), target)
+
+    def step():
+        xs = x.detach().requires_grad_(True)
+        pl(xs, target).backward()
+
+    def peak_of(fn) -> tuple[int, int]:
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), start
+
+    fwd_ms = time_ms(forward, reps=PERCEPTUAL_REPS, warmup=2)
+    step_ms = time_ms(step, reps=PERCEPTUAL_REPS, warmup=1)
+    host_s = []
+    for _ in range(PERCEPTUAL_HOST_REPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+    peak, start = peak_of(step)
+    heuristics = cudnn.benchmark
+    cudnn.benchmark = True      # what cuDNN's autotuner picks instead of its heuristics
+    try:
+        tuned_ms = time_ms(step, reps=PERCEPTUAL_HOST_REPS, warmup=2)
+        tuned_peak, _ = peak_of(step)
+    finally:
+        cudnn.benchmark = heuristics
+    fb_ms, copy_ms = [], []
+    for _ in range(PERCEPTUAL_REPS):
+        t0 = time.perf_counter()
+        fb = mel_filterbank(SR, 400, 64)
+        t1_ = time.perf_counter()
+        torch.from_numpy(fb).to("cuda")
+        torch.cuda.synchronize()
+        fb_ms.append((t1_ - t0) * 1e3)
+        copy_ms.append((time.perf_counter() - t1_) * 1e3)
+    parts = device_parts(step)
+    images = x.numel() // FRAME
+    h, w = 64, FRAME // 160 + 1
+    flop_fwd = 2 * images * vgg_flop(h, w)
+    flop_step = flop_fwd + images * vgg_flop(h, w)
+    moved = nbytes(x, target) + sum(nbytes(p) for p in pl.net.parameters())
+    bound_fwd, by_fwd = bound(flop_fwd, moved)
+    bound_step, by_step = bound(flop_step, moved + nbytes(x))
+    host_ms = statistics.median(host_s) * 1e3
+    cudnn_ms = parts.get("cuDNN convs", 0.0)
+    after = launch_counts(kernels)
+    if after != before:
+        fail(f"perceptual (c): the port's kernels launched: {before} -> {after}")
+
+    result = dict(
+        card=smi, images_per_side=images, mel=(h, w), loss=loss.item(), fp32_vs_fp64=a,
+        pieces_apart=dict(masks=flips[0], argmaxes=flips[1]),
+        tf32_vs_fp64=tf32, outside_scope_vs_fp64=b, outside_scope_vs_scoped=b_scope,
+        tf32_backward_vs_scoped=bwd_gap, plain_fp32_vs_scoped=plain,
+        tolerance=dict(loss_rtol=PERCEPTUAL_LOSS_RTOL, grad=PERCEPTUAL_GRAD_TOL,
+                       scope=PERCEPTUAL_SCOPE_TOL),
+        forward_ms=fwd_ms, forward_backward_ms=step_ms, host_ms=host_ms,
+        peak_gb=peak / 1e9, peak_over_start_gb=(peak - start) / 1e9,
+        flop_forward=flop_fwd, flop_forward_backward=flop_step,
+        bound_forward_ms=bound_fwd, bound_forward_by=by_fwd,
+        bound_forward_backward_ms=bound_step, bound_forward_backward_by=by_step,
+        parts_ms=parts, cudnn_share=cudnn_ms / parts["kernels"],
+        host_share=(host_ms - step_ms) / host_ms,
+        cudnn_benchmark=dict(forward_backward_ms=tuned_ms, peak_gb=tuned_peak / 1e9),
+        filterbank_host_ms=statistics.median(fb_ms),
+        filterbank_copy_ms=statistics.median(copy_ms),
+        launches=after)
+    print(f"[perceptual] {smi}: PerceptualLoss at {images} + {images} mel images of {h} x {w} "
+          f"(batch {BATCH} x 4 stems x {FRAME} samples at {SR} Hz): forward {fwd_ms:.3f} ms, "
+          f"forward + backward {step_ms:.3f} ms (median of {PERCEPTUAL_REPS}, CUDA events; "
+          f"bounds {bound_fwd:.3f} / {bound_step:.3f} ms by {by_step} at "
+          f"{PEAK_FLOPS['fp32'] / 1e12:.0f} TFLOP/s, {flop_fwd:.3e} / {flop_step:.3e} FLOP), "
+          f"host {host_ms:.3f} ms, peak {peak / 1e9:.3f} GB ({(peak - start) / 1e9:.3f} over the "
+          f"call's start), cuDNN {cudnn_ms:.3f} of {parts['kernels']:.3f} kernel ms, host share "
+          f"{result['host_share']:.4f} (host {host_ms:.3f} ms against the events' {step_ms:.3f}; "
+          f"with cudnn.benchmark = True {tuned_ms:.3f} ms, peak {tuned_peak / 1e9:.3f} GB), the "
+          f"mel filterbank {result['filterbank_host_ms']:.3f} ms "
+          f"on the host + {result['filterbank_copy_ms']:.3f} ms copy a call (2 a loss)",
+          flush=True)
+    print(f"[perceptual] {smi}: one sample against fp64 (tolerance: loss "
+          f"{PERCEPTUAL_LOSS_RTOL:g} relative, dL/dx {PERCEPTUAL_GRAD_TOL:g} of its largest on "
+          f"the card's pieces; {flips[0]} masks and {flips[1]} argmaxes apart from the fp64 "
+          f"path's): fp32 {a}, TF32 stack {tf32} (outside, as it must be); backward outside "
+          f"any scope with cudnn.allow_tf32 = True {b}, against fp32_convs()'s {b_scope} "
+          f"(tolerance {PERCEPTUAL_SCOPE_TOL:g}; a TF32 backward {bwd_gap}, plain fp32 {plain}); "
+          f"loss(x, x) = {same}, no VGG weight has a gradient, the port's kernels launched 0 times",
+          flush=True)
+    print(f"[perceptual] {json.dumps(result)}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -6060,6 +6411,8 @@ def main() -> int:
         k["launches_model_axis"] = model_axis["launches"][k["name"]]
     # 30. the pipeline at one stage, the launcher; the sweep under the launcher
     pipeline = phase("30 pipeline", phase_pipeline, smi, sweep)
+    # 31. the perceptual loss at the config's data, no kernel of the port
+    perceptual = phase("31 perceptual loss", phase_perceptual, task, train[0], KERNELS, smi)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -6080,7 +6433,8 @@ def main() -> int:
                       "cli": cli, "bert_training": bert_training,
                       "transformer": transformer, "rest_of_trainer": rest,
                       "sweep": sweep, "data_parallel": data_parallel,
-                      "model_axis": model_axis, "pipeline": pipeline}),
+                      "model_axis": model_axis, "pipeline": pipeline,
+                      "perceptual": perceptual}),
           flush=True)
     kernels_line = (report + train_report + bert_report + vq_tools_report + bf16_report
                     + bf16_bert_report + bf16_train_report + bert_training_report

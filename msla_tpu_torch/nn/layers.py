@@ -3,7 +3,8 @@ drawn from an explicit torch.Generator (port of msla_tpu/nn/layers.py).
 
 Conv and linear weights and biases are U(±1/√fan_in), the torch default family
 that the JAX package reproduces: fan_in is in·k for Conv1d's (out, in, k)
-weight, out·k for ConvTranspose1d's (in, out, k) weight and in for Linear.
+weight, out·k for ConvTranspose1d's (in, out, k) weight, in·k² for Conv2d's
+(out, in, k, k) weight and in for Linear.
 Values are drawn on the CPU and then moved, so one seed gives one model on
 every device.
 
@@ -100,6 +101,15 @@ def conv1d(cin: int, cout: int, kernel_size: int, stride: int = 1, padding: int 
     conv = nn.utils.skip_init(nn.Conv1d, cin, cout, kernel_size, stride=stride,
                               padding=padding, bias=bias, device=device)
     return _init_conv(conv, cin * kernel_size, generator)
+
+
+def conv2d(cin: int, cout: int, kernel_size: int, padding: int = 0, *,
+           generator: torch.Generator, device) -> nn.Conv2d:
+    """nn.Conv2d with flax ``Conv``'s torch-style init: weight and bias
+    U(±1/√(cin·k²))."""
+    conv = nn.utils.skip_init(nn.Conv2d, cin, cout, kernel_size, padding=padding,
+                              device=device)
+    return _init_conv(conv, cin * kernel_size ** 2, generator)
 
 
 def conv_transpose1d(cin: int, cout: int, kernel_size: int, stride: int = 1,

@@ -105,9 +105,11 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
 def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int = 400,
                     hop_length: int = 160, n_mels: int = 128) -> torch.Tensor:
     """torchaudio MelSpectrogram's surface (reference: plotting.py:88-93):
-    (..., T) → (..., n_mels, frames)."""
+    (..., T) → (..., n_mels, frames), in the spectrum's dtype (the fp32
+    filterbank widened for fp64 input)."""
     spec = spectrogram(x, n_fft=n_fft, hop_length=hop_length, power=2.0)
-    fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels)).to(spec.device)
+    fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels)).to(spec.device,
+                                                                         spec.dtype)
     return torch.einsum("...ft,fm->...mt", spec, fb)
 
 

@@ -1,5 +1,6 @@
 """JAX params → the port's state_dicts (VQ-VAE, BERT, Audio-BERT, the
-transformer), and optax's Adam state → torch's (``adam_state_from_jax``).
+transformer, VGG16's features), and optax's Adam state → torch's
+(``adam_state_from_jax``).
 
 The port keeps the reference torch models' key names (HF's for BERT), and
 the flax tree's for the transformer, whose ``zero_memory`` cross-attention
@@ -9,8 +10,9 @@ the reference's packed ``in_proj`` names cannot hold. Weight layouts:
 * flax ConvTranspose (transpose_kernel=True) kernel (k, out, in) → ConvTranspose1d (in, out, k)
 * flax Dense kernel (in, out)                                → Linear (out, in)
 * flax LayerNorm ``scale``                                   → LayerNorm ``weight``
+* flax 2-D Conv kernel (kh, kw, in, out)                     → Conv2d (out, in, kh, kw)
 
-Reversing the axes is the map for all three kernels. The params come in as a
+Reversing the axes is the map for the first three kernels. The params come in as a
 nested dict of arrays (numpy, anything ``np.asarray`` takes, or the
 ``torch.bfloat16`` tensors ``utils/msgpack.py`` gives for bf16 leaves);
 nothing of JAX is needed. Every tensor comes out fp32, as the port's
@@ -167,4 +169,19 @@ def transformer_state_dict_from_jax(params: Mapping[str, Any],
         else:
             _dense(sd, f"{key}.linear1", p["linear1"])
             _dense(sd, f"{key}.linear2", p["linear2"])
+    return sd
+
+
+def vgg16_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``VGG16Features`` params (``conv{i}``) →
+    ``msla_tpu_torch.nn.vgg.VGG16Features`` state_dict (CPU), torchvision's
+    ``features.{j}`` keys: the inverse of the JAX package's
+    ``vgg16_params_from_torch``."""
+    from msla_tpu_torch.nn.vgg import VGG16_CONV_INDICES
+
+    sd: dict[str, torch.Tensor] = {}
+    for i, j in enumerate(VGG16_CONV_INDICES):
+        sd[f"features.{j}.weight"] = _leaf(params, f"conv{i}", "kernel").permute(
+            3, 2, 0, 1).contiguous()
+        sd[f"features.{j}.bias"] = _leaf(params, f"conv{i}", "bias")
     return sd

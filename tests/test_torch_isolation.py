@@ -1,7 +1,9 @@
 """The port stands alone: no module of msla_tpu_torch/, and not chip_smoke.py,
 imports JAX, flax, optax, msgpack, tensorboardX, tensorboard or wandb (the
 card's machine has none) or the JAX package, and no kernel wrapper catches an exception (a failed launch must
-raise, never fall back to the plain version)."""
+raise, never fall back to the plain version). The port does all the JAX
+package does: every module of msla_tpu/ has a file at the same path in
+msla_tpu_torch/, or the one COUNTERPARTS names."""
 import ast
 from pathlib import Path
 
@@ -66,8 +68,20 @@ def test_scan_sees_the_whole_package():
                      "msla_tpu_torch/sweep/space.py", "msla_tpu_torch/sweep/sampler.py",
                      "msla_tpu_torch/sweep/sweeper.py", "msla_tpu_torch/parallel/mesh.py",
                      "msla_tpu_torch/parallel/distributed.py",
-                     "msla_tpu_torch/parallel/launch.py", "chip_smoke.py"):
+                     "msla_tpu_torch/parallel/launch.py", "msla_tpu_torch/nn/vgg.py",
+                     "msla_tpu_torch/nn/perceptual_loss.py", "chip_smoke.py"):
         assert expected in names
+
+
+#: modules of the JAX package whose counterpart in the port has another name
+COUNTERPARTS = {"ops/vq_pallas.py": "ops/nearest_codes.py",
+                "utils/torch_compat.py": "utils/jax_compat.py"}
+
+
+@pytest.mark.parametrize("module", sorted(
+    p.relative_to(ROOT / "msla_tpu").as_posix() for p in (ROOT / "msla_tpu").rglob("*.py")))
+def test_every_jax_module_has_a_counterpart(module):
+    assert (ROOT / "msla_tpu_torch" / COUNTERPARTS.get(module, module)).is_file()
 
 
 @pytest.mark.parametrize("name", ["conv_stem", "deconv_stem", "nearest_codes", "vq_fused",
