@@ -305,7 +305,28 @@ Phases, each of which raises (exit code != 0) when its check fails:
      (device_parts), the host's share and the mel filterbank's build on the
      host and copy (two a loss call), and forward + backward's ms and peak
      with cudnn.benchmark = True;
- 32. one JSON line with every kernel's numbers, then the device line.
+ 32. the VQ-VAE's kernels at widths past the sweep's (csrc/stem_any.cu,
+     csrc/vq_any.cu, #5 over runs of codes; batch 8 x 44,000 samples): the
+     stems at num_hidden 2, 7, 96, 200, 384, 512 in fp32 (atol = rtol =
+     1e-4, against fp64 within stem_accumulation_bound) and 64, 96, 256,
+     512 in bf16 (bf16_width_check: the hidden as check_bf16 holds it, the
+     output against the plain second layer on the kernel's own hidden), K1
+     and K2 also at ragged lengths, the same bits twice; K3, #4 and #5 at
+     (D, K) = (8, 1,024), (64, 1,024), (64, 2,048), (64, 511), (96,
+     4,096), (512, 512), (32, 65,536), (7, 33): ids equal or near-ties, also at
+     ragged N, planted ties and close pairs right (K >= 512), #4 as in
+     phase 6, #5 bit-equal to codebook_grad_order_ref at its grid; each
+     timed beside its plain version and a library call, with its plan's
+     tile, padding and shared memory (the source's *_smem_bytes); then,
+     with the counts zeroed, the entry points there: Trainer.fit and
+     SourceSeparator.separate of a VQVAETask at (num_hidden 96, D 8, K
+     1,024) fp32 and (256, 64, 2,048) bf16 (card vs CPU codes >= 99.9 %,
+     bf16 >= 99 %), python -m msla_tpu_torch train_vqvae=True
+     experiment=fast_serving model.vqvae.num_hidden=64 in process, and
+     Audio-BERT (bert-base) over a frozen teacher of 1,024 codes; every new
+     kernel must launch there; the phase's and each nvcc's seconds
+     (python3 chip_smoke.py --widths runs the build and this phase alone);
+ 33. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -504,8 +525,9 @@ def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
       are 0 in both;
     - output: e1 carried through the second layer's weights, Σ|w2|·e1 (first
       order), plus its own (K = 4·C1) with A2 = Σ|w2|·h and n the kernel's
-      chains: K1's ``conv2_chains`` (one a tap at (128, 256)), K2's two row
-      sets times its ``cluster_blocks`` (4 at (256, 128)).
+      chains: K1's ``conv2_chains`` (one a tap at (128, 256)), K2's
+      ``second_layer_chains`` (two row sets times its ``cluster_blocks``, 4
+      at (256, 128); the any-width kernel's 8 warps' runs elsewhere).
     The fp32 plain version sums in another order, rounding each add to
     nearest, and stays well inside it; single-pass TF32 products, ~2^-11 of
     each term off, do not (tests/test_torch_fp32_stems_3xtf32.py,
@@ -513,14 +535,14 @@ def stem_accumulation_bound(x, w1, b1, w2, b2, transposed: bool):
     import torch.nn.functional as F
 
     from msla_tpu_torch.ops.conv_stem import conv2_chains
-    from msla_tpu_torch.ops.deconv_stem import cluster_blocks
+    from msla_tpu_torch.ops.deconv_stem import second_layer_chains
 
     conv = F.conv_transpose1d if transposed else F.conv1d
     xd, w1d, b1d, w2d, b2d = (t.double() for t in (x, w1, b1, w2, b2))
     k1 = 2 * x.shape[1] if transposed else 4 * x.shape[1]   # taps x channels a value sums
     k2 = 4 * w2.shape[0 if transposed else 1]
-    chains = 2 * cluster_blocks(*w1.shape[:2]) if transposed else conv2_chains(w1.shape[0],
-                                                                               w2.shape[0])
+    chains = (second_layer_chains(*w1.shape[:2]) if transposed
+              else conv2_chains(w1.shape[0], w2.shape[0]))
     u = 2.0 ** -23
     adds = lambda n: max(2, n)
     own = lambda k, n: (3 * k / 8 + 6 + adds(n)) * u
@@ -837,10 +859,12 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "ragged_w_max_abs_err", "previous_ms", "planted_ties",
                                          "ragged_n_mismatches", "tool_ms", "hgmma",
                                          "ms_one_code", "ms_sorted_runs", "blocks",
-                                         "scratch_bytes", "cuda_launches_per_call")
+                                         "scratch_bytes", "cuda_launches_per_call",
+                                         "padded_share", "runs")
                  if key in k}
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
-              f"plain_ms={k['plain_ms']:.4f} library_ms={k['library_ms']:.4f} "
+              f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) {extra or ''}", flush=True)
         if k["name"] in REDESIGNED:
             print(f"[redesigned] {k['name']}: kernel / library = "
@@ -1146,9 +1170,11 @@ def check_segment_sum(name: str, fn, grad, ids, k: int, split2: bool) -> dict:
     it used returned); the same bits twice."""
     from msla_tpu_torch.ops import segment_sum as ss
 
-    symbol = "vq_precision_bwd_split2" if split2 else "vq_codebook_grad"
+    from msla_tpu_torch.ops.vq_fused import grad_layout
+
     n, d = grad.shape
-    clusters, rows = ss.launch_layout(symbol, n, k, grad.device, split2, slices=d // ss.SLICE)
+    clusters, rows = (ss.launch_layout("vq_precision_bwd_split2", n, k, grad.device, True)
+                      if split2 else grad_layout(n, k, d, grad.device))
     blocks = clusters * ss.CLUSTER
     got = fn(grad, ids)
     torch.cuda.synchronize()
@@ -6283,6 +6309,517 @@ def perceptual_checks(x: torch.Tensor, target: torch.Tensor, kernels, smi: str) 
     return result
 
 
+#: phase 32: the VQ-VAE's kernels at widths past the sweep's (csrc/stem_any.cu,
+#: csrc/vq_any.cu, #5 over runs of codes), at batch 8 x 44,000 samples
+WIDTH_BATCH = 8
+WIDTH_HIDDEN = {torch.float32: (2, 7, 96, 200, 384, 512), torch.bfloat16: (64, 96, 256, 512)}
+#: (D, K): a codec's 1,024 and 2,048 codes, an odd K, the widths between
+#: and past the sweep's, the largest K, and a D no multiple of 4 (#5 reads
+#: its rows padded to 4 columns)
+WIDTH_CODES = ((8, 1024), (64, 1024), (64, 2048), (64, 511), (96, 4096), (512, 512),
+               (32, 65_536), (7, 33))
+WIDTH_REPS = 10
+WIDTH_RAGGED_T, WIDTH_RAGGED_W, WIDTH_RAGGED_N = (7, 1_030, 44_003), (2, 258), (1, 7, 129, 4_097)
+#: the entry points at new widths: (num_hidden, embedding_dim, num_embedding,
+#: compute_dtype, the least share of card codes equal to the CPU's)
+WIDTH_MODELS = ((96, 8, 1024, None, 0.999), (256, 64, 2048, "bfloat16", 0.99))
+WIDTH_TEACHER_K = 1024                # Audio-BERT's frozen teacher's codebook
+WIDTH_ROOT = OUT_DIR / "widths"
+WIDTH_CLI_ARGS = ["train_vqvae=True", "experiment=fast_serving", "model.vqvae.num_hidden=64",
+                  "trainer.max_epochs=1", "+trainer.limit_train_batches=1",
+                  "+trainer.limit_val_batches=1", "+trainer.limit_test_batches=1",
+                  "extras.print_config=False"]
+WIDTHS_FLAG = "--widths"              # chip_smoke.py --widths: the build and phase 32 alone
+
+
+def any_label(name: str, widths: tuple, dtype: torch.dtype) -> str:
+    """An instantiation's name in the kernels line: width_label's, with
+    'bf16 ' before a bf16 stem's widths."""
+    if dtype == torch.bfloat16 and name.startswith(("conv", "deconv")):
+        return f"{name}[bf16 {'x'.join(str(w) for w in widths)}]"
+    return width_label(name, widths)
+
+
+def bf16_width_check(name: str, out, h, want, want_h, w2, b2, transposed: bool):
+    """A bf16 stem at a new width, from its output and the hidden its kernel
+    computed (K1b's or K2b's on the same inputs): the hidden against the
+    plain one (``check_bf16``); the output against the plain second layer
+    run in fp32 on the kernel's own hidden (``check_bf16``: two fp32 sums in
+    another order, each rounded once); and every output value within 2 ulps
+    + 2⁻⁷·Σ|w2|·|h| of the plain version's, ``check_bf16``'s bound. Hidden
+    values whose fp32 sums straddle a bf16 rounding point round apart, and
+    the outputs past 2 ulps that they leave grow in number with the terms
+    an output sums (C1): their share is returned, not held to
+    ``check_bf16``'s 1e-4, which the default widths set (C1 = 64). Returns
+    (largest error against the plain version, that share)."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+
+    zeros = torch.zeros_like(want_h, dtype=torch.float32)
+    check_bf16(name + " hidden", h, want_h, zeros)
+    with fp32_convs():
+        if transposed:
+            own = F.conv_transpose1d(h.float(), w2.float(), b2, 2, 1)
+        else:
+            own = F.relu(F.conv1d(h.float(), w2.float(), b2, 2, 1))
+    check_bf16(name + " on its own hidden", out, own.to(torch.bfloat16),
+               torch.zeros_like(own))
+    g, w = out.float(), want.float()
+    err = (g - w).abs()
+    ulp = torch.ldexp(torch.ones_like(err), torch.frexp(torch.maximum(g.abs(), w.abs()))[1] - 8)
+    terms = stem_terms(want_h, w2, transposed)
+    if (err > torch.clamp(2 * ulp, min=1e-6) + 2.0 ** -7 * terms).any():
+        fail(f"{name}: values beyond 2 bf16 ulps + 2^-7 of their terms, max abs error "
+             f"{err.max().item():.3e}")
+    return err.max().item(), (err > torch.clamp(2 * ulp, min=1e-6)).double().mean().item()
+
+
+def width_stem_rows(dev, g, ptxas: dict, transposed: bool) -> list[dict]:
+    """K1/K1b (or K2/K2b) at WIDTH_HIDDEN on csrc/stem_any.cu's kernel: each
+    against its plain version at WIDTH_BATCH x FRAME, fp32 within STEM_TOL
+    and, on the first item, against fp64 within ``stem_accumulation_bound``,
+    bf16 by ``bf16_width_check`` (K1 and K2 equal to K1b's and K2b's
+    output); output and hidden, at ragged lengths, the same bits twice;
+    timed beside the plain version and cuDNN's pair."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import (conv_stem, conv_stem_ref, conv_stem_save_hidden,
+                                    deconv_stem, deconv_stem_ref, deconv_stem_save_hidden)
+    from msla_tpu_torch.ops.conv_adjoints import fp32_convs
+    from msla_tpu_torch.ops.conv_stem import plan_stem as conv_plan
+    from msla_tpu_torch.ops.deconv_stem import plan_stem as deconv_plan
+
+    b, w = WIDTH_BATCH, FRAME // 4
+    source = "deconv_stem" if transposed else "conv_stem"
+    rows = []
+    for dtype, hiddens in WIDTH_HIDDEN.items():
+        bf16 = dtype == torch.bfloat16
+        for hidden in hiddens:
+            half = hidden // 2
+            if transposed:
+                widths, ref, fns = (hidden, half), deconv_stem_ref, (deconv_stem,
+                                                                     deconv_stem_save_hidden)
+                x = torch.rand((b, hidden, w), generator=g, device=dev)
+                w1 = torch.randn((hidden, half, 4), generator=g, device=dev) / (2 * hidden) ** 0.5
+                w2 = torch.randn((half, 4, 4), generator=g, device=dev) / (2 * half) ** 0.5
+                b2 = torch.randn((4,), generator=g, device=dev) * 0.1
+                conv, reps = F.conv_transpose1d, ("msla_tpu/ops/deconv_stem.py:35",
+                                                  "msla_tpu/ops/deconv_stem.py:132")
+                flop = 2 * b * (2 * w * half * hidden * 2 + 4 * w * 4 * half * 2)
+                plan = deconv_plan(hidden, half, dtype)
+            else:
+                widths, ref, fns = (half, hidden), conv_stem_ref, (conv_stem,
+                                                                   conv_stem_save_hidden)
+                x = torch.randn((b, 4, FRAME), generator=g, device=dev) * 0.3
+                w1 = torch.randn((half, 4, 4), generator=g, device=dev) / 4.0
+                w2 = torch.randn((hidden, half, 4), generator=g, device=dev) / (4 * half) ** 0.5
+                b2 = torch.randn((hidden,), generator=g, device=dev) * 0.1
+                conv, reps = F.conv1d, ("msla_tpu/ops/conv_stem.py:48",
+                                        "msla_tpu/ops/conv_stem.py:132")
+                flop = 2 * b * (FRAME // 2 * half * 16 + w * hidden * 4 * half)
+                plan = conv_plan(half, hidden, dtype)
+            if plan.symbol != f"{source}_any_fwd":
+                fail(f"{source} {dtype} at {widths}: planned on {plan.symbol}, not stem_any.cu")
+            b1 = torch.randn((half,), generator=g, device=dev) * 0.1
+            args = (x.to(dtype), w1.to(dtype), b1, w2.to(dtype), b2)
+            smem = kernel_smem("stem_any_smem_bytes", int(transposed), int(bf16), *widths,
+                               plan.tile)
+            if smem != plan.smem:
+                fail(f"stem_any_smem_bytes at {widths} {dtype}: {smem}, plan_stem's {plan.smem}")
+            lib_w = (args[1], b1.to(dtype), args[3], b2.to(dtype))
+            if bf16:
+                lib = time_ms(lambda: conv(F.relu(conv(args[0], lib_w[0], lib_w[1], 2, 1)),
+                                           lib_w[2], lib_w[3], 2, 1), WIDTH_REPS, 1)
+            else:
+                with fp32_convs():
+                    lib = time_ms(lambda: conv(F.relu(conv(args[0], w1, b1, 2, 1)), w2, b2, 2, 1),
+                                  WIDTH_REPS, 1)
+            kernel = f"{source}_any_kernel<{'__nv_bfloat16' if bf16 else 'float'}>"
+            for name, fn, rep in zip((source, f"{source}_save_hidden"), fns, reps):
+                hidden_out = name.endswith("save_hidden")
+                label = any_label(name, widths, dtype)
+
+                def check(fn_args, at: str = "") -> tuple[float, float]:
+                    got = fn(*fn_args)
+                    out, h = got if hidden_out else (got, None)
+                    want, want_h = ref(*fn_args)
+                    if bf16:  # K1 and K2 alike, on the hidden K1b / K2b computed
+                        out_b, h_b = fns[1](*fn_args)
+                        if not torch.equal(out, out_b):
+                            fail(f"{label}{at}: differs from {fns[1].__name__}'s output")
+                        return bf16_width_check(label + at, out, h_b, want, want_h,
+                                                fn_args[3], fn_args[4], transposed)
+                    err = max(check_close(label + at, out, want),
+                              check_close(label + at + " hidden", h, want_h) if hidden_out
+                              else 0.0)
+                    return err, 0.0
+
+                got = fn(*args)
+                torch.cuda.synchronize()
+                err, beyond = check(args)
+                share = None
+                if not bf16:
+                    few = (args[0][:1],) + args[1:]
+                    out, h = got if hidden_out else (got, None)
+                    share = stem_fp64_share(label, stem_accumulation_bound(
+                        *few, transposed=transposed), out[:1], None if h is None else h[:1])
+                same_bits(label, got if hidden_out else (got,),
+                          fn(*args) if hidden_out else (fn(*args),))
+                ragged = {}
+                for n in WIDTH_RAGGED_W if transposed else WIDTH_RAGGED_T:
+                    small = ((torch.rand if transposed else torch.randn)(
+                        (2, x.shape[1], n), generator=g, device=dev).to(dtype),) + args[1:]
+                    ragged[n] = check(small, at=f" at {n}")[0]
+                out = got[0] if hidden_out else got
+                moved = nbytes(*args, out) + (nbytes(got[1]) if hidden_out else 0)
+                ms = time_ms(lambda: fn(*args), WIDTH_REPS, 1)
+                rows.append(dict(
+                    name=label, route="cuda", source="msla_tpu_torch/csrc/stem_any.cu",
+                    replaces=rep, widths=list(widths), dtype=str(dtype).split(".")[1],
+                    design=plan.design, tile=plan.tile, padded=list(plan.padded),
+                    padded_share=plan.padded_share, max_abs_err=err,
+                    **({"beyond_2_ulps_share": beyond} if bf16 else
+                       {"fp64_share_of_bound": share}),
+                    ragged_max_abs_err=ragged, ms=ms,
+                    plain_ms=time_ms(lambda: ref(*args), WIDTH_REPS, 1), library_ms=lib,
+                    library_call=f"cuDNN {'bf16' if bf16 else 'fp32'} "
+                                 f"{conv.__name__} pair", flop=flop, bytes=moved,
+                    registers=ptxas_of(ptxas, "stem_any", kernel), smem_bytes=smem,
+                    **({"flop_type": "bf16"} if bf16 else tf32_bounds(flop, moved))))
+                del got, out
+            del x, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def chunked_ids(x: torch.Tensor, cb: torch.Tensor, rows: int = 8192) -> torch.Tensor:
+    """nearest_codes_ref over row blocks: the plain ids at any K without a
+    (N, K) block past rows x K."""
+    from msla_tpu_torch.ops import nearest_codes_ref
+
+    return torch.cat([nearest_codes_ref(c, cb) for c in x.split(rows)])
+
+
+def width_vq_rows(dev, g, ptxas: dict) -> list[dict]:
+    """K3, #4 and #5 at WIDTH_CODES on N = WIDTH_BATCH x FRAME / 4 rows, on
+    csrc/vq_any.cu (K3, #4) and #5's runs of codes: ids equal to the plain
+    version's or a near-tie, also at ragged N; planted ties and close pairs
+    (vq_planted, K >= 512; codebooks 4x wider at D <= 16, where standard
+    normal codes lie too near each other for the construction) right; #4's
+    q the codebook rows bit for bit, counts a bincount, sq within 1e-5 of
+    fp64, the same bits twice; #5 on #4's ids and uniform ids bit-equal to
+    codebook_grad_order_ref at its grid (``grad_layout``), within
+    segment_sum_bound, the same bits twice; each timed beside its plain
+    version and a library call (none for K3 and #4 where the (N, K) distance
+    block passes 8 GB)."""
+    from msla_tpu_torch.ops import (nearest_codes, vq_codebook_grad, vq_codebook_grad_ref,
+                                    vq_fused_fwd, vq_fused_fwd_ref)
+    from msla_tpu_torch.ops.nearest_codes import plan_search
+    from msla_tpu_torch.ops.vq_fused import grad_smem_bytes, plan_grad
+
+    n = WIDTH_BATCH * FRAME // 4
+    rows = []
+    for d, k in WIDTH_CODES:
+        plans = [plan_search(k, d, h) for h in (False, True)]
+        if any(p.design != "any width" for p in plans):
+            fail(f"vq search at D={d}, K={k}: planned on {plans}, not vq_any.cu")
+        smem = kernel_smem("vq_any_smem_bytes", d, plans[0].rows, plans[0].codes)
+        if smem != plans[0].smem:
+            fail(f"vq_any_smem_bytes({d}): {smem}, plan_search's {plans[0].smem}")
+        scale = 4.0 if d <= 16 else 1.0
+        flat = torch.randn((n, d), generator=g, device=dev)
+        cb = torch.randn((k, d), generator=g, device=dev) * scale
+        e2 = (cb * cb).sum(1)
+        searches = (("nearest_codes", nearest_codes),
+                    ("vq_fused_fwd", lambda x, e: vq_fused_fwd(x, e)[1]))
+        planted = {}
+        if k >= 512:
+            for close in (False, True):
+                x, e, want = vq_planted(cb, close, g)
+                for what, search in searches:
+                    for label, ids in (("kernel", search(x, e)), ("plain", chunked_ids(x, e))):
+                        if not torch.equal(ids.long(), want):
+                            fail(f"{what}[D={d},K={k}] planted {'close pairs' if close else 'ties'}"
+                                 f": the {label} version missed {(ids.long() != want).sum()} rows")
+            planted = dict(planted_ties=VQ_PLANTED_ROWS, planted_close_pairs=VQ_PLANTED_ROWS)
+        ragged = {what: {} for what, _ in searches}
+        for nn in WIDTH_RAGGED_N:
+            x = torch.randn((nn, d), generator=g, device=dev)
+            for what, search in searches:
+                ragged[what][nn] = near_ties_by(l2_dist(x, cb), search(x, cb), chunked_ids(x, cb),
+                                                what)[0]
+        flop = 2 * n * k * d
+        big = n * k * 4 > 8e9
+        idx = nearest_codes(flat, cb)
+        torch.cuda.synchronize()
+        mismatches, gap, rel = near_ties(flat, cb, idx, chunked_ids(flat, cb))
+        if not torch.equal(idx, nearest_codes(flat, cb)):
+            fail(f"nearest_codes[D={d},K={k}]: two calls differ")
+        moved = nbytes(flat, cb, idx)
+        rows.append(dict(
+            name=width_label("nearest_codes", (d, k)), route="cuda",
+            source="msla_tpu_torch/csrc/vq_any.cu", replaces="msla_tpu/ops/vq_pallas.py:40",
+            widths=[d, k], design=plans[0].design, rows=plans[0].rows, codes=plans[0].codes,
+            padded=list(plans[0].padded), padded_share=plans[0].padded_share, max_abs_err=gap,
+            index_mismatches=mismatches, max_tie_gap=rel, **planted,
+            ragged_n_mismatches=ragged["nearest_codes"],
+            ms=time_ms(lambda: nearest_codes(flat, cb), WIDTH_REPS, 1),
+            plain_ms=time_ms(lambda: chunked_ids(flat, cb), WIDTH_REPS, 1),
+            library_ms=None if big else time_ms(
+                lambda: torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1), WIDTH_REPS, 1),
+            flop=flop, bytes=moved,
+            registers=ptxas_of(ptxas, "vq_any", "vq_any_kernel<false>"), smem_bytes=smem,
+            **tf32_bounds(flop, moved)))
+
+        q, idx, counts, sq, (mismatches, gap, rel), sq_rel = check_fused(flat, cb)
+
+        def composite():  # matmul, argmin, gather, bincount, sum
+            i = torch.argmin(e2 - 2.0 * torch.matmul(flat, cb.T), dim=1)
+            return torch.bincount(i, minlength=k), ((cb.index_select(0, i) - flat) ** 2).sum()
+
+        moved = nbytes(flat, cb, q, idx, counts, sq)
+        rows.append(dict(
+            name=width_label("vq_fused_fwd", (d, k)), route="cuda",
+            source="msla_tpu_torch/csrc/vq_any.cu", replaces="msla_tpu/ops/vq_fused.py:42",
+            widths=[d, k], design=plans[1].design, padded=list(plans[1].padded),
+            padded_share=plans[1].padded_share, max_abs_err=gap, index_mismatches=mismatches,
+            max_tie_gap=rel, sq_rel_err=sq_rel, **planted,
+            ragged_n_mismatches=ragged["vq_fused_fwd"],
+            ms=time_ms(lambda: vq_fused_fwd(flat, cb), WIDTH_REPS, 1),
+            plain_ms=time_ms(lambda: vq_fused_fwd_ref(flat, cb), WIDTH_REPS, 1),
+            library_ms=None if big else time_ms(composite, WIDTH_REPS, 1),
+            library_call="composite: matmul + argmin + index_select + bincount + sum",
+            flop=flop, bytes=moved, registers=ptxas_of(ptxas, "vq_any", "vq_any_kernel<true>"),
+            smem_bytes=smem + 64, **tf32_bounds(flop, moved)))  # 64 static: the warps' fp64
+        del q, flat
+
+        grad = torch.randn((n, d), generator=g, device=dev)
+        fn = lambda x, i: vq_codebook_grad(x, i, k)
+        checks = {kind: check_segment_sum(f"vq_codebook_grad[D={d},K={k}] ({kind} ids)",
+                                          fn, grad, ids, k, False)
+                  for kind, ids in (("model", idx), ("uniform", segment_ids("uniform", n, k, g)))}
+        plan = plan_grad(k, d)
+        ids_long = idx.long()
+        zeros = torch.zeros((k, d), device=dev)
+        rows.append(dict(
+            name=width_label("vq_codebook_grad", (d, k)), route="cuda",
+            source="msla_tpu_torch/csrc/segment_sum.cuh",
+            replaces="msla_tpu/ops/vq_fused.py:81", widths=[d, k],
+            max_abs_err=checks["model"]["max_abs_err"],
+            fp64_share_of_bound=max(c["fp64_share_of_bound"] for c in checks.values()),
+            blocks=checks["model"]["blocks"], column_slices=plan.slices, runs=plan.runs,
+            codes_a_run=plan.run, padded_share=plan.padded_share,
+            ms=time_ms(lambda: fn(grad, idx), WIDTH_REPS, 1),
+            plain_ms=time_ms(lambda: vq_codebook_grad_ref(grad, idx, k), WIDTH_REPS, 1),
+            library_ms=time_ms(lambda: zeros.index_add_(0, ids_long, grad), WIDTH_REPS, 1),
+            library_call="index_add_", flop=n * d, bytes=nbytes(grad, idx) + k * d * 4,
+            registers=ptxas_of(ptxas, "vq_fused", "segment_sum_kernel<false>"),
+            smem_bytes=grad_smem_bytes(plan.run)))
+        del grad, idx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def codes_card_vs_cpu(task, model: dict, least: float) -> dict:
+    """The task's codes on 2 frames on the card against a CPU copy's (the
+    plain versions, the same compute dtype): at least ``least`` of them
+    equal, every fp32 mismatch a near-tie."""
+    from msla_tpu_torch.models.vqvae import VQVAETask
+
+    cpu = VQVAETask(**model, checkpoint_dir=".", codebook_file="codebook.csv", device="cpu")
+    cpu.net.load_state_dict({k: v.cpu() for k, v in task.net.state_dict().items()})
+    frames = synthetic_mixture(2 * FRAME / SR, seed=40).reshape(2, 1, FRAME).repeat(4, axis=1)
+    x_cpu = torch.from_numpy(np.ascontiguousarray(frames))
+    with torch.inference_mode():
+        ig = task.get_quantized(x_cpu.cuda()).encoding_indices.cpu()
+        ic = cpu.get_quantized(x_cpu).encoding_indices
+        zc = cpu.net.encode(x_cpu)
+    agree = (ig == ic).double().mean().item()
+    if agree < least:
+        fail(f"card vs CPU at {model}: only {agree:.5f} of codes agree (least {least})")
+    ties = None
+    if model.get("compute_dtype") is None:
+        ties = near_ties(zc.reshape(-1, zc.shape[-1]), cpu.net.vector_quantizer.codebook.weight,
+                         ig.flatten(), ic.flatten())[0]
+    return dict(code_agreement=agree, near_tie_mismatches=ties)
+
+
+def width_models(kernels) -> dict:
+    """The entry points at WIDTH_MODELS: ``Trainer.fit`` (2 train and 1
+    validation batch of WIDTH_BATCH) then ``SourceSeparator.separate()`` of
+    a song on the card, each output finite and of its shape, the trained
+    model's codes card vs CPU; the launches at the model's widths."""
+    from msla_tpu_torch.inference import SourceSeparator
+    from msla_tpu_torch.models.vqvae import VQVAETask
+    from msla_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    for hidden, d, k, dtype, least in WIDTH_MODELS:
+        model = dict(MODEL, num_hidden=hidden, embedding_dim=d, num_embedding=k,
+                     compute_dtype=dtype)
+        name = f"{hidden}x{d}x{k}{'-bf16' if dtype else ''}"
+        root = WIDTH_ROOT / name
+        task = VQVAETask(**model, checkpoint_dir=str(root), codebook_file=str(root / "cb.csv"),
+                         device="cuda", seed=0)
+        dm = in_memory_datamodule(synthetic_stems(2, seed=32, batch=WIDTH_BATCH),
+                                  synthetic_stems(1, seed=33, batch=WIDTH_BATCH),
+                                  batch=WIDTH_BATCH)
+        before = {key: v.detach().clone() for key, v in task.net.state_dict().items()}
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        trainer = Trainer(max_epochs=1, seed=0, enable_progress_bar=False)
+        trainer.fit(task, dm)
+        sep = SourceSeparator(task, frame_samples=FRAME, batch_size=WIDTH_BATCH)
+        song = synthetic_mixture(WIDTH_BATCH * FRAME / SR, seed=34)
+        stems = sep.separate(song)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        cm = trainer.callback_metrics
+        if not cm or not all(np.isfinite(v) for v in cm.values()):
+            fail(f"width model {name}: fit's metrics {cm}")
+        if all(torch.equal(v, before[key]) for key, v in task.net.state_dict().items()):
+            fail(f"width model {name}: fit changed no parameter")
+        if stems.shape != (4, song.size) or not np.isfinite(stems).all():
+            fail(f"width model {name}: separate gave {stems.shape} or non-finite values")
+        op = torch.bfloat16 if dtype else torch.float32
+        want = {("conv_stem", op, (hidden // 2, hidden)), ("conv_stem_save_hidden", op,
+                (hidden // 2, hidden)), ("deconv_stem", op, (hidden, hidden // 2)),
+                ("deconv_stem_save_hidden", op, (hidden, hidden // 2)),
+                ("nearest_codes", torch.float32, (d, k)), ("vq_fused_fwd", torch.float32, (d, k)),
+                ("vq_codebook_grad", torch.float32, (d, k))}
+        got = {(w.__name__, key[0], key[1]): c for w in kernels
+               for key, c in getattr(w, "widths", {}).items()}
+        absent = [f"{n} {t} {w}" for n, t, w in want if not got.get((n, t, w))]
+        if absent:
+            fail(f"width model {name}: instantiations that never launched: {absent}")
+        out[name] = dict(s=seconds, steps=trainer.global_step, train_loss=cm["train/loss"],
+                         launches={any_label(n, w, t): c for (n, t, w), c in got.items()},
+                         **codes_card_vs_cpu(task, model, least))
+        print(f"[widths] model {name}: fit {trainer.global_step} steps and separate in "
+              f"{seconds:.2f} s, {out[name]}", flush=True)
+        del task, trainer, sep
+        torch.cuda.empty_cache()
+    return out
+
+
+def width_cli(kernels) -> dict:
+    """``python -m msla_tpu_torch`` with WIDTH_CLI_ARGS in process, on phase
+    27's 22 kHz fixture (written again if gone): one batch of 128 of each
+    split, the bf16 stems at num_hidden 64; the run's launches."""
+    import os
+    import shutil
+
+    from msla_tpu_torch import main as cli
+    from msla_tpu_torch.data.dataset import make_fixture_dataset
+
+    slakh, project = SWEEP_ROOT / "slakh", WIDTH_ROOT / "cli"
+    if not all((slakh / split).is_dir() for split in SWEEP_TRACKS):
+        for i, (split, n) in enumerate(SWEEP_TRACKS.items()):
+            make_fixture_dataset(slakh / split, n_tracks=n, seconds=CLI_TRACK_S, sr=SR,
+                                 seed=30 + i)
+    shutil.rmtree(project, ignore_errors=True)
+    env = {key: os.environ.get(key) for key in ("SLAKH_DIR", "PROJECT_ROOT")}
+    os.environ.update(SLAKH_DIR=str(slakh), PROJECT_ROOT=str(project))
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    try:
+        cli.main(WIDTH_CLI_ARGS)
+    finally:
+        for key, v in env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+    seconds = time.perf_counter() - t0
+    got = {any_label(w.__name__, key[1], key[0]): c for w in kernels
+           for key, c in getattr(w, "widths", {}).items()}
+    for n in ("conv_stem_save_hidden", "deconv_stem_save_hidden", "conv_stem", "deconv_stem"):
+        widths = (32, 64) if n.startswith("conv") else (64, 32)
+        if not got.get(any_label(n, widths, torch.bfloat16)):
+            fail(f"width cli: {n} never launched on bf16 at {widths}: {got}")
+    if not (project / "logs" / "best_checkpoint" / "best_vqvae.ckpt").is_file():
+        fail("width cli: no best_vqvae.ckpt written")
+    shutil.rmtree(project, ignore_errors=True)
+    print(f"[widths] cli {' '.join(WIDTH_CLI_ARGS[:3])}: {seconds:.2f} s, launches {got}",
+          flush=True)
+    return dict(s=seconds, launches=got)
+
+
+def width_teacher(kernels) -> dict:
+    """Audio-BERT over a frozen teacher of WIDTH_TEACHER_K codes: the
+    teacher's code ids of 2 frames card vs CPU (at least 0.999 equal), then
+    a bert-base AudioBertTask with the teacher's codebook (num_embedding
+    WIDTH_TEACHER_K) on the card's ids: finite stems of the frame's shape."""
+    from msla_tpu_torch.data.transform import Quantize
+    from msla_tpu_torch.models.bert import AudioBertTask
+    from msla_tpu_torch.models.vqvae import VQVAETask
+
+    model = dict(MODEL, num_embedding=WIDTH_TEACHER_K)
+    root = WIDTH_ROOT / "teacher"
+    root.mkdir(parents=True, exist_ok=True)
+    csv = root / "codebook.csv"
+    teacher = VQVAETask(**model, checkpoint_dir=str(root), codebook_file=str(csv),
+                        device="cuda", seed=0)
+    cb = teacher.net.vector_quantizer.codebook.weight.detach().cpu().numpy()
+    np.savetxt(csv, cb, delimiter=",", header=",".join(str(i) for i in range(cb.shape[1])),
+               comments="")
+    reset_counts(kernels)
+    frames = torch.from_numpy(np.ascontiguousarray(synthetic_stems(1, seed=41, batch=2)[0]))
+    ids = Quantize(teacher).get_encodings_idx(frames.cuda())
+    bert = AudioBertTask(**dict(bert_task_args(), codebook=str(csv),
+                                num_embedding=WIDTH_TEACHER_K), device="cuda", seed=0)
+    stems = bert.forward(ids)
+    torch.cuda.synchronize()
+    got = {any_label(w.__name__, key[1], key[0]): c for w in kernels
+           for key, c in getattr(w, "widths", {}).items()}
+    if tuple(stems.shape) != (2, 4, FRAME) or not torch.isfinite(stems).all():
+        fail(f"width teacher: Audio-BERT gave {tuple(stems.shape)} or non-finite values")
+    if not got.get(width_label("nearest_codes", (64, WIDTH_TEACHER_K))):
+        fail(f"width teacher: K3 never launched at K={WIDTH_TEACHER_K}: {got}")
+    agreement = codes_card_vs_cpu(teacher, model, 0.999)  # after the counts: it runs the card
+    del bert, teacher
+    torch.cuda.empty_cache()
+    result = dict(launches=got, **agreement)
+    print(f"[widths] Audio-BERT over a teacher of {WIDTH_TEACHER_K} codes: {result}", flush=True)
+    return result
+
+
+def phase_widths(kernels, dev, ptxas: dict, smi: str) -> tuple[dict, list[dict]]:
+    """Phase 32: every new instantiation against its plain version (stems,
+    search, gradient), then the entry points at new widths with the launch
+    counts zeroed just before them: the fp32 and bf16 models (fit, separate,
+    card vs CPU), the CLI at num_hidden 64 and Audio-BERT's teacher at
+    1,024 codes. Each row's ``launches``: its instantiation's in those runs."""
+    from msla_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows = (width_stem_rows(dev, g, ptxas, False) + width_stem_rows(dev, g, ptxas, True)
+                + width_vq_rows(dev, g, ptxas))
+    kernels_s = time.perf_counter() - t0
+    models = width_models(kernels)
+    cli = width_cli(kernels)
+    teacher = width_teacher(kernels)
+    launches = collections.Counter()
+    for run in (*models.values(), cli, teacher):
+        launches.update(run["launches"])
+    for row in rows:
+        row["launches"] = launches.get(row["name"], 0)
+    for prefix in ("conv_stem[", "conv_stem_save_hidden[", "deconv_stem[",
+                   "deconv_stem_save_hidden[", "conv_stem[bf16", "conv_stem_save_hidden[bf16",
+                   "deconv_stem[bf16", "deconv_stem_save_hidden[bf16", "nearest_codes[",
+                   "vq_fused_fwd[", "vq_codebook_grad["):
+        if not any(r["name"].startswith(prefix) and r["launches"] for r in rows):
+            fail(f"phase 32: no instantiation {prefix}...] launched on the entry points")
+    result = dict(card=smi, kernels_s=kernels_s, nvcc_s=dict(_build.NVCC_SECONDS),
+                  models=models, cli=cli, teacher=teacher, launches=dict(launches))
+    print(f"[widths] {smi}: instantiations checked in {kernels_s:.1f} s; nvcc seconds "
+          f"{result['nvcc_s']}", flush=True)
+    return result, with_bounds(rows)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -6413,6 +6950,8 @@ def main() -> int:
     pipeline = phase("30 pipeline", phase_pipeline, smi, sweep)
     # 31. the perceptual loss at the config's data, no kernel of the port
     perceptual = phase("31 perceptual loss", phase_perceptual, task, train[0], KERNELS, smi)
+    # 32. the VQ-VAE's kernels at widths past the sweep's; the entry points there
+    widths, widths_report = phase("32 widths", phase_widths, KERNELS, dev, ptxas, smi)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -6434,11 +6973,11 @@ def main() -> int:
                       "transformer": transformer, "rest_of_trainer": rest,
                       "sweep": sweep, "data_parallel": data_parallel,
                       "model_axis": model_axis, "pipeline": pipeline,
-                      "perceptual": perceptual}),
+                      "perceptual": perceptual, "widths": widths}),
           flush=True)
     kernels_line = (report + train_report + bert_report + vq_tools_report + bf16_report
                     + bf16_bert_report + bf16_train_report + bert_training_report
-                    + transformer_report + rest_report + sweep_report)
+                    + transformer_report + rest_report + sweep_report + widths_report)
     for k in kernels_line:   # phase 30's fp32 launches: the pipelined BERT group's
         k["launches_pipeline"] = pipeline["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels_line}), flush=True)
@@ -6448,7 +6987,31 @@ def main() -> int:
     return 0
 
 
+def widths_only() -> int:
+    """``chip_smoke.py --widths``: the build and phase 32 alone, for work on
+    the any-width kernels; prints phase 32's result and rows."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from msla_tpu_torch.ops import KERNELS, _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    phase = Phases()
+    phase("build", _build.build_all)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    result, rows = phase("32 widths", phase_widths, KERNELS, torch.device("cuda"),
+                         ptxas_report(), smi)
+    print(json.dumps({"widths": result, "phase_s": phase.seconds}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 2 and sys.argv[1] == WIDTHS_FLAG:
+        sys.exit(widths_only())
     if len(sys.argv) == 3 and sys.argv[1] == MODEL_AXIS_FLAG:
         sys.exit(model_axis_rank(Path(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == PIPELINE_FLAG:

@@ -62,6 +62,14 @@
 //    stays bit-equal to the same order's plain version. The wrapper gives
 //    each slice 1 / (D / 64) of the clusters that run at once, so that all
 //    slices run in one wave; their partials sit slice by slice.
+// 5. Any D and K (#5 at the widths of a JAX VQ beyond the sweep's): D need
+//    not be a multiple of 64. The last slice's box reaches past D, and TMA
+//    reads the columns past D as zeros, which the finish kernel never
+//    writes out (g's rows must be 16-byte multiples: the wrapper pads them
+//    to 4 columns where D % 4 != 0). K beyond the accumulator (K > 701) runs
+//    as launches over runs of codes [code0, code0 + K'), each id taken as id
+//    - code0, so that the ids outside the run go to the spare row; every run
+//    has the same grid, so each code's sum keeps the one order.
 // ops/segment_sum.py codebook_grad_order_ref repeats this order on the plain
 // ops: the kernels' results equal it bit for bit at the card's grid.
 #pragma once
@@ -268,21 +276,21 @@ __device__ __forceinline__ void warp_sort(int (&key)[N], int lane) {
     }
 }
 
-// The sorter warp's work on one stage (`ids`: its ids; rows from `row0`, of
-// which those at `end` and past it are not the part's): each 32-row group's
+// The sorter warp's work on one stage (`ids`: its ids, taken less `code0`;
+// rows from `row0`, of which those at `end` and past it are not the part's): each 32-row group's
 // keys sorted, and per sorted position the row's byte offset in the stage's
 // g and its code's in the accumulator (`out`), its end weight (`weights`),
 // and the group's mask of segment starts (`starts`).
 template <bool SPLIT2>
 __device__ __forceinline__ void sort_stage(const int* ids, long long row0, long long end,
-                                           int k_codes, int* out, float* weights,
+                                           int code0, int k_codes, int* out, float* weights,
                                            unsigned* starts, int lane) {
   constexpr int GROUPS = Layout<SPLIT2>::GROUPS, COLS = Variant<SPLIT2>::COLS;
   int key[GROUPS];
 #pragma unroll
   for (int g = 0; g < GROUPS; ++g) {
     const int r = 32 * g + lane;
-    const int code = ids[r];
+    const int code = ids[r] - code0;
     const bool ok = row0 + r < end && (unsigned)code < (unsigned)k_codes;
     key[g] = (ok ? code : k_codes) << 5 | lane;  // invalid rows sort last, never end
   }
@@ -321,7 +329,8 @@ template <bool SPLIT2>
 __global__ void __launch_bounds__(Layout<SPLIT2>::THREADS, 1)
 segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
                    const __grid_constant__ CUtensorMap map_ids, float* __restrict__ partials,
-                   long long n, int k_codes, long long rows_per_part, int stages) {
+                   long long n, int code0, int k_codes, long long rows_per_part,
+                   int stages) {
   using V = Variant<SPLIT2>;
   using L = Layout<SPLIT2>;
   constexpr int GROUPS = L::GROUPS, THREADS = L::THREADS, W = V::WARPS;
@@ -380,7 +389,7 @@ segment_sum_kernel(const __grid_constant__ CUtensorMap map_g,
       mbar_wait(full + 8 * s, phase);
       sort_stage<SPLIT2>(
           reinterpret_cast<const int*>(ring + (size_t)s * L::SLOT_BYTES + L::G_BYTES),
-          begin + (long long)i * V::STAGE_ROWS, end, k_codes,
+          begin + (long long)i * V::STAGE_ROWS, end, code0, k_codes,
           reinterpret_cast<int*>(meta + (size_t)s * GROUPS * 16), weights + s * GROUPS * 32,
           starts + s * GROUPS, lane);
       mbar_arrive(sorted + 8 * s);
@@ -534,20 +543,22 @@ inline int max_clusters(int k_codes, int* clusters) {
                                              &cfg);
 }
 
-// g (n, d) fp32, d a multiple of 64 (64 for split2), and idx (n,) int32,
-// both 16-byte aligned; dcb (K, d) the output; partials (d / 64, clusters,
-// HALVES, K, 64) scratch; `clusters` a column slice. Two launches: the
-// segment sum, then the clusters' partials summed into dcb.
+// g (n, d) fp32, d a multiple of 4 (64 for split2), and idx (n,) int32,
+// both 16-byte aligned; dcb (K, d) the output, the sums of codes code0 ..
+// code0 + K - 1; partials (ceil(d / 64), clusters, HALVES, K, 64) scratch;
+// `clusters` a column slice. Two launches: the segment sum, then the
+// clusters' partials summed into dcb.
 template <bool SPLIT2>
 inline int launch(const float* g, const int* idx, float* dcb, float* partials, int clusters,
                   long long rows_per_part, long long n, int k_codes, cudaStream_t s,
-                  int d = D) {
+                  int d = D, int code0 = 0) {
   using V = Variant<SPLIT2>;
   if (n <= 0) return (int)cudaMemsetAsync(dcb, 0, (size_t)k_codes * d * sizeof(float), s);
   if (clusters < 1 || rows_per_part % V::STAGE_ROWS ||
-      rows_per_part * clusters * (CLUSTER / V::HALVES) < n || d < D || d % D ||
+      rows_per_part * clusters * (CLUSTER / V::HALVES) < n || d < 4 || d % 4 ||
       (SPLIT2 && d != D))
     return (int)cudaErrorInvalidValue;
+  const int slices = (d + D - 1) / D;
   if (int e = allow_smem<SPLIT2>(k_codes)) return e;
   CUtensorMap map_g, map_ids;  // g's pointer changes from call to call: encoded each call
   const cuuint64_t g_dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
@@ -560,9 +571,10 @@ inline int launch(const float* g, const int* idx, float* dcb, float* partials, i
     status = encode(&map_ids, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, idx, id_dims, g_strides, id_box);
   if (status != 0) return status;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = launch_config<SPLIT2>(&attr, clusters, k_codes, s, d / D);
+  const cudaLaunchConfig_t cfg = launch_config<SPLIT2>(&attr, clusters, k_codes, s, slices);
   cudaError_t err = cudaLaunchKernelEx(&cfg, segment_sum_kernel<SPLIT2>, map_g, map_ids, partials,
-                                       n, k_codes, rows_per_part, stages_for<SPLIT2>(k_codes));
+                                       n, code0, k_codes, rows_per_part,
+                                       stages_for<SPLIT2>(k_codes));
   if (err != cudaSuccess) return (int)err;
   const int e = k_codes * d;
   segment_sum_finish<V::HALVES><<<(e + 255) / 256, 256, 0, s>>>(partials, clusters, k_codes, d,

@@ -312,15 +312,16 @@ extern "C" int vq_codebook_grad_clusters(int k_codes, int* clusters) {
   return segsum::max_clusters<false>(k_codes, clusters);
 }
 
-// g (n, d) fp32, d a multiple of 64, and idx (n,) int32, both 16-byte
-// aligned; dcb (K, d) is the output; partials (d / 64, clusters, K, 64) is
-// scratch: d / 64 column slices of `clusters` clusters each; part p of a
-// slice's clusters * 4 blocks takes the rows [p * rows_per_part, ...), a
-// multiple of 64. The wrapper checks that ops/vq_fused.py grad_smem_bytes(K)
-// fit (K <= 701).
+// g (n, d) fp32, d a multiple of 4, and idx (n,) int32, both 16-byte
+// aligned; dcb (K, d) is the output: the sums of codes code0 .. code0 + K - 1
+// (ids outside them add nothing); partials (ceil(d / 64), clusters, K, 64)
+// is scratch: ceil(d / 64) column slices of `clusters` clusters each; part p
+// of a slice's clusters * 4 blocks takes the rows [p * rows_per_part, ...),
+// a multiple of 64. The wrapper checks that ops/vq_fused.py grad_smem_bytes(K)
+// fit (K <= 701) and runs a larger K as runs of codes (plan_grad).
 extern "C" int vq_codebook_grad(const float* g, const int* idx, float* dcb, float* partials,
-                                int clusters, long long rows_per_part, long long n, int k_codes,
-                                int d, void* stream) {
+                                int clusters, long long rows_per_part, long long n, int code0,
+                                int k_codes, int d, void* stream) {
   return segsum::launch<false>(g, idx, dcb, partials, clusters, rows_per_part, n, k_codes,
-                               (cudaStream_t)stream, d);
+                               (cudaStream_t)stream, d, code0);
 }

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -46,10 +47,15 @@ SIGNATURES = {
     "deconv_stem_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, I32, I32, P]),
     "deconv_stem_smem_bytes": ("deconv_stem", [I32, I32]),
     "deconv_stem_bf16_fwd": ("deconv_stem", [P, P, P, P, P, P, P, I32, I32, P]),
+    "conv_stem_any_fwd": ("stem_any", [I32, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
+    "deconv_stem_any_fwd": ("stem_any", [I32, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, P]),
+    "stem_any_smem_bytes": ("stem_any", [I32, I32, I32, I32, I32]),
     "nearest_codes_fwd": ("nearest_codes", [P, P, P, P, I64, I32, I32, P]),
     "vq_search_smem_bytes": ("nearest_codes", [I32, I32, I32]),
+    "vq_any_fwd": ("vq_any", [P, P, P, P, P, P, P, P, P, I32, I64, I32, I32, I32, I32, P]),
+    "vq_any_smem_bytes": ("vq_any", [I32, I32, I32]),
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, I32, P]),
-    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, I32, P]),
+    "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, I32, I32, P]),
     "vq_codebook_grad_clusters": ("vq_fused", [I32, P]),
     "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
     "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
@@ -68,6 +74,8 @@ SOURCES = tuple(sorted({source for source, _ in SIGNATURES.values()}))
 
 _libraries: dict[str, ctypes.CDLL] = {}
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+#: the wall seconds of each nvcc this process ran, by source
+NVCC_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -94,21 +102,25 @@ def build_log(name: str) -> str:
     return library_path(name).with_suffix(".log").read_text()
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    """Start nvcc for ``name`` unless its current library exists."""
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float] | None:
+    """Start nvcc for ``name`` unless its current library exists; what it
+    prints goes to a file beside the library (no pipe to fill)."""
     lib = library_path(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, lib
+    with open(tmp.with_suffix(".log"), "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return proc, tmp, lib, time.perf_counter()
 
 
-def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
-    proc, tmp, lib = job
-    log, _ = proc.communicate()
+def _finish(name: str, job: tuple[subprocess.Popen, Path, Path, float]) -> None:
+    proc, tmp, lib, _ = job
+    log_path = tmp.with_suffix(".log")
+    log = log_path.read_text()
+    log_path.unlink(missing_ok=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
@@ -117,16 +129,22 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
 
 
 def build_all(names=SOURCES) -> None:
-    """Build every stale kernel library, one nvcc per source, in parallel."""
-    jobs = {n: _start(n) for n in names}
+    """Build every stale kernel library, one nvcc per source, all at once;
+    each one's wall seconds, from its start to its exit, go to
+    ``NVCC_SECONDS``."""
+    jobs = {n: job for n in names if (job := _start(n)) is not None}
     errors = []
-    for n, job in jobs.items():
-        if job is None:
-            continue
-        try:
-            _finish(n, job)
-        except RuntimeError as e:  # finish the other builds, then report all
-            errors.append(str(e))
+    while jobs:
+        for n, job in list(jobs.items()):
+            if job[0].poll() is None:
+                continue
+            NVCC_SECONDS[n] = time.perf_counter() - job[3]
+            del jobs[n]
+            try:
+                _finish(n, job)
+            except RuntimeError as e:  # finish the other builds, then report all
+                errors.append(str(e))
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
 
@@ -198,14 +216,6 @@ def count_launch(wrapper, key, widths: tuple | None = None) -> None:
     wrapper.launches[key] += 1
     if widths is not None:
         wrapper.widths[key, widths] += 1
-
-
-def refuse_widths(name: str, widths: tuple, compiled) -> None:
-    """Raise ``ValueError`` naming ``widths`` unless the kernel behind
-    ``name`` is compiled for them."""
-    if widths not in compiled:
-        raise ValueError(f"{name}: the kernel is compiled for widths {sorted(compiled)}, "
-                         f"got {widths}")
 
 
 def launch_count(wrapper, key=None) -> int:

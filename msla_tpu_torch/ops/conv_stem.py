@@ -34,37 +34,104 @@ is the same packing in plain PyTorch, and ``conv_stem_phase_ref`` and
 ``conv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
 kernel compute it, for the tests (no wrapper calls them).
 
-Widths: the kernels take 4 → C1 → C2 for (C1, C2) in ``FP32_WIDTHS`` in fp32,
-those of the num_hidden values configs/hparams_search/optuna.yaml samples
-(C2 = num_hidden, C1 = C2 / 2), all in 3xTF32: (64, 128), the default
-config's, and (32, 64) with W2′ whole in a block; (128, 256), whose W2′
-does not fit in a block, with W2′ cut into groups of 64 output channels and
-conv2 run as one partial sum a tap (``conv2_chains``; ``csrc/conv_stem.cu``).
-bf16 takes (64, 128). Other widths raise ``ValueError`` on a CUDA tensor;
-the plain version takes any.
+Widths: any 4 → C1 → C2 with C1 from 1 to ``MAX_C1`` and C2 from 1 to
+``MAX_C2`` (num_hidden from 2 to 512, C2 = num_hidden, C1 = num_hidden // 2,
+as the JAX encoder builds them), in fp32 and bf16; ``plan_stem`` picks the
+kernel for a width. The tuned kernels of ``csrc/conv_stem.cu`` take the
+widths of configs/hparams_search/optuna.yaml, ``FP32_WIDTHS`` in fp32, all
+in 3xTF32: (64, 128), the default config's, and (32, 64) with W2′ whole in a
+block; (128, 256), whose W2′ does not fit in a block, with W2′ cut into
+groups of 64 output channels and conv2 run as one partial sum a tap
+(``conv2_chains``); bf16 takes (64, 128) there. Every other width runs
+``csrc/stem_any.cu``'s kernel, its widths padded to the mma's granule (C1 to
+8 in fp32 and 16 in bf16, C2 to 16) with lanes that add exact zeros, conv2
+one chain in fp32. A width past the limits raises ``ValueError`` naming it
+on a CUDA tensor; the plain version takes any width.
 """
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, refuse_widths,
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, needs_grad,
                                        require, runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the default widths (the full-width model's): the 3xTF32 and bf16 kernels'
 C0, C1, C2 = 4, 64, 128
-#: the (C1, C2) the fp32 kernels are compiled for
+#: the (C1, C2) the tuned fp32 kernels are compiled for
 FP32_WIDTHS = ((32, 64), (C1, C2), (128, 256))
+#: the largest widths any kernel takes: num_hidden 512's
+MAX_C1, MAX_C2 = 256, 512
+#: the any-width kernel's granules: C1 (a depth) by operand type, C2 (m16 rows)
+GRANULE = {torch.float32: 8, torch.bfloat16: 16}
+M_GRANULE = 16
+#: its tiles of output positions, the largest whose block fits first
+ANY_TILES = (128, 64, 32)
+
+
+class StemPlan(NamedTuple):
+    """How a stem runs at its widths: the C entry point, the design, the
+    widths as the kernel runs them, its tile of positions, a block's dynamic
+    shared memory (None for a tuned kernel: its source's ``*_smem_bytes``
+    reports it) and the share of its products on padded lanes."""
+    symbol: str
+    design: str
+    padded: tuple[int, int]
+    tile: int
+    smem: int | None
+    padded_share: float
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _align16(v: int) -> int:
+    return _round_up(v, 16)
+
+
+def any_smem_bytes(c1: int, tile: int, dtype: torch.dtype) -> int:
+    """A block of ``csrc/stem_any.cu``'s encoder kernel, as its
+    ``stem_any_smem_bytes`` reports it: x's window [4][4·tile + 16] and hE,
+    hO [tile + 2][C1P + pad] each (pad 4 floats, or 8 bf16)."""
+    es, pad = (4, 4) if dtype == torch.float32 else (2, 8)
+    c1p = _round_up(c1, GRANULE[dtype])
+    return _align16(C0 * (4 * tile + 16) * es) + 2 * _align16((tile + 2) * (c1p + pad) * es)
+
+
+def plan_stem(c1: int, c2: int, dtype: torch.dtype = torch.float32) -> StemPlan:
+    """The kernel that runs the stem 4 → c1 → c2 on ``dtype`` operands: a
+    tuned one at its widths, else the any-width kernel at the largest tile
+    whose block fits. Raises ``ValueError`` past MAX_C1 or MAX_C2."""
+    if dtype not in GRANULE:
+        raise ValueError(f"conv_stem: operands must be float32 or bfloat16, got {dtype}")
+    if not (1 <= c1 <= MAX_C1 and 1 <= c2 <= MAX_C2):
+        raise ValueError(f"conv_stem: widths (C1, C2) = ({c1}, {c2}) outside the kernels' "
+                         f"limits, C1 from 1 to {MAX_C1} and C2 from 1 to {MAX_C2}")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (c1, c2) == (C1, C2):
+        return StemPlan("conv_stem_bf16_fwd", "bf16", (c1, c2), 128, None, 0.0)
+    if not bf16 and (c1, c2) in FP32_WIDTHS:
+        groups = (c1, c2) == (128, 256)
+        return StemPlan("conv_stem_fwd", "3xTF32" + " groups" * groups, (c1, c2),
+                        64 if groups else 128, None, 0.0)
+    c1p, c2p = _round_up(c1, GRANULE[dtype]), _round_up(c2, M_GRANULE)
+    tile = next(t for t in ANY_TILES if any_smem_bytes(c1, t, dtype) <= SMEM_BYTES)
+    real = 4 * c1 * c2 + 2 * 16 * c1            # conv2's and conv1's products a position
+    return StemPlan("conv_stem_any_fwd", "any width" + " bf16" * bf16, (c1p, c2p), tile,
+                    any_smem_bytes(c1, tile, dtype), 1 - real / (4 * c1p * c2p + 2 * 16 * c1p))
 
 
 def conv2_chains(c1: int, c2: int) -> int:
-    """The partial sums the fp32 kernel runs conv2's depth as, added in
+    """The partial sums the fp32 kernels run conv2's depth as, added in
     order: one a tap at (128, 256), where a block holds a group of W2′'s rows
-    and its warps take the taps; one elsewhere."""
+    and its warps take the taps; one elsewhere (the any-width kernel runs one
+    chain)."""
     return 4 if (c1, c2) == (128, 256) else 1
 
 
@@ -154,8 +221,8 @@ def _launch(x, w1, b1, w2, b2, save_hidden: bool):
     b, _, t = x.shape
     dt = x.dtype
     bf16 = dt == torch.bfloat16
-    c1, c2 = widths = widths_of(w1, w2)
-    refuse_widths("conv_stem", widths, ((C1, C2),) if bf16 else FP32_WIDTHS)
+    c1, c2 = widths_of(w1, w2)
+    plan = plan_stem(c1, c2, dt)
     require("conv_stem", x, "x", (b, C0, t), dtype=torch.bfloat16 if bf16 else torch.float32)
     require("conv_stem", w1, "w1", (c1, C0, 4), dtype=dt)
     require("conv_stem", b1, "b1", (c1,))
@@ -167,10 +234,13 @@ def _launch(x, w1, b1, w2, b2, save_hidden: bool):
     h1 = torch.empty((b, c1, t // 2), dtype=dt, device=x.device) if save_hidden else None
     args = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
             out.data_ptr(), None if h1 is None else h1.data_ptr(), b, t)
-    if bf16:
-        check("conv_stem", kernel("conv_stem_bf16_fwd")(*args, stream_of(x)))
+    if plan.symbol == "conv_stem_any_fwd":
+        status = kernel(plan.symbol)(int(bf16), *args, c1, c2, plan.tile, stream_of(x))
+    elif bf16:
+        status = kernel(plan.symbol)(*args, stream_of(x))
     else:
-        check("conv_stem", kernel("conv_stem_fwd")(*args, c1, c2, stream_of(x)))
+        status = kernel(plan.symbol)(*args, c1, c2, stream_of(x))
+    check("conv_stem", status)
     return out, h1
 
 

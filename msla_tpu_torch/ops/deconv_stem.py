@@ -32,14 +32,20 @@ same packing in plain PyTorch, and ``deconv_stem_phase_ref`` and
 ``deconv_stem_3xtf32_ref`` the stem written with it as the bf16 and the fp32
 kernel compute it, for the tests (no wrapper calls them).
 
-Widths: the kernels take C → C1 → 4 for (C, C1) in ``FP32_WIDTHS`` in fp32,
-those of the num_hidden values configs/hparams_search/optuna.yaml samples
-(C = num_hidden, C1 = C / 2), all in 3xTF32: (128, 64), the default
-config's, and (64, 32) with W1′ whole in a block; (256, 128), whose W1′
-does not fit in a block, with h's channels cut into quarters over a cluster
-of 4 blocks, whose partial outputs are added in block order
-(``cluster_blocks``; ``csrc/deconv_stem.cu``). bf16 takes (128, 64). Other
-widths raise ``ValueError`` on a CUDA tensor; the plain version takes any.
+Widths: any C → C1 → 4 with C from 1 to ``MAX_C`` and C1 from 1 to
+``MAX_C1`` (num_hidden from 2 to 512, C = num_hidden, C1 = num_hidden // 2,
+as the JAX decoder builds them), in fp32 and bf16; ``plan_stem`` picks the
+kernel for a width. The tuned kernels of ``csrc/deconv_stem.cu`` take the
+widths of configs/hparams_search/optuna.yaml, ``FP32_WIDTHS`` in fp32, all
+in 3xTF32: (128, 64), the default config's, and (64, 32) with W1′ whole in a
+block; (256, 128), whose W1′ does not fit in a block, with h's channels cut
+into quarters over a cluster of 4 blocks, whose partial outputs are added in
+block order (``cluster_blocks``); bf16 takes (128, 64) there. Every other
+width runs ``csrc/stem_any.cu``'s kernel, C and C1 padded to the mma's k
+step (8 in fp32, 16 in bf16) with lanes that add exact zeros, its second
+layer as 8 partial sums (``second_layer_chains``). A width past the limits
+raises ``ValueError`` naming it on a CUDA tensor; the plain version takes any
+width.
 """
 from __future__ import annotations
 
@@ -48,15 +54,55 @@ import collections
 import torch
 import torch.nn.functional as F
 
-from msla_tpu_torch.ops._build import (check, count_launch, kernel, needs_grad, refuse_widths,
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, needs_grad,
                                        require, runs_plain, stream_of)
 from msla_tpu_torch.ops.conv_adjoints import conv_grads
+from msla_tpu_torch.ops.conv_stem import GRANULE, StemPlan, _align16, _round_up
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the default widths (the full-width model's): the 3xTF32 and bf16 kernels'
 C, C1, C_OUT = 128, 64, 4
-#: the (C, C1) the fp32 kernels are compiled for
+#: the (C, C1) the tuned fp32 kernels are compiled for
 FP32_WIDTHS = ((64, 32), (C, C1), (256, 128))
+#: the largest widths any kernel takes: num_hidden 512's
+MAX_C, MAX_C1 = 512, 256
+#: the any-width kernel's tiles of q's positions, the largest whose block fits first
+ANY_TILES = (64, 32, 16)
+ANY_WARPS = 8         # its warps, each one partial sum of the second layer
+
+
+def any_smem_bytes(c: int, c1: int, tile: int, dtype: torch.dtype) -> int:
+    """A block of ``csrc/stem_any.cu``'s decoder kernel, as its
+    ``stem_any_smem_bytes`` reports it: q's tile [tile + 9][CP + pad] (or the
+    8 warps' partial sums [8][16][tile] fp32 over it, if larger) and hE, hO
+    [tile + 8][C1P + pad] each (pad 4 floats, or 8 bf16)."""
+    es, pad = (4, 4) if dtype == torch.float32 else (2, 8)
+    cp, c1p = _round_up(c, GRANULE[dtype]), _round_up(c1, GRANULE[dtype])
+    qs = max((tile + 9) * (cp + pad) * es, ANY_WARPS * 16 * tile * 4)
+    return _align16(qs) + 2 * _align16((tile + 8) * (c1p + pad) * es)
+
+
+def plan_stem(c: int, c1: int, dtype: torch.dtype = torch.float32) -> StemPlan:
+    """The kernel that runs the stem c → c1 → 4 on ``dtype`` operands: a
+    tuned one at its widths, else the any-width kernel at the largest tile
+    whose block fits. Raises ``ValueError`` past MAX_C or MAX_C1."""
+    if dtype not in GRANULE:
+        raise ValueError(f"deconv_stem: operands must be float32 or bfloat16, got {dtype}")
+    if not (1 <= c <= MAX_C and 1 <= c1 <= MAX_C1):
+        raise ValueError(f"deconv_stem: widths (C, C1) = ({c}, {c1}) outside the kernels' "
+                         f"limits, C from 1 to {MAX_C} and C1 from 1 to {MAX_C1}")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (c, c1) == (C, C1):
+        return StemPlan("deconv_stem_bf16_fwd", "bf16", (c, c1), 120, None, 0.0)
+    if not bf16 and (c, c1) in FP32_WIDTHS:
+        cluster = (c, c1) == (256, 128)
+        return StemPlan("deconv_stem_fwd", "3xTF32" + " cluster" * cluster, (c, c1), 60, None,
+                        0.0)
+    cp, c1p = _round_up(c, GRANULE[dtype]), _round_up(c1, GRANULE[dtype])
+    tile = next(t for t in ANY_TILES if any_smem_bytes(c, c1, t, dtype) <= SMEM_BYTES)
+    real = 4 * c * c1 + 64 * c1                 # the two layers' products a position of q
+    return StemPlan("deconv_stem_any_fwd", "any width" + " bf16" * bf16, (cp, c1p), tile,
+                    any_smem_bytes(c, c1, tile, dtype), 1 - real / (4 * cp * c1p + 64 * c1p))
 
 
 def _convt_k4s2p1(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,6 +187,16 @@ def cluster_blocks(c: int, c1: int) -> int:
     return 4 if (c, c1) == (256, 128) else 1
 
 
+def second_layer_chains(c: int, c1: int) -> int:
+    """The partial sums the fp32 kernel runs the second layer's depth as,
+    added in fp32: two row sets on each of ``cluster_blocks`` blocks at the
+    tuned widths; elsewhere the any-width kernel's warps, one a run of the
+    depth's k8 steps (fewer where the depth has fewer steps)."""
+    if (c, c1) in FP32_WIDTHS:
+        return 2 * cluster_blocks(c, c1)
+    return min(ANY_WARPS, 4 * _round_up(c1, GRANULE[torch.float32]) // 8)
+
+
 def _layer1_order(c: int) -> torch.Tensor:
     """W1''s columns in the order the fp32 kernel's first layer takes them: q's
     channels [0, c/2) at r-1 and at r, then [c/2, c) at r-1 and at r (the two
@@ -193,8 +249,8 @@ def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     b, _, w = q.shape
     dt = q.dtype
     bf16 = dt == torch.bfloat16
-    c, c1 = widths = widths_of(w1)
-    refuse_widths("deconv_stem", widths, ((C, C1),) if bf16 else FP32_WIDTHS)
+    c, c1 = widths_of(w1)
+    plan = plan_stem(c, c1, dt)
     require("deconv_stem", q, "q", (b, c, w), dtype=torch.bfloat16 if bf16 else torch.float32)
     require("deconv_stem", w1, "w1", (c, c1, 4), dtype=dt)
     require("deconv_stem", b1, "b1", (c1,))
@@ -204,10 +260,13 @@ def _launch(q, w1, b1, w2, b2, save_hidden: bool):
     h = torch.empty((b, c1, 2 * w), dtype=dt, device=q.device) if save_hidden else None
     args = (q.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), None if h is None else h.data_ptr(), b, w)
-    if bf16:
-        check("deconv_stem", kernel("deconv_stem_bf16_fwd")(*args, stream_of(q)))
+    if plan.symbol == "deconv_stem_any_fwd":
+        status = kernel(plan.symbol)(int(bf16), *args, c, c1, plan.tile, stream_of(q))
+    elif bf16:
+        status = kernel(plan.symbol)(*args, stream_of(q))
     else:
-        check("deconv_stem", kernel("deconv_stem_fwd")(*args, c, c1, stream_of(q)))
+        status = kernel(plan.symbol)(*args, c, c1, stream_of(q))
+    check("deconv_stem", status)
     return out, h
 
 

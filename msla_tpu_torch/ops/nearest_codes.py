@@ -9,29 +9,41 @@ row and dropped) and pick the lowest index on ties.
 ``nearest_codes_3xtf32_ref`` emulates the kernel's products for the tests and
 ``chip_smoke.py``; no wrapper calls it.
 
-Widths: the kernels take D in ``WIDTHS``, the embedding widths of
-configs/hparams_search/optuna.yaml: D = 64 (the default) with the codebook
-held in shared memory, an even K up to 640; D = 128 and 256 with the
-codebook streamed through a ring of stages (``csrc/vq_stream.cuh``), any even
-K (#4's forward, whose histogram stays in shared memory: up to 24,744 and
-8,344; ``search_smem_bytes``). Other widths raise ``ValueError`` on a CUDA
-tensor; the plain versions take any.
+Widths: any D from 1 to ``MAX_D`` and K from 1 to ``MAX_K`` (and K3 any even
+K at D = 128 and 256); ``plan_search`` picks the kernel. The tuned kernels take D in ``WIDTHS``, the embedding
+widths of configs/hparams_search/optuna.yaml (``tuned_takes``): D = 64 (the
+default) with the codebook held in shared memory, an even K up to 640; D =
+128 and 256 with the codebook streamed through a ring of stages
+(``csrc/vq_stream.cuh``), any even K (#4's forward, whose histogram stays in
+shared memory: up to 24,744 and 8,344; ``search_smem_bytes``). Every other
+(D, K) runs ``csrc/vq_any.cu``'s kernel, D padded to its k8 step with zero
+columns and the last chunk's codes past K at ‖e‖² = +inf. A width past the
+limits raises ``ValueError`` naming it on a CUDA tensor; the plain versions
+take any.
 """
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import torch
 
-from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, refuse_widths,
-                                       require, runs_plain, stream_of)
+from msla_tpu_torch.ops._build import (SMEM_BYTES, check, count_launch, kernel, require,
+                                       runs_plain, stream_of)
 from msla_tpu_torch.ops.tf32 import product_3xtf32
 
 #: the default row width (the model's embedding_dim), whose search holds the codebook
 D = 64
-#: the row widths the CUDA kernels are compiled for
+#: the row widths the tuned CUDA kernels are compiled for
 WIDTHS = (D, 128, 256)
+#: the largest row width and codebook any kernel takes
+MAX_D, MAX_K = 512, 65_536
+#: the any-width search (csrc/vq_any.cu): its k8 step, and (rows a block
+#: tile, codes a chunk) by the padded width they fit up to
+ANY_GRANULE = 8
+ANY_SHAPES = ((128, 128, 64), (256, 64, 64), (512, 32, 32))
 _REF_ROWS = 1 << 16    # rows per chunk of the plain version: a 128 MB block at K=512
+_REF_BLOCK = 1 << 25   # the most distances a chunk holds (128 MB): fewer rows past K=512
 _GROUP = 32            # the search's codes a group: K is padded to a multiple at D = 64
 # the streamed search (csrc/vq_stream.cuh): columns a stage (DS), its stages
 # (STAGES), a block tile's rows (TILE_ROWS: 4 slabs of 32) and a stage's
@@ -58,13 +70,56 @@ def search_smem_bytes(k: int, with_hist: bool = False, d: int = D) -> int:
     return fixed + (4 * k + 64) * with_hist
 
 
-def check_codes(name: str, k: int, d: int, with_hist: bool) -> None:
-    """Raise ``ValueError`` unless the search of ``name`` takes K codes of
-    width d: d in ``WIDTHS``, K even and within shared memory."""
-    refuse_widths(name, (d,), [(w,) for w in WIDTHS])
-    if k < 2 or k % 2 or search_smem_bytes(k, with_hist, d) > SMEM_BYTES:
-        raise ValueError(f"{name}: the kernel takes an even number of codes that fits in "
-                         f"shared memory at D={d} (search_smem_bytes), got K={k}")
+def tuned_takes(k: int, d: int, with_hist: bool) -> bool:
+    """Whether a tuned search takes K codes of width d: d in ``WIDTHS``, K
+    even and within shared memory."""
+    return d in WIDTHS and k >= 2 and k % 2 == 0 and \
+        search_smem_bytes(k, with_hist, d) <= SMEM_BYTES
+
+
+def any_smem_bytes(d: int, rows: int, codes: int) -> int:
+    """A block of ``csrc/vq_any.cu``'s search, as its ``vq_any_smem_bytes``
+    reports it: x's tile [rows][DP + 4], two chunks [2][codes][DP + 4], their
+    ‖e‖² [2][codes], the warps' bests [8][16] (dist, index), the tile's ids."""
+    ld = -(-d // ANY_GRANULE) * ANY_GRANULE + 4
+    return 4 * (rows * ld + 2 * codes * ld + 2 * codes) + 8 * 16 * 8 + 4 * rows
+
+
+class SearchPlan(NamedTuple):
+    """How K3 (or, with the histogram, #4) runs at (K, D): the design
+    ("shared", "ring" or "any width"), D and K as the kernel runs them, its
+    rows a block tile and codes a chunk (the any-width kernel's), a block's
+    shared memory and the share of its products on padded lanes."""
+    design: str
+    padded: tuple[int, int]
+    rows: int
+    codes: int
+    smem: int
+    padded_share: float
+
+
+def plan_search(k: int, d: int, with_hist: bool = False,
+                name: str = "nearest_codes") -> SearchPlan:
+    """The search of K codes of width d: the tuned kernel where it takes
+    them (``tuned_takes``), else the any-width kernel. Raises ``ValueError``
+    past MAX_D, and past MAX_K where no tuned kernel takes K (K3's ring takes
+    any even K at D = 128 and 256)."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{name}: D={d} outside the kernels' limit, D from 1 to {MAX_D}")
+    if not 1 <= k <= MAX_K and not (k > 0 and tuned_takes(k, d, with_hist)):
+        raise ValueError(f"{name}: K={k} outside the kernels' limit, K from 1 to {MAX_K}")
+    if not tuned_takes(k, d, with_hist):
+        dp = -(-d // ANY_GRANULE) * ANY_GRANULE
+        _, rows, codes = next(shape for shape in ANY_SHAPES if dp <= shape[0])
+        kp = -(-k // ANY_GRANULE) * ANY_GRANULE   # its warps skip n8 tiles past K
+        return SearchPlan("any width", (dp, kp), rows, codes, any_smem_bytes(d, rows, codes),
+                          1 - d * k / (dp * kp))
+    if d == D:
+        return SearchPlan("shared", (d, -(-k // _GROUP) * _GROUP), 32, _GROUP,
+                          search_smem_bytes(k, with_hist, d), 1 - k / (-(-k // _GROUP) * _GROUP))
+    kp = -(-k // _STAGE_CODES) * _STAGE_CODES
+    return SearchPlan("ring", (d, kp), _TILE_ROWS, _STAGE_CODES,
+                      search_smem_bytes(k, with_hist, d), 1 - k / kp)
 
 
 def code_norms(codebook: torch.Tensor) -> torch.Tensor:
@@ -72,11 +127,17 @@ def code_norms(codebook: torch.Tensor) -> torch.Tensor:
     return (codebook * codebook).sum(dim=1)
 
 
+def _ref_rows(k: int) -> int:
+    """Rows a chunk of the plain versions: 65,536, fewer where K codes would
+    make the distance block pass 128 MB."""
+    return max(1, min(_REF_ROWS, _REF_BLOCK // max(k, 1)))
+
+
 def nearest_codes_ref(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Plain version, in row chunks so the distance block stays bounded."""
     e2 = code_norms(codebook)
     out = [torch.argmin(e2 - 2.0 * (chunk @ codebook.T), dim=1)
-           for chunk in flat_x.split(_REF_ROWS)]
+           for chunk in flat_x.split(_ref_rows(codebook.shape[0]))]
     return torch.cat(out).to(torch.int32)
 
 
@@ -89,7 +150,7 @@ def nearest_codes_3xtf32_ref(flat_x: torch.Tensor, codebook: torch.Tensor) -> to
     near-tie may go either way between the two."""
     e2 = code_norms(codebook)
     out = [torch.argmin(e2 - 2.0 * product_3xtf32(chunk, codebook.T), dim=1)
-           for chunk in flat_x.split(_REF_ROWS)]
+           for chunk in flat_x.split(_ref_rows(codebook.shape[0]))]
     return torch.cat(out).to(torch.int32)
 
 
@@ -100,14 +161,18 @@ def nearest_codes(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
     n = flat_x.shape[0]
     k, d = codebook.shape
-    check_codes("nearest_codes", k, d, with_hist=False)
+    plan = plan_search(k, d)
     require("nearest_codes", flat_x, "flat_x", (n, d))
     require("nearest_codes", codebook, "codebook", (k, d))
     e2 = code_norms(codebook)
     idx = torch.empty((n,), dtype=torch.int32, device=flat_x.device)
-    check("nearest_codes", kernel("nearest_codes_fwd")(
-        flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr(), n, k, d,
-        stream_of(flat_x)))
+    x, cb, e2, ids = flat_x.data_ptr(), codebook.data_ptr(), e2.data_ptr(), idx.data_ptr()
+    if plan.design == "any width":  # no q: the ids alone
+        status = kernel("vq_any_fwd")(x, cb, e2, None, ids, None, None, None, None, 0, n, k, d,
+                                      plan.rows, plan.codes, stream_of(flat_x))
+    else:
+        status = kernel("nearest_codes_fwd")(x, cb, e2, ids, n, k, d, stream_of(flat_x))
+    check("nearest_codes", status)
     count_launch(nearest_codes, torch.float32, (d, k))
     return idx
 

@@ -50,8 +50,11 @@ sources:
   bit for bit against ``codebook_grad_order_ref`` at the card's grid), its
   stems' and VQ kernels' bit-equality with this tree's printed. Its
   entry points must take the widths as these do (the fp32 stems' channels,
-  the VQ kernels' D): a tree whose ``conv_stem.cu`` does not export
-  ``conv_stem_smem_bytes`` is older and is refused.
+  the VQ kernels' D, #5's first code ``code0``): a tree whose
+  ``conv_stem.cu`` does not export ``conv_stem_smem_bytes`` is older and is
+  refused, and one whose ``vq_codebook_grad`` takes no ``code0`` (before
+  ``csrc/vq_any.cu``) times #5 with its arguments shifted: leave
+  ``vq_fused`` out of its ``--sources``.
 ``--sources`` builds and times only the named sources (e.g. ``nearest_codes
 vq_fused``); a probe of a header that ``--csrc``'s tree lacks is left out.
 Each build is compiled as ``ops/_build.py`` compiles the port's sources, one
@@ -199,7 +202,7 @@ def segment_sum_cases(name: str, lib: ctypes.CDLL, source: str, g: torch.Tensor,
     fn = entry(lib, symbol)
     clusters, rows = segment_sum.launch_layout(symbol, n, K, dev, split2)
     partials = torch.empty((clusters, 1 + split2, K, 64), device=dev)
-    args = (clusters, rows, n, K) if split2 else (clusters, rows, n, K, 64)
+    args = (clusters, rows, n, K) if split2 else (clusters, rows, n, 0, K, 64)  # code0 0
     wrapper = vq_codebook_grad if not split2 else (
         lambda g, i, k: vq_precision_bwd(g, i, "split2", k))
     for kind, i in ids.items():

@@ -24,7 +24,7 @@ import yaml
 
 from msla_tpu_torch.ops._build import CSRC, SMEM_BYTES
 from msla_tpu_torch.ops.nearest_codes import (_RING, _SLICE, _STAGE_CODES, _TILE_ROWS, WIDTHS,
-                                              check_codes, search_smem_bytes)
+                                              plan_search, search_smem_bytes, tuned_takes)
 
 REPO = Path(__file__).resolve().parents[1]
 STREAMED = [d for d in WIDTHS if d > 64]
@@ -74,25 +74,35 @@ def test_search_smem_follows_the_ring_layout(d):
         assert search_smem_bytes(k, False, d) == fixed
         assert search_smem_bytes(k, True, d) == fixed + 4 * k + 8 * 8
         for with_hist in (False, True):
-            check_codes("vq_fused_fwd" if with_hist else "nearest_codes", k, d, with_hist)
+            assert tuned_takes(k, d, with_hist)
+            assert plan_search(k, d, with_hist).design == "ring"
 
 
 @pytest.mark.parametrize("d", STREAMED)
 def test_the_largest_k_with_the_histogram_and_the_next_refused(d):
+    """The ring refuses the next K (its histogram would pass shared memory),
+    which then runs on the any-width kernel."""
     largest = _largest_with_hist(d)
     assert largest == {128: 24_744, 256: 8_344}[d]
-    check_codes("vq_fused_fwd", largest, d, True)
-    with pytest.raises(ValueError, match=f"K={largest + 2}"):
-        check_codes("vq_fused_fwd", largest + 2, d, True)
+    assert tuned_takes(largest, d, True)
+    assert plan_search(largest, d, True).design == "ring"
+    assert not tuned_takes(largest + 2, d, True)
+    assert plan_search(largest + 2, d, True).design == "any width"
 
 
 @pytest.mark.parametrize("d", STREAMED)
 def test_k3_takes_any_even_k_at_the_streamed_widths(d):
+    """The ring takes any even K, past the any-width kernel's MAX_K too; an
+    odd K runs on the any-width kernel, and K = 0 is refused."""
     for k in (2, 4_448, 24_746, 100_000):
-        check_codes("nearest_codes", k, d, False)
-    for k in (0, 1, 513):
-        with pytest.raises(ValueError, match=f"K={k}"):
-            check_codes("nearest_codes", k, d, False)
+        assert tuned_takes(k, d, False)
+        assert plan_search(k, d).design == "ring"
+    for k in (1, 513):
+        assert not tuned_takes(k, d, False)
+        assert plan_search(k, d).design == "any width"
+    assert not tuned_takes(0, d, False)
+    with pytest.raises(ValueError, match="K=0"):
+        plan_search(0, d)
 
 
 @pytest.mark.parametrize("d", STREAMED)

@@ -18,11 +18,13 @@ samples, on the CPU, against the JAX package.
   (``codebook_grad_order_ref`` over D / 64 column slices) bit-equal to a
   plain loop over the rows and within ``segment_sum_bound``;
 * the wrappers' admission in pure Python: every width and (K, D) of
-  optuna.yaml fits (the stems' width tables, ``search_smem_bytes``,
-  ``segment_sum.smem_bytes``), a width outside them raises ``ValueError``
-  naming it; each C entry point of ``csrc/`` takes the arguments
-  ``_build.SIGNATURES`` gives it, and the fp32 entry points dispatch on
-  exactly the widths of the wrappers' tables.
+  optuna.yaml fits a tuned kernel (the stems' width tables,
+  ``search_smem_bytes``, ``segment_sum.smem_bytes``), the widths the tables
+  lack run on the any-width kernels, one past each limit raises
+  ``ValueError`` naming it; each C entry point of ``csrc/`` takes the
+  arguments ``_build.SIGNATURES`` gives it, the tuned fp32 entry points
+  dispatch on exactly the widths of the wrappers' tables and the
+  any-width ones on none (tests/test_torch_any_width.py holds the rest).
 """
 import importlib.util
 import re
@@ -45,11 +47,14 @@ from msla_tpu_torch.ops.conv_stem import (C1, C2, FP32_WIDTHS as CONV_WIDTHS,
                                           conv_stem_3xtf32_ref, conv_stem_ref, stem_operands)
 from msla_tpu_torch.ops.deconv_stem import (FP32_WIDTHS as DECONV_WIDTHS, deconv_stem_3xtf32_ref,
                                             deconv_stem_ref, phase_operands)
-from msla_tpu_torch.ops._build import CSRC, SIGNATURES, SMEM_BYTES, refuse_widths
-from msla_tpu_torch.ops.nearest_codes import (WIDTHS, check_codes, nearest_codes_3xtf32_ref,
-                                              nearest_codes_ref, search_smem_bytes)
+from msla_tpu_torch.ops._build import CSRC, SIGNATURES, SMEM_BYTES
+from msla_tpu_torch.ops.conv_stem import plan_stem as conv_plan
+from msla_tpu_torch.ops.deconv_stem import plan_stem as deconv_plan
+from msla_tpu_torch.ops.nearest_codes import (WIDTHS, nearest_codes_3xtf32_ref, nearest_codes_ref,
+                                              plan_search, search_smem_bytes, tuned_takes)
 from msla_tpu_torch.ops.tf32 import product_3xtf32, tf32_round_ref
-from msla_tpu_torch.ops.vq_fused import grad_smem_bytes, vq_codebook_grad_ref, vq_fused_fwd_ref
+from msla_tpu_torch.ops.vq_fused import (grad_smem_bytes, plan_grad, vq_codebook_grad_ref,
+                                         vq_fused_fwd_ref)
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -297,28 +302,48 @@ def test_codebook_grad_order_over_column_slices(d):
 
 
 def test_every_sweep_width_is_admitted_and_others_refused():
+    """Every width optuna.yaml samples runs on a tuned kernel (the tables,
+    ``tuned_takes``); every width in range runs, the ones the tables lack on
+    the any-width kernels (``plan_stem``, ``plan_search``, ``plan_grad``);
+    one past each limit raises ``ValueError`` naming the width."""
     for hidden in HIDDEN:
         assert (hidden // 2, hidden) in CONV_WIDTHS
         assert (hidden, hidden // 2) in DECONV_WIDTHS
-        refuse_widths("conv_stem", (hidden // 2, hidden), CONV_WIDTHS)
+        assert conv_plan(hidden // 2, hidden).symbol == "conv_stem_fwd"
+        assert deconv_plan(hidden, hidden // 2).symbol == "deconv_stem_fwd"
     for k, d in CODES:
         assert d in WIDTHS
         for with_hist in (False, True):
             assert search_smem_bytes(k, with_hist, d) <= SMEM_BYTES
-            check_codes("vq_fused_fwd", k, d, with_hist)
+            assert tuned_takes(k, d, with_hist)
+            assert plan_search(k, d, with_hist).design in ("shared", "ring")
         assert grad_smem_bytes(k) <= SMEM_BYTES
-    with pytest.raises(ValueError, match=r"\(48, 96\)"):
-        refuse_widths("conv_stem", (48, 96), CONV_WIDTHS)
-    with pytest.raises(ValueError, match=r"\(96, 48\)"):
-        refuse_widths("deconv_stem", (96, 48), DECONV_WIDTHS)
-    with pytest.raises(ValueError, match=r"\(32, 64\)"):  # bf16: the default widths only
-        refuse_widths("conv_stem", (32, 64), ((C1, C2),))
-    with pytest.raises(ValueError, match=r"\(96,\)"):
-        check_codes("nearest_codes", 512, 96, False)
-    with pytest.raises(ValueError, match="K=8346"):  # the ring's histogram: #4 up to 8,344
-        check_codes("vq_fused_fwd", 8346, 256, True)
-    with pytest.raises(ValueError, match="K=513"):
-        check_codes("nearest_codes", 513, 128, False)
+        assert plan_grad(k, d).runs == 1
+    # what the tables refused runs on the any-width kernels
+    assert conv_plan(48, 96).symbol == "conv_stem_any_fwd"
+    assert deconv_plan(96, 48).symbol == "deconv_stem_any_fwd"
+    # bf16's table holds (64, 128) alone
+    assert conv_plan(32, 64, torch.bfloat16).symbol == "conv_stem_any_fwd"
+    assert plan_search(512, 96).design == "any width"
+    assert plan_search(8346, 256, True).design == "any width"  # the ring's histogram: 8,344
+    assert plan_search(513, 128).design == "any width"
+    assert plan_grad(8346, 256).runs == 12
+    # one past each limit
+    with pytest.raises(ValueError, match=r"\(C1, C2\) = \(257, 514\)"):
+        conv_plan(257, 514)
+    with pytest.raises(ValueError, match=r"\(C, C1\) = \(514, 257\)"):
+        deconv_plan(514, 257)
+    with pytest.raises(ValueError, match="D=513"):
+        plan_search(512, 513)
+    with pytest.raises(ValueError, match="K=65537"):
+        plan_search(65_537, 64, True)
+    with pytest.raises(ValueError, match="K=65537"):
+        plan_grad(65_537, 64)
+    # the tuned tables lack them
+    assert (48, 96) not in CONV_WIDTHS and (96, 48) not in DECONV_WIDTHS
+    assert not tuned_takes(512, 96, False)
+    assert not tuned_takes(8346, 256, True)
+    assert not tuned_takes(513, 128, False)
     assert search_smem_bytes(512, True) == 200_768   # the D = 64 design's, unchanged
 
 
@@ -334,9 +359,12 @@ def _entry_points() -> dict[str, tuple[str, int, str]]:
 
 
 def test_entry_points_match_signatures_and_width_tables():
-    """One entry point a kernel family, each as SIGNATURES binds it; the fp32
-    stems' and the VQ kernels' dispatch on the widths of FP32_WIDTHS and
-    WIDTHS, no more and no fewer (C1, C2, CI name the default widths)."""
+    """Each entry point as SIGNATURES binds it; the tuned fp32 stems' and VQ
+    kernels' dispatch on the widths of FP32_WIDTHS and WIDTHS, no more and no
+    fewer (C1, C2, CI name the default widths); the any-width entry points
+    take their widths as values and switch on none; the plans name only
+    entry points of SIGNATURES, the tuned ones exactly at the tables'
+    widths."""
     found = _entry_points()
     assert {k: v[:2] for k, v in found.items()} == {
         k: (source, len(args)) for k, (source, args) in SIGNATURES.items()}
@@ -351,3 +379,13 @@ def test_entry_points_match_signatures_and_width_tables():
     for symbol in ("nearest_codes_fwd", "vq_fused_fwd", "vq_search_smem_bytes"):
         cases = re.findall(r"case (\d+):", found[symbol][2])
         assert tuple(sorted(int(c) for c in cases)) == WIDTHS
+    for symbol in ("conv_stem_any_fwd", "deconv_stem_any_fwd", "stem_any_smem_bytes",
+                   "vq_any_fwd", "vq_any_smem_bytes"):
+        assert not re.search(r"case \d+:|\b(c|c1|c2|d) == \d+", found[symbol][2])
+    for dtype, tuned in ((torch.float32, set(CONV_WIDTHS)), (torch.bfloat16, {(C1, C2)})):
+        for hidden in range(2, 513):
+            widths = (hidden // 2, hidden)
+            plan, dplan = conv_plan(*widths, dtype), deconv_plan(hidden, hidden // 2, dtype)
+            assert plan.symbol in SIGNATURES and dplan.symbol in SIGNATURES
+            assert (plan.symbol != "conv_stem_any_fwd") == (widths in tuned)
+            assert (dplan.symbol != "deconv_stem_any_fwd") == (widths in tuned)
