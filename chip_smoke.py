@@ -326,7 +326,26 @@ Phases, each of which raises (exit code != 0) when its check fails:
      Audio-BERT (bert-base) over a frozen teacher of 1,024 codes; every new
      kernel must launch there; the phase's and each nvcc's seconds
      (python3 chip_smoke.py --widths runs the build and this phase alone);
- 33. one JSON line with every kernel's numbers, then the device line.
+ 33. #7 at any head width, forward and backward (csrc/flash_attn.cu at D =
+     64 with its log-sum-exp, csrc/flash_any.cu elsewhere up to 256,
+     csrc/flash_bwd.cu's dQ and dK/dV kernels): every (D, type) at D = 1,
+     8, 26, 32, 48, 64, 80, 96, 128, 160, 256 and (Sq, Sk) = (512, 512),
+     (130, 257), (1, 512), (64, 256), masked and not, with a sequence of
+     padding alone, against the plain versions (fp32 also against fp64
+     within attention_accumulation_bound and attention_grad_bound; bf16's
+     forward within 2·2⁻⁹·Σ p|v| + 1e-5, its backward within
+     attention_bf16_grad_bound of attention_bwd_ref), the backward the same
+     bits twice, D = 257 refused; then, with the counts zeroed, 4
+     DecoderLayer(zero_memory=False) at hidden 512 with 8 and 4 heads (D 64,
+     128), batch 64, 64 queries over a memory of 256, 3 Adam steps on the
+     card against the CPU on the card's ReLU masks (every q/k/v projection
+     with a gradient, the first gradients, moves within 0.2·lr, exact
+     launches), and TinyBERT-4L-312D's encoder (D 26) over the batch-16
+     fold, card vs CPU; each kernel timed beside its plain version, SDPA's
+     forward and backward, its bound, registers and shared memory, the
+     tuned forward re-timed at the batch-16 Audio-BERT layer (python3
+     chip_smoke.py --attention runs the build and this phase alone);
+ 34. one JSON line with every kernel's numbers, then the device line.
 The backwards of phases 7 and 8 run under fp32 convs, as the Trainer's do
 (phase 7 checks cuDNN's TF32 flag from a hook during the backward, and a
 residual conv's weight gradient against fp64), and K1 and K1b are held at
@@ -347,6 +366,7 @@ It exits non-zero without a result when no CUDA card is present.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import re
@@ -860,7 +880,8 @@ def with_bounds(report: list[dict]) -> list[dict]:
                                          "ragged_n_mismatches", "tool_ms", "hgmma",
                                          "ms_one_code", "ms_sorted_runs", "blocks",
                                          "scratch_bytes", "cuda_launches_per_call",
-                                         "padded_share", "runs")
+                                         "padded_share", "runs", "backward_ms",
+                                         "backward_bound_ms")
                  if key in k}
         lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
         print(f"[kernel] {k['name']}: max_abs_err={k['max_abs_err']:.3e} ms={k['ms']:.4f} "
@@ -1087,22 +1108,31 @@ def ptxas_report() -> dict:
 def kernel_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name:
     '_ZN12_GLOBAL__N_117mlm_argmax_kernelILb1EEEv...' -> 'mlm_argmax_kernel<true>',
-    a float or named type argument as 'conv_stem_kernel<float>'."""
+    a float or named type argument as 'conv_stem_kernel<float>', mixed ones
+    as 'flash_bwd_dkv_kernel<__nv_bfloat16,32,false,true>'."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = ""
     while m := re.match(r"\d+", mangled[pos:]):  # the nested names, length-prefixed
         pos += m.end()
         name = mangled[pos:pos + int(m.group())]
         pos += int(m.group())
-    if args := re.match(r"I((?:L[a-z]+\d+E)+)E", mangled[pos:]):
-        values = [{"b0": "false", "b1": "true"}.get(t + v, v)
-                  for t, v in re.findall(r"L([a-z]+)(\d+)E", args.group(1))]
-        name += f"<{','.join(values)}>"
-    elif mangled[pos:].startswith("IfE"):
-        name += "<float>"
-    elif m := re.match(r"I(\d+)", mangled[pos:]):  # a named type: I13__nv_bfloat16E
-        name += f"<{mangled[pos + m.end():pos + m.end() + int(m.group(1))]}>"
-    return name
+    if not mangled[pos:].startswith("I"):
+        return name
+    values, rest = [], mangled[pos + 1:]
+    while rest and rest[0] != "E":
+        if rest[0] == "f":
+            values.append("float")
+            rest = rest[1:]
+        elif m := re.match(r"L([a-z]+)(\d+)E", rest):  # a value: Li64E, Lb1E
+            values.append({"b0": "false", "b1": "true"}.get(m.group(1) + m.group(2),
+                                                             m.group(2)))
+            rest = rest[m.end():]
+        elif m := re.match(r"\d+", rest):  # a named type: 13__nv_bfloat16
+            values.append(rest[m.end():m.end() + int(m.group())])
+            rest = rest[m.end() + int(m.group()):]
+        else:
+            break
+    return name + f"<{','.join(values)}>" if values else name
 
 
 def synthetic_stems(n_batches: int, seed: int, batch: int = BATCH) -> list[np.ndarray]:
@@ -2533,18 +2563,20 @@ RAGGED_S = ((130, 0.125), (384 + 17, 0.1))
 
 
 def attention_accumulation_bound(q, k, v, mask, sm_scale):
-    """The exact attention of fp32 (B, S, H, D) q, k, v in fp64 (the mask's
-    bias added unrounded), and an upper bound, per output value, on how far
-    #7 fp32 (3xTF32 on mma.sync) may fall from it; both (B, S, H, D).
+    """The exact attention of fp32 (B, Sq, H, D) q and (B, Sk, H, D) k, v in
+    fp64 (the mask's bias added unrounded), and an upper bound, per output
+    value, on how far #7 fp32 (3xTF32 on mma.sync; the tuned kernel at D =
+    64, csrc/flash_any.cu elsewhere) may fall from it; both (B, Sq, H, D).
 
     The model is #6's (``accumulation_bound``): each accumulation into the
     tensor cores' fp32 accumulator is off by less than one fp32 ulp of the sum
     of its terms' magnitudes so far, and ulp(x) <= 2^-23·x. Per query row:
-    - scores: Q·Kᵀ runs 3 products (lo·hi, hi·lo, hi·hi) in each of D/8 k8
-      steps, 3D/8 accumulations of at most 2^-23·A_k each, A_k = Σ_d |q_d||k_d|;
-      the split drops lo·lo and the parts' remainders, at most 3·2^-22·A_k: so
-      |δs_k| <= (3D/8 + 7)·2^-23·A_k, times sm_scale (a power of two is folded
-      into q exactly; another scale's product rounds once more, within the 7);
+    - scores: Q·Kᵀ runs 3 products (lo·hi, hi·lo, hi·hi) in each of ⌈D/8⌉ k8
+      steps (D padded to 8 with zeros), 3⌈D/8⌉ accumulations of at most
+      2^-23·A_k each, A_k = Σ_d |q_d||k_d|; the split drops lo·lo and the
+      parts' remainders, at most 3·2^-22·A_k: so |δs_k| <= (3⌈D/8⌉ +
+      7)·2^-23·A_k, times sm_scale (a power of two is folded into q exactly;
+      another scale's product rounds once more, within the 7);
     - exp: ex2.approx of z·log2(e) − m·log2(e) (one FFMA after one product)
       or of (z − m)·log2(e): p_k off by a factor 1 + η_k, |η_k| <= 2^-21 +
       2^-22·|z_k − m| (twice what the approximation and the roundings allow;
@@ -2552,10 +2584,11 @@ def attention_accumulation_bound(q, k, v, mask, sm_scale):
     - both reach the output through ∂out/∂z_k = p_k(v_k − out), and
       |v_k − out| <= |v_k| + |out|: Σ_k p_k w_k (|v_k| + |out|), with w_k the
       bound on sm_scale·|δs_k| plus that on |η_k|;
-    - P·V: 3 products in each of S'/8 k8 steps (S' = S rounded up to 64), each
+    - P·V: 3 products in each of S'/8 k8 steps (S' = Sk rounded up to 64), each
       accumulation off by at most 2^-23·Σ_k p_k|v_k| once the running rescales
       (factors <= 1) are applied, the split's 3·2^-22·Σ_k p_k|v_k|, and the
-      S'/64 rescales' products, 2^-24 each;
+      S'/32 rescales' products (a tile of 64 keys, or of 32 at D > 128),
+      2^-24 each;
     - l: S' positive terms summed in fp32, then 1/l and o·(1/l): at most
       (S' + 1)·2^-24·|out|.
     The sum is first order in roundings that are each below 1e-5 here; plain
@@ -2563,21 +2596,127 @@ def attention_accumulation_bound(q, k, v, mask, sm_scale):
     term. Sequences whose keys are all padding are not held to it: the fp32
     chain rounds all their scores to one value, which fp64 does not."""
     qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
-    n, d = q.shape[1], q.shape[3]
+    n, d = k.shape[1], q.shape[3]
     n_pad = -(-n // 64) * 64
-    z = (qd @ kd.transpose(-1, -2)) * sm_scale
-    if mask is not None:
-        z = z + ((1.0 - mask.double()) * -1e9)[:, None, None, :]
+    z = attention_scores64(qd, kd, mask, sm_scale)
     p = torch.softmax(z, dim=-1)
     out = p @ vd
     u = 2.0 ** -23
-    w = (sm_scale * (3 * d / 8 + 7) * u * (qd.abs() @ kd.abs().transpose(-1, -2))
+    w = (sm_scale * (3 * -(-d // 8) + 7) * u * (qd.abs() @ kd.abs().transpose(-1, -2))
          + 2.0 ** -21 + 2.0 ** -22 * (z - z.amax(-1, keepdim=True)).abs())
     pw = p * w
     bound = (pw @ vd.abs() + out.abs() * pw.sum(-1, keepdim=True)
-             + (3 * n_pad / 8 * u + 3 * 2.0 ** -22 + n_pad / 64 * 2.0 ** -24) * (p @ vd.abs())
+             + (3 * n_pad / 8 * u + 3 * 2.0 ** -22 + n_pad / 32 * 2.0 ** -24) * (p @ vd.abs())
              + (n_pad + 1) * 2.0 ** -24 * out.abs())
     return out.transpose(1, 2), bound.transpose(1, 2)
+
+
+def attention_scores64(qd, kd, mask, sm_scale):
+    """fp64 (B, H, Sq, Sk) scores of (B, H, S, D) fp64 q, k: scaled, plus the
+    mask's bias, unrounded."""
+    z = (qd @ kd.transpose(-1, -2)) * sm_scale
+    if mask is not None:
+        z = z + ((1.0 - mask.double()) * -1e9)[:, None, None, :]
+    return z
+
+
+def attention_grad_bound(q, k, v, mask, sm_scale, d_out):
+    """The exact gradients (dq, dk, dv) of fp32 attention on (B, Sq, H, D) q,
+    d_out and (B, Sk, H, D) k, v in fp64, and an upper bound per value on how
+    far #7 fp32's backward (csrc/flash_bwd.cu, 3xTF32 on mma.sync, after the
+    forward's lse and O) may fall from each; all (B, S, H, D).
+
+    The model is the forward's (``attention_accumulation_bound``), first
+    order, u = 2^-23, ⌈·/8⌉ k8 steps of 3 accumulations plus 7 for the
+    split's remainders:
+    - s: sm_scale·(3⌈D/8⌉ + 7)·u·A_ik, A = |Q|·|K|ᵀ;
+    - lse (the forward's): Σ_k p·δs, the exponentials' 2^-21 + 2^-22·Σ_k p|z
+      − m|, the log's and l's roundings, 2^-22·(|m − shift| + |lse|) and
+      (S' + 2)·2^-24 (S' = Sk rounded up to 64); the one-FFMA exponent's
+      factor 2^(m log2(e) − ml) lies inside 2^-22·|m|;
+    - P = exp((s − shift) − lse): relative error ε = δs + δlse + 2^-21 +
+      2^-22·(|z − shift − lse| + |lse|) (ex2.approx and the argument's
+      roundings);
+    - dP = dO·Vᵀ: (3⌈D/8⌉ + 7)·u·|dO|·|V|ᵀ; Dᵢ = Σ dO∘O reads the forward's O,
+      whose error the forward's bound gives: Σ|dO|·δO + (D + 2)·2^-24·Σ|dO||O|;
+    - dS = P·(dP − Dᵢ)·sm_scale: sm_scale·(P·ε·|dP − Dᵢ| + P·(δdP + δDᵢ) +
+      3·2^-24·P·|dP − Dᵢ|);
+    - dQ = dS·K, dK = dSᵀ·Q, dV = Pᵀ·dO: the operand's error through the
+      product, Σ δdS·|K| (or Σ P·ε·|dO|), plus the 3xTF32 accumulation over
+      the keys (dQ) or queries (dK, dV), (3⌈S'/8⌉ + 7)·u·Σ|terms|.
+    Plain single-pass TF32 products are off by ~2^-11 of their terms, some
+    100 times this at the widths here. Sequences whose keys are all padding
+    are not held to it (the fp32 chain rounds their scores to one value)."""
+    from msla_tpu_torch.ops.flash_attn import attention_shift
+
+    qd, kd, vd, gd = (t.double().transpose(1, 2) for t in (q, k, v, d_out))
+    s_q, s_k, d = q.shape[1], k.shape[1], q.shape[3]
+    u = 2.0 ** -23
+    pad_q, pad_k = -(-s_q // 64) * 64, -(-s_k // 64) * 64
+    steps_d = 3 * -(-d // 8) + 7
+    z = attention_scores64(qd, kd, mask, sm_scale)
+    shift = attention_shift(mask, q.shape[0], q.device).double()[:, None, None, None]
+    p = torch.softmax(z, dim=-1)
+    o = p @ vd
+    lse = torch.logsumexp(z - shift, dim=-1, keepdim=True)
+    zmax = z.amax(-1, keepdim=True)
+    dp = gd @ vd.transpose(-1, -2)
+    delta = (gd * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta) * sm_scale
+    grads = (ds @ kd, ds.transpose(-1, -2) @ qd, p.transpose(-1, -2) @ gd)
+    _, e_o = attention_accumulation_bound(q, k, v, mask, sm_scale)
+    e_o = e_o.double().transpose(1, 2)
+    e_s = sm_scale * steps_d * u * (qd.abs() @ kd.abs().transpose(-1, -2))
+    e_lse = ((p * e_s).sum(-1, keepdim=True) + 2.0 ** -21
+             + 2.0 ** -22 * ((p * (z - zmax).abs()).sum(-1, keepdim=True)
+                             + (zmax - shift).abs() + lse.abs())
+             + (pad_k + 2) * 2.0 ** -24)
+    eps = e_s + e_lse + 2.0 ** -21 + 2.0 ** -22 * ((z - shift - lse).abs() + lse.abs())
+    e_p = p * eps
+    e_dp = steps_d * u * (gd.abs() @ vd.abs().transpose(-1, -2))
+    e_delta = ((gd.abs() * e_o).sum(-1, keepdim=True)
+               + (d + 2) * 2.0 ** -24 * (gd.abs() * o.abs()).sum(-1, keepdim=True))
+    r = (dp - delta).abs()
+    e_ds = sm_scale * (e_p * r + p * (e_dp + e_delta) + 3 * 2.0 ** -24 * p * r)
+    acc_k, acc_q = (3 * pad_k / 8 + 7) * u, (3 * pad_q / 8 + 7) * u
+    bounds = (e_ds @ kd.abs() + acc_k * (ds.abs() @ kd.abs()),
+              e_ds.transpose(-1, -2) @ qd.abs() + acc_q * (ds.abs().transpose(-1, -2) @ qd.abs()),
+              e_p.transpose(-1, -2) @ gd.abs() + acc_q * (p.transpose(-1, -2) @ gd.abs()))
+    return tuple(t.transpose(1, 2) for t in grads), tuple(t.transpose(1, 2) for t in bounds)
+
+
+def attention_bf16_grad_bound(q, k, v, mask, sm_scale, out, lse, d_out, want):
+    """How far #7's bf16 backward may lie from ``attention_bwd_ref`` on the
+    same bf16 (B, S, H, D) q, k, v, the kernel's own fp32 out and lse, and
+    d_out, given ``want`` = attention_bwd_ref's (dq, dk, dv): per value,
+    2⁻⁷·(Σ|terms| + |want|) + 2⁻¹⁴·Σ|terms| + the cancellation slack + 1e-6.
+
+    Both round dO, P, dS·sm_scale and the result to bf16 at the same points.
+    Their fp32 values before each rounding differ in the last bits only (the
+    sums' order; ex2.approx against exp: ~2⁻²¹ relative), so where one lies
+    at a bf16 rounding boundary the two round it one bf16 ulp apart, at most
+    2⁻⁷ of it: over a sum, 2⁻⁷·Σ|terms| (Σ P|dO| for dV, Σ|dS||K| for dQ,
+    Σ|dS||Q| for dK) for the rounded operand, 2⁻⁷·|want| for the result's
+    own rounding, and 2⁻¹⁴·Σ|terms| for the fp32 differences themselves.
+    Where dP − Dᵢ cancels, dS's fp32 difference is not relative to it but to
+    its parts: sm_scale·P·(D + 2)·2⁻²³·(|dO|·|V|ᵀ + Σ|dO||O|) a value, carried
+    through the product with K (or Q)."""
+    from msla_tpu_torch.ops.flash_attn import _probabilities, _scores
+
+    bq, bk, bv, bo, bdo = (t.transpose(1, 2) for t in (q, k, v, out, d_out))
+    d = q.shape[3]
+    do = bdo.to(torch.bfloat16).float()
+    p = _probabilities(_scores(bq, bk, mask, sm_scale), mask, lse)
+    dp = do @ bv.float().transpose(-1, -2)
+    delta = (do * bo).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * sm_scale).abs()
+    slack = sm_scale * p * (d + 2) * 2.0 ** -23 * (
+        do.abs() @ bv.float().abs().transpose(-1, -2) + (do.abs() * bo.abs()).sum(-1, keepdim=True))
+    qa, ka = bq.float().abs(), bk.float().abs()
+    terms = (ds @ ka, ds.transpose(-1, -2) @ qa, p.transpose(-1, -2) @ do.abs())
+    slacks = (slack @ ka, slack.transpose(-1, -2) @ qa, torch.zeros_like(terms[2]))
+    return tuple((2.0 ** -7 * (t + w.float().abs().transpose(1, 2)) + 2.0 ** -14 * t + sl
+                  + 1e-6).transpose(1, 2) for t, w, sl in zip(terms, want, slacks))
 
 
 def fp64_share(name: str, got, q, k, v, mask, want=None, sm_scale: float = 0.125) -> float:
@@ -6334,7 +6473,10 @@ WIDTHS_FLAG = "--widths"              # chip_smoke.py --widths: the build and ph
 
 def any_label(name: str, widths: tuple, dtype: torch.dtype) -> str:
     """An instantiation's name in the kernels line: width_label's, with
-    'bf16 ' before a bf16 stem's widths."""
+    'bf16 ' before a bf16 stem's widths; #7's by ``attention_label`` (its
+    ``.widths`` keys hold the launch's kind and type, and (D,))."""
+    if name == "flash_attn":
+        return f"flash_attn {attention_label(dtype, widths[0])}"
     if dtype == torch.bfloat16 and name.startswith(("conv", "deconv")):
         return f"{name}[bf16 {'x'.join(str(w) for w in widths)}]"
     return width_label(name, widths)
@@ -6820,6 +6962,541 @@ def phase_widths(kernels, dev, ptxas: dict, smi: str) -> tuple[dict, list[dict]]
     return result, with_bounds(rows)
 
 
+ATTENTION_FLAG = "--attention"        # chip_smoke.py --attention: the build and phase 33 alone
+#: every (D, type) instantiation is held at these widths and (Sq, Sk), masked
+#: and not, 3 sequences of 2 heads (sequence 1 its last third of keys
+#: padding, sequence 2 all padding)
+ATTN_WIDTHS = (1, 8, 26, 32, 48, 64, 80, 96, 128, 160, 256)
+ATTN_LENGTHS = ((512, 512), (130, 257), (1, 512), (64, 256))
+ATTN_BATCH, ATTN_HEADS = 3, 2
+#: the timed sweep: each instantiation at 8 sequences x 8 heads x 512 x 512
+ATTN_TIMED = dict(b=8, h=8, s_q=512, s_k=512)
+ATTN_REPS = 10
+#: the tuned forward's times at the batch-16 Audio-BERT layer in PERF.md
+#: (fp32, bf16 ms; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6's #7 rows)
+ATTN_TUNED_MS = (5.471, 1.203)
+#: the training stacks: configs/model/transformer.yaml's hidden 512, 4 layers,
+#: at 8 heads (D 64) and 4 heads (D 128); DecoderLayer(zero_memory=False),
+#: dropout 0, FFN 2,048 (the layer's default), batch 64, S = 64 latent
+#: channels, a memory of 256 whose last 64 positions are zeros
+ATTN_STACK = dict(hidden=512, layers=4, ffn=2048, batch=64, s=64, memory=256, pad=64,
+                  steps=3, lr=1e-4)
+ATTN_STACK_HEADS = (8, 4)
+#: a gradient that is 0 in exact arithmetic (k_proj.bias) is held below this
+#: share of the stack's largest first gradient
+ATTN_ZERO_GRAD = 1e-4
+#: the CPU replays the card's ReLU masks; the share of them whose own sign on
+#: the CPU differs is held below this, so that the masks it borrows can part
+#: from its own by rounding alone (a preactivation within an ulp of 0)
+ATTN_RELU_FLIPS = 1e-6
+#: TinyBERT-4L-312D's published widths (huawei-noah/TinyBERT_General_4L_312D,
+#: config.json): 12 heads of 26
+TINYBERT = dict(vocab_size=30522, hidden_size=312, num_hidden_layers=4,
+                num_attention_heads=12, intermediate_size=1200, max_position_embeddings=512)
+TINYBERT_SEQS = (0, 1, 21 * BERT_BATCH, BERT_SEQS - 1)   # card vs CPU: whole, padded, all padding
+JAX_FLASH = "jax/experimental/pallas/ops/tpu/flash_attention.py"   # the installed JAX's
+
+
+def attention_inputs(d, dtype, b, h, s_q, s_k, masked, g, dev):
+    """Seeded (B, Sq, H, D) q, d_out and (B, Sk, H, D) k, v in ``dtype``
+    (d_out fp32), and a mask: with ``masked`` "batch16" the batch-16 call's
+    (``batch16_mask``), with True sequence 1 (and every third after it) its
+    last third of keys padding, sequence 2 (and every third after it) all
+    padding."""
+    q = torch.randn((b, s_q, h, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, s_k, h, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    d_out = torch.randn((b, s_q, h, d), generator=g, device=dev)
+    mask = None
+    if masked == "batch16":
+        mask = batch16_mask(dev)
+    elif masked:
+        mask = torch.ones((b, s_k), device=dev)
+        mask[1::3, 2 * s_k // 3:] = 0.0
+        mask[2::3] = 0.0
+    return q, k, v, mask, d_out
+
+
+def attention_case(d, dtype, s_q, s_k, masked, g, dev) -> dict:
+    """One instantiation at one shape: the forward (with lse) and the
+    backward through the wrapper's launch functions, against the plain
+    versions and fp64; the backward twice, the same bits. Returns the largest
+    errors and shares of the bounds."""
+    from msla_tpu_torch.ops.flash_attn import (_backward, _forward, attention_bwd_ref,
+                                               attention_ref)
+
+    scale = d ** -0.5
+    q, k, v, mask, d_out = attention_inputs(d, dtype, ATTN_BATCH, ATTN_HEADS, s_q, s_k, masked,
+                                            g, dev)
+    out, lse = _forward(q, k, v, mask, scale, with_lse=True)
+    grads = _backward(q, k, v, mask, scale, out, lse, d_out)
+    again = _backward(q, k, v, mask, scale, out, lse, d_out)
+    torch.cuda.synchronize()
+    name = f"flash_attn {str(dtype)[6:]} D={d} Sq={s_q} Sk={s_k}{' masked' if masked else ''}"
+    for a, b_, what in zip(grads, again, ("dq", "dk", "dv")):
+        same_bits(f"{name} {what}", a, b_)
+    bq, bk, bv, bo, bdo = (t.transpose(1, 2) for t in (q, k, v, out, d_out))
+    want = attention_ref(bq, bk, bv, mask, scale).transpose(1, 2)
+    want_grads = [t.transpose(1, 2) for t in attention_bwd_ref(bq, bk, bv, mask, scale, bo, lse,
+                                                               bdo)]
+    real = [0, 1] if masked else [0, 1, 2]   # the sequences with a real key
+    result = {}
+    if dtype == torch.float32:
+        result["out_err"] = check_close(name, out, want)
+        sub = [t[real] for t in (q, k, v, d_out)]
+        m_real = None if mask is None else mask[real]
+        exact, limit = attention_accumulation_bound(*sub[:3], m_real, scale)
+        result["fp64_share"] = ((out[real].double() - exact).abs() / limit).max().item()
+        exact_g, limits = attention_grad_bound(*sub[:3], m_real, scale, sub[3])
+        result["grad_fp64_share"] = max(((g_[real].double() - e).abs() / lim).max().item()
+                                        for g_, e, lim in zip(grads, exact_g, limits))
+        if max(result["fp64_share"], result["grad_fp64_share"]) > 1:
+            fail(f"{name}: off fp64 by {result['fp64_share']:.2f} (forward) and "
+                 f"{result['grad_fp64_share']:.2f} (backward) of the 3xTF32 bounds")
+        if masked:   # all padding: the mean of v, and the plain version's gradients
+            check_close(name + " (all keys padding: the mean of v)", out[2],
+                        v[2].mean(dim=0, keepdim=True).expand(s_q, -1, -1))
+            for got, w, what in zip(grads, want_grads, ("dq", "dk", "dv")):
+                check_close(f"{name} {what} (all keys padding)", got[2], w[2])
+        result["grad_err"] = max((got - w).abs().max().item()
+                                 for got, w in zip(grads, want_grads))
+    else:
+        err, limit = (out - want).abs(), attention_bound(q, k, v, mask, scale)
+        if not torch.isfinite(out).all() or (err > limit).any():
+            fail(f"{name}: {(err > limit).sum().item()} values beyond 2·2⁻⁹·Σ p|v| + 1e-5")
+        result["out_err"] = err.max().item()
+        limits = attention_bf16_grad_bound(q, k, v, mask, scale, out, lse, d_out, want_grads)
+        share = 0.0
+        for got, w, lim, what in zip(grads, want_grads, limits, ("dq", "dk", "dv")):
+            if got.dtype != torch.bfloat16 or not torch.isfinite(got.float()).all():
+                fail(f"{name} {what}: a {got.dtype} gradient, or non-finite values")
+            e = (got.float() - w.float()).abs()
+            share = max(share, (e / lim).max().item())
+        if share > 1:
+            fail(f"{name}: the bf16 backward off attention_bwd_ref by {share:.2f} of its bound")
+        result["grad_share"] = share
+        result["grad_err"] = max((got.float() - w.float()).abs().max().item()
+                                 for got, w in zip(grads, want_grads))
+    return result
+
+
+def attention_instantiations(dev) -> dict:
+    """Every (D, type) at ATTN_LENGTHS, masked and not (``attention_case``);
+    the forward without lse equal to the one with it; D = 257 raises."""
+    from msla_tpu_torch.ops.flash_attn import _forward, flash_attn
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    summary = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in ATTN_WIDTHS:
+                cases = [attention_case(d, dtype, s_q, s_k, masked, g, dev)
+                         for s_q, s_k in ATTN_LENGTHS for masked in (False, True)]
+                q, k, v, mask, _ = attention_inputs(d, dtype, ATTN_BATCH, ATTN_HEADS, 130, 257,
+                                                    True, g, dev)
+                with_lse = _forward(q, k, v, mask, d ** -0.5, with_lse=True)[0]
+                same_bits(f"flash_attn {dtype} D={d}: the forward with and without lse",
+                          flash_attn(q, k, v, mask, d ** -0.5), with_lse)
+                row = {key: max(c[key] for c in cases) for key in cases[0]}
+                summary[f"{str(dtype)[6:]} D={d}"] = row
+                print(f"[attention] {dtype} D={d}: {len(cases)} shapes, {row}", flush=True)
+        q = torch.zeros((1, 4, 1, 257), device=dev)
+        try:
+            flash_attn(q, q, q, None, 0.1)
+        except ValueError as e:
+            if "257" not in str(e) or "256" not in str(e):
+                fail(f"flash_attn at D = 257 raised without naming the width and limit: {e}")
+        else:
+            fail("flash_attn at D = 257 launched: no kernel takes it")
+    return summary
+
+
+def attention_label(key, d: int) -> str:
+    """'forward[float32 D=64]', 'dq[bfloat16 D=26]', 'dkv[...]': a launch of
+    #7 by its ``flash_attn.launches`` key and head width."""
+    kind, dtype = ("forward", key) if isinstance(key, torch.dtype) else key
+    return f"{kind}[{str(dtype)[6:]} D={d}]"
+
+
+def attention_launches() -> dict:
+    """#7's launches since the counts were zeroed, by ``attention_label``."""
+    from msla_tpu_torch.ops.flash_attn import flash_attn
+
+    return {attention_label(key, widths[0]): n for (key, widths), n in flash_attn.widths.items()}
+
+
+def attention_timed_rows(label: str, d, dtype, b, h, s_q, s_k, masked, dev, ptxas: dict,
+                         backward: bool = True) -> list[dict]:
+    """The forward and (``backward``) the dQ and dK/dV kernels at one shape,
+    each timed (median of ATTN_REPS, CUDA events) beside its plain version
+    (the forward's; the whole plain backward) and SDPA (the forward; the
+    backward of one SDPA call), with its largest error against the plain
+    version, its bound, registers, spills and shared memory (the source's
+    ``*_smem_bytes``, which must equal the plan's). Each backward kernel's
+    bound is its share of the backward's (``backward_bound_ms``): dQ's
+    product and half of the recomputed Q·Kᵀ and dO·Vᵀ (4n FLOP of 10n), and
+    the query side's bytes; dK and dV's products and the other half (6n),
+    and the key side's bytes and the mask; so the two add up to the
+    backward's and the recomputation counts as no needed work."""
+    import torch.nn.functional as F
+
+    from msla_tpu_torch.ops import _build
+    from msla_tpu_torch.ops.flash_attn import (_forward, _launch_dkv, _launch_dq,
+                                               attention_bwd_ref, attention_ref,
+                                               attention_shift, plan_attention)
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    scale = d ** -0.5
+    q, k, v, mask, d_out = attention_inputs(d, dtype, b, h, s_q, s_k, masked, g, dev)
+    plan = plan_attention(d, dtype, s_q, s_k)
+    bf16 = int(dtype == torch.bfloat16)
+    kind, tname = str(dtype)[6:], "__nv_bfloat16" if bf16 else "float"
+    no = plan.widest // 8
+    smem = dict(fwd=None if plan.smem["fwd"] is None
+                else _build.kernel("flash_any_smem_bytes")(bf16, d),
+                dq=_build.kernel("flash_bwd_smem_bytes")(bf16, 0, d),
+                dkv=_build.kernel("flash_bwd_smem_bytes")(bf16, 1, d))
+    if smem != plan.smem:
+        fail(f"flash_attn D={d} {kind}: the sources' shared memory {smem} is not the plan's "
+             f"{plan.smem}")
+    out, lse = _forward(q, k, v, mask, scale, with_lse=True)
+    bq, bk, bv, bo, bdo = (t.transpose(1, 2) for t in (q, k, v, out, d_out))
+    additive = None if mask is None else ((1.0 - mask) * -1e9)[:, None, None, :].to(dtype)
+    es, n = q.element_size(), b * h * s_q * s_k * d
+    io_q, io_k, stat = b * s_q * h * d, b * s_k * h * d, b * h * s_q * 4
+    mask_bytes = 0 if mask is None else mask.numel() * 4
+    flop_type = "bf16" if bf16 else "tf32"
+    tuned = plan.symbol != "flash_any_fwd"
+    fwd_source, fwd_kernel = (("flash_attn", f"flash_attn_kernel<{tname}>") if tuned
+                              else ("flash_any", f"flash_any_kernel<{tname},{no}>"))
+    base = dict(route="cuda", design=plan.design, shape=(b, h, s_q, s_k), padded=plan.padded,
+                tile=(plan.fwd_tile, plan.bwd_tile), flop_type=flop_type, kernel_kind="forward",
+                label=attention_label(dtype, d))
+    rows = [dict(
+        base, name=f"{'flash_attn' if tuned else 'flash_any_fwd'}[{kind} D={d}{label}]",
+        source=f"msla_tpu_torch/csrc/{fwd_source}.cu", replaces="msla_tpu/ops/flash_attn.py:51",
+        max_abs_err=(out - attention_ref(bq, bk, bv, mask, scale).transpose(1, 2)).abs().max()
+        .item(),
+        ms=time_ms(lambda: _forward(q, k, v, mask, scale, with_lse=False), ATTN_REPS),
+        plain_ms=time_ms(lambda: attention_ref(bq, bk, bv, mask, scale), ATTN_REPS),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            bq, bk, bv, attn_mask=additive, scale=scale), ATTN_REPS),
+        library_call="scaled_dot_product_attention", flop=4 * n,
+        bytes=es * (io_q + 2 * io_k) + 4 * io_q + mask_bytes,
+        registers=ptxas_of(ptxas, fwd_source, fwd_kernel), smem_bytes=smem["fwd"])]
+    if not backward:
+        return rows
+
+    do = d_out.to(dtype).contiguous()
+    shift = None if mask is None else attention_shift(mask, b, dev)
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if mask is None else mask.data_ptr(),
+              None if shift is None else shift.data_ptr())
+    sizes = (b, h, s_q, s_k, d, scale, _build.stream_of(q))
+    dkv_launches = []
+
+    def run_dq():
+        _launch_dq(bf16, common, out, do, lse, delta, dq, sizes)
+
+    def run_dkv():
+        dkv_launches.append(_launch_dkv(bf16, common, do, lse, delta, dk, dv, sizes))
+
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (bq, bk, bv))
+    with torch.enable_grad():   # the phase times under no_grad; SDPA's backward needs a graph
+        lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=additive, scale=scale)
+        lib_grad = bdo.to(lib_out.dtype)
+        library = time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_grad,
+                                                      retain_graph=True), ATTN_REPS)
+    ms = dict(dq=time_ms(run_dq, ATTN_REPS), dkv=time_ms(run_dkv, ATTN_REPS),
+              plain=time_ms(lambda: attention_bwd_ref(bq, bk, bv, mask, scale, bo, lse, bdo),
+                            ATTN_REPS),
+              library=library)
+    del lib_out, lq, lk, lv
+    want = [t.transpose(1, 2).float()
+            for t in attention_bwd_ref(bq, bk, bv, mask, scale, bo, lse, bdo)]
+    errs = [(got.float() - w).abs().max().item() for got, w in zip((dq, dk, dv), want)]
+    dkv_kernels = sorted((key.split("/", 1)[1] for key in ptxas   # dV's pass, then dK's
+                          if key.startswith(f"flash_bwd/flash_bwd_dkv_kernel<{tname},{no},")),
+                         reverse=True)
+    # the whole backward's bound: 2.5x the forward's FLOP; q, dO, O, lse and
+    # dq on the query side, k, v, dk, dv and the mask on the key side
+    q_side, k_side = es * 3 * io_q + 4 * io_q + stat, es * 4 * io_k + mask_bytes
+    whole = bound(10 * n, q_side + k_side, PEAK_FLOPS[flop_type])
+    common_row = dict(base, source="msla_tpu_torch/csrc/flash_bwd.cu", plain_ms=ms["plain"],
+                      library_ms=ms["library"], backward_ms=ms["dq"] + ms["dkv"],
+                      backward_bound_ms=whole[0],
+                      library_call="the backward of one scaled_dot_product_attention call "
+                                   "(dq, dk and dv)")
+    rows += [
+        dict(common_row, name=f"flash_bwd_dq[{kind} D={d}{label}]", kernel_kind="dq",
+             label=attention_label(("dq", dtype), d), replaces=f"{JAX_FLASH}:1287",
+             max_abs_err=errs[0], ms=ms["dq"], flop=4 * n, bytes=q_side,
+             registers=ptxas_of(ptxas, "flash_bwd", f"flash_bwd_dq_kernel<{tname},{no}>"),
+             smem_bytes=smem["dq"]),
+        dict(common_row, name=f"flash_bwd_dkv[{kind} D={d}{label}]", kernel_kind="dkv",
+             label=attention_label(("dkv", dtype), d), replaces=f"{JAX_FLASH}:941",
+             max_abs_err=max(errs[1:]), ms=ms["dkv"], flop=6 * n, bytes=k_side,
+             registers=[ptxas_of(ptxas, "flash_bwd", kk) for kk in dkv_kernels],
+             smem_bytes=smem["dkv"], launches_a_backward=dkv_launches[0])]
+    return rows
+
+
+def attention_sweep_rows(dev, ptxas: dict) -> list[dict]:
+    """Every (D, type) instantiation timed at ATTN_TIMED, masked."""
+    return [row for dtype in (torch.float32, torch.bfloat16) for d in ATTN_WIDTHS
+            for row in attention_timed_rows("", d, dtype, *ATTN_TIMED.values(), True, dev,
+                                            ptxas)]
+
+
+def decoder_stack(heads: int, seed: int = 33):
+    """ATTN_STACK's 4 DecoderLayer(zero_memory=False) at ``heads``, on the CPU."""
+    from msla_tpu_torch.nn.transformer_net import DecoderLayer
+
+    c = ATTN_STACK
+    g = torch.Generator().manual_seed(seed)
+    return torch.nn.ModuleList(
+        DecoderLayer(c["hidden"], heads, dim_feedforward=c["ffn"], dropout=0.0,
+                     zero_memory=False, generator=g, device="cpu") for _ in range(c["layers"]))
+
+
+@contextlib.contextmanager
+def relu_masks(masks: list, replay: bool):
+    """``torch.relu`` made to record each call's mask (z > 0) into ``masks``,
+    or (``replay``) to apply the recorded ones in order, z·mask, so that a
+    second run takes the first's pieces of the piecewise-linear FFN; yields
+    a one-element list that counts the replayed entries whose own sign
+    differs (the flips)."""
+    relu, pieces, flips = torch.relu, iter(masks), [0]
+
+    def record(z):
+        masks.append((z > 0).cpu())
+        return relu(z)
+
+    def apply(z):
+        mask = next(pieces).to(z.device)
+        flips[0] += int(((z > 0) != mask).sum().item())
+        return z * mask.to(z.dtype)
+
+    torch.relu = apply if replay else record
+    try:
+        yield flips
+    finally:
+        torch.relu = relu
+
+
+def decoder_steps(stack, x, memory, target):
+    """ATTN_STACK's Adam steps on ``stack``: each step's loss, the first
+    step's gradients and the moves over all steps, by name."""
+    from msla_tpu_torch.nn.attention import causal_mask
+
+    c = ATTN_STACK
+    mask = causal_mask(c["s"], device=x.device)
+    opt = torch.optim.Adam(stack.parameters(), lr=c["lr"])
+    before = {n: p.detach().clone() for n, p in stack.named_parameters()}
+    first, losses = None, []
+    for _ in range(c["steps"]):
+        opt.zero_grad(set_to_none=True)
+        out = x
+        for layer in stack:
+            out, _ = layer(out, memory, mask)
+        loss = ((out - target) ** 2).mean()
+        loss.backward()
+        if first is None:
+            first = {n: None if p.grad is None else p.grad.detach().clone()
+                     for n, p in stack.named_parameters()}
+        opt.step()
+        losses.append(loss.item())
+    moves = {n: p.detach() - before[n] for n, p in stack.named_parameters()}
+    return losses, first, moves
+
+
+def attention_training(kernels, heads: int) -> dict:
+    """ATTN_STACK at ``heads`` on the card and the CPU from the same weights,
+    the CPU on the card's own ReLU masks (``relu_masks``: a preactivation
+    within rounding of 0 takes a token's whole term in or out of the FFN's
+    gradients, and Adam's next steps carry that on), whose own sign differs
+    from the card's on at most ATTN_RELU_FLIPS of them: every attention
+    projection has a gradient; the cross-attention launched #7's forward, dQ
+    and dK/dV exactly once a layer a step; the first gradients within atol
+    1e-4 of each tensor's largest and rtol 1e-3; the moves over the 3 steps
+    within 0.2·lr where the first gradient is clear of 0 (above 1e-2 of its
+    tensor's largest); the losses within rtol 1e-5. A key projection's bias
+    has a gradient of 0 in exact arithmetic (a softmax is unchanged by a
+    constant added to a row's scores): its first gradient, card's and
+    CPU's, must lie below ATTN_ZERO_GRAD of the stack's largest, and its
+    moves, Adam's ±lr on rounding's sign, are not compared."""
+    import copy
+
+    from msla_tpu_torch.ops.flash_attn import flash_attn
+
+    c = ATTN_STACK
+    d = c["hidden"] // heads
+    rng = np.random.default_rng(heads)
+    x, target = (torch.from_numpy(rng.standard_normal((c["batch"], c["s"], c["hidden"]))
+                                  .astype(np.float32)) for _ in range(2))
+    memory = torch.from_numpy(rng.standard_normal((c["batch"], c["memory"], c["hidden"]))
+                              .astype(np.float32))
+    memory[:, c["memory"] - c["pad"]:] = 0.0
+    cpu = decoder_stack(heads)
+    card = copy.deepcopy(cpu).cuda()
+    masks = []
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with relu_masks(masks, replay=False):
+        card_losses, card_first, card_moves = decoder_steps(card, x.cuda(), memory.cuda(),
+                                                            target.cuda())
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches, widths = dict(flash_attn.launches), dict(flash_attn.widths)
+    t0 = time.perf_counter()
+    with relu_masks(masks, replay=True) as flips:
+        cpu_losses, cpu_first, cpu_moves = decoder_steps(cpu, x, memory, target)
+    cpu_s = time.perf_counter() - t0
+    relu_values = sum(m.numel() for m in masks)
+    if flips[0] > ATTN_RELU_FLIPS * relu_values:
+        fail(f"transformer stack at {heads} heads: {flips[0]} of {relu_values} ReLU "
+             f"preactivations took another sign on the CPU than on the card, more than "
+             f"{ATTN_RELU_FLIPS:g} of them")
+    for name, grad in card_first.items():
+        if grad is None and name.split(".")[-2] in ("q_proj", "k_proj", "v_proj"):
+            fail(f"transformer stack at {heads} heads: {name}.grad is None")
+        if grad is None:
+            fail(f"transformer stack at {heads} heads: {name} has no gradient")
+    n = c["layers"] * c["steps"]
+    f32 = torch.float32
+    want = {f32: n, ("dq", f32): n, ("dkv", f32): n}
+    if launches != want or widths != {(key, (d,)): v for key, v in want.items()}:
+        fail(f"transformer stack at {heads} heads: #7 launched {launches} ({widths}), want "
+             f"{want} at D = {d}")
+    largest = max(g.abs().max().item() for g in cpu_first.values())
+    zero_share, shares, worst, worst_at = 0.0, {}, 0.0, None
+    for name, g in cpu_first.items():
+        got = card_first[name].cpu()
+        if name.endswith("k_proj.bias"):
+            zero_share = max(zero_share, g.abs().max().item() / largest,
+                             got.abs().max().item() / largest)
+            continue
+        shares[name] = ((got - g).abs() / (1e-4 * g.abs().max() + 1e-3 * g.abs())).max().item()
+        err = (card_moves[name].cpu() - cpu_moves[name]).abs()[g.abs() > 1e-2 * g.abs().max()]
+        if err.numel() and err.max().item() / c["lr"] > worst:
+            worst, worst_at = err.max().item() / c["lr"], name
+    grad_share = max(shares.values())
+    if zero_share > ATTN_ZERO_GRAD:
+        fail(f"transformer stack at {heads} heads: a k_proj.bias gradient at {zero_share:.2e} "
+             f"of the largest, where exact arithmetic gives 0")
+    if grad_share > 1:
+        fail(f"transformer stack at {heads} heads: the first gradients off the CPU's by "
+             f"{grad_share:.2f} of atol 1e-4 of each tensor's largest + rtol 1e-3: "
+             f"{sorted(shares.items(), key=lambda kv: -kv[1])[:4]}")
+    if worst > 0.2:
+        fail(f"transformer stack at {heads} heads: the card's moves off the CPU's by "
+             f"{worst:.3f}·lr at {worst_at}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    if not all(math.isfinite(v) for v in card_losses) or loss_err > 1e-5:
+        fail(f"transformer stack at {heads} heads: losses {card_losses} against {cpu_losses}")
+    result = dict(heads=heads, d=d, launches=attention_launches(),
+                  card_losses=card_losses, cpu_losses=cpu_losses, loss_rel_err=loss_err,
+                  first_grad_share=grad_share, k_bias_grad_share=zero_share,
+                  move_err_over_lr=worst, worst_move=worst_at, relu_flips=flips[0],
+                  relu_values=relu_values, card_s=card_s, cpu_s=cpu_s)
+    print(f"[attention] transformer stack, {heads} heads (D = {d}): {result}", flush=True)
+    return result
+
+
+def tinybert_serving(kernels, dev) -> dict:
+    """TinyBERT-4L-312D's encoder (random weights, seed 0) over the batch-16
+    fold's 352 x 512 tokens and its mask: #7 launches once a layer at (fp32,
+    26), the hidden state finite, the card against the CPU on TINYBERT_SEQS
+    within atol = rtol = 1e-4; the call's host and device ms."""
+    from msla_tpu_torch.nn.bert import BertConfig, BertForMaskedLM
+    from msla_tpu_torch.ops.flash_attn import flash_attn
+
+    net = BertForMaskedLM(BertConfig(**TINYBERT), device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(26)
+    ids = torch.randint(0, TINYBERT["vocab_size"], (BERT_SEQS, 512), generator=g, device=dev)
+    mask = batch16_mask(dev)
+
+    def call():
+        with torch.inference_mode():
+            return net(ids, mask, return_mlm_hidden=True)
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    hidden = call()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    want = {(torch.float32, (26,)): TINYBERT["num_hidden_layers"]}
+    if dict(flash_attn.widths) != want or sum(flash_attn.launches.values()) != 4:
+        fail(f"TinyBERT: #7 launched {dict(flash_attn.widths)}, want {want}")
+    launches = attention_launches()
+    if hidden.shape != (BERT_SEQS, 512, TINYBERT["hidden_size"]) or \
+            not torch.isfinite(hidden).all():
+        fail(f"TinyBERT: a hidden state of shape {tuple(hidden.shape)} or non-finite values")
+    cpu = BertForMaskedLM(BertConfig(**TINYBERT), device="cpu")
+    cpu.load_state_dict({n: t.cpu() for n, t in net.state_dict().items()})
+    seqs = list(TINYBERT_SEQS)
+    with torch.inference_mode():
+        on_cpu = cpu(ids[seqs].cpu(), mask[seqs].cpu(), return_mlm_hidden=True)
+    err = check_close("TinyBERT card vs CPU", hidden[seqs].cpu(), on_cpu)
+    device_ms = time_ms(call, reps=5, warmup=1)
+    result = dict(launches=launches, host_s=host_s,
+                  device_ms=device_ms, card_vs_cpu_err=err)
+    print(f"[attention] TinyBERT-4L-312D encoder, batch-16 fold: {result}", flush=True)
+    return result
+
+
+def phase_attention(kernels, dev, ptxas: dict, smi: str) -> tuple[dict, list[dict]]:
+    """Phase 33: #7 at any head width D 1-256, Sq and Sk free, forward and
+    backward. Every instantiation against its plain version and fp64; the
+    training stacks (the F6 repair: every q/k/v projection has a gradient)
+    and TinyBERT-4L-312D's encoder with the counts zeroed just before each;
+    the tuned forward re-timed at the batch-16 Audio-BERT layer; every
+    instantiation timed at ATTN_TIMED, and the paths' shapes. A row's
+    ``launches`` are those of the run at its shape: the stacks' at the
+    cross-attention rows, TinyBERT's at its layer's, 0 at the sweep's and
+    the re-timed Audio-BERT layer's (no run of this phase has those
+    shapes)."""
+    t0 = time.perf_counter()
+    checked = attention_instantiations(dev)
+    checks_s = time.perf_counter() - t0
+    training = {heads: attention_training(kernels, heads) for heads in ATTN_STACK_HEADS}
+    serving = tinybert_serving(kernels, dev)
+    launches = collections.Counter()
+    for run in (*training.values(), serving):
+        launches.update(run["launches"])
+
+    def on_path(path_rows, run):
+        for row in path_rows:
+            row["launches"] = run["launches"].get(row["label"], 0)
+        return path_rows
+
+    with torch.no_grad():
+        rows = attention_sweep_rows(dev, ptxas)
+        c = ATTN_STACK
+        for heads in ATTN_STACK_HEADS:   # the training stacks' cross-attention
+            rows += on_path(attention_timed_rows(", cross-attention", c["hidden"] // heads,
+                                                 torch.float32, c["batch"], heads, c["s"],
+                                                 c["memory"], False, dev, ptxas),
+                            training[heads])
+        rows += on_path(attention_timed_rows(", TinyBERT layer", 26, torch.float32, BERT_SEQS,
+                                             12, 512, 512, "batch16", dev, ptxas,
+                                             backward=False), serving)
+        tuned = [attention_timed_rows(", Audio-BERT layer", 64, dtype, BERT_SEQS, 12, 512, 512,
+                                      "batch16", dev, ptxas, backward=False)[0]
+                 for dtype in (torch.float32, torch.bfloat16)]
+        rows += tuned
+    for row, before in zip(tuned, ATTN_TUNED_MS):   # the comparison is printed, not a row's
+        print(f"[attention] {row['name']}: {row['ms']:.3f} ms against PERF.md's {before} "
+              f"({row['ms'] / before:.2f}x)", flush=True)
+    for row in rows:
+        row.setdefault("launches", 0)
+    result = dict(card=smi, checks_s=checks_s, instantiations=checked, training=training,
+                  tinybert=serving, launches=dict(launches))
+    print(f"[attention] {smi}: {len(checked) * len(ATTN_LENGTHS) * 2} cases checked in "
+          f"{checks_s:.1f} s", flush=True)
+    return result, with_bounds(rows)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card and has no CPU mode",
@@ -6952,6 +7629,9 @@ def main() -> int:
     perceptual = phase("31 perceptual loss", phase_perceptual, task, train[0], KERNELS, smi)
     # 32. the VQ-VAE's kernels at widths past the sweep's; the entry points there
     widths, widths_report = phase("32 widths", phase_widths, KERNELS, dev, ptxas, smi)
+    # 33. #7 at any head width, forward and backward; training and TinyBERT through it
+    attention, attention_report = phase("33 attention", phase_attention, KERNELS, dev, ptxas,
+                                        smi)
 
     bf = str(torch.bfloat16)
     for k in bf16_train_report:
@@ -6973,17 +7653,40 @@ def main() -> int:
                       "transformer": transformer, "rest_of_trainer": rest,
                       "sweep": sweep, "data_parallel": data_parallel,
                       "model_axis": model_axis, "pipeline": pipeline,
-                      "perceptual": perceptual, "widths": widths}),
+                      "perceptual": perceptual, "widths": widths,
+                      "attention": attention}),
           flush=True)
     kernels_line = (report + train_report + bert_report + vq_tools_report + bf16_report
                     + bf16_bert_report + bf16_train_report + bert_training_report
-                    + transformer_report + rest_report + sweep_report + widths_report)
+                    + transformer_report + rest_report + sweep_report + widths_report
+                    + attention_report)
     for k in kernels_line:   # phase 30's fp32 launches: the pipelined BERT group's
         k["launches_pipeline"] = pipeline["launches"].get(k["name"], 0)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def attention_only() -> int:
+    """``chip_smoke.py --attention``: the build and phase 33 alone, for work
+    on #7; prints phase 33's result and rows."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from msla_tpu_torch.ops import KERNELS, _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    phase = Phases()
+    phase("build", _build.build_all)
+    result, rows = phase("33 attention", phase_attention, KERNELS, torch.device("cuda"),
+                         ptxas_report(), smi)
+    print(json.dumps({"attention": result, "phase_s": phase.seconds}, default=str), flush=True)
+    print(json.dumps({"kernels": rows}, default=str), flush=True)
     return 0
 
 
@@ -7012,6 +7715,8 @@ def widths_only() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 2 and sys.argv[1] == WIDTHS_FLAG:
         sys.exit(widths_only())
+    if len(sys.argv) == 2 and sys.argv[1] == ATTENTION_FLAG:
+        sys.exit(attention_only())
     if len(sys.argv) == 3 and sys.argv[1] == MODEL_AXIS_FLAG:
         sys.exit(model_axis_rank(Path(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == PIPELINE_FLAG:

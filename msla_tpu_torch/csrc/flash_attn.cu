@@ -4,7 +4,18 @@
 // per (sequence, head), without the (S, S) scores ever reaching device memory.
 //
 // Replaces: msla_tpu/ops/flash_attn.py:51 _flash (JAX's bundled TPU flash
-// attention, jax.experimental.pallas.ops.tpu.flash_attention).
+// attention, jax.experimental.pallas.ops.tpu.flash_attention) at head width
+// 64; csrc/flash_any.cu takes every other width up to 256, and
+// csrc/flash_bwd.cu the backward at every width.
+//
+// Sq query rows and Sk keys, each >= 1 and free of each other: the key loop
+// and the mask row run over Sk, the query rows and the store over Sq. Under
+// autograd the wrapper passes a non-null `lse`, (B, H, Sq) fp32, and `shift`,
+// each sequence's largest bias (null: 0): the kernel writes each query row's
+// log-sum-exp less it, (m - shift) + log(l), for the backward to recompute P
+// from. In blocks that take the one-FFMA exponent (below), l carries the
+// common factor 2^(m log2(e) - ml), within 2^-24 |m| of 1 in its log; the
+// backward's bound (chip_smoke.py attention_grad_bound) holds that.
 //
 // Bound on an H100: one BERT layer of the batch-16 Audio-BERT call has 352
 // sequences x 12 heads x 512 tokens x 64 dims; Q K^T and P V are 4*B*H*S*S*D =
@@ -69,10 +80,10 @@
 // (1 - mask) * -1e9, rounded (no FMA contraction). A sequence whose keys are
 // all padding then has every score equal to -1e9 in fp32 (for |s| < 32) and
 // its softmax is uniform: its output is the mean of v, as in the plain
-// version, not 0/0. Keys past the sequence end (S not a multiple of 64) carry
-// -inf and no weight; query rows past it are computed on zero rows and never
-// stored. q, k, v and out are read and written in the projections' (B, S, H,
-// D) layout, so no transpose is needed on either side.
+// version, not 0/0. Keys past Sk (Sk not a multiple of 64) carry -inf and no
+// weight; query rows past Sq are computed on zero rows and never stored. q, k,
+// v and out are read and written in the projections' (B, S, H, D) layout, so
+// no transpose is needed on either side.
 //
 // bf16 (JAX's TPU kernel on bf16 q, k, v): the scores are fp32 sums of exact
 // products and the statistics fp32; each p = exp(s - m) is rounded to bf16 for
@@ -154,7 +165,7 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Rows [row0, row0 + ROWS) of one head from a (B, S, H, D) tensor into a
-// padded (ROWS, LD) shared tile; rows at or past S are zero.
+// padded (ROWS, LD) shared tile; rows at or past seq_len are zero.
 template <int ROWS, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src, int row0,
                                           int seq_len, long long row_stride) {
@@ -366,7 +377,8 @@ __device__ __forceinline__ float row_sum(const float (&s)[NT][4], int r) {
 template <typename T, bool KEY0>
 __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k,
                                        const T* __restrict__ v, const float* __restrict__ mask,
-                                       float* __restrict__ out, int n_heads, int seq_len,
+                                       const float* __restrict__ shift, float* __restrict__ out,
+                                       float* __restrict__ lse, int n_heads, int s_q, int s_k,
                                        float sm_scale) {
   constexpr int LD = Layout<T>::LD;
   constexpr int BQ = Layout<T>::BQ;
@@ -382,11 +394,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const long long row_stride = (long long)n_heads * D;
-  const long long base = (long long)b * seq_len * row_stride + (long long)h * D;
+  const long long base = (long long)b * s_q * row_stride + (long long)h * D;    // q, out
+  const long long kv_base = (long long)b * s_k * row_stride + (long long)h * D; // k, v
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (seq_len + BK - 1) / BK;
-  const float* mrow = mask ? mask + (long long)b * seq_len : nullptr;
+  const int n_tiles = (s_k + BK - 1) / BK;
+  const float* mrow = mask ? mask + (long long)b * s_k : nullptr;
   // A power-of-two sm_scale (1/8 for 64-wide heads) is folded into Q's
   // fragments: q * 2^e is exact, so every partial sum of the products is the
   // unscaled one times 2^e, bit for bit, and the scores come out as
@@ -397,16 +410,16 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 
   auto load_tile = [&](int tile) {  // K, V and mask of key tile `tile` into its stage
     const int st = tile % STAGES, k0 = tile * BK;
-    load_rows<BK>(ks(st), k + base, k0, seq_len, row_stride);
-    load_rows<BK>(vs(st), v + base, k0, seq_len, row_stride);
+    load_rows<BK>(ks(st), k + kv_base, k0, s_k, row_stride);
+    load_rows<BK>(vs(st), v + kv_base, k0, s_k, row_stride);
     for (int i = threadIdx.x; mrow && i < BK; i += THREADS) {
       const int key = k0 + i;
-      cp_async4(ms(st) + i, mrow + (key < seq_len ? key : 0), key < seq_len);
+      cp_async4(ms(st) + i, mrow + (key < s_k ? key : 0), key < s_k);
     }
   };
 
   // group 0: Q and key tile 0; then one group per tile (empty past the end)
-  load_rows<BQ>(qs, q + base, q0, seq_len, row_stride);
+  load_rows<BQ>(qs, q + base, q0, s_q, row_stride);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_tiles) load_tile(s);
@@ -450,7 +463,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 #pragma unroll
       for (int c = 0; c < BK / 32; ++c) ones = ones && ms(st)[32 * c + lane] == 1.f;
     }
-    if (__all_sync(0xffffffffu, ones) && k0 + BK <= seq_len) {
+    if (__all_sync(0xffffffffu, ones) && k0 + BK <= s_k) {
       if (!pow2) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -466,7 +479,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         for (int c = 0; c < 2; ++c) {
           const int col = 8 * n + 2 * t + c;
           float bias = mrow ? __fmul_rn(1.f - ms(st)[col], -1e9f) : 0.f;
-          if (k0 + col >= seq_len) bias = -CUDART_INF_F;
+          if (k0 + col >= s_k) bias = -CUDART_INF_F;
 #pragma unroll
           for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -512,7 +525,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     prod.accumulate(o, s, vs(st), lane);
   }
 
-  // the quad's partial sums, in a fixed order; then the fp32 output
+  // the quad's partial sums, in a fixed order; then the fp32 output and,
+  // under autograd, the row's log-sum-exp less the sequence's shift
+  const float c = shift ? shift[b] : 0.f;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -522,7 +537,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float inv = 1.f / sum;
       const int row = q0 + 16 * (MT * warp + i) + g + 8 * r;
-      if (row < seq_len) {
+      if (lse && row < s_q && t == 0)
+        lse[((long long)b * n_heads + h) * s_q + row] = __fadd_rn(m[i][r] - c, logf(sum));
+      if (row < s_q) {
         float* dst = out + base + (long long)row * row_stride + 2 * t;
 #pragma unroll
         for (int e = 0; e < 8; ++e)
@@ -543,42 +560,50 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ mask, float* __restrict__ out, int n_heads,
-                  int seq_len, float sm_scale) {
-  if (mask == nullptr || mask[(long long)blockIdx.z * seq_len] == 1.f)
-    attend<T, true>(q, k, v, mask, out, n_heads, seq_len, sm_scale);
+                  const float* __restrict__ mask, const float* __restrict__ shift,
+                  float* __restrict__ out, float* __restrict__ lse, int n_heads, int s_q,
+                  int s_k, float sm_scale) {
+  if (mask == nullptr || mask[(long long)blockIdx.z * s_k] == 1.f)
+    attend<T, true>(q, k, v, mask, shift, out, lse, n_heads, s_q, s_k, sm_scale);
   else
-    attend<T, false>(q, k, v, mask, out, n_heads, seq_len, sm_scale);
+    attend<T, false>(q, k, v, mask, shift, out, lse, n_heads, s_q, s_k, sm_scale);
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, const float* mask, float* out, int batch,
-           int n_heads, int seq_len, float sm_scale, void* stream) {
+int launch(const T* q, const T* k, const T* v, const float* mask, const float* shift,
+           float* out, float* lse, int batch, int n_heads, int s_q, int s_k, float sm_scale,
+           void* stream) {
   constexpr int smem = Layout<T>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if (batch == 0 || seq_len == 0 || n_heads == 0) return 0;
-  const dim3 grid((seq_len + Layout<T>::BQ - 1) / Layout<T>::BQ, n_heads, batch);
+  if (s_q < 1 || s_k < 1) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || n_heads == 0) return 0;
+  const dim3 grid((s_q + Layout<T>::BQ - 1) / Layout<T>::BQ, n_heads, batch);
   flash_attn_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, mask, out, n_heads, seq_len, sm_scale);
+      q, k, v, mask, shift, out, lse, n_heads, s_q, s_k, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: (B, S, H, 64) fp32, contiguous, 16-byte aligned; mask: (B, S)
-// fp32 (1 attend, 0 pad) or null for no mask.
+// q, out: (B, Sq, H, 64) fp32; k, v: (B, Sk, H, 64) fp32; all contiguous and
+// 16-byte aligned; mask: (B, Sk) fp32 (1 attend, 0 pad) or null for no mask;
+// shift: (B,) fp32 or null (0); lse: (B, H, Sq) fp32, or null to skip it.
 extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
-                              const float* mask, float* out, int batch, int n_heads,
-                              int seq_len, float sm_scale, void* stream) {
-  return launch<float>(q, k, v, mask, out, batch, n_heads, seq_len, sm_scale, stream);
+                              const float* mask, const float* shift, float* out, float* lse,
+                              int batch, int n_heads, int s_q, int s_k, float sm_scale,
+                              void* stream) {
+  return launch<float>(q, k, v, mask, shift, out, lse, batch, n_heads, s_q, s_k, sm_scale,
+                       stream);
 }
 
-// The same with bf16 q, k, v; out stays fp32.
+// The same with bf16 q, k, v; out and lse stay fp32.
 extern "C" int flash_attn_bf16_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                   const __nv_bfloat16* v, const float* mask, float* out,
-                                   int batch, int n_heads, int seq_len, float sm_scale,
+                                   const __nv_bfloat16* v, const float* mask,
+                                   const float* shift, float* out, float* lse, int batch,
+                                   int n_heads, int s_q, int s_k, float sm_scale,
                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, mask, out, batch, n_heads, seq_len, sm_scale, stream);
+  return launch<__nv_bfloat16>(q, k, v, mask, shift, out, lse, batch, n_heads, s_q, s_k,
+                               sm_scale, stream);
 }

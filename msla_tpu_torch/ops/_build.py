@@ -57,8 +57,15 @@ SIGNATURES = {
     "vq_fused_fwd": ("vq_fused", [P, P, P, P, P, P, P, P, P, I32, I64, I32, I32, P]),
     "vq_codebook_grad": ("vq_fused", [P, P, P, P, I32, I64, I64, I32, I32, I32, P]),
     "vq_codebook_grad_clusters": ("vq_fused", [I32, P]),
-    "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
-    "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, I32, I32, I32, F32, P]),
+    "flash_attn_fwd": ("flash_attn", [P, P, P, P, P, P, P, I32, I32, I32, I32, F32, P]),
+    "flash_attn_bf16_fwd": ("flash_attn", [P, P, P, P, P, P, P, I32, I32, I32, I32, F32, P]),
+    "flash_any_fwd": ("flash_any", [I32, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, F32, P]),
+    "flash_any_smem_bytes": ("flash_any", [I32, I32]),
+    "flash_bwd_dq": ("flash_bwd", [I32, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32,
+                                   F32, P]),
+    "flash_bwd_dkv": ("flash_bwd", [I32, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32,
+                                    F32, P, P]),
+    "flash_bwd_smem_bytes": ("flash_bwd", [I32, I32, I32]),
     "mlm_argmax_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
     "mlm_argmax_conf_fwd": ("mlm_argmax", [P, P, P, P, P, I64, I32, P]),
     "mlm_argmax_bf16_fwd": ("mlm_argmax", [P, P, P, P, I64, I32, P]),
